@@ -1,0 +1,52 @@
+"""Carry state across from the JAX package's arrays into the port.
+
+The system has no weights: its "parameters" are the signal tables, the
+topology and scenario scalars, and the push-sum state. Each function takes
+numpy arrays (``np.asarray`` of the reference's values) and builds the
+port's counterpart on the CPU; ``.to(device)`` or the entry points move it
+to the card. The way back is ``.to_numpy()`` on
+:class:`~repro_torch.core.pushsum.SparsePushSumState` and
+:class:`~repro_torch.core.social.SocialLearningResult`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.graphs import EdgeList
+from .core.pushsum import SparsePushSumState
+from .core.signals import SignalModel
+from .core.social import SocialRuntime, social_runtime_from_edge_list
+
+__all__ = ["signal_model_from_numpy", "social_runtime_from_numpy",
+           "sparse_state_from_numpy"]
+
+
+def signal_model_from_numpy(tables: np.ndarray, truth: int) -> SignalModel:
+    """(N, m, S) likelihood tables and the true hypothesis."""
+    return SignalModel(tables=torch.tensor(np.asarray(tables),
+                                           dtype=torch.float32),
+                       truth=int(truth))
+
+
+def social_runtime_from_numpy(src, dst, valid, rep_mask, drop_prob, gamma,
+                              B) -> SocialRuntime:
+    """The fields of a reference ``SocialRuntime``, as numpy values."""
+    rep_mask = np.asarray(rep_mask, bool)
+    el = EdgeList(src=np.asarray(src, np.int32), dst=np.asarray(dst, np.int32),
+                  n=rep_mask.shape[0], valid=np.asarray(valid, bool))
+    return social_runtime_from_edge_list(
+        el, rep_mask, drop_prob=float(drop_prob),
+        gamma_period=int(gamma), B=int(B))
+
+
+def sparse_state_from_numpy(z, m, sigma, sigma_m, rho,
+                            rho_m) -> SparsePushSumState:
+    """The six fields of a reference ``SparsePushSumState``."""
+    def cat(value, mass):
+        return torch.from_numpy(np.concatenate(
+            [np.asarray(value, np.float32),
+             np.asarray(mass, np.float32)[:, None]], axis=1))
+
+    return SparsePushSumState(zm=cat(z, m), sigma_zm=cat(sigma, sigma_m),
+                              rho_zm=cat(rho, rho_m))

@@ -1,0 +1,346 @@
+"""Directed-graph set-up for the hierarchical multi-agent system (host side).
+
+A numpy copy of the builders of ``repro.core.graphs`` that the port's
+engines use, kept here so that the port never imports the JAX package.
+Every builder returns the same arrays as its reference for the same
+arguments and seed.
+
+Conventions
+-----------
+* ``adj[i, j] = True`` means a directed edge ``i -> j`` (i sends to j).
+* Self-loops are never stored; every algorithm adds the implicit
+  self-contribution separately (the ``+1`` in ``d_j + 1``).
+* A hierarchical system is a block-diagonal adjacency over ``M``
+  sub-networks; the parameter server is the only cross-network channel.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+
+__all__ = [
+    "ring",
+    "complete",
+    "random_strongly_connected",
+    "is_strongly_connected",
+    "HierTopology",
+    "make_hierarchy",
+    "EdgeList",
+    "edge_list",
+    "sort_by_dst",
+    "is_dst_sorted",
+    "random_strongly_connected_edge_list",
+    "hier_edge_list",
+    "block_complete_edge_list",
+]
+
+
+# ---------------------------------------------------------------------------
+# Basic topologies
+# ---------------------------------------------------------------------------
+
+def ring(n: int, bidirectional: bool = False) -> np.ndarray:
+    """Directed ring ``0 -> 1 -> ... -> n-1 -> 0``."""
+    adj = np.zeros((n, n), dtype=bool)
+    for i in range(n):
+        adj[i, (i + 1) % n] = True
+        if bidirectional:
+            adj[(i + 1) % n, i] = True
+    return adj
+
+
+def complete(n: int) -> np.ndarray:
+    adj = np.ones((n, n), dtype=bool)
+    np.fill_diagonal(adj, False)
+    return adj
+
+
+def random_strongly_connected(
+    n: int, extra_edge_prob: float, rng: np.random.Generator
+) -> np.ndarray:
+    """A random digraph guaranteed strongly connected: a random Hamiltonian
+    cycle plus Bernoulli extra edges."""
+    perm = rng.permutation(n)
+    adj = np.zeros((n, n), dtype=bool)
+    for k in range(n):
+        adj[perm[k], perm[(k + 1) % n]] = True
+    extra = rng.random((n, n)) < extra_edge_prob
+    np.fill_diagonal(extra, False)
+    adj |= extra
+    return adj
+
+
+def _reach(adj: np.ndarray, start: int) -> np.ndarray:
+    """Boolean reachability vector from ``start`` (BFS)."""
+    n = adj.shape[0]
+    seen = np.zeros(n, dtype=bool)
+    seen[start] = True
+    frontier = [start]
+    while frontier:
+        nxt = []
+        for u in frontier:
+            for v in np.nonzero(adj[u])[0]:
+                if not seen[v]:
+                    seen[v] = True
+                    nxt.append(int(v))
+        frontier = nxt
+    return seen
+
+
+def is_strongly_connected(adj: np.ndarray) -> bool:
+    n = adj.shape[0]
+    if n == 0:
+        return False
+    return bool(_reach(adj, 0).all() and _reach(adj.T, 0).all())
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical system
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HierTopology:
+    """M sub-networks glued block-diagonally; reps exchange with the PS.
+
+    adj: (N, N) bool block-diagonal adjacency; sizes: per-network agent
+    counts; offsets: start index of each block; reps: global index of each
+    network's designated agent.
+    """
+
+    adj: np.ndarray
+    sizes: tuple[int, ...]
+    offsets: tuple[int, ...]
+    reps: tuple[int, ...]
+
+    @property
+    def N(self) -> int:
+        return int(self.adj.shape[0])
+
+    @property
+    def M(self) -> int:
+        return len(self.sizes)
+
+    def rep_mask(self) -> np.ndarray:
+        mask = np.zeros(self.N, dtype=bool)
+        for r in self.reps:
+            mask[r] = True
+        return mask
+
+
+def make_hierarchy(
+    sizes: Sequence[int],
+    topology: str = "ring+",
+    extra_edge_prob: float = 0.3,
+    seed: int = 0,
+    rep_choice: str = "first",
+) -> HierTopology:
+    """Build an M-network hierarchical system.
+
+    topology: "ring" | "complete" | "ring+" (ring + random extra edges).
+    """
+    rng = np.random.default_rng(seed)
+    blocks = []
+    for n in sizes:
+        if topology == "ring":
+            b = ring(n)
+        elif topology == "complete":
+            b = complete(n)
+        elif topology == "ring+":
+            b = random_strongly_connected(n, extra_edge_prob, rng)
+        else:
+            raise ValueError(f"unknown topology {topology!r}")
+        if not is_strongly_connected(b):
+            raise ValueError(f"block of size {n} is not strongly connected")
+        blocks.append(b)
+    N = int(sum(sizes))
+    adj = np.zeros((N, N), dtype=bool)
+    offsets = []
+    off = 0
+    for b, n in zip(blocks, sizes):
+        adj[off : off + n, off : off + n] = b
+        offsets.append(off)
+        off += n
+    if rep_choice == "first":
+        reps = tuple(offsets)
+    elif rep_choice == "random":
+        reps = tuple(int(o + rng.integers(n)) for o, n in zip(offsets, sizes))
+    else:
+        raise ValueError(rep_choice)
+    return HierTopology(
+        adj=adj, sizes=tuple(int(s) for s in sizes), offsets=tuple(offsets),
+        reps=reps,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Sparse edge-list representation
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EdgeList:
+    """Sparse directed graph: edge ``e`` is ``src[e] -> dst[e]``.
+
+    ``valid`` is False on padding edges, which carry no mass.
+    """
+
+    src: np.ndarray    # (E,) int32 sender of each edge
+    dst: np.ndarray    # (E,) int32 receiver of each edge
+    n: int             # number of nodes
+    valid: np.ndarray  # (E,) bool
+
+    @property
+    def E(self) -> int:
+        return int(self.src.shape[-1])
+
+    @property
+    def is_batched(self) -> bool:
+        return self.src.ndim == 2
+
+    def out_degree(self) -> np.ndarray:
+        """(N,) out-degree over valid edges (the ``d_j`` of ``d_j + 1``)."""
+        deg = np.zeros(self.n, dtype=np.int32)
+        np.add.at(deg, self.src[self.valid], 1)
+        return deg
+
+
+def edge_list(adj: np.ndarray) -> EdgeList:
+    """Dense (N, N) bool adjacency -> :class:`EdgeList` in C order (sorted
+    by src, then dst)."""
+    src, dst = np.nonzero(np.asarray(adj, dtype=bool))
+    return EdgeList(
+        src=src.astype(np.int32),
+        dst=dst.astype(np.int32),
+        n=int(adj.shape[0]),
+        valid=np.ones(src.shape[0], dtype=bool),
+    )
+
+
+def sort_by_dst(el: EdgeList, return_offsets: bool = False):
+    """Stable-sort a single edge index by receiver -> ``(sorted, perm, inv)``.
+
+    ``perm`` maps a sorted position to its original edge and ``inv`` the
+    reverse. With ``return_offsets=True`` a fourth value is returned: the
+    (N+1,) int32 CSR offsets, ``offsets[v] : offsets[v + 1]`` being the run
+    of sorted edges whose receiver is ``v``. The CUDA edge-scatter kernel
+    walks exactly these runs.
+    """
+    if el.is_batched:
+        raise ValueError("sort one topology draw at a time")
+    perm = np.argsort(el.dst, kind="stable").astype(np.int32)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.shape[0], dtype=np.int32)
+    sorted_el = EdgeList(
+        src=el.src[perm], dst=el.dst[perm], n=el.n, valid=el.valid[perm]
+    )
+    if not return_offsets:
+        return sorted_el, perm, inv
+    return sorted_el, perm, inv, _dst_offsets(sorted_el.dst, el.n)
+
+
+def is_dst_sorted(dst: np.ndarray) -> bool:
+    return bool(np.all(dst[1:] >= dst[:-1]))
+
+
+def _dst_offsets(sorted_dst: np.ndarray, n: int) -> np.ndarray:
+    """(N+1,) int32 CSR offsets of a dst-sorted edge index."""
+    return np.searchsorted(
+        sorted_dst, np.arange(n + 1), side="left").astype(np.int32)
+
+
+def random_strongly_connected_edge_list(
+    n: int,
+    extra_edges_per_node: float,
+    rng: np.random.Generator,
+    sort: bool = True,
+) -> EdgeList:
+    """A random strongly connected digraph built directly as an EdgeList:
+    a random Hamiltonian cycle plus ``round(n * extra_edges_per_node)``
+    uniform extra edges, deduplicated, without self-loops."""
+    perm = rng.permutation(n).astype(np.int64)
+    cyc_src = perm
+    cyc_dst = np.roll(perm, -1)
+    n_extra = int(round(n * extra_edges_per_node))
+    ex_src = rng.integers(0, n, size=n_extra)
+    ex_dst = rng.integers(0, n, size=n_extra)
+    keep = ex_src != ex_dst
+    src = np.concatenate([cyc_src, ex_src[keep]])
+    dst = np.concatenate([cyc_dst, ex_dst[keep]])
+    _, uniq = np.unique(src * np.int64(n) + dst, return_index=True)
+    src, dst = src[uniq], dst[uniq]
+    el = EdgeList(
+        src=src.astype(np.int32),
+        dst=dst.astype(np.int32),
+        n=int(n),
+        valid=np.ones(src.shape[0], dtype=bool),
+    )
+    if sort:
+        el, _, _ = sort_by_dst(el)
+    return el
+
+
+def hier_edge_list(
+    sizes: Sequence[int],
+    topology: str = "complete",
+    extra_edge_prob: float = 0.3,
+    seed: int = 0,
+    rep_choice: str = "first",
+) -> tuple[EdgeList, np.ndarray]:
+    """Hierarchical M-network system built directly as a dst-sorted edge
+    list, with no (N, N) array: returns ``(el, rep_mask)``.
+
+    "ring+" blocks are a random Hamiltonian cycle plus
+    ``~extra_edge_prob * n^2`` uniform extra edges (deduplicated).
+    """
+    rng = np.random.default_rng(seed)
+    srcs, dsts = [], []
+    off = 0
+    offsets = []
+    for sz in sizes:
+        idx = np.arange(sz, dtype=np.int64)
+        if topology == "ring":
+            s, d = idx, (idx + 1) % sz
+        elif topology == "complete":
+            s = np.repeat(idx, sz)
+            d = np.tile(idx, sz)
+            keep = s != d
+            s, d = s[keep], d[keep]
+        elif topology == "ring+":
+            perm = rng.permutation(sz).astype(np.int64)
+            n_extra = int(round(sz * sz * extra_edge_prob))
+            ex_s = rng.integers(0, sz, size=n_extra)
+            ex_d = rng.integers(0, sz, size=n_extra)
+            keep = ex_s != ex_d
+            s = np.concatenate([perm, ex_s[keep]])
+            d = np.concatenate([np.roll(perm, -1), ex_d[keep]])
+            _, uniq = np.unique(s * np.int64(sz) + d, return_index=True)
+            s, d = s[uniq], d[uniq]
+        else:
+            raise ValueError(f"unknown topology {topology!r}")
+        srcs.append(off + s)
+        dsts.append(off + d)
+        offsets.append(off)
+        off += int(sz)
+    src = np.concatenate(srcs).astype(np.int32)
+    dst = np.concatenate(dsts).astype(np.int32)
+    el = EdgeList(src=src, dst=dst, n=off,
+                  valid=np.ones(src.shape[0], dtype=bool))
+    el, _, _ = sort_by_dst(el)
+    rep_mask = np.zeros(off, dtype=bool)
+    if rep_choice == "first":
+        reps = np.asarray(offsets)
+    elif rep_choice == "random":
+        reps = np.asarray([o + rng.integers(sz)
+                           for o, sz in zip(offsets, sizes)])
+    else:
+        raise ValueError(rep_choice)
+    rep_mask[reps] = True
+    return el, rep_mask
+
+
+def block_complete_edge_list(
+    sizes: Sequence[int],
+) -> tuple[EdgeList, np.ndarray]:
+    """Hierarchical system of complete sub-networks, built dense-free."""
+    return hier_edge_list(sizes, topology="complete")

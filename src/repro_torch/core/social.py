@@ -1,0 +1,312 @@
+"""Non-Bayesian learning over packet-dropping links — Algorithm 3 / Theorem 2.
+
+The port of ``repro.core.social`` on its synchronous, fp32, single-device
+path. Each iteration interleaves one push-sum round on the per-hypothesis
+log-likelihood accumulator ``z`` (N, m) and the mass ``m`` (N,) with the
+local innovation ``z += log l(s_t | .)`` and the dual-averaging belief
+``mu_j = softmax(z_j / m_j)``, in Algorithm 3's order: consensus (lines
+4-12), innovation (13-15), belief (16), PS fusion every Γ (17-22).
+
+The two per-iteration halves run through the port's kernels:
+
+* consensus — :func:`repro_torch.core.pushsum.sparse_pushsum_step`, whose
+  delivery is the CUDA edge scatter over the runtime's dst-sorted index;
+* innovation + belief — :func:`repro_torch.kernels.social_innov.
+  innovation_step`, one CUDA thread per agent.
+
+The reference's ``lax.scan`` is a Python loop over ``t`` here. The loop
+reads nothing back to the host: ``drop_prob``, ``gamma`` and ``B`` stay
+0-d device tensors and the fusion round is selected with ``torch.where``,
+and PRNG keys are host values (:mod:`repro_torch.core.prng`) folded per
+iteration in the reference's disjoint domains ``2t + stream``, so the link
+masks and signals are the reference's bit for bit.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..kernels.social_innov import innovation_step
+from .graphs import EdgeList, _dst_offsets, is_dst_sorted
+from .hps import HPSConfig, hps_fusion
+from .plan import ExecutionPlan, resolve_device
+from .prng import Key, fold_in, prng_key, uniform
+from .pushsum import (
+    SparsePushSumState,
+    _out_degree,
+    init_sparse_state,
+    sparse_pushsum_step,
+    step_edge_mask,
+)
+from .signals import SignalModel, pairwise_kl
+
+__all__ = [
+    "SocialLearningResult",
+    "SocialRuntime",
+    "SOCIAL_STORES",
+    "N_SOCIAL_STREAMS",
+    "STREAM_LINK",
+    "STREAM_SIGNAL",
+    "social_stream_fold",
+    "kl_dual_averaging_update",
+    "make_social_runtime",
+    "social_runtime_from_edge_list",
+    "run_social_learning",
+    "run_social_runtime",
+    "theorem2_rate",
+]
+
+SOCIAL_STORES = ("trajectory", "log_ratio", "final")
+
+# Belief floor for the log-ratio: the smallest NORMAL fp32. A subnormal
+# floor (1e-38) is flushed to zero by some backends, which turned a fully
+# converged wrong-hypothesis belief into log(0) and a NaN ratio.
+_MU_FLOOR = float(np.finfo(np.float32).tiny)
+
+N_SOCIAL_STREAMS = 2
+STREAM_LINK, STREAM_SIGNAL = range(N_SOCIAL_STREAMS)
+
+
+def social_stream_fold(t: int, stream: int) -> int:
+    """Fold-in value of ``stream`` at iteration ``t`` — injective over
+    (t, stream), so the link and signal streams never collide."""
+    return t * N_SOCIAL_STREAMS + stream
+
+
+class SocialLearningResult(NamedTuple):
+    """Engine output; shapes depend on the store.
+
+    ``"trajectory"``: ``beliefs`` (T, N, m) and ``log_ratio`` (T, N, m),
+    log mu(theta)/mu(theta*). ``"log_ratio"``: final ``beliefs`` (N, m) and
+    the (T,) worst-case curve max_{j, theta != theta*} of the log ratio.
+    ``"final"``: both final-step only, (N, m) each.
+    """
+
+    beliefs: torch.Tensor
+    final_state: SparsePushSumState
+    log_ratio: torch.Tensor
+
+    def to_numpy(self) -> tuple[np.ndarray, dict[str, np.ndarray], np.ndarray]:
+        return (self.beliefs.cpu().numpy(), self.final_state.to_numpy(),
+                self.log_ratio.cpu().numpy())
+
+
+class SocialRuntime(NamedTuple):
+    """Everything the loop reads that can vary per scenario, as tensors.
+
+    ``offsets`` is the hoisted (N+1,) int32 CSR offsets of ``dst`` for the
+    CUDA edge scatter, or ``None`` when the edge index is not dst-sorted
+    (the CUDA route then raises)."""
+
+    src: torch.Tensor             # (E,) int32 sender per edge
+    dst: torch.Tensor             # (E,) int32 receiver per edge
+    valid: torch.Tensor           # (E,) bool — False on padding edges
+    offsets: torch.Tensor | None  # (N+1,) int32 CSR offsets of dst
+    rep_mask: torch.Tensor        # (N,) bool — designated representatives
+    drop_prob: torch.Tensor       # () f32 per-link packet-drop probability
+    gamma: torch.Tensor           # () i32 PS fusion period
+    B: torch.Tensor               # () i32 link-reliability window
+
+    def to(self, device) -> "SocialRuntime":
+        return SocialRuntime(*(None if x is None else x.to(device)
+                               for x in self))
+
+
+def kl_dual_averaging_update(z: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The KL-proximal dual-averaging projection, closed form: softmax(z/m)
+    for the uniform prior. z: (N, m_hyp), m: (N,)."""
+    return torch.softmax(z / m.clamp_min(1e-30)[:, None], dim=-1)
+
+
+def social_runtime_from_edge_list(
+    el: EdgeList,
+    rep_mask: np.ndarray,
+    *,
+    drop_prob: float,
+    gamma_period: int,
+    B: int = 1,
+    e_max: int | None = None,
+) -> SocialRuntime:
+    """Build a :class:`SocialRuntime` (CPU tensors) from a sparse edge index.
+
+    ``e_max`` pads the edge axis with inert ``valid=False`` edges whose
+    ``dst = N - 1``, which keeps a sorted layout sorted. The CSR offsets
+    are computed here, once, when the index is dst-sorted.
+    """
+    if el.is_batched:
+        raise ValueError("pass one topology draw")
+    src, dst, valid = el.src, el.dst, el.valid
+    if e_max is not None:
+        pad = e_max - el.E
+        if pad < 0:
+            raise ValueError(f"e_max={e_max} < edge count {el.E}")
+        src = np.concatenate([src, np.zeros(pad, np.int32)])
+        dst = np.concatenate([dst, np.full(pad, el.n - 1, np.int32)])
+        valid = np.concatenate([valid, np.zeros(pad, bool)])
+    for name, idx in (("src", src), ("dst", dst)):
+        if idx.size and not (idx.min() >= 0 and idx.max() < el.n):
+            raise ValueError(f"{name} indices must lie in [0, {el.n})")
+    offsets = (torch.from_numpy(_dst_offsets(dst, el.n))
+               if is_dst_sorted(dst) else None)
+    return SocialRuntime(
+        src=torch.tensor(src, dtype=torch.int32),
+        dst=torch.tensor(dst, dtype=torch.int32),
+        valid=torch.tensor(valid, dtype=torch.bool),
+        offsets=offsets,
+        rep_mask=torch.tensor(np.asarray(rep_mask, bool)),
+        drop_prob=torch.tensor(drop_prob, dtype=torch.float32),
+        gamma=torch.tensor(gamma_period, dtype=torch.int32),
+        B=torch.tensor(B, dtype=torch.int32),
+    )
+
+
+def make_social_runtime(cfg: HPSConfig,
+                        e_max: int | None = None) -> SocialRuntime:
+    """Host-side set-up of one :class:`HPSConfig` scenario."""
+    return social_runtime_from_edge_list(
+        cfg.edge_index(),
+        cfg.topo.rep_mask(),
+        drop_prob=cfg.drop_prob,
+        gamma_period=cfg.gamma_period,
+        B=cfg.B,
+        e_max=e_max,
+    )
+
+
+def _social_scan_core(
+    mask_key: Key,
+    sig_key: Key,
+    rt: SocialRuntime,
+    log_tables: torch.Tensor,  # (N, m, S) hoisted log-likelihood tables
+    cdf: torch.Tensor,         # (N, S) hoisted truth-row inclusive cumsum
+    *,
+    truth: int,
+    M: int,
+    T: int,
+    store: str,
+    backend: str,
+) -> tuple[SparsePushSumState, tuple[torch.Tensor, torch.Tensor]]:
+    """Algorithm 3's loop over the runtime's tensors, all on one device.
+
+    Returns ``(final_state, (beliefs, log_ratio))`` with the store-dependent
+    shapes of :class:`SocialLearningResult`.
+    """
+    N, m = log_tables.shape[0], log_tables.shape[1]
+    E = rt.src.shape[0]
+    dev = log_tables.device
+    # z accumulates per-hypothesis log-likelihood sums; init 0 (line 1)
+    state = init_sparse_state(torch.zeros((N, m), device=dev), E)
+    # loop invariants of the fixed edge index
+    share = 1.0 / (_out_degree(rt.src, rt.valid, N) + 1.0)
+    wrong_col = torch.arange(m, device=dev) == truth
+    mu = torch.zeros((N, m), device=dev)
+    ys = []
+    for t in range(T):
+        # --- consensus (lines 4-12) ---
+        mask = step_edge_mask(mask_key, t, E, rt.drop_prob, rt.B,
+                              fold_t=social_stream_fold(t, STREAM_LINK))
+        st = sparse_pushsum_step(state, mask, rt.src, rt.dst, rt.valid,
+                                 backend, share=share, offsets=rt.offsets)
+        # --- innovation + belief (lines 13-16), one fused pass ---
+        u = uniform(fold_in(sig_key, social_stream_fold(t, STREAM_SIGNAL)),
+                    N, dev)
+        m_t = st.m.contiguous()
+        z, mu = innovation_step(st.z.contiguous(), m_t, u, cdf, log_tables,
+                                backend)
+        # --- PS fusion every Γ (lines 17-22), applied post-innovation;
+        # the emitted belief is the pre-fusion one ---
+        z_f, m_f = hps_fusion(z, m_t, rt.rep_mask, M)
+        do_fusion = (t + 1) % rt.gamma == 0
+        state = st._replace(zm=torch.cat([
+            torch.where(do_fusion, z_f, z),
+            torch.where(do_fusion, m_f, m_t)[:, None]], dim=1))
+        if store == "trajectory":
+            ys.append(mu)
+        elif store == "log_ratio":
+            log_mu = torch.log(mu.clamp_min(_MU_FLOOR))
+            lr = log_mu - log_mu[:, truth : truth + 1]
+            ys.append(lr.masked_fill(wrong_col, -torch.inf).max())
+    if store == "trajectory":
+        beliefs = (torch.stack(ys) if ys
+                   else torch.zeros((0, N, m), device=dev))
+        log_mu = torch.log(beliefs.clamp_min(_MU_FLOOR))
+        return state, (beliefs, log_mu - log_mu[:, :, truth : truth + 1])
+    if store == "log_ratio":
+        curve = torch.stack(ys) if ys else torch.zeros(0, device=dev)
+        return state, (mu, curve)
+    log_mu = torch.log(mu.clamp_min(_MU_FLOOR))
+    return state, (mu, log_mu - log_mu[:, truth : truth + 1])
+
+
+def run_social_runtime(
+    model: SignalModel,
+    rt: SocialRuntime,
+    M: int,
+    T: int,
+    seed: int = 0,
+    signal_seed: int | None = None,
+    *,
+    plan: ExecutionPlan | None = None,
+    device=None,
+) -> SocialLearningResult:
+    """Run Algorithm 3 on a prebuilt :class:`SocialRuntime`.
+
+    ``seed`` drives the per-round link masks and ``signal_seed`` (default
+    ``seed``) the private signals. ``plan.store=None`` means
+    ``"trajectory"``; ``plan.dst_sorted=True`` asserts a dst-sorted edge
+    index and is checked against the runtime. ``device=None`` means the
+    card, and raises where there is none; pass ``device="cpu"`` to run the
+    plain PyTorch path on the CPU.
+    """
+    plan = ExecutionPlan() if plan is None else plan
+    store = "trajectory" if plan.store is None else plan.store
+    if store not in SOCIAL_STORES:
+        raise ValueError(f"store must be one of {SOCIAL_STORES}, got {store!r}")
+    if plan.dst_sorted and rt.offsets is None:
+        raise ValueError("plan.dst_sorted=True but the runtime's edge index "
+                         "is not dst-sorted")
+    dev = resolve_device(device)
+    tables = model.tables.to(dev, torch.float32)
+    final, (beliefs, log_ratio) = _social_scan_core(
+        prng_key(seed),
+        prng_key(seed if signal_seed is None else signal_seed),
+        rt.to(dev),
+        torch.log(tables),
+        torch.cumsum(tables[:, model.truth, :], dim=-1),
+        truth=model.truth,
+        M=M,
+        T=T,
+        store=store,
+        backend=plan.backend,
+    )
+    return SocialLearningResult(
+        beliefs=beliefs, final_state=final, log_ratio=log_ratio)
+
+
+def run_social_learning(
+    model: SignalModel,
+    cfg: HPSConfig,
+    T: int,
+    seed: int = 0,
+    signal_seed: int = 100,
+    *,
+    plan: ExecutionPlan | None = None,
+    device=None,
+) -> SocialLearningResult:
+    """Run Algorithm 3 for T iterations on an :class:`HPSConfig` scenario
+    (whose edge index is always dst-sorted); see :func:`run_social_runtime`.
+    """
+    plan = ExecutionPlan() if plan is None else plan
+    return run_social_runtime(
+        model, make_social_runtime(cfg), cfg.topo.M, T,
+        seed=seed, signal_seed=signal_seed,
+        plan=plan.replace(dst_sorted=True), device=device,
+    )
+
+
+def theorem2_rate(model: SignalModel, topo_N: int) -> np.ndarray:
+    """The linear decay slopes -D_KL(theta*||theta)/N of Theorem 2, (m,)."""
+    kl = pairwise_kl(model.tables.cpu().numpy())
+    return -kl.sum(axis=0)[model.truth] / topo_N

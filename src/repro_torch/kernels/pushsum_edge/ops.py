@@ -1,0 +1,94 @@
+"""Route dispatch for the push-sum edge scatter, and the CUDA kernel's
+wrapper.
+
+``edge_scatter(..., backend=...)`` is the entry point the sparse push-sum
+step calls once per round (routes in :mod:`repro_torch.kernels.dispatch`).
+The CUDA kernel (``csrc/edge_scatter.cu``) walks each receiver's run of a
+dst-sorted edge index through its CSR offsets; the engines hoist those
+offsets out of the loop (:func:`repro_torch.core.social.
+social_runtime_from_edge_list`). Given no offsets, the wrapper derives them
+from ``dst`` and raises on an unsorted index: it never sorts silently and
+never falls back to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..dispatch import resolve_backend
+from .ref import edge_scatter_ref
+
+__all__ = ["edge_scatter", "edge_scatter_cuda", "dst_offsets"]
+
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def edge_scatter(
+    sigma: torch.Tensor,   # (N, D) float32
+    rho: torch.Tensor,     # (E, D) float32
+    live: torch.Tensor,    # (E,) bool
+    src: torch.Tensor,     # (E,) int32
+    dst: torch.Tensor,     # (E,) int32
+    backend: str = "auto",
+    *,
+    offsets: torch.Tensor | None = None,   # (N+1,) int32 CSR offsets of dst
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mask-latch + per-receiver increment sum -> ``(rho_new, recv)``."""
+    if resolve_backend(backend, sigma) == "torch":
+        return edge_scatter_ref(sigma, rho, live, src, dst)
+    if offsets is None:
+        offsets = dst_offsets(dst, sigma.shape[0])
+    return edge_scatter_cuda(sigma, rho, live, src, offsets)
+
+
+def dst_offsets(dst: torch.Tensor, n: int) -> torch.Tensor:
+    """(N+1,) int32 CSR offsets of a dst-sorted edge index on ``dst``'s
+    device. Raises on an unsorted or out-of-range ``dst``; reads two flags
+    back to the host, so callers in a loop hoist it."""
+    if dst.numel() and not bool(
+            (dst[1:] >= dst[:-1]).all() & (dst[0] >= 0) & (dst[-1] < n)):
+        raise ValueError("the CUDA edge scatter needs a dst-sorted edge "
+                         "index with 0 <= dst < N (see graphs.sort_by_dst)")
+    grid = torch.arange(n + 1, dtype=dst.dtype, device=dst.device)
+    return torch.searchsorted(dst, grid, side="left").to(torch.int32)
+
+
+def edge_scatter_cuda(
+    sigma: torch.Tensor,
+    rho: torch.Tensor,
+    live: torch.Tensor,
+    src: torch.Tensor,
+    offsets: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA edge-scatter kernel on the current stream.
+
+    ``offsets`` must be the CSR offsets of the dst-sorted index the edges
+    are laid out in. ``edge_scatter_cuda.launches`` counts the launches."""
+    if not sigma.is_cuda:
+        raise ValueError("the CUDA edge scatter needs CUDA tensors")
+    n, D = sigma.shape
+    E = rho.shape[0]
+    if n == 0 or D == 0 or max(n, E) * D >= 2**31:
+        raise ValueError(f"unsupported edge-scatter shape N={n}, E={E}, "
+                         f"D={D}")
+    dev = sigma.device
+    _build.check_arg(sigma, "sigma", torch.float32, (n, D), dev)
+    _build.check_arg(rho, "rho", torch.float32, (E, D), dev)
+    _build.check_arg(live, "live", torch.bool, (E,), dev)
+    _build.check_arg(src, "src", torch.int32, (E,), dev)
+    _build.check_arg(offsets, "offsets", torch.int32, (n + 1,), dev)
+    rho_new = torch.empty_like(rho)
+    recv = torch.empty_like(sigma)
+    fn = _build.function("edge_scatter", "edge_scatter_f32", _ARGTYPES)
+    code = fn(sigma.data_ptr(), rho.data_ptr(), live.data_ptr(),
+              src.data_ptr(), offsets.data_ptr(), rho_new.data_ptr(),
+              recv.data_ptr(), n, D, dev.index,
+              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_status("edge_scatter", code)
+    edge_scatter_cuda.launches += 1
+    return rho_new, recv
+
+
+edge_scatter_cuda.launches = 0

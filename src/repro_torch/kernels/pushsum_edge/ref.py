@@ -1,0 +1,29 @@
+"""Plain PyTorch version of the push-sum edge scatter: gather + where +
+``index_add_``, the port of ``repro.kernels.pushsum_edge.ref``.
+
+    rho_new[e] = sigma[src[e]] if live[e] else rho[e]
+    recv[v]    = sum_{e : dst[e] == v} (rho_new[e] - rho[e])
+
+``sigma`` and ``rho`` carry the value columns and the mass column as one
+(·, d+1) matrix, so one reduction serves both push-sum recursions. Any edge
+order is accepted. The CPU path of the engines runs this, and the CUDA
+kernel is held against it.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["edge_scatter_ref"]
+
+
+def edge_scatter_ref(
+    sigma: torch.Tensor,   # (N, D) staged cumulative send per node
+    rho: torch.Tensor,     # (E, D) last heard cumulative per edge
+    live: torch.Tensor,    # (E,) bool — operational AND valid this round
+    src: torch.Tensor,     # (E,) int32
+    dst: torch.Tensor,     # (E,) int32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(rho_new (E, D), recv (N, D))``."""
+    rho_new = torch.where(live[:, None], sigma[src], rho)
+    recv = torch.zeros_like(sigma).index_add_(0, dst, rho_new - rho)
+    return rho_new, recv

@@ -1,0 +1,111 @@
+"""The port's numpy graph builders and signal model against the reference:
+the same arguments and seeds give equal arrays."""
+import numpy as np
+import pytest
+
+import repro.core.graphs as jg
+import repro.core.signals as js
+from repro.core.hps import HPSConfig as JaxHPSConfig
+import repro_torch.core.graphs as tg
+import repro_torch.core.signals as ts
+from repro_torch.core.hps import HPSConfig
+
+
+def _same_edge_list(a, b):
+    assert a.n == b.n
+    for f in ("src", "dst", "valid"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7])
+def test_dense_builders(n):
+    np.testing.assert_array_equal(tg.ring(n), jg.ring(n))
+    np.testing.assert_array_equal(tg.ring(n, True), jg.ring(n, True))
+    np.testing.assert_array_equal(tg.complete(n), jg.complete(n))
+    a = tg.random_strongly_connected(n, 0.3, np.random.default_rng(n))
+    b = jg.random_strongly_connected(n, 0.3, np.random.default_rng(n))
+    np.testing.assert_array_equal(a, b)
+    assert tg.is_strongly_connected(a) == jg.is_strongly_connected(b)
+
+
+def test_is_strongly_connected_negative():
+    adj = np.zeros((3, 3), bool)
+    adj[0, 1] = adj[1, 2] = True
+    assert not tg.is_strongly_connected(adj)
+    assert not tg.is_strongly_connected(np.zeros((0, 0), bool))
+
+
+@pytest.mark.parametrize("topology", ["ring", "complete", "ring+"])
+@pytest.mark.parametrize("rep_choice", ["first", "random"])
+def test_make_hierarchy(topology, rep_choice):
+    a = tg.make_hierarchy([4, 6, 5], topology, seed=3, rep_choice=rep_choice)
+    b = jg.make_hierarchy([4, 6, 5], topology, seed=3, rep_choice=rep_choice)
+    np.testing.assert_array_equal(a.adj, b.adj)
+    assert (a.sizes, a.offsets, a.reps) == (b.sizes, b.offsets, b.reps)
+    assert (a.N, a.M) == (b.N, b.M)
+    np.testing.assert_array_equal(a.rep_mask(), b.rep_mask())
+    _same_edge_list(HPSConfig(a, 4).edge_index(),
+                    JaxHPSConfig(b, 4).edge_index())
+
+
+def test_edge_list_sort_and_offsets():
+    adj = jg.random_strongly_connected(9, 0.4, np.random.default_rng(1))
+    a, b = tg.edge_list(adj), jg.edge_list(adj)
+    _same_edge_list(a, b)
+    np.testing.assert_array_equal(a.out_degree(), b.out_degree())
+    out_a = tg.sort_by_dst(a, return_offsets=True)
+    out_b = jg.sort_by_dst(b, return_offsets=True)
+    _same_edge_list(out_a[0], out_b[0])
+    for x, y in zip(out_a[1:], out_b[1:]):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+    assert tg.is_dst_sorted(out_a[0].dst) and not tg.is_dst_sorted(a.dst)
+
+
+@pytest.mark.parametrize("sort", [True, False])
+def test_random_strongly_connected_edge_list(sort):
+    a = tg.random_strongly_connected_edge_list(
+        40, 1.5, np.random.default_rng(2), sort=sort)
+    b = jg.random_strongly_connected_edge_list(
+        40, 1.5, np.random.default_rng(2), sort=sort)
+    _same_edge_list(a, b)
+
+
+@pytest.mark.parametrize("topology", ["ring", "complete", "ring+"])
+@pytest.mark.parametrize("rep_choice", ["first", "random"])
+def test_hier_edge_list(topology, rep_choice):
+    a, ra = tg.hier_edge_list([5, 3, 8], topology, seed=4,
+                              rep_choice=rep_choice)
+    b, rb = jg.hier_edge_list([5, 3, 8], topology, seed=4,
+                              rep_choice=rep_choice)
+    _same_edge_list(a, b)
+    np.testing.assert_array_equal(ra, rb)
+
+
+def test_block_complete_edge_list():
+    a, ra = tg.block_complete_edge_list([8] * 5)
+    b, rb = jg.block_complete_edge_list([8] * 5)
+    _same_edge_list(a, b)
+    np.testing.assert_array_equal(ra, rb)
+
+
+@pytest.mark.parametrize("N,m,S,truth,confusion,seed", [
+    (18, 3, 4, 1, 0.5, 0), (64, 3, 4, 0, 0.75, 1), (10, 5, 6, 2, 0.0, 7),
+    (4, 4, 3, 3, 1.0, 2),
+])
+def test_make_confused_model(N, m, S, truth, confusion, seed):
+    a = ts.make_confused_model(N, m, S, truth, confusion, seed=seed)
+    b = js.make_confused_model(N, m, S, truth, confusion, seed=seed)
+    assert a.truth == b.truth and (a.N, a.m, a.S) == (b.N, b.m, b.S)
+    np.testing.assert_array_equal(a.tables.numpy(), np.asarray(b.tables))
+    t = np.asarray(b.tables)
+    np.testing.assert_array_equal(ts.pairwise_kl(t), js.pairwise_kl(t))
+    assert ts.check_global_observability(t) == js.check_global_observability(t)
+    assert ts.log_ratio_bound(t) == js.log_ratio_bound(t)
+
+
+def test_confused_model_needs_N_at_least_m():
+    with pytest.raises(ValueError):
+        ts.make_confused_model(2, 3)
