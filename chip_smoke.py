@@ -1,20 +1,31 @@
-"""Smoke run of the PyTorch/CUDA port of Algorithm 3 on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: Algorithm 3
+(social learning) and Algorithm 2 (Byzantine-resilient learning).
 
 Phases (any failure raises and the script exits non-zero):
 
 1. build   — compile every CUDA kernel of the port from
              src/repro_torch/kernels/csrc, one nvcc per source, at once;
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             at the main path's full-size shapes, with stated tolerances;
+             at the main paths' full-size shapes (and the trim-gather at
+             its edge cases), with stated tolerances;
 3. main    — run_social_runtime at N = 131,072 agents (16,384 complete
              8-agent networks, E = 917,504 links), T = 200, through the
              kernels and again through the plain path; both kernels must
              launch T times, the two runs must agree, mass is conserved;
 4. quickstart — examples/quickstart.py's Algorithm 3 scenario on the card:
              every agent's final belief in theta* above 0.95;
-5. timing  — CUDA-event medians of each kernel and its plain version, and
-             of one main-path step at N = 16,384 and 131,072; a profiler
-             breakdown of the full-size step.
+5. byzantine main — run_byzantine_runtime at N = 131,072 (the same
+             networks, F = 2, large_value lies from agents 2 and 9, Γ = 10),
+             T = 200, through the trim-gather kernel and again through the
+             plain path; the kernel launches T times, decisions agree where
+             the decision margin is clear, r agrees;
+6. byzantine oracles — examples/quickstart.py's Algorithm 2 scenario on
+             the card (normal-agent accuracy 1.0), and the sparse kernel
+             path against the port's dense oracle on 4x7 complete networks
+             for every attack;
+7. timing  — CUDA-event medians of each kernel and its plain version, and
+             of one step of each main path at N = 16,384 and 131,072;
+             profiler breakdowns of the full-size steps.
 
 It prints the card's name and power limit, one JSON line of kernel
 figures, and last the device line. Run from the repository root:
@@ -44,6 +55,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 TIMED_RUNS = 30
 STEP_RUNS, STEP_T = 20, 50
+BYZ_F, BYZ_AGENTS, BYZ_GAMMA = 2, (2, 9), 10
+# Byzantine main path: decisions are compared where the decision margin
+# (the winner's min_b r(a, b) minus the runner-up's) exceeds this gap
+BYZ_MARGIN = 1e-2
 
 
 def require(ok, what: str) -> None:
@@ -67,6 +82,56 @@ def scenario(n_agents: int):
     rt = social_runtime_from_edge_list(el, rep_mask, drop_prob=0.1,
                                        gamma_period=8, B=4)
     return model, rt, n_agents // 8
+
+
+def byz_scenario(n_agents: int):
+    """benchmarks/byzantine_bench.py's step set-up (N/8 complete 8-agent
+    networks, F = 2, Byzantine agents 2 and 9, Γ = 10, large_value lies)
+    at confusion 0.25, so about a quarter of the networks fail A4 and the
+    fusion's representatives there adopt the pooled value; built with no
+    (N, N) array. -> (model, (runtime, extra_reps, n_reps), attack)."""
+    from repro_torch.core import (attacks, block_complete_edge_list,
+                                  byzantine_runtime_from_edge_list,
+                                  make_confused_model)
+    sizes = [8] * (n_agents // 8)
+    el, _ = block_complete_edge_list(sizes)
+    model = make_confused_model(N=n_agents, m=3, truth=0, confusion=0.25,
+                                seed=1)
+    setup = byzantine_runtime_from_edge_list(model, el, sizes, BYZ_F,
+                                             BYZ_AGENTS, BYZ_GAMMA)
+    return model, setup, attacks.large_value(1e3)
+
+
+def trim_edge_cases(dev):
+    """Small trim-gather problems at the kernel's edge cases, N = 1,001
+    receivers: ties, deg <= 2F, +-1e6 lies beside O(1) values (at most F a
+    row, so all are trimmed), one-vs-rest P = 3, deg_max = 1 and 20.
+    Yields ``(name, F, args)``; invalid slots hold NaN messages."""
+    import torch
+    rng = np.random.default_rng(1)
+    n = 1001
+    for name, P, F, dm in (("ties", 9, 2, 7), ("under_trimmed", 9, 3, 7),
+                           ("huge", 9, 2, 7), ("ovr", 3, 2, 7),
+                           ("single_slot", 9, 0, 1), ("wide", 3, 4, 20)):
+        lo, hi = (0, 2 * F) if name == "under_trimmed" else (1, dm)
+        deg = rng.integers(lo, hi + 1, size=n)
+        valid = np.arange(dm)[None, :] < deg[:, None]
+        idx = np.where(valid, rng.integers(0, n, size=(n, dm)), 0)
+        if name == "ties":
+            r = rng.integers(0, 3, size=(n, P))
+            msgs = rng.integers(0, 3, size=(n, dm, P))
+        else:
+            r = rng.normal(size=(n, P))
+            msgs = 10 * rng.normal(size=(n, dm, P))
+        byz = rng.random((n, dm)) < 0.25
+        if name == "huge":
+            msgs = np.where(rng.random((n, dm, P)) < 0.5, -1e6, 1e6)
+            byz = valid & (np.arange(dm)[None, :] < F)
+        msgs = msgs.astype(np.float32)
+        msgs[~valid] = np.nan
+        yield name, F, [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in (r.astype(np.float32), idx.astype(np.int32),
+                                  valid, msgs, byz)]
 
 
 def event_ms(fn, runs: int, flush=None) -> float:
@@ -112,6 +177,7 @@ def main() -> int:
     from repro_torch.core import run_social_runtime, sparse_mass_invariant
     from repro_torch.core.signals import SignalModel
     from repro_torch.kernels import _build
+    from repro_torch.kernels.byz_trim import trim_gather_cuda, trim_gather_ref
     from repro_torch.kernels.pushsum_edge import (edge_scatter_cuda,
                                                   edge_scatter_ref)
     from repro_torch.kernels.social_innov import (innovation_cuda,
@@ -147,6 +213,17 @@ def main() -> int:
     N, E = N_FULL, rt.src.shape[0]
     log(f"[setup] N={N} E={E} M={M} in {time.perf_counter() - t0:.2f} s")
     require(E == 917_504, "E == 917,504")
+    t0 = time.perf_counter()
+    bmodel, bsetup, battack = byz_scenario(N_FULL)
+    brt_d = bsetup[0].to(dev)
+    dm = brt_d.nbr_idx.shape[1]
+    n_c = int(brt_d.in_C.sum()) // 8
+    log(f"[setup] byzantine runtime N={N} deg_max={dm} networks in C "
+        f"{n_c}/{M} n_reps={bsetup[2]} (dense-free) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    require(dm == 7 and bsetup[1] is None and 0 < n_c < M,
+            "byzantine set-up: deg_max 7, one rep per network, some "
+            "networks outside C")
 
     # ---- phase 2: kernels against their plain versions ------------------
     rng = np.random.default_rng(0)
@@ -197,26 +274,56 @@ def main() -> int:
     log(f"[kernels] social_innov: signals and z_new bit-equal, mu within "
         f"rtol 1e-5 atol 1e-6 (softmax order); max_abs_err {k2_err:.3e}")
 
+    # the trim-gather at the Byzantine main path's shapes and messages: a
+    # large_value attack is a stride-0 view of one float, read in place
+    P = bmodel.m ** 2
+    r_b = torch.tensor(rng.normal(size=(N, P)) * 30, dtype=torch.float32,
+                       device=dev)
+    lies = torch.full((), 1e3, device=dev).expand(N, dm, P)
+    k3_args = (r_b, brt_d.nbr_idx, brt_d.nbr_valid, lies, brt_d.byz_nbr,
+               BYZ_F)
+    k3_dense = k3_args[:3] + (lies.contiguous(),) + k3_args[4:]
+    tk, kk = trim_gather_cuda(*k3_args)
+    tk_dense, kk_dense = trim_gather_cuda(*k3_dense)
+    tp, kp = trim_gather_ref(*k3_args)
+    torch.cuda.synchronize()
+    require(torch.equal(kk, kp) and torch.equal(tk, tk_dense)
+            and torch.equal(kk, kk_dense), "trim_gather kept bit-equal; "
+            "stride-0 and materialized messages give the same result")
+    torch.testing.assert_close(tk, tp, rtol=1e-5, atol=1e-5)
+    k3_err = (tk - tp).abs().max().item()
+    for name, F_case, args in trim_edge_cases(dev):
+        t_c, k_c = trim_gather_cuda(*args, F_case)
+        t_r, k_r = trim_gather_ref(*args, F_case)
+        torch.cuda.synchronize()
+        require(torch.equal(k_c, k_r), f"trim_gather kept bit-equal ({name})")
+        require(bool((t_c[k_r == 0] == 0).all()),
+                f"trim_gather: no survivor sums to 0 ({name})")
+        torch.testing.assert_close(t_c, t_r, rtol=1e-5, atol=1e-5)
+        k3_err = max(k3_err, (t_c - t_r).abs().max().item())
+    log(f"[kernels] byz_trim: kept bit-equal, tsum within rtol 1e-5 atol "
+        f"1e-5 (survivor-sum order) at N={N} deg_max={dm} P={P} F={BYZ_F} "
+        f"and at the edge cases (ties, deg <= 2F, +-1e6, P = 3, deg_max 1 "
+        f"and 20); max_abs_err {k3_err:.3e}")
+
     # ---- phase 3: the main path at full size ----------------------------
     plan_k = ExecutionPlan(store="log_ratio", dst_sorted=True)
     plan_p = plan_k.replace(backend="torch")
-    edge_scatter_cuda.launches = innovation_cuda.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     res_k = run_social_runtime(model, rt, M, T_MAIN, seed=0, plan=plan_k)
     torch.cuda.synchronize()
     wall_k = time.perf_counter() - t0
-    launches = {"edge_scatter": edge_scatter_cuda.launches,
-                "social_innov": innovation_cuda.launches}
+    launches = _counts()
     log(f"[main] N={N} T={T_MAIN} kernels: {wall_k:.2f} s, launches "
         f"{launches}")
-    require(launches == {"edge_scatter": T_MAIN, "social_innov": T_MAIN},
-            "each kernel launched T times on the main path")
+    require(launches == {"edge_scatter": T_MAIN, "social_innov": T_MAIN,
+                         "byz_trim": 0},
+            "each kernel of the path launched T times on the main path")
     res_p = run_social_runtime(model, rt, M, T_MAIN, seed=0, plan=plan_p)
     res_p2 = run_social_runtime(model, rt, M, T_MAIN, seed=0, plan=plan_p)
     torch.cuda.synchronize()
-    require(edge_scatter_cuda.launches == T_MAIN
-            and innovation_cuda.launches == T_MAIN,
-            "the plain path launched no kernel")
+    require(_counts() == launches, "the plain path launched no kernel")
     bk, bp = res_k.beliefs, res_p.beliefs
     require(bk.shape == (N, m_hyp) and res_k.log_ratio.shape == (T_MAIN,),
             "result shapes")
@@ -260,16 +367,22 @@ def main() -> int:
     qmodel = make_confused_model(N=topo.N, m=3, truth=1, confusion=0.5,
                                  seed=0)
     qcfg = HPSConfig(topo=topo, gamma_period=8, B=4, drop_prob=0.3)
-    edge_scatter_cuda.launches = innovation_cuda.launches = 0
+    _zero_counts()
     qres = run_social_learning(qmodel, qcfg, T=500, seed=0)
     torch.cuda.synchronize()
-    require(edge_scatter_cuda.launches == 500
-            and innovation_cuda.launches == 500, "quickstart launches")
+    require(_counts() == {"edge_scatter": 500, "social_innov": 500,
+                          "byz_trim": 0}, "quickstart launches")
     qmin = qres.beliefs[-1, :, qmodel.truth].min().item()
     log(f"[quickstart] min final belief in theta*: {qmin:.6f}")
     require(qmin > 0.95, "quickstart learns theta*")
 
-    # ---- phase 5: timing ------------------------------------------------
+    # ---- phase 5: the Byzantine main path at full size ------------------
+    launches["byz_trim"] = byzantine_main(bmodel, bsetup, battack, dev)
+
+    # ---- phase 6: Byzantine oracle scenarios ------------------------------
+    byzantine_oracles(dev)
+
+    # ---- phase 7: timing ------------------------------------------------
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
     def flush():
@@ -289,6 +402,21 @@ def main() -> int:
         f"bound {k1_bound:.4f}); social_innov {k2_ms:.4f} ms (plain "
         f"{k2_plain:.4f}, bound {k2_bound:.4f}); medians of {TIMED_RUNS}, "
         f"L2 flushed")
+    k3_ms = event_ms(lambda: trim_gather_cuda(*k3_args), TIMED_RUNS, flush)
+    k3_plain = event_ms(lambda: trim_gather_ref(*k3_args), TIMED_RUNS, flush)
+    k3_dense_ms = event_ms(lambda: trim_gather_cuda(*k3_dense), TIMED_RUNS,
+                           flush)
+    # the stride-0 lies are one float in memory; every other input and
+    # output counted once. Operations: per (receiver, coordinate) and slot,
+    # a compare in each of the 2F extraction rounds and one add.
+    k3_ops = N * P * dm * (2 * BYZ_F + 1)
+    k3_bound, k3_by = bound(nbytes(*k3_args[:3], k3_args[4], tk, kk) + 4,
+                            k3_ops)
+    k3_dense_bound, _ = bound(nbytes(*k3_dense[:5], tk, kk), k3_ops)
+    log(f"[timing] byz_trim {k3_ms:.4f} ms (plain {k3_plain:.4f}, bound "
+        f"{k3_bound:.4f}) with the main path's stride-0 lies; with "
+        f"materialized lies {k3_dense_ms:.4f} ms (bound {k3_dense_bound:.4f})"
+        f"; medians of {TIMED_RUNS}, L2 flushed")
 
     step_ms, cells = {}, {}
     for n_agents in (N_SMALL, N_FULL):
@@ -312,8 +440,12 @@ def main() -> int:
             f"runs of {STEP_T} steps, store=final)")
 
     for n_agents, (pmodel, prt, pM) in cells.items():
-        profile_step(run_social_runtime, pmodel, prt, pM,
-                     step_ms[(n_agents, "auto")])
+        profile_step(
+            lambda T, pmodel=pmodel, prt=prt, pM=pM: run_social_runtime(
+                pmodel, prt, pM, T, seed=0, plan=ExecutionPlan(
+                    store="final", dst_sorted=True)),
+            f"social N={n_agents}", step_ms[(n_agents, "auto")])
+    byzantine_step_timing(bmodel, bsetup, battack, dev)
 
     kernels = [
         {"name": "edge_scatter", "route": "cuda",
@@ -328,6 +460,12 @@ def main() -> int:
          "launches": launches["social_innov"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
+        {"name": "byz_trim", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/byz_trim.cu",
+         "replaces": "src/repro/kernels/byz_trim/byz_trim.py:91",
+         "launches": launches["byz_trim"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": None},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -336,20 +474,19 @@ def main() -> int:
     return 0
 
 
-def profile_step(run_social_runtime, model, rt, M, step_ms: float) -> None:
-    """Device time by kernel over 20 kernel-path steps (torch.profiler),
-    and the share of the unprofiled step time ``step_ms`` it covers."""
+def profile_step(run, label: str, step_ms: float) -> None:
+    """Device time by kernel over 20 kernel-path steps (torch.profiler) of
+    ``run(T)``, and the share of the unprofiled step time ``step_ms`` it
+    covers."""
     import torch
-    from repro_torch.core import ExecutionPlan
 
-    plan = ExecutionPlan(store="final", dst_sorted=True)
-    run_social_runtime(model, rt, M, 5, seed=0, plan=plan)
+    run(5)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
-        run_social_runtime(model, rt, M, 20, seed=0, plan=plan)
+        run(20)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
@@ -360,13 +497,190 @@ def profile_step(run_social_runtime, model, rt, M, step_ms: float) -> None:
         log("[profile] the profiler recorded no device time: not measured")
         return
     busy = sum(r[1] for r in rows)
-    log(f"[profile] 20 steps at N={rt.rep_mask.shape[0]}: device busy "
+    log(f"[profile] 20 steps of {label}: device busy "
         f"{busy:.3f} ms in {sum(r[2] for r in rows)} device ops (run set-up "
         f"included), {busy / 20:.4f} ms a step = {busy / 20 / step_ms:.3f} "
         f"of the unprofiled {step_ms:.4f} ms step; wall {wall_ms:.1f} ms "
         f"with the profiler on")
     for key, ms, count in rows[:12]:
         log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels.byz_trim import trim_gather_cuda
+    from repro_torch.kernels.pushsum_edge import edge_scatter_cuda
+    from repro_torch.kernels.social_innov import innovation_cuda
+    edge_scatter_cuda.launches = innovation_cuda.launches = 0
+    trim_gather_cuda.launches = 0
+
+
+def _counts() -> dict[str, int]:
+    from repro_torch.kernels.byz_trim import trim_gather_cuda
+    from repro_torch.kernels.pushsum_edge import edge_scatter_cuda
+    from repro_torch.kernels.social_innov import innovation_cuda
+    return {"edge_scatter": edge_scatter_cuda.launches,
+            "social_innov": innovation_cuda.launches,
+            "byz_trim": trim_gather_cuda.launches}
+
+
+def byzantine_main(model, setup, attack, dev) -> int:
+    """Algorithm 2 at N = 131,072 for T = 200 rounds through the kernel and
+    through the plain path -> the kernel's launches on the kernel run."""
+    import torch
+    from repro_torch.core import ExecutionPlan, decide, run_byzantine_runtime
+
+    rt, extra_reps, n_reps = setup
+    N = rt.byz_mask.shape[0]
+    plan_k = ExecutionPlan(store="decisions")
+    _zero_counts()
+    t0 = time.perf_counter()
+    res_k = run_byzantine_runtime(model, rt, extra_reps, n_reps, attack,
+                                  T_MAIN, seed=0, plan=plan_k, device=dev)
+    torch.cuda.synchronize()
+    wall_k = time.perf_counter() - t0
+    counts = _counts()
+    log(f"[byzantine] N={N} T={T_MAIN} F={BYZ_F} kernel path: {wall_k:.2f} "
+        f"s, launches {counts}")
+    require(counts == {"edge_scatter": 0, "social_innov": 0,
+                       "byz_trim": T_MAIN},
+            "the trim-gather kernel launched T times on the Byzantine path")
+    t0 = time.perf_counter()
+    res_p = run_byzantine_runtime(model, rt, extra_reps, n_reps, attack,
+                                  T_MAIN, seed=0,
+                                  plan=plan_k.replace(backend="torch"),
+                                  device=dev)
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    require(_counts() == counts, "the plain path launched no kernel")
+    rk, rp = res_k.r, res_p.r
+    require(rk.shape == (N, 3, 3) and res_k.decisions.shape == (T_MAIN, N),
+            "byzantine result shapes")
+    require(bool(torch.isfinite(rk).all()), "byzantine r finite")
+    # Tolerance. The kernel adds each receiver's survivors in slot order,
+    # the plain path in sorted order: about one ulp of a statistic per
+    # round, averaged by the gossip, on statistics that grow to ~1.3e4
+    # (one ulp there is ~1e-3). The limit atol + rtol*|r| is 1e-2 near 0
+    # and ~3.6e-2 at |r| = 1.3e4; H100 runs gave a max gap of 7.8e-3
+    # (about 8 ulp at the largest |r|).
+    gap = (rk - rp).abs().max().item()
+    torch.testing.assert_close(rk, rp, rtol=2e-6, atol=1e-2)
+    normal = ~rt.byz_mask.to(dev)
+    in_C = rt.in_C.to(dev)
+    eye = torch.eye(3, dtype=torch.bool, device=dev)
+    worst = torch.where(eye, torch.inf, rp).min(dim=-1).values
+    top2 = worst.topk(2, dim=-1).values
+    clear = normal & ((top2[:, 0] - top2[:, 1]) > BYZ_MARGIN)
+    dk, dp = res_k.decisions[-1], res_p.decisions[-1]
+    require(torch.equal(dk, decide(rk)), "final decisions follow r")
+    require(torch.equal(dk[clear], dp[clear]),
+            "decisions equal where the margin is clear")
+    steps_differ = int((res_k.decisions != res_p.decisions).sum())
+    truth = model.truth
+    share_c = (dk[in_C & normal] == truth).float().mean().item()
+    adopted = ~in_C & normal & (rk.abs().amax(dim=(1, 2)) > 0)
+    share_adopted = (dk[adopted] == truth).float().mean().item()
+    log(f"[byzantine] plain path {wall_p:.2f} s; max |r| gap kernel vs "
+        f"plain {gap:.3e} (|r| up to {rp.abs().max().item():.1f}); final "
+        f"decisions equal on {int(clear.sum())}/{int(normal.sum())} normal "
+        f"agents with margin > {BYZ_MARGIN}; (step, agent) decisions that "
+        f"differ over all {T_MAIN} steps: {steps_differ}")
+    log(f"[byzantine] share of normal agents in C deciding theta*: "
+        f"{share_c:.4f}; representatives outside C that adopted w_tilde: "
+        f"{int(adopted.sum())}, share deciding theta* {share_adopted:.4f}")
+    require(share_c > 0.99, "normal agents in C learn theta*")
+    return counts["byz_trim"]
+
+
+def byzantine_oracles(dev) -> None:
+    """The quickstart Algorithm 2 scenario on the card, and the sparse
+    kernel path against the port's dense oracle on 4x7 complete networks."""
+    import torch
+    from repro_torch.core import (ByzantineConfig, ExecutionPlan, attacks,
+                                  make_confused_model, make_hierarchy,
+                                  run_byzantine_learning)
+
+    def scenario(sizes, attack, truth=1):
+        topo = make_hierarchy(sizes, topology="complete", seed=0)
+        model = make_confused_model(N=topo.N, m=3, truth=truth,
+                                    confusion=0.0, seed=0)
+        atk = (attacks.truth_suppression(truth, magnitude=1e3)
+               if attack == "truth_suppression"
+               else attacks.ATTACKS[attack]())
+        cfg = ByzantineConfig(topo=topo, F=BYZ_F, byz=BYZ_AGENTS,
+                              gamma_period=BYZ_GAMMA, attack=atk)
+        return model, cfg, torch.from_numpy(~cfg.byz_mask()).to(dev)
+
+    model, cfg, normal = scenario([7, 7, 7], "truth_suppression")
+    _zero_counts()
+    res = run_byzantine_learning(model, cfg, T=500, seed=0, device=dev)
+    torch.cuda.synchronize()
+    require(_counts()["byz_trim"] == 500, "quickstart launches")
+    acc = (res.decisions[-1][normal] == model.truth).float().mean().item()
+    log(f"[byzantine quickstart] normal-agent accuracy at T=500: {acc:.3f}")
+    require(acc == 1.0, "byzantine quickstart learns theta*")
+
+    traj = ExecutionPlan(store="trajectory")
+    for attack in ("sign_flip", "large_value", "extreme_pull",
+                   "truth_suppression"):
+        model, cfg, _ = scenario([7] * 4, attack)
+        gaps = []
+        for mode in ("pairwise", "ovr"):
+            sparse = run_byzantine_learning(model, cfg, 120, mode=mode,
+                                            plan=traj, device=dev)
+            dense = run_byzantine_learning(model, cfg, 120, mode=mode,
+                                           core="dense", plan=traj,
+                                           device=dev)
+            require(torch.equal(sparse.decisions, dense.decisions),
+                    f"{attack} {mode}: every decision equal to the dense "
+                    f"oracle's")
+            gaps.append((sparse.r - dense.r).abs().max().item())
+        log(f"[byzantine oracle] {attack}: sparse kernel path = dense oracle "
+            f"at every step (pairwise, ovr); max |r| gap {max(gaps):.3e}")
+    model, cfg, normal = scenario([7] * 4, "random_noise")
+    accs = []
+    for core in ("sparse", "dense"):
+        res = run_byzantine_learning(model, cfg, 300, core=core,
+                                     plan=ExecutionPlan(store="final"),
+                                     device=dev)
+        accs.append((res.decisions[normal] == model.truth).float().mean()
+                    .item())
+    log(f"[byzantine oracle] random_noise: normal-agent accuracy at T=300 "
+        f"sparse {accs[0]:.3f}, dense {accs[1]:.3f}")
+    require(accs == [1.0, 1.0], "random_noise learns on both cores")
+
+
+def byzantine_step_timing(model, setup, attack, dev) -> None:
+    """Milliseconds per Algorithm 2 step at N = 16,384 and 131,072, kernel
+    and plain path, and a profile of the kernel-path step."""
+    import torch
+    from repro_torch.core import ExecutionPlan, run_byzantine_runtime
+    from repro_torch.core.signals import SignalModel
+
+    cells = {N_FULL: (model, setup, attack), N_SMALL: byz_scenario(N_SMALL)}
+    for n_agents in (N_SMALL, N_FULL):
+        smodel, (srt, extra, n_reps), satk = cells[n_agents]
+        smodel = SignalModel(tables=smodel.tables.to(dev),
+                             truth=smodel.truth)
+        srt = srt.to(dev)
+        ms = {}
+        for backend in ("auto", "torch"):
+            plan = ExecutionPlan(backend=backend, store="final")
+
+            def run(T=STEP_T):
+                run_byzantine_runtime(smodel, srt, extra, n_reps, satk, T,
+                                      seed=0, plan=plan)
+
+            run()
+            ms[backend] = event_ms(run, STEP_RUNS) / STEP_T
+        log(f"[timing] byzantine step at N={n_agents}: kernel "
+            f"{ms['auto']:.4f} ms, plain {ms['torch']:.4f} ms (median of "
+            f"{STEP_RUNS} runs of {STEP_T} steps, Γ = {BYZ_GAMMA}, "
+            f"store=final)")
+        plan = ExecutionPlan(store="final")
+        profile_step(
+            lambda T: run_byzantine_runtime(smodel, srt, extra, n_reps, satk,
+                                            T, seed=0, plan=plan),
+            f"byzantine N={n_agents}", ms["auto"])
 
 
 if __name__ == "__main__":

@@ -5,21 +5,23 @@ topology and scenario scalars, and the push-sum state. Each function takes
 numpy arrays (``np.asarray`` of the reference's values) and builds the
 port's counterpart on the CPU; ``.to(device)`` or the entry points move it
 to the card. The way back is ``.to_numpy()`` on
-:class:`~repro_torch.core.pushsum.SparsePushSumState` and
-:class:`~repro_torch.core.social.SocialLearningResult`.
+:class:`~repro_torch.core.pushsum.SparsePushSumState`,
+:class:`~repro_torch.core.social.SocialLearningResult` and
+:class:`~repro_torch.core.byzantine.ByzantineResult`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .core.byzantine import ByzRuntime
 from .core.graphs import EdgeList
 from .core.pushsum import SparsePushSumState
 from .core.signals import SignalModel
 from .core.social import SocialRuntime, social_runtime_from_edge_list
 
 __all__ = ["signal_model_from_numpy", "social_runtime_from_numpy",
-           "sparse_state_from_numpy"]
+           "sparse_state_from_numpy", "byz_runtime_from_numpy"]
 
 
 def signal_model_from_numpy(tables: np.ndarray, truth: int) -> SignalModel:
@@ -50,3 +52,23 @@ def sparse_state_from_numpy(z, m, sigma, sigma_m, rho,
 
     return SparsePushSumState(zm=cat(z, m), sigma_zm=cat(sigma, sigma_m),
                               rho_zm=cat(rho, rho_m))
+
+
+def byz_runtime_from_numpy(nbr_idx, nbr_valid, byz_mask, active, in_C,
+                           offsets, sizes, F, gamma) -> ByzRuntime:
+    """The nine leaves of a reference ``ByzRuntime``, as numpy values; the
+    port's hoisted ``byz_nbr`` is gathered from them."""
+    idx = np.asarray(nbr_idx, np.int32)
+    byz = np.asarray(byz_mask, bool)
+    return ByzRuntime(
+        nbr_idx=torch.from_numpy(idx.copy()),
+        nbr_valid=torch.from_numpy(np.asarray(nbr_valid, bool).copy()),
+        byz_nbr=torch.from_numpy(byz[idx]),
+        byz_mask=torch.from_numpy(byz.copy()),
+        active=torch.from_numpy(np.asarray(active, bool).copy()),
+        in_C=torch.from_numpy(np.asarray(in_C, bool).copy()),
+        offsets=torch.from_numpy(np.asarray(offsets, np.int32).copy()),
+        sizes=torch.from_numpy(np.asarray(sizes, np.int32).copy()),
+        F=int(F),
+        gamma=int(gamma),
+    )

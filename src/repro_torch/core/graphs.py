@@ -16,7 +16,8 @@ Conventions
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import itertools
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -34,6 +35,13 @@ __all__ = [
     "random_strongly_connected_edge_list",
     "hier_edge_list",
     "block_complete_edge_list",
+    "strongly_connected_components",
+    "source_components",
+    "reduced_graphs",
+    "check_assumption3",
+    "NeighborList",
+    "neighbor_lists",
+    "edge_neighbor_lists",
 ]
 
 
@@ -96,6 +104,149 @@ def is_strongly_connected(adj: np.ndarray) -> bool:
     return bool(_reach(adj, 0).all() and _reach(adj.T, 0).all())
 
 
+def strongly_connected_components(adj: np.ndarray) -> list[list[int]]:
+    """Tarjan's SCC algorithm, iterative (host-side, small graphs)."""
+    n = adj.shape[0]
+    index = [-1] * n
+    low = [0] * n
+    on_stack = [False] * n
+    stack: list[int] = []
+    comps: list[list[int]] = []
+    counter = 0
+    succ = [list(np.nonzero(adj[u])[0]) for u in range(n)]
+
+    for root in range(n):
+        if index[root] != -1:
+            continue
+        work = [(root, 0)]
+        while work:
+            u, pi = work[-1]
+            if pi == 0:
+                index[u] = low[u] = counter
+                counter += 1
+                stack.append(u)
+                on_stack[u] = True
+            advanced = False
+            for i in range(pi, len(succ[u])):
+                v = int(succ[u][i])
+                if index[v] == -1:
+                    work[-1] = (u, i + 1)
+                    work.append((v, 0))
+                    advanced = True
+                    break
+                elif on_stack[v]:
+                    low[u] = min(low[u], index[v])
+            if advanced:
+                continue
+            work.pop()
+            if work:
+                low[work[-1][0]] = min(low[work[-1][0]], low[u])
+            if low[u] == index[u]:
+                comp = []
+                while True:
+                    w = stack.pop()
+                    on_stack[w] = False
+                    comp.append(w)
+                    if w == u:
+                        break
+                comps.append(sorted(comp))
+    return comps
+
+
+def source_components(adj: np.ndarray) -> list[list[int]]:
+    """SCCs with no incoming edges from outside (sources of the condensation)."""
+    comps = strongly_connected_components(adj)
+    comp_of = {}
+    for ci, comp in enumerate(comps):
+        for v in comp:
+            comp_of[v] = ci
+    has_in = [False] * len(comps)
+    rows, cols = np.nonzero(adj)
+    for u, v in zip(rows, cols):
+        cu, cv = comp_of[int(u)], comp_of[int(v)]
+        if cu != cv:
+            has_in[cv] = True
+    return [comps[ci] for ci in range(len(comps)) if not has_in[ci]]
+
+
+# ---------------------------------------------------------------------------
+# Reduced graphs (Definition 1) and Assumption 3
+# ---------------------------------------------------------------------------
+
+def reduced_graphs(
+    adj: np.ndarray,
+    faulty: Sequence[int],
+    F: int,
+    max_graphs: int | None = None,
+    rng: np.random.Generator | None = None,
+) -> Iterator[tuple[np.ndarray, list[int]]]:
+    """Yield reduced graphs per Definition 1.
+
+    (1) remove faulty nodes and incident links, (2) for each non-faulty node
+    remove F additional incoming links (all combinations; sampled when the
+    enumeration would exceed ``max_graphs``).
+
+    Yields ``(reduced_adj, good_nodes)`` where ``reduced_adj`` is indexed by
+    position in ``good_nodes``.
+    """
+    n = adj.shape[0]
+    faulty_set = set(int(f) for f in faulty)
+    good = [v for v in range(n) if v not in faulty_set]
+    g = len(good)
+    base = adj[np.ix_(good, good)].copy()
+
+    per_node_choices: list[list[tuple[int, ...]]] = []
+    for j in range(g):
+        incoming = list(np.nonzero(base[:, j])[0])
+        if len(incoming) <= F:
+            per_node_choices.append([tuple(incoming)])
+        else:
+            per_node_choices.append(list(itertools.combinations(incoming, F)))
+
+    total = 1
+    for c in per_node_choices:
+        total *= len(c)
+        if max_graphs is not None and total > max_graphs:
+            break
+
+    def build(choice_per_node) -> np.ndarray:
+        red = base.copy()
+        for j, removed in enumerate(choice_per_node):
+            for r in removed:
+                red[r, j] = False
+        return red
+
+    if max_graphs is not None and total > max_graphs:
+        rng = rng or np.random.default_rng(0)
+        for _ in range(max_graphs):
+            choice = [c[rng.integers(len(c))] for c in per_node_choices]
+            yield build(choice), good
+    else:
+        for choice in itertools.product(*per_node_choices):
+            yield build(choice), good
+
+
+def check_assumption3(
+    adj: np.ndarray, F: int, max_fault_sets: int = 64, max_graphs: int = 256
+) -> bool:
+    """Check Assumption 3: every reduced graph has exactly one source component.
+
+    Exhaustive for small graphs, sampled otherwise. A complete graph with
+    ``n >= 3F + 1`` always passes (classical result) — we still verify.
+    """
+    n = adj.shape[0]
+    rng = np.random.default_rng(0)
+    fault_sets = list(itertools.combinations(range(n), F)) if F > 0 else [()]
+    if len(fault_sets) > max_fault_sets:
+        idx = rng.choice(len(fault_sets), size=max_fault_sets, replace=False)
+        fault_sets = [fault_sets[i] for i in idx]
+    for fs in fault_sets:
+        for red, _good in reduced_graphs(adj, fs, F, max_graphs=max_graphs, rng=rng):
+            if len(source_components(red)) != 1:
+                return False
+    return True
+
+
 # ---------------------------------------------------------------------------
 # Hierarchical system
 # ---------------------------------------------------------------------------
@@ -121,6 +272,17 @@ class HierTopology:
     @property
     def M(self) -> int:
         return len(self.sizes)
+
+    def network_of(self) -> np.ndarray:
+        """(N,) network index of every agent."""
+        out = np.zeros(self.N, dtype=np.int32)
+        for i, (off, sz) in enumerate(zip(self.offsets, self.sizes)):
+            out[off : off + sz] = i
+        return out
+
+    def block(self, i: int) -> np.ndarray:
+        off, sz = self.offsets[i], self.sizes[i]
+        return self.adj[off : off + sz, off : off + sz]
 
     def rep_mask(self) -> np.ndarray:
         mask = np.zeros(self.N, dtype=bool)
@@ -344,3 +506,101 @@ def block_complete_edge_list(
 ) -> tuple[EdgeList, np.ndarray]:
     """Hierarchical system of complete sub-networks, built dense-free."""
     return hier_edge_list(sizes, topology="complete")
+
+
+# ---------------------------------------------------------------------------
+# Padded neighbor lists (receiver-major sparse view)
+# ---------------------------------------------------------------------------
+#
+# The Byzantine gossip core (:mod:`repro_torch.core.byzantine`) trims per
+# *receiver* over the set of in-neighbor values, so its natural sparse layout
+# is receiver-major: one row of in-neighbor indices per agent, padded to the
+# maximum in-degree. An :class:`EdgeList` is the edge-major dual used by
+# push-sum's per-link state; a :class:`NeighborList` has no per-edge state at
+# all — it is a pure gather index consumed by the trim-gather kernel
+# (:mod:`repro_torch.kernels.byz_trim`).
+
+@dataclasses.dataclass(frozen=True)
+class NeighborList:
+    """Padded in-neighbor lists: slot ``(j, k)`` is the k-th in-neighbor of j.
+
+    ``idx[j, k]`` is a *sender* index (``adj[idx[j, k], j]`` is True for
+    valid slots); rows are padded to a common ``deg_max`` with ``idx = 0``,
+    ``valid = False`` slots, which consumers mask out before trimming.
+    Batched/stacked lists (see :func:`stack_neighbor_lists`) carry a leading
+    scenario axis on ``idx``/``valid`` so topology draws with different
+    degree profiles can ride one ``jax.vmap`` axis.
+    """
+
+    idx: np.ndarray    # (N, deg_max) int32 sender per slot, 0 on padding
+    valid: np.ndarray  # (N, deg_max) bool — False on padding slots
+    n: int             # number of nodes
+
+    @property
+    def deg_max(self) -> int:
+        """Padded slot count."""
+        return int(self.idx.shape[-1])
+
+    def in_degree(self) -> np.ndarray:
+        """In-degree per receiver over valid slots (the trim's ``d_j``)."""
+        return self.valid.sum(axis=-1).astype(np.int32)
+
+
+def neighbor_lists(
+    topo_or_adj, deg_max: int | None = None, shuffle_seed: int | None = None
+) -> NeighborList:
+    """Dense (N, N) bool adjacency (or :class:`HierTopology`) -> padded
+    in-neighbor lists.
+
+    Slots are emitted in ascending sender order; ``shuffle_seed`` permutes
+    each row's valid slots instead (slot order is irrelevant to trimming —
+    the equivalence tests exercise both). ``deg_max`` pads beyond the actual
+    maximum in-degree, e.g. to align scenario batches.
+    """
+    adj = topo_or_adj.adj if isinstance(topo_or_adj, HierTopology) else topo_or_adj
+    adj = np.asarray(adj, dtype=bool)
+    n = adj.shape[0]
+    degs = adj.sum(axis=0)
+    dm = int(degs.max()) if degs.size else 0
+    if deg_max is not None:
+        if deg_max < dm:
+            raise ValueError(f"deg_max={deg_max} < actual max in-degree {dm}")
+        dm = deg_max
+    dm = max(dm, 1)  # keep the slot axis non-empty for edgeless graphs
+    rng = None if shuffle_seed is None else np.random.default_rng(shuffle_seed)
+    idx = np.zeros((n, dm), dtype=np.int32)
+    valid = np.zeros((n, dm), dtype=bool)
+    for j in range(n):
+        nb = np.nonzero(adj[:, j])[0]
+        if rng is not None:
+            nb = rng.permutation(nb)
+        idx[j, : nb.shape[0]] = nb
+        valid[j, : nb.shape[0]] = True
+    return NeighborList(idx=idx, valid=valid, n=n)
+
+
+def edge_neighbor_lists(el: EdgeList, deg_max: int | None = None
+                        ) -> NeighborList:
+    """Padded in-neighbor lists straight from a sparse edge index, with no
+    (N, N) array: receiver j's slots are the distinct senders of j's valid
+    edges in ascending order, the rows :func:`neighbor_lists` builds from
+    the dense adjacency of the same graph. Any edge order is accepted."""
+    if el.is_batched:
+        raise ValueError("pass one topology draw")
+    n = el.n
+    pairs = np.unique(el.dst[el.valid].astype(np.int64) * n
+                      + el.src[el.valid])       # receiver-major, deduplicated
+    dst, src = pairs // n, pairs % n
+    deg = np.bincount(dst, minlength=n)
+    dm = int(deg.max()) if deg.size else 0
+    if deg_max is not None:
+        if deg_max < dm:
+            raise ValueError(f"deg_max={deg_max} < actual max in-degree {dm}")
+        dm = deg_max
+    dm = max(dm, 1)  # keep the slot axis non-empty for edgeless graphs
+    slot = np.arange(pairs.size) - (np.cumsum(deg) - deg)[dst]
+    idx = np.zeros((n, dm), dtype=np.int32)
+    valid = np.zeros((n, dm), dtype=bool)
+    idx[dst, slot] = src
+    valid[dst, slot] = True
+    return NeighborList(idx=idx, valid=valid, n=n)

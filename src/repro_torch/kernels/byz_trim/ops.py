@@ -1,0 +1,118 @@
+"""Route dispatch for the Byzantine trim-gather, and the CUDA kernel's
+wrapper.
+
+``trim_gather(..., backend=...)`` is the entry point the sparse Byzantine
+core calls once per gossip round (routes in
+:mod:`repro_torch.kernels.dispatch`); ``trim_gather_pairs`` flattens the
+trailing pair axes into the kernel's coordinate axis. The CUDA kernel
+(``csrc/byz_trim.cu``) runs one thread per (receiver, coordinate) with the
+slots in registers, so ``deg_max`` is capped at :data:`DEG_MAX_CAP`; the
+wrapper raises above it and never falls back to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..dispatch import resolve_backend
+from .ref import trim_gather_ref
+
+__all__ = ["trim_gather", "trim_gather_pairs", "trim_gather_cuda",
+           "DEG_MAX_CAP"]
+
+DEG_MAX_CAP = 32
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+def trim_gather(
+    r: torch.Tensor,          # (N, P) float32
+    nbr_idx: torch.Tensor,    # (N, deg_max) int32
+    nbr_valid: torch.Tensor,  # (N, deg_max) bool
+    byz_msgs: torch.Tensor,   # (N, deg_max, P), any strides
+    byz_nbr: torch.Tensor,    # (N, deg_max) bool
+    F: int,
+    backend: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather + Byzantine substitution + 2F trim -> ``(trimmed_sum (N, P),
+    kept (N,))``; see :mod:`.ref` for the contract."""
+    if resolve_backend(backend, r) == "torch":
+        return trim_gather_ref(r, nbr_idx, nbr_valid, byz_msgs, byz_nbr, F)
+    return trim_gather_cuda(r, nbr_idx, nbr_valid, byz_msgs, byz_nbr, F)
+
+
+def trim_gather_pairs(
+    r: torch.Tensor,          # (N, *pair) — e.g. (N, m, m) or (N, m)
+    nbr_idx: torch.Tensor,
+    nbr_valid: torch.Tensor,
+    byz_msgs: torch.Tensor,   # (N, deg_max, *pair)
+    byz_nbr: torch.Tensor,
+    F: int,
+    backend: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pair-shaped wrapper: flattens the trailing pair axes into the
+    coordinate axis and restores them on the way out. The flattening of a
+    broadcast ``byz_msgs`` stays a view."""
+    n = r.shape[0]
+    pair = tuple(r.shape[1:])
+    dm = nbr_idx.shape[-1]
+    tsum, kept = trim_gather(
+        r.reshape(n, -1), nbr_idx, nbr_valid, byz_msgs.reshape(n, dm, -1),
+        byz_nbr, F, backend)
+    return tsum.reshape((n,) + pair), kept
+
+
+def trim_gather_cuda(
+    r: torch.Tensor,
+    nbr_idx: torch.Tensor,
+    nbr_valid: torch.Tensor,
+    byz_msgs: torch.Tensor,
+    byz_nbr: torch.Tensor,
+    F: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA trim-gather kernel on the current stream.
+
+    ``byz_msgs`` may be any view with non-negative strides (a broadcast
+    attack's ``expand`` has stride 0); every other tensor must be
+    contiguous. ``trim_gather_cuda.launches`` counts the launches."""
+    if not r.is_cuda:
+        raise ValueError("the CUDA trim-gather needs CUDA tensors")
+    if r.dim() != 2 or nbr_idx.dim() != 2:
+        raise ValueError("r must be (N, P) and nbr_idx (N, deg_max)")
+    n, P = r.shape
+    dm = nbr_idx.shape[1]
+    if n == 0 or P == 0 or n * P >= 2**31:
+        raise ValueError(f"unsupported trim-gather shape N={n}, P={P}")
+    if not 1 <= dm <= DEG_MAX_CAP:
+        raise ValueError(f"deg_max={dm} is outside the kernel's range "
+                         f"[1, {DEG_MAX_CAP}]")
+    if not isinstance(F, int) or F < 0:
+        raise ValueError(f"F must be a non-negative int, got {F!r}")
+    dev = r.device
+    _build.check_arg(r, "r", torch.float32, (n, P), dev)
+    _build.check_arg(nbr_idx, "nbr_idx", torch.int32, (n, dm), dev)
+    _build.check_arg(nbr_valid, "nbr_valid", torch.bool, (n, dm), dev)
+    _build.check_arg(byz_nbr, "byz_nbr", torch.bool, (n, dm), dev)
+    if byz_msgs.device != dev or byz_msgs.dtype != torch.float32:
+        raise ValueError(f"byz_msgs must be float32 on {dev}, got "
+                         f"{byz_msgs.dtype} on {byz_msgs.device}")
+    if tuple(byz_msgs.shape) != (n, dm, P):
+        raise ValueError(f"byz_msgs has shape {tuple(byz_msgs.shape)}, "
+                         f"expected {(n, dm, P)}")
+    if min(byz_msgs.stride()) < 0:
+        raise ValueError("byz_msgs must have non-negative strides")
+    tsum = torch.empty_like(r)
+    kept = torch.empty(n, dtype=torch.float32, device=dev)
+    fn = _build.function("byz_trim", "byz_trim_f32", _ARGTYPES)
+    code = fn(r.data_ptr(), nbr_idx.data_ptr(), nbr_valid.data_ptr(),
+              byz_msgs.data_ptr(), *byz_msgs.stride(), byz_nbr.data_ptr(),
+              tsum.data_ptr(), kept.data_ptr(), n, dm, P, F, dev.index,
+              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_status("byz_trim", code)
+    trim_gather_cuda.launches += 1
+    return tsum, kept
+
+
+trim_gather_cuda.launches = 0

@@ -109,3 +109,108 @@ def test_make_confused_model(N, m, S, truth, confusion, seed):
 def test_confused_model_needs_N_at_least_m():
     with pytest.raises(ValueError):
         ts.make_confused_model(2, 3)
+
+
+# ---- Algorithm 2's graph analysis: components, reduced graphs, A3, and
+# the padded neighbor lists ----
+
+def _digraphs():
+    rng = np.random.default_rng(5)
+    yield jg.ring(6)
+    yield jg.complete(5)
+    yield jg.random_strongly_connected(9, 0.2, rng)
+    two = np.zeros((7, 7), bool)          # two SCCs feeding a third node
+    two[0, 1] = two[1, 0] = two[2, 3] = two[3, 2] = True
+    two[1, 6] = two[3, 6] = two[6, 5] = True
+    yield two
+    yield np.zeros((4, 4), bool)
+    yield rng.random((10, 10)) < 0.15
+
+
+@pytest.mark.parametrize("g", range(6))
+def test_components_match_reference(g):
+    adj = list(_digraphs())[g]
+    np.fill_diagonal(adj, False)
+    assert (tg.strongly_connected_components(adj)
+            == jg.strongly_connected_components(adj))
+    assert tg.source_components(adj) == jg.source_components(adj)
+
+
+@pytest.mark.parametrize("F,max_graphs", [(0, None), (1, None), (1, 20),
+                                          (2, 40)])
+def test_reduced_graphs_match_reference(F, max_graphs):
+    adj = jg.random_strongly_connected(6, 0.5, np.random.default_rng(F))
+    for faulty in ([], [2], [0, 4][:F]):
+        a = list(tg.reduced_graphs(adj, faulty, F, max_graphs,
+                                   np.random.default_rng(9)))
+        b = list(jg.reduced_graphs(adj, faulty, F, max_graphs,
+                                   np.random.default_rng(9)))
+        assert len(a) == len(b) > 0
+        for (ra, ga), (rb, gb) in zip(a, b):
+            np.testing.assert_array_equal(ra, rb)
+            assert ga == gb
+
+
+@pytest.mark.parametrize("n,topology,F", [
+    (7, "complete", 2), (6, "complete", 2), (4, "complete", 1),
+    (8, "complete", 2), (6, "ring", 1), (7, "ring+", 1), (9, "ring+", 2),
+    (5, "ring", 0),
+])
+def test_assumption3_verdicts_match_reference(n, topology, F):
+    topo = jg.make_hierarchy([n], topology, seed=n)
+    assert (tg.check_assumption3(topo.adj, F)
+            == jg.check_assumption3(topo.adj, F))
+
+
+def test_network_of_and_block_match_reference():
+    a = tg.make_hierarchy([4, 6, 5], "ring+", seed=3)
+    b = jg.make_hierarchy([4, 6, 5], "ring+", seed=3)
+    np.testing.assert_array_equal(a.network_of(), b.network_of())
+    for i in range(3):
+        np.testing.assert_array_equal(a.block(i), b.block(i))
+
+
+@pytest.mark.parametrize("deg_max,shuffle_seed", [(None, None), (12, None),
+                                                  (None, 4), (9, 1)])
+def test_neighbor_lists_match_reference(deg_max, shuffle_seed):
+    topo = jg.make_hierarchy([5, 7, 3], "ring+", seed=2)
+    a = tg.neighbor_lists(topo.adj, deg_max, shuffle_seed)
+    b = jg.neighbor_lists(topo.adj, deg_max, shuffle_seed)
+    for x, y in ((a.idx, b.idx), (a.valid, b.valid)):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+    assert (a.n, a.deg_max) == (b.n, b.deg_max)
+    np.testing.assert_array_equal(a.in_degree(), b.in_degree())
+    with pytest.raises(ValueError, match="deg_max"):
+        tg.neighbor_lists(topo.adj, deg_max=1)
+
+
+@pytest.mark.parametrize("topology", ["ring", "complete", "ring+"])
+def test_edge_neighbor_lists_equal_dense_neighbor_lists(topology):
+    """The dense-free rows from an edge index equal the reference's rows
+    from the dense adjacency, in any edge order, with padding edges and
+    duplicate edges ignored."""
+    el, _ = tg.hier_edge_list([5, 8, 3, 6], topology, seed=1)
+    adj = np.zeros((el.n, el.n), bool)
+    adj[el.src, el.dst] = True
+    ref = jg.neighbor_lists(adj)
+    rng = np.random.default_rng(0)
+    perm = rng.permutation(el.E)
+    dup = rng.integers(0, el.E, size=5)
+    shuffled = tg.EdgeList(
+        src=np.concatenate([el.src[perm], el.src[dup], [0, 3]]).astype(
+            np.int32),
+        dst=np.concatenate([el.dst[perm], el.dst[dup], [1, 1]]).astype(
+            np.int32),
+        n=el.n, valid=np.concatenate([np.ones(el.E + 5, bool),
+                                      [False, False]]))
+    for edges in (el, shuffled):
+        got = tg.edge_neighbor_lists(edges)
+        np.testing.assert_array_equal(got.idx, ref.idx)
+        np.testing.assert_array_equal(got.valid, ref.valid)
+    wide = tg.edge_neighbor_lists(el, deg_max=ref.deg_max + 3)
+    np.testing.assert_array_equal(
+        wide.idx, jg.neighbor_lists(adj, deg_max=ref.deg_max + 3).idx)
+    empty = tg.EdgeList(src=np.zeros(0, np.int32), dst=np.zeros(0, np.int32),
+                        n=4, valid=np.zeros(0, bool))
+    assert tg.edge_neighbor_lists(empty).idx.shape == (4, 1)

@@ -12,11 +12,26 @@ plain versions against the JAX reference.
 Tolerances: ``rho_new``, the sampled letters and ``z_new`` are a select or
 one fp32 add, so bit-equal. ``recv`` sums each receiver's run in edge
 order in the kernel and through atomics in ``index_add_``, and ``mu`` is a
-softmax evaluated in another order: rtol 1e-5, atol 1e-6."""
+softmax evaluated in another order: rtol 1e-5, atol 1e-6. The trim-gather
+``kept`` is a count, so bit-equal; ``tsum`` adds the same survivors in slot
+order in the kernel and in sorted order in the plain version, so it agrees
+within the bound of :func:`trim_sum_bound` (deg_max * eps32 * the sum of
+the row's absolute values, a bound for any order of the additions)."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import attacks
+from repro_torch.core.byzantine import ByzantineConfig, run_byzantine_learning
+from repro_torch.core.graphs import make_hierarchy
+from repro_torch.core.plan import ExecutionPlan
+from repro_torch.core.signals import make_confused_model
+from repro_torch.kernels.byz_trim import (
+    DEG_MAX_CAP,
+    trim_gather,
+    trim_gather_cuda,
+    trim_gather_ref,
+)
 from repro_torch.kernels.pushsum_edge import (
     edge_scatter,
     edge_scatter_cuda,
@@ -88,6 +103,70 @@ def innov_problem(N, m, S, seed, edge=None):
     return z, mass, u, cdf, lt
 
 
+TRIM_CASES = ["random", "ties", "under_trimmed", "huge", "scattered",
+              "padded", "single_slot", "wide"]
+ORACLE_ATTACKS = ["sign_flip", "large_value", "extreme_pull",
+                  "truth_suppression"]
+
+
+def trim_problem(case, P, F, seed=0):
+    """(r, nbr_idx, nbr_valid, byz_msgs, byz_nbr) numpy arrays of a
+    trim-gather over N = 37 receivers (not a multiple of any block size).
+
+    Invalid slots carry idx 0 and NaN messages, and some are flagged
+    Byzantine: a kernel that read them would show it. ``ties`` draws values
+    from {0, 1, 2} (whole rows equal among them), ``under_trimmed`` keeps
+    every degree <= 2F, ``huge`` puts +-1e6 lies beside O(1) honest values,
+    ``scattered`` spreads the valid slots over the row, ``padded`` leaves
+    the last slots of every row empty and some rows with no slot at all,
+    ``single_slot`` is deg_max = 1 and ``wide`` deg_max = 20."""
+    rng = np.random.default_rng(seed)
+    n = 37
+    dm = {"single_slot": 1, "wide": 20, "padded": 12}.get(case, 7)
+    if case == "scattered":
+        valid = rng.random((n, dm)) < 0.7
+    else:
+        top = {"under_trimmed": min(2 * F, dm), "padded": dm - 4}.get(case, dm)
+        deg = rng.integers(0 if case in ("padded", "under_trimmed") else 1,
+                           top + 1, size=n)
+        valid = np.arange(dm)[None, :] < deg[:, None]
+    idx = np.where(valid, rng.integers(0, n, size=(n, dm)), 0)
+    if case == "ties":
+        r = rng.integers(0, 3, size=(n, P)).astype(np.float32)
+        r[::5] = 1.0
+        msgs = rng.integers(0, 3, size=(n, dm, P)).astype(np.float32)
+    else:
+        r = rng.normal(size=(n, P)).astype(np.float32)
+        msgs = (1e3 * rng.normal(size=(n, dm, P))).astype(np.float32)
+    if case == "huge":
+        msgs = np.where(rng.random((n, dm, P)) < 0.5, -1e6, 1e6).astype(
+            np.float32)
+    byz_nbr = rng.random((n, dm)) < 0.3
+    msgs[~valid] = np.nan
+    return r, idx.astype(np.int32), valid, msgs, byz_nbr
+
+
+def trim_sum_bound(r, idx, valid, msgs, byz_nbr):
+    """Per-row absolute bound on the difference of two survivor sums taken
+    in different orders: deg_max * eps32 * sum of the row's |values|."""
+    vals = np.where(byz_nbr[:, :, None], msgs, r[idx])
+    mag = np.where(valid[:, :, None], np.abs(vals), 0.0).sum(axis=1)
+    return idx.shape[1] * np.finfo(np.float32).eps * mag
+
+
+def byzantine_oracle_scenario(attack, T=120):
+    """examples/quickstart.py's Algorithm 2 set-up on four complete
+    7-agent networks: F = 2, Byzantine agents 2 and 9, Γ = 10."""
+    topo = make_hierarchy([7] * 4, topology="complete", seed=0)
+    model = make_confused_model(N=topo.N, m=3, truth=1, confusion=0.0,
+                                seed=0)
+    atk = (attacks.truth_suppression(model.truth, 1e3)
+           if attack == "truth_suppression" else attacks.ATTACKS[attack]())
+    cfg = ByzantineConfig(topo=topo, F=2, byz=(2, 9), gamma_period=10,
+                          attack=atk)
+    return model, cfg, T
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -143,3 +222,93 @@ def test_innovation_kernel_samples_the_plain_letters(cuda_device):
     z_k, _ = innovation_cuda(*[a.to(cuda_device) for a in
                                (torch.zeros_like(z), mass, u, cdf, letters)])
     assert torch.equal(z_k[:, 0].long().cpu(), sample_signals(u, cdf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRIM_CASES)
+@pytest.mark.parametrize("P", [9, 3])
+@pytest.mark.parametrize("F", [0, 1, 2, 3])
+def test_trim_gather_kernel_matches_plain(cuda_device, case, P, F):
+    prob = trim_problem(case, P, F, seed=F)
+    args = [torch.from_numpy(a) for a in prob]
+    before = trim_gather_cuda.launches
+    tsum, kept = trim_gather(*[a.to(cuda_device) for a in args], F)
+    torch.cuda.synchronize()
+    assert trim_gather_cuda.launches == before + 1
+    t_ref, k_ref = trim_gather_ref(*args, F)
+    assert torch.equal(kept.cpu(), k_ref)
+    err = (tsum.cpu() - t_ref).abs().numpy()
+    assert (err <= trim_sum_bound(*prob)).all(), err.max()
+    assert torch.isfinite(tsum).all()
+    # rows with deg <= 2F keep nothing and sum to exactly 0
+    assert (tsum.cpu()[k_ref == 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_trim_gather_kernel_reads_broadcast_messages(cuda_device):
+    r, idx, valid, _, byz_nbr = (torch.from_numpy(a).to(cuda_device)
+                                 for a in trim_problem("random", 9, 2))
+    val = torch.arange(9.0, device=cuda_device) * 1e3
+    view = val.expand(idx.shape + (9,))            # stride 0, no copy
+    assert view.stride() == (0, 0, 1)
+    got = trim_gather_cuda(r, idx, valid, view, byz_nbr, 2)
+    ref = trim_gather_cuda(r, idx, valid, view.contiguous(), byz_nbr, 2)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_trim_gather_kernel_rejects_bad_arguments(cuda_device):
+    r, idx, valid, msgs, byz_nbr = (torch.from_numpy(a).to(cuda_device)
+                                    for a in trim_problem("random", 9, 1))
+    with pytest.raises(ValueError, match="dtype"):
+        trim_gather_cuda(r.double(), idx, valid, msgs, byz_nbr, 1)
+    with pytest.raises(ValueError, match="dtype"):
+        trim_gather_cuda(r, idx.long(), valid, msgs, byz_nbr, 1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        trim_gather_cuda(r.cpu(), idx, valid, msgs, byz_nbr, 1)
+    with pytest.raises(ValueError, match="is on"):
+        trim_gather_cuda(r, idx.cpu(), valid, msgs, byz_nbr, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        trim_gather_cuda(r, idx.t().contiguous().t(), valid, msgs,
+                         byz_nbr, 1)
+    with pytest.raises(ValueError, match="deg_max"):
+        wide = DEG_MAX_CAP + 1
+        trim_gather_cuda(r, idx[:, :1].expand(-1, wide).contiguous(),
+                         valid[:, :1].expand(-1, wide).contiguous(),
+                         msgs[:, :1].expand(-1, wide, -1),
+                         byz_nbr[:, :1].expand(-1, wide).contiguous(), 1)
+    with pytest.raises(ValueError, match="F must"):
+        trim_gather_cuda(r, idx, valid, msgs, byz_nbr, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attack", ORACLE_ATTACKS)
+@pytest.mark.parametrize("mode", ["pairwise", "ovr"])
+def test_byzantine_kernel_path_matches_dense_oracle(cuda_device, attack,
+                                                    mode):
+    """The sparse core through the kernel against the port's dense oracle
+    on the card: every decision at every step equal."""
+    model, cfg, T = byzantine_oracle_scenario(attack)
+    plan = ExecutionPlan(store="trajectory")
+    before = trim_gather_cuda.launches
+    sparse = run_byzantine_learning(model, cfg, T, seed=0, mode=mode,
+                                    plan=plan)
+    torch.cuda.synchronize()
+    assert trim_gather_cuda.launches == before + T
+    dense = run_byzantine_learning(model, cfg, T, seed=0, mode=mode,
+                                   core="dense", plan=plan)
+    assert torch.equal(sparse.decisions, dense.decisions)
+    torch.testing.assert_close(sparse.r, dense.r, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_byzantine_random_noise_learns_on_both_cores(cuda_device):
+    """random_noise draws per slot on the sparse core and per (sender,
+    receiver) on the dense one, so only the outcome is compared."""
+    model, cfg, T = byzantine_oracle_scenario("random_noise", T=300)
+    normal = torch.from_numpy(~cfg.byz_mask()).to(cuda_device)
+    for core in ("sparse", "dense"):
+        res = run_byzantine_learning(model, cfg, T, seed=0, core=core,
+                                     plan=ExecutionPlan(store="final"))
+        acc = (res.decisions[normal] == model.truth).float().mean().item()
+        assert acc == 1.0, (core, acc)
