@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: Algorithm 3
-(social learning) and Algorithm 2 (Byzantine-resilient learning).
+(social learning), Algorithm 2 (Byzantine-resilient learning) and the
+serving path of the dense GQA models (Qwen3-8B).
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -25,7 +26,25 @@ Phases (any failure raises and the script exits non-zero):
              for every attack;
 7. timing  — CUDA-event medians of each kernel and its plain version, and
              of one step of each main path at N = 16,384 and 131,072;
-             profiler breakdowns of the full-size steps.
+             profiler breakdowns of the full-size steps;
+8. serve kernels — the decode attention (K5) and the prefill attention
+             (K6) against their plain versions at the serve path's full
+             shapes and at edge cases (ragged cache, lengths < Wc, a ring
+             window, G in {1, 3, 4, 8}; window in {0, w}, S not a multiple of
+             the tile, strided views), with stated tolerances;
+9. serve main — Qwen3-8B at published widths and full depth (36 layers),
+             bf16, seeded random weights: 8 requests of 2,048-token
+             prompts, 32 greedy tokens through launch.serve.generate
+             (prefill, then 31 decode steps; K6 launches 36 times, K5
+             36 x 31); its logits against the plain serve path and the
+             plain full forward over the same tokens;
+10. serve timing — CUDA-event medians of K5, K6, their plain versions
+             and SDPA at the serve shapes; time to prefill and ms per
+             decode step, kernel and plain paths; a profile of decode
+             steps;
+11. serve fp32 — the same path at 2 layers in float32 (4 x 1,000-token
+             prompts, 16 tokens) against the plain full forward, within a
+             limit a bf16 computation would fail.
 
 It prints the card's name and power limit, one JSON line of kernel
 figures, and last the device line. Run from the repository root:
@@ -53,9 +72,11 @@ N_FULL = 131_072
 N_SMALL = 16_384
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 TIMED_RUNS = 30
 STEP_RUNS, STEP_T = 20, 50
 BYZ_F, BYZ_AGENTS, BYZ_GAMMA = 2, (2, 9), 10
+SERVE_B, SERVE_S, SERVE_GEN = 8, 2048, 32
 # Byzantine main path: decisions are compared where the decision margin
 # (the winner's min_b r(a, b) minus the runner-up's) exceeds this gap
 BYZ_MARGIN = 1e-2
@@ -152,9 +173,10 @@ def event_ms(fn, runs: int, flush=None) -> float:
     return float(np.median(times))
 
 
-def bound(bytes_moved: int, flops: int) -> tuple[float, str]:
+def bound(bytes_moved: int, flops: int,
+          peak: float = FP32_FLOPS) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -317,8 +339,7 @@ def main() -> int:
     launches = _counts()
     log(f"[main] N={N} T={T_MAIN} kernels: {wall_k:.2f} s, launches "
         f"{launches}")
-    require(launches == {"edge_scatter": T_MAIN, "social_innov": T_MAIN,
-                         "byz_trim": 0},
+    require(launches == _only(edge_scatter=T_MAIN, social_innov=T_MAIN),
             "each kernel of the path launched T times on the main path")
     res_p = run_social_runtime(model, rt, M, T_MAIN, seed=0, plan=plan_p)
     res_p2 = run_social_runtime(model, rt, M, T_MAIN, seed=0, plan=plan_p)
@@ -370,8 +391,8 @@ def main() -> int:
     _zero_counts()
     qres = run_social_learning(qmodel, qcfg, T=500, seed=0)
     torch.cuda.synchronize()
-    require(_counts() == {"edge_scatter": 500, "social_innov": 500,
-                          "byz_trim": 0}, "quickstart launches")
+    require(_counts() == _only(edge_scatter=500, social_innov=500),
+            "quickstart launches")
     qmin = qres.beliefs[-1, :, qmodel.truth].min().item()
     log(f"[quickstart] min final belief in theta*: {qmin:.6f}")
     require(qmin > 0.95, "quickstart learns theta*")
@@ -467,6 +488,7 @@ def main() -> int:
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
     ]
+    kernels += serve_phases(dev, flush)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -506,21 +528,30 @@ def profile_step(run, label: str, step_ms: float) -> None:
         log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
-def _zero_counts() -> None:
+def _wrappers() -> dict:
     from repro_torch.kernels.byz_trim import trim_gather_cuda
     from repro_torch.kernels.pushsum_edge import edge_scatter_cuda
     from repro_torch.kernels.social_innov import innovation_cuda
-    edge_scatter_cuda.launches = innovation_cuda.launches = 0
-    trim_gather_cuda.launches = 0
+    from repro_torch.kernels.swa import attn_decode_cuda, swa_prefill_cuda
+    return {"edge_scatter": edge_scatter_cuda,
+            "social_innov": innovation_cuda,
+            "byz_trim": trim_gather_cuda,
+            "attn_decode": attn_decode_cuda,
+            "swa_prefill": swa_prefill_cuda}
+
+
+def _zero_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _counts() -> dict[str, int]:
-    from repro_torch.kernels.byz_trim import trim_gather_cuda
-    from repro_torch.kernels.pushsum_edge import edge_scatter_cuda
-    from repro_torch.kernels.social_innov import innovation_cuda
-    return {"edge_scatter": edge_scatter_cuda.launches,
-            "social_innov": innovation_cuda.launches,
-            "byz_trim": trim_gather_cuda.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _only(**launches) -> dict[str, int]:
+    """The launch counts of a run that launched only the named kernels."""
+    return {name: launches.get(name, 0) for name in _wrappers()}
 
 
 def byzantine_main(model, setup, attack, dev) -> int:
@@ -541,8 +572,7 @@ def byzantine_main(model, setup, attack, dev) -> int:
     counts = _counts()
     log(f"[byzantine] N={N} T={T_MAIN} F={BYZ_F} kernel path: {wall_k:.2f} "
         f"s, launches {counts}")
-    require(counts == {"edge_scatter": 0, "social_innov": 0,
-                       "byz_trim": T_MAIN},
+    require(counts == _only(byz_trim=T_MAIN),
             "the trim-gather kernel launched T times on the Byzantine path")
     t0 = time.perf_counter()
     res_p = run_byzantine_runtime(model, rt, extra_reps, n_reps, attack,
@@ -681,6 +711,379 @@ def byzantine_step_timing(model, setup, attack, dev) -> None:
             lambda T: run_byzantine_runtime(smodel, srt, extra, n_reps, satk,
                                             T, seed=0, plan=plan),
             f"byzantine N={n_agents}", ms["auto"])
+
+def serve_logits(params, cfg, prompts, toks, backend: str):
+    """The serve path's last-position logits for given tokens: prefill, then
+    a decode step on each of ``toks[:, :-1]`` (teacher-forced) -> (B, gen,
+    V)."""
+    import torch
+    from repro_torch.models import model as M
+    S, gen = prompts.shape[1], toks.shape[1]
+    lg, cache = M.prefill(params, cfg, prompts, cache_len=S + gen + 1,
+                          backend=backend)
+    out = [lg[:, -1]]
+    for i in range(gen - 1):
+        lg, cache = M.decode_step(params, cfg, cache, toks[:, i:i + 1],
+                                  backend=backend)
+        out.append(lg[:, -1])
+    return torch.stack(out, dim=1)
+
+
+def full_logits(params, cfg, prompts, toks, block: int):
+    """The plain full forward over prompt + generated tokens, ``block``
+    requests at a time, at the positions whose logits chose ``toks`` ->
+    (B, gen, V)."""
+    import torch
+    from repro_torch.models import model as M
+    S = prompts.shape[1]
+    seq = torch.cat([prompts, toks[:, :-1]], dim=1)
+    out = []
+    for b0 in range(0, seq.shape[0], block):
+        lg = M.forward_train(params, cfg, seq[b0:b0 + block], backend="torch")
+        out.append(lg[:, S - 1:].clone())
+        del lg
+    return torch.cat(out)
+
+
+def logit_gaps(got, want) -> tuple[float, float]:
+    """(max abs, rms) of got - want, in float32."""
+    d = got.float() - want.float()
+    return d.abs().max().item(), d.pow(2).mean().sqrt().item()
+
+
+def serve_kernel_checks(dev) -> dict[str, float]:
+    """Phase 8: K5 and K6 against their plain versions -> max abs error of
+    each. The plain version runs in float32 on the same (bf16 or fp32)
+    inputs; a bf16 kernel output is the float32 result rounded once, so it
+    is held to rtol 2^-8 (a bf16 rounding is at most 2^-9 relative) + atol
+    1e-5; float32 to rtol 1e-5 + atol 1e-5 (another summation order over
+    at most 2,081 rows). A request with no valid row is NaN in both."""
+    import torch
+    from repro_torch.kernels.swa import (attn_decode_cuda, attn_decode_ref,
+                                         swa_prefill_cuda, swa_prefill_ref)
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = {"attn_decode": 0.0, "swa_prefill": 0.0}
+
+    def rn(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def hold(name, case, got, want):
+        torch.cuda.synchronize()
+        tol = 2 ** -8 if got.dtype == bf16 else 1e-5
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=1e-5,
+                                   equal_nan=True)
+        ok = ~torch.isnan(want)
+        err = (got.float()[ok] - want[ok]).abs().max().item()
+        errs[name] = max(errs[name], err)
+        log(f"[serve kernels] {name} {case}: max_abs_err {err:.3e}")
+
+    for case, (B, H, Hkv, Wc, dh, dtype, lens) in {
+            "serve shape, first decode step": (8, 32, 8, 2081, 128, bf16,
+                                               2049),
+            "serve shape, last decode step": (8, 32, 8, 2081, 128, bf16,
+                                              2079),
+            "ragged lengths < Wc": (8, 32, 8, 2081, 128, bf16, None),
+            "ragged lengths, fp32": (8, 32, 8, 2081, 128, f32, None),
+            "full ring window, G=1": (3, 8, 8, 1000, 128, bf16, 1000),
+            "Wc=77, G=3, dh=64, fp32": (3, 12, 4, 77, 64, f32, None),
+            "dh=256, G=8, one empty request": (2, 16, 2, 300, 256, bf16, 0),
+    }.items():
+        q, k, v = (rn(B, H, dh, dtype=dtype), rn(B, Hkv, Wc, dh, dtype=dtype,
+                                                  scale=2.0),
+                   rn(B, Hkv, Wc, dh, dtype=dtype))
+        if lens is None or lens == 0:
+            L = torch.randint(1, Wc + 1, (B,), generator=g, device=dev)
+            if lens == 0:
+                L[0] = 0
+        else:
+            L = torch.full((B,), lens, device=dev)
+        L = L.to(torch.int32)
+        hold("attn_decode", case, attn_decode_cuda(q, k, v, L),
+             attn_decode_ref(q.float(), k.float(), v.float(), L))
+
+    for case, (B, S, H, Hkv, dh, dtype, w) in {
+            "serve shape": (8, 2048, 32, 8, 128, bf16, 0),
+            "S=1000 (ragged tile)": (2, 1000, 32, 8, 128, bf16, 0),
+            "S=1000, window 256, fp32": (2, 1000, 32, 8, 128, f32, 256),
+            "S=77, window 8, dh=64, fp32": (1, 77, 4, 4, 64, f32, 8),
+            "S=130, window 100, dh=256": (1, 130, 8, 2, 256, bf16, 100),
+    }.items():
+        q, k, v = (rn(B, S, H, dh, dtype=dtype), rn(B, S, Hkv, dh,
+                                                     dtype=dtype, scale=2.0),
+                   rn(B, S, Hkv, dh, dtype=dtype))
+        hold("swa_prefill", case, swa_prefill_cuda(q, k, v, w),
+             swa_prefill_ref(q.float(), k.float(), v.float(), w))
+    # q, k, v as views of one fused projection row, read through strides
+    B, S, H, Hkv, dh = 2, 300, 8, 2, 128
+    x = rn(B, S, (H + 2 * Hkv) * dh, dtype=bf16)
+    q = x[..., :H * dh].view(B, S, H, dh)
+    k = x[..., H * dh:(H + Hkv) * dh].view(B, S, Hkv, dh)
+    v = x[..., (H + Hkv) * dh:].view(B, S, Hkv, dh)
+    hold("swa_prefill", "strided views of one projection",
+         swa_prefill_cuda(q, k, v, 0),
+         swa_prefill_ref(q.float(), k.float(), v.float(), 0))
+    return errs
+
+
+def serve_phases(dev, flush) -> list[dict]:
+    """Phases 8-11 (the serving path of Qwen3-8B) -> the JSON entries of
+    K5 and K6."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.prng import prng_key, randint_n
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    # ---- phase 8: the two kernels against their plain versions ----------
+    errs = serve_kernel_checks(dev)
+
+    # ---- phase 9: Qwen3-8B at full width and depth, bf16 ----------------
+    cfg = get_config("qwen3_8b")
+    B, S, GEN = SERVE_B, SERVE_S, SERVE_GEN
+    t0 = time.perf_counter()
+    params = M.init_params(0, cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}; {n_params} parameters "
+        f"({n_params * 2 / 1e9:.2f} GB) drawn in "
+        f"{time.perf_counter() - t0:.2f} s; layout "
+        f"{'groups' if 'groups' in params else 'layers'}")
+    # ArchConfig.param_count leaves out the final norm and the qk norms
+    require(n_params == cfg.param_count() + cfg.d_model
+            + cfg.qk_norm * 2 * cfg.head_dim * cfg.n_layers,
+            "parameter count")
+    prompts = randint_n(prng_key(0), B * S, 0, cfg.vocab, dev).reshape(B, S)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        toks, lk = generate(params, cfg, prompts, GEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    log(f"[serve] main: {B} requests x {S} prompt tokens, {GEN} tokens each "
+        f"(prefill + {GEN - 1} decode steps) in {wall:.2f} s, launches "
+        f"{counts}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    L = cfg.n_layers
+    require(counts == _only(swa_prefill=L, attn_decode=L * (GEN - 1)),
+            "K6 launched once per layer in prefill and K5 once per layer in "
+            "every decode step")
+    require(toks.shape == (B, GEN) and lk.shape == (B, GEN, cfg.vocab)
+            and bool(torch.isfinite(lk).all()), "serve outputs")
+    with torch.inference_mode():
+        lp = serve_logits(params, cfg, prompts, toks, backend="torch")
+        require(_counts() == counts, "the plain path launched no kernel")
+        lf = full_logits(params, cfg, prompts, toks, block=2)
+    torch.cuda.synchronize()
+    mk, rk = logit_gaps(lk, lf)
+    mp, rp = logit_gaps(lp, lf)
+    mf, rf = lf.float().abs().max().item(), lf.float().pow(2).mean().sqrt() \
+        .item()
+    top2 = lf.float().topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * mk
+    agree = torch.equal(toks[clear], lf.argmax(-1)[clear])
+    log(f"[serve] logits against the plain full forward over the same "
+        f"{S + GEN - 1} tokens (|logit| up to {mf:.3f}, rms {rf:.4f}): "
+        f"kernel path max {mk:.4e} rms {rk:.4e}; plain serve path max "
+        f"{mp:.4e} rms {rp:.4e}; greedy choice = full-forward argmax on "
+        f"{int(clear.sum())}/{clear.numel()} positions whose top-2 margin "
+        f"exceeds {2 * mk:.3e}: {agree}")
+    # Tolerance (bf16). Both serve paths compute in bf16 with float32
+    # accumulation, as the full forward does; they differ from it only by
+    # where a float32 sum rounds to bf16 (other GEMM shapes, another
+    # attention order), and those rare flips grow over 36 layers. The
+    # plain serve path measures that noise on the same tokens; the kernel
+    # path is held to twice its rms + 1e-3 of the logits' rms, four times
+    # its max + one bf16 ulp of the largest logit, and its greedy choices
+    # to the full forward's wherever the top-2 margin is clear.
+    require(rk <= 2 * rp + 1e-3 * rf, "kernel-path logit rms gap")
+    require(mk <= 4 * mp + 2 ** -7 * mf, "kernel-path logit max gap")
+    require(agree, "greedy choices agree where the margin is clear")
+
+    # ---- phase 10: timing at these shapes ---------------------------------
+    times = serve_timing(params, cfg, prompts, toks, flush, dev)
+    del lk, lp, lf
+    prof_cache = {}
+
+    def decode_run(T):
+        if not prof_cache:
+            _, prof_cache["c"] = M.prefill(params, cfg, prompts,
+                                           cache_len=S + GEN + 1)
+        for i in range(T):
+            M.decode_step(params, cfg, prof_cache["c"], toks[:, i:i + 1])
+
+    with torch.inference_mode():
+        profile_step(decode_run, f"{cfg.name} decode (B={B}, cache "
+                     f"{S}-{S + 25})", times["decode_ms"])
+    del params, prof_cache
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: 2 layers in float32 -----------------------------------
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params32 = M.init_params(1, cfg32, dev)
+    p32 = randint_n(prng_key(1), 4 * 1000, 0, cfg.vocab, dev).reshape(4, 1000)
+    counts_main = counts
+    with torch.inference_mode():
+        _zero_counts()
+        t32, l32 = generate(params32, cfg32, p32, 16)
+        require(_counts() == _only(swa_prefill=2, attn_decode=2 * 15),
+                "fp32 launches")
+        lp32 = serve_logits(params32, cfg32, p32, t32, backend="torch")
+        lf32 = full_logits(params32, cfg32, p32, t32, block=4)
+    m32, r32 = logit_gaps(l32, lf32)
+    mp32, _ = logit_gaps(lp32, lf32)
+    log(f"[serve fp32] 2 layers, 4 x 1000 prompt tokens, 16 tokens: kernel "
+        f"path max {m32:.3e} rms {r32:.3e}, plain serve path max {mp32:.3e}, "
+        f"against the plain full forward (|logit| up to "
+        f"{lf32.abs().max().item():.3f})")
+    # Tolerance (fp32): the same float32 math in another order (the
+    # kernels' online softmax, other GEMM shapes) differs by ~1e-5 on
+    # logits of size ~1-5; a bf16 computation of the same model differs by
+    # ~1e-2 (8-bit mantissa). Limit: atol 1e-3 + rtol 1e-3.
+    torch.testing.assert_close(l32, lf32, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(lp32, lf32, atol=1e-3, rtol=1e-3)
+    require(torch.equal(t32, l32.argmax(-1)), "fp32 greedy tokens")
+    del params32, l32, lp32, lf32
+    torch.cuda.empty_cache()
+
+    return [
+        {"name": "attn_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/attn_decode.cu",
+         "replaces": "src/repro/kernels/swa/swa.py:72",
+         "launches": counts_main["attn_decode"],
+         "max_abs_err": errs["attn_decode"], **times["attn_decode"]},
+        {"name": "swa_prefill", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/swa_prefill.cu",
+         "replaces": "src/repro/kernels/swa/prefill.py:79",
+         "launches": counts_main["swa_prefill"],
+         "max_abs_err": errs["swa_prefill"], **times["swa_prefill"]},
+    ]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
+    """K5, K6, their plain versions and SDPA at the serve shapes (medians
+    of CUDA-event runs, L2 flushed), time to prefill and ms per decode step
+    for the kernel and plain paths."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.swa import (attn_decode_cuda, attn_decode_ref,
+                                         swa_prefill_cuda, swa_prefill_ref)
+    from repro_torch.models import model as M
+
+    B, S = prompts.shape
+    GEN = toks.shape[1]
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Wc = S + GEN + 1
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    out = {}
+    # K5 at the last decode step: lengths S + GEN - 1 of a Wc-row cache
+    n_valid = S + GEN - 1
+    q, k, v = rn(B, H, dh), rn(B, Hkv, Wc, dh), rn(B, Hkv, Wc, dh)
+    lens = torch.full((B,), n_valid, dtype=torch.int32, device=dev)
+    mask = (torch.arange(Wc, device=dev)[None, :] < lens[:, None])[:, None,
+                                                                  None, :]
+    o5 = attn_decode_cuda(q, k, v, lens)
+    sdpa5 = F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                           attn_mask=mask, enable_gqa=True)
+    ms5 = event_ms(lambda: attn_decode_cuda(q, k, v, lens), TIMED_RUNS, flush)
+    plain5 = event_ms(lambda: attn_decode_ref(q, k, v, lens), TIMED_RUNS,
+                      flush)
+    lib5 = event_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), TIMED_RUNS,
+        flush)
+    # bytes: q, the valid K and V rows, lengths and the output once each
+    kv_bytes = 2 * B * Hkv * n_valid * dh * k.element_size()
+    b5, by5 = bound(nbytes(q, lens, o5) + kv_bytes,
+                    4 * B * H * n_valid * dh, BF16_FLOPS)
+    log(f"[timing] attn_decode (B={B}, H={H}, Hkv={Hkv}, Wc={Wc}, "
+        f"{n_valid} valid rows, bf16): {ms5:.5f} ms, plain {plain5:.5f}, "
+        f"SDPA {lib5:.5f}, bound {b5:.5f} ({by5}); SDPA max diff "
+        f"{(sdpa5[:, :, 0].float() - o5.float()).abs().max().item():.3e}")
+    out["attn_decode"] = {"ms": ms5, "plain_ms": plain5, "bound_ms": b5,
+                          "bound_by": by5, "library_ms": lib5}
+
+    # K6 at the prefill shape, full causal
+    q, k, v = rn(B, S, H, dh), rn(B, S, Hkv, dh), rn(B, S, Hkv, dh)
+    o6 = swa_prefill_cuda(q, k, v, 0)
+    tr = (0, 2, 1, 3)
+    sdpa6 = F.scaled_dot_product_attention(
+        q.permute(tr), k.permute(tr), v.permute(tr), is_causal=True,
+        enable_gqa=True)
+    ms6 = event_ms(lambda: swa_prefill_cuda(q, k, v, 0), 10, flush)
+    plain6 = event_ms(lambda: swa_prefill_ref(q, k, v, 0), 3, flush)
+    lib6 = event_ms(lambda: F.scaled_dot_product_attention(
+        q.permute(tr), k.permute(tr), v.permute(tr), is_causal=True,
+        enable_gqa=True), 10, flush)
+    # operations: the band's S (S + 1) / 2 pairs per (request, head), 2 dh
+    # FLOPs for the score and 2 dh for P.V each
+    flops6 = 4 * dh * B * H * (S * (S + 1) // 2)
+    b6, by6 = bound(nbytes(q, k, v, o6), flops6, BF16_FLOPS)
+    log(f"[timing] swa_prefill (B={B}, S={S}, H={H}, Hkv={Hkv}, bf16, "
+        f"causal): {ms6:.4f} ms = {flops6 / ms6 / 1e9:.1f} TFLOP/s, plain "
+        f"{plain6:.4f}, SDPA {lib6:.4f}, bound {b6:.4f} ({by6}, "
+        f"{flops6 / 1e9:.1f} GFLOP); SDPA max diff "
+        f"{(sdpa6.permute(tr).float() - o6.float()).abs().max().item():.3e}")
+    out["swa_prefill"] = {"ms": ms6, "plain_ms": plain6, "bound_ms": b6,
+                          "bound_by": by6, "library_ms": lib6}
+    del q, k, v, o5, o6, sdpa5, sdpa6
+
+    # time to prefill and ms per decode step (kernel and plain paths)
+    def prefill(backend):
+        return M.prefill(params, cfg, prompts, cache_len=Wc, backend=backend)
+
+    def decode_ms(backend, runs):
+        ts = []
+        for _ in range(runs):
+            _, cache = prefill(backend)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(GEN - 1):
+                M.decode_step(params, cfg, cache, toks[:, i:i + 1],
+                              backend=backend)
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end) / (GEN - 1))
+            del cache
+        return float(np.median(ts))
+
+    with torch.inference_mode():
+        pre_k = event_ms(lambda: prefill("auto"), 3)
+        pre_p = event_ms(lambda: prefill("torch"), 2)
+        dec_k = decode_ms("auto", 3)
+        dec_p = decode_ms("torch", 2)
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    floor = weights / HBM_BYTES_PER_S * 1e3
+    log(f"[timing] {cfg.name} serve, B={B}, prompt {S}: prefill {pre_k:.2f} "
+        f"ms (plain path {pre_p:.2f}) = {B * S / pre_k:.0f} prompt tokens/ms"
+        f"; decode {dec_k:.3f} ms a step (plain path {dec_p:.3f}) over "
+        f"{GEN - 1} steps = {B / dec_k * 1e3:.0f} tokens/s; weight-read "
+        f"floor {floor:.3f} ms a step ({weights / 1e9:.2f} GB at 3.35 TB/s)")
+    out["decode_ms"] = dec_k
+    return out
 
 
 if __name__ == "__main__":

@@ -1,0 +1,23 @@
+"""Qwen3-8B — GQA with per-head qk-norm.
+
+[dense] 36L d_model=4096 32H (GQA kv=8) d_ff=12288 vocab=151936
+[hf:Qwen/Qwen3-8B]
+"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-8b",
+    family="dense",
+    source="hf:Qwen/Qwen3-8B",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=12288,
+    vocab=151936,
+    qk_norm=True,
+    rope_theta=1e6,
+    norm="rmsnorm",
+    act="swiglu",
+)

@@ -1,10 +1,11 @@
 """Carry state across from the JAX package's arrays into the port.
 
-The system has no weights: its "parameters" are the signal tables, the
+The engines have no weights: their "parameters" are the signal tables, the
 topology and scenario scalars, and the push-sum state. Each function takes
 numpy arrays (``np.asarray`` of the reference's values) and builds the
 port's counterpart on the CPU; ``.to(device)`` or the entry points move it
-to the card. The way back is ``.to_numpy()`` on
+to the card. The model stack's parameter tree comes across whole with
+:func:`params_from_jax`. The way back is ``.to_numpy()`` on
 :class:`~repro_torch.core.pushsum.SparsePushSumState`,
 :class:`~repro_torch.core.social.SocialLearningResult` and
 :class:`~repro_torch.core.byzantine.ByzantineResult`.
@@ -21,7 +22,8 @@ from .core.signals import SignalModel
 from .core.social import SocialRuntime, social_runtime_from_edge_list
 
 __all__ = ["signal_model_from_numpy", "social_runtime_from_numpy",
-           "sparse_state_from_numpy", "byz_runtime_from_numpy"]
+           "sparse_state_from_numpy", "byz_runtime_from_numpy",
+           "params_from_jax"]
 
 
 def signal_model_from_numpy(tables: np.ndarray, truth: int) -> SignalModel:
@@ -72,3 +74,41 @@ def byz_runtime_from_numpy(nbr_idx, nbr_valid, byz_mask, active, in_C,
         F=int(F),
         gamma=int(gamma),
     )
+
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16, "int32": torch.int32}
+
+
+def params_from_jax(tree, cfg, device=None):
+    """The JAX package's model parameters (a pytree of dicts and lists
+    whose leaves are numpy arrays, e.g. ``jax.tree.map(np.asarray,
+    params)``) as the port's tree on ``device`` (``None``: the card), in
+    either layout (stacked ``"groups"`` + ``"tail"``, or ``"layers"``).
+    Each leaf keeps its dtype; a bfloat16 leaf (ml_dtypes) goes through
+    float32, which is exact. ``cfg`` is checked against the tree's
+    layout."""
+    from .core.plan import resolve_device
+    dev = resolve_device(device)
+    want = "groups" if ("groups" in tree) else "layers"
+    R = cfg.n_layers // len(cfg.block_pattern)
+    if (cfg.scan_layers and R > 1) != (want == "groups"):
+        raise ValueError(f"the tree has the {want!r} layout, which "
+                         f"{cfg.name} (scan_layers={cfg.scan_layers}) does "
+                         f"not use")
+
+    def leaf(a):
+        a = np.asarray(a)
+        dtype = _TORCH_DTYPES[a.dtype.name]
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return leaf(t)
+
+    return walk(tree)

@@ -19,7 +19,10 @@ and a reference run with the same seed see the same masks and signals:
 * ``choice(replace=False)`` is a prefix of ``permutation``, which sorts by
   fresh 32-bit keys, stably, ``ceil(3 ln n / ln(2^32 - 1))`` times;
 * ``normal`` is ``sqrt(2) * erfinv(u)`` with ``u`` uniform on
-  ``(nextafter(-1, 0), 1)``.
+  ``(nextafter(-1, 0), 1)``;
+* ``gumbel`` is ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)`` in
+  the draw's dtype (bfloat16 from 8 bits a word), and ``categorical`` the
+  argmax of ``logits + gumbel``, as the serve CLI samples.
 
 A key is two uint32 words held as Python ints. Folding therefore runs on
 the host in a few microseconds and needs no device work and no device
@@ -38,7 +41,8 @@ import numpy as np
 import torch
 
 __all__ = ["Key", "prng_key", "fold_in", "threefry2x32", "random_bits",
-           "uniform", "split", "randint", "choice", "normal"]
+           "uniform", "split", "randint", "randint_n", "choice", "normal",
+           "gumbel", "categorical"]
 
 _M32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -124,8 +128,25 @@ def randint(keys: Key, minval, maxval) -> torch.Tensor:
     s0, s1 = threefry2x32(k0, k1, torch.zeros_like(which), which)
     b0, b1 = threefry2x32(s0, s1, 0, 0)
     hi, lo = b0 ^ b1
-    minval = torch.as_tensor(minval, device=k0.device).to(torch.int64)
-    maxval = torch.as_tensor(maxval, device=k0.device).to(torch.int64)
+    return _in_range(hi, lo, minval, maxval)
+
+
+def randint_n(key: Key, n: int, minval: int, maxval: int,
+              device) -> torch.Tensor:
+    """(n,) int64 tensor of ``jax.random.randint(key, (n,), minval,
+    maxval)`` (int32): the bits of ``split(key, 2)``'s two keys, folded into
+    the range as :func:`randint` folds them. Reshape for an n-d draw."""
+    hi = random_bits(fold_in(key, 0), n, device)
+    lo = random_bits(fold_in(key, 1), n, device)
+    return _in_range(hi, lo, minval, maxval)
+
+
+def _in_range(hi, lo, minval, maxval) -> torch.Tensor:
+    """jax's fold of two uint32 words into [minval, maxval):
+    ``(hi % span) * mult + lo % span`` modulo ``span``, with
+    ``mult = (2^16 % span)^2`` in wrapping uint32."""
+    minval = torch.as_tensor(minval, device=hi.device).to(torch.int64)
+    maxval = torch.as_tensor(maxval, device=hi.device).to(torch.int64)
     span = torch.where(maxval <= minval, torch.ones_like(maxval),
                        (maxval - minval) & _M32)
     mult = ((((1 << 16) % span) ** 2) & _M32) % span   # uint32 wrap, as jax
@@ -162,6 +183,35 @@ def normal(key: Key, shape, device) -> torch.Tensor:
     lo = torch.tensor(-0.99999994, dtype=torch.float32)   # nextafter(-1, 0)
     u = torch.maximum(f * 2.0 + lo.to(device), lo.to(device))
     return (_SQRT2 * _erfinv_f32(u)).reshape(shape)
+
+
+def gumbel(key: Key, shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, dtype)`` (the default "low" mode):
+    ``-log(-log(u))`` of a uniform on ``[tiny, 1)`` drawn in ``dtype``.
+    float32 takes 23 random mantissa bits of each word, as :func:`uniform`;
+    bfloat16, as jax does, the low 8 bits of the word, of which 7 fill the
+    mantissa. The logs run in ``dtype`` (bfloat16 rounds after each op, as
+    XLA does)."""
+    shape = tuple(shape)
+    bits = random_bits(key, math.prod(shape), device)
+    if dtype == torch.float32:
+        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    elif dtype == torch.bfloat16:
+        f = (((bits & 0xFF) >> 1) | 0x3F80).to(torch.int16).view(
+            torch.bfloat16)
+    else:
+        raise ValueError(f"gumbel draws float32 or bfloat16, not {dtype}")
+    tiny = torch.finfo(dtype).tiny
+    u = torch.clamp_min((f - 1.0) * (1.0 - tiny) + tiny, tiny)
+    return (-torch.log(-torch.log(u))).reshape(shape)
+
+
+def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis: the
+    argmax (first on ties) of ``logits + gumbel`` drawn in the logits'
+    dtype. -> int64 tensor of the leading shape."""
+    g = gumbel(key, logits.shape, logits.dtype, logits.device)
+    return torch.argmax(g + logits, dim=-1)
 
 
 _SQRT2 = float(np.float32(np.sqrt(2)))

@@ -1,0 +1,183 @@
+"""Route dispatch for the two attention kernels of the serve path, and the
+CUDA kernels' wrappers.
+
+``attn_decode(..., backend=...)`` is what every decode step calls once per
+layer, ``swa_prefill(..., backend=...)`` what prefill calls once per layer
+(routes in :mod:`repro_torch.kernels.dispatch`). The CUDA kernels take
+float32 or bfloat16 and head sizes 64, 128 and 256; the wrappers raise on
+anything else and never fall back to the plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..dispatch import resolve_backend
+from .ref import attn_decode_ref, swa_prefill_ref
+
+__all__ = ["attn_decode", "attn_decode_cuda", "swa_prefill",
+           "swa_prefill_cuda", "HEAD_DIMS"]
+
+HEAD_DIMS = (64, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the decode kernel's split blocks aim at about this many blocks in all
+_DECODE_BLOCKS = 1024
+_DECODE_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                            ctypes.c_void_p])
+_PREFILL_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                     + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 6
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def attn_decode(
+    q: torch.Tensor,        # (B, H, dh)
+    k: torch.Tensor,        # (B, Hkv, Wc, dh)
+    v: torch.Tensor,        # (B, Hkv, Wc, dh)
+    lengths: torch.Tensor,  # (B,) int32
+    backend: str = "auto",
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Single-token GQA attention over a KV cache -> (B, H, dh); see
+    :func:`.ref.attn_decode_ref` for the contract."""
+    if resolve_backend(backend, q) == "torch":
+        return attn_decode_ref(q, k, v, lengths, scale)
+    return attn_decode_cuda(q, k, v, lengths, scale)
+
+
+def swa_prefill(
+    q: torch.Tensor,   # (B, S, H, dh)
+    k: torch.Tensor,   # (B, S, Hkv, dh)
+    v: torch.Tensor,   # (B, S, Hkv, dh)
+    window: int = 0,
+    backend: str = "auto",
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Causal (sliding-window when ``window > 0``) GQA attention ->
+    (B, S, H, dh); see :func:`.ref.swa_prefill_ref` for the contract."""
+    if resolve_backend(backend, q) == "torch":
+        return swa_prefill_ref(q, k, v, window, scale)
+    return swa_prefill_cuda(q, k, v, window, scale)
+
+
+def _check_heads(what: str, x: torch.Tensor, dh: int, H: int, Hkv: int,
+                 max_group: int) -> None:
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{what} has dtype {x.dtype}; the kernel takes "
+                         f"float32 or bfloat16")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head size {dh} is not one of {HEAD_DIMS}")
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"{H} query heads do not group over {Hkv} KV heads")
+    if H // Hkv > max_group:
+        raise ValueError(f"{H // Hkv} query heads per KV head exceed the "
+                         f"kernel's {max_group} at head size {dh}")
+
+
+def _check_aligned(*named) -> None:
+    for what, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} must start on a 16-byte boundary")
+
+
+def attn_decode_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Launch the split flash-decode kernel and its combine kernel on the
+    current stream. Every tensor must be contiguous; ``lengths`` int32.
+    ``attn_decode_cuda.launches`` counts the calls (two kernels each)."""
+    if not q.is_cuda:
+        raise ValueError("the CUDA attention decode needs CUDA tensors")
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError("q must be (B, H, dh) and k, v (B, Hkv, Wc, dh)")
+    B, H, dh = q.shape
+    Hkv, Wc = k.shape[1], k.shape[2]
+    _check_heads("q", q, dh, H, Hkv, 16 if dh <= 128 else 8)
+    if B == 0 or Wc == 0 or B > 65535 or Hkv > 65535:
+        raise ValueError(f"unsupported decode shape B={B}, Hkv={Hkv}, "
+                         f"Wc={Wc}")
+    dev = q.device
+    _build.check_arg(q, "q", q.dtype, (B, H, dh), dev)
+    _build.check_arg(k, "k", q.dtype, (B, Hkv, Wc, dh), dev)
+    _build.check_arg(v, "v", q.dtype, (B, Hkv, Wc, dh), dev)
+    _build.check_arg(lengths, "lengths", torch.int32, (B,), dev)
+    _check_aligned(("q", q), ("k", k), ("v", v))
+    n_split = max(1, min(-(-_DECODE_BLOCKS // (B * Hkv)), -(-Wc // 32)))
+    chunk = -(-Wc // n_split)
+    n_split = -(-Wc // chunk)
+    part_m = torch.empty(B * H * n_split, dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty(B * H * n_split * dh, dtype=torch.float32,
+                           device=dev)
+    out = torch.empty_like(q)
+    fn = _build.function("attn_decode", "attn_decode", _DECODE_ARGTYPES)
+    code = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+              part_acc.data_ptr(), out.data_ptr(), B, H, Hkv, Wc, dh, chunk,
+              n_split, float(scale if scale is not None else dh ** -0.5),
+              dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_status("attn_decode", code)
+    attn_decode_cuda.launches += 1
+    return out
+
+
+attn_decode_cuda.launches = 0
+
+
+def swa_prefill_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    window: int = 0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Launch the causal/sliding-window flash-attention kernel on the
+    current stream. q, k and v may be any views whose head axis is
+    contiguous and whose other strides are multiples of 4 elements; the
+    output is a new contiguous (B, S, H, dh) tensor.
+    ``swa_prefill_cuda.launches`` counts the launches."""
+    if not q.is_cuda:
+        raise ValueError("the CUDA prefill attention needs CUDA tensors")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("q must be (B, S, H, dh) and k, v (B, S, Hkv, dh)")
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
+    _check_heads("q", q, dh, H, Hkv, H)
+    if not isinstance(window, int) or window < 0:
+        raise ValueError(f"window must be a non-negative int, got {window!r}")
+    if B == 0 or S == 0 or B > 65535 or H > 65535:
+        raise ValueError(f"unsupported prefill shape B={B}, S={S}, H={H}")
+    dev = q.device
+    for what, t, shape in (("q", q, (B, S, H, dh)), ("k", k, (B, S, Hkv, dh)),
+                           ("v", v, (B, S, Hkv, dh))):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"{what} must be {q.dtype} on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{what} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        if t.stride(3) != 1 or any(s % 4 or s < 0 for s in t.stride()[:3]):
+            raise ValueError(f"{what} needs a contiguous head axis and "
+                             f"non-negative strides that are multiples of 4, "
+                             f"got {t.stride()}")
+    _check_aligned(("q", q), ("k", k), ("v", v))
+    out = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
+    fn = _build.function("swa_prefill", "swa_prefill", _PREFILL_ARGTYPES)
+    code = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              out.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+              k.stride(0), k.stride(1), k.stride(2), v.stride(0),
+              v.stride(1), v.stride(2), B, S, H, Hkv, dh, window,
+              float(scale if scale is not None else dh ** -0.5), dev.index,
+              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_status("swa_prefill", code)
+    swa_prefill_cuda.launches += 1
+    return out
+
+
+swa_prefill_cuda.launches = 0

@@ -1,0 +1,323 @@
+"""Model building blocks of the dense decoders: the port of the
+dense-attention subset of ``repro.models.layers``.
+
+Every block is a pair of functions, ``init_<block>(gen, cfg) -> params``
+and ``<block>(params, x, ...) -> y``, on plain tensors; parameters are
+nested dicts of tensors in the JAX package's layout (``(d_in, d_out)``
+weights, ``x @ w``), so a tree converted from the reference computes the
+same thing.
+
+Numerics follow the reference's rounding points: matmul weights are stored
+in ``cfg.dtype``; norms, RoPE, softmax and the MLP activation compute in
+float32 and cast back to the input dtype where the reference does.
+
+Attention runs on one of two routes (``backend=``, resolved by
+:mod:`repro_torch.kernels.dispatch`): on the card the hand-written kernels
+of :mod:`repro_torch.kernels.swa` (``swa_prefill`` for a whole sequence,
+``attn_decode`` for one token over the cache); with ``backend="torch"``
+the plain versions, which for a whole sequence are ``_naive_attention`` /
+``_chunked_attention``, faithful to the reference's.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels.dispatch import resolve_backend
+from ..kernels.swa import attn_decode, swa_prefill
+
+Params = dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def _dt(cfg: ArchConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+# ---------------------------------------------------------------------------
+# initializers / norms
+# ---------------------------------------------------------------------------
+
+def _dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
+                scale: float | None = None) -> torch.Tensor:
+    """Normal draws in float32 on ``gen``'s device, times the std
+    (``fan_in ** -0.5`` unless ``scale``), then cast: the reference's cast
+    order. The draws differ from ``jax.random``'s; tests convert the
+    reference's parameters instead (``repro_torch.convert``)."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    std = scale if scale is not None else fan_in ** -0.5
+    w = torch.randn(tuple(shape), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return w.mul_(std).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def init_norm(gen: torch.Generator, cfg: ArchConfig,
+              d: int | None = None) -> Params:
+    d = d or cfg.d_model
+    kw = {"dtype": _dt(cfg), "device": gen.device}
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.zeros((d,), **kw)}
+    return {"scale": torch.ones((d,), **kw), "bias": torch.zeros((d,), **kw)}
+
+
+def apply_norm(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if "bias" in p:
+        return layer_norm(x, p["scale"], p["bias"])
+    return rms_norm(x, p["scale"])
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (B, S) or (S,)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                   # (dh/2,)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[:, :, None].float() * freqs[None, None, :]  # (B,S,dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, optional qk-norm, optional sliding window)
+# ---------------------------------------------------------------------------
+
+def _n_heads_eff(cfg: ArchConfig) -> int:
+    """Query head count incl. zero-padding (``pad_heads_to``): padded heads
+    carry zero wq columns and zero wo rows, so the math is the unpadded
+    model's."""
+    return max(cfg.n_heads, cfg.pad_heads_to or 0)
+
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    d, hd, Hkv = cfg.d_model, cfg.head_dim, cfg.n_kv_heads
+    H, Hp = cfg.n_heads, _n_heads_eff(cfg)
+    dt = _dt(cfg)
+    wq = _dense_init(gen, (d, H * hd), dt)
+    wk = _dense_init(gen, (d, Hkv * hd), dt)
+    wv = _dense_init(gen, (d, Hkv * hd), dt)
+    wo = _dense_init(gen, (H * hd, d), dt)
+    if Hp > H:
+        wq = torch.cat([wq, wq.new_zeros((d, (Hp - H) * hd))], dim=1)
+        wo = torch.cat([wo, wo.new_zeros(((Hp - H) * hd, d))], dim=0)
+    p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=dt, device=gen.device)
+        p["k_norm"] = torch.zeros((hd,), dtype=dt, device=gen.device)
+    return p
+
+
+def _qk_project(p: Params, x: torch.Tensor, cfg: ArchConfig, positions):
+    """-> q (B, S, H, dh), k and v (B, S, Hkv, dh); v is a view of the
+    projection."""
+    B, S, _ = x.shape
+    hd, Hkv = cfg.head_dim, cfg.n_kv_heads
+    H = _n_heads_eff(cfg)
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
+    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _naive_attention(q, k, v, *, causal: bool, window: int,
+                     q_offset: int = 0):
+    """q: (B,S,H,dh); k/v: (B,T,Hkv,dh). Materializes (B,H,S,T) scores."""
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qg = (q.float() * dh ** -0.5).reshape(B, S, Hkv, G, dh)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, k.float())
+    qi = torch.arange(S, device=q.device)[:, None] + q_offset
+    ki = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window:
+        mask &= ki > qi - window
+    scores = torch.where(mask, scores, -torch.inf)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", p, v.float())
+    return out.reshape(B, S, H, dh).to(q.dtype)
+
+
+def _chunked_attention(q, k, v, *, causal: bool, window: int,
+                       q_chunk: int = 512, kv_chunk: int = 1024):
+    """Flash-style two-level loop: O(S * kv_chunk) live scores per head,
+    never an (S, T) score matrix. Falls back to :func:`_naive_attention`
+    when the chunks do not divide S and T, as the reference does."""
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    q_chunk = min(q_chunk, S)
+    kv_chunk = min(kv_chunk, T)
+    if S % q_chunk or T % kv_chunk:
+        return _naive_attention(q, k, v, causal=causal, window=window)
+    nq, nk = S // q_chunk, T // kv_chunk
+    dev = q.device
+    qf = (q.float() * dh ** -0.5).reshape(B, nq, q_chunk, Hkv, G, dh)
+    kf = k.float().reshape(B, nk, kv_chunk, Hkv, dh)
+    vf = v.float().reshape(B, nk, kv_chunk, Hkv, dh)
+    out = torch.empty((B, S, H, dh), dtype=torch.float32, device=dev)
+    for qi in range(nq):
+        qb = qf[:, qi]                                      # (B,qc,Hkv,G,dh)
+        m = torch.full((B, Hkv, G, q_chunk), -1e30, device=dev)
+        l = torch.zeros((B, Hkv, G, q_chunk), device=dev)
+        acc = torch.zeros((B, Hkv, G, q_chunk, dh), device=dev)
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)[:, None]
+        for ki in range(nk):
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kf[:, ki])
+            kpos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)[None, :]
+            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= kpos <= qpos
+            if window:
+                mask &= kpos > qpos - window
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, vf[:, ki])
+            m = m_new
+        o = acc / torch.clamp_min(l, 1e-30)[..., None]      # (B,Hkv,G,qc,dh)
+        out[:, qi * q_chunk:(qi + 1) * q_chunk] = o.permute(
+            0, 3, 1, 2, 4).reshape(B, q_chunk, H, dh)
+    return out.to(q.dtype)
+
+
+def causal_attention(q, k, v, cfg: ArchConfig, *, window: int,
+                     backend: str = "auto") -> torch.Tensor:
+    """Causal attention over a whole sequence, (B, S, H, dh): the
+    ``swa_prefill`` kernel on the card; with ``backend="torch"`` the plain
+    path the reference takes (``cfg.attn_impl``; ``"auto"`` is chunked from
+    S = 2048 on)."""
+    if resolve_backend(backend, q) == "cuda":
+        return swa_prefill(q, k, v, window, backend="cuda")
+    impl = cfg.attn_impl
+    if impl == "auto":
+        impl = "chunked" if q.shape[1] >= 2048 else "naive"
+    fn = _chunked_attention if impl == "chunked" else _naive_attention
+    return fn(q, k, v, causal=True, window=window)
+
+
+def attention_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                    positions: torch.Tensor, *, window: int = 0,
+                    backend: str = "auto") -> torch.Tensor:
+    """x: (B, S, d) pre-normed input -> (B, S, d)."""
+    q, k, v = _qk_project(p, x, cfg, positions)
+    out = causal_attention(q, k, v, cfg, window=window, backend=backend)
+    B, S, H, dh = out.shape
+    return out.reshape(B, S, H * dh) @ p["wo"]
+
+
+def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                     cache: Params, *, backend: str = "auto"
+                     ) -> tuple[torch.Tensor, Params]:
+    """Single-token decode against a (ring-buffer when windowed) KV cache.
+
+    x: (B, 1, d); cache ``{"k", "v": (B, Hkv, Wc, dh), "pos": (B,) int32}``.
+    Unlike the reference, which returns a new cache, the new K/V row is
+    written into ``cache`` in place and ``pos`` advanced in place; the same
+    dict is returned. The window is the cache's own length (an ``swa``
+    layer's cache holds ``min(cache_len, window)`` rows), so, as in the
+    reference, no window argument is needed."""
+    B = x.shape[0]
+    hd = cfg.head_dim
+    H = _n_heads_eff(cfg)
+    pos = cache["pos"]                 # absolute position of the new token
+    q, k, v = _qk_project(p, x, cfg, pos[:, None])
+    Wc = cache["k"].shape[2]
+    slot = pos.long() % Wc             # ring buffer; append while pos < Wc
+    bidx = torch.arange(B, device=x.device)
+    cache["k"][bidx, :, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, :, slot] = v[:, 0].to(cache["v"].dtype)
+    lengths = torch.clamp_max(pos + 1, Wc).to(torch.int32)
+    out = attn_decode(q[:, 0], cache["k"], cache["v"], lengths,
+                      backend=backend)
+    y = out.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
+    cache["pos"].add_(1)
+    return y, cache
+
+
+def init_attn_cache(cfg: ArchConfig, B: int, cache_len: int,
+                    device=None) -> Params:
+    hd, Hkv = cfg.head_dim, cfg.n_kv_heads
+    return {
+        "k": torch.zeros((B, Hkv, cache_len, hd), dtype=_dt(cfg),
+                         device=device),
+        "v": torch.zeros((B, Hkv, cache_len, hd), dtype=_dt(cfg),
+                         device=device),
+        "pos": torch.zeros((B,), dtype=torch.int32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Dense FFN
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    d, f, dt = cfg.d_model, cfg.d_ff, _dt(cfg)
+    if cfg.act in ("swiglu", "geglu"):
+        return {"w_gate": _dense_init(gen, (d, f), dt),
+                "w_up": _dense_init(gen, (d, f), dt),
+                "w_down": _dense_init(gen, (f, d), dt)}
+    return {"w_up": _dense_init(gen, (d, f), dt),
+            "w_down": _dense_init(gen, (f, d), dt)}
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The activation computes in float32 and is cast back to x's dtype
+    before the product, as in the reference."""
+    if "w_gate" in p:
+        act = F.silu if cfg.act == "swiglu" else _gelu
+        h = act((x @ p["w_gate"]).float()).to(x.dtype) * (x @ p["w_up"])
+    else:
+        h = _gelu((x @ p["w_up"]).float()).to(x.dtype)
+    return h @ p["w_down"]
+

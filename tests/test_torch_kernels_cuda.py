@@ -16,7 +16,12 @@ softmax evaluated in another order: rtol 1e-5, atol 1e-6. The trim-gather
 ``kept`` is a count, so bit-equal; ``tsum`` adds the same survivors in slot
 order in the kernel and in sorted order in the plain version, so it agrees
 within the bound of :func:`trim_sum_bound` (deg_max * eps32 * the sum of
-the row's absolute values, a bound for any order of the additions)."""
+the row's absolute values, a bound for any order of the additions). The
+attention kernels (``attn_decode``, ``swa_prefill``) are held against
+their plain versions run in float32 on the same inputs: a float32 output
+to rtol 1e-5 + atol 1e-5 (another summation order over the cache or the
+band), a bf16 output, which is the float32 result rounded once, to rtol
+2^-8 + atol 1e-5."""
 import numpy as np
 import pytest
 import torch
@@ -36,6 +41,14 @@ from repro_torch.kernels.pushsum_edge import (
     edge_scatter,
     edge_scatter_cuda,
     edge_scatter_ref,
+)
+from repro_torch.kernels.swa import (
+    attn_decode,
+    attn_decode_cuda,
+    attn_decode_ref,
+    swa_prefill,
+    swa_prefill_cuda,
+    swa_prefill_ref,
 )
 from repro_torch.kernels.social_innov import (
     innovation_cuda,
@@ -312,3 +325,195 @@ def test_byzantine_random_noise_learns_on_both_cores(cuda_device):
                                      plan=ExecutionPlan(store="final"))
         acc = (res.decisions[normal] == model.truth).float().mean().item()
         assert acc == 1.0, (core, acc)
+
+
+# (B, H, Hkv, Wc, dh, dtype, lengths: "full" | "ragged" | "empty_one")
+DECODE_CASES = [
+    (2, 32, 8, 77, 128, "bf16", "full"),
+    (3, 32, 8, 77, 128, "bf16", "ragged"),
+    (3, 8, 8, 1000, 128, "bf16", "full"),       # G = 1, a full ring window
+    (2, 12, 4, 33, 64, "fp32", "ragged"),       # G = 3
+    (2, 16, 2, 300, 256, "bf16", "empty_one"),  # G = 8
+    (1, 32, 2, 40, 128, "fp32", "ragged"),      # G = 16
+]
+# (B, S, H, Hkv, dh, dtype, window)
+PREFILL_CASES = [
+    (2, 128, 8, 2, 128, "bf16", 0),
+    (2, 100, 8, 2, 128, "bf16", 0),             # S not a multiple of 64
+    (1, 150, 4, 4, 64, "fp32", 16),
+    (1, 70, 8, 2, 256, "bf16", 64),
+    (2, 1, 4, 1, 64, "fp32", 0),
+]
+_DT = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def _attn_tol(dtype):
+    return 2 ** -8 if dtype == torch.bfloat16 else 1e-5
+
+
+def decode_problem(B, H, Hkv, Wc, dh, lengths, seed=0):
+    """float32 numpy (q, k, v, lengths) of one decode-attention call."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, dh)).astype(np.float32)
+    k = (2 * rng.normal(size=(B, Hkv, Wc, dh))).astype(np.float32)
+    v = rng.normal(size=(B, Hkv, Wc, dh)).astype(np.float32)
+    if lengths == "full":
+        L = np.full(B, Wc)
+    else:
+        L = rng.integers(1, Wc + 1, size=B)
+        if lengths == "empty_one":
+            L[0] = 0
+    return q, k, v, L.astype(np.int32)
+
+
+def prefill_problem(B, S, H, Hkv, dh, seed=0):
+    """float32 numpy (q, k, v) in the (B, S, heads, dh) layout."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, H, dh)).astype(np.float32)
+    k = (2 * rng.normal(size=(B, S, Hkv, dh))).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, dh)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_attn_decode_kernel_matches_plain(cuda_device, case):
+    B, H, Hkv, Wc, dh, dt, lens = case
+    q, k, v, L = decode_problem(B, H, Hkv, Wc, dh, lens)
+    dtype = _DT[dt]
+    tq, tk, tv = (torch.from_numpy(a).to(cuda_device, dtype)
+                  for a in (q, k, v))
+    tl = torch.from_numpy(L).to(cuda_device)
+    before = attn_decode_cuda.launches
+    got = attn_decode(tq, tk, tv, tl)
+    torch.cuda.synchronize()
+    assert attn_decode_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, dh)
+    want = attn_decode_ref(tq.float(), tk.float(), tv.float(), tl)
+    torch.testing.assert_close(got.float(), want, rtol=_attn_tol(dtype),
+                               atol=1e-5, equal_nan=True)
+    assert bool(torch.isnan(got).any()) == (lens == "empty_one")
+
+
+@pytest.mark.cuda
+def test_attn_decode_kernel_ignores_rows_past_the_length(cuda_device):
+    q, k, v, L = (torch.from_numpy(a).to(cuda_device) for a in
+                  decode_problem(2, 8, 2, 50, 128, "ragged", seed=3))
+    k2, v2 = k.clone(), v.clone()
+    for b in range(2):
+        k2[b, :, L[b]:] = float("nan")
+        v2[b, :, L[b]:] = 1e30
+    assert torch.equal(attn_decode_cuda(q, k, v, L),
+                       attn_decode_cuda(q, k2, v2, L))
+
+
+@pytest.mark.cuda
+def test_attn_decode_kernel_rejects_bad_arguments(cuda_device):
+    q, k, v, L = (torch.from_numpy(a).to(cuda_device) for a in
+                  decode_problem(2, 8, 2, 20, 128, "full"))
+    with pytest.raises(ValueError, match="head size"):
+        attn_decode_cuda(q[..., :96].contiguous(), k[..., :96].contiguous(),
+                         v[..., :96].contiguous(), L)
+    with pytest.raises(ValueError, match="dtype"):
+        attn_decode_cuda(q.half(), k.half(), v.half(), L)
+    with pytest.raises(ValueError, match="dtype"):
+        attn_decode_cuda(q, k, v, L.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        attn_decode_cuda(q, k.transpose(2, 3).contiguous().transpose(2, 3),
+                         v, L)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        wide = q.repeat(1, 8, 1)                  # 64 heads over 2: G = 32
+        attn_decode_cuda(wide, k, v, L)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attn_decode_cuda(q.cpu(), k.cpu(), v.cpu(), L.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PREFILL_CASES)
+def test_swa_prefill_kernel_matches_plain(cuda_device, case):
+    B, S, H, Hkv, dh, dt, window = case
+    dtype = _DT[dt]
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in prefill_problem(B, S, H, Hkv, dh))
+    before = swa_prefill_cuda.launches
+    got = swa_prefill(q, k, v, window)
+    torch.cuda.synchronize()
+    assert swa_prefill_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, S, H, dh)
+    want = swa_prefill_ref(q.float(), k.float(), v.float(), window)
+    torch.testing.assert_close(got.float(), want, rtol=_attn_tol(dtype),
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_swa_prefill_kernel_reads_strided_views(cuda_device):
+    """q, k, v as views of one fused projection row, as the model hands
+    them over: the same result as from contiguous copies."""
+    B, S, H, Hkv, dh = 2, 90, 8, 2, 128
+    x = torch.randn(B, S, (H + 2 * Hkv) * dh, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0))
+    q = x[..., :H * dh].view(B, S, H, dh)
+    k = x[..., H * dh:(H + Hkv) * dh].view(B, S, Hkv, dh)
+    v = x[..., (H + Hkv) * dh:].view(B, S, Hkv, dh)
+    assert not q.is_contiguous()
+    assert torch.equal(swa_prefill_cuda(q, k, v, 7),
+                       swa_prefill_cuda(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), 7))
+
+
+@pytest.mark.cuda
+def test_swa_prefill_kernel_rejects_bad_arguments(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in prefill_problem(1, 16, 4, 2, 64))
+    with pytest.raises(ValueError, match="window"):
+        swa_prefill_cuda(q, k, v, -1)
+    with pytest.raises(ValueError, match="dtype"):
+        swa_prefill_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="strides"):
+        swa_prefill_cuda(q.transpose(1, 3).contiguous().transpose(1, 3),
+                         k, v)
+    with pytest.raises(ValueError, match="head size"):
+        swa_prefill_cuda(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        swa_prefill_cuda(q.cpu(), k.cpu(), v.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,extra", [
+    ("qwen3_8b", {}),
+    ("qwen3_8b", {"n_layers": 4, "scan_layers": True}),
+    ("qwen3_8b", {"block_pattern": ("swa",), "window": 8}),
+    ("command_r_35b", {}),
+])
+def test_serve_path_through_the_kernels_matches_plain(cuda_device, arch,
+                                                      extra):
+    """Reduced float32 models on the card: prefill + decode through K6 and
+    K5 against the plain path, and both against the full forward
+    (float32, another summation order: atol = rtol = 1e-4)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(reduced(get_config(arch)), **extra)
+    params = M.init_params(0, cfg, cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 20), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    S, steps = 15, 5
+    full = M.forward_train(params, cfg, toks, backend="torch")
+    for backend in ("auto", "torch"):
+        k6, k5 = swa_prefill_cuda.launches, attn_decode_cuda.launches
+        lg, cache = M.prefill(params, cfg, toks[:, :S], cache_len=S + steps,
+                              backend=backend)
+        got = [lg[:, 0]]
+        for i in range(steps - 1):
+            lg, cache = M.decode_step(params, cfg, cache,
+                                      toks[:, S + i:S + i + 1],
+                                      backend=backend)
+            got.append(lg[:, 0])
+        torch.cuda.synchronize()
+        n = cfg.n_layers if backend == "auto" else 0
+        assert swa_prefill_cuda.launches == k6 + n
+        assert attn_decode_cuda.launches == k5 + n * (steps - 1)
+        torch.testing.assert_close(torch.stack(got, 1),
+                                   full[:, S - 1:S + steps - 1],
+                                   rtol=1e-4, atol=1e-4)
