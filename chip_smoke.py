@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: Algorithm 3
 (social learning), Algorithm 2 (Byzantine-resilient learning) and the
-serving path of the dense GQA models (Qwen3-8B).
+serving path of the dense GQA models (Qwen3-8B) and of RWKV6 (RWKV6-1.6B).
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -44,7 +44,25 @@ Phases (any failure raises and the script exits non-zero):
              steps;
 11. serve fp32 — the same path at 2 layers in float32 (4 x 1,000-token
              prompts, 16 tokens) against the plain full forward, within a
-             limit a bf16 computation would fail.
+             limit a bf16 computation would fail;
+12. rwkv kernel — the chunked WKV6 scan (K7) against its plain chunked
+             version and the sequential scan: T in {1, 63, 64, 65, 1,000,
+             2,048}, BH in {1, 256}, float32 and bf16, the model's decay
+             and both clip ends, with stated tolerances;
+13. rwkv main — RWKV6-1.6B at published widths and full depth (24
+             layers), bf16, seeded random weights: 8 requests of
+             2,048-token prompts, 32 greedy tokens through
+             launch.serve.generate (K7 launches 24 times, decode none); its
+             logits against the plain serve path and the plain full
+             forward;
+14. rwkv timing — K7 and its plain version at the serve shape, time to
+             prefill and ms per decode step, kernel and plain paths, a
+             profile of decode steps;
+15. rwkv fp32 — 2 layers in float32, 4 x 1,000-token prompts (a ragged
+             last chunk), 16 tokens, against the plain full forward; then
+             the full 24 layers in float32 (2 x 2,048-token prompts, 8
+             tokens) by the rule of phase 13, where the greedy choices must
+             agree on at least half the positions.
 
 It prints the card's name and power limit, one JSON line of kernel
 figures, and last the device line. Run from the repository root:
@@ -489,6 +507,7 @@ def main() -> int:
          "bound_by": k3_by, "library_ms": None},
     ]
     kernels += serve_phases(dev, flush)
+    kernels.append(rwkv_phases(dev, flush))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -533,11 +552,13 @@ def _wrappers() -> dict:
     from repro_torch.kernels.pushsum_edge import edge_scatter_cuda
     from repro_torch.kernels.social_innov import innovation_cuda
     from repro_torch.kernels.swa import attn_decode_cuda, swa_prefill_cuda
+    from repro_torch.kernels.wkv6 import wkv6_cuda
     return {"edge_scatter": edge_scatter_cuda,
             "social_innov": innovation_cuda,
             "byz_trim": trim_gather_cuda,
             "attn_decode": attn_decode_cuda,
-            "swa_prefill": swa_prefill_cuda}
+            "swa_prefill": swa_prefill_cuda,
+            "wkv6": wkv6_cuda}
 
 
 def _zero_counts() -> None:
@@ -751,6 +772,107 @@ def logit_gaps(got, want) -> tuple[float, float]:
     return d.abs().max().item(), d.pow(2).mean().sqrt().item()
 
 
+def hold_logits(tag, what, toks, lk, lp, lf, min_clear=0.0) -> None:
+    """Serve-path logits (kernel ``lk``, plain ``lp``) against the plain
+    full forward ``lf`` over the same tokens. The plain serve path
+    measures the rounding noise of serving against the full forward
+    (other GEMM shapes; another attention order, or for RWKV6 another WKV
+    form: chunked in prefill and a step at a time in decode, against the
+    full forward's sequential scan over S + gen - 1 tokens, which no
+    chunk divides); the kernel path stays within twice its rms + 1e-3 of
+    the logits' rms and four times its max + one bf16 ulp of the largest
+    logit, and its greedy choices equal the full forward's argmax where
+    the top-2 margin exceeds twice its max gap, on at least
+    ``min_clear`` of the positions."""
+    import torch
+    torch.cuda.synchronize()
+    mk, rk = logit_gaps(lk, lf)
+    mp, rp = logit_gaps(lp, lf)
+    mf = lf.float().abs().max().item()
+    rf = lf.float().pow(2).mean().sqrt().item()
+    top2 = lf.float().topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * mk
+    agree = torch.equal(toks[clear], lf.argmax(-1)[clear])
+    log(f"{tag} {what}: logits against the plain full forward (|logit| up "
+        f"to {mf:.3f}, rms {rf:.4f}): kernel path max {mk:.4e} rms "
+        f"{rk:.4e}; plain serve path max {mp:.4e} rms {rp:.4e}; greedy "
+        f"choice = full-forward argmax on {int(clear.sum())}/{clear.numel()}"
+        f" positions whose top-2 margin exceeds {2 * mk:.3e}: {agree}")
+    require(rk <= 2 * rp + 1e-3 * rf, f"{tag} kernel-path logit rms gap")
+    require(mk <= 4 * mp + 2 ** -7 * mf, f"{tag} kernel-path logit max gap")
+    require(agree, f"{tag} greedy choices agree where the margin is clear")
+    require(clear.float().mean().item() >= min_clear,
+            f"{tag} a clear top-2 margin on at least {min_clear} of the "
+            f"positions")
+
+
+def serve_times(params, cfg, prompts, toks, note: str = "") -> float:
+    """Time to prefill (median of 3 kernel-path and 2 plain-path runs) and
+    ms per decode step (median of 3 and 2 runs of gen - 1 steps from a
+    fresh prefill), CUDA events, logged beside the weight-read floor ->
+    the kernel path's decode ms. ``note`` follows the prefill figures."""
+    import torch
+    from repro_torch.models import model as M
+
+    B, S = prompts.shape
+    GEN = toks.shape[1]
+
+    def prefill(backend):
+        return M.prefill(params, cfg, prompts, cache_len=S + GEN + 1,
+                         backend=backend)
+
+    def decode_ms(backend, runs):
+        ts = []
+        for _ in range(runs):
+            _, cache = prefill(backend)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(GEN - 1):
+                M.decode_step(params, cfg, cache, toks[:, i:i + 1],
+                              backend=backend)
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end) / (GEN - 1))
+            del cache
+        return float(np.median(ts))
+
+    with torch.inference_mode():
+        pre_k = event_ms(lambda: prefill("auto"), 3)
+        pre_p = event_ms(lambda: prefill("torch"), 2)
+        dec_k = decode_ms("auto", 3)
+        dec_p = decode_ms("torch", 2)
+    weights = nbytes(*_leaves(params))
+    floor = weights / HBM_BYTES_PER_S * 1e3
+    log(f"[timing] {cfg.name} serve, B={B}, prompt {S}: prefill {pre_k:.2f} "
+        f"ms (plain path {pre_p:.2f}) = {B * S / pre_k:.0f} prompt tokens/ms"
+        f"{note}; decode {dec_k:.3f} ms a step (plain path {dec_p:.3f}) over "
+        f"{GEN - 1} steps = {B / dec_k * 1e3:.0f} tokens/s; weight-read "
+        f"floor {floor:.3f} ms a step ({weights / 1e9:.3f} GB at 3.35 TB/s)")
+    return dec_k
+
+
+def profile_decode(params, cfg, prompts, toks, step_ms: float) -> None:
+    """torch.profiler breakdown of kernel-path decode steps after one
+    prefill of ``prompts``, teacher-forced on ``toks``."""
+    import torch
+    from repro_torch.models import model as M
+
+    state = {}
+
+    def run(T):
+        if not state:
+            _, state["cache"] = M.prefill(
+                params, cfg, prompts,
+                cache_len=prompts.shape[1] + toks.shape[1] + 1)
+        for i in range(T):
+            M.decode_step(params, cfg, state["cache"], toks[:, i:i + 1])
+
+    with torch.inference_mode():
+        profile_step(run, f"{cfg.name} decode (B={prompts.shape[0]}, prompt "
+                     f"{prompts.shape[1]})", step_ms)
+
+
 def serve_kernel_checks(dev) -> dict[str, float]:
     """Phase 8: K5 and K6 against their plain versions -> max abs error of
     each. The plain version runs in float32 on the same (bf16 or fp32)
@@ -882,48 +1004,17 @@ def serve_phases(dev, flush) -> list[dict]:
         lp = serve_logits(params, cfg, prompts, toks, backend="torch")
         require(_counts() == counts, "the plain path launched no kernel")
         lf = full_logits(params, cfg, prompts, toks, block=2)
-    torch.cuda.synchronize()
-    mk, rk = logit_gaps(lk, lf)
-    mp, rp = logit_gaps(lp, lf)
-    mf, rf = lf.float().abs().max().item(), lf.float().pow(2).mean().sqrt() \
-        .item()
-    top2 = lf.float().topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > 2 * mk
-    agree = torch.equal(toks[clear], lf.argmax(-1)[clear])
-    log(f"[serve] logits against the plain full forward over the same "
-        f"{S + GEN - 1} tokens (|logit| up to {mf:.3f}, rms {rf:.4f}): "
-        f"kernel path max {mk:.4e} rms {rk:.4e}; plain serve path max "
-        f"{mp:.4e} rms {rp:.4e}; greedy choice = full-forward argmax on "
-        f"{int(clear.sum())}/{clear.numel()} positions whose top-2 margin "
-        f"exceeds {2 * mk:.3e}: {agree}")
-    # Tolerance (bf16). Both serve paths compute in bf16 with float32
-    # accumulation, as the full forward does; they differ from it only by
+    # bf16 with float32 accumulation on every path; they differ only by
     # where a float32 sum rounds to bf16 (other GEMM shapes, another
-    # attention order), and those rare flips grow over 36 layers. The
-    # plain serve path measures that noise on the same tokens; the kernel
-    # path is held to twice its rms + 1e-3 of the logits' rms, four times
-    # its max + one bf16 ulp of the largest logit, and its greedy choices
-    # to the full forward's wherever the top-2 margin is clear.
-    require(rk <= 2 * rp + 1e-3 * rf, "kernel-path logit rms gap")
-    require(mk <= 4 * mp + 2 ** -7 * mf, "kernel-path logit max gap")
-    require(agree, "greedy choices agree where the margin is clear")
+    # attention order), and those flips grow over the 36 layers
+    hold_logits("[serve]", f"{B} x {S} prompt tokens, {GEN} tokens", toks,
+                lk, lp, lf)
 
     # ---- phase 10: timing at these shapes ---------------------------------
     times = serve_timing(params, cfg, prompts, toks, flush, dev)
     del lk, lp, lf
-    prof_cache = {}
-
-    def decode_run(T):
-        if not prof_cache:
-            _, prof_cache["c"] = M.prefill(params, cfg, prompts,
-                                           cache_len=S + GEN + 1)
-        for i in range(T):
-            M.decode_step(params, cfg, prof_cache["c"], toks[:, i:i + 1])
-
-    with torch.inference_mode():
-        profile_step(decode_run, f"{cfg.name} decode (B={B}, cache "
-                     f"{S}-{S + 25})", times["decode_ms"])
-    del params, prof_cache
+    profile_decode(params, cfg, prompts, toks, times["decode_ms"])
+    del params
     torch.cuda.empty_cache()
 
     # ---- phase 11: 2 layers in float32 -----------------------------------
@@ -981,13 +1072,11 @@ def _leaves(tree):
 
 def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     """K5, K6, their plain versions and SDPA at the serve shapes (medians
-    of CUDA-event runs, L2 flushed), time to prefill and ms per decode step
-    for the kernel and plain paths."""
+    of CUDA-event runs, L2 flushed), then :func:`serve_times`."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.swa import (attn_decode_cuda, attn_decode_ref,
                                          swa_prefill_cuda, swa_prefill_ref)
-    from repro_torch.models import model as M
 
     B, S = prompts.shape
     GEN = toks.shape[1]
@@ -1050,40 +1139,269 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
                           "bound_by": by6, "library_ms": lib6}
     del q, k, v, o5, o6, sdpa5, sdpa6
 
-    # time to prefill and ms per decode step (kernel and plain paths)
-    def prefill(backend):
-        return M.prefill(params, cfg, prompts, cache_len=Wc, backend=backend)
-
-    def decode_ms(backend, runs):
-        ts = []
-        for _ in range(runs):
-            _, cache = prefill(backend)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for i in range(GEN - 1):
-                M.decode_step(params, cfg, cache, toks[:, i:i + 1],
-                              backend=backend)
-            end.record()
-            end.synchronize()
-            ts.append(start.elapsed_time(end) / (GEN - 1))
-            del cache
-        return float(np.median(ts))
-
-    with torch.inference_mode():
-        pre_k = event_ms(lambda: prefill("auto"), 3)
-        pre_p = event_ms(lambda: prefill("torch"), 2)
-        dec_k = decode_ms("auto", 3)
-        dec_p = decode_ms("torch", 2)
-    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
-    floor = weights / HBM_BYTES_PER_S * 1e3
-    log(f"[timing] {cfg.name} serve, B={B}, prompt {S}: prefill {pre_k:.2f} "
-        f"ms (plain path {pre_p:.2f}) = {B * S / pre_k:.0f} prompt tokens/ms"
-        f"; decode {dec_k:.3f} ms a step (plain path {dec_p:.3f}) over "
-        f"{GEN - 1} steps = {B / dec_k * 1e3:.0f} tokens/s; weight-read "
-        f"floor {floor:.3f} ms a step ({weights / 1e9:.2f} GB at 3.35 TB/s)")
-    out["decode_ms"] = dec_k
+    out["decode_ms"] = serve_times(params, cfg, prompts, toks)
     return out
+
+
+# RWKV6 serving: the chunked WKV6 scan (K7) of prefill
+WKV_HEAD = 64
+
+
+def wkv_inputs(g, BH, T, dtype, lw, dev):
+    """Random (r, k, v, lw, u) of BH sequences of T tokens: r, k, v in
+    ``dtype``; lw float32, ``"model"`` for the model's range
+    -exp(clip(-0.5 + normal, -8, 4)) or a constant; u float32."""
+    import torch
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    r, k, v = (rn(BH, T, WKV_HEAD).to(dtype) for _ in range(3))
+    if lw == "model":
+        lwa = -torch.exp(torch.clamp(-0.5 + rn(BH, T, WKV_HEAD), -8, 4))
+    else:
+        lwa = torch.full((BH, T, WKV_HEAD), lw, device=dev)
+    return r, k, v, lwa, 0.5 * rn(BH, WKV_HEAD)
+
+
+def wkv_kernel_checks(dev) -> float:
+    """Phase 12: K7 against its plain chunked version (chunk 64) and the
+    sequential scan -> the largest abs error against the plain chunked
+    version over the cases, y and state.
+
+    Tolerance: |got - want| <= rtol |want| + scale max|want|, in float32.
+    The three are float32 sums in other orders, and the chunked forms'
+    decay weights are exponentials of differences of in-chunk cumsums that
+    carry a few ulp of |P|: scale = rtol = 1e-4 (the CPU tests measure
+    both packages' chunked forms ~5e-6 of max|y| off a float64 scan). At
+    lw = -e^4 |P| reaches ~3,500, whose ulp 2.4e-4 is a relative error of
+    each decay weight: scale = rtol = 5e-4. A bf16 y is the float32 result
+    rounded once on each side: rtol + 2^-7 (one bf16 ulp)."""
+    import math
+
+    import torch
+    from repro_torch.kernels.wkv6 import wkv6_chunked_ref, wkv6_cuda, wkv6_ref
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    strong, weak = -math.exp(4.0), -math.exp(-8.0)
+    worst = 0.0
+
+    def hold(case, what, got, want, tol, extra_rtol=0.0):
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        limit = (tol + extra_rtol) * want.abs() + tol * want.abs().max()
+        require(bool(torch.isfinite(got).all()), f"wkv6 {case}: finite")
+        require(bool((err <= limit).all()),
+                f"wkv6 {case}: {what} within the tolerance (max err "
+                f"{err.max().item():.3e}, max |want| "
+                f"{want.abs().max().item():.3e})")
+        return err.max().item()
+
+    for BH, T, dtype, lw in (
+            (256, 2048, bf16, "model"), (256, 2048, f32, "model"),
+            (1, 1, f32, "model"), (1, 63, bf16, "model"),
+            (1, 64, f32, "model"), (1, 65, bf16, "model"),
+            (256, 1000, bf16, "model"), (1, 1000, f32, "model"),
+            (256, 2048, bf16, strong), (1, 65, f32, strong),
+            (256, 1000, f32, strong), (256, 2048, bf16, weak),
+            (1, 63, f32, weak), (256, 1000, f32, weak)):
+        args = wkv_inputs(g, BH, T, dtype, lw, dev)
+        y, s = wkv6_cuda(*args)
+        tol = 5e-4 if lw == strong else 1e-4
+        y_rtol = 2 ** -7 if dtype == bf16 else 0.0
+        lw_name = lw if lw == "model" else f"{lw:.4g}"
+        case = f"BH={BH} T={T} {str(dtype)[6:]} lw={lw_name}"
+        errs = []
+        for form, (y_w, s_w) in (
+                ("chunked", wkv6_chunked_ref(*args, chunk=64)),
+                ("sequential", wkv6_ref(*args))):
+            errs.append(hold(case, f"y vs {form}", y, y_w, tol, y_rtol))
+            errs.append(hold(case, f"state vs {form}", s, s_w, tol))
+        worst = max(worst, errs[0], errs[1])      # against the plain version
+        log(f"[rwkv kernel] {case}: max_abs_err y {errs[0]:.3e} / "
+            f"{errs[2]:.3e}, state {errs[1]:.3e} / {errs[3]:.3e} (against "
+            f"chunked / sequential; max |y| "
+            f"{y.float().abs().max().item():.3e})")
+    return worst
+
+
+def rwkv_param_count(cfg) -> int:
+    """Every leaf of the RWKV6 tree: ``ArchConfig.param_count`` counts an
+    extra d^2 a layer and leaves out the lerp weights, w0, u, ln_x and the
+    layer norms' biases."""
+    d, f, V, L = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_layers
+    mixer = 5 * d + 5 * d * d + d + 2 * 64 * d + d + d
+    cm = 2 * d + 2 * d * f + d * d
+    return 2 * V * d + 2 * d + L * (mixer + cm + 4 * d)
+
+
+def rwkv_phases(dev, flush) -> dict:
+    """Phases 12-15 (the serving path of RWKV6-1.6B) -> the JSON entry of
+    K7."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.prng import prng_key, randint_n
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    # ---- phase 12: K7 against its plain versions -------------------------
+    err = wkv_kernel_checks(dev)
+
+    # ---- phase 13: RWKV6-1.6B at full width and depth, bf16 --------------
+    cfg = get_config("rwkv6_1b6")
+    B, S, GEN = SERVE_B, SERVE_S, SERVE_GEN
+    t0 = time.perf_counter()
+    params = M.init_params(0, cfg, dev)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    weights = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"[rwkv] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.d_model // cfg.wkv_head_dim} wkv heads of "
+        f"{cfg.wkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}; {n_params} parameters ({weights / 1e9:.3f} GB) drawn "
+        f"in {time.perf_counter() - t0:.2f} s; layout "
+        f"{'groups' if 'groups' in params else 'layers'}")
+    require(n_params == rwkv_param_count(cfg), "rwkv parameter count")
+    prompts = randint_n(prng_key(0), B * S, 0, cfg.vocab, dev).reshape(B, S)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        toks, lk = generate(params, cfg, prompts, GEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    state_bytes = nbytes(*_leaves(M.init_cache(params, cfg, B, S + GEN + 1)))
+    log(f"[rwkv] main: {B} requests x {S} prompt tokens, {GEN} tokens each "
+        f"(prefill + {GEN - 1} decode steps) in {wall:.2f} s, launches "
+        f"{counts}; weights {weights / 1e9:.3f} GB, state cache "
+        f"{state_bytes / 1e6:.2f} MB, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    require(counts == _only(wkv6=cfg.n_layers),
+            "K7 launched once per layer in prefill and no kernel in decode")
+    require(toks.shape == (B, GEN) and lk.shape == (B, GEN, cfg.vocab)
+            and bool(torch.isfinite(lk).all()), "rwkv serve outputs")
+    with torch.inference_mode():
+        lp = serve_logits(params, cfg, prompts, toks, backend="torch")
+        require(_counts() == counts, "the plain path launched no kernel")
+        lf = full_logits(params, cfg, prompts, toks, block=B)
+    hold_logits("[rwkv]", f"{B} x {S} prompt tokens, {GEN} tokens", toks,
+                lk, lp, lf)
+    del lk, lp, lf
+
+    # ---- phase 14: timing -----------------------------------------------
+    times = rwkv_timing(params, cfg, prompts, toks, flush, dev)
+    profile_decode(params, cfg, prompts, toks, times["decode_ms"])
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- phase 15: 2 layers in float32, ragged last chunk ---------------
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params32 = M.init_params(1, cfg32, dev)
+    p32 = randint_n(prng_key(1), 4 * 1000, 0, cfg.vocab, dev).reshape(4, 1000)
+    with torch.inference_mode():
+        _zero_counts()
+        t32, l32 = generate(params32, cfg32, p32, 16)
+        require(_counts() == _only(wkv6=2), "rwkv fp32 launches")
+        lp32 = serve_logits(params32, cfg32, p32, t32, backend="torch")
+        lf32 = full_logits(params32, cfg32, p32, t32, block=4)
+    m32, r32 = logit_gaps(l32, lf32)
+    mp32, _ = logit_gaps(lp32, lf32)
+    log(f"[rwkv fp32] 2 layers, 4 x 1000 prompt tokens, 16 tokens: kernel "
+        f"path max {m32:.3e} rms {r32:.3e}, plain serve path max {mp32:.3e}, "
+        f"against the plain full forward (|logit| up to "
+        f"{lf32.abs().max().item():.3f})")
+    # Tolerance (fp32): float32 WKV in three forms (K7, the chunked and the
+    # sequential plain scans) differs by ~1e-5 of the outputs' scale; a
+    # bf16 computation by ~1e-2. Limit: atol 1e-3 + rtol 1e-3.
+    torch.testing.assert_close(l32, lf32, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(lp32, lf32, atol=1e-3, rtol=1e-3)
+    require(torch.equal(t32, l32.argmax(-1)), "rwkv fp32 greedy tokens")
+    del params32, l32, lp32, lf32
+    torch.cuda.empty_cache()
+
+    # ---- phase 15b: full width and depth in float32 ---------------------
+    # bf16 rounding noise grows with depth in this random-weight model
+    # (the port rounds where the reference rounds: tests/test_torch_models
+    # .py), so at 24 layers few bf16 positions have a clear top-2 margin;
+    # float32 at full depth keeps one on most.
+    cfg_f = dataclasses.replace(cfg, dtype="float32")
+    params_f = M.init_params(2, cfg_f, dev)
+    pf = randint_n(prng_key(2), 2 * S, 0, cfg.vocab, dev).reshape(2, S)
+    with torch.inference_mode():
+        _zero_counts()
+        tf_, lkf = generate(params_f, cfg_f, pf, 8)
+        require(_counts() == _only(wkv6=cfg.n_layers), "rwkv fp32 full-depth "
+                "launches")
+        lpf = serve_logits(params_f, cfg_f, pf, tf_, backend="torch")
+        lff = full_logits(params_f, cfg_f, pf, tf_, block=2)
+    hold_logits("[rwkv fp32 24 layers]", f"2 x {S} prompt tokens, 8 tokens",
+                tf_, lkf, lpf, lff, min_clear=0.5)
+    del params_f, lkf, lpf, lff
+    torch.cuda.empty_cache()
+
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6/wkv6.py:90",
+            "launches": counts["wkv6"], "max_abs_err": err, **times["wkv6"]}
+
+
+def wkv_ops(BH: int, T: int) -> int:
+    """FLOPs of the chunked WKV6 over BH sequences of T tokens at chunk 64
+    (K = V = 64), as K7 computes it: per chunk of n tokens, the inter-chunk
+    product 2 n K V, the pairwise scores 5 per (i > j, k) (a difference,
+    an exponential, two products, a sum), scores @ v 2 per (i > j, v), the
+    bonus 3 n K + 2 n V, the decayed keys 3 n K and the state update
+    K V + 2 n K V."""
+    K = V = WKV_HEAD
+    total = 0
+    for t0 in range(0, T, 64):
+        n = min(64, T - t0)
+        pairs = n * (n - 1) // 2
+        total += (2 * n * K * V + 5 * pairs * K + 2 * pairs * V + 3 * n * K
+                  + 2 * n * V + 3 * n * K + K * V + 2 * n * K * V)
+    return BH * total
+
+
+def rwkv_timing(params, cfg, prompts, toks, flush, dev) -> dict:
+    """K7 and its plain version at the serve shape (medians of CUDA-event
+    runs, L2 flushed), then :func:`serve_times`."""
+    import torch
+    from repro_torch.kernels.wkv6 import wkv6_chunked_ref, wkv6_cuda
+
+    B, S = prompts.shape
+    H = cfg.d_model // cfg.wkv_head_dim
+    g = torch.Generator(device=dev).manual_seed(4)
+    # the model's layout: (B, H, S, 64) views of (B, S, H, 64) projections
+    r, k, v, lw, u = wkv_inputs(g, B * H, S, torch.bfloat16, "model", dev)
+
+    def heads(a):
+        return a.view(B, S, H, WKV_HEAD).transpose(1, 2)
+
+    uh = u[:H].expand(B, H, WKV_HEAD)
+    y, s = wkv6_cuda(heads(r), heads(k), heads(v), heads(lw), uh)
+    ms7 = event_ms(lambda: wkv6_cuda(heads(r), heads(k), heads(v),
+                                     heads(lw), uh), TIMED_RUNS, flush)
+    plain7 = event_ms(lambda: wkv6_chunked_ref(r, k, v, lw, u, chunk=64), 3,
+                      flush)
+    # bytes: r, k, v, lw, u (the (H, 64) rows read), y and the state once
+    bytes7 = nbytes(r, k, v, lw, y, s) + H * WKV_HEAD * 4
+    ops7 = wkv_ops(B * H, S)
+    b7, by7 = bound(bytes7, ops7, BF16_FLOPS)
+    log(f"[timing] wkv6 (B={B}, H={H}, T={S}, K=V=64, bf16): {ms7:.4f} ms, "
+        f"plain {plain7:.4f}, bound {b7:.5f} ({by7}; {bytes7 / 1e6:.1f} MB, "
+        f"{ops7 / 1e9:.2f} GFLOP = {ops7 / BF16_FLOPS * 1e3:.5f} ms at the "
+        f"bf16 peak); library: none (no single PyTorch call)")
+    del r, k, v, lw, u, y, s
+    dec = serve_times(params, cfg, prompts, toks,
+                      f", of which K7 {cfg.n_layers} x {ms7:.4f} ms")
+    return {"wkv6": {"ms": ms7, "plain_ms": plain7, "bound_ms": b7,
+                     "bound_by": by7, "library_ms": None},
+            "decode_ms": dec}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config(name)`` / ``--arch <id>``.
 
 The ids and aliases are ``repro.configs``'s. The port runs the dense
-decoder family (attention or sliding-window attention mixers, a dense MLP),
-so only those configs are copied here, each with the reference's exact
+decoder family (attention or sliding-window attention mixers, a dense MLP)
+and RWKV6 (the ``wkv6`` mixer with the ``rwkv_cm`` channel mix), so only
+those configs are copied here, each with the reference's exact
 public-literature dimensions. The other families raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
@@ -41,7 +42,6 @@ _ALIASES = {
 
 # archs whose mixer or FFN kind the port does not run yet -> (kind, item)
 _NOT_PORTED = {
-    "rwkv6_1b6": ("the wkv6 mixer", "ROADMAP queue 1 item 9b"),
     "olmoe_1b_7b": ("the moe FFN", "ROADMAP queue 1 item 9d"),
     "qwen3_moe_235b_a22b": ("the moe FFN", "ROADMAP queue 1 item 9d"),
     "recurrentgemma_2b": ("the rglru mixer", "ROADMAP queue 1 item 9d"),
@@ -58,7 +58,7 @@ def get_config(name: str) -> ArchConfig:
         what, item = _NOT_PORTED[key]
         raise NotImplementedError(
             f"arch {key!r} needs {what}, which the PyTorch port does not run "
-            f"yet ({item}); the port runs the dense decoders: "
+            f"yet ({item}); the port runs: "
             f"{sorted(a for a in ARCH_IDS if a not in _NOT_PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{key}")
     return mod.CONFIG

@@ -7,7 +7,7 @@ tier shows up as a timed-out or erroring request, and the caller retries
 it instead of failing the batch. The schedule is the reference's, so the
 same policy, clock and ``random.Random`` seed sleep the same delays.
 
-The step builders close over the config, the attention ``backend`` and,
+The step builders close over the config, the kernel ``backend`` and,
 for prefill, the cache capacity. Sharding the request batch over several
 cards (the reference's ``serve_shardings``) waits for the multi-GPU item
 (ROADMAP queue 1 item 8).

@@ -4,8 +4,9 @@
         --batch 4 --prompt-len 32 --gen 16 [--device cpu] [--backend torch]
 
 The flags are ``repro.launch.serve``'s (without ``--model-parallel``), plus
-``--device`` (default ``cuda``) and ``--backend`` (``auto``: the attention
-kernels on the card, the plain versions on the CPU). Weights are seeded
+``--device`` (default ``cuda``) and ``--backend`` (``auto``: the mixers'
+kernels on the card — attention, or the WKV6 scan for ``rwkv6_1b6`` — the
+plain versions on the CPU). Weights are seeded
 random draws; the prompts are ``jax.random.randint(PRNGKey(seed), (B, S),
 0, vocab)`` bit for bit, and temperature sampling draws its Gumbel noise as
 ``jax.random.categorical`` does, keyed ``fold_in(PRNGKey(seed), i)`` at

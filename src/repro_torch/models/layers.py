@@ -1,5 +1,5 @@
-"""Model building blocks of the dense decoders: the port of the
-dense-attention subset of ``repro.models.layers``.
+"""Model building blocks of the dense decoders and of RWKV6: the port of
+the dense-attention and RWKV6 subsets of ``repro.models.layers``.
 
 Every block is a pair of functions, ``init_<block>(gen, cfg) -> params``
 and ``<block>(params, x, ...) -> y``, on plain tensors; parameters are
@@ -16,7 +16,10 @@ Attention runs on one of two routes (``backend=``, resolved by
 of :mod:`repro_torch.kernels.swa` (``swa_prefill`` for a whole sequence,
 ``attn_decode`` for one token over the cache); with ``backend="torch"``
 the plain versions, which for a whole sequence are ``_naive_attention`` /
-``_chunked_attention``, faithful to the reference's.
+``_chunked_attention``, faithful to the reference's. The RWKV6 time mix
+runs its scan over a whole sequence through :func:`repro_torch.kernels.
+wkv6.wkv6` (kernel K7 on the card) and a decode step through the plain
+``wkv6_decode_step``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.dispatch import resolve_backend
 from ..kernels.swa import attn_decode, swa_prefill
+from ..kernels.wkv6 import wkv6, wkv6_decode_step
 
 Params = dict[str, Any]
 
@@ -321,3 +325,148 @@ def mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         h = _gelu((x @ p["w_up"]).float()).to(x.dtype)
     return h @ p["w_down"]
 
+
+# ---------------------------------------------------------------------------
+# RWKV6 time-mix + channel-mix
+# ---------------------------------------------------------------------------
+
+_WKV_LORA = 64
+
+
+def init_wkv6(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    """The reference's leaves, shapes and dtypes, drawn in its order."""
+    d, hd, dt = cfg.d_model, cfg.wkv_head_dim, _dt(cfg)
+    H = d // hd
+    dev = gen.device
+    p = {"mu": torch.full((5, d), 0.5, dtype=dt, device=dev)}  # r,k,v,g,w
+    for name in ("wr", "wk", "wv", "wg"):
+        p[name] = _dense_init(gen, (d, d), dt)
+    p["w0"] = torch.full((d,), -0.5, device=dev)     # base log-log decay
+    p["w_lora_a"] = _dense_init(gen, (d, _WKV_LORA), dt)
+    p["w_lora_b"] = _dense_init(gen, (_WKV_LORA, d), dt, scale=0.01)
+    p["u"] = _dense_init(gen, (H, hd), torch.float32, scale=0.5)
+    p["ln_x"] = torch.ones((d,), device=dev)         # per-head groupnorm
+    p["wo"] = _dense_init(gen, (d, d), dt)
+    return p
+
+
+def _shift(x: torch.Tensor) -> torch.Tensor:
+    """x shifted right by one token along the sequence, zero first."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _lerp_mixes(mu: torch.Tensor, x: torch.Tensor, x_prev: torch.Tensor):
+    """The token-shift lerps ``x + mu[i] (x_prev - x)`` in float32, cast
+    back to x's dtype, as a function of i."""
+    mu = mu.float()
+    xf = x.float()
+    dx = x_prev.float() - xf
+    return lambda i: (xf + mu[i] * dx).to(x.dtype)
+
+
+def _wkv6_inputs(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
+                 cfg: ArchConfig):
+    """Token shift and the five projections -> r, k, v, g (x's dtype) and
+    the float32 log-decay ``lw = -exp(clip(w0 + tanh(x A) B, -8, 4))``."""
+    mix = _lerp_mixes(p["mu"], x, x_prev)
+    r = mix(0) @ p["wr"]
+    k = mix(1) @ p["wk"]
+    v = mix(2) @ p["wv"]
+    g = mix(3) @ p["wg"]
+    ww = torch.tanh((mix(4) @ p["w_lora_a"]).float()) \
+        @ p["w_lora_b"].float()
+    lw = -torch.exp(torch.clamp(p["w0"] + ww, -8.0, 4.0))
+    return r, k, v, g, lw
+
+
+def _wkv_groupnorm(y: torch.Tensor, scale: torch.Tensor,
+                   H: int) -> torch.Tensor:
+    B, S, d = y.shape
+    yh = y.reshape(B, S, H, d // H).float()
+    mu = yh.mean(dim=-1, keepdim=True)
+    var = ((yh - mu) ** 2).mean(dim=-1, keepdim=True)
+    yn = (yh - mu) * torch.rsqrt(var + 1e-5)
+    return (yn.reshape(B, S, d) * scale).to(y.dtype)
+
+
+def _wkv6_out(p: Params, y: torch.Tensor, g: torch.Tensor, H: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """Groupnorm, the silu gate and the output projection."""
+    y = _wkv_groupnorm(y, p["ln_x"], H)
+    y = y * F.silu(g.float()).to(dtype)
+    return y @ p["wo"]
+
+
+def wkv6_mix(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
+             cfg: ArchConfig, backend: str = "auto"
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The time mix over a whole sequence from a zero state -> (out (B, S,
+    d), final state (B, H, hd, hd) float32). The scan gets (B, H, S, hd)
+    views of the projections and returns y in the (B, S, H, hd) layout on
+    the card, so no transposed copy is made there."""
+    B, S, d = x.shape
+    hd = cfg.wkv_head_dim
+    H = d // hd
+    r, k, v, g, lw = _wkv6_inputs(p, x, x_prev, cfg)
+
+    def heads(a):
+        return a.view(B, S, H, hd).transpose(1, 2)
+
+    y, s = wkv6(heads(r), heads(k), heads(v), heads(lw),
+                p["u"].expand(B, H, hd), backend=backend)
+    y = y.transpose(1, 2).reshape(B, S, d)
+    return _wkv6_out(p, y, g, H, x.dtype), s
+
+
+def wkv6_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
+               backend: str = "auto") -> torch.Tensor:
+    """Training/prefill path (full sequence, pre-normed input)."""
+    return wkv6_mix(p, x, _shift(x), cfg, backend)[0]
+
+
+def wkv6_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                cache: Params) -> tuple[torch.Tensor, Params]:
+    """Single-token decode. cache ``{"state": (B, H, hd, hd) float32,
+    "x_prev": (B, d)}``, updated in place (the reference returns a new
+    one); the same dict is returned."""
+    B, _, d = x.shape
+    hd = cfg.wkv_head_dim
+    H = d // hd
+    r, k, v, g, lw = _wkv6_inputs(p, x, cache["x_prev"][:, None, :], cfg)
+
+    def heads(a):
+        return a[:, 0].reshape(B * H, hd)
+
+    y, s_new = wkv6_decode_step(
+        heads(r), heads(k), heads(v), heads(lw),
+        p["u"].expand(B, H, hd).reshape(B * H, hd),
+        cache["state"].reshape(B * H, hd, hd))
+    out = _wkv6_out(p, y.reshape(B, 1, d), g, H, x.dtype)
+    cache["state"].copy_(s_new.view(B, H, hd, hd))
+    cache["x_prev"].copy_(x[:, 0])
+    return out, cache
+
+
+def init_wkv6_cache(cfg: ArchConfig, B: int, device=None) -> Params:
+    d, hd = cfg.d_model, cfg.wkv_head_dim
+    H = d // hd
+    return {"state": torch.zeros((B, H, hd, hd), device=device),
+            "x_prev": torch.zeros((B, d), dtype=_dt(cfg), device=device)}
+
+
+def init_rwkv_cm(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    d, f, dt = cfg.d_model, cfg.d_ff, _dt(cfg)
+    p = {"mu": torch.full((2, d), 0.5, dtype=dt, device=gen.device)}
+    p["wk"] = _dense_init(gen, (d, f), dt)
+    p["wv"] = _dense_init(gen, (f, d), dt)
+    p["wr"] = _dense_init(gen, (d, d), dt)
+    return p
+
+
+def rwkv_cm_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                  x_prev: torch.Tensor | None = None) -> torch.Tensor:
+    """RWKV channel mix; ``x_prev`` defaults to x shifted by one token."""
+    mix = _lerp_mixes(p["mu"], x, _shift(x) if x_prev is None else x_prev)
+    kk = torch.square(torch.relu((mix(0) @ p["wk"]).float())).to(x.dtype)
+    r = torch.sigmoid((mix(1) @ p["wr"]).float()).to(x.dtype)
+    return r * (kk @ p["wv"])

@@ -1,12 +1,12 @@
-"""Model assembly for the dense decoders: the port of the dense-decoder
-subset of ``repro.models.model``.
+"""Model assembly for the dense decoders and RWKV6: the port of the
+dense-decoder and RWKV6 subsets of ``repro.models.model``.
 
 Param layout (the reference's, so converted trees line up):
 
 - ``cfg.scan_layers`` with more than one repeat of ``block_pattern``
-  (Qwen3-8B): one dict of *stacked* leaves ``(R, ...)`` per pattern
-  position under ``params["groups"]`` (R = n_layers // P) plus unstacked
-  ``params["tail"]`` layers for the remainder;
+  (Qwen3-8B, RWKV6-1.6B): one dict of *stacked* leaves ``(R, ...)`` per
+  pattern position under ``params["groups"]`` (R = n_layers // P) plus
+  unstacked ``params["tail"]`` layers for the remainder;
 - otherwise (``reduced`` configs): a list ``params["layers"]``.
 
 The reference scans the stacked layout with ``lax.scan``; here it is a
@@ -18,11 +18,12 @@ Entry points:
   ``prefill``       — last-position logits + the primed KV cache
   ``decode_step``   — one token through the cache
 
-``backend=`` picks the attention route (:func:`.layers.causal_attention`,
-:func:`.layers.attention_decode`): on the card prefill and the forward run
-the ``swa_prefill`` kernel once per layer and a decode step the
-``attn_decode`` kernel once per layer; ``backend="torch"`` runs the plain
-versions. Projections, the MLP and the LM head are ``torch.matmul``.
+``backend=`` picks the kernel route of the mixers: on the card prefill
+and the forward run the ``swa_prefill`` kernel (attention) or the ``wkv6``
+kernel (RWKV6) once per layer, and a decode step the ``attn_decode``
+kernel once per attention layer (an RWKV6 decode step is plain torch);
+``backend="torch"`` runs the plain versions. Projections, the MLP, the
+channel mix and the LM head are ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ from . import layers as L
 
 Params = dict[str, Any]
 
-_MIXERS = ("attn", "swa")
+_MIXERS = ("attn", "swa", "wkv6")
+_FFNS = ("mlp", "rwkv_cm")
 
 
 def _tmap(fn, *trees):
@@ -51,12 +53,13 @@ def _tmap(fn, *trees):
 
 def _check_supported(cfg: ArchConfig) -> None:
     bad = sorted(set(cfg.block_pattern) - set(_MIXERS))
-    if bad or cfg.ffn_kind != "mlp" or cfg.encoder_layers \
+    if bad or cfg.ffn_kind not in _FFNS or cfg.encoder_layers \
             or cfg.family == "vlm":
         raise NotImplementedError(
-            f"{cfg.name}: the port runs attn/swa mixers with a dense MLP "
-            f"(mixers {cfg.block_pattern}, ffn {cfg.ffn_kind!r}, family "
-            f"{cfg.family!r}); see ROADMAP queue 1 items 9b and 9d")
+            f"{cfg.name}: the port runs attn/swa/wkv6 mixers with a dense "
+            f"MLP or the rwkv channel mix (mixers {cfg.block_pattern}, ffn "
+            f"{cfg.ffn_kind!r}, family {cfg.family!r}); see ROADMAP queue 1 "
+            f"item 9d")
 
 
 # ---------------------------------------------------------------------------
@@ -64,16 +67,19 @@ def _check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> Params:
-    p: Params = {"norm1": L.init_norm(gen, cfg),
-                 "mixer": L.init_attention(gen, cfg)}
+    init_mixer = L.init_wkv6 if kind == "wkv6" else L.init_attention
+    p: Params = {"norm1": L.init_norm(gen, cfg), "mixer": init_mixer(gen, cfg)}
     if not cfg.parallel_block:
         p["norm2"] = L.init_norm(gen, cfg)
-    p["ffn"] = L.init_mlp(gen, cfg)
+    init_ffn = L.init_mlp if cfg.ffn_kind == "mlp" else L.init_rwkv_cm
+    p["ffn"] = init_ffn(gen, cfg)
     return p
 
 
 def _apply_ffn(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return L.mlp_block(p, x, cfg)
+    if cfg.ffn_kind == "mlp":
+        return L.mlp_block(p, x, cfg)
+    return L.rwkv_cm_block(p, x, cfg)
 
 
 def _window(cfg: ArchConfig, kind: str) -> int:
@@ -85,8 +91,11 @@ def block_train(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
                 ) -> torch.Tensor:
     """Pre-norm residual block over a whole sequence."""
     h = L.apply_norm(p["norm1"], x, cfg)
-    mix = L.attention_block(p["mixer"], h, cfg, positions,
-                            window=_window(cfg, kind), backend=backend)
+    if kind == "wkv6":
+        mix = L.wkv6_block(p["mixer"], h, cfg, backend)
+    else:
+        mix = L.attention_block(p["mixer"], h, cfg, positions,
+                                window=_window(cfg, kind), backend=backend)
     if cfg.parallel_block:
         return x + mix + _apply_ffn(p["ffn"], h, cfg)
     x = x + mix
@@ -203,9 +212,17 @@ def _cache_spec(cfg: ArchConfig, kind: str, B: int, cache_len: int,
                 device) -> Params:
     if kind not in _MIXERS:
         raise ValueError(kind)
-    wlen = min(cache_len, cfg.window) if (kind == "swa" and cfg.window) \
-        else cache_len
-    return {"mixer": L.init_attn_cache(cfg, B, wlen, device)}
+    if kind == "wkv6":
+        c = {"mixer": L.init_wkv6_cache(cfg, B, device)}
+    else:
+        wlen = min(cache_len, cfg.window) \
+            if (kind == "swa" and cfg.window) else cache_len
+        c = {"mixer": L.init_attn_cache(cfg, B, wlen, device)}
+    if cfg.ffn_kind == "rwkv_cm":
+        # channel-mix token-shift state (previous post-norm2 activation)
+        c["cm_prev"] = torch.zeros((B, cfg.d_model), dtype=L._dt(cfg),
+                                   device=device)
+    return c
 
 
 def init_cache(params: Params, cfg: ArchConfig, B: int,
@@ -231,6 +248,8 @@ def init_cache(params: Params, cfg: ArchConfig, B: int,
 def _mixer_decode(p, x, cfg: ArchConfig, kind: str, cache, backend: str):
     if kind not in _MIXERS:
         raise ValueError(kind)
+    if kind == "wkv6":
+        return L.wkv6_decode(p, x, cfg, cache)
     return L.attention_decode(p, x, cfg, cache, backend=backend)
 
 
@@ -244,6 +263,11 @@ def block_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
         return x + mix + _apply_ffn(p["ffn"], h, cfg)
     x = x + mix
     h2 = L.apply_norm(p["norm2"], x, cfg)
+    if cfg.ffn_kind == "rwkv_cm":
+        ffn_out = L.rwkv_cm_block(p["ffn"], h2, cfg,
+                                  x_prev=cache["cm_prev"][:, None])
+        cache["cm_prev"].copy_(h2[:, 0])
+        return x + ffn_out
     return x + _apply_ffn(p["ffn"], h2, cfg)
 
 
@@ -251,8 +275,8 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Params,
                 token: torch.Tensor, backend: str = "auto"
                 ) -> tuple[torch.Tensor, Params]:
     """token: (B, 1) int -> (logits (B, 1, V), cache). The cache is
-    updated in place (the new K/V row and ``pos``) and returned; the
-    reference returns a new one."""
+    updated in place (the new K/V row and ``pos``, or the RWKV6 state and
+    token-shift rows) and returned; the reference returns a new one."""
     x = embed_inputs(params, cfg, token)
     for blk, kind, c in _layers(params, cfg, cache):
         x = block_decode(blk, x, cfg, kind, c, backend)
@@ -280,26 +304,38 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             ) -> tuple[torch.Tensor, Params]:
     """Full-sequence prefill -> (last-position logits (B, 1, V), primed
     cache). ``cache_len`` is the KV capacity (default S; an ``swa`` layer
-    holds ``min(cache_len, window)`` rows as a ring). Each layer projects
-    K/V once, primes its cache from them and runs causal attention over
-    the prompt (the ``swa_prefill`` kernel on the card)."""
+    holds ``min(cache_len, window)`` rows as a ring). Each attention layer
+    projects K/V once, primes its cache from them and runs causal
+    attention over the prompt (the ``swa_prefill`` kernel on the card);
+    each RWKV6 layer runs the chunked scan over the prompt (the ``wkv6``
+    kernel on the card) and keeps its final state and the last normed
+    token; the channel mix keeps its last input."""
     x = embed_inputs(params, cfg, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     cache = init_cache(params, cfg, B, cache_len or S)
     for blk, kind, c in _layers(params, cfg, cache):
         h = L.apply_norm(blk["norm1"], x, cfg)
-        q, k, v = L._qk_project(blk["mixer"], h, cfg, positions)
-        _prime(c["mixer"]["k"], k, S)
-        _prime(c["mixer"]["v"], v, S)
-        c["mixer"]["pos"].fill_(S)
-        out = L.causal_attention(q, k, v, cfg, window=_window(cfg, kind),
-                                 backend=backend)
-        mix = out.reshape(B, S, -1) @ blk["mixer"]["wo"]
+        if kind == "wkv6":
+            mix, state = L.wkv6_mix(blk["mixer"], h, L._shift(h), cfg,
+                                    backend)
+            c["mixer"]["state"].copy_(state)
+            c["mixer"]["x_prev"].copy_(h[:, -1])
+        else:
+            q, k, v = L._qk_project(blk["mixer"], h, cfg, positions)
+            _prime(c["mixer"]["k"], k, S)
+            _prime(c["mixer"]["v"], v, S)
+            c["mixer"]["pos"].fill_(S)
+            out = L.causal_attention(q, k, v, cfg,
+                                     window=_window(cfg, kind),
+                                     backend=backend)
+            mix = out.reshape(B, S, -1) @ blk["mixer"]["wo"]
         if cfg.parallel_block:
             x = x + mix + _apply_ffn(blk["ffn"], h, cfg)
             continue
         x = x + mix
         h2 = L.apply_norm(blk["norm2"], x, cfg)
         x = x + _apply_ffn(blk["ffn"], h2, cfg)
+        if cfg.ffn_kind == "rwkv_cm":
+            c["cm_prev"].copy_(h2[:, -1])
     return lm_logits(params, cfg, x[:, -1:]), cache

@@ -21,7 +21,14 @@ attention kernels (``attn_decode``, ``swa_prefill``) are held against
 their plain versions run in float32 on the same inputs: a float32 output
 to rtol 1e-5 + atol 1e-5 (another summation order over the cache or the
 band), a bf16 output, which is the float32 result rounded once, to rtol
-2^-8 + atol 1e-5."""
+2^-8 + atol 1e-5. The WKV6 kernel K7 is held against the chunked plain
+version at the same chunk (64) and against the sequential scan: both are
+float32 sums in another order, and the chunked form's decay weights are
+exponentials of differences of in-chunk cumsums that differ by a few ulp
+of |P| with the cumsum's order, so ``tests/test_torch_wkv6.py``'s chunked
+limit applies, atol = rtol = 1e-3 on outputs up to ~100; at lw = -e^4,
+where |P| reaches ~3,500 (ulp 2.4e-4), rtol 5e-4 + atol 5e-3. A bf16 y is
+the float32 result rounded once on each side: rtol 2^-7 + atol 1e-3."""
 import numpy as np
 import pytest
 import torch
@@ -49,6 +56,12 @@ from repro_torch.kernels.swa import (
     swa_prefill,
     swa_prefill_cuda,
     swa_prefill_ref,
+)
+from repro_torch.kernels.wkv6 import (
+    wkv6,
+    wkv6_chunked_ref,
+    wkv6_cuda,
+    wkv6_ref,
 )
 from repro_torch.kernels.social_innov import (
     innovation_cuda,
@@ -517,3 +530,147 @@ def test_serve_path_through_the_kernels_matches_plain(cuda_device, arch,
         torch.testing.assert_close(torch.stack(got, 1),
                                    full[:, S - 1:S + steps - 1],
                                    rtol=1e-4, atol=1e-4)
+
+
+# (BH, T, dtype, lw: "model" | a constant log-decay)
+WKV_CASES = [
+    (1, 1, "fp32", "model"), (5, 63, "bf16", "model"),
+    (5, 64, "fp32", "model"), (1, 65, "bf16", "model"),
+    (5, 200, "fp32", "model"), (5, 200, "bf16", "model"),
+    (3, 130, "fp32", -float(np.exp(4.0))), (3, 130, "bf16",
+                                            -float(np.exp(4.0))),
+    (3, 300, "fp32", -float(np.exp(-8.0))),
+]
+
+
+def wkv_problem(BH, T, lw, seed=0, K=64):
+    """float32 numpy (r, k, v, lw, u); ``lw="model"`` draws the model's
+    range, -exp(clip(-0.5 + normal, -8, 4))."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(BH, T, K)).astype(np.float32)
+               for _ in range(3))
+    if lw == "model":
+        lwa = -np.exp(np.clip(-0.5 + rng.normal(size=(BH, T, K)), -8, 4))
+    else:
+        lwa = np.full((BH, T, K), lw)
+    u = (0.5 * rng.normal(size=(BH, K))).astype(np.float32)
+    return r, k, v, lwa.astype(np.float32), u
+
+
+def _wkv_tols(dtype, lw):
+    """(rtol of y, rtol of the state, atol)."""
+    strong = lw != "model" and lw < -50
+    rtol = 5e-4 if strong else 1e-3
+    atol = 5e-3 if strong else 1e-3
+    return (2 ** -7 if dtype == torch.bfloat16 else rtol), rtol, atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv6_kernel_matches_plain(cuda_device, case):
+    BH, T, dt, lw = case
+    dtype = _DT[dt]
+    r, k, v, lwa, u = (torch.from_numpy(a).to(cuda_device)
+                       for a in wkv_problem(BH, T, lw))
+    r, k, v = (a.to(dtype) for a in (r, k, v))
+    before = wkv6_cuda.launches
+    y, s = wkv6(r, k, v, lwa, u)
+    torch.cuda.synchronize()
+    assert wkv6_cuda.launches == before + 1
+    assert y.dtype == dtype and y.shape == (BH, T, 64)
+    assert s.dtype == torch.float32 and s.shape == (BH, 64, 64)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    y_rtol, s_rtol, atol = _wkv_tols(dtype, lw)
+    for y_w, s_w in (wkv6_chunked_ref(r, k, v, lwa, u, chunk=64),
+                     wkv6_ref(r, k, v, lwa, u)):
+        torch.testing.assert_close(y.float(), y_w.float(), rtol=y_rtol,
+                                   atol=atol)
+        torch.testing.assert_close(s, s_w, rtol=s_rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_reads_head_layout_views(cuda_device):
+    """(B, H, T, K) views of (B, T, H, K) projections, as the model hands
+    them over, with u a broadcast: the flat contiguous call's result,
+    and y comes back in the (B, T, H, V) layout."""
+    B, H, T = 2, 3, 100
+    r, k, v, lwa, _ = (torch.from_numpy(a).to(cuda_device)
+                       for a in wkv_problem(B * H, T, "model", seed=1))
+    u = torch.randn(H, 64, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(2))
+
+    def heads(a):
+        return a.view(B, H, T, 64).transpose(1, 2).contiguous() \
+            .transpose(1, 2)
+
+    y4, s4 = wkv6_cuda(heads(r), heads(k), heads(v), heads(lwa),
+                       u.expand(B, H, 64))
+    y3, s3 = wkv6_cuda(r, k, v, lwa, u.expand(B, H, 64).reshape(B * H, 64))
+    assert y4.shape == (B, H, T, 64) and y4.transpose(1, 2).is_contiguous()
+    assert torch.equal(y4.reshape(B * H, T, 64), y3)
+    assert torch.equal(s4.reshape(B * H, 64, 64), s3)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_rejects_bad_arguments(cuda_device):
+    r, k, v, lwa, u = (torch.from_numpy(a).to(cuda_device)
+                       for a in wkv_problem(2, 16, "model"))
+    with pytest.raises(ValueError, match="dtype"):
+        wkv6_cuda(r.half(), k.half(), v.half(), lwa, u)
+    with pytest.raises(ValueError, match="float32"):
+        wkv6_cuda(r.bfloat16(), k.bfloat16(), v.bfloat16(), lwa.bfloat16(),
+                  u)
+    with pytest.raises(ValueError, match="K = V = 64"):
+        wkv6_cuda(*(a[..., :32].contiguous() for a in (r, k, v, lwa, u)))
+    with pytest.raises(ValueError, match="shape"):
+        wkv6_cuda(r, k, v[:, :8].contiguous(), lwa, u)
+    with pytest.raises(ValueError, match="contiguous channel"):
+        wkv6_cuda(r.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                  lwa, u)
+    with pytest.raises(ValueError, match="T >= 1"):
+        wkv6_cuda(*(a[:, :0] for a in (r, k, v, lwa)), u)
+    with pytest.raises(ValueError, match="chunk"):
+        wkv6(r, k, v, lwa, u, chunk=32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wkv6_cuda(*(a.cpu() for a in (r, k, v, lwa, u)))
+    rg = r.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        wkv6(rg, k, v, lwa, u)
+    with torch.no_grad():
+        wkv6(rg, k, v, lwa, u)                # no graph: the kernel runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [{}, {"n_layers": 4, "scan_layers": True}])
+def test_rwkv6_serve_path_through_the_kernel_matches_plain(cuda_device,
+                                                           extra):
+    """Reduced float32 RWKV6 on the card: prefill through K7 (a ragged
+    last chunk at S = 70) and plain decode steps against the plain path,
+    and both against the full forward (float32, another summation order,
+    the chunked limit: atol = rtol = 1e-3)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(reduced(get_config("rwkv6_1b6")), **extra)
+    params = M.init_params(0, cfg, cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 75), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    S, steps = 70, 5
+    with torch.inference_mode():
+        full = M.forward_train(params, cfg, toks, backend="torch")
+        for backend in ("auto", "torch"):
+            k7 = wkv6_cuda.launches
+            lg, cache = M.prefill(params, cfg, toks[:, :S], backend=backend)
+            got = [lg[:, 0]]
+            for i in range(steps - 1):
+                lg, cache = M.decode_step(params, cfg, cache,
+                                          toks[:, S + i:S + i + 1],
+                                          backend=backend)
+                got.append(lg[:, 0])
+            torch.cuda.synchronize()
+            n = cfg.n_layers if backend == "auto" else 0
+            assert wkv6_cuda.launches == k7 + n
+            torch.testing.assert_close(torch.stack(got, 1),
+                                       full[:, S - 1:S + steps - 1],
+                                       rtol=1e-3, atol=1e-3)

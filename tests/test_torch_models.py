@@ -1,21 +1,25 @@
-"""The port's dense decoder stack (``repro_torch.models``) against the JAX
-package's (``repro.models``) on the CPU.
+"""The port's model stack (``repro_torch.models``: the dense decoders and
+RWKV6) against the JAX package's (``repro.models``) on the CPU.
 
 The JAX package initializes the parameters; ``repro_torch.convert.
 params_from_jax`` carries them across, so both compute the same model.
 Configs: reduced Qwen3-8B (``"layers"`` layout), the same with 4 layers and
 ``scan_layers=True`` (the stacked ``"groups"`` layout Qwen3-8B uses at full
 depth), reduced paper_sim, a sliding-window (``("swa",)``, window 8)
-variant, and the other dense archs the port runs (parallel block,
-layernorm, gelu, tied embeddings).
+variant, reduced RWKV6-1.6B in both layouts (``"layers"``, and 4 layers
+stacked as at full depth), and the other dense archs the port runs
+(parallel block, layernorm, gelu, tied embeddings).
 
 Tolerances: both sides compute in float32; the matmuls and softmax sums
 add in another order (XLA's CPU dot against oneDNN/MKL), a few ulp per
 op, compounded over 2-4 layers, on logits of size ~1-3: atol 1e-4,
 rtol 1e-4. The K/V cache rows are one projection + norm + RoPE away from
-the embedding: atol 1e-5, rtol 1e-5. Inside the port, prefill + decode
-against the full forward is the same float32 math in another order: the
-same limits.
+the embedding: atol 1e-5, rtol 1e-5. The RWKV6 caches (the WKV state, a
+sum over the prompt of k v products, and the token-shift rows, normed
+activations after one or more layers) get the logits' limits. Inside the
+port, prefill + decode against the full forward is the same float32 math
+in another order: the same limits. One test runs both packages in bf16
+and states its own limits.
 """
 import dataclasses
 
@@ -44,6 +48,8 @@ CONFIGS = {
     "qwen3_8b_scan4": ("qwen3_8b", {"n_layers": 4, "scan_layers": True}),
     "paper_sim": ("paper_sim", {}),
     "qwen3_8b_swa8": ("qwen3_8b", {"block_pattern": ("swa",), "window": 8}),
+    "rwkv6_1b6": ("rwkv6_1b6", {}),
+    "rwkv6_1b6_scan4": ("rwkv6_1b6", {"n_layers": 4, "scan_layers": True}),
 }
 OTHER_DENSE = ["llama3_405b", "command_r_35b", "minitron_4b"]
 
@@ -82,16 +88,24 @@ def _close(got, want, tol):
 
 
 def _close_cache(tc, jc):
-    for name in ("k", "v", "pos"):
-        _close(tc[name].numpy(), jc[name], CACHE_TOL)
+    """One layer's cache (or a stacked group's): K/V rows and ``pos`` to
+    CACHE_TOL, the RWKV6 state and token-shift rows to ATOL."""
+    assert sorted(tc) == sorted(jc)
+    for name in tc:
+        if isinstance(tc[name], dict):
+            _close_cache(tc[name], jc[name])
+            continue
+        tol = CACHE_TOL if name in ("k", "v", "pos") else ATOL
+        assert tc[name].shape == jc[name].shape, name
+        _close(tc[name].float().numpy(), jc[name], tol)
 
 
 def _mixer_caches(cache):
-    """Every layer's mixer cache dict of a cache tree (either layout)."""
+    """Every layer's cache dict of a cache tree (either layout): the mixer's
+    and, for RWKV6, the channel mix's ``cm_prev``."""
     if "groups" in cache:
-        return [c["mixer"] for c in cache["groups"]] + [
-            c["mixer"] for c in cache["tail"]]
-    return [c["mixer"] for c in cache["layers"]]
+        return list(cache["groups"]) + list(cache["tail"])
+    return list(cache["layers"])
 
 
 def test_norms_and_rope_match_jax():
@@ -185,7 +199,7 @@ def test_decode_writes_the_cache_in_place():
 
 
 @pytest.mark.parametrize("name", ["qwen3_8b", "qwen3_8b_scan4",
-                                  "command_r_35b"])
+                                  "command_r_35b", "rwkv6_1b6_scan4"])
 def test_init_params_has_the_reference_layout(name):
     jcfg, tcfg, jp, _ = _model(name)
     tp = TM.init_params(0, tcfg, CPU)
@@ -210,9 +224,62 @@ def test_full_qwen3_8b_config_and_unported_families():
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jax_get_config("qwen3_8b"))
     assert 8.1e9 < cfg.param_count() < 8.3e9
-    for arch in ("rwkv6_1b6", "olmoe_1b_7b", "qwen3_moe_235b_a22b",
+    for arch in ("olmoe_1b_7b", "qwen3_moe_235b_a22b",
                  "recurrentgemma_2b", "whisper_small", "internvl2_26b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
     with pytest.raises(KeyError):
         get_config("gpt2")
+
+
+def test_full_rwkv6_1b6_config():
+    cfg = get_config("rwkv6-1.6b")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jax_get_config("rwkv6_1b6"))
+    assert (cfg.n_layers, cfg.d_model, cfg.wkv_head_dim, cfg.d_ff,
+            cfg.vocab, cfg.block_pattern, cfg.ffn_kind, cfg.norm,
+            cfg.tie_embeddings, cfg.scan_layers, cfg.dtype) == (
+        24, 2048, 64, 7168, 65536, ("wkv6",), "rwkv_cm", "layernorm",
+        False, True, "bfloat16")
+    assert cfg.param_count() == jax_get_config("rwkv6_1b6").param_count()
+    assert 1.5e9 < cfg.param_count() < 1.7e9
+
+
+def test_rwkv6_decode_writes_the_state_in_place():
+    _, tcfg, _, tp = _model("rwkv6_1b6_scan4")
+    toks = torch.from_numpy(_tokens(tcfg, 2, 6)).long()
+    _, cache = TM.prefill(tp, tcfg, toks)
+    group = cache["groups"][0]
+    ptrs = [group["mixer"]["state"].data_ptr(),
+            group["mixer"]["x_prev"].data_ptr(), group["cm_prev"].data_ptr()]
+    before = group["mixer"]["state"].clone()
+    _, cache2 = TM.decode_step(tp, tcfg, cache, toks[:, :1])
+    assert cache2 is cache
+    assert ptrs == [group["mixer"]["state"].data_ptr(),
+                    group["mixer"]["x_prev"].data_ptr(),
+                    group["cm_prev"].data_ptr()]
+    assert group["mixer"]["state"].shape == (4, 2, 4, 64, 64)
+    assert not torch.equal(group["mixer"]["state"], before)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_1b6", "qwen3_8b"])
+def test_bf16_logits_round_where_the_reference_rounds(arch):
+    """Reduced 2-layer models in bf16, JAX-initialized and converted: the
+    port's forward logits against ``repro.models``'. Both round to bf16 at
+    the same points and accumulate in float32, so they differ only where a
+    float32 sum rounds differently (another GEMM order): rms gap within
+    1e-2 of the logits' rms, max gap within 4 bf16 ulps of the largest
+    logit."""
+    jcfg, tcfg = _configs(arch, {"dtype": "bfloat16"})
+    jp = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, CPU)
+    assert tp["embed"].dtype == torch.bfloat16
+    toks = _tokens(jcfg, 2, 80)
+    want, _ = JM.forward_train(jp, jcfg, jnp.asarray(toks))
+    want = np.asarray(want.astype(jnp.float32))
+    got = TM.forward_train(tp, tcfg, torch.from_numpy(toks))
+    assert got.dtype == torch.bfloat16
+    d = got.float().numpy() - want
+    rms = np.sqrt((want ** 2).mean())
+    assert np.sqrt((d ** 2).mean()) <= 1e-2 * rms
+    assert np.abs(d).max() <= 4 * 2 ** -7 * np.abs(want).max()

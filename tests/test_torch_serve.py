@@ -173,10 +173,9 @@ def _jax_serve_loop(params, cfg, prompts, gen, temperature, seed):
     return np.asarray(jnp.concatenate(out, 1)), np.stack(seen, 1)
 
 
-@pytest.mark.parametrize("temperature", [0.0, 0.8])
-def test_generate_matches_the_reference_serve_loop(temperature):
-    jcfg = jax_reduced(jax_get_config("qwen3_8b"))
-    tcfg = reduced(get_config("qwen3_8b"))
+def _check_generate(arch, temperature):
+    jcfg = jax_reduced(jax_get_config(arch))
+    tcfg = reduced(get_config(arch))
     jp = JM.init_params(jax.random.PRNGKey(0), jcfg)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, CPU)
     prompts = np.array(jax.random.randint(jax.random.PRNGKey(0), (2, 12),
@@ -189,12 +188,26 @@ def test_generate_matches_the_reference_serve_loop(temperature):
     np.testing.assert_allclose(lg.numpy(), want_lg, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_generate_matches_the_reference_serve_loop(temperature):
+    _check_generate("qwen3_8b", temperature)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_generate_rwkv6_matches_the_reference_serve_loop(temperature):
+    """RWKV6: prefill runs the chunked scan (prompt 12: the sequential
+    scan on both sides) and decode carries the state and token shifts."""
+    _check_generate("rwkv6_1b6", temperature)
+
+
 @pytest.mark.parametrize("argv", [
     ["--arch", "qwen3_8b", "--reduced", "--batch", "2", "--prompt-len",
      "16", "--gen", "5", "--device", "cpu"],
     ["--arch", "paper_sim", "--reduced", "--batch", "3", "--prompt-len",
      "9", "--gen", "4", "--device", "cpu", "--temperature", "0.7",
      "--backend", "torch"],
+    ["--arch", "rwkv6_1b6", "--reduced", "--batch", "2", "--prompt-len",
+     "16", "--gen", "5", "--device", "cpu"],
 ])
 def test_serve_cli_on_the_cpu(argv):
     buf = io.StringIO()
