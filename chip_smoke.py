@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: Algorithm 3
-(social learning), Algorithm 2 (Byzantine-resilient learning) and the
-serving path of the dense GQA models (Qwen3-8B) and of RWKV6 (RWKV6-1.6B).
+(social learning), Algorithm 2 (Byzantine-resilient learning), the
+serving path of the dense GQA models (Qwen3-8B) and of RWKV6 (RWKV6-1.6B),
+and decentralized robust training (paper_sim).
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -62,7 +63,26 @@ Phases (any failure raises and the script exits non-zero):
              last chunk), 16 tokens, against the plain full forward; then
              the full 24 layers in float32 (2 x 2,048-token prompts, 8
              tokens) by the rule of phase 13, where the greedy choices must
-             agree on at least half the positions.
+             agree on at least half the positions;
+16. train kernels — the trimmed mean (K4) against its sort-based plain
+             version at the main path's (8, 99,496,704) for F in {0, 2} and
+             at edge cases (W 3..32, D 1/3/4,097, a column offset of 1,
+             ties, +-1e6, inf and NaN rows; W <= 2F raises); K6's and K7's
+             gradients through their autograd wrappers against plain
+             autograd at a layer's shape, float32 and bf16 (bit-equal);
+17. train main — paper_sim at published widths and full depth, bf16,
+             seeded weights, through launch.train.build: 8 workers,
+             trimmed_mean F = 2, Byzantine workers 2 and 5, 64 x 1,024
+             tokens a step, 10 steps (K4 10 launches, K6 1,280); the loss
+             falls, param_spread is exactly 0, and the plain path agrees
+             (first-step aggregate, losses); then at 2 layers in float32
+             (3 steps, against the plain path), hierarchical_trim over 2
+             pods x 4 with a worker at ~1e6 (the aggregate within the
+             honest gradients), pushsum_sparse through K1, and a 2-layer
+             RWKV6-1.6B training step's gradients through K7;
+18. train timing — K4, its plain version, its bound and torch.mean at
+             the main shape; step times of both paths (medians of 5, in
+             turns), peak memory and a profile of a kernel-path step.
 
 It prints the card's name and power limit, one JSON line of kernel
 figures, and last the device line. Run from the repository root:
@@ -508,6 +528,7 @@ def main() -> int:
     ]
     kernels += serve_phases(dev, flush)
     kernels.append(rwkv_phases(dev, flush))
+    kernels.append(train_phases(dev, flush))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -515,19 +536,19 @@ def main() -> int:
     return 0
 
 
-def profile_step(run, label: str, step_ms: float) -> None:
-    """Device time by kernel over 20 kernel-path steps (torch.profiler) of
-    ``run(T)``, and the share of the unprofiled step time ``step_ms`` it
-    covers."""
+def profile_step(run, label: str, step_ms: float, steps: int = 20) -> None:
+    """Device time by kernel over ``steps`` kernel-path steps
+    (torch.profiler) of ``run(T)``, after min(5, steps) unprofiled ones,
+    and the share of the unprofiled step time ``step_ms`` it covers."""
     import torch
 
-    run(5)
+    run(min(5, steps))
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
-        run(20)
+        run(steps)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
@@ -538,11 +559,11 @@ def profile_step(run, label: str, step_ms: float) -> None:
         log("[profile] the profiler recorded no device time: not measured")
         return
     busy = sum(r[1] for r in rows)
-    log(f"[profile] 20 steps of {label}: device busy "
+    log(f"[profile] {steps} steps of {label}: device busy "
         f"{busy:.3f} ms in {sum(r[2] for r in rows)} device ops (run set-up "
-        f"included), {busy / 20:.4f} ms a step = {busy / 20 / step_ms:.3f} "
-        f"of the unprofiled {step_ms:.4f} ms step; wall {wall_ms:.1f} ms "
-        f"with the profiler on")
+        f"included), {busy / steps:.4f} ms a step = "
+        f"{busy / steps / step_ms:.3f} of the unprofiled {step_ms:.4f} ms "
+        f"step; wall {wall_ms:.1f} ms with the profiler on")
     for key, ms, count in rows[:12]:
         log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
@@ -552,13 +573,15 @@ def _wrappers() -> dict:
     from repro_torch.kernels.pushsum_edge import edge_scatter_cuda
     from repro_torch.kernels.social_innov import innovation_cuda
     from repro_torch.kernels.swa import attn_decode_cuda, swa_prefill_cuda
+    from repro_torch.kernels.trimmed_mean import trimmed_mean_cuda
     from repro_torch.kernels.wkv6 import wkv6_cuda
     return {"edge_scatter": edge_scatter_cuda,
             "social_innov": innovation_cuda,
             "byz_trim": trim_gather_cuda,
             "attn_decode": attn_decode_cuda,
             "swa_prefill": swa_prefill_cuda,
-            "wkv6": wkv6_cuda}
+            "wkv6": wkv6_cuda,
+            "trimmed_mean": trimmed_mean_cuda}
 
 
 def _zero_counts() -> None:
@@ -1402,6 +1425,544 @@ def rwkv_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     return {"wkv6": {"ms": ms7, "plain_ms": plain7, "bound_ms": b7,
                      "bound_by": by7, "library_ms": None},
             "decode_ms": dec}
+
+
+# ---------------------------------------------------------------------------
+# Decentralized robust training: the trimmed mean (K4) over the workers'
+# gradients, and every layer's training forward through K6 (again in the
+# remat recompute), its backward a plain recompute
+# ---------------------------------------------------------------------------
+
+TRAIN_W, TRAIN_F, TRAIN_BYZ = 8, 2, "2,5"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 1024, 64, 10
+# a layer's shapes for the gradient checks: paper_sim's attention (B, S,
+# H, Hkv, head 64) and RWKV6-1.6B's WKV scan (B, H, T, head 64)
+GRAD_ATTN, GRAD_WKV = (8, 1024, 12, 4), (2, 32, 1024)
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def train_argv(steps: int, agg: str = "trimmed_mean", workers: int = TRAIN_W,
+               byz: str = TRAIN_BYZ, backend: str = "auto",
+               seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH) -> list:
+    """``python -m repro_torch.launch.train``'s arguments of a run."""
+    return ["--arch", "paper_sim", "--steps", str(steps), "--seq-len",
+            str(seq), "--global-batch", str(batch), "--agg", agg,
+            "--trim-f", str(TRAIN_F), "--byzantine", byz, "--workers",
+            str(workers), "--backend", backend, "--seed", "0"]
+
+
+def tmean_bound(x, F: int):
+    """Per-coordinate limit for two orders of the survivors' float32 sum:
+    W * eps32 * sum |x| / (W - 2F), inf and NaN counted as 0."""
+    import torch
+    W = x.shape[0]
+    fin = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    return W * EPS32 * fin.abs().sum(dim=0) / (W - 2 * F) + 1e-30
+
+
+def hold_tmean(what: str, got, want, x, F: int) -> float:
+    """K4 against the plain version: the same NaN and inf, the finite
+    values within :func:`tmean_bound` -> the largest finite error."""
+    import torch
+    torch.cuda.synchronize()
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        require(torch.equal(test(got), test(want)),
+                f"trimmed_mean {what}: {test.__name__} pattern")
+    fin = torch.isfinite(want)
+    err = (got - want).abs()[fin]
+    require(bool((err <= tmean_bound(x, F)[fin]).all()),
+            f"trimmed_mean {what}: within W eps32 sum|x| / (W - 2F) (max "
+            f"err {err.max().item() if err.numel() else 0.0:.3e})")
+    return err.max().item() if err.numel() else 0.0
+
+
+def tmean_kernel_checks(dev, D_full: int) -> float:
+    """Phase 16a: K4 against the sort-based plain version at the main
+    path's shape (8 workers, D_full coordinates; rows 2 and 5 the attack
+    -10 g) for F in {0, 2}, then at the edge cases: W in {3, 4, 8, 16,
+    32}, F up to (W - 1) // 2, D in {1, 3, 4097}, a column offset of 1 (a
+    misaligned column range read through the row stride), exact ties,
+    a +-1e6 Byzantine row, inf and NaN rows; W <= 2F and W > 32 raise ->
+    the largest error at the main shape."""
+    import torch
+    from repro_torch.kernels.trimmed_mean import (W_MAX, trimmed_mean_cuda,
+                                                  trimmed_mean_ref)
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    x = torch.randn((TRAIN_W, D_full), generator=g, device=dev).mul_(1e-3)
+    for b in (2, 5):
+        x[b].mul_(-10.0)
+    for F in (0, TRAIN_F):
+        got = trimmed_mean_cuda(x, F)
+        worst = max(worst, hold_tmean(f"W=8 D={D_full} F={F}", got,
+                                      trimmed_mean_ref(x, F), x, F))
+        del got
+    del x
+    torch.cuda.empty_cache()
+    main_err, worst = worst, 0.0
+    n_cases = 0
+    for W in (3, 4, 8, 16, W_MAX):
+        for F in sorted({0, 1, (W - 1) // 2}):
+            for D in (1, 3, 4097):
+                for case in ("normal", "ties", "byzantine", "non_finite"):
+                    for offset in (0, 1):
+                        x = torch.randn((W, D + offset), generator=g,
+                                        device=dev)
+                        if case == "ties":
+                            x = torch.round(x * 2) / 2
+                            x[:, : (D + offset) // 2] = x[0, : (D + offset)
+                                                          // 2]
+                        elif case == "byzantine":
+                            x[W // 2] = 1e6
+                            x[0] = -1e6
+                        elif case == "non_finite":
+                            x[0] = float("nan")
+                            x[W - 1] = float("inf")
+                        view = x[:, offset:]
+                        got = trimmed_mean_cuda(view, F)
+                        worst = max(worst, hold_tmean(
+                            f"W={W} F={F} D={D} {case} offset={offset}",
+                            got, trimmed_mean_ref(view, F), view, F))
+                        n_cases += 1
+    for W, F in ((4, 2), (2, 1), (W_MAX + 1, 1)):
+        try:
+            trimmed_mean_cuda(torch.zeros((W, 8), device=dev), F)
+        except ValueError:
+            continue
+        raise RuntimeError(f"check failed: trimmed_mean W={W} F={F} must "
+                           f"raise")
+    log(f"[train kernels] trimmed_mean: at (8, {D_full}) for F in {{0, 2}} "
+        f"and {n_cases} edge cases (W 3..{W_MAX}, D 1/3/4097, offset 0/1, "
+        f"ties, +-1e6, inf and NaN rows) within W eps32 sum|x| / (W - 2F) "
+        f"of the plain version, NaN/inf where it has them; W <= 2F and W > "
+        f"{W_MAX} raise; max_abs_err {main_err:.3e} at the main shape, "
+        f"{worst:.3e} over the edge cases (the +-1e6 rows)")
+    return main_err
+
+
+def grad_kernel_checks(dev) -> None:
+    """Phase 16b: K6's and K7's gradients through their autograd wrappers
+    against autograd of their plain versions at a layer's shape
+    (``GRAD_ATTN``: paper_sim's attention at the main path's 8 x 1,024
+    tokens a worker; ``GRAD_WKV``: RWKV6-1.6B's 32 heads, 2 x 1,024),
+    float32 and bf16. The loss is linear in the outputs
+    (a fixed random cotangent), so the backward, a plain recompute, sees
+    the same cotangent: the gradients must be bit-equal. The outputs are
+    the kernels': held to the serve phases' limits."""
+    import torch
+    from repro_torch.kernels.swa import (swa_prefill, swa_prefill_cuda,
+                                         swa_prefill_ref)
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked_ref, wkv6_cuda
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    Ba, Sa, Ha, Hkva = GRAD_ATTN
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        q, k, v = (rn(Ba, Sa, h, 64) for h in (Ha, Hkva, Hkva))
+        up = rn(Ba, Sa, Ha, 64)
+        res = {}
+        for backend in ("cuda", "torch"):
+            ins = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+            before = swa_prefill_cuda.launches
+            out = swa_prefill(*ins, 0, backend=backend)
+            require(swa_prefill_cuda.launches == before
+                    + (backend == "cuda"), "K6 launch through the wrapper")
+            (out.float() * up).sum().backward()
+            res[backend] = (out.detach(), [t.grad for t in ins])
+        torch.cuda.synchronize()
+        # K6's output against the plain version in float32 on the same
+        # inputs, as phase 8 holds it: a bf16 output is rounded once
+        with torch.no_grad():
+            want = swa_prefill_ref(*(t.to(dtype).float() for t in (q, k, v)),
+                                   0)
+        tol = 2 ** -8 if dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(res["cuda"][0].float(), want, rtol=tol,
+                                   atol=1e-5)
+        del want
+        require(all(torch.equal(a, b) for a, b in zip(res["cuda"][1],
+                                                      res["torch"][1])),
+                f"K6 gradients bit-equal to plain autograd ({name})")
+        del q, k, v, up, res, out, ins
+        B, H, T = GRAD_WKV
+        r, kk, vv = (rn(B * H, T, WKV_HEAD) for _ in range(3))
+        lw = -torch.exp(torch.clamp(-0.5 + rn(B * H, T, WKV_HEAD), -8, 4))
+        u = 0.5 * rn(H, WKV_HEAD)
+        gy, gs = rn(B, H, T, WKV_HEAD), rn(B, H, WKV_HEAD, WKV_HEAD)
+        res = {}
+        for backend in ("cuda", "torch"):
+            ins = [t.to(dtype).requires_grad_() for t in (r, kk, vv)] \
+                + [lw.clone().requires_grad_()]
+            uu = u.clone().requires_grad_()
+            args = [t.view(B, H, T, WKV_HEAD) for t in ins] \
+                + [uu.expand(B, H, WKV_HEAD)]
+            before = wkv6_cuda.launches
+            if backend == "cuda":
+                y, s = wkv6(*args)
+            else:
+                y, s = wkv6_chunked_ref(*(a.reshape((-1,) + a.shape[2:])
+                                          for a in args), chunk=64)
+                y = y.view(B, H, T, WKV_HEAD)
+                s = s.view(B, H, WKV_HEAD, WKV_HEAD)
+            require(wkv6_cuda.launches == before + (backend == "cuda"),
+                    "K7 launch through the wrapper")
+            ((y.float() * gy).sum() + (s * gs).sum()).backward()
+            res[backend] = [t.grad for t in ins] + [uu.grad]
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(res["cuda"],
+                                                      res["torch"])),
+                f"K7 gradients bit-equal to plain autograd ({name})")
+        del r, kk, vv, lw, u, gy, gs, res, ins, y, s
+        torch.cuda.empty_cache()
+        log(f"[train kernels] K6 (B, S, H, Hkv = {GRAD_ATTN}, heads of 64) "
+            f"and K7 (B, H, T = {GRAD_WKV}) through their autograd "
+            f"wrappers, {name}: outputs within the kernels' limits, "
+            f"gradients bit-equal to plain autograd")
+
+
+def run_steps(step, params, opt, data, steps: int, dev, robust=True,
+              on_step=None) -> list[float]:
+    """``steps`` steps as ``launch.train.main`` runs them -> the losses."""
+    import torch
+    from repro_torch.core.prng import fold_in, prng_key
+    key = prng_key(0)
+    losses = []
+    for s in range(steps):
+        batch = data.batch(s, dev)
+        if robust:
+            params, opt, loss = step(params, opt, batch, fold_in(key, s))
+        else:
+            params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))
+        if on_step is not None:
+            on_step(s, step)
+    torch.cuda.synchronize()
+    return losses
+
+
+def rel_rms(a, b) -> float:
+    return ((a.float() - b.float()).square().mean().sqrt()
+            / b.float().square().mean().sqrt().clamp_min(1e-30)).item()
+
+
+def train_phases(dev, flush) -> dict:
+    """Phases 16-18 (decentralized robust training of paper_sim) -> the
+    JSON entry of K4."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.aggregation import (GOSSIP_COLS,
+                                                     AggregatorConfig)
+    from repro_torch.distributed.trainer import (TrainConfig,
+                                                 make_train_step,
+                                                 param_spread,
+                                                 replicate_for_workers,
+                                                 worker_opt_init)
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.train import build, parse_args
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import leaves
+
+    cfg = get_config("paper_sim")
+    D_full = cfg.param_count() + cfg.d_model      # + the final norm
+
+    # ---- phase 16: K4, and the K6/K7 autograd wrappers --------------------
+    err = tmean_kernel_checks(dev, D_full)
+    grad_kernel_checks(dev)
+
+    # ---- phase 17: paper_sim at full width and depth, 8 workers ---------
+    runs = {}
+    for backend in ("auto", "torch"):
+        args = parse_args(train_argv(TRAIN_STEPS, backend=backend))
+        tc, data, pw, ow, step, layout = build(args, record=True)
+        n_params = sum(t[0].numel() for t in leaves(pw))
+        first = {}
+
+        def keep_first(s, st, first=first):
+            if s == 0:
+                first["agg"] = st.aggregate[0].clone()
+            del st.grads, st.aggregate
+
+        _zero_counts()
+        t0 = time.perf_counter()
+        losses = run_steps(step, pw, ow, data, TRAIN_STEPS, dev,
+                           on_step=keep_first)
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        spread = param_spread(pw).item()
+        runs[backend] = (losses, first["agg"], counts)
+        log(f"[train] {backend}: paper_sim {cfg.n_layers} layers d_model "
+            f"{cfg.d_model} {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+            f"{cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab} {cfg.dtype}, "
+            f"{n_params} parameters a copy; {TRAIN_W} workers, trimmed_mean "
+            f"F={TRAIN_F}, Byzantine {TRAIN_BYZ} (scale "
+            f"{tc.byzantine_scale}), {TRAIN_BATCH} x {TRAIN_SEQ} tokens a "
+            f"step; {TRAIN_STEPS} steps in {wall:.2f} s; losses "
+            f"{[round(x, 4) for x in losses]}; param_spread {spread!r}; "
+            f"launches {counts}")
+        require(n_params == D_full, "D_total == param_count + final norm")
+        require(all(np.isfinite(losses)), "losses finite")
+        require(spread == 0.0, "param_spread exactly 0")
+        if backend == "auto":
+            require(counts == _only(
+                trimmed_mean=TRAIN_STEPS,
+                swa_prefill=TRAIN_STEPS * TRAIN_W * cfg.n_layers * 2),
+                "K4 once a step, K6 per layer, worker, forward and remat")
+            require(losses[-1] < losses[0], "the loss falls")
+        else:
+            require(counts == _only(), "the plain path launched no kernel")
+        del pw, ow, step, first
+        torch.cuda.empty_cache()
+    (lk, ak, _), (lp, ap, _) = runs["auto"], runs["torch"]
+    agg_gap = rel_rms(ak, ap)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    log(f"[train] kernel vs plain path: first-step aggregate relative rms "
+        f"{agg_gap:.3e} (rms {ap.square().mean().sqrt().item():.3e}), "
+        f"largest relative loss gap over {TRAIN_STEPS} steps {loss_gap:.3e}")
+    # Tolerance (bf16): the two paths round the attention's bf16 output
+    # differently (K6's online softmax against the plain one), ~2^-8 of an
+    # entry; the flips grow through 8 layers and the backward and move
+    # which worker survives a near-tied trim. A missing or wrong gradient
+    # term moves the aggregate by O(1) of its rms. Limits: 0.1 relative rms
+    # on the aggregate, 1e-2 on the losses.
+    require(agg_gap < 0.1, "first-step aggregates agree")
+    require(loss_gap < 1e-2, "losses agree")
+    counts_main = runs["auto"][2]
+    del runs, ak, ap
+
+    # ---- phase 17b: 2 layers in float32, 3 steps ------------------------
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    out = {}
+    for backend in ("auto", "torch"):
+        args = parse_args(train_argv(3, backend=backend))
+        _, data, pw, ow, step, _ = build(args, cfg32)
+        _zero_counts()
+        out[backend] = (run_steps(step, pw, ow, data, 3, dev), pw, _counts())
+    (l32k, p32k, c32), (l32p, p32p, _) = out["auto"], out["torch"]
+    require(all(torch.equal(t[0], t[w]) for t in leaves(p32k)
+                for w in range(1, TRAIN_W)), "fp32 copies equal")
+    require(c32 == _only(trimmed_mean=3, swa_prefill=3 * TRAIN_W * 2 * 2),
+            "fp32 launches")
+    lgap = max(abs(a - b) / abs(b) for a, b in zip(l32k, l32p))
+    n_off = n_all = 0
+    gap = 0.0
+    for a, b in zip(leaves(p32k), leaves(p32p)):
+        n_off += int(((a - b).abs() > 1e-4 * b.abs() + 1e-6).sum())
+        n_all += b.numel()
+        gap = max(gap, (a - b).abs().max().item())
+    lr = parse_args(train_argv(3)).lr
+    log(f"[train fp32] 2 layers, 3 steps: losses {l32k}; kernel vs plain "
+        f"largest relative loss gap {lgap:.3e}; parameters off by more "
+        f"than 1e-4 relative + 1e-6: {n_off} of {n_all}, largest gap "
+        f"{gap:.3e}")
+    # Tolerance (fp32): the same float32 math in another order (K6 against
+    # the naive attention, ~1e-6 relative): losses within 1e-4 relative,
+    # parameters within 1e-4 relative + 1e-6. AdamW's update m / sqrt(v)
+    # is ~sign(g), so a coordinate whose gradient is within rounding of
+    # zero can move the other way on one path: at most 1e-4 of the
+    # coordinates may do so, and none by more than 2 lr a step.
+    require(lgap < 1e-4 and n_off <= 1e-4 * n_all and gap <= 2 * lr * 3,
+            "fp32 kernel path = plain path")
+    del out, p32k, p32p
+
+    # ---- phase 17c: hierarchical_trim, 2 pods x 4, one worker at ~1e6 ----
+    data = SyntheticLMData(cfg.vocab, 256, 16, flavour="markov", seed=0)
+    tc = TrainConfig(arch=cfg32, agg=AggregatorConfig(
+        kind="hierarchical_trim", F=1), opt=AdamWConfig(
+        warmup_steps=1, total_steps=2), byzantine_workers=(3,),
+        byzantine_scale=1e6)
+    pw = replicate_for_workers(M.init_params(0, cfg32, dev), 8)
+    ow = worker_opt_init(pw)
+    step = make_train_step(tc, (2, 4), record=True)
+    bounded = []
+
+    def check_bounded(s, st):
+        G, agg = st.grads, st.aggregate[0]
+        honest = torch.cat([G[:3], G[4:]]).abs().amax(dim=0)
+        bounded.append((agg.abs() <= honest).all().item())
+        log(f"[train hier] step {s}: Byzantine row |g| up to "
+            f"{G[3].abs().max().item():.3e}, honest up to "
+            f"{honest.max().item():.3e}, aggregate up to "
+            f"{agg.abs().max().item():.3e}")
+        del st.grads, st.aggregate
+
+    _zero_counts()
+    hl = run_steps(step, pw, ow, data, 2, dev, on_step=check_bounded)
+    require(all(bounded), "the hierarchical trim's aggregate stays within "
+            "the honest gradients, coordinate by coordinate")
+    require(_counts() == _only(trimmed_mean=2 * 3,
+                               swa_prefill=2 * 8 * 2 * 2),
+            "K4 once per pod and once across pods a step")
+    # (float32 copies are compared directly: the mean of 8 equal float32
+    # values that param_spread takes need not round back to the value)
+    require(all(np.isfinite(hl)) and all(
+        torch.equal(t[0], t[w]) for t in leaves(pw) for w in range(1, 8)),
+        "hierarchical run finite, every copy equal")
+    del pw, ow, step
+
+    # ---- phase 17d: pushsum_sparse at 2 layers, through K1 ----------------
+    args = parse_args(train_argv(2, agg="pushsum_sparse", byz=""))
+    tc, data, pw, ow, step, _ = build(args, cfg32)
+    _zero_counts()
+    pl = run_steps(step, pw, ow, data, 2, dev)
+    D2 = sum(t[0].numel() for t in leaves(pw))
+    passes = -(-D2 // GOSSIP_COLS)
+    ps_spread = param_spread(pw).item()
+    log(f"[train pushsum_sparse] 2 layers, 2 steps, D {D2} in {passes} "
+        f"passes: losses {pl}, param_spread {ps_spread:.3e}, launches "
+        f"{_counts()}")
+    require(_counts() == _only(
+        edge_scatter=2 * tc.agg.gossip_rounds * passes,
+        swa_prefill=2 * TRAIN_W * 2 * 2), "K1 once a gossip round and pass")
+    require(all(np.isfinite(pl)) and 0.0 < ps_spread < 1e-2,
+            "pushsum_sparse: finite, copies near consensus")
+    del pw, ow, step
+    torch.cuda.empty_cache()
+
+    # ---- phase 17e: a 2-layer RWKV6-1.6B training step through K7 ----------
+    rcfg = dataclasses.replace(get_config("rwkv6_1b6"), n_layers=2,
+                               dtype="float32")
+    params = M.init_params(0, rcfg, dev)
+    data = SyntheticLMData(rcfg.vocab, 512, 4, flavour="markov", seed=0)
+    batch = data.batch(0, dev)
+    grads = {}
+    _zero_counts()
+    for backend in ("auto", "torch"):
+        ps = [p.detach().requires_grad_() for p in leaves(params)]
+        it = iter(ps)
+        tree = _refill(params, it)
+        loss = M.loss_fn(tree, rcfg, batch["tokens"], batch["labels"],
+                         backend)
+        grads[backend] = (loss.item(), torch.autograd.grad(loss, ps))
+    torch.cuda.synchronize()
+    require(_counts() == _only(wkv6=2 * 2), "K7 per layer, forward and remat")
+    rk, gk = grads["auto"]
+    rp, gp = grads["torch"]
+    from repro_torch.checkpoint.ckpt import key_paths
+    names = [k for k, _ in key_paths(params)]
+    gaps = sorted(((rel_rms(a, b), ((a - b).abs().max()
+                                    / b.abs().max()).item(), n)
+                   for a, b, n in zip(gk, gp, names)), reverse=True)
+    log(f"[train rwkv] 2-layer RWKV6-1.6B, float32, 4 x 512 tokens: loss "
+        f"{rk:.6f} (plain {rp:.6f}); gradient gaps to the plain path, "
+        f"(relative rms, largest / the leaf's largest entry), worst leaves "
+        f"first: " + "; ".join(f"{n} {r:.3e} {m:.3e}"
+                               for r, m, n in gaps[:4]))
+    # Tolerance (fp32): K7 agrees with the plain chunked form within ~1e-4
+    # of the outputs' scale (phase 12) and the backward recomputes the
+    # plain form from the same inputs, so the gradients differ only by the
+    # forward's rounding carried through the groupnorm and the later layer
+    # (a few 1e-3 at a leaf's worst entry); a missing or wrong gradient
+    # term moves a leaf by O(1) of its rms. Limits: loss 1e-4 relative,
+    # every leaf within 1e-2 relative rms.
+    require(abs(rk - rp) <= 1e-4 * abs(rp) and gaps[0][0] < 1e-2,
+            "RWKV6 gradients through K7 = the plain path's")
+    del params, grads, gk, gp
+    torch.cuda.empty_cache()
+
+    # ---- phase 18: timing ---------------------------------------------------
+    times = train_timing(dev, flush, D_full)
+    return {"name": "trimmed_mean", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/trimmed_mean.cu",
+            "replaces": "src/repro/kernels/trimmed_mean/trimmed_mean.py:69",
+            "launches": counts_main["trimmed_mean"], "max_abs_err": err,
+            **times}
+
+
+def _refill(tree, it):
+    """``tree`` with its leaves, in ``leaves`` order, taken from ``it``."""
+    if isinstance(tree, dict):
+        out = {k: _refill(tree[k], it) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_refill(t, it) for t in tree)
+    return next(it)
+
+
+def train_timing(dev, flush, D_full: int) -> dict:
+    """Phase 18: step times of the main configuration on the kernel and
+    plain paths (medians of 5, in turns), the peak memory, a profile of a
+    kernel-path step, and K4 against its plain version, its bound and
+    ``torch.mean`` at the main path's shape -> K4's JSON timings."""
+    import torch
+    from repro_torch.core.prng import fold_in, prng_key
+    from repro_torch.kernels.trimmed_mean import (trimmed_mean_cuda,
+                                                  trimmed_mean_ref)
+    from repro_torch.launch.train import build, parse_args
+
+    # K4 at (8, D_full), the attack rows in place
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((TRAIN_W, D_full), generator=g, device=dev).mul_(1e-3)
+    x[2].mul_(-10.0)
+    x[5].mul_(-10.0)
+    out = torch.empty(D_full, device=dev)
+    ms = {F: event_ms(lambda F=F: trimmed_mean_cuda(x, F, out=out),
+                      TIMED_RUNS, flush) for F in (0, TRAIN_F)}
+    plain = {F: event_ms(lambda F=F: trimmed_mean_ref(x, F), 3, flush)
+             for F in (0, TRAIN_F)}
+    lib = event_ms(lambda: torch.mean(x, 0), TIMED_RUNS, flush)
+    # bytes: x read once, the output written once; operations: per
+    # coordinate 2F extraction rounds of W compares and W adds
+    bnd = {F: bound(nbytes(x, out), D_full * TRAIN_W * (2 * F + 1))
+           for F in (0, TRAIN_F)}
+    log(f"[timing] trimmed_mean (W={TRAIN_W}, D={D_full}): F={TRAIN_F} "
+        f"{ms[TRAIN_F]:.4f} ms (plain {plain[TRAIN_F]:.4f}, bound "
+        f"{bnd[TRAIN_F][0]:.4f} {bnd[TRAIN_F][1]}); F=0 {ms[0]:.4f} ms "
+        f"(plain {plain[0]:.4f}, torch.mean {lib:.4f}, bound "
+        f"{bnd[0][0]:.4f}); library for F > 0: none (no single call); "
+        f"medians, L2 flushed")
+    del x, out
+    torch.cuda.empty_cache()
+
+    # step times, kernel and plain paths in turns
+    key = prng_key(0)
+    setups = {}
+    for backend in ("auto", "torch"):
+        args = parse_args(train_argv(TRAIN_STEPS, backend=backend))
+        _, data, pw, ow, step, _ = build(args)
+        setups[backend] = (data, pw, ow, step)
+    batches = [setups["auto"][0].batch(s, dev) for s in range(2)]
+
+    def one(backend, s):
+        _, pw, ow, step = setups[backend]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(pw, ow, batches[s % 2], fold_in(key, s))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for backend in ("auto", "torch"):
+        one(backend, 0)                                  # warm-up
+    walls = {"auto": [], "torch": []}
+    for s in range(5):
+        for backend in (("auto", "torch") if s % 2 == 0
+                        else ("torch", "auto")):
+            walls[backend].append(one(backend, s + 1))
+    step_ms = {b: float(np.median(w)) for b, w in walls.items()}
+    torch.cuda.reset_peak_memory_stats()
+    one("auto", 7)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[timing] train step (paper_sim, {TRAIN_W} workers x "
+        f"{TRAIN_BATCH // TRAIN_W} x {TRAIN_SEQ} tokens, trimmed_mean): "
+        f"kernel path {step_ms['auto']:.2f} ms, plain path "
+        f"{step_ms['torch']:.2f} ms (medians of 5, in turns: "
+        f"{[round(v, 1) for v in walls['auto']]} / "
+        f"{[round(v, 1) for v in walls['torch']]}); peak memory of a "
+        f"kernel-path step {peak:.2f} GB; K4 {ms[TRAIN_F]:.4f} ms = "
+        f"{ms[TRAIN_F] / step_ms['auto']:.2e} of the step")
+    del setups["torch"]
+    torch.cuda.empty_cache()
+    profile_step(lambda T: [one("auto", 10 + t) for t in range(T)],
+                 "paper_sim train (8 workers)", step_ms["auto"], steps=2)
+    del setups
+    torch.cuda.empty_cache()
+    return {"ms": ms[TRAIN_F], "plain_ms": plain[TRAIN_F],
+            "bound_ms": bnd[TRAIN_F][0], "bound_by": bnd[TRAIN_F][1],
+            "library_ms": lib}
 
 
 if __name__ == "__main__":

@@ -1,0 +1,4 @@
+"""Dependency-free tree checkpoints, readable by both packages."""
+from .ckpt import latest_step, restore_checkpoint, save_checkpoint
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]

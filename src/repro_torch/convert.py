@@ -5,7 +5,9 @@ topology and scenario scalars, and the push-sum state. Each function takes
 numpy arrays (``np.asarray`` of the reference's values) and builds the
 port's counterpart on the CPU; ``.to(device)`` or the entry points move it
 to the card. The model stack's parameter tree comes across whole with
-:func:`params_from_jax`. The way back is ``.to_numpy()`` on
+:func:`params_from_jax`, a robust trainer's stacked parameters and AdamW
+state with :func:`train_state_from_jax`, and any such tree goes back as
+numpy with :func:`tree_to_numpy`. The engines' way back is ``.to_numpy()`` on
 :class:`~repro_torch.core.pushsum.SparsePushSumState`,
 :class:`~repro_torch.core.social.SocialLearningResult` and
 :class:`~repro_torch.core.byzantine.ByzantineResult`.
@@ -23,7 +25,7 @@ from .core.social import SocialRuntime, social_runtime_from_edge_list
 
 __all__ = ["signal_model_from_numpy", "social_runtime_from_numpy",
            "sparse_state_from_numpy", "byz_runtime_from_numpy",
-           "params_from_jax"]
+           "params_from_jax", "train_state_from_jax", "tree_to_numpy"]
 
 
 def signal_model_from_numpy(tables: np.ndarray, truth: int) -> SignalModel:
@@ -112,3 +114,31 @@ def params_from_jax(tree, cfg, device=None):
         return leaf(t)
 
     return walk(tree)
+
+
+def train_state_from_jax(params_w, opt_w, cfg, device=None):
+    """A robust trainer's state from the JAX package's numpy trees:
+    stacked ``(W, ...)`` parameters (``replicate_for_workers``' layout) and
+    the per-worker AdamW state ``{"m", "v", "step"}`` -> the port's
+    ``(params_w, opt_w)`` on ``device`` (``None``: the card), each leaf in
+    its own dtype."""
+    from .core.plan import resolve_device
+    dev = resolve_device(device)
+    return (params_from_jax(params_w, cfg, dev),
+            {"m": params_from_jax(opt_w["m"], cfg, dev),
+             "v": params_from_jax(opt_w["v"], cfg, dev),
+             "step": torch.tensor(np.asarray(opt_w["step"]),
+                                  dtype=torch.int32, device=dev)})
+
+
+def tree_to_numpy(tree):
+    """A nested dict/list tree of tensors as numpy arrays on the host;
+    bfloat16 leaves come back as float32, which is exact."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    t = tree.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()

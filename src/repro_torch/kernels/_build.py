@@ -33,7 +33,7 @@ __all__ = ["KERNELS", "BUILD_DIR", "Built", "build", "function",
            "check_status", "check_arg"]
 
 KERNELS = ("edge_scatter", "social_innov", "byz_trim", "attn_decode",
-           "swa_prefill", "wkv6")
+           "swa_prefill", "wkv6", "trimmed_mean")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -6,6 +6,15 @@ layer, ``swa_prefill(..., backend=...)`` what prefill calls once per layer
 (routes in :mod:`repro_torch.kernels.dispatch`). The CUDA kernels take
 float32 or bfloat16 and head sizes 64, 128 and 256; the wrappers raise on
 anything else and never fall back to the plain versions.
+
+Training differentiates through ``swa_prefill``: on the card, inputs that
+require grad under grad mode go through :class:`SwaPrefillFn`, whose
+forward is K6 and whose backward recomputes the plain attention
+(:func:`.ref.swa_prefill_ref`) and returns its vector-Jacobian product.
+The JAX package has no attention backward kernel either (it trains through
+autodiff of its plain attention). The raw launcher ``swa_prefill_cuda``
+records no graph, so it raises on such inputs instead of cutting the
+attention out of the gradient.
 """
 from __future__ import annotations
 
@@ -18,7 +27,7 @@ from ..dispatch import resolve_backend
 from .ref import attn_decode_ref, swa_prefill_ref
 
 __all__ = ["attn_decode", "attn_decode_cuda", "swa_prefill",
-           "swa_prefill_cuda", "HEAD_DIMS"]
+           "swa_prefill_cuda", "SwaPrefillFn", "HEAD_DIMS"]
 
 HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,7 +68,38 @@ def swa_prefill(
     (B, S, H, dh); see :func:`.ref.swa_prefill_ref` for the contract."""
     if resolve_backend(backend, q) == "torch":
         return swa_prefill_ref(q, k, v, window, scale)
+    if _needs_graph(q, k, v):
+        return SwaPrefillFn.apply(q, k, v, window, scale, swa_prefill_cuda)
     return swa_prefill_cuda(q, k, v, window, scale)
+
+
+def _needs_graph(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class SwaPrefillFn(torch.autograd.Function):
+    """``forward`` (K6's launcher on the card) for the values; the plain
+    attention recomputed under autograd for the gradients. ``forward`` is
+    an argument so the CPU tests can put the plain version in the kernel's
+    slot."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, scale, forward):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.scale = window, scale
+        return forward(q, k, v, window, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in saved]
+            out = swa_prefill_ref(*ins, ctx.window, ctx.scale)
+            want = [t for t, need in zip(ins, ctx.needs_input_grad) if need]
+            got = iter(torch.autograd.grad(out, want, g))
+        grads = [next(got) if need else None
+                 for need in ctx.needs_input_grad[:3]]
+        return (*grads, None, None, None)
 
 
 def _check_heads(what: str, x: torch.Tensor, dh: int, H: int, Hkv: int,
@@ -140,10 +180,16 @@ def swa_prefill_cuda(
     """Launch the causal/sliding-window flash-attention kernel on the
     current stream. q, k and v may be any views whose head axis is
     contiguous and whose other strides are multiples of 4 elements; the
-    output is a new contiguous (B, S, H, dh) tensor.
+    output is a new contiguous (B, S, H, dh) tensor. It records no
+    autograd graph and raises on inputs that require grad under grad mode:
+    :func:`swa_prefill` differentiates through K6.
     ``swa_prefill_cuda.launches`` counts the launches."""
     if not q.is_cuda:
         raise ValueError("the CUDA prefill attention needs CUDA tensors")
+    if _needs_graph(q, k, v):
+        raise RuntimeError("the raw K6 launcher has no backward: call "
+                           "swa_prefill(), which differentiates through "
+                           "SwaPrefillFn")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q must be (B, S, H, dh) and k, v (B, S, Hkv, dh)")
     B, S, H, dh = q.shape

@@ -13,6 +13,14 @@ Both routes take the reference's ``(BH, T, K)`` layout, or ``(B, H, T,
 K)`` views (``u`` then ``(B, H, K)``, the state ``(B, H, K, V)``), which the
 kernel reads through their strides; the model hands over views of its
 ``(B, S, H, hd)`` projections that way and makes no transposed copy.
+
+Training differentiates through ``wkv6``: on the card, inputs that require
+grad under grad mode go through :class:`Wkv6Fn`, whose forward is K7 and
+whose backward recomputes the plain chunked scan (:func:`.ref.
+wkv6_chunked_ref` at K7's chunk, 64) under autograd and returns its
+vector-Jacobian product: the pattern of the JAX package's
+``_wkv6_kernel_ad`` (a Pallas forward, a plain chunked backward). The raw
+launcher ``wkv6_cuda`` records no graph and raises on such inputs.
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ from .. import _build
 from ..dispatch import resolve_backend
 from .ref import wkv6_chunked_ref, wkv6_ref
 
-__all__ = ["wkv6", "wkv6_cuda", "HEAD_SIZE", "KERNEL_CHUNK"]
+__all__ = ["wkv6", "wkv6_cuda", "Wkv6Fn", "HEAD_SIZE", "KERNEL_CHUNK"]
 
 HEAD_SIZE = 64          # K = V: the kernel's tile; RWKV6's published size
 KERNEL_CHUNK = 64
@@ -64,6 +72,8 @@ def wkv6(
         if chunk not in (None, KERNEL_CHUNK):
             raise ValueError(f"the CUDA kernel runs chunk {KERNEL_CHUNK}, "
                              f"got chunk={chunk}")
+        if _needs_graph(r, k, v, lw, u):
+            return Wkv6Fn.apply(r, k, v, lw, u, wkv6_cuda)
         return wkv6_cuda(r, k, v, lw, u)
     lead = r.shape[:-2]
     T = r.shape[-2]
@@ -75,6 +85,39 @@ def wkv6(
     else:
         y, s = wkv6_ref(rf, kf, vf, lwf, uf)
     return y.reshape(lead + y.shape[1:]), s.reshape(lead + s.shape[1:])
+
+
+def _needs_graph(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class Wkv6Fn(torch.autograd.Function):
+    """``forward`` (K7's launcher on the card) for the values; the plain
+    chunked scan at chunk 64 recomputed under autograd for the gradients
+    of r, k, v, lw and u (through y and the final state). ``forward`` is
+    an argument so the CPU tests can put a plain version in the kernel's
+    slot."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, forward):
+        ctx.save_for_backward(r, k, v, lw, u)
+        return forward(r, k, v, lw, u)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in saved]
+            flat = _flat(*ins) if ins[0].dim() == 4 else ins
+            y, s = wkv6_chunked_ref(*flat, chunk=KERNEL_CHUNK)
+            lead = ins[0].shape[:-2]
+            outs = (y.reshape(lead + y.shape[1:]),
+                    s.reshape(lead + s.shape[1:]))
+            want = [t for t, need in zip(ins, ctx.needs_input_grad) if need]
+            got = iter(torch.autograd.grad(outs, want, (gy, gs)))
+        grads = [next(got) if need else None
+                 for need in ctx.needs_input_grad[:5]]
+        return (*grads, None)
 
 
 def _strides3(t: torch.Tensor) -> tuple[int, int, int]:
@@ -100,16 +143,15 @@ def wkv6_cuda(
     strides may be 0, a broadcast). y is a new tensor in r.dtype: contiguous
     for 3-D inputs; for 4-D inputs a (B, H, T, V) view of a contiguous
     (B, T, H, V) tensor, the layout the model reshapes to (B, T, H * V) for
-    free. The state is contiguous float32. K7 has no backward yet, so
-    inputs that require grad raise while grad mode is on.
-    ``wkv6_cuda.launches`` counts the launches."""
+    free. The state is contiguous float32. It records no autograd graph
+    and raises on inputs that require grad under grad mode: :func:`wkv6`
+    differentiates through K7. ``wkv6_cuda.launches`` counts the
+    launches."""
     if not r.is_cuda:
         raise ValueError("the CUDA WKV6 kernel needs CUDA tensors")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (r, k, v, lw, u)):
-        raise RuntimeError("the CUDA WKV6 kernel has no backward yet: call "
-                           "it under torch.no_grad() or inference_mode, or "
-                           "use backend='torch'")
+    if _needs_graph(r, k, v, lw, u):
+        raise RuntimeError("the raw K7 launcher has no backward: call "
+                           "wkv6(), which differentiates through Wkv6Fn")
     if r.dim() not in (3, 4):
         raise ValueError("r must be (BH, T, K) or (B, H, T, K)")
     lead = tuple(r.shape[:-2])

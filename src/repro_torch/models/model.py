@@ -14,7 +14,9 @@ Python loop over per-layer views (``leaf[r]``), repeat-major as the scan
 applies it, and no layer is ever copied out.
 
 Entry points:
-  ``forward_train`` — full-sequence logits (forward only)
+  ``forward_train`` — full-sequence logits (``forward_hidden`` the trunk)
+  ``loss_fn``       — mean next-token cross-entropy (full or streamed),
+                      differentiable: training's objective
   ``prefill``       — last-position logits + the primed KV cache
   ``decode_step``   — one token through the cache
 
@@ -30,6 +32,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.plan import resolve_device
@@ -193,15 +196,90 @@ def lm_logits(params: Params, cfg: ArchConfig,
     return logits
 
 
-def forward_train(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                  backend: str = "auto") -> torch.Tensor:
-    """Logits (B, S, V) of the full sequence (forward only; the reference
-    also returns an aux loss, 0 for dense models)."""
+def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                   backend: str = "auto") -> torch.Tensor:
+    """The decoder trunk without the LM head: the pre-head hidden (B, S,
+    d). Under grad mode with ``cfg.remat`` each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference runs it
+    under ``jax.checkpoint``: its activations are recomputed in the
+    backward, which launches the block's mixer kernel a second time. The
+    stacked layout with one pattern position and ``remat_group`` G > 1
+    dividing R checkpoints G layers at a time; tail layers run without
+    remat, as in the reference."""
     x = embed_inputs(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for blk, kind, _ in _layers(params, cfg):
-        x = block_train(blk, x, cfg, kind, positions, backend)
-    return lm_logits(params, cfg, x)
+    remat = cfg.remat and torch.is_grad_enabled()
+    group = 1
+    if remat and "groups" in params and len(cfg.block_pattern) == 1:
+        R = params["groups"][0]["norm1"]["scale"].shape[0]
+        G = max(cfg.remat_group, 1)
+        group = G if R % G == 0 else 1
+    n_stacked = cfg.n_layers - len(params.get("tail", ()))
+
+    def run(x, *blocks):
+        for blk, kind in blocks:
+            x = block_train(blk, x, cfg, kind, positions, backend)
+        return x
+
+    pending = []
+    for i, (blk, kind, _) in enumerate(_layers(params, cfg)):
+        if not remat or i >= n_stacked:
+            x = run(x, (blk, kind))
+            continue
+        pending.append((blk, kind))
+        if len(pending) == group:
+            x = checkpoint(run, x, *pending, use_reentrant=False)
+            pending = []
+    return x
+
+
+def forward_train(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                  backend: str = "auto") -> torch.Tensor:
+    """Logits (B, S, V) of the full sequence (the reference also returns
+    an aux loss, 0 for dense models)."""
+    return lm_logits(params, cfg, forward_hidden(params, cfg, tokens,
+                                                 backend))
+
+
+def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
+                    ) -> torch.Tensor:
+    """Summed token cross-entropy, in float32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).sum()
+
+
+def loss_fn(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Mean next-token cross-entropy (the dense models' aux loss is 0).
+
+    With ``cfg.ce_chunk`` C > 0 the loss is streamed as in the reference:
+    the trunk runs once, then each chunk of C positions is projected to
+    the vocabulary and scored under ``torch.utils.checkpoint``, so the
+    (B, S, V) logits never exist at once (the backward recomputes them a
+    chunk at a time). A ragged last chunk is scored as it is; the
+    reference pads it and masks the padding out, which adds zeros."""
+    labels = labels.to(params["embed"].device)
+    if cfg.ce_chunk <= 0:
+        logits = forward_train(params, cfg, tokens, backend)
+        n_tok = logits.shape[0] * logits.shape[1]
+        return _ce_from_logits(logits, labels) / n_tok
+    hidden = forward_hidden(params, cfg, tokens, backend)
+    B, S, _ = hidden.shape
+    C = cfg.ce_chunk
+
+    def chunk_ce(h, lab):
+        return _ce_from_logits(lm_logits(params, cfg, h), lab)
+
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, S, C):
+        h, lab = hidden[:, c0:c0 + C], labels[:, c0:c0 + C]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(chunk_ce, h, lab, use_reentrant=False)
+        else:
+            total = total + chunk_ce(h, lab)
+    return total / (B * S)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,15 @@ exponentials of differences of in-chunk cumsums that differ by a few ulp
 of |P| with the cumsum's order, so ``tests/test_torch_wkv6.py``'s chunked
 limit applies, atol = rtol = 1e-3 on outputs up to ~100; at lw = -e^4,
 where |P| reaches ~3,500 (ulp 2.4e-4), rtol 5e-4 + atol 5e-3. A bf16 y is
-the float32 result rounded once on each side: rtol 2^-7 + atol 1e-3."""
+the float32 result rounded once on each side: rtol 2^-7 + atol 1e-3.
+The trimmed mean K4 sums the same survivors as its sort-based plain
+version in another order, so it agrees within :func:`tmean_bound` (W *
+eps32 * the column's sum of absolute values / (W - 2F)); where inf or NaN
+survives the trim both give inf or NaN. The autograd wrappers of K6 and
+K7 recompute the plain versions in their backward, so for a loss linear in
+their outputs the gradients equal plain autograd's bit for bit; through a
+model (the forward's rounding reaches the upstream gradient) they are
+held within 1e-4 of each leaf's largest entry (float32)."""
 import numpy as np
 import pytest
 import torch
@@ -50,6 +58,7 @@ from repro_torch.kernels.pushsum_edge import (
     edge_scatter_ref,
 )
 from repro_torch.kernels.swa import (
+    SwaPrefillFn,
     attn_decode,
     attn_decode_cuda,
     attn_decode_ref,
@@ -58,10 +67,17 @@ from repro_torch.kernels.swa import (
     swa_prefill_ref,
 )
 from repro_torch.kernels.wkv6 import (
+    Wkv6Fn,
     wkv6,
     wkv6_chunked_ref,
     wkv6_cuda,
     wkv6_ref,
+)
+from repro_torch.kernels.trimmed_mean import (
+    W_MAX,
+    trimmed_mean,
+    trimmed_mean_cuda,
+    trimmed_mean_ref,
 )
 from repro_torch.kernels.social_innov import (
     innovation_cuda,
@@ -635,9 +651,11 @@ def test_wkv6_kernel_rejects_bad_arguments(cuda_device):
         wkv6_cuda(*(a.cpu() for a in (r, k, v, lwa, u)))
     rg = r.clone().requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
-        wkv6(rg, k, v, lwa, u)
+        wkv6_cuda(rg, k, v, lwa, u)           # the raw launcher
+    y, _ = wkv6(rg, k, v, lwa, u)             # through Wkv6Fn
+    assert y.grad_fn is not None
     with torch.no_grad():
-        wkv6(rg, k, v, lwa, u)                # no graph: the kernel runs
+        wkv6_cuda(rg, k, v, lwa, u)           # no graph: the kernel runs
 
 
 @pytest.mark.cuda
@@ -674,3 +692,264 @@ def test_rwkv6_serve_path_through_the_kernel_matches_plain(cuda_device,
             torch.testing.assert_close(torch.stack(got, 1),
                                        full[:, S - 1:S + steps - 1],
                                        rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the trimmed mean K4, and training through the kernels
+# ---------------------------------------------------------------------------
+
+EPS32 = float(np.finfo(np.float32).eps)
+# (W, F, D, case, column offset)
+TMEAN_CASES = [
+    (3, 0, 1, "normal", 0), (3, 1, 3, "ties", 1), (3, 1, 4097, "normal", 0),
+    (4, 1, 4097, "byzantine", 1), (4, 0, 3, "normal", 0),
+    (8, 0, 4097, "normal", 0), (8, 2, 4097, "byzantine", 0),
+    (8, 3, 4097, "ties", 1), (8, 2, 1, "byzantine", 1),
+    (16, 7, 4097, "byzantine", 0), (16, 4, 3, "ties", 0),
+    (16, 1, 4097, "huge_scale", 1), (32, 15, 4097, "ties", 0),
+    (32, 7, 4097, "byzantine", 1), (32, 0, 1, "normal", 1),
+    (8, 2, 4097, "non_finite", 0), (7, 2, 1000, "too_many_nan", 1),
+]
+
+
+def tmean_problem(W, D, case, seed=0):
+    """float32 numpy (W, D) worker values: ``ties`` (half the columns one
+    value, the rest on a half-integer grid), ``byzantine`` (a +1e6 and a
+    -1e6 row), ``huge_scale`` (one row 1e6 times the rest), ``non_finite``
+    (an inf, a -inf and a NaN row with F = 2: all trimmed) and
+    ``too_many_nan`` (three NaN rows with F = 2: NaN survives)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(W, D)).astype(np.float32)
+    if case == "ties":
+        x = (np.round(x * 2) / 2).astype(np.float32)
+        x[:, : D // 2] = x[0, : D // 2]
+    elif case == "byzantine":
+        x[1] = 1e6
+        x[W - 1] = -1e6
+    elif case == "huge_scale":
+        x[0] *= 1e6
+    elif case == "non_finite":
+        x[0], x[3], x[5] = np.inf, -np.inf, np.nan
+    elif case == "too_many_nan":
+        x[1:4] = np.nan
+    return x
+
+
+def tmean_bound(x, F):
+    """Per-coordinate limit for two orders of the survivors' sum."""
+    W = x.shape[0]
+    fin = np.where(np.isfinite(x), x, 0.0)
+    return W * EPS32 * np.abs(fin).sum(axis=0) / (W - 2 * F) + 1e-30
+
+
+def _hold_tmean(got, want, x, F):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    err = np.abs(got - want)[fin]
+    assert (err <= tmean_bound(x, F)[fin]).all(), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,F,D,case,offset", TMEAN_CASES)
+def test_trimmed_mean_kernel_matches_plain(cuda_device, W, F, D, case,
+                                           offset):
+    """A column offset of 1 reads a misaligned column range of a wider
+    buffer through its row stride (the scalar path), as an aggregator
+    hands over a leaf's columns."""
+    x = tmean_problem(W, D + offset, case)
+    buf = torch.from_numpy(x).to(cuda_device)
+    view = buf[:, offset:]
+    before = trimmed_mean_cuda.launches
+    got = trimmed_mean(view, F)
+    torch.cuda.synchronize()
+    assert trimmed_mean_cuda.launches == before + 1
+    assert got.shape == (D,) and got.dtype == torch.float32
+    _hold_tmean(got, trimmed_mean_ref(view, F), x[:, offset:], F)
+    out = torch.full((D + 1,), 7.0, device=cuda_device)
+    trimmed_mean_cuda(view, F, out=out[:D])   # into a caller's buffer
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[:D], got, rtol=0, atol=0,
+                               equal_nan=True)
+    assert out[D].item() == 7.0
+
+
+@pytest.mark.cuda
+def test_trimmed_mean_kernel_rejects_bad_arguments(cuda_device):
+    x = torch.zeros((8, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="W > 2F"):
+        trimmed_mean_cuda(x[:4], 2)
+    with pytest.raises(ValueError, match="W > 2F"):
+        trimmed_mean(x[:2], 1)
+    with pytest.raises(ValueError, match=f"at most {W_MAX}"):
+        trimmed_mean_cuda(torch.zeros((W_MAX + 1, 4), device=cuda_device), 1)
+    with pytest.raises(ValueError, match="float32"):
+        trimmed_mean_cuda(x.bfloat16(), 1)
+    with pytest.raises(ValueError, match="unit column stride"):
+        trimmed_mean_cuda(x[:, ::2], 1)
+    with pytest.raises(ValueError, match="shape"):
+        trimmed_mean_cuda(x, 1, out=torch.empty(15, device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        trimmed_mean_cuda(x.cpu(), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 24])
+def test_swa_prefill_grads_through_the_kernel(cuda_device, dtype, window):
+    """K6 forward, plain-recompute backward: for a loss linear in the
+    output the gradients are plain autograd's bit for bit, and the output
+    is K6's (held against the plain version in float32 on the same
+    inputs, as the kernel tests hold it)."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in prefill_problem(2, 100, 8, 2, 64, seed=3))
+    up = torch.randn((2, 100, 8, 64), device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(4))
+    res = {}
+    for name in ("kernel", "plain"):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = swa_prefill_cuda.launches
+        out = swa_prefill(*ins, window, backend="auto" if name == "kernel"
+                          else "torch")
+        assert swa_prefill_cuda.launches == before + (name == "kernel")
+        (out.float() * up).sum().backward()
+        res[name] = (out.detach(), [t.grad for t in ins])
+    out_k, g_k = res["kernel"]
+    _, g_p = res["plain"]
+    want = swa_prefill_ref(q.float(), k.float(), v.float(), window)
+    torch.testing.assert_close(out_k.float(), want, rtol=_attn_tol(dtype),
+                               atol=1e-5)
+    for a, b in zip(g_k, g_p):
+        assert torch.equal(a, b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        swa_prefill_cuda(*(t.clone().requires_grad_() for t in (q, k, v)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_grads_through_the_kernel(cuda_device, dtype):
+    """K7 forward, chunk-64 plain backward through y and the state, in the
+    model's (B, H, T, K) view layout with u a broadcast."""
+    B, H, T = 2, 3, 130
+    r, k, v, lw, _ = (torch.from_numpy(a).to(cuda_device)
+                      for a in wkv_problem(B * H, T, "model", seed=5))
+    u = torch.randn((H, 64), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(6))
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    gy = torch.randn((B, H, T, 64), device=cuda_device, generator=gen)
+    gs = torch.randn((B, H, 64, 64), device=cuda_device, generator=gen)
+    res = {}
+    for name in ("kernel", "plain"):
+        ins = [t.to(dtype).clone().requires_grad_() for t in (r, k, v)] + \
+            [lw.clone().requires_grad_()]
+        uu = u.clone().requires_grad_()
+        args = [t.view(B, H, T, 64) for t in ins] + [uu.expand(B, H, 64)]
+        if name == "kernel":
+            before = wkv6_cuda.launches
+            y, s = wkv6(*args)
+            assert wkv6_cuda.launches == before + 1
+        else:
+            y, s = wkv6_chunked_ref(*(a.reshape((-1,) + a.shape[2:])
+                                      for a in args), chunk=64)
+            y, s = y.view(B, H, T, 64), s.view(B, H, 64, 64)
+        ((y.float() * gy).sum() + (s * gs).sum()).backward()
+        res[name] = [t.grad for t in ins] + [uu.grad]
+    for a, b in zip(res["kernel"], res["plain"]):
+        assert torch.equal(a, b)
+
+
+def _model_grads(cfg, params, toks, backend):
+    from repro_torch.models import model as M
+    leaves = [p.detach().clone().requires_grad_() for p in
+              params["layers"][0]["mixer"].values()]
+    mixer = dict(zip(params["layers"][0]["mixer"].keys(), leaves))
+    p = dict(params, layers=[dict(params["layers"][0], mixer=mixer)]
+             + params["layers"][1:])
+    loss = M.loss_fn(p, cfg, toks, toks, backend)
+    loss.backward()
+    return {k: t.grad for k, t in mixer.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_attention_gradients_through_k6_equal_the_plain_path(cuda_device,
+                                                             remat):
+    """The regression test of the K6 gradient fault: ``loss_fn`` through
+    ``forward_train(backend="auto")`` (K6, and K6 again in the remat
+    recompute) gives the first layer's wq, wk, wv, wo and qk-norm
+    gradients of the plain path. Before the autograd wrapper the kernel's
+    output had no graph and wq got no gradient from the attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(reduced(get_config("qwen3_8b")), remat=remat)
+    assert cfg.head_dim == 64 and cfg.qk_norm
+    params = M.init_params(0, cfg, cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 96), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    before = swa_prefill_cuda.launches
+    got = _model_grads(cfg, params, toks, "auto")
+    torch.cuda.synchronize()
+    assert swa_prefill_cuda.launches == before + cfg.n_layers * (1 + remat)
+    want = _model_grads(cfg, params, toks, "torch")
+    assert sorted(got) == sorted(want) and "q_norm" in got
+    for name in want:
+        assert got[name] is not None, name
+        scale = want[name].abs().max().item()
+        assert scale > 0, name
+        torch.testing.assert_close(got[name], want[name], rtol=1e-4,
+                                   atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", ["trimmed_mean", "hierarchical_trim"])
+def test_robust_train_step_through_the_kernels_matches_plain(cuda_device,
+                                                             agg):
+    """Two robust steps of reduced paper_sim (float32, head size 64) on
+    the card, 2 pods x 3 workers, worker 4 Byzantine: K4 (one launch a
+    step, or one per pod and one across pods) and K6 (every layer and
+    worker) against the plain path; every copy equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.prng import fold_in, prng_key
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed.aggregation import AggregatorConfig
+    from repro_torch.distributed.trainer import (TrainConfig,
+                                                 make_train_step,
+                                                 replicate_for_workers,
+                                                 worker_opt_init)
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import leaves
+    cfg = reduced(get_config("paper_sim"))
+    assert cfg.head_dim == 64
+    data = SyntheticLMData(cfg.vocab, 32, 6, flavour="markov", seed=0)
+    out = {}
+    for backend in ("auto", "torch"):
+        tc = TrainConfig(arch=cfg, agg=AggregatorConfig(
+            kind=agg, F=1, trim_backend=backend),
+            opt=AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=2),
+            byzantine_workers=(4,))
+        pw = replicate_for_workers(M.init_params(0, cfg, cuda_device), 6)
+        ow = worker_opt_init(pw)
+        step = make_train_step(tc, (2, 3), backend=backend)
+        k4, k6 = trimmed_mean_cuda.launches, swa_prefill_cuda.launches
+        losses = []
+        for s in range(2):
+            pw, ow, loss = step(pw, ow, data.batch(s, cuda_device),
+                                fold_in(prng_key(0), s))
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        per_step = 1 if agg == "trimmed_mean" else 3
+        on = backend == "auto"
+        assert trimmed_mean_cuda.launches == k4 + 2 * per_step * on
+        assert swa_prefill_cuda.launches == k6 + 2 * 6 * cfg.n_layers * on
+        out[backend] = (losses, pw)
+    np.testing.assert_allclose(out["auto"][0], out["torch"][0], rtol=1e-5)
+    for a, b in zip(leaves(out["auto"][1]), leaves(out["torch"][1])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=5e-5)
+        assert all(torch.equal(a[0], a[w]) for w in range(1, 6))
