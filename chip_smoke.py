@@ -29,20 +29,24 @@ Phases (any failure raises and the script exits non-zero):
              of one step of each main path at N = 16,384 and 131,072;
              profiler breakdowns of the full-size steps;
 8. serve kernels — the decode attention (K5) and the prefill attention
-             (K6) against their plain versions at the serve path's full
-             shapes and at edge cases (ragged cache, lengths < Wc, a ring
-             window, G in {1, 3, 4, 8}; window in {0, w}, S not a multiple of
-             the tile, strided views), with stated tolerances;
+             (K6: its tensor-core kernel for bf16 at head sizes 64 and 128,
+             its FMA kernel otherwise) against their plain versions at the
+             serve path's full shapes, at the training shape, and at edge
+             cases (ragged cache, lengths < Wc, a ring window, G in {1, 3,
+             4, 8}; window in {0, w}, a window edge inside a query tile, S
+             not a multiple of the tile, strided views), with stated
+             tolerances;
 9. serve main — Qwen3-8B at published widths and full depth (36 layers),
              bf16, seeded random weights: 8 requests of 2,048-token
              prompts, 32 greedy tokens through launch.serve.generate
-             (prefill, then 31 decode steps; K6 launches 36 times, K5
-             36 x 31); its logits against the plain serve path and the
-             plain full forward over the same tokens;
+             (prefill, then 31 decode steps; K6 launches 36 times, all on
+             its tensor-core kernel, K5 36 x 31); its logits against the
+             plain serve path and the plain full forward over the same
+             tokens;
 10. serve timing — CUDA-event medians of K5, K6, their plain versions
-             and SDPA at the serve shapes; time to prefill and ms per
-             decode step, kernel and plain paths; a profile of decode
-             steps;
+             and SDPA at the serve shapes (and K6 and SDPA at the training
+             shape); time to prefill and ms per decode step, kernel and
+             plain paths; a profile of decode steps;
 11. serve fp32 — the same path at 2 layers in float32 (4 x 1,000-token
              prompts, 16 tokens) against the plain full forward, within a
              limit a bf16 computation would fail;
@@ -66,15 +70,16 @@ Phases (any failure raises and the script exits non-zero):
              agree on at least half the positions;
 16. train kernels — the trimmed mean (K4) against its sort-based plain
              version at the main path's (8, 99,496,704) for F in {0, 2} and
-             at edge cases (W 3..32, D 1/3/4,097, a column offset of 1,
+             at edge cases (W 3..64, D 1/3/4,097, a column offset of 1,
              ties, +-1e6, inf and NaN rows; W <= 2F raises); K6's and K7's
              gradients through their autograd wrappers against plain
              autograd at a layer's shape, float32 and bf16 (bit-equal);
 17. train main — paper_sim at published widths and full depth, bf16,
              seeded weights, through launch.train.build: 8 workers,
              trimmed_mean F = 2, Byzantine workers 2 and 5, 64 x 1,024
-             tokens a step, 10 steps (K4 10 launches, K6 1,280); the loss
-             falls, param_spread is exactly 0, and the plain path agrees
+             tokens a step, 10 steps (K4 10 launches, K6 1,280, all on its
+             tensor-core kernel); the loss falls, param_spread is exactly
+             0, and the plain path agrees
              (first-step aggregate, losses); then at 2 layers in float32
              (3 steps, against the plain path), hierarchical_trim over 2
              pods x 4 with a worker at ~1e6 (the aggregate within the
@@ -83,6 +88,11 @@ Phases (any failure raises and the script exits non-zero):
 18. train timing — K4, its plain version, its bound and torch.mean at
              the main shape; step times of both paths (medians of 5, in
              turns), peak memory and a profile of a kernel-path step.
+
+The build phase prints ptxas' registers and spills of K6's tensor-core
+kernel and K4's 64-wide kernel, and the count of HGMMA (wgmma)
+instructions in the built K6 library (cuobjdump -sass), which must be
+nonzero.
 
 It prints the card's name and power limit, one JSON line of kernel
 figures, and last the device line. Run from the repository root:
@@ -222,6 +232,29 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def ptxas_report(log: str, kernel: str) -> str:
+    """ptxas' register and spill lines for the entry whose mangled name
+    holds ``kernel`` (nvcc -Xptxas -v output)."""
+    out, on = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            on = kernel in ln
+        elif on and ("registers" in ln or "spill" in ln):
+            out.append(ln.replace("ptxas info    :", "").strip())
+    return " | ".join(out) or "not found"
+
+
+def sass_count(lib: Path, opcodes) -> dict[str, int]:
+    """How many instructions of each opcode the compiled library holds
+    (cuobjdump -sass from the CUDA toolkit)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    words = [w.split(".")[0] for w in sass.split()]
+    return {op: words.count(op) for op in opcodes}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -264,6 +297,15 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         log(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.name}; "
             + " | ".join(ptxas))
+    for name, kernel in (("swa_prefill", "swa_prefill_tc_kernelILi64"),
+                         ("swa_prefill", "swa_prefill_tc_kernelILi128"),
+                         ("trimmed_mean", "trimmed_mean_kernelILi64")):
+        log(f"[build] ptxas, {kernel}: "
+            f"{ptxas_report(built[name].log, kernel)}")
+    n_hgmma = sass_count(built["swa_prefill"].path, ("HGMMA", "HMMA"))
+    log(f"[build] swa_prefill SASS (cuobjdump -sass): {n_hgmma['HGMMA']} "
+        f"HGMMA and {n_hgmma['HMMA']} HMMA instructions")
+    require(n_hgmma["HGMMA"] > 0, "K6's tensor-core kernel issues wgmma")
 
     # ---- set-up at full size -------------------------------------------
     t0 = time.perf_counter()
@@ -587,15 +629,21 @@ def _wrappers() -> dict:
 def _zero_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["swa_prefill"].launches_tc = 0
 
 
 def _counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Launches of each wrapper, and of K6's tensor-core kernel alone
+    (``swa_prefill_tc``, part of ``swa_prefill``'s count)."""
+    out = {name: fn.launches for name, fn in _wrappers().items()}
+    out["swa_prefill_tc"] = _wrappers()["swa_prefill"].launches_tc
+    return out
 
 
 def _only(**launches) -> dict[str, int]:
     """The launch counts of a run that launched only the named kernels."""
-    return {name: launches.get(name, 0) for name in _wrappers()}
+    return {name: launches.get(name, 0)
+            for name in (*_wrappers(), "swa_prefill_tc")}
 
 
 def byzantine_main(model, setup, attack, dev) -> int:
@@ -900,9 +948,11 @@ def serve_kernel_checks(dev) -> dict[str, float]:
     """Phase 8: K5 and K6 against their plain versions -> max abs error of
     each. The plain version runs in float32 on the same (bf16 or fp32)
     inputs; a bf16 kernel output is the float32 result rounded once, so it
-    is held to rtol 2^-8 (a bf16 rounding is at most 2^-9 relative) + atol
+    is held to rtol 2^-8 (a bf16 rounding is up to 2^-8 relative) + atol
     1e-5; float32 to rtol 1e-5 + atol 1e-5 (another summation order over
-    at most 2,081 rows). A request with no valid row is NaN in both."""
+    at most 2,081 rows). A request with no valid row is NaN in both. K6's
+    bf16 cases at head sizes 64 and 128 run on its tensor-core kernel
+    (checked by its own launch count), the rest on its FMA kernel."""
     import torch
     from repro_torch.kernels.swa import (attn_decode_cuda, attn_decode_ref,
                                          swa_prefill_cuda, swa_prefill_ref)
@@ -953,11 +1003,24 @@ def serve_kernel_checks(dev) -> dict[str, float]:
             "S=1000, window 256, fp32": (2, 1000, 32, 8, 128, f32, 256),
             "S=77, window 8, dh=64, fp32": (1, 77, 4, 4, 64, f32, 8),
             "S=130, window 100, dh=256": (1, 130, 8, 2, 256, bf16, 100),
+            "training shape, G=3": (8, 1024, 12, 4, 64, bf16, 0),
+            "training shape, window 256": (8, 1024, 12, 4, 64, bf16, 256),
+            "S=1000, dh=64, G=1": (2, 1000, 8, 8, 64, bf16, 0),
+            "S=1000, dh=128, G=3, window 300": (2, 1000, 12, 4, 128, bf16,
+                                                300),
+            "S=300, G=4, window 100 (edge inside query tiles)":
+                (2, 300, 16, 4, 128, bf16, 100),
+            "S=300, dh=64, G=4, window 100": (2, 300, 16, 4, 64, bf16, 100),
     }.items():
         q, k, v = (rn(B, S, H, dh, dtype=dtype), rn(B, S, Hkv, dh,
                                                      dtype=dtype, scale=2.0),
                    rn(B, S, Hkv, dh, dtype=dtype))
-        hold("swa_prefill", case, swa_prefill_cuda(q, k, v, w),
+        before = swa_prefill_cuda.launches_tc
+        got = swa_prefill_cuda(q, k, v, w)
+        require(swa_prefill_cuda.launches_tc - before
+                == (dtype == bf16 and dh in (64, 128)),
+                f"K6 {case}: the kernel picked by dtype and head size")
+        hold("swa_prefill", case, got,
              swa_prefill_ref(q.float(), k.float(), v.float(), w))
     # q, k, v as views of one fused projection row, read through strides
     B, S, H, Hkv, dh = 2, 300, 8, 2, 128
@@ -965,9 +1028,12 @@ def serve_kernel_checks(dev) -> dict[str, float]:
     q = x[..., :H * dh].view(B, S, H, dh)
     k = x[..., H * dh:(H + Hkv) * dh].view(B, S, Hkv, dh)
     v = x[..., (H + Hkv) * dh:].view(B, S, Hkv, dh)
+    before = swa_prefill_cuda.launches_tc
     hold("swa_prefill", "strided views of one projection",
          swa_prefill_cuda(q, k, v, 0),
          swa_prefill_ref(q.float(), k.float(), v.float(), 0))
+    require(swa_prefill_cuda.launches_tc == before + 1,
+            "strided views on the tensor-core kernel")
     return errs
 
 
@@ -1018,9 +1084,10 @@ def serve_phases(dev, flush) -> list[dict]:
         f"{counts}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     L = cfg.n_layers
-    require(counts == _only(swa_prefill=L, attn_decode=L * (GEN - 1)),
-            "K6 launched once per layer in prefill and K5 once per layer in "
-            "every decode step")
+    require(counts == _only(swa_prefill=L, swa_prefill_tc=L,
+                            attn_decode=L * (GEN - 1)),
+            "K6 launched once per layer in prefill, every launch on its "
+            "tensor-core kernel, and K5 once per layer in every decode step")
     require(toks.shape == (B, GEN) and lk.shape == (B, GEN, cfg.vocab)
             and bool(torch.isfinite(lk).all()), "serve outputs")
     with torch.inference_mode():
@@ -1078,6 +1145,7 @@ def serve_phases(dev, flush) -> list[dict]:
          "source": "src/repro_torch/kernels/csrc/swa_prefill.cu",
          "replaces": "src/repro/kernels/swa/prefill.py:79",
          "launches": counts_main["swa_prefill"],
+         "launches_tc": counts_main["swa_prefill_tc"],
          "max_abs_err": errs["swa_prefill"], **times["swa_prefill"]},
     ]
 
@@ -1161,6 +1229,21 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     out["swa_prefill"] = {"ms": ms6, "plain_ms": plain6, "bound_ms": b6,
                           "bound_by": by6, "library_ms": lib6}
     del q, k, v, o5, o6, sdpa5, sdpa6
+
+    # K6 at the training shape (a paper_sim worker's call of a layer)
+    Bt, St, Ht, Hkvt = GRAD_ATTN
+    q, k, v = rn(Bt, St, Ht, 64), rn(Bt, St, Hkvt, 64), rn(Bt, St, Hkvt, 64)
+    ms_t = event_ms(lambda: swa_prefill_cuda(q, k, v, 0), TIMED_RUNS, flush)
+    lib_t = event_ms(lambda: F.scaled_dot_product_attention(
+        q.permute(tr), k.permute(tr), v.permute(tr), is_causal=True,
+        enable_gqa=True), TIMED_RUNS, flush)
+    flops_t = 4 * 64 * Bt * Ht * (St * (St + 1) // 2)
+    log(f"[timing] swa_prefill at the training shape (B={Bt}, S={St}, "
+        f"H={Ht}, Hkv={Hkvt}, dh=64, bf16, causal): {ms_t:.4f} ms = "
+        f"{flops_t / ms_t / 1e9:.1f} TFLOP/s, SDPA {lib_t:.4f}, bound "
+        f"{bound(0, flops_t, BF16_FLOPS)[0]:.4f} (operations)")
+    out["swa_prefill"].update(train_ms=ms_t, train_library_ms=lib_t)
+    del q, k, v
 
     out["decode_ms"] = serve_times(params, cfg, prompts, toks)
     return out
@@ -1480,10 +1563,11 @@ def tmean_kernel_checks(dev, D_full: int) -> float:
     """Phase 16a: K4 against the sort-based plain version at the main
     path's shape (8 workers, D_full coordinates; rows 2 and 5 the attack
     -10 g) for F in {0, 2}, then at the edge cases: W in {3, 4, 8, 16,
-    32}, F up to (W - 1) // 2, D in {1, 3, 4097}, a column offset of 1 (a
-    misaligned column range read through the row stride), exact ties,
-    a +-1e6 Byzantine row, inf and NaN rows; W <= 2F and W > 32 raise ->
-    the largest error at the main shape."""
+    32, 33, 48, 64} (33 and up through the 64-wide kernel), F up to
+    (W - 1) // 2, D in {1, 3, 4097}, a column offset of 1 (a misaligned
+    column range read through the row stride), exact ties, a +-1e6
+    Byzantine row, inf and NaN rows; W <= 2F and W > 64 raise -> the
+    largest error at the main shape."""
     import torch
     from repro_torch.kernels.trimmed_mean import (W_MAX, trimmed_mean_cuda,
                                                   trimmed_mean_ref)
@@ -1501,7 +1585,7 @@ def tmean_kernel_checks(dev, D_full: int) -> float:
     torch.cuda.empty_cache()
     main_err, worst = worst, 0.0
     n_cases = 0
-    for W in (3, 4, 8, 16, W_MAX):
+    for W in (3, 4, 8, 16, 32, 33, 48, W_MAX):
         for F in sorted({0, 1, (W - 1) // 2}):
             for D in (1, 3, 4097):
                 for case in ("normal", "ties", "byzantine", "non_finite"):
@@ -1708,10 +1792,11 @@ def train_phases(dev, flush) -> dict:
         require(all(np.isfinite(losses)), "losses finite")
         require(spread == 0.0, "param_spread exactly 0")
         if backend == "auto":
-            require(counts == _only(
-                trimmed_mean=TRAIN_STEPS,
-                swa_prefill=TRAIN_STEPS * TRAIN_W * cfg.n_layers * 2),
-                "K4 once a step, K6 per layer, worker, forward and remat")
+            n_k6 = TRAIN_STEPS * TRAIN_W * cfg.n_layers * 2
+            require(counts == _only(trimmed_mean=TRAIN_STEPS,
+                                    swa_prefill=n_k6, swa_prefill_tc=n_k6),
+                    "K4 once a step, K6 per layer, worker, forward and "
+                    "remat, every launch on its tensor-core kernel")
             require(losses[-1] < losses[0], "the loss falls")
         else:
             require(counts == _only(), "the plain path launched no kernel")

@@ -17,18 +17,20 @@
 // too).
 //
 // Design. The TPU kernel streams (W, 2048) blocks through VMEM and runs F
-// argmax/argmin rounds over the whole block. Here one thread owns four
+// argmax/argmin rounds over the whole block. Here one thread owns CPT
 // consecutive coordinates and reads them from each worker row with one
-// 16-byte load, so a warp reads 512 contiguous bytes a row. The W x 4
-// values stay in a register array of compile-time size WMAX (4, 8, 16 or
-// 32, the smallest that holds W; the wrapper raises above 32) and each
-// coordinate's keep mask in one 32-bit word, so every loop over workers
-// unrolls and nothing spills. F is a runtime argument. Survivors are summed
-// through the keep mask in worker order, never as total minus extremes,
-// which cancels when a Byzantine row is ~1e6 times the honest scale. Rows
-// are read through a row stride, so a column range of a larger buffer goes
-// in without a copy; where the base or the stride is not 16-byte aligned,
-// or at the ragged end of D, the thread reads scalars instead.
+// vector load, so a warp reads 32 * CPT * 4 contiguous bytes a row. The
+// W x CPT values stay in a register array of compile-time size WMAX (4,
+// 8, 16, 32 or 64, the smallest that holds W; the wrapper raises above
+// 64) and each coordinate's keep mask in one 32-bit word (a 64-bit one
+// at 64), so every loop over workers unrolls and nothing spills: CPT is 4
+// up to 32 workers and 2 at 64, so a thread holds at most 128 values. F
+// is a runtime argument. Survivors are summed through the keep mask in
+// worker order, never as total minus extremes, which cancels when a
+// Byzantine row is ~1e6 times the honest scale. Rows are read through a
+// row stride, so a column range of a larger buffer goes in without a
+// copy; where the base or the stride is not aligned to the vector, or at
+// the ragged end of D, the thread reads scalars instead.
 //
 // Bound: bytes. Each call reads W * D floats and writes D; at W = 8 and
 // D = 99.5 M that is 3.58 GB, 1.07 ms at 3.35 TB/s. The trim costs about
@@ -46,84 +48,122 @@ __device__ __forceinline__ bool above(float a, float b) {
     return a > b || (isnan(a) && !isnan(b));
 }
 
-template <int WMAX>
-__device__ __forceinline__ float trim_one(const float (&v)[WMAX][4], int j,
+// the keep mask of a coordinate: a bit per worker slot
+template <int WMAX> struct Mask { using type = unsigned; };
+template <> struct Mask<64> { using type = unsigned long long; };
+
+// CPT consecutive floats in one aligned vector load or store
+template <int CPT> struct Vec;
+template <> struct Vec<4> {
+    __device__ static void load(const float* p, float (&v)[4]) {
+        const float4 t = *reinterpret_cast<const float4*>(p);
+        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    }
+    __device__ static void store(float* p, const float (&v)[4]) {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+};
+template <> struct Vec<2> {
+    __device__ static void load(const float* p, float (&v)[2]) {
+        const float2 t = *reinterpret_cast<const float2*>(p);
+        v[0] = t.x; v[1] = t.y;
+    }
+    __device__ static void store(float* p, const float (&v)[2]) {
+        *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+    }
+};
+
+template <int WMAX, int CPT>
+__device__ __forceinline__ float trim_one(const float (&v)[WMAX][CPT], int j,
                                           int W, int F) {
-    unsigned keep = (W >= 32) ? 0xffffffffu : ((1u << W) - 1u);
+    using M = typename Mask<WMAX>::type;
+    constexpr int BITS = 8 * sizeof(M);
+    M keep = (W >= BITS) ? ~M(0) : ((M(1) << W) - M(1));
     for (int f = 0; f < F; ++f) {              // drop maxima
         int best = -1;
         float bv = 0.0f;
 #pragma unroll
         for (int w = 0; w < WMAX; ++w) {
-            if (w < W && ((keep >> w) & 1u)
+            if (w < W && ((keep >> w) & M(1))
                     && (best < 0 || above(v[w][j], bv))) {
                 best = w;
                 bv = v[w][j];
             }
         }
-        keep &= ~(1u << best);
+        keep &= ~(M(1) << best);
     }
     for (int f = 0; f < F; ++f) {              // drop minima of the rest
         int best = -1;
         float bv = 0.0f;
 #pragma unroll
         for (int w = 0; w < WMAX; ++w) {
-            if (w < W && ((keep >> w) & 1u)
+            if (w < W && ((keep >> w) & M(1))
                     && (best < 0 || above(bv, v[w][j]))) {
                 best = w;
                 bv = v[w][j];
             }
         }
-        keep &= ~(1u << best);
+        keep &= ~(M(1) << best);
     }
     float s = 0.0f;
 #pragma unroll
     for (int w = 0; w < WMAX; ++w)
-        if (w < W && ((keep >> w) & 1u)) s += v[w][j];
+        if (w < W && ((keep >> w) & M(1))) s += v[w][j];
     return s / static_cast<float>(W - 2 * F);
 }
 
-template <int WMAX>
+template <int WMAX, int CPT>
 __global__ void __launch_bounds__(128)
 trimmed_mean_kernel(const float* __restrict__ x, long long ld, long long D,
                     int W, int F, float* __restrict__ out, int vec_in,
                     int vec_out) {
     const long long c0 = (blockIdx.x * static_cast<long long>(blockDim.x)
-                          + threadIdx.x) * 4;
+                          + threadIdx.x) * CPT;
     if (c0 >= D) return;
-    const int n = D - c0 < 4 ? static_cast<int>(D - c0) : 4;
+    const int n = D - c0 < CPT ? static_cast<int>(D - c0) : CPT;
 
-    float v[WMAX][4];
-    if (vec_in && n == 4) {
+    float v[WMAX][CPT];
+    if (vec_in && n == CPT) {
 #pragma unroll
-        for (int w = 0; w < WMAX; ++w) {
-            if (w < W) {
-                const float4 t = *reinterpret_cast<const float4*>(
-                    x + w * ld + c0);
-                v[w][0] = t.x; v[w][1] = t.y; v[w][2] = t.z; v[w][3] = t.w;
-            }
-        }
+        for (int w = 0; w < WMAX; ++w)
+            if (w < W) Vec<CPT>::load(x + w * ld + c0, v[w]);
     } else {
 #pragma unroll
         for (int w = 0; w < WMAX; ++w) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
+            for (int j = 0; j < CPT; ++j)
                 v[w][j] = (w < W && j < n) ? x[w * ld + c0 + j] : 0.0f;
         }
     }
 
-    float r[4];
+    float r[CPT];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) r[j] = trim_one<WMAX>(v, j, W, F);
+    for (int j = 0; j < CPT; ++j) r[j] = trim_one<WMAX, CPT>(v, j, W, F);
 
-    if (vec_out && n == 4) {
-        *reinterpret_cast<float4*>(out + c0) = make_float4(r[0], r[1], r[2],
-                                                           r[3]);
+    if (vec_out && n == CPT) {
+        Vec<CPT>::store(out + c0, r);
     } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < CPT; ++j)
             if (j < n) out[c0 + j] = r[j];
     }
+}
+
+template <int WMAX, int CPT>
+cudaError_t launch(const float* x, long long ld, long long D, int W, int F,
+                   float* out, cudaStream_t stream) {
+    const int threads = 128;
+    const long long groups = (D + CPT - 1) / CPT;
+    const long long blocks = (groups + threads - 1) / threads;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    const int vec_in = (reinterpret_cast<unsigned long long>(x)
+                        % (4 * CPT) == 0) && (ld % CPT == 0);
+    const int vec_out = reinterpret_cast<unsigned long long>(out)
+                        % (4 * CPT) == 0;
+    trimmed_mean_kernel<WMAX, CPT><<<static_cast<unsigned>(blocks), threads,
+                                     0, stream>>>(x, ld, D, W, F, out,
+                                                  vec_in, vec_out);
+    return cudaGetLastError();
 }
 
 // x: W rows of D floats, row r at x + r * ld; out: D floats. Returns a
@@ -131,29 +171,14 @@ trimmed_mean_kernel(const float* __restrict__ x, long long ld, long long D,
 extern "C" int trimmed_mean_f32(const float* x, long long ld, long long D,
                                 int W, int F, float* out, int device,
                                 cudaStream_t stream) {
-    if (D < 1 || W < 1 || W > 32 || F < 0 || W <= 2 * F || ld < D)
+    if (D < 1 || W < 1 || W > 64 || F < 0 || W <= 2 * F || ld < D)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int threads = 128;
-    const long long groups = (D + 3) / 4;
-    const long long blocks = (groups + threads - 1) / threads;
-    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    const int vec_in = (reinterpret_cast<unsigned long long>(x) % 16 == 0)
-                       && (ld % 4 == 0);
-    const int vec_out = reinterpret_cast<unsigned long long>(out) % 16 == 0;
-    const dim3 grid(static_cast<unsigned>(blocks));
-    if (W <= 4)
-        trimmed_mean_kernel<4><<<grid, threads, 0, stream>>>(
-            x, ld, D, W, F, out, vec_in, vec_out);
-    else if (W <= 8)
-        trimmed_mean_kernel<8><<<grid, threads, 0, stream>>>(
-            x, ld, D, W, F, out, vec_in, vec_out);
-    else if (W <= 16)
-        trimmed_mean_kernel<16><<<grid, threads, 0, stream>>>(
-            x, ld, D, W, F, out, vec_in, vec_out);
-    else
-        trimmed_mean_kernel<32><<<grid, threads, 0, stream>>>(
-            x, ld, D, W, F, out, vec_in, vec_out);
-    return static_cast<int>(cudaGetLastError());
+    if (W <= 4) err = launch<4, 4>(x, ld, D, W, F, out, stream);
+    else if (W <= 8) err = launch<8, 4>(x, ld, D, W, F, out, stream);
+    else if (W <= 16) err = launch<16, 4>(x, ld, D, W, F, out, stream);
+    else if (W <= 32) err = launch<32, 4>(x, ld, D, W, F, out, stream);
+    else err = launch<64, 2>(x, ld, D, W, F, out, stream);
+    return static_cast<int>(err);
 }

@@ -7,6 +7,12 @@ layer, ``swa_prefill(..., backend=...)`` what prefill calls once per layer
 float32 or bfloat16 and head sizes 64, 128 and 256; the wrappers raise on
 anything else and never fall back to the plain versions.
 
+K6 is two kernels in ``csrc/swa_prefill.cu``, picked in the open by
+:func:`prefill_kernel`: bf16 at head sizes 64 and 128 (every launch of the
+serve and training paths) runs on the tensor cores (``swa_prefill_tc``:
+wgmma fed by TMA), float32, and bf16 at 256, on the FMA pipes. A failure
+of either raises; neither stands in for the other.
+
 Training differentiates through ``swa_prefill``: on the card, inputs that
 require grad under grad mode go through :class:`SwaPrefillFn`, whose
 forward is K6 and whose backward recomputes the plain attention
@@ -27,9 +33,11 @@ from ..dispatch import resolve_backend
 from .ref import attn_decode_ref, swa_prefill_ref
 
 __all__ = ["attn_decode", "attn_decode_cuda", "swa_prefill",
-           "swa_prefill_cuda", "SwaPrefillFn", "HEAD_DIMS"]
+           "swa_prefill_cuda", "SwaPrefillFn", "HEAD_DIMS", "TC_HEAD_DIMS",
+           "prefill_kernel", "tma_strides"]
 
 HEAD_DIMS = (64, 128, 256)
+TC_HEAD_DIMS = (64, 128)     # the tensor-core prefill kernel's head sizes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the decode kernel's split blocks aim at about this many blocks in all
 _DECODE_BLOCKS = 1024
@@ -39,6 +47,7 @@ _DECODE_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8
 _PREFILL_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                      + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 6
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_PREFILL_TC_ARGTYPES = _PREFILL_ARGTYPES[1:]
 
 
 def attn_decode(
@@ -170,6 +179,33 @@ def attn_decode_cuda(
 attn_decode_cuda.launches = 0
 
 
+def prefill_kernel(dtype: torch.dtype, dh: int) -> str:
+    """Which K6 kernel takes these inputs: ``"tc"`` (tensor cores) for
+    bf16 at head sizes 64 and 128, else ``"fma"``."""
+    return "tc" if dtype == torch.bfloat16 and dh in TC_HEAD_DIMS else "fma"
+
+
+def tma_strides(what: str, t: torch.Tensor) -> tuple[int, int, int]:
+    """The (b, s, head) strides of a (B, S, heads, dh) bf16 view as the
+    tensor-core kernel's tensor maps take them: TMA reads from a 16-byte
+    aligned base through strides that are positive multiples of 16 bytes
+    (8 elements). An axis of size 1 is never stepped along, so its stride
+    is replaced by one past the whole view. Raises ValueError otherwise."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} must start on a 16-byte boundary")
+    sizes, strides = t.shape[:3], t.stride()[:3]
+    span = max([st * n for st, n in zip(strides, sizes) if n > 1]
+               + [t.shape[3]])
+    out = tuple(st if n > 1 else -(-span // 8) * 8
+                for st, n in zip(strides, sizes))
+    if any(st <= 0 or st % 8 for st in out):
+        raise ValueError(f"{what}: the tensor-core kernel reads through TMA, "
+                         f"which needs (b, s, head) strides that are positive "
+                         f"multiples of 8 elements (16 bytes), got "
+                         f"{t.stride()}")
+    return out
+
+
 def swa_prefill_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -177,13 +213,16 @@ def swa_prefill_cuda(
     window: int = 0,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Launch the causal/sliding-window flash-attention kernel on the
+    """Launch one of K6's two kernels (:func:`prefill_kernel`) on the
     current stream. q, k and v may be any views whose head axis is
-    contiguous and whose other strides are multiples of 4 elements; the
-    output is a new contiguous (B, S, H, dh) tensor. It records no
-    autograd graph and raises on inputs that require grad under grad mode:
-    :func:`swa_prefill` differentiates through K6.
-    ``swa_prefill_cuda.launches`` counts the launches."""
+    contiguous; their other strides must be non-negative multiples of 4
+    elements (the FMA kernel) or, for the tensor-core kernel, positive
+    multiples of 8 (:func:`tma_strides`). The output is a new contiguous
+    (B, S, H, dh) tensor. It records no autograd graph and raises on
+    inputs that require grad under grad mode: :func:`swa_prefill`
+    differentiates through K6. ``swa_prefill_cuda.launches`` counts the
+    launches of both kernels, ``swa_prefill_cuda.launches_tc`` those of
+    the tensor-core kernel."""
     if not q.is_cuda:
         raise ValueError("the CUDA prefill attention needs CUDA tensors")
     if _needs_graph(q, k, v):
@@ -213,17 +252,32 @@ def swa_prefill_cuda(
                              f"non-negative strides that are multiples of 4, "
                              f"got {t.stride()}")
     _check_aligned(("q", q), ("k", k), ("v", v))
+    tc = prefill_kernel(q.dtype, dh) == "tc"
+    if tc:
+        strides = [tma_strides(what, t) for what, t in
+                   (("q", q), ("k", k), ("v", v))]
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
-    fn = _build.function("swa_prefill", "swa_prefill", _PREFILL_ARGTYPES)
-    code = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              out.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-              k.stride(0), k.stride(1), k.stride(2), v.stride(0),
-              v.stride(1), v.stride(2), B, S, H, Hkv, dh, window,
-              float(scale if scale is not None else dh ** -0.5), dev.index,
-              torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_status("swa_prefill", code)
+    sc = float(scale if scale is not None else dh ** -0.5)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if tc:
+        fn = _build.function("swa_prefill", "swa_prefill_tc",
+                             _PREFILL_TC_ARGTYPES)
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  *strides[0], *strides[1], *strides[2], B, S, H, Hkv, dh,
+                  window, sc, dev.index, stream)
+        _build.check_status("swa_prefill", code)
+        swa_prefill_cuda.launches_tc += 1
+    else:
+        fn = _build.function("swa_prefill", "swa_prefill", _PREFILL_ARGTYPES)
+        code = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+                  k.stride(0), k.stride(1), k.stride(2), v.stride(0),
+                  v.stride(1), v.stride(2), B, S, H, Hkv, dh, window, sc,
+                  dev.index, stream)
+        _build.check_status("swa_prefill", code)
     swa_prefill_cuda.launches += 1
     return out
 
 
 swa_prefill_cuda.launches = 0
+swa_prefill_cuda.launches_tc = 0

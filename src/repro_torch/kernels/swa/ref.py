@@ -22,6 +22,8 @@ import torch
 __all__ = ["attn_decode_ref", "swa_prefill_ref"]
 
 _NEG = -1e30
+# live float32 scores of one batched pass of swa_prefill_ref
+_SCORE_BYTES = 2 << 30
 
 
 def attn_decode_ref(
@@ -56,8 +58,11 @@ def swa_prefill_ref(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Causal (optionally sliding-window) GQA attention -> (B, S, H, dh) in
-    q's dtype. Materializes one request's (H, S, S) float32 scores at a
-    time."""
+    q's dtype. Batched over the requests: one pass materializes the
+    (B, Hkv, G, S, S) float32 scores of as many requests as keep them
+    under ``_SCORE_BYTES`` (all 8 requests of a paper_sim training call,
+    4 of a Qwen3-8B 2,048-token prefill), so the gradient recompute of
+    :class:`.ops.SwaPrefillFn` runs in one pass where that fits."""
     B, S, H, dh = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -67,13 +72,17 @@ def swa_prefill_ref(
     mask = ki <= qi
     if window:
         mask &= ki > qi - window
-    out = torch.empty_like(q)
-    for b in range(B):
-        qg = (q[b].float() * sc).reshape(S, Hkv, G, dh)
-        s = torch.einsum("shgd,thd->hgst", qg, k[b].float())
+    per = max(1, _SCORE_BYTES // (H * S * S * 4))
+    outs = []
+    for b0 in range(0, B, per):
+        n = min(per, B - b0)
+        qg = (q[b0:b0 + n].float() * sc).reshape(n, S, Hkv, G, dh)
+        s = torch.einsum("bshgd,bthd->bhgst", qg, k[b0:b0 + n].float())
         s = torch.where(mask, s, _NEG)
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        l = p.sum(dim=-1).clamp_min(1e-30)                 # (Hkv, G, S)
-        o = torch.einsum("hgst,thd->hgsd", p, v[b].float()) / l[..., None]
-        out[b] = o.permute(2, 0, 1, 3).reshape(S, H, dh).to(q.dtype)
-    return out
+        l = p.sum(dim=-1).clamp_min(1e-30)              # (n, Hkv, G, S)
+        o = torch.einsum("bhgst,bthd->bhgsd", p, v[b0:b0 + n].float())
+        o = o / l[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(n, S, H, dh))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return out.to(q.dtype)

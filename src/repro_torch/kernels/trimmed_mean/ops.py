@@ -4,7 +4,7 @@ kernel's wrapper (the port of ``repro.kernels.trimmed_mean.ops``).
 ``trimmed_mean(x, F, backend=...)`` is what every trimmed aggregator of
 training calls, once per trim (routes in :mod:`repro_torch.kernels.
 dispatch`). On a CUDA tensor it launches K4 (``csrc/trimmed_mean.cu``) for
-W <= 32 workers, or raises; the plain version runs on the card only when
+W <= 64 workers, or raises; the plain version runs on the card only when
 ``backend="torch"`` is asked for.
 """
 from __future__ import annotations
@@ -20,7 +20,7 @@ from .ref import trimmed_mean_ref
 __all__ = ["trimmed_mean", "trimmed_mean_pytree", "trimmed_mean_cuda",
            "W_MAX"]
 
-W_MAX = 32          # the kernel's largest register array of worker values
+W_MAX = 64          # the kernel's largest register array of worker values
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p]
@@ -63,7 +63,7 @@ def trimmed_mean_cuda(x: torch.Tensor, F: int, *,
                       out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch K4 on the current stream -> (D,) float32.
 
-    x: (W, D) float32 on the card, 1 <= W <= 32, W > 2F, with a unit
+    x: (W, D) float32 on the card, 1 <= W <= 64, W > 2F, with a unit
     column stride and any row stride >= D (a column range of a larger
     buffer needs no copy). ``out``: an optional contiguous (D,) float32
     tensor on x's device. ``trimmed_mean_cuda.launches`` counts the

@@ -66,6 +66,7 @@ from repro_torch.kernels.swa import (
     swa_prefill_cuda,
     swa_prefill_ref,
 )
+from repro_torch.kernels.swa.ops import prefill_kernel
 from repro_torch.kernels.wkv6 import (
     Wkv6Fn,
     wkv6,
@@ -372,6 +373,14 @@ PREFILL_CASES = [
     (1, 150, 4, 4, 64, "fp32", 16),
     (1, 70, 8, 2, 256, "bf16", 64),
     (2, 1, 4, 1, 64, "fp32", 0),
+    # the tensor-core kernel (bf16 at head sizes 64 and 128)
+    (8, 1024, 12, 4, 64, "bf16", 0),            # the training shape, G = 3
+    (8, 1024, 12, 4, 64, "bf16", 256),
+    (2, 1000, 8, 8, 64, "bf16", 0),             # ragged S, G = 1
+    (2, 1000, 12, 4, 128, "bf16", 0),           # ragged S, G = 3
+    (1, 300, 8, 2, 128, "bf16", 100),           # G = 4, the window edge
+    (1, 300, 8, 2, 64, "bf16", 100),            #   inside query tiles
+    (2, 1, 4, 1, 128, "bf16", 0),
 ]
 _DT = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -465,9 +474,13 @@ def test_swa_prefill_kernel_matches_plain(cuda_device, case):
     q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
                for a in prefill_problem(B, S, H, Hkv, dh))
     before = swa_prefill_cuda.launches
+    before_tc = swa_prefill_cuda.launches_tc
     got = swa_prefill(q, k, v, window)
     torch.cuda.synchronize()
     assert swa_prefill_cuda.launches == before + 1
+    tc = dtype == torch.bfloat16 and dh in (64, 128)
+    assert prefill_kernel(dtype, dh) == ("tc" if tc else "fma")
+    assert swa_prefill_cuda.launches_tc == before_tc + tc
     assert got.dtype == dtype and got.shape == (B, S, H, dh)
     want = swa_prefill_ref(q.float(), k.float(), v.float(), window)
     torch.testing.assert_close(got.float(), want, rtol=_attn_tol(dtype),
@@ -491,6 +504,28 @@ def test_swa_prefill_kernel_reads_strided_views(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+def test_swa_prefill_tc_kernel_reads_strided_views(cuda_device, dh):
+    """The tensor-core kernel's tensor maps over views of one fused bf16
+    projection row: the same result as from contiguous copies, and the
+    float32 plain version's within the bf16 limit."""
+    B, S, H, Hkv = 2, 300, 8, 2
+    x = torch.randn(B, S, (H + 2 * Hkv) * dh, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0))
+    x = x.to(torch.bfloat16)
+    q = x[..., :H * dh].view(B, S, H, dh)
+    k = x[..., H * dh:(H + Hkv) * dh].view(B, S, Hkv, dh)
+    v = x[..., (H + Hkv) * dh:].view(B, S, Hkv, dh)
+    before = swa_prefill_cuda.launches_tc
+    got = swa_prefill_cuda(q, k, v, 0)
+    assert swa_prefill_cuda.launches_tc == before + 1
+    assert torch.equal(got, swa_prefill_cuda(q.contiguous(), k.contiguous(),
+                                             v.contiguous(), 0))
+    torch.testing.assert_close(got.float(), swa_prefill_ref(
+        q.float(), k.float(), v.float(), 0), rtol=2 ** -8, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_swa_prefill_kernel_rejects_bad_arguments(cuda_device):
     q, k, v = (torch.from_numpy(a).to(cuda_device)
                for a in prefill_problem(1, 16, 4, 2, 64))
@@ -505,6 +540,13 @@ def test_swa_prefill_kernel_rejects_bad_arguments(cuda_device):
         swa_prefill_cuda(q[..., :48], k[..., :48], v[..., :48])
     with pytest.raises(ValueError, match="CUDA tensors"):
         swa_prefill_cuda(q.cpu(), k.cpu(), v.cpu())
+    # TMA needs strides that are multiples of 16 bytes: a row of 4 x 64 + 4
+    # bf16 passes the FMA kernel's check (multiples of 4) but not this one
+    x = torch.zeros((1, 16, 4 * 64 + 4), dtype=torch.bfloat16,
+                    device=cuda_device)
+    qb = x[..., :4 * 64].view(1, 16, 4, 64)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        swa_prefill_cuda(qb, k.bfloat16(), v.bfloat16())
 
 
 @pytest.mark.cuda
@@ -709,6 +751,11 @@ TMEAN_CASES = [
     (16, 1, 4097, "huge_scale", 1), (32, 15, 4097, "ties", 0),
     (32, 7, 4097, "byzantine", 1), (32, 0, 1, "normal", 1),
     (8, 2, 4097, "non_finite", 0), (7, 2, 1000, "too_many_nan", 1),
+    # the 64-wide instantiation (two coordinates a thread, a 64-bit mask)
+    (33, 16, 4097, "byzantine", 0), (33, 1, 1000, "too_many_nan", 1),
+    (48, 2, 4097, "normal", 1), (48, 23, 3, "ties", 0),
+    (64, 31, 4097, "ties", 0), (64, 2, 4097, "non_finite", 1),
+    (64, 0, 1, "normal", 1), (64, 7, 4097, "huge_scale", 0),
 ]
 
 
@@ -953,3 +1000,21 @@ def test_robust_train_step_through_the_kernels_matches_plain(cuda_device,
     for a, b in zip(leaves(out["auto"][1]), leaves(out["torch"][1])):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=5e-5)
         assert all(torch.equal(a[0], a[w]) for w in range(1, 6))
+
+
+@pytest.mark.cuda
+def test_train_cli_takes_48_workers_through_k4(cuda_device, capsys):
+    """``launch.train --workers 48 --agg trimmed_mean`` on the card: one
+    step of reduced (2-layer, float32) paper_sim through K4's 64-wide
+    instantiation (one launch) and K6 (every layer and worker)."""
+    from repro_torch.launch.train import main
+    k4, k6 = trimmed_mean_cuda.launches, swa_prefill_cuda.launches
+    main(["--arch", "paper_sim", "--reduced", "--steps", "1", "--seq-len",
+          "32", "--global-batch", "48", "--agg", "trimmed_mean", "--trim-f",
+          "2", "--workers", "48", "--byzantine", "1,7"])
+    torch.cuda.synchronize()
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-1] == "done" and lines[0].startswith("step     0 loss ")
+    assert np.isfinite(float(lines[0].split()[3]))
+    assert trimmed_mean_cuda.launches == k4 + 1
+    assert swa_prefill_cuda.launches == k6 + 48 * 2

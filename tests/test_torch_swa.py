@@ -22,6 +22,7 @@ from repro.kernels.swa.swa import attn_decode_pallas
 from repro.models.layers import _naive_attention as jax_naive_attention
 from repro_torch.kernels.swa import (attn_decode, attn_decode_ref,
                                      swa_prefill, swa_prefill_ref)
+from repro_torch.kernels.swa.ops import prefill_kernel, tma_strides
 from repro_torch.models import layers as TL
 
 TOL = 1e-5
@@ -149,3 +150,95 @@ def test_model_attention_routes():
                                    backend="cuda")):
         with pytest.raises(ValueError, match="CUDA"):
             fn()
+
+
+# The tensor-core prefill kernel's arithmetic (csrc/swa_prefill.cu,
+# swa_prefill_tc), emulated in float32 on the CPU: bf16 q, k, v; float32
+# Q.K^T (bf16 products are exact in float32) multiplied by scale after the
+# product; an online softmax over key tiles with -1e30 masking; P.V as
+# P_hi.V + P_lo.V with P_hi = bf16(P) and P_lo = bf16(P - P_hi); the output
+# rounded once to bf16. The card's check holds the kernel to the float32
+# plain version on the same bf16 inputs within rtol 2^-8 + atol 1e-5
+# (chip_smoke.py phase 8, tests/test_torch_kernels_cuda.py); the bf16
+# output rounding alone may use up to 2^-8 relative, so the split's P must
+# carry more than bf16's 8 bits. With P rounded once to bf16 (a one-product
+# design) the same emulation exceeds that limit.
+K6_RTOL, K6_ATOL = 2 ** -8, 1e-5
+
+
+def emulate_tc_prefill(q, k, v, window, bk, split):
+    """(B, S, H, dh) bf16 in -> bf16 out, by the kernel's arithmetic."""
+    B, S, H, dh = q.shape
+    G = H // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)                       # (B, H, S, dh)
+    kf = k.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    qpos = torch.arange(S)[:, None]
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros((B, H, S, 1))
+    o = torch.zeros((B, H, S, dh))
+    for k0 in range(0, S, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        s = (qf @ kt.transpose(-1, -2)) * dh ** -0.5
+        kpos = k0 + torch.arange(kt.shape[2])[None, :]
+        ok = kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p_hi = p.to(torch.bfloat16).float()
+        o = o * alpha + p_hi @ vt
+        if split:
+            o = o + (p - p_hi).to(torch.bfloat16).float() @ vt
+        m = m_new
+    out = o / torch.clamp_min(l, 1e-30)
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _k6_limit_ratio(got, want):
+    """The largest |got - want| / (atol + rtol |want|): at most 1 passes."""
+    return ((got.float() - want).abs()
+            / (K6_ATOL + K6_RTOL * want.abs())).max().item()
+
+
+@pytest.mark.parametrize("S,window,dh,H,Hkv,bk", [
+    (256, 0, 64, 4, 4, 128),      # G = 1, the training head size
+    (130, 100, 128, 4, 2, 64),    # G = 2, a window, a ragged last tile
+])
+def test_tc_prefill_numerics_need_the_p_split(S, window, dh, H, Hkv, bk):
+    """P kept float32-exact as two bf16 terms meets the card's limit; P
+    rounded once to bf16 does not."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in prefill_problem(2, S, H, Hkv, dh, seed=S + dh))
+    want = swa_prefill_ref(q.float(), k.float(), v.float(), window)
+    split = emulate_tc_prefill(q, k, v, window, bk, split=True)
+    torch.testing.assert_close(split.float(), want, rtol=K6_RTOL,
+                               atol=K6_ATOL)
+    assert _k6_limit_ratio(split, want) <= 1.0
+    one = emulate_tc_prefill(q, k, v, window, bk, split=False)
+    assert _k6_limit_ratio(one, want) > 10.0
+
+
+def test_prefill_kernel_choice_and_tma_strides():
+    """K6's wrapper takes its tensor-core kernel for bf16 at head sizes 64
+    and 128 only, and hands that kernel's tensor maps the (b, s, head)
+    strides TMA accepts: positive multiples of 8 elements from a 16-byte
+    aligned base; an axis of size 1 gets a stride past the whole view.
+    Anything else raises instead of falling back to the FMA kernel."""
+    assert [prefill_kernel(dt, dh) for dt, dh in (
+        (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 256),
+        (torch.float32, 64), (torch.float32, 128))] == [
+        "tc", "tc", "fma", "fma", "fma"]
+    x = torch.zeros((2, 10, (4 + 2 * 2) * 64), dtype=torch.bfloat16)
+    q = x[..., :256].view(2, 10, 4, 64)      # a view of a fused projection
+    assert tma_strides("q", q) == (5120, 512, 64)
+    one = torch.zeros((1, 10, 1, 64), dtype=torch.bfloat16)
+    assert tma_strides("k", one) == (640, 64, 640)
+    odd = torch.zeros((1, 16, 4 * 64 + 4), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tma_strides("q", odd[..., :256].view(1, 16, 4, 64))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tma_strides("q", x[..., 4:260].view(2, 10, 4, 64))

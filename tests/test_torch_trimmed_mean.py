@@ -35,7 +35,9 @@ CASES = [(3, 1, 17, "normal"), (4, 1, 64, "ties"), (5, 2, 333, "normal"),
          (8, 0, 100, "normal"), (8, 2, 1000, "byzantine"),
          (8, 3, 129, "ties"), (16, 7, 257, "huge_scale"),
          (16, 3, 500, "byzantine"), (32, 15, 96, "ties"),
-         (32, 7, 130, "byzantine")]
+         (32, 7, 130, "byzantine"), (33, 16, 40, "byzantine"),
+         (48, 5, 70, "ties"), (64, 31, 64, "normal"),
+         (64, 2, 33, "byzantine")]
 
 
 @pytest.mark.parametrize("W,F,D,case", CASES)
@@ -103,7 +105,7 @@ def test_routes_on_the_cpu():
         trimmed_mean(x, 2, out=torch.empty(40))
     with pytest.raises(ValueError, match="backend"):
         trimmed_mean(x, 2, backend="pallas")
-    assert W_MAX == 32
+    assert W_MAX == 64
 
 
 @pytest.mark.parametrize("as_dict", [True, False])
@@ -132,3 +134,16 @@ def test_pytree_round_trips_each_leaf_dtype(as_dict):
         g = got[k].float().numpy()
         tol = 2 ** -8 * np.abs(w) + 1e-6 if k == "b" else 1e-6
         assert (np.abs(g - w) <= tol).all(), k
+
+
+def test_train_cli_takes_48_workers_through_the_trimmed_mean(capsys):
+    """``launch.train --workers 48 --agg trimmed_mean`` takes a step (the
+    reference's kernel takes up to 64 workers; on the card the same run
+    goes through K4's 64-wide instantiation)."""
+    from repro_torch.launch.train import main
+    main(["--arch", "paper_sim", "--reduced", "--steps", "1", "--seq-len",
+          "32", "--global-batch", "48", "--agg", "trimmed_mean", "--trim-f",
+          "2", "--workers", "48", "--byzantine", "1,7", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-1] == "done" and lines[0].startswith("step     0 loss ")
+    assert np.isfinite(float(lines[0].split()[3]))
