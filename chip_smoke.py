@@ -28,41 +28,51 @@ Phases (any failure raises and the script exits non-zero):
 7. timing  — CUDA-event medians of each kernel and its plain version, and
              of one step of each main path at N = 16,384 and 131,072;
              profiler breakdowns of the full-size steps;
-8. serve kernels — the decode attention (K5) and the prefill attention
-             (K6: its tensor-core kernel for bf16 at head sizes 64 and 128,
-             its FMA kernel otherwise) against their plain versions at the
-             serve path's full shapes, at the training shape, and at edge
-             cases (ragged cache, lengths < Wc, a ring window, G in {1, 3,
-             4, 8}; window in {0, w}, a window edge inside a query tile, S
-             not a multiple of the tile, strided views), with stated
-             tolerances;
+8. serve kernels — the decode attention (K5: its one-launch tensor-core
+             kernel for bf16, split and combine for float32) and the
+             prefill attention (K6: its tensor-core kernel for bf16 at head
+             sizes 64 and 128, its FMA kernel otherwise) against their
+             plain versions at the serve path's full shapes, at the
+             training shape, and at edge cases (ragged cache, lengths < Wc
+             and inside 64-row tiles, a ring window, a cache shorter than a
+             tile, empty requests, G in {1, 3, 4, 8, 16}; window in {0, w},
+             a window edge inside a query tile, S not a multiple of the
+             tile, strided views), with stated tolerances, each case on
+             the kernel its dtype picks;
 9. serve main — Qwen3-8B at published widths and full depth (36 layers),
              bf16, seeded random weights: 8 requests of 2,048-token
              prompts, 32 greedy tokens through launch.serve.generate
-             (prefill, then 31 decode steps; K6 launches 36 times, all on
-             its tensor-core kernel, K5 36 x 31); its logits against the
-             plain serve path and the plain full forward over the same
-             tokens;
+             (prefill, then 31 decode steps; K6 launches 36 times and K5
+             36 x 31, all on their tensor-core kernels); its logits
+             against the plain serve path and the plain full forward over
+             the same tokens;
 10. serve timing — CUDA-event medians of K5, K6, their plain versions
              and SDPA at the serve shapes (and K6 and SDPA at the training
-             shape); time to prefill and ms per decode step, kernel and
-             plain paths; a profile of decode steps;
+             shape; K5 also with the host's enqueueing hidden behind a
+             device sleep, its JSON time); time to prefill and ms per
+             decode step, kernel and plain paths; a profile of decode
+             steps;
 11. serve fp32 — the same path at 2 layers in float32 (4 x 1,000-token
              prompts, 16 tokens) against the plain full forward, within a
              limit a bf16 computation would fail;
-12. rwkv kernel — the chunked WKV6 scan (K7) against its plain chunked
-             version and the sequential scan: T in {1, 63, 64, 65, 1,000,
-             2,048}, BH in {1, 256}, float32 and bf16, the model's decay
-             and both clip ends, with stated tolerances;
+12. rwkv kernel — the chunked WKV6 scan (K7: three chunk-parallel
+             passes) against its plain chunked version and the sequential
+             scan: T in {1, 63, 64, 65, 1,000, 2,048}, the chunk-group
+             edges 127, 128, 129, 255 and 257, one sequence of 8,192, BH in
+             {1, 8, 256, 300}, (B, H) views of (B, T, H, 64) projections,
+             float32 and bf16, the model's decay and both clip ends, with
+             stated tolerances;
 13. rwkv main — RWKV6-1.6B at published widths and full depth (24
              layers), bf16, seeded random weights: 8 requests of
              2,048-token prompts, 32 greedy tokens through
              launch.serve.generate (K7 launches 24 times, decode none); its
              logits against the plain serve path and the plain full
              forward;
-14. rwkv timing — K7 and its plain version at the serve shape, time to
-             prefill and ms per decode step, kernel and plain paths, a
-             profile of decode steps;
+14. rwkv timing — K7 (device time with the host hidden, and
+             host-inclusive) and its plain version at the serve shape,
+             beside its bound and its design's floor; time to prefill and
+             ms per decode step, kernel and plain paths, a profile of
+             decode steps;
 15. rwkv fp32 — 2 layers in float32, 4 x 1,000-token prompts (a ragged
              last chunk), 16 tokens, against the plain full forward; then
              the full 24 layers in float32 (2 x 2,048-token prompts, 8
@@ -90,9 +100,10 @@ Phases (any failure raises and the script exits non-zero):
              turns), peak memory and a profile of a kernel-path step.
 
 The build phase prints ptxas' registers and spills of K6's tensor-core
-kernel and K4's 64-wide kernel, and the count of HGMMA (wgmma)
-instructions in the built K6 library (cuobjdump -sass), which must be
-nonzero.
+kernel, K4's 64-wide kernel, K7's three passes and K5's tensor-core
+kernel, and the count of HGMMA (wgmma) and HMMA (mma.sync) instructions in
+the built K6, K7 and K5 libraries (cuobjdump -sass): HGMMA in K6's and
+HMMA in K7's and K5's must be nonzero.
 
 It prints the card's name and power limit, one JSON line of kernel
 figures, and last the device line. Run from the repository root:
@@ -203,14 +214,20 @@ def trim_edge_cases(dev):
                                   valid, msgs, byz)]
 
 
-def event_ms(fn, runs: int, flush=None) -> float:
+def event_ms(fn, runs: int, flush=None, hide_host: bool = False) -> float:
     """Median device milliseconds of ``fn()``, each run bracketed by its
-    own CUDA events; ``flush()`` runs before each, outside the events."""
+    own CUDA events; ``flush()`` runs before each, outside the events.
+    With ``hide_host`` the device first sleeps ~1 ms, so the host has
+    queued the start event, ``fn``'s launches and the end event before the
+    start event runs: the events then time the device's work alone, not
+    the host's enqueueing (which exceeds a kernel of tens of µs)."""
     import torch
     times = []
     for _ in range(runs):
         if flush is not None:
             flush()
+        if hide_host:
+            torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -299,13 +316,26 @@ def main() -> int:
             + " | ".join(ptxas))
     for name, kernel in (("swa_prefill", "swa_prefill_tc_kernelILi64"),
                          ("swa_prefill", "swa_prefill_tc_kernelILi128"),
-                         ("trimmed_mean", "trimmed_mean_kernelILi64")):
+                         ("trimmed_mean", "trimmed_mean_kernelILi64"),
+                         ("wkv6", "wkv6_group_statesI13__nv_bfloat16"),
+                         ("wkv6", "wkv6_group_statesIf"),
+                         ("wkv6", "wkv6_group_scan"),
+                         ("wkv6", "wkv6_group_outputsI13__nv_bfloat16"),
+                         ("wkv6", "wkv6_group_outputsIf"),
+                         ("attn_decode", "attn_decode_tc_kernelILi64ELi16"),
+                         ("attn_decode", "attn_decode_tc_kernelILi128ELi8"),
+                         ("attn_decode", "attn_decode_tc_kernelILi128ELi16"),
+                         ("attn_decode", "attn_decode_tc_kernelILi256ELi8")):
         log(f"[build] ptxas, {kernel}: "
             f"{ptxas_report(built[name].log, kernel)}")
-    n_hgmma = sass_count(built["swa_prefill"].path, ("HGMMA", "HMMA"))
-    log(f"[build] swa_prefill SASS (cuobjdump -sass): {n_hgmma['HGMMA']} "
-        f"HGMMA and {n_hgmma['HMMA']} HMMA instructions")
-    require(n_hgmma["HGMMA"] > 0, "K6's tensor-core kernel issues wgmma")
+    for name, op, what in (("swa_prefill", "HGMMA", "K6's tensor-core kernel"),
+                           ("wkv6", "HMMA", "K7's passes 1 and 3"),
+                           ("attn_decode", "HMMA",
+                            "K5's tensor-core kernel")):
+        n_mma = sass_count(built[name].path, ("HGMMA", "HMMA"))
+        log(f"[build] {name} SASS (cuobjdump -sass): {n_mma['HGMMA']} "
+            f"HGMMA and {n_mma['HMMA']} HMMA instructions")
+        require(n_mma[op] > 0, f"{what} issue tensor-core instructions")
 
     # ---- set-up at full size -------------------------------------------
     t0 = time.perf_counter()
@@ -578,6 +608,35 @@ def main() -> int:
     return 0
 
 
+def kernel_times(fn, runs: int,
+                 flush=None) -> dict[str, tuple[float, int]]:
+    """Device milliseconds of one launch of each kernel that ``fn``
+    launches, averaged over the launches the profiler recorded, and how
+    many it recorded (torch.profiler over ``runs`` calls, ``flush()``
+    before each; the flush's own kernel left out): by kernel name without
+    namespace or template arguments; empty when the profiler records no
+    device time. In a long process the profiler may record fewer launches
+    than ran, so the mean is taken over the recorded ones."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for e in prof.key_averages():
+        key = e.key.replace("(anonymous namespace)::", "")
+        name = key.split("(")[0].split("<")[0].split("::")[-1].split()[-1]
+        if e.device_time_total > 0 and "fill" not in key.lower():
+            total[name] = total.get(name, 0.0) + e.device_time_total / 1e3
+            count[name] = count.get(name, 0) + e.count
+    return {n: (total[n] / count[n], count[n]) for n in total}
+
+
 def profile_step(run, label: str, step_ms: float, steps: int = 20) -> None:
     """Device time by kernel over ``steps`` kernel-path steps
     (torch.profiler) of ``run(T)``, after min(5, steps) unprofiled ones,
@@ -626,24 +685,31 @@ def _wrappers() -> dict:
             "trimmed_mean": trimmed_mean_cuda}
 
 
+# wrappers with two kernels: the calls on the tensor-core one, apart
+TC_COUNTS = ("swa_prefill", "attn_decode")
+
+
 def _zero_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
-    _wrappers()["swa_prefill"].launches_tc = 0
+    for name in TC_COUNTS:
+        _wrappers()[name].launches_tc = 0
 
 
 def _counts() -> dict[str, int]:
-    """Launches of each wrapper, and of K6's tensor-core kernel alone
-    (``swa_prefill_tc``, part of ``swa_prefill``'s count)."""
+    """Launches of each wrapper, and of K6's and K5's tensor-core kernels
+    alone (``swa_prefill_tc``, ``attn_decode_tc``, part of their wrappers'
+    counts)."""
     out = {name: fn.launches for name, fn in _wrappers().items()}
-    out["swa_prefill_tc"] = _wrappers()["swa_prefill"].launches_tc
+    for name in TC_COUNTS:
+        out[f"{name}_tc"] = _wrappers()[name].launches_tc
     return out
 
 
 def _only(**launches) -> dict[str, int]:
     """The launch counts of a run that launched only the named kernels."""
     return {name: launches.get(name, 0)
-            for name in (*_wrappers(), "swa_prefill_tc")}
+            for name in (*_wrappers(), *(f"{n}_tc" for n in TC_COUNTS))}
 
 
 def byzantine_main(model, setup, attack, dev) -> int:
@@ -950,12 +1016,16 @@ def serve_kernel_checks(dev) -> dict[str, float]:
     inputs; a bf16 kernel output is the float32 result rounded once, so it
     is held to rtol 2^-8 (a bf16 rounding is up to 2^-8 relative) + atol
     1e-5; float32 to rtol 1e-5 + atol 1e-5 (another summation order over
-    at most 2,081 rows). A request with no valid row is NaN in both. K6's
-    bf16 cases at head sizes 64 and 128 run on its tensor-core kernel
-    (checked by its own launch count), the rest on its FMA kernel."""
+    at most 2,081 rows). A request with no valid row is NaN in both. K5's
+    bf16 cases run on its one-launch tensor-core kernel, its float32 ones
+    on split and combine; K6's bf16 cases at head sizes 64 and 128 run on
+    its tensor-core kernel, the rest on its FMA kernel (each checked by the
+    wrapper's tensor-core launch count). K5's ticket counters are back at
+    zero after the calls."""
     import torch
     from repro_torch.kernels.swa import (attn_decode_cuda, attn_decode_ref,
                                          swa_prefill_cuda, swa_prefill_ref)
+    from repro_torch.kernels.swa.ops import _TICKETS
     g = torch.Generator(device=dev).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     errs = {"attn_decode": 0.0, "swa_prefill": 0.0}
@@ -983,6 +1053,10 @@ def serve_kernel_checks(dev) -> dict[str, float]:
             "full ring window, G=1": (3, 8, 8, 1000, 128, bf16, 1000),
             "Wc=77, G=3, dh=64, fp32": (3, 12, 4, 77, 64, f32, None),
             "dh=256, G=8, one empty request": (2, 16, 2, 300, 256, bf16, 0),
+            "dh=64, G=16, lengths inside tiles": (3, 32, 2, 200, 64, bf16,
+                                                  None),
+            "dh=128, G=16, one empty request": (2, 32, 2, 77, 128, bf16, 0),
+            "G=3, a short cache": (4, 12, 4, 5, 128, bf16, None),
     }.items():
         q, k, v = (rn(B, H, dh, dtype=dtype), rn(B, Hkv, Wc, dh, dtype=dtype,
                                                   scale=2.0),
@@ -994,8 +1068,16 @@ def serve_kernel_checks(dev) -> dict[str, float]:
         else:
             L = torch.full((B,), lens, device=dev)
         L = L.to(torch.int32)
-        hold("attn_decode", case, attn_decode_cuda(q, k, v, L),
+        before = attn_decode_cuda.launches_tc
+        got = attn_decode_cuda(q, k, v, L)
+        require(attn_decode_cuda.launches_tc - before == (dtype == bf16),
+                f"K5 {case}: the kernel picked by dtype")
+        hold("attn_decode", case, got,
              attn_decode_ref(q.float(), k.float(), v.float(), L))
+
+    torch.cuda.synchronize()
+    require(all(int(t.abs().sum()) == 0 for t in _TICKETS.values()),
+            "K5's ticket counters are back at zero")
 
     for case, (B, S, H, Hkv, dh, dtype, w) in {
             "serve shape": (8, 2048, 32, 8, 128, bf16, 0),
@@ -1085,9 +1167,11 @@ def serve_phases(dev, flush) -> list[dict]:
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     L = cfg.n_layers
     require(counts == _only(swa_prefill=L, swa_prefill_tc=L,
-                            attn_decode=L * (GEN - 1)),
-            "K6 launched once per layer in prefill, every launch on its "
-            "tensor-core kernel, and K5 once per layer in every decode step")
+                            attn_decode=L * (GEN - 1),
+                            attn_decode_tc=L * (GEN - 1)),
+            "K6 launched once per layer in prefill and K5 once per layer in "
+            "every decode step, every launch of both on its tensor-core "
+            "kernel")
     require(toks.shape == (B, GEN) and lk.shape == (B, GEN, cfg.vocab)
             and bool(torch.isfinite(lk).all()), "serve outputs")
     with torch.inference_mode():
@@ -1140,6 +1224,7 @@ def serve_phases(dev, flush) -> list[dict]:
          "source": "src/repro_torch/kernels/csrc/attn_decode.cu",
          "replaces": "src/repro/kernels/swa/swa.py:72",
          "launches": counts_main["attn_decode"],
+         "launches_tc": counts_main["attn_decode_tc"],
          "max_abs_err": errs["attn_decode"], **times["attn_decode"]},
         {"name": "swa_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/swa_prefill.cu",
@@ -1168,9 +1253,11 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.swa import (attn_decode_cuda, attn_decode_ref,
                                          swa_prefill_cuda, swa_prefill_ref)
+    from repro_torch.kernels.swa.ops import decode_splits
 
     B, S = prompts.shape
     GEN = toks.shape[1]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     Wc = S + GEN + 1
     g = torch.Generator(device=dev).manual_seed(2)
@@ -1188,22 +1275,35 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     o5 = attn_decode_cuda(q, k, v, lens)
     sdpa5 = F.scaled_dot_product_attention(q[:, :, None], k, v,
                                            attn_mask=mask, enable_gqa=True)
-    ms5 = event_ms(lambda: attn_decode_cuda(q, k, v, lens), TIMED_RUNS, flush)
-    plain5 = event_ms(lambda: attn_decode_ref(q, k, v, lens), TIMED_RUNS,
-                      flush)
-    lib5 = event_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), TIMED_RUNS,
-        flush)
+    # device time alone (the host's enqueueing hidden), and with the
+    # events around the host's call
+    times5 = {}
+    for hide in (True, False):
+        times5[hide] = [event_ms(fn, TIMED_RUNS, flush, hide) for fn in (
+            lambda: attn_decode_cuda(q, k, v, lens),
+            lambda: attn_decode_ref(q, k, v, lens),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))]
+    ms5, plain5, lib5 = times5[True]
+    kernel5 = kernel_times(lambda: attn_decode_cuda(q, k, v, lens), 10,
+                           flush)["attn_decode_tc_kernel"]
     # bytes: q, the valid K and V rows, lengths and the output once each
     kv_bytes = 2 * B * Hkv * n_valid * dh * k.element_size()
     b5, by5 = bound(nbytes(q, lens, o5) + kv_bytes,
                     4 * B * H * n_valid * dh, BF16_FLOPS)
     log(f"[timing] attn_decode (B={B}, H={H}, Hkv={Hkv}, Wc={Wc}, "
-        f"{n_valid} valid rows, bf16): {ms5:.5f} ms, plain {plain5:.5f}, "
-        f"SDPA {lib5:.5f}, bound {b5:.5f} ({by5}); SDPA max diff "
+        f"{n_valid} valid rows, bf16, "
+        f"{decode_splits(B, Hkv, Wc, dh, n_sm)[1]} splits): device {ms5:.5f} "
+        f"ms, plain {plain5:.5f}, SDPA {lib5:.5f}; host-inclusive "
+        f"{times5[False][0]:.5f}, plain {times5[False][1]:.5f}, SDPA "
+        f"{times5[False][2]:.5f}; kernel alone (profiler, L2 flushed) "
+        f"{kernel5[0]:.5f} (mean of {kernel5[1]} launches); bound {b5:.5f} "
+        f"({by5}); SDPA max diff "
         f"{(sdpa5[:, :, 0].float() - o5.float()).abs().max().item():.3e}")
     out["attn_decode"] = {"ms": ms5, "plain_ms": plain5, "bound_ms": b5,
-                          "bound_by": by5, "library_ms": lib5}
+                          "bound_by": by5, "library_ms": lib5,
+                          "host_inclusive_ms": times5[False][0],
+                          "kernel_ms": kernel5[0]}
 
     # K6 at the prefill shape, full causal
     q, k, v = rn(B, S, H, dh), rn(B, S, Hkv, dh), rn(B, S, Hkv, dh)
@@ -1287,6 +1387,7 @@ def wkv_kernel_checks(dev) -> float:
 
     import torch
     from repro_torch.kernels.wkv6 import wkv6_chunked_ref, wkv6_cuda, wkv6_ref
+    from repro_torch.kernels.wkv6.ops import group_chunks
     g = torch.Generator(device=dev).manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
     strong, weak = -math.exp(4.0), -math.exp(-8.0)
@@ -1304,20 +1405,44 @@ def wkv_kernel_checks(dev) -> float:
                 f"{want.abs().max().item():.3e})")
         return err.max().item()
 
-    for BH, T, dtype, lw in (
-            (256, 2048, bf16, "model"), (256, 2048, f32, "model"),
-            (1, 1, f32, "model"), (1, 63, bf16, "model"),
-            (1, 64, f32, "model"), (1, 65, bf16, "model"),
-            (256, 1000, bf16, "model"), (1, 1000, f32, "model"),
-            (256, 2048, bf16, strong), (1, 65, f32, strong),
-            (256, 1000, f32, strong), (256, 2048, bf16, weak),
-            (1, 63, f32, weak), (256, 1000, f32, weak)):
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for BH, T, dtype, lw, view in (
+            (256, 2048, bf16, "model", False), (256, 2048, f32, "model", False),
+            (1, 1, f32, "model", False), (1, 63, bf16, "model", False),
+            (1, 64, f32, "model", False), (1, 65, bf16, "model", False),
+            (256, 1000, bf16, "model", False), (1, 1000, f32, "model", False),
+            (256, 2048, bf16, strong, False), (1, 65, f32, strong, False),
+            (256, 1000, f32, strong, False), (256, 2048, bf16, weak, False),
+            (1, 63, f32, weak, False), (256, 1000, f32, weak, False),
+            # chunk-group edges: groups of 1 chunk at BH = 8, of 4 at 300
+            (8, 127, bf16, "model", False), (8, 128, f32, strong, False),
+            (8, 129, bf16, weak, False), (300, 255, bf16, "model", False),
+            (300, 257, f32, "model", False),
+            # one long sequence: 128 groups of one chunk
+            (1, 8192, bf16, "model", False), (1, 8192, f32, strong, False),
+            # (B, H, T, 64) views of (B, T, H, 64) projections, u broadcast
+            (64, 1000, bf16, "model", True)):
         args = wkv_inputs(g, BH, T, dtype, lw, dev)
-        y, s = wkv6_cuda(*args)
+        if view:
+            B, H = 2, BH // 2
+            y, s = wkv6_cuda(
+                *(a.view(B, H, T, WKV_HEAD).transpose(1, 2).contiguous()
+                  .transpose(1, 2) for a in args[:4]),
+                args[4][:H].expand(B, H, WKV_HEAD))
+            require(y.shape == (B, H, T, WKV_HEAD)
+                    and y.transpose(1, 2).is_contiguous(),
+                    "wkv6 view case: y in the (B, T, H, V) layout")
+            y, s = y.reshape(BH, T, WKV_HEAD), s.reshape(BH, WKV_HEAD,
+                                                        WKV_HEAD)
+            args = (*args[:4], args[4][:H].repeat(B, 1))
+        else:
+            y, s = wkv6_cuda(*args)
         tol = 5e-4 if lw == strong else 1e-4
         y_rtol = 2 ** -7 if dtype == bf16 else 0.0
         lw_name = lw if lw == "model" else f"{lw:.4g}"
-        case = f"BH={BH} T={T} {str(dtype)[6:]} lw={lw_name}"
+        case = (f"BH={BH} T={T} {str(dtype)[6:]} lw={lw_name}"
+                f"{' (B, H) views' if view else ''} G="
+                f"{group_chunks(BH, T, n_sm)}")
         errs = []
         for form, (y_w, s_w) in (
                 ("chunked", wkv6_chunked_ref(*args, chunk=64)),
@@ -1456,21 +1581,45 @@ def rwkv_phases(dev, flush) -> dict:
             "launches": counts["wkv6"], "max_abs_err": err, **times["wkv6"]}
 
 
-def wkv_ops(BH: int, T: int) -> int:
-    """FLOPs of the chunked WKV6 over BH sequences of T tokens at chunk 64
-    (K = V = 64), as K7 computes it: per chunk of n tokens, the inter-chunk
-    product 2 n K V, the pairwise scores 5 per (i > j, k) (a difference,
-    an exponential, two products, a sum), scores @ v 2 per (i > j, v), the
-    bonus 3 n K + 2 n V, the decayed keys 3 n K and the state update
-    K V + 2 n K V."""
-    K = V = WKV_HEAD
-    total = 0
-    for t0 in range(0, T, 64):
-        n = min(64, T - t0)
-        pairs = n * (n - 1) // 2
-        total += (2 * n * K * V + 5 * pairs * K + 2 * pairs * V + 3 * n * K
-                  + 2 * n * V + 3 * n * K + K * V + 2 * n * K * V)
-    return BH * total
+def wkv_ops(BH: int, T: int, G: int) -> tuple[int, int]:
+    """(tensor-core FLOPs, FMA-pipe operations) of K7 over BH sequences of
+    T bf16 tokens, as its three passes compute them: every chunk padded to
+    64 rows, K = V = 64; a product of two split (hi + lo) operands counted
+    three times, of a split one and v (exact in bf16) twice; an
+    exponential counted as one operation. Per chunk, pass 1: the decayed
+    keys and the state update; pass 3: the scan, the decayed keys again,
+    the inter-chunk product, the anchored off-diagonal scores (sub-chunks
+    1-3), the diagonal sub-blocks pairwise (4 x 120 x 64 terms of 5
+    operations) with the bonus on their diagonal, scores @ v and the state
+    update; pass 2: one fma per state element a group."""
+    C = K = V = WKV_HEAD
+    mv = 2
+    n_chunks = -(-T // C)
+    prior = 16 + 32 + 48                       # key rows before sub-chunks
+    tc = (mv * 2 * C * K * V                   # pass 1: state
+          + 3 * 2 * C * K * V                  # inter-chunk
+          + 3 * 2 * 16 * K * prior             # off-diagonal scores
+          + mv * 2 * 16 * V * (prior + 64)     # scores @ v, j <= the block
+          + mv * 2 * C * K * V)                # pass 3: state
+    fma = (2 * (C * K + 3 * C * K + K * V + K)  # scan, k_dec, decay, exp
+           + 2 * C * K                         # r . exp(E)
+           + 3 * 16 * K * 3 + 3 * K * prior    # decayed q and k
+           + 4 * 120 * K * 5                   # diagonal sub-blocks
+           + 3 * C * K)                        # bonus
+    groups = -(-n_chunks // G)
+    return BH * n_chunks * tc, BH * (n_chunks * fma + groups * 2 * K * V)
+
+
+def wkv_floor_bytes(BH: int, T: int, itemsize: int, G: int) -> int:
+    """Bytes K7's design must move: k, v and lw read by passes 1 and 3, r
+    and u by pass 3, y written once; each group's state written by pass 1,
+    read and rewritten by pass 2, read by pass 3, and its decay written and
+    read; the final state written once."""
+    K = WKV_HEAD
+    groups = -(-T // (64 * G))
+    seq = T * K * (2 * (2 * itemsize + 4) + 2 * itemsize)
+    state = groups * (4 * K * K * 4 + 2 * K * 4) + K * K * 4 + K * 4
+    return BH * (seq + state)
 
 
 def rwkv_timing(params, cfg, prompts, toks, flush, dev) -> dict:
@@ -1478,6 +1627,7 @@ def rwkv_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     runs, L2 flushed), then :func:`serve_times`."""
     import torch
     from repro_torch.kernels.wkv6 import wkv6_chunked_ref, wkv6_cuda
+    from repro_torch.kernels.wkv6.ops import group_chunks
 
     B, S = prompts.shape
     H = cfg.d_model // cfg.wkv_head_dim
@@ -1490,23 +1640,45 @@ def rwkv_timing(params, cfg, prompts, toks, flush, dev) -> dict:
 
     uh = u[:H].expand(B, H, WKV_HEAD)
     y, s = wkv6_cuda(heads(r), heads(k), heads(v), heads(lw), uh)
-    ms7 = event_ms(lambda: wkv6_cuda(heads(r), heads(k), heads(v),
-                                     heads(lw), uh), TIMED_RUNS, flush)
+    # device time alone (the host's enqueueing hidden), and with the
+    # events around the host's call
+    ms7, host7 = (event_ms(lambda: wkv6_cuda(heads(r), heads(k), heads(v),
+                                             heads(lw), uh), TIMED_RUNS,
+                           flush, hide) for hide in (True, False))
     plain7 = event_ms(lambda: wkv6_chunked_ref(r, k, v, lw, u, chunk=64), 3,
                       flush)
-    # bytes: r, k, v, lw, u (the (H, 64) rows read), y and the state once
+    passes7 = kernel_times(lambda: wkv6_cuda(heads(r), heads(k), heads(v),
+                                             heads(lw), uh), 5, flush)
+    # bytes: r, k, v, lw, u (the (H, 64) rows read), y and the state once;
+    # operations: the tensor-core products at the bf16 peak plus the FMA
+    # pipes' work at the float32 peak
     bytes7 = nbytes(r, k, v, lw, y, s) + H * WKV_HEAD * 4
-    ops7 = wkv_ops(B * H, S)
-    b7, by7 = bound(bytes7, ops7, BF16_FLOPS)
-    log(f"[timing] wkv6 (B={B}, H={H}, T={S}, K=V=64, bf16): {ms7:.4f} ms, "
-        f"plain {plain7:.4f}, bound {b7:.5f} ({by7}; {bytes7 / 1e6:.1f} MB, "
-        f"{ops7 / 1e9:.2f} GFLOP = {ops7 / BF16_FLOPS * 1e3:.5f} ms at the "
-        f"bf16 peak); library: none (no single PyTorch call)")
+    G7 = group_chunks(B * H, S, torch.cuda.get_device_properties(dev)
+                      .multi_processor_count)
+    tc7, fma7 = wkv_ops(B * H, S, G7)
+    ops_ms7 = (tc7 / BF16_FLOPS + fma7 / FP32_FLOPS) * 1e3
+    bytes_ms7 = bytes7 / HBM_BYTES_PER_S * 1e3
+    b7, by7 = max((bytes_ms7, "bytes"), (ops_ms7, "operations"))
+    floor7 = wkv_floor_bytes(B * H, S, 2, G7)
+    log(f"[timing] wkv6 (B={B}, H={H}, T={S}, K=V=64, bf16, groups of "
+        f"{G7} chunks, {B * H * -(-S // (64 * G7))} blocks in passes 1 and 3)"
+        f": device {ms7:.5f} ms, host-inclusive {host7:.5f}, plain "
+        f"{plain7:.4f}, bound {b7:.5f} ({by7}; "
+        f"{bytes7 / 1e6:.1f} MB; {tc7 / 1e9:.2f} GFLOP on the tensor cores "
+        f"and {fma7 / 1e9:.2f} G operations on the FMA pipes = "
+        f"{ops_ms7:.5f} ms at the peaks), design floor "
+        f"{floor7 / HBM_BYTES_PER_S * 1e3:.5f} ms ({floor7 / 1e6:.1f} MB); "
+        f"library: none (no single PyTorch call); a launch of each pass "
+        f"(profiler, L2 flushed): " + ", ".join(
+            f"{n} {t:.5f} (mean of {c})" for n, (t, c) in passes7.items()))
     del r, k, v, lw, u, y, s
     dec = serve_times(params, cfg, prompts, toks,
                       f", of which K7 {cfg.n_layers} x {ms7:.4f} ms")
     return {"wkv6": {"ms": ms7, "plain_ms": plain7, "bound_ms": b7,
-                     "bound_by": by7, "library_ms": None},
+                     "bound_by": by7, "library_ms": None,
+                     "floor_ms": floor7 / HBM_BYTES_PER_S * 1e3,
+                     "host_inclusive_ms": host7,
+                     "passes_ms": {n: t for n, (t, _) in passes7.items()}},
             "decode_ms": dec}
 
 

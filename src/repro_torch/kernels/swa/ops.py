@@ -7,6 +7,12 @@ layer, ``swa_prefill(..., backend=...)`` what prefill calls once per layer
 float32 or bfloat16 and head sizes 64, 128 and 256; the wrappers raise on
 anything else and never fall back to the plain versions.
 
+K5 is two kernels in ``csrc/attn_decode.cu``, picked in the open by
+:func:`decode_kernel`: bf16 (every launch of the serve path) runs on the
+tensor cores in one launch (``attn_decode_tc``: cp.async-staged K/V tiles,
+the splits merged by the last block of each (request, KV head)); float32
+on the split and combine kernels.
+
 K6 is two kernels in ``csrc/swa_prefill.cu``, picked in the open by
 :func:`prefill_kernel`: bf16 at head sizes 64 and 128 (every launch of the
 serve and training paths) runs on the tensor cores (``swa_prefill_tc``:
@@ -34,16 +40,22 @@ from .ref import attn_decode_ref, swa_prefill_ref
 
 __all__ = ["attn_decode", "attn_decode_cuda", "swa_prefill",
            "swa_prefill_cuda", "SwaPrefillFn", "HEAD_DIMS", "TC_HEAD_DIMS",
-           "prefill_kernel", "tma_strides"]
+           "prefill_kernel", "tma_strides", "decode_kernel",
+           "decode_splits"]
 
 HEAD_DIMS = (64, 128, 256)
 TC_HEAD_DIMS = (64, 128)     # the tensor-core prefill kernel's head sizes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the decode kernel's split blocks aim at about this many blocks in all
 _DECODE_BLOCKS = 1024
-_DECODE_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
-                                            ctypes.c_void_p])
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_DECODE_TC_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_DECODE_TILE = 64           # cache rows a tile of the tensor-core decode
+# each (device, stream)'s zeroed ticket counters of the tensor-core decode:
+# the merging block of every (request, KV head) resets its own to 0
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 _PREFILL_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                      + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 6
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -131,6 +143,35 @@ def _check_aligned(*named) -> None:
             raise ValueError(f"{what} must start on a 16-byte boundary")
 
 
+def decode_kernel(dtype: torch.dtype) -> str:
+    """Which K5 kernel takes inputs of this dtype: ``"tc"`` (the one-launch
+    tensor-core kernel) for bf16, ``"split"`` (split and combine) for
+    float32."""
+    return "tc" if dtype == torch.bfloat16 else "split"
+
+
+def decode_splits(B: int, Hkv: int, Wc: int, dh: int,
+                  n_sm: int) -> tuple[int, int]:
+    """(rows a split, splits) of the tensor-core decode: splits of whole
+    64-row tiles, as many as keep the B * Hkv * splits blocks within one
+    wave (two blocks an SM at head sizes up to 128, one at 256, by shared
+    memory)."""
+    slots = n_sm * (1 if dh == 256 else 2)
+    tiles = -(-Wc // _DECODE_TILE)
+    n_split = max(1, min(slots // (B * Hkv), tiles))
+    chunk = -(-tiles // n_split) * _DECODE_TILE
+    return chunk, -(-Wc // chunk)
+
+
+def _tickets(dev: torch.device, n: int) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
+
+
 def attn_decode_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -138,9 +179,10 @@ def attn_decode_cuda(
     lengths: torch.Tensor,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Launch the split flash-decode kernel and its combine kernel on the
+    """Launch one of K5's two kernels (:func:`decode_kernel`) on the
     current stream. Every tensor must be contiguous; ``lengths`` int32.
-    ``attn_decode_cuda.launches`` counts the calls (two kernels each)."""
+    ``attn_decode_cuda.launches`` counts the calls of both,
+    ``attn_decode_cuda.launches_tc`` those of the tensor-core kernel."""
     if not q.is_cuda:
         raise ValueError("the CUDA attention decode needs CUDA tensors")
     if q.dim() != 3 or k.dim() != 4:
@@ -157,26 +199,45 @@ def attn_decode_cuda(
     _build.check_arg(v, "v", q.dtype, (B, Hkv, Wc, dh), dev)
     _build.check_arg(lengths, "lengths", torch.int32, (B,), dev)
     _check_aligned(("q", q), ("k", k), ("v", v))
-    n_split = max(1, min(-(-_DECODE_BLOCKS // (B * Hkv)), -(-Wc // 32)))
-    chunk = -(-Wc // n_split)
-    n_split = -(-Wc // chunk)
+    sc = float(scale if scale is not None else dh ** -0.5)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tc = decode_kernel(q.dtype) == "tc"
+    if tc:
+        chunk, n_split = decode_splits(
+            B, Hkv, Wc, dh,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+    else:
+        n_split = max(1, min(-(-_DECODE_BLOCKS // (B * Hkv)), -(-Wc // 32)))
+        chunk = -(-Wc // n_split)
+        n_split = -(-Wc // chunk)
     part_m = torch.empty(B * H * n_split, dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty(B * H * n_split * dh, dtype=torch.float32,
                            device=dev)
     out = torch.empty_like(q)
-    fn = _build.function("attn_decode", "attn_decode", _DECODE_ARGTYPES)
-    code = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-              part_acc.data_ptr(), out.data_ptr(), B, H, Hkv, Wc, dh, chunk,
-              n_split, float(scale if scale is not None else dh ** -0.5),
-              dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_status("attn_decode", code)
+    if tc:
+        fn = _build.function("attn_decode", "attn_decode_tc",
+                             _DECODE_TC_ARGTYPES)
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+                  part_acc.data_ptr(), _tickets(dev, B * Hkv).data_ptr(),
+                  out.data_ptr(), B, H, Hkv, Wc, dh, chunk, n_split, sc,
+                  dev.index, stream)
+        _build.check_status("attn_decode", code)
+        attn_decode_cuda.launches_tc += 1
+    else:
+        fn = _build.function("attn_decode", "attn_decode", _DECODE_ARGTYPES)
+        code = fn(q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), lengths.data_ptr(), part_m.data_ptr(),
+                  part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), B,
+                  H, Hkv, Wc, dh, chunk, n_split, sc, dev.index, stream)
+        _build.check_status("attn_decode", code)
     attn_decode_cuda.launches += 1
     return out
 
 
 attn_decode_cuda.launches = 0
+attn_decode_cuda.launches_tc = 0
 
 
 def prefill_kernel(dtype: torch.dtype, dh: int) -> str:

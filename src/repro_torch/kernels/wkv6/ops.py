@@ -6,7 +6,9 @@ per layer (routes in :mod:`repro_torch.kernels.dispatch`). On a CPU tensor
 it takes the reference's off-TPU choice: the chunked plain version with
 chunk ``max(64, T // 32)`` halved until it divides T, and the sequential
 scan when that falls below 16. On a CUDA tensor it launches K7
-(``csrc/wkv6.cu``, chunk 64) for any T, or raises. Decode needs no kernel:
+(``csrc/wkv6.cu``, chunk 64) for any T, or raises. K7 is three passes over
+groups of :func:`group_chunks` chunks: each group's own state, a scan over
+the groups, each group's outputs. Decode needs no kernel:
 :func:`.ref.wkv6_decode_step`.
 
 Both routes take the reference's ``(BH, T, K)`` layout, or ``(B, H, T,
@@ -32,14 +34,29 @@ from .. import _build
 from ..dispatch import resolve_backend
 from .ref import wkv6_chunked_ref, wkv6_ref
 
-__all__ = ["wkv6", "wkv6_cuda", "Wkv6Fn", "HEAD_SIZE", "KERNEL_CHUNK"]
+__all__ = ["wkv6", "wkv6_cuda", "Wkv6Fn", "HEAD_SIZE", "KERNEL_CHUNK",
+           "group_chunks"]
 
 HEAD_SIZE = 64          # K = V: the kernel's tile; RWKV6's published size
 KERNEL_CHUNK = 64
+MAX_GROUP = 4           # chunks a group of K7's passes, at most
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
+
+
+def group_chunks(BH: int, T: int, n_sm: int) -> int:
+    """Chunks a group of K7's passes: 4, halved while BH sequences of T
+    tokens would give fewer than two blocks an SM. A group's state moves
+    through memory four times (16 KB each); its chunks' inputs, about
+    80 KB a chunk in bf16, twice. At 4 chunks the state traffic is a
+    fifth of the input traffic, at 1 chunk four fifths."""
+    n_chunks = -(-T // KERNEL_CHUNK)
+    G = MAX_GROUP
+    while G > 1 and BH * -(-n_chunks // G) < 2 * n_sm:
+        G //= 2
+    return G
 
 
 def _plain_chunk(T: int, chunk: int | None) -> int:
@@ -146,7 +163,7 @@ def wkv6_cuda(
     free. The state is contiguous float32. It records no autograd graph
     and raises on inputs that require grad under grad mode: :func:`wkv6`
     differentiates through K7. ``wkv6_cuda.launches`` counts the
-    launches."""
+    calls (three kernels each)."""
     if not r.is_cuda:
         raise ValueError("the CUDA WKV6 kernel needs CUDA tensors")
     if _needs_graph(r, k, v, lw, u):
@@ -191,15 +208,25 @@ def wkv6_cuda(
         y = torch.empty((B, T, H, K), dtype=r.dtype,
                         device=dev).permute(0, 2, 1, 3)
         usb, ush = u.stride(0), u.stride(1)
-    if B * H > 2**31 - 1:
-        raise ValueError(f"too many sequences: {B * H}")
     s = torch.empty(lead + (K, K), dtype=torch.float32, device=dev)
+    G = group_chunks(B * H, T,
+                     torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_groups = -(-T // (KERNEL_CHUNK * G))
+    if B * H * max(n_groups, 16) > 2**31 - 1:
+        raise ValueError(f"too many sequences for one launch: {B * H}")
+    # each group's own state, then its start state (pass 2 in place), and
+    # its total decay
+    ds = torch.empty((B * H * n_groups, K, K), dtype=torch.float32,
+                     device=dev)
+    decay = torch.empty((B * H * n_groups, K), dtype=torch.float32,
+                        device=dev)
     strides = (ctypes.c_longlong * 15)(
         *(x for t in (r, k, v, lw, y) for x in _strides3(t)))
     fn = _build.function("wkv6", "wkv6", _ARGTYPES)
     code = fn(_DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
               lw.data_ptr(), u.data_ptr(), y.data_ptr(), s.data_ptr(),
-              ctypes.addressof(strides), usb, ush, B, H, T, dev.index,
+              ds.data_ptr(), decay.data_ptr(), ctypes.addressof(strides),
+              usb, ush, B, H, T, G, dev.index,
               torch.cuda.current_stream(dev).cuda_stream)
     _build.check_status("wkv6", code)
     wkv6_cuda.launches += 1

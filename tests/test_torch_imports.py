@@ -1,6 +1,6 @@
 """The port stands alone: importing ``repro_torch`` and every submodule loads
-neither JAX nor the JAX package ``repro``, and neither the port's sources
-nor ``chip_smoke.py`` import them."""
+neither JAX nor the JAX package ``repro``, and neither the port's sources,
+``chip_smoke.py`` nor the GPU tools under ``tools/`` import them."""
 import ast
 import os
 import subprocess
@@ -52,7 +52,7 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO))
     for p in [*(REPO / "src" / "repro_torch").rglob("*.py"),
-              REPO / "chip_smoke.py"]))
+              REPO / "chip_smoke.py", *(REPO / "tools").glob("*.py")]))
 def test_sources_import_no_jax(path):
     bad = [m for m in _imported_modules(REPO / path) if _forbidden(m)]
     assert bad == [], bad

@@ -66,7 +66,7 @@ from repro_torch.kernels.swa import (
     swa_prefill_cuda,
     swa_prefill_ref,
 )
-from repro_torch.kernels.swa.ops import prefill_kernel
+from repro_torch.kernels.swa.ops import _TICKETS, prefill_kernel
 from repro_torch.kernels.wkv6 import (
     Wkv6Fn,
     wkv6,
@@ -365,6 +365,11 @@ DECODE_CASES = [
     (2, 12, 4, 33, 64, "fp32", "ragged"),       # G = 3
     (2, 16, 2, 300, 256, "bf16", "empty_one"),  # G = 8
     (1, 32, 2, 40, 128, "fp32", "ragged"),      # G = 16
+    # the one-launch tensor-core kernel: lengths inside 64-row tiles, G = 16
+    (3, 32, 2, 200, 64, "bf16", "ragged"),
+    (2, 32, 2, 77, 128, "bf16", "empty_one"),
+    (4, 12, 4, 5, 128, "bf16", "ragged"),       # a cache shorter than a tile
+    (8, 32, 8, 2081, 128, "bf16", "ragged"),    # the serve shape
 ]
 # (B, S, H, Hkv, dh, dtype, window)
 PREFILL_CASES = [
@@ -422,10 +427,12 @@ def test_attn_decode_kernel_matches_plain(cuda_device, case):
     tq, tk, tv = (torch.from_numpy(a).to(cuda_device, dtype)
                   for a in (q, k, v))
     tl = torch.from_numpy(L).to(cuda_device)
-    before = attn_decode_cuda.launches
+    before = attn_decode_cuda.launches, attn_decode_cuda.launches_tc
     got = attn_decode(tq, tk, tv, tl)
     torch.cuda.synchronize()
-    assert attn_decode_cuda.launches == before + 1
+    assert attn_decode_cuda.launches == before[0] + 1
+    assert attn_decode_cuda.launches_tc == before[1] + (dt == "bf16")
+    assert all(int(t.abs().sum()) == 0 for t in _TICKETS.values())
     assert got.dtype == dtype and got.shape == (B, H, dh)
     want = attn_decode_ref(tq.float(), tk.float(), tv.float(), tl)
     torch.testing.assert_close(got.float(), want, rtol=_attn_tol(dtype),
@@ -598,6 +605,11 @@ WKV_CASES = [
     (3, 130, "fp32", -float(np.exp(4.0))), (3, 130, "bf16",
                                             -float(np.exp(4.0))),
     (3, 300, "fp32", -float(np.exp(-8.0))),
+    # chunk-group edges: groups of 1 chunk at 8 sequences, of 4 at 300
+    (8, 127, "bf16", "model"), (8, 128, "fp32", -float(np.exp(4.0))),
+    (8, 129, "bf16", -float(np.exp(-8.0))), (300, 255, "bf16", "model"),
+    (300, 257, "fp32", "model"),
+    (1, 8192, "bf16", "model"),                 # 128 groups of one chunk
 ]
 
 

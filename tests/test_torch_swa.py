@@ -22,7 +22,8 @@ from repro.kernels.swa.swa import attn_decode_pallas
 from repro.models.layers import _naive_attention as jax_naive_attention
 from repro_torch.kernels.swa import (attn_decode, attn_decode_ref,
                                      swa_prefill, swa_prefill_ref)
-from repro_torch.kernels.swa.ops import prefill_kernel, tma_strides
+from repro_torch.kernels.swa.ops import (decode_kernel, decode_splits,
+                                         prefill_kernel, tma_strides)
 from repro_torch.models import layers as TL
 
 TOL = 1e-5
@@ -242,3 +243,127 @@ def test_prefill_kernel_choice_and_tma_strides():
         tma_strides("q", odd[..., :256].view(1, 16, 4, 64))
     with pytest.raises(ValueError, match="16-byte boundary"):
         tma_strides("q", x[..., 4:260].view(2, 10, 4, 64))
+
+
+# K5's tensor-core kernel (csrc/attn_decode.cu, attn_decode_tc), emulated
+# in float32 on the CPU: bf16 q, k, v; each split of whole 64-row tiles
+# walked by 4 warps, warp w taking rows 16w..16w+15 of every tile with its
+# own online softmax (one max and one rescale a tile, rows at or past the
+# length masked); q.K^T of bf16 operands with float32 sums, multiplied by
+# the scale after the product; O += P_hi.V + P_lo.V; the warps' and then
+# the splits' (m, l, acc) merged; the output rounded once to bf16; a
+# request of length 0 gives NaN. The card holds the kernel to the float32
+# plain version on the same bf16 inputs within rtol 2^-8 + atol 1e-5
+# (chip_smoke.py phase 8), as for K6: with P rounded once to bf16 the
+# same emulation exceeds that limit.
+K5_WARPS, K5_SUB = 4, 16
+
+
+def emulate_tc_decode(q, k, v, lengths, chunk, split=True, scale=None):
+    """(B, H, dh) bf16 q and (B, Hkv, Wc, dh) bf16 k, v -> bf16 (B, H, dh),
+    by the kernel's arithmetic."""
+    B, H, dh = q.shape
+    Hkv, Wc = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = dh ** -0.5 if scale is None else scale
+    out = torch.full((B, H, dh), float("nan"))
+
+    def merge(states):
+        M = torch.stack([m for m, _, _ in states]).amax(0)
+        L, A = 0.0, 0.0
+        for m, l, a in states:
+            c = torch.exp(m - M)            # 0 for a warp that saw no row
+            L, A = L + c * l, A + c[..., None] * a
+        return M, L, A
+
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), Wc)
+        qf = q[b].float().view(Hkv, G, dh)
+        splits = []
+        for start in range(0, n, chunk):
+            end = min(start + chunk, n)
+            warps = []
+            for w in range(K5_WARPS):
+                m = torch.full((Hkv, G), -float("inf"))
+                l, acc = torch.zeros((Hkv, G)), torch.zeros((Hkv, G, dh))
+                for t0 in range(start + K5_SUB * w, end, 64):
+                    t1 = min(t0 + K5_SUB, end)
+                    kt, vt = k[b, :, t0:t1].float(), v[b, :, t0:t1].float()
+                    s = (qf @ kt.transpose(-1, -2)) * scale
+                    m_new = torch.maximum(m, s.amax(-1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(s - m_new[..., None])
+                    l = l * alpha + p.sum(-1)
+                    p_hi = p.to(torch.bfloat16).float()
+                    acc = acc * alpha[..., None] + p_hi @ vt
+                    if split:
+                        acc = acc + (p - p_hi).to(torch.bfloat16).float() @ vt
+                    m = m_new
+                warps.append((m, l, acc))
+            splits.append(merge(warps))
+        if splits:
+            _, L, A = merge(splits)
+            out[b] = (A / L[..., None]).reshape(H, dh)
+    return out.to(torch.bfloat16)
+
+
+# (B, H, Hkv, Wc, dh, lengths)
+K5_CASES = [
+    (2, 8, 2, 200, 64, [200, 130]),        # G = 4, a length inside a tile
+    (3, 32, 8, 300, 128, [0, 77, 300]),    # the serve head size, one empty
+    (2, 16, 1, 150, 128, [150, 65]),       # G = 16
+    (2, 16, 2, 130, 256, [129, 1]),        # G = 8 at head size 256
+    (1, 3, 3, 64, 64, [64]),               # G = 1, one whole tile
+]
+
+
+def _k5_inputs(B, H, Hkv, Wc, dh, lengths):
+    q, k, v, L = decode_problem(B, H, Hkv, Wc, dh, lengths, seed=Wc + dh)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    want = np.array(jax_attn_decode_ref(*(t.float().numpy()
+                                            for t in (tq, tk, tv)), L))
+    return tq, tk, tv, L, torch.from_numpy(want)
+
+
+@pytest.mark.parametrize("n_sm", [132, 2])
+@pytest.mark.parametrize("case", K5_CASES)
+def test_tc_decode_numerics_meet_phase_8(case, n_sm):
+    """The one-launch kernel's arithmetic, at the splits the wrapper picks
+    on a 132-SM card (one tile a split here) and on a 2-SM one (several
+    tiles a split), against the reference's attn_decode_ref: within rtol
+    2^-8 + atol 1e-5, NaN for a request of length 0."""
+    B, H, Hkv, Wc, dh, lengths = case
+    tq, tk, tv, L, want = _k5_inputs(*case)
+    chunk, n_split = decode_splits(B, Hkv, Wc, dh, n_sm)
+    assert chunk % 64 == 0 and (n_split - 1) * chunk < Wc <= n_split * chunk
+    got = emulate_tc_decode(tq, tk, tv, L, chunk)
+    empty = torch.from_numpy(L == 0)
+    assert bool(torch.isnan(got[empty]).all())
+    assert bool(torch.isnan(want[empty]).all())
+    torch.testing.assert_close(got[~empty].float(), want[~empty],
+                               rtol=K6_RTOL, atol=K6_ATOL)
+
+
+@pytest.mark.parametrize("case", K5_CASES[:3])
+def test_tc_decode_needs_the_p_split(case):
+    """P rounded once to bf16 exceeds the limit that the split meets (28 to
+    37 times it over the five cases, against 0.94-0.98 of it)."""
+    tq, tk, tv, L, want = _k5_inputs(*case)
+    chunk, _ = decode_splits(case[0], case[2], case[3], case[4], 2)
+    ok = torch.from_numpy(L > 0)
+    split = emulate_tc_decode(tq, tk, tv, L, chunk)[ok]
+    one = emulate_tc_decode(tq, tk, tv, L, chunk, split=False)[ok]
+    assert _k6_limit_ratio(split, want[ok]) <= 1.0
+    assert _k6_limit_ratio(one, want[ok]) > 10.0
+
+
+def test_decode_kernel_choice_and_splits():
+    """bf16 goes to the one-launch tensor-core kernel, float32 to split and
+    combine. Splits are whole 64-row tiles, as many as keep the blocks
+    within one wave: two an SM up to head size 128, one at 256."""
+    assert [decode_kernel(dt) for dt in (torch.bfloat16, torch.float32)] \
+        == ["tc", "split"]
+    assert decode_splits(8, 8, 2081, 128, 132) == (576, 4)   # 256 blocks
+    assert decode_splits(2, 2, 300, 256, 132) == (64, 5)
+    assert decode_splits(64, 8, 2081, 128, 132) == (2112, 1)
+    assert decode_splits(1, 1, 5, 64, 132) == (64, 1)
