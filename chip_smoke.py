@@ -9,11 +9,16 @@ Phases (any failure raises and the script exits non-zero):
              src/repro_torch/kernels/csrc, one nvcc per source, at once;
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at the main paths' full-size shapes (and the trim-gather at
-             its edge cases), with stated tolerances;
+             its edge cases), with stated tolerances; K1 on both of its
+             kernels (edge-tiled, column walk), its recv bit-equal to the
+             float32 edge-order sum, also at its edge cases (D 3/4/40,
+             empty receivers, padding, no live edge, a hub of in-degree
+             1,500 over three edge tiles, unaligned rows);
 3. main    — run_social_runtime at N = 131,072 agents (16,384 complete
              8-agent networks, E = 917,504 links), T = 200, through the
              kernels and again through the plain path; both kernels must
-             launch T times, the two runs must agree, mass is conserved;
+             launch T times (K1 on its edge-tiled kernel), the two runs
+             must agree, mass is conserved;
 4. quickstart — examples/quickstart.py's Algorithm 3 scenario on the card:
              every agent's final belief in theta* above 0.95;
 5. byzantine main — run_byzantine_runtime at N = 131,072 (the same
@@ -25,9 +30,13 @@ Phases (any failure raises and the script exits non-zero):
              the card (normal-agent accuracy 1.0), and the sparse kernel
              path against the port's dense oracle on 4x7 complete networks
              for every attack;
-7. timing  — CUDA-event medians of each kernel and its plain version, and
-             of one step of each main path at N = 16,384 and 131,072;
-             profiler breakdowns of the full-size steps;
+7. timing  — K1-K3 three ways (device time with the host's enqueueing
+             hidden, the JSON time; the kernel alone under the profiler;
+             host-inclusive), K1's column walk beside its edge-tiled kernel
+             and K1 at pushsum_sparse's shape (8 workers x 2^24 + 1
+             columns), their plain versions; CUDA-event medians of one
+             step of each main path at N = 16,384 and 131,072; profiler
+             breakdowns of the full-size steps;
 8. serve kernels — the decode attention (K5: its one-launch tensor-core
              kernel for bf16, split and combine for float32) and the
              prefill attention (K6: its tensor-core kernel for bf16 at head
@@ -81,7 +90,8 @@ Phases (any failure raises and the script exits non-zero):
 16. train kernels — the trimmed mean (K4) against its sort-based plain
              version at the main path's (8, 99,496,704) for F in {0, 2} and
              at edge cases (W 3..64, D 1/3/4,097, a column offset of 1,
-             ties, +-1e6, inf and NaN rows; W <= 2F raises); K6's and K7's
+             ties, +-1e6, inf and NaN rows, NaN rows with the sign bit
+             set, +-0 ties; W <= 2F raises); K6's and K7's
              gradients through their autograd wrappers against plain
              autograd at a layer's shape, float32 and bf16 (bit-equal);
 17. train main — paper_sim at published widths and full depth, bf16,
@@ -95,12 +105,14 @@ Phases (any failure raises and the script exits non-zero):
              pods x 4 with a worker at ~1e6 (the aggregate within the
              honest gradients), pushsum_sparse through K1, and a 2-layer
              RWKV6-1.6B training step's gradients through K7;
-18. train timing — K4, its plain version, its bound and torch.mean at
-             the main shape; step times of both paths (medians of 5, in
-             turns), peak memory and a profile of a kernel-path step.
+18. train timing — K4 three ways at F = 2 and F = 0, its plain version,
+             its bound and torch.mean at the main shape; step times of
+             both paths (medians of 5, in turns), peak memory and a
+             profile of a kernel-path step.
 
-The build phase prints ptxas' registers and spills of K6's tensor-core
-kernel, K4's 64-wide kernel, K7's three passes and K5's tensor-core
+The build phase prints ptxas' registers and spills of every K4
+instantiation (4 to 64 workers) and K1's three kernels, which must not
+spill, of K6's tensor-core kernel, K7's three passes and K5's tensor-core
 kernel, and the count of HGMMA (wgmma) and HMMA (mma.sync) instructions in
 the built K6, K7 and K5 libraries (cuobjdump -sass): HGMMA in K6's and
 HMMA in K7's and K5's must be nonzero.
@@ -272,6 +284,285 @@ def sass_count(lib: Path, opcodes) -> dict[str, int]:
     return {op: words.count(op) for op in opcodes}
 
 
+def three_ways(fn, runs: int, flush) -> dict:
+    """A kernel call's device milliseconds three ways, the L2 flushed
+    before each run: with the host's enqueueing hidden (``ms``, the figure
+    the kernels line carries), the call's kernels alone under the profiler
+    (``kernel_ms``, the mean a launch summed over the call's kernels; None
+    where the profiler records no device time) and with the events around
+    the host's call (``host_inclusive_ms``)."""
+    kt = kernel_times(fn, 10, flush)
+    return {"ms": event_ms(fn, runs, flush, hide_host=True),
+            "kernel_ms": sum(t for t, _ in kt.values()) if kt else None,
+            "host_inclusive_ms": event_ms(fn, runs, flush)}
+
+
+def engine_args(dev, model, rt_d, brt_d) -> dict:
+    """K1-K3's inputs at the engines' main shapes, from seed 0: K1 the
+    consensus state of N agents (D = 4) over the dst-sorted index with 0.9
+    of the links live (``k1``: the CUDA wrapper's arguments; ``dst`` for
+    the plain version); K2 beliefs, masses (64 of them 0) and uniforms
+    (some at or above the CDF's top); K3 the Byzantine path's r, neighbor
+    slots and large_value lies, a stride-0 view (``k3``) and materialized
+    (``k3_dense``)."""
+    import torch
+    rng = np.random.default_rng(0)
+    N, E, D = rt_d.offsets.shape[0] - 1, rt_d.src.shape[0], 4
+    sigma = torch.tensor(rng.normal(size=(N, D)), dtype=torch.float32,
+                         device=dev)
+    rho = torch.tensor(rng.normal(size=(E, D)), dtype=torch.float32,
+                       device=dev)
+    live = torch.tensor(rng.random(E) < 0.9, device=dev) & rt_d.valid
+    tables_d = model.tables.to(dev)
+    log_tables = torch.log(tables_d)
+    cdf = torch.cumsum(tables_d[:, model.truth, :], dim=-1)
+    z = torch.tensor(rng.normal(size=(N, model.m)) * 10, dtype=torch.float32,
+                     device=dev)
+    mass = torch.tensor(rng.random(N), dtype=torch.float32, device=dev)
+    mass[:64] = 0.0                       # vanishing mass stays finite
+    u = torch.tensor(rng.random(N), dtype=torch.float32, device=dev)
+    u[64:128] = cdf[64:128, -1]           # at / above the last CDF value
+    u[128:192] = 0.99999994
+    dm, P = brt_d.nbr_idx.shape[1], model.m ** 2
+    r_b = torch.tensor(rng.normal(size=(N, P)) * 30, dtype=torch.float32,
+                       device=dev)
+    lies = torch.full((), 1e3, device=dev).expand(N, dm, P)
+    k3 = (r_b, brt_d.nbr_idx, brt_d.nbr_valid, lies, brt_d.byz_nbr, BYZ_F)
+    return {"k1": (sigma, rho, live, rt_d.src, rt_d.offsets),
+            "dst": rt_d.dst, "k2": (z, mass, u, cdf, log_tables),
+            "k3": k3, "k3_dense": k3[:3] + (lies.contiguous(),) + k3[4:]}
+
+
+def edge_order_recv(rho_new, rho, offsets):
+    """Each receiver's increments rho_new - rho added in float32 in edge
+    order, starting from 0: the sum K1 gives, bit for bit, on both of its
+    kernels (vectorized over the receivers, one in-edge position at a
+    time)."""
+    import torch
+    start = offsets[:-1].long()
+    deg = offsets[1:].long() - start
+    delta = rho_new - rho
+    recv = torch.zeros((deg.shape[0], rho.shape[1]), dtype=rho.dtype,
+                       device=rho.device)
+    for k in range(int(deg.max()) if deg.numel() else 0):
+        has = k < deg
+        row = delta[torch.where(has, start + k, 0)]
+        recv = torch.where(has[:, None], recv + row, recv)
+    return recv
+
+
+def k1_edge_cases(dev):
+    """Small edge-scatter problems at K1's edge cases, N = 1,001 receivers,
+    at D = 4 (the edge-tiled kernel's vector path), 3 (its scalar path) and
+    40 (the column walk): in-degrees 0..9 (empty receivers, a ragged last
+    block), most receivers hearing nobody, no live edge, inert padding
+    edges at the end, a hub receiver of in-degree 1,500 (three tiles of the
+    tiled kernel at D = 4, which holds 512 edges a tile) and rows that
+    start off the 16-byte vector alignment. Yields ``(name, D, args,
+    dst)``: the CUDA wrapper's arguments and the plain version's dst."""
+    import torch
+    rng = np.random.default_rng(2)
+    n = 1001
+    for D in (4, 3, 40):
+        for name in ("ragged", "no_in_edges", "none_live", "padding", "hub",
+                     "unaligned"):
+            if name == "no_in_edges":
+                deg = np.where(rng.random(n) < 0.7, 0,
+                               rng.integers(1, 5, size=n))
+            else:
+                deg = rng.integers(0, 10, size=n)
+            if name == "hub":
+                deg[n // 2] = 1500
+            dst = np.repeat(np.arange(n), deg)
+            src = rng.integers(0, n, size=dst.shape[0])
+            live = rng.random(dst.shape[0]) < (0.0 if name == "none_live"
+                                               else 0.6)
+            if name == "padding":       # inert tail edges: dst = N-1, dead
+                dst = np.concatenate([dst, np.full(37, n - 1)])
+                src = np.concatenate([src, np.zeros(37, np.int64)])
+                live = np.concatenate([live, np.zeros(37, bool)])
+            E = dst.shape[0]
+            sigma = torch.tensor(rng.normal(size=(n, D)),
+                                 dtype=torch.float32, device=dev)
+            rho = torch.tensor(rng.normal(size=(E, D)), dtype=torch.float32,
+                               device=dev)
+            if name == "unaligned":     # contiguous rows one float in
+                sigma = torch.cat([sigma.new_zeros(1), sigma.view(-1)])[1:]
+                sigma = sigma.view(n, D)
+                rho = torch.cat([rho.new_zeros(1), rho.view(-1)])[1:]
+                rho = rho.view(E, D)
+            offsets = np.searchsorted(dst, np.arange(n + 1), side="left")
+            as_dev = [torch.tensor(a, device=dev) for a in (
+                live, src.astype(np.int32), offsets.astype(np.int32),
+                dst.astype(np.int32))]
+            yield name, D, (sigma, rho, *as_dev[:3]), as_dev[3]
+
+
+def edge_scatter_checks(dev, args) -> float:
+    """Phase 2's K1 checks. At the engine's shape, on the edge-tiled kernel
+    and on the column walk: rho_new bit-equal to the plain version, recv
+    bit-equal to :func:`edge_order_recv` and within rtol 1e-5 atol 1e-6 of
+    the plain version's ``index_add_`` (whose atomics add in another
+    order); then the same at :func:`k1_edge_cases` on the kernel the
+    wrapper picks and on the column walk, where the hub's run of 1,500
+    increments is held to the plain version within the bound for two
+    orders of one sum, (n - 1) eps32 sum |increments| (2.0e-5 relative
+    measured against ``index_add_``) -> the largest error against the
+    plain version at the main shape."""
+    import torch
+    from repro_torch.kernels.pushsum_edge import (edge_scatter_cuda,
+                                                  edge_scatter_ref)
+    from repro_torch.kernels.pushsum_edge.ops import TILED_D_MAX
+
+    def hold(what, k1, dst, tiled, by_order=False):
+        before = edge_scatter_cuda.launches_tiled
+        rho_k, recv_k = edge_scatter_cuda(*k1, tiled=tiled)
+        rho_p, recv_p = edge_scatter_ref(*k1[:4], dst)
+        want = edge_order_recv(rho_p, k1[1], k1[4])
+        torch.cuda.synchronize()
+        on_tiled = k1[0].shape[1] <= TILED_D_MAX if tiled is None else tiled
+        require(edge_scatter_cuda.launches_tiled - before == int(on_tiled),
+                f"edge_scatter {what}: the kernel the wrapper picks")
+        require(torch.equal(rho_k, rho_p), f"edge_scatter {what}: rho_new "
+                f"bit-equal")
+        require(torch.equal(recv_k, want), f"edge_scatter {what}: recv "
+                f"bit-equal to the float32 edge-order sum")
+        tol = 1e-5 * recv_p.abs() + 1e-6
+        if by_order:
+            deg = (k1[4][1:] - k1[4][:-1]).float()[:, None]
+            tol = torch.maximum(tol, (deg - 1).clamp_min(0) * EPS32
+                                * torch.zeros_like(recv_p).index_add_(
+                                    0, dst, (rho_p - k1[1]).abs()))
+        require(bool(((recv_k - recv_p).abs() <= tol).all()),
+                f"edge_scatter {what}: recv against the plain version")
+        return (recv_k - recv_p).abs().max().item()
+
+    err = max(hold(f"main shape tiled={t}", args["k1"], args["dst"], t)
+              for t in (True, False))
+    n_cases = 0
+    for name, D, k1, dst in k1_edge_cases(dev):
+        for tiled in (None, False):
+            hold(f"{name} D={D} tiled={tiled}", k1, dst, tiled,
+                 by_order=name == "hub")
+            n_cases += 1
+    log(f"[kernels] edge_scatter: rho_new bit-equal, recv bit-equal to the "
+        f"float32 edge-order sum on the edge-tiled kernel and the column "
+        f"walk, at the main shape and {n_cases} edge cases (D 4/3/40; "
+        f"empty receivers, padding, no live edge, a hub of in-degree 1,500, "
+        f"unaligned rows); against the plain version's index_add_ within "
+        f"rtol 1e-5 atol 1e-6 (its order; the hub within the order bound)"
+        f"; max_abs_err {err:.3e}")
+    return err
+
+
+def engine_kernel_times(args, flush) -> dict:
+    """Phase 7's kernel timings at the engines' main shapes: K1 (the kernel
+    the wrapper picks, and the column walk where the wrapper offers the
+    choice), K2 and K3 (with the main path's stride-0 lies, and
+    materialized), each :func:`three_ways`; their plain versions
+    host-inclusive; their bounds -> each kernel's JSON timings."""
+    import inspect
+
+    import torch
+    from repro_torch.kernels.byz_trim import trim_gather_cuda, trim_gather_ref
+    from repro_torch.kernels.pushsum_edge import (edge_scatter_cuda,
+                                                  edge_scatter_ref)
+    from repro_torch.kernels.social_innov import (innovation_cuda,
+                                                  innovation_ref)
+    k1, k2, k3, k3_dense = (args[k] for k in ("k1", "k2", "k3", "k3_dense"))
+    sigma, rho = k1[:2]
+    N, D, E = sigma.shape[0], sigma.shape[1], rho.shape[0]
+    m_hyp, S = k2[4].shape[1:]
+    dm, P = k3[3].shape[1:]
+    outs = {"edge_scatter": edge_scatter_cuda(*k1),
+            "social_innov": innovation_cuda(*k2),
+            "byz_trim": trim_gather_cuda(*k3)}
+    torch.cuda.synchronize()
+    # bytes: every input read once and every output written once (the
+    # stride-0 lies are one float); operations: K1 two a row element, K2 a
+    # CDF search and m softmax terms an agent, K3 a compare in each of the
+    # 2F extraction rounds and one add per (receiver, coordinate, slot)
+    k3_ops = N * P * dm * (2 * BYZ_F + 1)
+    bounds = {
+        "edge_scatter": bound(nbytes(*k1, *outs["edge_scatter"]), 2 * E * D),
+        "social_innov": bound(nbytes(*k2, *outs["social_innov"]),
+                              N * (S + m_hyp * 8)),
+        "byz_trim": bound(nbytes(*k3[:3], k3[4], *outs["byz_trim"]) + 4,
+                          k3_ops)}
+    calls = {"edge_scatter": (lambda: edge_scatter_cuda(*k1),
+                              lambda: edge_scatter_ref(*k1[:4], args["dst"])),
+             "social_innov": (lambda: innovation_cuda(*k2),
+                              lambda: innovation_ref(*k2)),
+             "byz_trim": (lambda: trim_gather_cuda(*k3),
+                          lambda: trim_gather_ref(*k3))}
+    out = {}
+    for name, (fn, plain) in calls.items():
+        out[name] = {**three_ways(fn, TIMED_RUNS, flush),
+                     "plain_ms": event_ms(plain, TIMED_RUNS, flush),
+                     "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1], "library_ms": None}
+    k3d = three_ways(lambda: trim_gather_cuda(*k3_dense), TIMED_RUNS, flush)
+    k3d_bound = bound(nbytes(*k3_dense[:5], *outs["byz_trim"]), k3_ops)[0]
+    out["byz_trim"]["materialized_ms"] = k3d["ms"]
+    if "tiled" in inspect.signature(edge_scatter_cuda).parameters:
+        walk = three_ways(lambda: edge_scatter_cuda(*k1, tiled=False),
+                          TIMED_RUNS, flush)
+        out["edge_scatter"].update({f"walk_{k}": v for k, v in walk.items()})
+    for name, t in out.items():
+        log(f"[timing] {name}: device {t['ms']:.5f} ms with the host hidden, "
+            f"kernel alone {t['kernel_ms']} (profiler), host-inclusive "
+            f"{t['host_inclusive_ms']:.5f}; plain {t['plain_ms']:.5f} "
+            f"(host-inclusive); bound {t['bound_ms']:.5f} ({t['bound_by']})"
+            f"; medians of {TIMED_RUNS}, L2 flushed")
+    if "walk_ms" in out["edge_scatter"]:
+        t = out["edge_scatter"]
+        log(f"[timing] edge_scatter's column walk (the old design) at the "
+            f"same shape: device {t['walk_ms']:.5f} ms with the host hidden, "
+            f"kernel alone {t['walk_kernel_ms']}, host-inclusive "
+            f"{t['walk_host_inclusive_ms']:.5f}")
+    log(f"[timing] byz_trim with materialized lies: device {k3d['ms']:.5f} "
+        f"ms with the host hidden, kernel alone {k3d['kernel_ms']}, "
+        f"host-inclusive {k3d['host_inclusive_ms']:.5f} (bound "
+        f"{k3d_bound:.5f})")
+    return out
+
+
+def k1_sparse_times(dev, flush) -> dict:
+    """K1 at phase 17d's ``pushsum_sparse`` shape: the aggregator's worker
+    digraph (8 workers, ``AggregatorConfig``'s graph), one full pass of
+    2^24 columns plus the mass column, 0.9 of the links live;
+    :func:`three_ways` beside its bound."""
+    import torch
+    from repro_torch.core.graphs import (edge_list, random_strongly_connected,
+                                         sort_by_dst)
+    from repro_torch.distributed.aggregation import (GOSSIP_COLS,
+                                                     AggregatorConfig)
+    from repro_torch.kernels.pushsum_edge import edge_scatter_cuda
+    cfg = AggregatorConfig(kind="pushsum_sparse")
+    adj = random_strongly_connected(TRAIN_W, cfg.graph_extra_edge_prob,
+                                    np.random.default_rng(cfg.graph_seed))
+    el, _, _, offsets = sort_by_dst(edge_list(adj), return_offsets=True)
+    E, D = el.src.shape[0], GOSSIP_COLS + 1
+    g = torch.Generator(device=dev).manual_seed(3)
+    sigma = torch.randn((TRAIN_W, D), generator=g, device=dev)
+    rho = torch.randn((E, D), generator=g, device=dev)
+    live = (torch.rand(E, generator=g, device=dev) < 0.9) \
+        & torch.from_numpy(el.valid).to(dev)
+    k1 = (sigma, rho, live, torch.from_numpy(el.src).to(dev),
+          torch.from_numpy(offsets).to(dev))
+    outs = edge_scatter_cuda(*k1)
+    t = three_ways(lambda: edge_scatter_cuda(*k1), 10, flush)
+    t["bound_ms"], t["bound_by"] = bound(nbytes(*k1, *outs), 2 * E * D)
+    log(f"[timing] edge_scatter at pushsum_sparse's shape (N={TRAIN_W}, "
+        f"E={E}, D={D}, the column walk): device {t['ms']:.4f} ms with the "
+        f"host hidden, kernel alone {t['kernel_ms']}, host-inclusive "
+        f"{t['host_inclusive_ms']:.4f}; bound {t['bound_ms']:.4f} "
+        f"({t['bound_by']}); medians of 10, L2 flushed")
+    del k1, outs, sigma, rho
+    torch.cuda.empty_cache()
+    return t
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -288,8 +579,6 @@ def main() -> int:
     from repro_torch.core.signals import SignalModel
     from repro_torch.kernels import _build
     from repro_torch.kernels.byz_trim import trim_gather_cuda, trim_gather_ref
-    from repro_torch.kernels.pushsum_edge import (edge_scatter_cuda,
-                                                  edge_scatter_ref)
     from repro_torch.kernels.social_innov import (innovation_cuda,
                                                   innovation_ref,
                                                   sample_signals)
@@ -314,9 +603,19 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         log(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.name}; "
             + " | ".join(ptxas))
+    for name, kernel in (
+            *(("trimmed_mean", f"trimmed_mean_kernelILi{w}E")
+              for w in (4, 8, 16, 32, 64)),
+            ("edge_scatter", "edge_scatter_tiledILi4E"),
+            ("edge_scatter", "edge_scatter_tiledILi1E"),
+            ("edge_scatter", "edge_scatter_walk")):
+        report = ptxas_report(built[name].log, kernel)
+        log(f"[build] ptxas, {kernel}: {report}")
+        require(report.count("0 bytes spill stores") == 1
+                and report.count("0 bytes spill loads") == 1,
+                f"{kernel} built, with no spills")
     for name, kernel in (("swa_prefill", "swa_prefill_tc_kernelILi64"),
                          ("swa_prefill", "swa_prefill_tc_kernelILi128"),
-                         ("trimmed_mean", "trimmed_mean_kernelILi64"),
                          ("wkv6", "wkv6_group_statesI13__nv_bfloat16"),
                          ("wkv6", "wkv6_group_statesIf"),
                          ("wkv6", "wkv6_group_scan"),
@@ -341,7 +640,6 @@ def main() -> int:
     t0 = time.perf_counter()
     model, rt, M = scenario(N_FULL)
     rt_d = rt.to(dev)
-    tables_d = model.tables.to(dev)
     N, E = N_FULL, rt.src.shape[0]
     log(f"[setup] N={N} E={E} M={M} in {time.perf_counter() - t0:.2f} s")
     require(E == 917_504, "E == 917,504")
@@ -358,35 +656,11 @@ def main() -> int:
             "networks outside C")
 
     # ---- phase 2: kernels against their plain versions ------------------
-    rng = np.random.default_rng(0)
-    D = 4
-    sigma = torch.tensor(rng.normal(size=(N, D)), dtype=torch.float32,
-                         device=dev)
-    rho = torch.tensor(rng.normal(size=(E, D)), dtype=torch.float32,
-                       device=dev)
-    live = torch.tensor(rng.random(E) < 0.9, device=dev) & rt_d.valid
-    k1_args = (sigma, rho, live, rt_d.src, rt_d.offsets)
-    rho_k, recv_k = edge_scatter_cuda(*k1_args)
-    rho_p, recv_p = edge_scatter_ref(sigma, rho, live, rt_d.src, rt_d.dst)
-    torch.cuda.synchronize()
-    require(torch.equal(rho_k, rho_p), "edge_scatter rho_new bit-equal")
-    torch.testing.assert_close(recv_k, recv_p, rtol=1e-5, atol=1e-6)
-    k1_err = max((rho_k - rho_p).abs().max().item(),
-                 (recv_k - recv_p).abs().max().item())
-    log(f"[kernels] edge_scatter: rho_new bit-equal, recv within rtol 1e-5 "
-        f"atol 1e-6 (reduction order); max_abs_err {k1_err:.3e}")
+    args = engine_args(dev, model, rt_d, brt_d)
+    k1_err = edge_scatter_checks(dev, args)
 
+    z, mass, u, cdf, _ = k2_args = args["k2"]
     m_hyp, S = model.m, model.S
-    log_tables = torch.log(tables_d)
-    cdf = torch.cumsum(tables_d[:, model.truth, :], dim=-1)
-    z = torch.tensor(rng.normal(size=(N, m_hyp)) * 10, dtype=torch.float32,
-                     device=dev)
-    mass = torch.tensor(rng.random(N), dtype=torch.float32, device=dev)
-    mass[:64] = 0.0                       # vanishing mass stays finite
-    u = torch.tensor(rng.random(N), dtype=torch.float32, device=dev)
-    u[64:128] = cdf[64:128, -1]           # at / above the last CDF value
-    u[128:192] = 0.99999994
-    k2_args = (z, mass, u, cdf, log_tables)
     # the sampled letter, read through z_new on a table holding each
     # letter's index: z_new = 0 + index = sig exactly
     letters = torch.arange(S, dtype=torch.float32, device=dev).expand(
@@ -408,13 +682,8 @@ def main() -> int:
 
     # the trim-gather at the Byzantine main path's shapes and messages: a
     # large_value attack is a stride-0 view of one float, read in place
+    k3_args, k3_dense = args["k3"], args["k3_dense"]
     P = bmodel.m ** 2
-    r_b = torch.tensor(rng.normal(size=(N, P)) * 30, dtype=torch.float32,
-                       device=dev)
-    lies = torch.full((), 1e3, device=dev).expand(N, dm, P)
-    k3_args = (r_b, brt_d.nbr_idx, brt_d.nbr_valid, lies, brt_d.byz_nbr,
-               BYZ_F)
-    k3_dense = k3_args[:3] + (lies.contiguous(),) + k3_args[4:]
     tk, kk = trim_gather_cuda(*k3_args)
     tk_dense, kk_dense = trim_gather_cuda(*k3_dense)
     tp, kp = trim_gather_ref(*k3_args)
@@ -424,9 +693,9 @@ def main() -> int:
             "stride-0 and materialized messages give the same result")
     torch.testing.assert_close(tk, tp, rtol=1e-5, atol=1e-5)
     k3_err = (tk - tp).abs().max().item()
-    for name, F_case, args in trim_edge_cases(dev):
-        t_c, k_c = trim_gather_cuda(*args, F_case)
-        t_r, k_r = trim_gather_ref(*args, F_case)
+    for name, F_case, case_args in trim_edge_cases(dev):
+        t_c, k_c = trim_gather_cuda(*case_args, F_case)
+        t_r, k_r = trim_gather_ref(*case_args, F_case)
         torch.cuda.synchronize()
         require(torch.equal(k_c, k_r), f"trim_gather kept bit-equal ({name})")
         require(bool((t_c[k_r == 0] == 0).all()),
@@ -449,8 +718,11 @@ def main() -> int:
     launches = _counts()
     log(f"[main] N={N} T={T_MAIN} kernels: {wall_k:.2f} s, launches "
         f"{launches}")
-    require(launches == _only(edge_scatter=T_MAIN, social_innov=T_MAIN),
-            "each kernel of the path launched T times on the main path")
+    require(launches == _only(edge_scatter=T_MAIN,
+                              edge_scatter_tiled=T_MAIN,
+                              social_innov=T_MAIN),
+            "each kernel of the path launched T times on the main path, K1 "
+            "on its edge-tiled kernel")
     res_p = run_social_runtime(model, rt, M, T_MAIN, seed=0, plan=plan_p)
     res_p2 = run_social_runtime(model, rt, M, T_MAIN, seed=0, plan=plan_p)
     torch.cuda.synchronize()
@@ -501,8 +773,8 @@ def main() -> int:
     _zero_counts()
     qres = run_social_learning(qmodel, qcfg, T=500, seed=0)
     torch.cuda.synchronize()
-    require(_counts() == _only(edge_scatter=500, social_innov=500),
-            "quickstart launches")
+    require(_counts() == _only(edge_scatter=500, edge_scatter_tiled=500,
+                               social_innov=500), "quickstart launches")
     qmin = qres.beliefs[-1, :, qmodel.truth].min().item()
     log(f"[quickstart] min final belief in theta*: {qmin:.6f}")
     require(qmin > 0.95, "quickstart learns theta*")
@@ -519,36 +791,9 @@ def main() -> int:
     def flush():
         flush_buf.zero_()   # evict the 50 MB L2 between timed launches
 
-    k1_ms = event_ms(lambda: edge_scatter_cuda(*k1_args), TIMED_RUNS, flush)
-    k1_plain = event_ms(lambda: edge_scatter_ref(
-        sigma, rho, live, rt_d.src, rt_d.dst), TIMED_RUNS, flush)
-    k2_ms = event_ms(lambda: innovation_cuda(*k2_args), TIMED_RUNS, flush)
-    k2_plain = event_ms(lambda: innovation_ref(*k2_args), TIMED_RUNS, flush)
-    k1_bound, k1_by = bound(
-        nbytes(sigma, rho, live, rt_d.src, rt_d.offsets, rho_k, recv_k),
-        2 * E * D)
-    k2_bound, k2_by = bound(nbytes(*k2_args, zk, mu_k),
-                            N * (S + m_hyp * 8))
-    log(f"[timing] edge_scatter {k1_ms:.4f} ms (plain {k1_plain:.4f}, "
-        f"bound {k1_bound:.4f}); social_innov {k2_ms:.4f} ms (plain "
-        f"{k2_plain:.4f}, bound {k2_bound:.4f}); medians of {TIMED_RUNS}, "
-        f"L2 flushed")
-    k3_ms = event_ms(lambda: trim_gather_cuda(*k3_args), TIMED_RUNS, flush)
-    k3_plain = event_ms(lambda: trim_gather_ref(*k3_args), TIMED_RUNS, flush)
-    k3_dense_ms = event_ms(lambda: trim_gather_cuda(*k3_dense), TIMED_RUNS,
-                           flush)
-    # the stride-0 lies are one float in memory; every other input and
-    # output counted once. Operations: per (receiver, coordinate) and slot,
-    # a compare in each of the 2F extraction rounds and one add.
-    k3_ops = N * P * dm * (2 * BYZ_F + 1)
-    k3_bound, k3_by = bound(nbytes(*k3_args[:3], k3_args[4], tk, kk) + 4,
-                            k3_ops)
-    k3_dense_bound, _ = bound(nbytes(*k3_dense[:5], tk, kk), k3_ops)
-    log(f"[timing] byz_trim {k3_ms:.4f} ms (plain {k3_plain:.4f}, bound "
-        f"{k3_bound:.4f}) with the main path's stride-0 lies; with "
-        f"materialized lies {k3_dense_ms:.4f} ms (bound {k3_dense_bound:.4f})"
-        f"; medians of {TIMED_RUNS}, L2 flushed")
-
+    kt = engine_kernel_times(args, flush)
+    kt["edge_scatter"].update({f"pushsum_sparse_{k}": v for k, v in
+                               k1_sparse_times(dev, flush).items()})
     step_ms, cells = {}, {}
     for n_agents in (N_SMALL, N_FULL):
         smodel, srt, sM = (model, rt, M) if n_agents == N_FULL \
@@ -583,20 +828,17 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/edge_scatter.cu",
          "replaces": "src/repro/kernels/pushsum_edge/pushsum_edge.py:114",
          "launches": launches["edge_scatter"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         **kt["edge_scatter"]},
         {"name": "social_innov", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/social_innov.cu",
          "replaces": "src/repro/kernels/social_innov/social_innov.py:75",
          "launches": launches["social_innov"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+         **kt["social_innov"]},
         {"name": "byz_trim", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/byz_trim.cu",
          "replaces": "src/repro/kernels/byz_trim/byz_trim.py:91",
          "launches": launches["byz_trim"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": None},
+         **kt["byz_trim"]},
     ]
     kernels += serve_phases(dev, flush)
     kernels.append(rwkv_phases(dev, flush))
@@ -685,31 +927,34 @@ def _wrappers() -> dict:
             "trimmed_mean": trimmed_mean_cuda}
 
 
-# wrappers with two kernels: the calls on the tensor-core one, apart
-TC_COUNTS = ("swa_prefill", "attn_decode")
+# wrappers with two kernels: the calls on one of them, apart (count name:
+# wrapper, attribute)
+SUB_COUNTS = {"swa_prefill_tc": ("swa_prefill", "launches_tc"),
+              "attn_decode_tc": ("attn_decode", "launches_tc"),
+              "edge_scatter_tiled": ("edge_scatter", "launches_tiled")}
 
 
 def _zero_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
-    for name in TC_COUNTS:
-        _wrappers()[name].launches_tc = 0
+    for name, attr in SUB_COUNTS.values():
+        setattr(_wrappers()[name], attr, 0)
 
 
 def _counts() -> dict[str, int]:
     """Launches of each wrapper, and of K6's and K5's tensor-core kernels
-    alone (``swa_prefill_tc``, ``attn_decode_tc``, part of their wrappers'
-    counts)."""
+    and K1's edge-tiled one alone (``swa_prefill_tc``, ``attn_decode_tc``,
+    ``edge_scatter_tiled``, part of their wrappers' counts)."""
     out = {name: fn.launches for name, fn in _wrappers().items()}
-    for name in TC_COUNTS:
-        out[f"{name}_tc"] = _wrappers()[name].launches_tc
+    for key, (name, attr) in SUB_COUNTS.items():
+        out[key] = getattr(_wrappers()[name], attr)
     return out
 
 
 def _only(**launches) -> dict[str, int]:
     """The launch counts of a run that launched only the named kernels."""
     return {name: launches.get(name, 0)
-            for name in (*_wrappers(), *(f"{n}_tc" for n in TC_COUNTS))}
+            for name in (*_wrappers(), *SUB_COUNTS)}
 
 
 def byzantine_main(model, setup, attack, dev) -> int:
@@ -1732,18 +1977,23 @@ def hold_tmean(what: str, got, want, x, F: int) -> float:
 
 
 def tmean_kernel_checks(dev, D_full: int) -> float:
-    """Phase 16a: K4 against the sort-based plain version at the main
-    path's shape (8 workers, D_full coordinates; rows 2 and 5 the attack
+    """Phase 16a: K4 against the sort-based plain version (on the CPU at
+    the edge cases, where its sort orders NaNs as the reference's) at the
+    main path's shape (8 workers, D_full coordinates; rows 2 and 5 the attack
     -10 g) for F in {0, 2}, then at the edge cases: W in {3, 4, 8, 16,
     32, 33, 48, 64} (33 and up through the 64-wide kernel), F up to
     (W - 1) // 2, D in {1, 3, 4097}, a column offset of 1 (a misaligned
     column range read through the row stride), exact ties, a +-1e6
-    Byzantine row, inf and NaN rows; W <= 2F and W > 64 raise -> the
-    largest error at the main shape."""
+    Byzantine row, inf and NaN rows, rows of NaNs with the sign bit set
+    (which sort last, as every NaN), +-0 ties; W <= 2F and W > 64 raise ->
+    the largest error at the main shape."""
     import torch
     from repro_torch.kernels.trimmed_mean import (W_MAX, trimmed_mean_cuda,
                                                   trimmed_mean_ref)
     g = torch.Generator(device=dev).manual_seed(5)
+    # a NaN with its sign bit set (0xFFC00000)
+    neg_nan = torch.tensor(-(1 << 22), dtype=torch.int32).view(
+        torch.float32).item()
     worst = 0.0
     x = torch.randn((TRAIN_W, D_full), generator=g, device=dev).mul_(1e-3)
     for b in (2, 5):
@@ -1760,7 +2010,8 @@ def tmean_kernel_checks(dev, D_full: int) -> float:
     for W in (3, 4, 8, 16, 32, 33, 48, W_MAX):
         for F in sorted({0, 1, (W - 1) // 2}):
             for D in (1, 3, 4097):
-                for case in ("normal", "ties", "byzantine", "non_finite"):
+                for case in ("normal", "ties", "byzantine", "non_finite",
+                             "nan_sign", "signed_zero"):
                     for offset in (0, 1):
                         x = torch.randn((W, D + offset), generator=g,
                                         device=dev)
@@ -1774,12 +2025,32 @@ def tmean_kernel_checks(dev, D_full: int) -> float:
                         elif case == "non_finite":
                             x[0] = float("nan")
                             x[W - 1] = float("inf")
+                        elif case == "nan_sign":   # sorted last all the same
+                            x[0] = neg_nan
+                            x[W // 2] = neg_nan
+                        elif case == "signed_zero":
+                            x = torch.round(x).clamp(-1, 1)
+                            x[torch.rand(x.shape, generator=g, device=dev)
+                              < 0.5] *= -1.0
                         view = x[:, offset:]
                         got = trimmed_mean_cuda(view, F)
                         worst = max(worst, hold_tmean(
                             f"W={W} F={F} D={D} {case} offset={offset}",
-                            got, trimmed_mean_ref(view, F), view, F))
+                            got, trimmed_mean_ref(view.cpu(), F).to(dev),
+                            view, F))
                         n_cases += 1
+    # the plain version on the card: torch.sort there may order NaNs with
+    # the sign bit set otherwise than the CPU's (and the reference's)
+    x = torch.randn((33, 64), generator=g, device=dev)
+    x[0] = neg_nan
+    on_card = trimmed_mean_ref(x, 1).cpu()
+    on_cpu = trimmed_mean_ref(x.cpu(), 1)
+    n_diff = int(((on_card - on_cpu).abs() > tmean_bound(x, 1).cpu()).sum())
+    log(f"[train kernels] the plain version at W=33, F=1, one row of NaNs "
+        f"with the sign bit set: {n_diff} of 64 coordinates differ between "
+        f"its run on the card and on the CPU (whose sort, as the "
+        f"reference's jnp.sort, puts every NaN last); K4 is held to the "
+        f"CPU's at the edge cases")
     for W, F in ((4, 2), (2, 1), (W_MAX + 1, 1)):
         try:
             trimmed_mean_cuda(torch.zeros((W, 8), device=dev), F)
@@ -1789,7 +2060,8 @@ def tmean_kernel_checks(dev, D_full: int) -> float:
                            f"raise")
     log(f"[train kernels] trimmed_mean: at (8, {D_full}) for F in {{0, 2}} "
         f"and {n_cases} edge cases (W 3..{W_MAX}, D 1/3/4097, offset 0/1, "
-        f"ties, +-1e6, inf and NaN rows) within W eps32 sum|x| / (W - 2F) "
+        f"ties, +-1e6, inf and NaN rows, NaN rows with the sign bit set, "
+        f"+-0 ties) within W eps32 sum|x| / (W - 2F) "
         f"of the plain version, NaN/inf where it has them; W <= 2F and W > "
         f"{W_MAX} raise; max_abs_err {main_err:.3e} at the main shape, "
         f"{worst:.3e} over the edge cases (the +-1e6 rows)")
@@ -2122,7 +2394,8 @@ def train_phases(dev, flush) -> dict:
     torch.cuda.empty_cache()
 
     # ---- phase 18: timing ---------------------------------------------------
-    times = train_timing(dev, flush, D_full)
+    times = tmean_times(dev, flush, D_full)
+    train_timing(dev, times["ms"])
     return {"name": "trimmed_mean", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/trimmed_mean.cu",
             "replaces": "src/repro/kernels/trimmed_mean/trimmed_mean.py:69",
@@ -2140,40 +2413,55 @@ def _refill(tree, it):
     return next(it)
 
 
-def train_timing(dev, flush, D_full: int) -> dict:
-    """Phase 18: step times of the main configuration on the kernel and
-    plain paths (medians of 5, in turns), the peak memory, a profile of a
-    kernel-path step, and K4 against its plain version, its bound and
-    ``torch.mean`` at the main path's shape -> K4's JSON timings."""
+def tmean_times(dev, flush, D_full: int) -> dict:
+    """K4 at the main path's shape (8 workers, D_full coordinates, the
+    attack rows in place) for F in {0, 2}, each :func:`three_ways`; its
+    plain version (host-inclusive) and ``torch.mean`` (host hidden); its
+    bound -> K4's JSON timings at F = 2, F = 0's beside them."""
     import torch
-    from repro_torch.core.prng import fold_in, prng_key
     from repro_torch.kernels.trimmed_mean import (trimmed_mean_cuda,
                                                   trimmed_mean_ref)
-    from repro_torch.launch.train import build, parse_args
-
-    # K4 at (8, D_full), the attack rows in place
     g = torch.Generator(device=dev).manual_seed(7)
     x = torch.randn((TRAIN_W, D_full), generator=g, device=dev).mul_(1e-3)
     x[2].mul_(-10.0)
     x[5].mul_(-10.0)
     out = torch.empty(D_full, device=dev)
-    ms = {F: event_ms(lambda F=F: trimmed_mean_cuda(x, F, out=out),
-                      TIMED_RUNS, flush) for F in (0, TRAIN_F)}
+    t = {F: three_ways(lambda F=F: trimmed_mean_cuda(x, F, out=out),
+                       TIMED_RUNS, flush) for F in (0, TRAIN_F)}
     plain = {F: event_ms(lambda F=F: trimmed_mean_ref(x, F), 3, flush)
              for F in (0, TRAIN_F)}
-    lib = event_ms(lambda: torch.mean(x, 0), TIMED_RUNS, flush)
+    lib = event_ms(lambda: torch.mean(x, 0), TIMED_RUNS, flush, True)
     # bytes: x read once, the output written once; operations: per
     # coordinate 2F extraction rounds of W compares and W adds
     bnd = {F: bound(nbytes(x, out), D_full * TRAIN_W * (2 * F + 1))
            for F in (0, TRAIN_F)}
-    log(f"[timing] trimmed_mean (W={TRAIN_W}, D={D_full}): F={TRAIN_F} "
-        f"{ms[TRAIN_F]:.4f} ms (plain {plain[TRAIN_F]:.4f}, bound "
-        f"{bnd[TRAIN_F][0]:.4f} {bnd[TRAIN_F][1]}); F=0 {ms[0]:.4f} ms "
-        f"(plain {plain[0]:.4f}, torch.mean {lib:.4f}, bound "
-        f"{bnd[0][0]:.4f}); library for F > 0: none (no single call); "
-        f"medians, L2 flushed")
+    for F in (0, TRAIN_F):
+        log(f"[timing] trimmed_mean (W={TRAIN_W}, D={D_full}, F={F}): "
+            f"device {t[F]['ms']:.5f} ms with the host hidden, kernel alone "
+            f"{t[F]['kernel_ms']} (profiler), host-inclusive "
+            f"{t[F]['host_inclusive_ms']:.5f}; plain {plain[F]:.5f} "
+            f"(host-inclusive); bound {bnd[F][0]:.5f} ({bnd[F][1]})"
+            + (f"; torch.mean {lib:.5f} (host hidden)" if F == 0 else
+               "; library: none (no single call)")
+            + "; medians, L2 flushed")
     del x, out
     torch.cuda.empty_cache()
+    return {**t[TRAIN_F], "plain_ms": plain[TRAIN_F],
+            "bound_ms": bnd[TRAIN_F][0], "bound_by": bnd[TRAIN_F][1],
+            "library_ms": lib, "f0_ms": t[0]["ms"],
+            "f0_kernel_ms": t[0]["kernel_ms"],
+            "f0_host_inclusive_ms": t[0]["host_inclusive_ms"],
+            "f0_plain_ms": plain[0]}
+
+
+def train_timing(dev, k4_ms: float) -> None:
+    """Phase 18's steps: step times of the main configuration on the kernel
+    and plain paths (medians of 5, in turns), the peak memory and a
+    profile of a kernel-path step; ``k4_ms`` is K4's time, put beside the
+    step's."""
+    import torch
+    from repro_torch.core.prng import fold_in, prng_key
+    from repro_torch.launch.train import build, parse_args
 
     # step times, kernel and plain paths in turns
     key = prng_key(0)
@@ -2209,17 +2497,14 @@ def train_timing(dev, flush, D_full: int) -> dict:
         f"{step_ms['torch']:.2f} ms (medians of 5, in turns: "
         f"{[round(v, 1) for v in walls['auto']]} / "
         f"{[round(v, 1) for v in walls['torch']]}); peak memory of a "
-        f"kernel-path step {peak:.2f} GB; K4 {ms[TRAIN_F]:.4f} ms = "
-        f"{ms[TRAIN_F] / step_ms['auto']:.2e} of the step")
+        f"kernel-path step {peak:.2f} GB; K4 {k4_ms:.4f} ms = "
+        f"{k4_ms / step_ms['auto']:.2e} of the step")
     del setups["torch"]
     torch.cuda.empty_cache()
     profile_step(lambda T: [one("auto", 10 + t) for t in range(T)],
                  "paper_sim train (8 workers)", step_ms["auto"], steps=2)
     del setups
     torch.cuda.empty_cache()
-    return {"ms": ms[TRAIN_F], "plain_ms": plain[TRAIN_F],
-            "bound_ms": bnd[TRAIN_F][0], "bound_by": bnd[TRAIN_F][1],
-            "library_ms": lib}
 
 
 if __name__ == "__main__":

@@ -46,7 +46,8 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 class Built:
     """One compiled kernel library: its path, the build's wall seconds
     (0.0 when an identical build was already on disk) and nvcc's output,
-    which holds ptxas' register and spill report."""
+    which holds ptxas' register and spill report (kept beside the library
+    and read back for a build already on disk)."""
 
     name: str
     path: Path
@@ -78,7 +79,9 @@ def build(names=KERNELS) -> dict[str, Built]:
     for name in names:
         out = _target(name)
         if out.exists():
-            done[name] = Built(name, out, 0.0, "")
+            log = out.with_suffix(".log")
+            done[name] = Built(name, out, 0.0,
+                               log.read_text() if log.exists() else "")
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -91,6 +94,7 @@ def build(names=KERNELS) -> dict[str, Built]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         done[name] = Built(name, out, time.perf_counter() - t0, log)
     if failed:

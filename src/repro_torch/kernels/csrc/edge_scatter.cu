@@ -9,18 +9,36 @@
 //     rho_new[e, c] = live[e] ? sigma[src[e], c] : rho[e, c]
 //     recv[v, c]    = sum over v's in-edges e of (rho_new[e, c] - rho[e, c])
 //
-// Design. The TPU kernel keeps one resident recv that a sequential grid
+// The TPU kernel keeps one resident recv that a sequential grid
 // accumulates into; CUDA blocks run concurrently and in no order, so that
 // design does not carry over. Here the edge index is dst-sorted and its
 // CSR offsets (offsets[v] .. offsets[v + 1], the in-edge run of v) are
-// built once on the host. One thread owns one (receiver, column) pair: it
-// walks v's run in edge order, latches the new value, writes rho_new and
-// adds the increment in a register, then writes recv[v, c] once. There are
-// no atomics, so the result is deterministic, and every sum stays local to
-// its run; a global prefix sum with boundary differences would cancel
-// catastrophically once the mass decays (the z / m ratio amplifies absolute
-// error by 1 / m). Padding edges (valid = False, so live = False) add
-// exactly 0. rho is not updated in place: rho_new is a separate output.
+// built once on the host. Each receiver's increments are added in edge
+// order, from 0, in float32, in one thread: there are no atomics, so the
+// result is deterministic, and every sum stays local to its run; a global
+// prefix sum with boundary differences would cancel catastrophically once
+// the mass decays (the z / m ratio amplifies absolute error by 1 / m).
+// Padding edges (valid = False, so live = False) add exactly 0. rho is
+// not updated in place: rho_new is a separate output. Two kernels, by D:
+//
+// edge_scatter_tiled (D <= TILED_D_MAX; the engines, D = m + 1): a block
+// owns RB = 256 / D consecutive receivers and so one contiguous range of
+// edges, which it takes in tiles of TILE_FLOATS / D edges. In a tile the
+// threads stride over the edges: each reads src[e], live[e] and rho[e, :]
+// once (one 16-byte vector a row where D is a multiple of 4 and the rows
+// are aligned), gathers sigma[src[e], :] where the edge is live, writes
+// rho_new[e, :] and puts the increments into shared memory. Then thread
+// (receiver, column) adds its run's increments that lie in the tile, in
+// edge order, carrying its sum into the next tile, and writes recv once.
+// A warp's loads are contiguous runs of 512 bytes.
+//
+// edge_scatter_walk (wide D; the training aggregator pushsum_sparse, 8
+// workers and up to 2^24 + 1 columns): one thread owns one (receiver,
+// column) pair and walks the run, so a warp reads 32 consecutive columns
+// of one edge row, coalesced as they are.
+//
+// Both give the same recv bit for bit: the same float32 subtractions,
+// added in the same order.
 //
 // Bound: bytes. Per round the kernel reads sigma, rho, live, src and the
 // offsets and writes rho_new and recv, two to three flops per element; at
@@ -32,14 +50,84 @@ extern "C" const char* cuda_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-__global__ void edge_scatter_kernel(const float* __restrict__ sigma,
-                                    const float* __restrict__ rho,
-                                    const bool* __restrict__ live,
-                                    const int* __restrict__ src,
-                                    const int* __restrict__ offsets,
-                                    float* __restrict__ rho_new,
-                                    float* __restrict__ recv,
-                                    int n, int D) {
+constexpr int THREADS = 256;
+constexpr int TILED_D_MAX = 32;       // receivers a block: 256 / D >= 8
+constexpr int TILE_FLOATS = 2048;     // a tile's increments: 8 KB
+
+template <int VEC> struct Row;
+template <> struct Row<4> {
+    __device__ static void load(const float* p, float (&v)[4]) {
+        const float4 t = *reinterpret_cast<const float4*>(p);
+        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    }
+    __device__ static void store(float* p, const float (&v)[4]) {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+};
+template <> struct Row<1> {
+    __device__ static void load(const float* p, float (&v)[1]) { v[0] = *p; }
+    __device__ static void store(float* p, const float (&v)[1]) { *p = v[0]; }
+};
+
+template <int VEC>
+__global__ void __launch_bounds__(THREADS)
+edge_scatter_tiled(const float* __restrict__ sigma,
+                   const float* __restrict__ rho,
+                   const bool* __restrict__ live,
+                   const int* __restrict__ src,
+                   const int* __restrict__ offsets,
+                   float* __restrict__ rho_new, float* __restrict__ recv,
+                   int n, int D) {
+    __shared__ __align__(16) float inc[TILE_FLOATS];
+    const int rb = THREADS / D;
+    const int v0 = blockIdx.x * rb;
+    const int v1 = min(v0 + rb, n);
+    const int e0 = offsets[v0];
+    const int e1 = offsets[v1];
+    // this thread's (receiver, column) of the sums, if it has one
+    const int v = v0 + threadIdx.x / D;
+    const int c = threadIdx.x % D;
+    const bool sums = threadIdx.x < rb * D && v < v1;
+    const int lo = sums ? offsets[v] : 0;
+    const int hi = sums ? offsets[v + 1] : 0;
+    const int per_edge = D / VEC;
+    const int tile = TILE_FLOATS / D;
+    float acc = 0.0f;
+    for (int t0 = e0; t0 < e1; t0 += tile) {
+        const int t1 = min(t0 + tile, e1);
+        for (int i = threadIdx.x; i < (t1 - t0) * per_edge; i += THREADS) {
+            const int e = t0 + i / per_edge;
+            const int col = (i % per_edge) * VEC;
+            const long long ec = static_cast<long long>(e) * D + col;
+            float old[VEC], val[VEC];
+            Row<VEC>::load(rho + ec, old);
+            if (live[e]) {
+                Row<VEC>::load(sigma + static_cast<long long>(src[e]) * D
+                               + col, val);
+            } else {
+#pragma unroll
+                for (int j = 0; j < VEC; ++j) val[j] = old[j];
+            }
+            Row<VEC>::store(rho_new + ec, val);
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) val[j] -= old[j];
+            Row<VEC>::store(inc + (e - t0) * D + col, val);
+        }
+        __syncthreads();
+        for (int e = max(lo, t0); e < min(hi, t1); ++e)
+            acc += inc[(e - t0) * D + c];
+        __syncthreads();
+    }
+    if (sums) recv[static_cast<long long>(v) * D + c] = acc;
+}
+
+__global__ void edge_scatter_walk(const float* __restrict__ sigma,
+                                  const float* __restrict__ rho,
+                                  const bool* __restrict__ live,
+                                  const int* __restrict__ src,
+                                  const int* __restrict__ offsets,
+                                  float* __restrict__ rho_new,
+                                  float* __restrict__ recv, int n, int D) {
     const long long i = blockIdx.x * static_cast<long long>(blockDim.x)
                         + threadIdx.x;
     if (i >= static_cast<long long>(n) * D) return;
@@ -58,19 +146,39 @@ __global__ void edge_scatter_kernel(const float* __restrict__ sigma,
     recv[i] = acc;
 }
 
-// Launches on the caller's stream and returns cudaGetLastError().
+static bool aligned16(const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
+// tiled: 1 for edge_scatter_tiled (needs D <= TILED_D_MAX), 0 for
+// edge_scatter_walk. Launches on the caller's stream and returns
+// cudaGetLastError().
 extern "C" int edge_scatter_f32(const float* sigma, const float* rho,
                                 const bool* live, const int* src,
                                 const int* offsets, float* rho_new,
-                                float* recv, int n, int D, int device,
-                                cudaStream_t stream) {
+                                float* recv, int n, int D, int tiled,
+                                int device, cudaStream_t stream) {
+    if (n < 1 || D < 1 || (tiled && D > TILED_D_MAX))
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int threads = 256;
-    const long long work = static_cast<long long>(n) * D;
-    const unsigned blocks = static_cast<unsigned>((work + threads - 1)
-                                                  / threads);
-    edge_scatter_kernel<<<blocks, threads, 0, stream>>>(
-        sigma, rho, live, src, offsets, rho_new, recv, n, D);
+    if (tiled) {
+        const unsigned blocks = static_cast<unsigned>(
+            (n + THREADS / D - 1) / (THREADS / D));
+        if (D % 4 == 0 && aligned16(sigma) && aligned16(rho)
+                && aligned16(rho_new)) {
+            edge_scatter_tiled<4><<<blocks, THREADS, 0, stream>>>(
+                sigma, rho, live, src, offsets, rho_new, recv, n, D);
+        } else {
+            edge_scatter_tiled<1><<<blocks, THREADS, 0, stream>>>(
+                sigma, rho, live, src, offsets, rho_new, recv, n, D);
+        }
+    } else {
+        const long long work = static_cast<long long>(n) * D;
+        const unsigned blocks = static_cast<unsigned>((work + THREADS - 1)
+                                                      / THREADS);
+        edge_scatter_walk<<<blocks, THREADS, 0, stream>>>(
+            sigma, rho, live, src, offsets, rho_new, recv, n, D);
+    }
     return static_cast<int>(cudaGetLastError());
 }

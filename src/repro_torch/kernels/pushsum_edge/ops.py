@@ -3,9 +3,11 @@ wrapper.
 
 ``edge_scatter(..., backend=...)`` is the entry point the sparse push-sum
 step calls once per round (routes in :mod:`repro_torch.kernels.dispatch`).
-The CUDA kernel (``csrc/edge_scatter.cu``) walks each receiver's run of a
-dst-sorted edge index through its CSR offsets; the engines hoist those
-offsets out of the loop (:func:`repro_torch.core.social.
+The CUDA kernels (``csrc/edge_scatter.cu``) sum each receiver's run of a
+dst-sorted edge index through its CSR offsets, in edge order: the
+edge-tiled kernel for D <= ``TILED_D_MAX`` columns (the engines), the
+column walk above (the training aggregator's 2^24-column passes). The
+engines hoist the offsets out of the loop (:func:`repro_torch.core.social.
 social_runtime_from_edge_list`). Given no offsets, the wrapper derives them
 from ``dst`` and raises on an unsorted index: it never sorts silently and
 never falls back to the plain version.
@@ -20,9 +22,11 @@ from .. import _build
 from ..dispatch import resolve_backend
 from .ref import edge_scatter_ref
 
-__all__ = ["edge_scatter", "edge_scatter_cuda", "dst_offsets"]
+__all__ = ["edge_scatter", "edge_scatter_cuda", "dst_offsets",
+           "TILED_D_MAX"]
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+TILED_D_MAX = 32    # the widest D the edge-tiled kernel takes
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def edge_scatter(
@@ -61,11 +65,17 @@ def edge_scatter_cuda(
     live: torch.Tensor,
     src: torch.Tensor,
     offsets: torch.Tensor,
+    *,
+    tiled: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA edge-scatter kernel on the current stream.
+    """Launch a CUDA edge-scatter kernel on the current stream.
 
     ``offsets`` must be the CSR offsets of the dst-sorted index the edges
-    are laid out in. ``edge_scatter_cuda.launches`` counts the launches."""
+    are laid out in. ``tiled`` picks the kernel: the edge-tiled one (D <=
+    ``TILED_D_MAX``) or the column walk; ``None`` takes the tiled one
+    wherever it can. Both give the same result bit for bit.
+    ``edge_scatter_cuda.launches`` counts the launches, and
+    ``edge_scatter_cuda.launches_tiled`` those of the tiled kernel."""
     if not sigma.is_cuda:
         raise ValueError("the CUDA edge scatter needs CUDA tensors")
     n, D = sigma.shape
@@ -79,16 +89,23 @@ def edge_scatter_cuda(
     _build.check_arg(live, "live", torch.bool, (E,), dev)
     _build.check_arg(src, "src", torch.int32, (E,), dev)
     _build.check_arg(offsets, "offsets", torch.int32, (n + 1,), dev)
+    if tiled is None:
+        tiled = D <= TILED_D_MAX
+    elif tiled and D > TILED_D_MAX:
+        raise ValueError(f"the edge-tiled kernel takes D <= {TILED_D_MAX}, "
+                         f"got D={D}")
     rho_new = torch.empty_like(rho)
     recv = torch.empty_like(sigma)
     fn = _build.function("edge_scatter", "edge_scatter_f32", _ARGTYPES)
     code = fn(sigma.data_ptr(), rho.data_ptr(), live.data_ptr(),
               src.data_ptr(), offsets.data_ptr(), rho_new.data_ptr(),
-              recv.data_ptr(), n, D, dev.index,
+              recv.data_ptr(), n, D, int(tiled), dev.index,
               torch.cuda.current_stream(dev).cuda_stream)
     _build.check_status("edge_scatter", code)
     edge_scatter_cuda.launches += 1
+    edge_scatter_cuda.launches_tiled += int(tiled)
     return rho_new, recv
 
 
 edge_scatter_cuda.launches = 0
+edge_scatter_cuda.launches_tiled = 0

@@ -11,8 +11,10 @@ plain versions against the JAX reference.
 
 Tolerances: ``rho_new``, the sampled letters and ``z_new`` are a select or
 one fp32 add, so bit-equal. ``recv`` sums each receiver's run in edge
-order in the kernel and through atomics in ``index_add_``, and ``mu`` is a
-softmax evaluated in another order: rtol 1e-5, atol 1e-6. The trim-gather
+order in both of K1's kernels, so it is bit-equal to the float32
+edge-order sum of :func:`edge_order_recv`; against ``index_add_``, which
+adds through atomics on the card, and ``mu``, a softmax evaluated in
+another order: rtol 1e-5, atol 1e-6. The trim-gather
 ``kept`` is a count, so bit-equal; ``tsum`` adds the same survivors in slot
 order in the kernel and in sorted order in the plain version, so it agrees
 within the bound of :func:`trim_sum_bound` (deg_max * eps32 * the sum of
@@ -53,6 +55,7 @@ from repro_torch.kernels.byz_trim import (
     trim_gather_ref,
 )
 from repro_torch.kernels.pushsum_edge import (
+    dst_offsets,
     edge_scatter,
     edge_scatter_cuda,
     edge_scatter_ref,
@@ -88,12 +91,16 @@ from repro_torch.kernels.social_innov import (
 )
 
 EDGE_CASES = ["ragged", "no_in_edges", "all_live", "none_live", "padding"]
+# with a receiver whose run spans more than two of K1's edge tiles
+K1_CASES = EDGE_CASES + ["hub"]
 INNOV_CASES = [(29, 3, 4, None), (64, 5, 7, None), (18, 3, 4, "u_at_top"),
                (40, 3, 4, "mass_to_zero"), (33, 2, 3, None)]
 
 
 def edge_problem(case, seed=0, D=4):
-    """(sigma, rho, live, src, dst) numpy arrays on a dst-sorted index."""
+    """(sigma, rho, live, src, dst) numpy arrays on a dst-sorted index.
+    ``hub`` gives one receiver an in-degree of 1,300, more than two of the
+    edge-tiled kernel's tiles (2,048 floats: 512 edges at D = 4)."""
     rng = np.random.default_rng(seed)
     n = 23
     if case == "ragged":          # in-degrees 0..9, some receivers empty
@@ -102,6 +109,8 @@ def edge_problem(case, seed=0, D=4):
         deg = np.where(rng.random(n) < 0.7, 0, rng.integers(1, 5, size=n))
     else:
         deg = rng.integers(1, 6, size=n)
+    if case == "hub":
+        deg[n // 2] = 1300
     dst = np.repeat(np.arange(n), deg).astype(np.int32)
     E = dst.shape[0]
     src = rng.integers(0, n, size=E).astype(np.int32)
@@ -121,6 +130,17 @@ def edge_problem(case, seed=0, D=4):
     sigma = rng.normal(size=(n, D)).astype(np.float32)
     rho = rng.normal(size=(E, D)).astype(np.float32)
     return sigma, rho, live & valid, src, dst
+
+
+def edge_order_recv(rho_new, rho, dst, n):
+    """(n, D) float32: each receiver's increments rho_new - rho added in
+    edge order, one float32 addition at a time from 0, the sum both of
+    K1's kernels give bit for bit (numpy arrays)."""
+    recv = np.zeros((n, rho.shape[1]), np.float32)
+    delta = (rho_new - rho).astype(np.float32)
+    for e, v in enumerate(dst):
+        recv[v] = recv[v] + delta[e]
+    return recv
 
 
 def innov_problem(N, m, S, seed, edge=None):
@@ -228,6 +248,66 @@ def test_edge_scatter_kernel_matches_plain(cuda_device, case):
     ref = edge_scatter_ref(*args)
     assert torch.equal(got[0].cpu(), ref[0])
     torch.testing.assert_close(got[1].cpu(), ref[1], rtol=1e-5, atol=1e-6)
+    sigma, rho, live, src, dst = edge_problem(case)
+    want = edge_order_recv(ref[0].numpy(), rho, dst, sigma.shape[0])
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K1_CASES)
+@pytest.mark.parametrize("D,tiled", [(4, None), (4, False), (3, None),
+                                     (40, None), (40, False)])
+def test_edge_scatter_kernels_give_the_edge_order_sum(cuda_device, case, D,
+                                                      tiled):
+    """Both kernels, as the wrapper picks them by D (the edge-tiled one at
+    D <= 32: its vector path at D = 4, its scalar path at D = 3; the
+    column walk at D = 40) and as asked for: rho_new bit-equal to the plain
+    version, recv bit-equal to the float32 edge-order sum."""
+    from repro_torch.kernels.pushsum_edge.ops import TILED_D_MAX
+    sigma, rho, live, src, dst = edge_problem(case, D=D)
+    n = sigma.shape[0]
+    offsets = np.searchsorted(dst, np.arange(n + 1)).astype(np.int32)
+    dev_args = [torch.from_numpy(a).to(cuda_device)
+                for a in (sigma, rho, live, src, offsets)]
+    before = (edge_scatter_cuda.launches, edge_scatter_cuda.launches_tiled)
+    rho_new, recv = edge_scatter_cuda(*dev_args, tiled=tiled)
+    torch.cuda.synchronize()
+    on_tiled = D <= TILED_D_MAX if tiled is None else tiled
+    assert (edge_scatter_cuda.launches,
+            edge_scatter_cuda.launches_tiled) == (before[0] + 1,
+                                                  before[1] + int(on_tiled))
+    ref = edge_scatter_ref(*map(torch.from_numpy, (sigma, rho, live, src,
+                                                   dst)))
+    assert torch.equal(rho_new.cpu(), ref[0])
+    np.testing.assert_array_equal(
+        recv.cpu().numpy(), edge_order_recv(ref[0].numpy(), rho, dst, n))
+
+
+@pytest.mark.cuda
+def test_edge_scatter_tiled_kernel_reads_unaligned_rows(cuda_device):
+    """Contiguous rows that start one float off the 16-byte vector: the
+    edge-tiled kernel's scalar path, with the same results."""
+    sigma, rho, live, src, dst = edge_problem("ragged", D=4)
+    n, E = sigma.shape[0], rho.shape[0]
+    offsets = np.searchsorted(dst, np.arange(n + 1)).astype(np.int32)
+
+    def shifted(a):
+        buf = torch.zeros(a.size + 1, device=cuda_device)
+        buf[1:] = torch.from_numpy(a.reshape(-1)).to(cuda_device)
+        return buf[1:].view(a.shape)
+
+    args = [shifted(sigma), shifted(rho)] + [
+        torch.from_numpy(a).to(cuda_device) for a in (live, src, offsets)]
+    assert args[1].data_ptr() % 16 != 0
+    before = edge_scatter_cuda.launches_tiled
+    rho_new, recv = edge_scatter_cuda(*args)
+    torch.cuda.synchronize()
+    assert edge_scatter_cuda.launches_tiled == before + 1
+    ref = edge_scatter_ref(*map(torch.from_numpy, (sigma, rho, live, src,
+                                                   dst)))
+    assert torch.equal(rho_new.cpu(), ref[0]) and E == rho_new.shape[0]
+    np.testing.assert_array_equal(
+        recv.cpu().numpy(), edge_order_recv(ref[0].numpy(), rho, dst, n))
 
 
 @pytest.mark.cuda
@@ -241,6 +321,10 @@ def test_edge_scatter_kernel_rejects_bad_arguments(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         edge_scatter(sigma, rho.t().contiguous().t(), live, src, dst,
                      backend="cuda")
+    wide = [torch.zeros((sigma.shape[0], 33), device=cuda_device),
+            torch.zeros((rho.shape[0], 33), device=cuda_device)]
+    with pytest.raises(ValueError, match="D <= 32"):
+        edge_scatter_cuda(*wide, live, src, dst_offsets(dst, 23), tiled=True)
 
 
 @pytest.mark.cuda
@@ -768,6 +852,10 @@ TMEAN_CASES = [
     (48, 2, 4097, "normal", 1), (48, 23, 3, "ties", 0),
     (64, 31, 4097, "ties", 0), (64, 2, 4097, "non_finite", 1),
     (64, 0, 1, "normal", 1), (64, 7, 4097, "huge_scale", 0),
+    # NaNs with the sign bit set (sorted last, as by torch.sort), +-0 ties
+    (8, 2, 4097, "nan_sign", 0), (5, 1, 1000, "nan_sign", 1),
+    (64, 7, 4097, "nan_sign", 0), (8, 2, 4097, "signed_zero", 0),
+    (33, 5, 3, "signed_zero", 1), (16, 3, 1000, "signed_zero", 0),
 ]
 
 
@@ -775,8 +863,11 @@ def tmean_problem(W, D, case, seed=0):
     """float32 numpy (W, D) worker values: ``ties`` (half the columns one
     value, the rest on a half-integer grid), ``byzantine`` (a +1e6 and a
     -1e6 row), ``huge_scale`` (one row 1e6 times the rest), ``non_finite``
-    (an inf, a -inf and a NaN row with F = 2: all trimmed) and
-    ``too_many_nan`` (three NaN rows with F = 2: NaN survives)."""
+    (an inf, a -inf and a NaN row with F = 2: all trimmed),
+    ``too_many_nan`` (three NaN rows with F = 2: NaN survives),
+    ``nan_sign`` (two rows of NaNs with the sign bit set, 0xFFC00000 and
+    0xFF800001, which sort above +inf: trimmed at F >= 2, one survives at
+    F = 1) and ``signed_zero`` (values from {-1, -0, +0, 1}: +-0 ties)."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(W, D)).astype(np.float32)
     if case == "ties":
@@ -791,6 +882,12 @@ def tmean_problem(W, D, case, seed=0):
         x[0], x[3], x[5] = np.inf, -np.inf, np.nan
     elif case == "too_many_nan":
         x[1:4] = np.nan
+    elif case == "nan_sign":
+        x[0] = np.array(0xFFC00000, np.uint32).view(np.float32)
+        x[min(2, W - 1)] = np.array(0xFF800001, np.uint32).view(np.float32)
+    elif case == "signed_zero":
+        x = rng.choice(np.array([-1.0, -0.0, 0.0, 1.0], np.float32),
+                       size=(W, D))
     return x
 
 
@@ -817,7 +914,10 @@ def test_trimmed_mean_kernel_matches_plain(cuda_device, W, F, D, case,
                                            offset):
     """A column offset of 1 reads a misaligned column range of a wider
     buffer through its row stride (the scalar path), as an aggregator
-    hands over a leaf's columns."""
+    hands over a leaf's columns. The plain version runs on the CPU, whose
+    sort puts every NaN last as the reference's ``jnp.sort`` does; on the
+    card ``torch.sort`` puts NaNs with the sign bit set first once a
+    column holds more than 32 values."""
     x = tmean_problem(W, D + offset, case)
     buf = torch.from_numpy(x).to(cuda_device)
     view = buf[:, offset:]
@@ -826,13 +926,28 @@ def test_trimmed_mean_kernel_matches_plain(cuda_device, W, F, D, case,
     torch.cuda.synchronize()
     assert trimmed_mean_cuda.launches == before + 1
     assert got.shape == (D,) and got.dtype == torch.float32
-    _hold_tmean(got, trimmed_mean_ref(view, F), x[:, offset:], F)
+    _hold_tmean(got, trimmed_mean_ref(view.cpu(), F), x[:, offset:], F)
     out = torch.full((D + 1,), 7.0, device=cuda_device)
     trimmed_mean_cuda(view, F, out=out[:D])   # into a caller's buffer
     torch.cuda.synchronize()
     torch.testing.assert_close(out[:D], got, rtol=0, atol=0,
                                equal_nan=True)
     assert out[D].item() == 7.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["normal", "ties", "nan_sign"])
+def test_trimmed_mean_kernel_at_every_width_and_trim(cuda_device, case):
+    """Every W from 1 to 64 (all five compile-time widths of the sorting
+    network, each slot count padded with the largest key) and every F up
+    to (W - 1) // 2, at D = 37 (a ragged last vector), against the plain
+    version on the CPU."""
+    for W in range(1, W_MAX + 1):
+        x = tmean_problem(W, 37, case, seed=W)
+        buf = torch.from_numpy(x).to(cuda_device)
+        for F in range((W - 1) // 2 + 1):
+            got = trimmed_mean_cuda(buf, F)
+            _hold_tmean(got, trimmed_mean_ref(torch.from_numpy(x), F), x, F)
 
 
 @pytest.mark.cuda

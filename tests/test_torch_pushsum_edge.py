@@ -6,9 +6,10 @@ card in ``test_torch_kernels_cuda.py``, on the same problems.
 
 Tolerances: ``rho_new`` is a select, so it is bit-equal. ``recv`` sums the
 increments of each receiver's run; the port's CPU ``index_add_`` and the
-CUDA kernel add them in edge order, while the Pallas kernel uses a
-segmented tree scan, so ``recv`` agrees to fp32 reduction order
-(rtol 1e-6, atol 1e-6 on O(1) values)."""
+CUDA kernels add them in edge order (``edge_order_recv`` emulates that
+sum, which the CUDA kernels give bit for bit on the card), while the
+Pallas kernel uses a segmented tree scan, so ``recv`` agrees to fp32
+reduction order (rtol 1e-6, atol 1e-6 on O(1) values)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +23,12 @@ from repro_torch.kernels.pushsum_edge import (
     edge_scatter_cuda,
     edge_scatter_ref,
 )
-from test_torch_kernels_cuda import EDGE_CASES, edge_problem
+from test_torch_kernels_cuda import (
+    EDGE_CASES,
+    K1_CASES,
+    edge_order_recv,
+    edge_problem,
+)
 
 
 @pytest.mark.parametrize("case", EDGE_CASES)
@@ -38,6 +44,37 @@ def test_plain_matches_reference_and_pallas(case):
                                    rtol=1e-6, atol=1e-6)
     if case == "none_live":
         assert not got[1].numpy().any()
+
+
+@pytest.mark.parametrize("case", K1_CASES)
+def test_edge_order_sum_matches_plain_and_pallas(case):
+    """The float32 edge-order sum that K1's kernels give (``hub``: a
+    receiver's run over more than two of the edge-tiled kernel's tiles,
+    the partial sum carried from tile to tile) against the port's plain
+    version and the TPU kernel in interpret mode.
+
+    The Pallas kernel adds a run as partial sums of 16-edge blocks; over
+    the hub's 1,300 increments that order differs from edge order by more
+    than rtol 1e-6 (1.2e-6 measured), so there it is held to the bound for
+    two orders of one sum, (n - 1) * eps32 * sum |increments| per run."""
+    sigma, rho, live, src, dst = edge_problem(case)
+    n = sigma.shape[0]
+    rho_new = np.where(live[:, None], sigma[src], rho)
+    want = edge_order_recv(rho_new, rho, dst, n)
+    got = edge_scatter_ref(*map(torch.from_numpy, (sigma, rho, live, src,
+                                                   dst)))[1].numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    pal = np.asarray(edge_scatter_pallas(
+        *map(jnp.asarray, (sigma, rho, live, src, dst)), block_e=16,
+        interpret=True)[1])
+    if case != "hub":
+        np.testing.assert_allclose(pal, want, rtol=1e-6, atol=1e-6)
+        return
+    deg = np.bincount(dst, minlength=n)[:, None]
+    mag = np.zeros_like(want)
+    np.add.at(mag, dst, np.abs(rho_new - rho))
+    order = np.maximum(deg - 1, 0) * np.finfo(np.float32).eps * mag
+    assert (np.abs(pal - want) <= order + 1e-6).all()
 
 
 def test_auto_on_cpu_is_plain_and_ignores_offsets():
