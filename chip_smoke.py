@@ -8,12 +8,21 @@ Phases (any failure raises and the script exits non-zero):
 1. build   — compile every CUDA kernel of the port from
              src/repro_torch/kernels/csrc, one nvcc per source, at once;
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             at the main paths' full-size shapes (and the trim-gather at
-             its edge cases), with stated tolerances; K1 on both of its
-             kernels (edge-tiled, column walk), its recv bit-equal to the
-             float32 edge-order sum, also at its edge cases (D 3/4/40,
-             empty receivers, padding, no live edge, a hub of in-degree
-             1,500 over three edge tiles, unaligned rows);
+             at the main paths' full-size shapes, with stated tolerances;
+             K1 on both of its kernels (edge-tiled, column walk), its recv
+             bit-equal to the float32 edge-order sum, also at its edge
+             cases (D 3/4/40, empty receivers, padding, no live edge, a hub
+             of in-degree 1,500 over three edge tiles, unaligned rows); K2's
+             letters and z_new bit-equal, also at a ragged last block,
+             unaligned ranges, other alphabets and long rows (16 agents a
+             block, and one past 48 KB of shared memory); K3's tsum
+             bit-equal to the float32 rank-order sum of the sorted
+             survivors and kept bit-equal, at its edge
+             cases too (deg_max 1..64 over every width of its network,
+             scattered valid slots, deg <= 2F, F = 0, +-1e6, NaN, sign-bit
+             NaN and +-inf lies), and the plain trim-gather on the card
+             bit-equal to its CPU run with sign-bit NaN lies at deg_max 33
+             and 64;
 3. main    — run_social_runtime at N = 131,072 agents (16,384 complete
              8-agent networks, E = 917,504 links), T = 200, through the
              kernels and again through the plain path; both kernels must
@@ -32,9 +41,10 @@ Phases (any failure raises and the script exits non-zero):
              for every attack;
 7. timing  — K1-K3 three ways (device time with the host's enqueueing
              hidden, the JSON time; the kernel alone under the profiler;
-             host-inclusive), K1's column walk beside its edge-tiled kernel
-             and K1 at pushsum_sparse's shape (8 workers x 2^24 + 1
-             columns), their plain versions; CUDA-event medians of one
+             host-inclusive), K1's column walk beside its edge-tiled kernel,
+             K3 with materialized lies and at deg_max 16, 32 and 64, and K1
+             at pushsum_sparse's shape (8 workers x 2^24 + 1 columns), their
+             plain versions; CUDA-event medians of one
              step of each main path at N = 16,384 and 131,072; profiler
              breakdowns of the full-size steps;
 8. serve kernels — the decode attention (K5: its one-launch tensor-core
@@ -91,7 +101,9 @@ Phases (any failure raises and the script exits non-zero):
              version at the main path's (8, 99,496,704) for F in {0, 2} and
              at edge cases (W 3..64, D 1/3/4,097, a column offset of 1,
              ties, +-1e6, inf and NaN rows, NaN rows with the sign bit
-             set, +-0 ties; W <= 2F raises); K6's and K7's
+             set, +-0 ties; W <= 2F raises), and the plain version on the
+             card bit-equal to its CPU run with sign-bit NaN rows at W = 33
+             and 64; K6's and K7's
              gradients through their autograd wrappers against plain
              autograd at a layer's shape, float32 and bf16 (bit-equal);
 17. train main — paper_sim at published widths and full depth, bf16,
@@ -111,9 +123,9 @@ Phases (any failure raises and the script exits non-zero):
              profile of a kernel-path step.
 
 The build phase prints ptxas' registers and spills of every K4
-instantiation (4 to 64 workers) and K1's three kernels, which must not
-spill, of K6's tensor-core kernel, K7's three passes and K5's tensor-core
-kernel, and the count of HGMMA (wgmma) and HMMA (mma.sync) instructions in
+instantiation (4 to 64 workers), K1's three kernels, every K3 width (8 to
+64 slots) and K2's kernel, which must not spill, of K6's tensor-core
+kernel, K7's three passes and K5's tensor-core kernel, and the count of HGMMA (wgmma) and HMMA (mma.sync) instructions in
 the built K6, K7 and K5 libraries (cuobjdump -sass): HGMMA in K6's and
 HMMA in K7's and K5's must be nonzero.
 
@@ -194,36 +206,142 @@ def byz_scenario(n_agents: int):
     return model, setup, attacks.large_value(1e3)
 
 
+# a NaN with its sign bit set (0xFFC00000)
+NEG_NAN = float(np.uint32(0xFFC00000).view(np.float32))
+
+# the trim-gather's edge cases: (name, P, F, deg_max, layout, lies)
+TRIM_EDGE = (("ties", 9, 2, 7, "prefix", "ties"),
+             ("under_trimmed", 9, 3, 7, "under", "normal"),
+             ("huge", 9, 2, 7, "prefix", "huge"),
+             ("ovr", 3, 2, 7, "prefix", "normal"),
+             ("single_slot", 9, 0, 1, "prefix", "normal"),
+             ("wide", 3, 4, 20, "prefix", "normal"),
+             ("deg_max_33", 9, 2, 33, "prefix", "normal"),
+             ("deg_max_64", 9, 3, 64, "prefix", "huge"),
+             ("scattered_64", 9, 2, 64, "scattered", "normal"),
+             ("scattered_33_f0", 9, 0, 33, "scattered", "normal"),
+             ("under_trimmed_64", 3, 4, 64, "under", "normal"),
+             ("nan", 9, 2, 7, "prefix", "nan"),
+             ("nan_sign_33", 9, 2, 33, "scattered", "nan_sign"),
+             ("inf", 9, 2, 7, "prefix", "inf"),
+             ("non_finite_64", 9, 3, 64, "scattered", "mixed"),
+             ("too_many_non_finite", 9, 1, 20, "prefix", "too_many"))
+
+
 def trim_edge_cases(dev):
     """Small trim-gather problems at the kernel's edge cases, N = 1,001
-    receivers: ties, deg <= 2F, +-1e6 lies beside O(1) values (at most F a
-    row, so all are trimmed), one-vs-rest P = 3, deg_max = 1 and 20.
-    Yields ``(name, F, args)``; invalid slots hold NaN messages."""
+    receivers (``TRIM_EDGE``): ties, deg <= 2F (also in 64 slots), +-1e6
+    lies beside O(1) values (at most F a row, so all are trimmed), P = 3,
+    deg_max 1, 20, 33 and 64 (every width of the kernel's network), valid
+    slots scattered through the row, F = 0, and NaN, sign-bit NaN and
+    +-inf lies: at most F a row, on the first valid slots, or (``too_many``)
+    on any slot. Yields ``(name, F, args)``; invalid slots hold NaN
+    messages."""
     import torch
     rng = np.random.default_rng(1)
     n = 1001
-    for name, P, F, dm in (("ties", 9, 2, 7), ("under_trimmed", 9, 3, 7),
-                           ("huge", 9, 2, 7), ("ovr", 3, 2, 7),
-                           ("single_slot", 9, 0, 1), ("wide", 3, 4, 20)):
-        lo, hi = (0, 2 * F) if name == "under_trimmed" else (1, dm)
-        deg = rng.integers(lo, hi + 1, size=n)
-        valid = np.arange(dm)[None, :] < deg[:, None]
+    for name, P, F, dm, layout, lies in TRIM_EDGE:
+        if layout == "scattered":
+            valid = rng.random((n, dm)) < 0.6
+        else:
+            lo, hi = (0, min(2 * F, dm)) if layout == "under" else (1, dm)
+            deg = rng.integers(lo, hi + 1, size=n)
+            valid = np.arange(dm)[None, :] < deg[:, None]
         idx = np.where(valid, rng.integers(0, n, size=(n, dm)), 0)
-        if name == "ties":
+        if lies == "ties":
             r = rng.integers(0, 3, size=(n, P))
             msgs = rng.integers(0, 3, size=(n, dm, P))
         else:
             r = rng.normal(size=(n, P))
             msgs = 10 * rng.normal(size=(n, dm, P))
         byz = rng.random((n, dm)) < 0.25
-        if name == "huge":
+        first_f = valid & (np.cumsum(valid, axis=1) <= F)
+        if lies == "huge":
             msgs = np.where(rng.random((n, dm, P)) < 0.5, -1e6, 1e6)
-            byz = valid & (np.arange(dm)[None, :] < F)
+            byz = first_f
+        elif lies != "normal" and lies != "ties":
+            pick = {"nan": (np.nan,), "nan_sign": (NEG_NAN,),
+                    "inf": (np.inf, -np.inf)}.get(
+                        lies, (np.nan, NEG_NAN, np.inf, -np.inf))
+            odd = rng.random((n, dm, P)) < 0.7
+            msgs = np.where(odd, np.array(pick)[rng.integers(
+                0, len(pick), size=(n, dm, P))], msgs)
+            byz = (rng.random((n, dm)) < 0.5) if lies == "too_many" \
+                else first_f
         msgs = msgs.astype(np.float32)
         msgs[~valid] = np.nan
         yield name, F, [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                         for a in (r.astype(np.float32), idx.astype(np.int32),
                                   valid, msgs, byz)]
+
+
+def slot_values(r, idx, valid, msgs, byz):
+    """(N, deg_max, P) values of the slots, the messages where Byzantine."""
+    import torch
+    return torch.where(byz[:, :, None], msgs, r[idx.long()])
+
+
+def trim_sorted(r, idx, valid, msgs, byz):
+    """Each row's slot values in K3's order, on any device: each value as a
+    NaN-canonical ordered key (invalid slots above every key), an exact
+    integer sort, the keys decoded -> (sorted values (N, deg_max, P),
+    survivors (N, deg_max, 1) -> ranks F .. deg - F - 1 for a given F)."""
+    import torch
+    vals = slot_values(r, idx, valid, msgs, byz)
+    bits = vals.view(torch.int32).long() & 0xFFFFFFFF
+    bits = torch.where(vals.isnan(), 0x7FC00000, bits)
+    keys = bits ^ torch.where(bits >= 2**31, 0xFFFFFFFF, 0x80000000)
+    keys = torch.where(valid[:, :, None], keys, 2**32)
+    keys = torch.sort(keys, dim=1).values
+    bits = torch.where(keys >= 2**31, keys ^ 0x80000000, keys ^ 0xFFFFFFFF)
+    bits = bits & 0xFFFFFFFF
+    sorted_vals = torch.where(bits >= 2**31, bits - 2**32, bits).to(
+        torch.int32).view(torch.float32)
+    deg = valid.sum(dim=1)
+    q = torch.arange(idx.shape[1], device=idx.device)[None, :]
+
+    def survivors(F):
+        return ((q >= F) & (q < deg[:, None] - F))[:, :, None]
+
+    return sorted_vals, survivors
+
+
+def rank_order_tsum(r, idx, valid, msgs, byz, F):
+    """The trim-gather's survivor sum as K3 forms it: the ranks F .. deg -
+    F - 1 of :func:`trim_sorted` added in float32 in rank order, from 0 ->
+    (N, P)."""
+    import torch
+    sorted_vals, survivors = trim_sorted(r, idx, valid, msgs, byz)
+    on = survivors(F)
+    tsum = torch.zeros_like(r)
+    for q in range(idx.shape[1]):
+        tsum = torch.where(on[:, q], tsum + sorted_vals[:, q], tsum)
+    return tsum
+
+
+def same_bits(a, b) -> bool:
+    """Bit-equal, every NaN taken as one value (the card's arithmetic gives
+    its own NaN payload)."""
+    import torch
+    nan = a.isnan()
+    return bool(torch.equal(nan, b.isnan()) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+def trim_sum_bound(r, idx, valid, msgs, byz, F):
+    """Per-row bound on two orders of one survivor sum, deg_max * eps32 *
+    the sum of the survivors' |values| (ranks F .. deg - F - 1 of the
+    sorted row; a trimmed finite slot adds exactly 0 to the plain
+    version's ``s * keep``) -> (bound (N, P), rows whose valid values are
+    all finite (N,))."""
+    import torch
+    vals = slot_values(r, idx, valid, msgs, byz)
+    on = valid[:, :, None].expand_as(vals)
+    fin = torch.where(on, torch.isfinite(vals), True).all(dim=2).all(dim=1)
+    sorted_vals, survivors = trim_sorted(r, idx, valid, msgs, byz)
+    mag = torch.where(survivors(F) & torch.isfinite(sorted_vals),
+                      sorted_vals.abs(), 0.0).sum(dim=1)
+    return idx.shape[1] * EPS32 * mag, fin
 
 
 def event_ms(fn, runs: int, flush=None, hide_host: bool = False) -> float:
@@ -455,14 +573,175 @@ def edge_scatter_checks(dev, args) -> float:
     return err
 
 
+def innov_edge_cases(dev):
+    """Small innovation problems at K2's edge cases: N = 1,001 (a ragged
+    last block), every range one float off the 16-byte alignment (ragged
+    ends in every block), the alphabets (5, 7) and (2, 3), rows of (16, 32)
+    (16 agents a block) and of (128, 128) (one agent a block, past 48 KB of
+    shared memory). Yields ``(name, args)``; the uniforms reach the CDF's
+    top."""
+    import torch
+    rng = np.random.default_rng(4)
+    for name, n, m, S, shift in (("ragged_tail", 1001, 3, 4, 0),
+                                 ("unaligned", 1001, 3, 4, 1),
+                                 ("m5_s7", 777, 5, 7, 0),
+                                 ("m2_s3", 4097, 2, 3, 1),
+                                 ("m16_s32", 300, 16, 32, 0),
+                                 ("m128_s128", 40, 128, 128, 1)):
+        probs = rng.dirichlet(np.ones(S), size=n)
+        cdf = np.cumsum(probs, axis=-1)
+        u = rng.random(n)
+        u[: n // 8] = cdf[: n // 8, -1]
+        arrays = (rng.normal(size=(n, m)) * 10, rng.random(n), u, cdf,
+                  np.log(np.maximum(rng.dirichlet(np.ones(S), size=(n, m)),
+                                    2e-2)))
+        out = []
+        for a in arrays:
+            flat = torch.tensor(np.concatenate([np.zeros(shift),
+                                                a.reshape(-1)]),
+                                dtype=torch.float32, device=dev)
+            out.append(flat[shift:].view(a.shape))
+        out[1][:5] = 0.0                  # vanishing mass
+        yield name, out
+
+
+def innovation_checks(dev, k2) -> float:
+    """Phase 2's K2 checks, at the main shape and at
+    :func:`innov_edge_cases`: the sampled letters (read through z_new on a
+    table holding each letter's index, so z_new = sig exactly) and z_new
+    bit-equal to the plain version, mu within rtol 1e-5 atol 1e-6 (the
+    softmax's order) and finite -> the largest error against the plain
+    version at the main shape."""
+    import torch
+    from repro_torch.kernels.social_innov import (innovation_cuda,
+                                                  innovation_ref,
+                                                  sample_signals,
+                                                  staged_agents)
+
+    def hold(what, args):
+        z, mass, u, cdf, lt = args
+        n, m = z.shape
+        S = cdf.shape[1]
+        tag = f"social_innov {what} ({staged_agents(m, S)} agents a block)"
+        letters = torch.arange(S, dtype=torch.float32, device=dev).expand(
+            n, m, S).contiguous()
+        sig_p = sample_signals(u, cdf)
+        zp, mu_p = innovation_ref(*args)
+        before = innovation_cuda.launches
+        sig_k, _ = innovation_cuda(torch.zeros_like(z), mass, u, cdf,
+                                   letters)
+        zk, mu_k = innovation_cuda(*args)
+        torch.cuda.synchronize()
+        require(innovation_cuda.launches == before + 2, f"{tag}: launched")
+        require(torch.equal(sig_k[:, 0].long(), sig_p),
+                f"{tag}: signals bit-equal")
+        require(torch.equal(zk, zp), f"{tag}: z_new bit-equal")
+        torch.testing.assert_close(mu_k, mu_p, rtol=1e-5, atol=1e-6)
+        require(bool(torch.isfinite(mu_k).all()), f"{tag}: finite")
+        return (mu_k - mu_p).abs().max().item()
+
+    err = hold("main shape", k2)
+    names = []
+    for name, case_args in innov_edge_cases(dev):
+        hold(name, case_args)
+        names.append(name)
+    log(f"[kernels] social_innov: signals and z_new bit-equal, mu within "
+        f"rtol 1e-5 atol 1e-6 (softmax order), at the main shape and "
+        f"{len(names)} edge cases ({', '.join(names)}); max_abs_err "
+        f"{err:.3e}")
+    return err
+
+
+def trim_gather_checks(dev, args) -> float:
+    """Phase 2's K3 checks, at the Byzantine main path's shape and
+    messages (a large_value attack is a stride-0 view of one float, read in
+    place; also materialized) and at :func:`trim_edge_cases`: ``kept``
+    bit-equal to the plain version; ``tsum`` bit-equal to
+    :func:`rank_order_tsum` (the float32 rank-order sum of the sorted
+    survivors) everywhere, within :func:`trim_sum_bound` of the plain
+    version on rows whose values are finite (the plain version sums
+    ``s * keep``, so a trimmed NaN or inf makes its row NaN), and exactly 0
+    where nothing survives; deg_max 65 raises. Then the plain version on
+    the card against its run on the CPU at deg_max 33 and 64 with sign-bit
+    NaN lies -> the largest error against the plain version at the main
+    shape."""
+    import torch
+    from repro_torch.kernels.byz_trim import (DEG_MAX_CAP, trim_gather_cuda,
+                                              trim_gather_ref)
+
+    def hold(what, a, F):
+        tk, kk = trim_gather_cuda(*a, F)
+        tp, kp = trim_gather_ref(*a, F)
+        want = rank_order_tsum(*a, F)
+        bnd, fin = trim_sum_bound(*a, F)
+        torch.cuda.synchronize()
+        require(torch.equal(kk, kp), f"trim_gather {what}: kept bit-equal")
+        require(same_bits(tk, want), f"trim_gather {what}: tsum bit-equal "
+                f"to the float32 rank-order sum")
+        err = (tk - tp).abs()[fin]
+        require(bool((err <= bnd[fin]).all()), f"trim_gather {what}: tsum "
+                f"within the order bound of the plain version on finite "
+                f"rows")
+        require(bool((tk[kp == 0] == 0).all()),
+                f"trim_gather {what}: no survivor sums to 0")
+        return err.max().item() if err.numel() else 0.0
+
+    k3, k3_dense = args["k3"], args["k3_dense"]
+    err = hold("main shape", k3[:5], k3[5])
+    require(all(torch.equal(x, y) for x, y in zip(
+        trim_gather_cuda(*k3), trim_gather_cuda(*k3_dense))),
+        "trim_gather: stride-0 and materialized messages give the same "
+        "result")
+    names, worst = [], 0.0
+    for name, F_case, case_args in trim_edge_cases(dev):
+        worst = max(worst, hold(name, case_args, F_case))
+        names.append(name)
+    wide = [a[:, :1].expand(-1, DEG_MAX_CAP + 1, *a.shape[2:]).contiguous()
+            for a in k3[1:5]]
+    try:
+        trim_gather_cuda(k3[0], *wide, 1)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError(f"check failed: trim_gather deg_max="
+                           f"{DEG_MAX_CAP + 1} must raise")
+    # the plain version on the card orders every NaN as the CPU does:
+    # integer values, so any order of the survivors' sum is exact
+    n_nan = 0
+    for dm in (33, 64):
+        g = np.random.default_rng(dm)
+        n, P, F = 257, 9, 3
+        valid = g.random((n, dm)) < 0.8
+        byz = valid & (np.cumsum(valid, axis=1) <= F)
+        msgs = np.where(g.random((n, dm, P)) < 0.5, NEG_NAN,
+                        g.integers(-1024, 1025, size=(n, dm, P)))
+        a = [torch.tensor(x, device=dev) for x in (
+            g.integers(-1024, 1025, size=(n, P)).astype(np.float32),
+            np.where(valid, g.integers(0, n, size=(n, dm)), 0).astype(
+                np.int32), valid, msgs.astype(np.float32), byz)]
+        on_card = trim_gather_ref(*a, F)
+        on_cpu = trim_gather_ref(*(x.cpu() for x in a), F)
+        require(all(same_bits(x.cpu(), y) for x, y in zip(on_card, on_cpu)),
+                f"trim_gather_ref deg_max={dm}: the card's result bit-equal "
+                f"to the CPU's with sign-bit NaN lies")
+        n_nan += int(on_cpu[0].isnan().any(dim=1).sum())
+    log(f"[kernels] byz_trim: kept bit-equal, tsum bit-equal to the float32 "
+        f"rank-order sum and within the order bound of the plain version "
+        f"(finite rows) at the main shape (stride-0 and materialized lies) "
+        f"and {len(names)} edge cases ({', '.join(names)}); deg_max "
+        f"{DEG_MAX_CAP + 1} raises; max_abs_err {err:.3e} at the main shape, "
+        f"{worst:.3e} over the edge cases; the plain version on the card "
+        f"bit-equal to the CPU's at deg_max 33 and 64 with sign-bit NaN "
+        f"lies ({n_nan} rows NaN on both: s * keep of a trimmed NaN)")
+    return err
+
+
 def engine_kernel_times(args, flush) -> dict:
     """Phase 7's kernel timings at the engines' main shapes: K1 (the kernel
     the wrapper picks, and the column walk where the wrapper offers the
     choice), K2 and K3 (with the main path's stride-0 lies, and
     materialized), each :func:`three_ways`; their plain versions
     host-inclusive; their bounds -> each kernel's JSON timings."""
-    import inspect
-
     import torch
     from repro_torch.kernels.byz_trim import trim_gather_cuda, trim_gather_ref
     from repro_torch.kernels.pushsum_edge import (edge_scatter_cuda,
@@ -504,26 +783,55 @@ def engine_kernel_times(args, flush) -> dict:
     k3d = three_ways(lambda: trim_gather_cuda(*k3_dense), TIMED_RUNS, flush)
     k3d_bound = bound(nbytes(*k3_dense[:5], *outs["byz_trim"]), k3_ops)[0]
     out["byz_trim"]["materialized_ms"] = k3d["ms"]
-    if "tiled" in inspect.signature(edge_scatter_cuda).parameters:
-        walk = three_ways(lambda: edge_scatter_cuda(*k1, tiled=False),
-                          TIMED_RUNS, flush)
-        out["edge_scatter"].update({f"walk_{k}": v for k, v in walk.items()})
+    walk = three_ways(lambda: edge_scatter_cuda(*k1, tiled=False),
+                      TIMED_RUNS, flush)
+    out["edge_scatter"].update({f"walk_{k}": v for k, v in walk.items()})
     for name, t in out.items():
         log(f"[timing] {name}: device {t['ms']:.5f} ms with the host hidden, "
             f"kernel alone {t['kernel_ms']} (profiler), host-inclusive "
             f"{t['host_inclusive_ms']:.5f}; plain {t['plain_ms']:.5f} "
             f"(host-inclusive); bound {t['bound_ms']:.5f} ({t['bound_by']})"
             f"; medians of {TIMED_RUNS}, L2 flushed")
-    if "walk_ms" in out["edge_scatter"]:
-        t = out["edge_scatter"]
-        log(f"[timing] edge_scatter's column walk (the old design) at the "
-            f"same shape: device {t['walk_ms']:.5f} ms with the host hidden, "
-            f"kernel alone {t['walk_kernel_ms']}, host-inclusive "
-            f"{t['walk_host_inclusive_ms']:.5f}")
+    t = out["edge_scatter"]
+    log(f"[timing] edge_scatter's column walk (the old design) at the same "
+        f"shape: device {t['walk_ms']:.5f} ms with the host hidden, kernel "
+        f"alone {t['walk_kernel_ms']}, host-inclusive "
+        f"{t['walk_host_inclusive_ms']:.5f}")
     log(f"[timing] byz_trim with materialized lies: device {k3d['ms']:.5f} "
         f"ms with the host hidden, kernel alone {k3d['kernel_ms']}, "
         f"host-inclusive {k3d['host_inclusive_ms']:.5f} (bound "
         f"{k3d_bound:.5f})")
+    return out
+
+
+def k3_width_times(dev, flush, widths=(16, 32, 64)) -> dict:
+    """K3 at wider networks (the main path's 7 slots take the 8-slot one):
+    N = 131,072 receivers, P = 9, F = 2, every slot of ``widths`` valid
+    (deg_max = the width) with neighbors drawn at random, two Byzantine
+    slots a row with stride-0 lies -> ``{deg_max: {"ms", "bound_ms"}}``,
+    device milliseconds with the host hidden (L2 flushed)."""
+    import torch
+    from repro_torch.kernels.byz_trim import trim_gather_cuda
+    g = torch.Generator(device=dev).manual_seed(6)
+    n, P, out = N_FULL, 9, {}
+    for dm in widths:
+        r = torch.randn((n, P), generator=g, device=dev)
+        idx = torch.randint(0, n, (n, dm), generator=g, device=dev,
+                            dtype=torch.int32)
+        valid = torch.ones((n, dm), dtype=torch.bool, device=dev)
+        byz = torch.zeros_like(valid)
+        byz[:, :2] = True
+        lies = torch.full((), 1e3, device=dev).expand(n, dm, P)
+        a = (r, idx, valid, lies, byz, BYZ_F)
+        outs = trim_gather_cuda(*a)
+        t = {"ms": event_ms(lambda: trim_gather_cuda(*a), TIMED_RUNS, flush,
+                            hide_host=True),
+             "bound_ms": bound(nbytes(r, idx, valid, byz, *outs) + 4,
+                               n * P * dm * (2 * BYZ_F + 1))[0]}
+        out[dm] = t
+        log(f"[timing] byz_trim at deg_max {dm} (every slot valid, random "
+            f"neighbors, N={n}, P={P}, F={BYZ_F}): device {t['ms']:.5f} ms "
+            f"with the host hidden; bound {t['bound_ms']:.5f} (bytes)")
     return out
 
 
@@ -578,10 +886,6 @@ def main() -> int:
     from repro_torch.core import run_social_runtime, sparse_mass_invariant
     from repro_torch.core.signals import SignalModel
     from repro_torch.kernels import _build
-    from repro_torch.kernels.byz_trim import trim_gather_cuda, trim_gather_ref
-    from repro_torch.kernels.social_innov import (innovation_cuda,
-                                                  innovation_ref,
-                                                  sample_signals)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -608,7 +912,10 @@ def main() -> int:
               for w in (4, 8, 16, 32, 64)),
             ("edge_scatter", "edge_scatter_tiledILi4E"),
             ("edge_scatter", "edge_scatter_tiledILi1E"),
-            ("edge_scatter", "edge_scatter_walk")):
+            ("edge_scatter", "edge_scatter_walk"),
+            *(("byz_trim", f"trim_gather_kernelILi{w}E")
+              for w in (8, 16, 32, 64)),
+            ("social_innov", "social_innov_staged")):
         report = ptxas_report(built[name].log, kernel)
         log(f"[build] ptxas, {kernel}: {report}")
         require(report.count("0 bytes spill stores") == 1
@@ -659,53 +966,9 @@ def main() -> int:
     args = engine_args(dev, model, rt_d, brt_d)
     k1_err = edge_scatter_checks(dev, args)
 
-    z, mass, u, cdf, _ = k2_args = args["k2"]
-    m_hyp, S = model.m, model.S
-    # the sampled letter, read through z_new on a table holding each
-    # letter's index: z_new = 0 + index = sig exactly
-    letters = torch.arange(S, dtype=torch.float32, device=dev).expand(
-        N, m_hyp, S).contiguous()
-    sig_k, _ = innovation_cuda(torch.zeros_like(z), mass, u, cdf, letters)
-    sig_p = sample_signals(u, cdf)
-    torch.cuda.synchronize()
-    require(torch.equal(sig_k[:, 0].long(), sig_p), "signals bit-equal")
-    zk, mu_k = innovation_cuda(*k2_args)
-    zp, mu_p = innovation_ref(*k2_args)
-    torch.cuda.synchronize()
-    require(torch.equal(zk, zp), "innovation z_new bit-equal")
-    torch.testing.assert_close(mu_k, mu_p, rtol=1e-5, atol=1e-6)
-    require(bool(torch.isfinite(mu_k).all()), "beliefs finite")
-    k2_err = max((zk - zp).abs().max().item(),
-                 (mu_k - mu_p).abs().max().item())
-    log(f"[kernels] social_innov: signals and z_new bit-equal, mu within "
-        f"rtol 1e-5 atol 1e-6 (softmax order); max_abs_err {k2_err:.3e}")
-
-    # the trim-gather at the Byzantine main path's shapes and messages: a
-    # large_value attack is a stride-0 view of one float, read in place
-    k3_args, k3_dense = args["k3"], args["k3_dense"]
-    P = bmodel.m ** 2
-    tk, kk = trim_gather_cuda(*k3_args)
-    tk_dense, kk_dense = trim_gather_cuda(*k3_dense)
-    tp, kp = trim_gather_ref(*k3_args)
-    torch.cuda.synchronize()
-    require(torch.equal(kk, kp) and torch.equal(tk, tk_dense)
-            and torch.equal(kk, kk_dense), "trim_gather kept bit-equal; "
-            "stride-0 and materialized messages give the same result")
-    torch.testing.assert_close(tk, tp, rtol=1e-5, atol=1e-5)
-    k3_err = (tk - tp).abs().max().item()
-    for name, F_case, case_args in trim_edge_cases(dev):
-        t_c, k_c = trim_gather_cuda(*case_args, F_case)
-        t_r, k_r = trim_gather_ref(*case_args, F_case)
-        torch.cuda.synchronize()
-        require(torch.equal(k_c, k_r), f"trim_gather kept bit-equal ({name})")
-        require(bool((t_c[k_r == 0] == 0).all()),
-                f"trim_gather: no survivor sums to 0 ({name})")
-        torch.testing.assert_close(t_c, t_r, rtol=1e-5, atol=1e-5)
-        k3_err = max(k3_err, (t_c - t_r).abs().max().item())
-    log(f"[kernels] byz_trim: kept bit-equal, tsum within rtol 1e-5 atol "
-        f"1e-5 (survivor-sum order) at N={N} deg_max={dm} P={P} F={BYZ_F} "
-        f"and at the edge cases (ties, deg <= 2F, +-1e6, P = 3, deg_max 1 "
-        f"and 20); max_abs_err {k3_err:.3e}")
+    k2_err = innovation_checks(dev, args["k2"])
+    k3_err = trim_gather_checks(dev, args)
+    m_hyp = model.m
 
     # ---- phase 3: the main path at full size ----------------------------
     plan_k = ExecutionPlan(store="log_ratio", dst_sorted=True)
@@ -774,7 +1037,8 @@ def main() -> int:
     qres = run_social_learning(qmodel, qcfg, T=500, seed=0)
     torch.cuda.synchronize()
     require(_counts() == _only(edge_scatter=500, edge_scatter_tiled=500,
-                               social_innov=500), "quickstart launches")
+                               social_innov=500),
+            "quickstart launches")
     qmin = qres.beliefs[-1, :, qmodel.truth].min().item()
     log(f"[quickstart] min final belief in theta*: {qmin:.6f}")
     require(qmin > 0.95, "quickstart learns theta*")
@@ -792,6 +1056,7 @@ def main() -> int:
         flush_buf.zero_()   # evict the 50 MB L2 between timed launches
 
     kt = engine_kernel_times(args, flush)
+    kt["byz_trim"]["widths"] = k3_width_times(dev, flush)
     kt["edge_scatter"].update({f"pushsum_sparse_{k}": v for k, v in
                                k1_sparse_times(dev, flush).items()})
     step_ms, cells = {}, {}
@@ -989,8 +1254,9 @@ def byzantine_main(model, setup, attack, dev) -> int:
     require(rk.shape == (N, 3, 3) and res_k.decisions.shape == (T_MAIN, N),
             "byzantine result shapes")
     require(bool(torch.isfinite(rk).all()), "byzantine r finite")
-    # Tolerance. The kernel adds each receiver's survivors in slot order,
-    # the plain path in sorted order: about one ulp of a statistic per
+    # Tolerance. The kernel adds each receiver's survivors one by one in
+    # rank order, the plain path sums the sorted slots through PyTorch's
+    # reduction, another association: about one ulp of a statistic per
     # round, averaged by the gossip, on statistics that grow to ~1.3e4
     # (one ulp there is ~1e-3). The limit atol + rtol*|r| is 1e-2 near 0
     # and ~3.6e-2 at |r| = 1.3e4; H100 runs gave a max gap of 7.8e-3
@@ -1985,8 +2251,10 @@ def tmean_kernel_checks(dev, D_full: int) -> float:
     (W - 1) // 2, D in {1, 3, 4097}, a column offset of 1 (a misaligned
     column range read through the row stride), exact ties, a +-1e6
     Byzantine row, inf and NaN rows, rows of NaNs with the sign bit set
-    (which sort last, as every NaN), +-0 ties; W <= 2F and W > 64 raise ->
-    the largest error at the main shape."""
+    (which sort last, as every NaN), +-0 ties; W <= 2F and W > 64 raise;
+    then the plain version on the card bit-equal to its run on the CPU with
+    sign-bit NaN rows at W = 33 and 64 -> the largest error at the main
+    shape."""
     import torch
     from repro_torch.kernels.trimmed_mean import (W_MAX, trimmed_mean_cuda,
                                                   trimmed_mean_ref)
@@ -2039,18 +2307,19 @@ def tmean_kernel_checks(dev, D_full: int) -> float:
                             got, trimmed_mean_ref(view.cpu(), F).to(dev),
                             view, F))
                         n_cases += 1
-    # the plain version on the card: torch.sort there may order NaNs with
-    # the sign bit set otherwise than the CPU's (and the reference's)
-    x = torch.randn((33, 64), generator=g, device=dev)
-    x[0] = neg_nan
-    on_card = trimmed_mean_ref(x, 1).cpu()
-    on_cpu = trimmed_mean_ref(x.cpu(), 1)
-    n_diff = int(((on_card - on_cpu).abs() > tmean_bound(x, 1).cpu()).sum())
-    log(f"[train kernels] the plain version at W=33, F=1, one row of NaNs "
-        f"with the sign bit set: {n_diff} of 64 coordinates differ between "
-        f"its run on the card and on the CPU (whose sort, as the "
-        f"reference's jnp.sort, puts every NaN last); K4 is held to the "
-        f"CPU's at the edge cases")
+    # the plain version on the card orders every NaN as the CPU (and the
+    # reference's jnp.sort) does: rows of NaNs with the sign bit set beside
+    # integer values, with W - 2F a power of two, so every order of the
+    # survivors' sum and the mean's division are exact on both devices
+    for W, F in ((33, 16), (64, 16), (64, 30)):
+        x = torch.randint(-1024, 1025, (W, 64), generator=g,
+                          device=dev).float()
+        x[0] = neg_nan
+        x[W // 2] = neg_nan
+        on_card = trimmed_mean_ref(x, F).cpu()
+        require(same_bits(on_card, trimmed_mean_ref(x.cpu(), F)),
+                f"trimmed_mean_ref W={W} F={F}: the card's result bit-equal "
+                f"to the CPU's with sign-bit NaN rows")
     for W, F in ((4, 2), (2, 1), (W_MAX + 1, 1)):
         try:
             trimmed_mean_cuda(torch.zeros((W, 8), device=dev), F)
@@ -2064,7 +2333,9 @@ def tmean_kernel_checks(dev, D_full: int) -> float:
         f"+-0 ties) within W eps32 sum|x| / (W - 2F) "
         f"of the plain version, NaN/inf where it has them; W <= 2F and W > "
         f"{W_MAX} raise; max_abs_err {main_err:.3e} at the main shape, "
-        f"{worst:.3e} over the edge cases (the +-1e6 rows)")
+        f"{worst:.3e} over the edge cases (the +-1e6 rows); the plain "
+        f"version on the card bit-equal to the CPU's with sign-bit NaN rows "
+        f"at W = 33 and 64")
     return main_err
 
 

@@ -5,9 +5,11 @@ wrapper.
 core calls once per gossip round (routes in
 :mod:`repro_torch.kernels.dispatch`); ``trim_gather_pairs`` flattens the
 trailing pair axes into the kernel's coordinate axis. The CUDA kernel
-(``csrc/byz_trim.cu``) runs one thread per (receiver, coordinate) with the
-slots in registers, so ``deg_max`` is capped at :data:`DEG_MAX_CAP`; the
-wrapper raises above it and never falls back to the plain version.
+(``csrc/byz_trim.cu``) builds a block of receivers' slot table in shared
+memory and sorts each (receiver, coordinate)'s slots as ordered keys by a
+sorting network in registers, so ``deg_max`` is capped at
+:data:`DEG_MAX_CAP`; the wrapper raises above it and never falls back to
+the plain version.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from .ref import trim_gather_ref
 __all__ = ["trim_gather", "trim_gather_pairs", "trim_gather_cuda",
            "DEG_MAX_CAP"]
 
-DEG_MAX_CAP = 32
+DEG_MAX_CAP = 64    # the widest sorting network of the kernel
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
              + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 

@@ -38,7 +38,10 @@ def trim_gather_ref(
     gathered = r[nbr_idx.long()]                            # (N, deg_max, P)
     vals = torch.where(byz_nbr[:, :, None], byz_msgs, gathered)
     masked = torch.where(nbr_valid[:, :, None], vals, big)  # pads sort high
-    s = torch.sort(masked, dim=1).values
+    # every NaN the positive one: the card's sort puts a NaN with the sign
+    # bit set first in a long row, where jnp.sort puts every NaN last
+    s = torch.sort(torch.where(masked.isnan(), torch.nan, masked),
+                   dim=1).values
     deg = nbr_valid.sum(dim=1)                              # (N,)
     ranks = torch.arange(masked.shape[1], device=r.device)[None, :, None]
     keep = (ranks >= F) & (ranks < (deg[:, None, None] - F))

@@ -4,9 +4,11 @@ wrapper.
 ``innovation_step(..., backend=...)`` is the entry point the Algorithm 3
 loop calls once per iteration (routes in
 :mod:`repro_torch.kernels.dispatch`). The CUDA kernel
-(``csrc/social_innov.cu``) runs one thread per agent with the row in
-registers. A failed build or launch raises; nothing falls back to the
-plain version.
+(``csrc/social_innov.cu``): a block copies the rows of A consecutive
+agents into shared memory with 16-byte copies and computes them there, A
+picked from (m, S) by :func:`staged_agents`. A shape it cannot take, a
+failed build or a failed launch raises; nothing falls back to the plain
+version.
 """
 from __future__ import annotations
 
@@ -18,9 +20,29 @@ from .. import _build
 from ..dispatch import resolve_backend
 from .ref import innovation_ref
 
-__all__ = ["innovation_step", "innovation_cuda"]
+__all__ = ["innovation_step", "innovation_cuda", "staged_agents"]
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+SMEM = 48 * 1024            # a block's shared memory without opt-in
+SMEM_OPTIN = 227 * 1024     # with it, on sm_90
+
+
+def staged_agents(m: int, S: int) -> int:
+    """Agents a block of the kernel: the largest of 32, 16, ..., 1 whose
+    rows fit ``SMEM`` bytes of shared memory, else 1 where one agent's rows
+    fit ``SMEM_OPTIN``, else 0 (rows too long for the kernel). A block
+    stages z, mass, u, cdf, log_tables, z_new and mu, each region padded to
+    16 bytes plus 16 for its alignment phase (``staged_bytes`` in the
+    source)."""
+    def region(floats):
+        return (4 * floats + 15) // 16 * 16 + 16
+
+    def staged(A):
+        return (3 * region(A * m) + 2 * region(A) + region(A * S)
+                + region(A * m * S))
+
+    fits = [A for A in (32, 16, 8, 4, 2, 1) if staged(A) <= SMEM]
+    return fits[0] if fits else int(staged(1) <= SMEM_OPTIN)
 
 
 def innovation_step(
@@ -44,14 +66,19 @@ def innovation_cuda(
     cdf: torch.Tensor,
     log_tables: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA innovation kernel on the current stream.
-    ``innovation_cuda.launches`` counts the launches."""
+    """Launch the CUDA innovation kernel on the current stream, with
+    :func:`staged_agents` agents a block. ``innovation_cuda.launches``
+    counts the launches."""
     if not z.is_cuda:
         raise ValueError("the CUDA innovation step needs CUDA tensors")
     n, m = z.shape
     S = cdf.shape[-1]
     if n == 0 or m == 0 or S == 0 or n * m * S >= 2**31:
         raise ValueError(f"unsupported innovation shape N={n}, m={m}, S={S}")
+    A = staged_agents(m, S)
+    if A == 0:
+        raise ValueError(f"rows of m={m}, S={S} do not fit the kernel's "
+                         f"shared memory")
     dev = z.device
     _build.check_arg(z, "z", torch.float32, (n, m), dev)
     _build.check_arg(mass, "mass", torch.float32, (n,), dev)
@@ -63,7 +90,8 @@ def innovation_cuda(
     fn = _build.function("social_innov", "social_innov_f32", _ARGTYPES)
     code = fn(z.data_ptr(), mass.data_ptr(), u.data_ptr(), cdf.data_ptr(),
               log_tables.data_ptr(), z_new.data_ptr(), mu.data_ptr(),
-              n, m, S, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+              n, m, S, A, dev.index,
+              torch.cuda.current_stream(dev).cuda_stream)
     _build.check_status("social_innov", code)
     innovation_cuda.launches += 1
     return z_new, mu

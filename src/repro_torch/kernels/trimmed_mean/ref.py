@@ -25,5 +25,8 @@ def trimmed_mean_ref(x: torch.Tensor, F: int) -> torch.Tensor:
         raise ValueError(f"need W > 2F, got W={W}, F={F}")
     if F == 0:
         return x.mean(dim=0)
-    s = torch.sort(x, dim=0).values
+    # every NaN the positive one: the card's sort puts a NaN with the sign
+    # bit set first in a column of more than 32 values, where jnp.sort puts
+    # every NaN last
+    s = torch.sort(torch.where(x.isnan(), torch.nan, x), dim=0).values
     return s[F:W - F].mean(dim=0)

@@ -18,7 +18,7 @@ another order: rtol 1e-5, atol 1e-6. The trim-gather
 ``kept`` is a count, so bit-equal; ``tsum`` adds the same survivors in slot
 order in the kernel and in sorted order in the plain version, so it agrees
 within the bound of :func:`trim_sum_bound` (deg_max * eps32 * the sum of
-the row's absolute values, a bound for any order of the additions). The
+the survivors' absolute values, a bound for any order of the additions). The
 attention kernels (``attn_decode``, ``swa_prefill``) are held against
 their plain versions run in float32 on the same inputs: a float32 output
 to rtol 1e-5 + atol 1e-5 (another summation order over the cache or the
@@ -88,6 +88,7 @@ from repro_torch.kernels.social_innov import (
     innovation_ref,
     innovation_step,
     sample_signals,
+    staged_agents,
 )
 
 EDGE_CASES = ["ragged", "no_in_edges", "all_live", "none_live", "padding"]
@@ -95,6 +96,11 @@ EDGE_CASES = ["ragged", "no_in_edges", "all_live", "none_live", "padding"]
 K1_CASES = EDGE_CASES + ["hub"]
 INNOV_CASES = [(29, 3, 4, None), (64, 5, 7, None), (18, 3, 4, "u_at_top"),
                (40, 3, 4, "mass_to_zero"), (33, 2, 3, None)]
+# K2 over several blocks with a ragged last one, rows of (16, 32) in
+# blocks of 16 agents and rows of (128, 128) one agent a block (past 48 KB
+# of shared memory)
+K2_CASES = INNOV_CASES + [(1001, 3, 4, "u_at_top"), (4097, 2, 3, None),
+                          (300, 16, 32, None), (40, 128, 128, None)]
 
 
 def edge_problem(case, seed=0, D=4):
@@ -168,11 +174,17 @@ def innov_problem(N, m, S, seed, edge=None):
 
 TRIM_CASES = ["random", "ties", "under_trimmed", "huge", "scattered",
               "padded", "single_slot", "wide"]
+# K3's wider networks and non-finite lies (at most F a row on the first
+# valid slots; ``too_many`` on any Byzantine slot)
+K3_CASES = ["deg_max_33", "deg_max_64", "scattered_64", "under_trimmed_64",
+            "nan", "nan_sign", "inf", "too_many"]
+NON_FINITE = {"nan": (np.nan,), "nan_sign": (np.uint32(0xFFC00000).view(
+    np.float32),), "inf": (np.inf, -np.inf)}
 ORACLE_ATTACKS = ["sign_flip", "large_value", "extreme_pull",
                   "truth_suppression"]
 
 
-def trim_problem(case, P, F, seed=0):
+def trim_problem(case, P, F, seed=0, n=37):
     """(r, nbr_idx, nbr_valid, byz_msgs, byz_nbr) numpy arrays of a
     trim-gather over N = 37 receivers (not a multiple of any block size).
 
@@ -182,16 +194,23 @@ def trim_problem(case, P, F, seed=0):
     every degree <= 2F, ``huge`` puts +-1e6 lies beside O(1) honest values,
     ``scattered`` spreads the valid slots over the row, ``padded`` leaves
     the last slots of every row empty and some rows with no slot at all,
-    ``single_slot`` is deg_max = 1 and ``wide`` deg_max = 20."""
+    ``single_slot`` is deg_max = 1 and ``wide`` deg_max = 20. Of
+    ``K3_CASES``: deg_max 33 and 64 (``scattered_64`` and
+    ``under_trimmed_64`` with those layouts), and NaN, sign-bit NaN and
+    +-inf lies (``nan``, ``nan_sign``, ``inf``: at most F a row, on the
+    first valid slots, deg_max 33; ``too_many``: a mix of them on any
+    Byzantine slot, deg_max 20)."""
     rng = np.random.default_rng(seed)
-    n = 37
-    dm = {"single_slot": 1, "wide": 20, "padded": 12}.get(case, 7)
-    if case == "scattered":
+    dm = {"single_slot": 1, "wide": 20, "padded": 12, "deg_max_33": 33,
+          "deg_max_64": 64, "scattered_64": 64, "under_trimmed_64": 64,
+          "nan": 33, "nan_sign": 33, "inf": 33, "too_many": 20}.get(case, 7)
+    if case.startswith("scattered"):
         valid = rng.random((n, dm)) < 0.7
     else:
-        top = {"under_trimmed": min(2 * F, dm), "padded": dm - 4}.get(case, dm)
-        deg = rng.integers(0 if case in ("padded", "under_trimmed") else 1,
-                           top + 1, size=n)
+        under = case.startswith("under_trimmed")
+        top = min(2 * F, dm) if under else dm - 4 if case == "padded" else dm
+        deg = rng.integers(0 if case == "padded" or under else 1, top + 1,
+                           size=n)
         valid = np.arange(dm)[None, :] < deg[:, None]
     idx = np.where(valid, rng.integers(0, n, size=(n, dm)), 0)
     if case == "ties":
@@ -205,16 +224,60 @@ def trim_problem(case, P, F, seed=0):
         msgs = np.where(rng.random((n, dm, P)) < 0.5, -1e6, 1e6).astype(
             np.float32)
     byz_nbr = rng.random((n, dm)) < 0.3
+    if case in NON_FINITE or case == "too_many":
+        pick = np.array(NON_FINITE.get(case, sum(NON_FINITE.values(), ())),
+                        np.float32)
+        odd = pick[rng.integers(0, len(pick), size=(n, dm, P))]
+        msgs = np.where(rng.random((n, dm, P)) < 0.7, odd, msgs)
+        if case != "too_many":
+            byz_nbr = valid & (np.cumsum(valid, axis=1) <= F)
     msgs[~valid] = np.nan
     return r, idx.astype(np.int32), valid, msgs, byz_nbr
 
 
-def trim_sum_bound(r, idx, valid, msgs, byz_nbr):
-    """Per-row absolute bound on the difference of two survivor sums taken
-    in different orders: deg_max * eps32 * sum of the row's |values|."""
-    vals = np.where(byz_nbr[:, :, None], msgs, r[idx])
-    mag = np.where(valid[:, :, None], np.abs(vals), 0.0).sum(axis=1)
+def trim_sorted(r, idx, valid, msgs, byz_nbr):
+    """The slots' values sorted with every NaN last (as the positive NaN)
+    and the invalid slots after them -> (sorted (N, deg_max, P) float32,
+    deg (N,)) (numpy arrays)."""
+    vals = np.where(byz_nbr[:, :, None], msgs, r[idx]).astype(np.float32)
+    vals[np.isnan(vals)] = np.nan
+    bits = vals.view(np.uint32)
+    keys = (bits ^ ((bits.view(np.int32) >> 31).view(np.uint32)
+                    | np.uint32(0x80000000))).astype(np.int64)
+    keys[~valid] = 2 ** 32
+    s = np.take_along_axis(vals, np.argsort(keys, axis=1, kind="stable"), 1)
+    return s, valid.sum(axis=1)
+
+
+def survivors(deg, F, dm):
+    """(N, deg_max) bool: the ranks F .. deg - F - 1 of each sorted row."""
+    q = np.arange(dm)[None, :]
+    return (q >= F) & (q < deg[:, None] - F)
+
+
+def trim_sum_bound(r, idx, valid, msgs, byz_nbr, F):
+    """Per-row absolute bound on the difference of two sums of the same
+    survivors taken in different orders: deg_max * eps32 * the sum of the
+    survivors' |values| (ranks F .. deg - F - 1 of the sorted row, its
+    finite values). Trimmed slots add exactly 0 to a sum of ``s * keep``
+    where they are finite."""
+    s, deg = trim_sorted(r, idx, valid, msgs, byz_nbr)
+    on = survivors(deg, F, idx.shape[1])[:, :, None] & np.isfinite(s)
+    mag = np.where(on, np.abs(s), 0.0).sum(axis=1)
     return idx.shape[1] * np.finfo(np.float32).eps * mag
+
+
+def trim_rank_order_sum(r, idx, valid, msgs, byz_nbr, F):
+    """(N, P) float32: the sorted survivors of :func:`trim_sorted` added in
+    float32 in rank order from 0 -- the tsum K3 gives bit for bit (numpy
+    arrays)."""
+    s, deg = trim_sorted(r, idx, valid, msgs, byz_nbr)
+    on = survivors(deg, F, idx.shape[1])
+    tsum = np.zeros(r.shape, np.float32)
+    with np.errstate(all="ignore"):
+        for q in range(idx.shape[1]):
+            tsum = np.where(on[:, q, None], tsum + s[:, q], tsum)
+    return tsum
 
 
 def byzantine_oracle_scenario(attack, T=120):
@@ -328,7 +391,7 @@ def test_edge_scatter_kernel_rejects_bad_arguments(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,m,S,edge", INNOV_CASES)
+@pytest.mark.parametrize("N,m,S,edge", K2_CASES)
 def test_innovation_kernel_matches_plain(cuda_device, N, m, S, edge):
     args = [torch.from_numpy(a) for a in innov_problem(N, m, S, N, edge)]
     before = innovation_cuda.launches
@@ -339,6 +402,37 @@ def test_innovation_kernel_matches_plain(cuda_device, N, m, S, edge):
     assert torch.equal(z_k.cpu(), z_r)
     torch.testing.assert_close(mu_k.cpu(), mu_r, rtol=1e-5, atol=1e-6)
     assert torch.isfinite(mu_k).all()
+
+
+@pytest.mark.cuda
+def test_innovation_kernel_reads_unaligned_ranges(cuda_device):
+    """Every input one float off the 16-byte alignment: the kernel moves
+    the ragged ends of each block's ranges one byte at a time."""
+    arrays = innov_problem(1001, 3, 4, 7, "u_at_top")
+
+    def shifted(a):
+        flat = torch.cat([torch.zeros(1), torch.from_numpy(a).reshape(-1)])
+        return flat.to(cuda_device)[1:].view(a.shape)
+
+    args = [shifted(a) for a in arrays]
+    assert args[0].data_ptr() % 16 != 0 and args[0].is_contiguous()
+    z_r, mu_r = innovation_ref(*map(torch.from_numpy, arrays))
+    z_k, mu_k = innovation_cuda(*args)
+    assert torch.equal(z_k.cpu(), z_r)
+    torch.testing.assert_close(mu_k.cpu(), mu_r, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_innovation_kernel_rejects_rows_too_long(cuda_device):
+    """Rows of (256, 256), 256 KB an agent, do not fit a block's shared
+    memory: the wrapper raises and launches nothing."""
+    assert staged_agents(256, 256) == 0
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in innov_problem(2, 256, 256, 0)]
+    before = innovation_cuda.launches
+    with pytest.raises(ValueError, match="do not fit"):
+        innovation_cuda(*args)
+    assert innovation_cuda.launches == before
 
 
 @pytest.mark.cuda
@@ -365,10 +459,36 @@ def test_trim_gather_kernel_matches_plain(cuda_device, case, P, F):
     t_ref, k_ref = trim_gather_ref(*args, F)
     assert torch.equal(kept.cpu(), k_ref)
     err = (tsum.cpu() - t_ref).abs().numpy()
-    assert (err <= trim_sum_bound(*prob)).all(), err.max()
+    assert (err <= trim_sum_bound(*prob, F)).all(), err.max()
     assert torch.isfinite(tsum).all()
     # rows with deg <= 2F keep nothing and sum to exactly 0
     assert (tsum.cpu()[k_ref == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRIM_CASES + K3_CASES)
+@pytest.mark.parametrize("F", [0, 1, 2, 3])
+def test_trim_gather_kernel_gives_the_rank_order_sum(cuda_device, case, F):
+    """tsum bit-equal to the float32 rank-order sum of the sorted survivors
+    (NaN where it is NaN), at every width of the kernel's network and with
+    non-finite lies; kept bit-equal and tsum within the order bound of the
+    plain version on rows whose values are finite (the plain version sums
+    ``s * keep``, so a trimmed NaN or inf makes its row NaN)."""
+    prob = trim_problem(case, 9, F, seed=F + 10)
+    args = [torch.from_numpy(a) for a in prob]
+    tsum, kept = trim_gather_cuda(*[a.to(cuda_device) for a in args], F)
+    tsum, kept = tsum.cpu().numpy(), kept.cpu().numpy()
+    want = trim_rank_order_sum(*prob, F)
+    np.testing.assert_array_equal(np.isnan(tsum), np.isnan(want))
+    np.testing.assert_array_equal(tsum.view(np.int32)[~np.isnan(want)],
+                                  want.view(np.int32)[~np.isnan(want)])
+    t_ref, k_ref = trim_gather_ref(*args, F)
+    np.testing.assert_array_equal(kept, k_ref.numpy())
+    vals = np.where(prob[4][:, :, None], prob[3], prob[0][prob[1]])
+    finite = np.where(prob[2][:, :, None], np.isfinite(vals), True).all((1, 2))
+    err = np.abs(tsum[finite] - t_ref.numpy()[finite])
+    assert (err <= trim_sum_bound(*prob, F)[finite]).all()
+    assert (tsum[k_ref.numpy() == 0] == 0).all()
 
 
 @pytest.mark.cuda

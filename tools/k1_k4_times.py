@@ -9,9 +9,14 @@ command:
     python3 tools/k1_k4_times.py [--src DIR]
 
 Shapes: K1-K3 at Algorithm 3's and Algorithm 2's N = 131,072 (phase 2 of
-``chip_smoke.py``), K1 also at ``pushsum_sparse``'s 8 workers x 2^24 + 1
-columns, K4 at paper_sim's 8 x 99,496,704 for F in {0, 2}. Prints the
-card and one JSON line of the figures. Needs an NVIDIA GPU and nvcc.
+``chip_smoke.py``), K1's column walk beside its edge-tiled kernel there
+and at ``pushsum_sparse``'s 8 workers x 2^24 + 1 columns, K3 with
+materialized lies and at deg_max 16, 32 and 64 (those the tree's
+``DEG_MAX_CAP`` takes), K4 at paper_sim's 8 x 99,496,704 for F in {0, 2}.
+The timing code is this checkout's ``chip_smoke.py``; the tree under
+``--src`` must have K1's ``tiled=`` choice (every tree since K1's
+redesign). Prints the card and one JSON line of the figures. Needs an
+NVIDIA GPU and nvcc.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.byz_trim import DEG_MAX_CAP
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -63,6 +69,8 @@ def main(argv=None) -> int:
         flush_buf.zero_()
 
     times = cs.engine_kernel_times(args, flush)
+    times["byz_trim"]["widths"] = cs.k3_width_times(
+        dev, flush, [w for w in (16, 32, 64) if w <= DEG_MAX_CAP])
     del args
     times["edge_scatter_pushsum_sparse"] = cs.k1_sparse_times(dev, flush)
     cfg = get_config("paper_sim")
