@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: Algorithm 3
-(social learning), Algorithm 2 (Byzantine-resilient learning), the
-serving path of the dense GQA models (Qwen3-8B) and of RWKV6 (RWKV6-1.6B),
+(social learning), Algorithm 2 (Byzantine-resilient learning), Algorithm 1
+(push-sum consensus and hierarchical push-sum), the serving path of the dense GQA models (Qwen3-8B) and of RWKV6 (RWKV6-1.6B),
 and decentralized robust training (paper_sim).
 
 Phases (any failure raises and the script exits non-zero):
@@ -39,14 +39,33 @@ Phases (any failure raises and the script exits non-zero):
              the card (normal-agent accuracy 1.0), and the sparse kernel
              path against the port's dense oracle on 4x7 complete networks
              for every attack;
+6a. K1 at D = 5 — the Algorithm 1 engines' width (d = 4 values and the
+             mass), on the edge-tiled kernel's scalar-row path, at both
+             full shapes: rho_new bit-equal, recv bit-equal to the float32
+             edge-order sum;
+6b. hps main — run_hps_runtime at N = 131,072 (16,384 complete 8-agent
+             networks, benchmarks/hps_bench.py's step set-up), Γ 8, B 4,
+             drop 0.1, T = 200, store gap, through K1 and again through the
+             plain path; K1 launches T times, all tiled, the plain path
+             none; mass conserved, the gap falls, the paths agree;
+6c. pushsum main — run_pushsum_sparse on benchmarks/pushsum_sweep.py's
+             random strongly connected graph (N = 131,072, ~393,000
+             links), drop 0.2, B 4, T = 200, kernels and plain; K1 launches
+             T times; the value and mass invariants hold, the paths agree;
+6d. theorem 1 — benchmarks/hps_bench.py's six consensus scenarios, each
+             gap curve through the kernels against the plain path, and
+             tests/test_hps_engine.py's envelope (16 runs on 2x4 complete
+             networks) under theorem1_bound;
 7. timing  — K1-K3 three ways (device time with the host's enqueueing
              hidden, the JSON time; the kernel alone under the profiler;
              host-inclusive), K1's column walk beside its edge-tiled kernel,
              K3 with materialized lies and at deg_max 16, 32 and 64, and K1
              at pushsum_sparse's shape (8 workers x 2^24 + 1 columns), their
-             plain versions; CUDA-event medians of one
-             step of each main path at N = 16,384 and 131,072; profiler
-             breakdowns of the full-size steps;
+             plain versions; K1 at D = 5 at the HPS and push-sum shapes
+             three ways, beside its plain version, its bound and a device
+             copy of the same bytes; CUDA-event medians of one step of each
+             main path (Alg. 3, Alg. 2, HPS, push-sum) at N = 16,384 and
+             131,072; profiler breakdowns of the full-size steps;
 8. serve kernels — the decode attention (K5: its one-launch tensor-core
              kernel for bf16, split and combine for float32) and the
              prefill attention (K6: its tensor-core kernel for bf16 at head
@@ -516,52 +535,56 @@ def k1_edge_cases(dev):
             yield name, D, (sigma, rho, *as_dev[:3]), as_dev[3]
 
 
-def edge_scatter_checks(dev, args) -> float:
-    """Phase 2's K1 checks. At the engine's shape, on the edge-tiled kernel
-    and on the column walk: rho_new bit-equal to the plain version, recv
-    bit-equal to :func:`edge_order_recv` and within rtol 1e-5 atol 1e-6 of
-    the plain version's ``index_add_`` (whose atomics add in another
-    order); then the same at :func:`k1_edge_cases` on the kernel the
-    wrapper picks and on the column walk, where the hub's run of 1,500
-    increments is held to the plain version within the bound for two
-    orders of one sum, (n - 1) eps32 sum |increments| (2.0e-5 relative
-    measured against ``index_add_``) -> the largest error against the
-    plain version at the main shape."""
+def k1_hold(what, k1, dst, tiled, by_order=False) -> float:
+    """One K1 call on the card held against the plain version: the kernel
+    the wrapper picks (``tiled=None``) or the one asked for; rho_new
+    bit-equal, recv bit-equal to :func:`edge_order_recv` and within rtol
+    1e-5 atol 1e-6 of the plain version's ``index_add_`` (with
+    ``by_order``, within the bound for two orders of one sum, (n - 1)
+    eps32 sum |increments|) -> the largest error against the plain
+    version."""
     import torch
     from repro_torch.kernels.pushsum_edge import (edge_scatter_cuda,
                                                   edge_scatter_ref)
     from repro_torch.kernels.pushsum_edge.ops import TILED_D_MAX
+    before = edge_scatter_cuda.launches_tiled
+    rho_k, recv_k = edge_scatter_cuda(*k1, tiled=tiled)
+    rho_p, recv_p = edge_scatter_ref(*k1[:4], dst)
+    want = edge_order_recv(rho_p, k1[1], k1[4])
+    torch.cuda.synchronize()
+    on_tiled = k1[0].shape[1] <= TILED_D_MAX if tiled is None else tiled
+    require(edge_scatter_cuda.launches_tiled - before == int(on_tiled),
+            f"edge_scatter {what}: the kernel the wrapper picks")
+    require(torch.equal(rho_k, rho_p), f"edge_scatter {what}: rho_new "
+            f"bit-equal")
+    require(torch.equal(recv_k, want), f"edge_scatter {what}: recv "
+            f"bit-equal to the float32 edge-order sum")
+    tol = 1e-5 * recv_p.abs() + 1e-6
+    if by_order:
+        deg = (k1[4][1:] - k1[4][:-1]).float()[:, None]
+        tol = torch.maximum(tol, (deg - 1).clamp_min(0) * EPS32
+                            * torch.zeros_like(recv_p).index_add_(
+                                0, dst, (rho_p - k1[1]).abs()))
+    require(bool(((recv_k - recv_p).abs() <= tol).all()),
+            f"edge_scatter {what}: recv against the plain version")
+    return (recv_k - recv_p).abs().max().item()
 
-    def hold(what, k1, dst, tiled, by_order=False):
-        before = edge_scatter_cuda.launches_tiled
-        rho_k, recv_k = edge_scatter_cuda(*k1, tiled=tiled)
-        rho_p, recv_p = edge_scatter_ref(*k1[:4], dst)
-        want = edge_order_recv(rho_p, k1[1], k1[4])
-        torch.cuda.synchronize()
-        on_tiled = k1[0].shape[1] <= TILED_D_MAX if tiled is None else tiled
-        require(edge_scatter_cuda.launches_tiled - before == int(on_tiled),
-                f"edge_scatter {what}: the kernel the wrapper picks")
-        require(torch.equal(rho_k, rho_p), f"edge_scatter {what}: rho_new "
-                f"bit-equal")
-        require(torch.equal(recv_k, want), f"edge_scatter {what}: recv "
-                f"bit-equal to the float32 edge-order sum")
-        tol = 1e-5 * recv_p.abs() + 1e-6
-        if by_order:
-            deg = (k1[4][1:] - k1[4][:-1]).float()[:, None]
-            tol = torch.maximum(tol, (deg - 1).clamp_min(0) * EPS32
-                                * torch.zeros_like(recv_p).index_add_(
-                                    0, dst, (rho_p - k1[1]).abs()))
-        require(bool(((recv_k - recv_p).abs() <= tol).all()),
-                f"edge_scatter {what}: recv against the plain version")
-        return (recv_k - recv_p).abs().max().item()
 
-    err = max(hold(f"main shape tiled={t}", args["k1"], args["dst"], t)
+def edge_scatter_checks(dev, args) -> float:
+    """Phase 2's K1 checks (:func:`k1_hold`). At the engine's shape, on the
+    edge-tiled kernel and on the column walk; then at
+    :func:`k1_edge_cases` on the kernel the wrapper picks and on the
+    column walk, where the hub's run of 1,500 increments is held to the
+    plain version within the order bound (2.0e-5 relative measured against
+    ``index_add_``) -> the largest error against the plain version at the
+    main shape."""
+    err = max(k1_hold(f"main shape tiled={t}", args["k1"], args["dst"], t)
               for t in (True, False))
     n_cases = 0
     for name, D, k1, dst in k1_edge_cases(dev):
         for tiled in (None, False):
-            hold(f"{name} D={D} tiled={tiled}", k1, dst, tiled,
-                 by_order=name == "hub")
+            k1_hold(f"{name} D={D} tiled={tiled}", k1, dst, tiled,
+                    by_order=name == "hub")
             n_cases += 1
     log(f"[kernels] edge_scatter: rho_new bit-equal, recv bit-equal to the "
         f"float32 edge-order sum on the edge-tiled kernel and the column "
@@ -871,6 +894,346 @@ def k1_sparse_times(dev, flush) -> dict:
     return t
 
 
+# ---------------------------------------------------------------------------
+# Algorithm 1: the push-sum consensus engine and the hierarchical push-sum
+# (HPS) engine, the consensus half of every round through K1 at D = 5
+# ---------------------------------------------------------------------------
+
+A1_D = 4                       # values an agent carries in both engines
+# kernel against plain path (phases 6b-6d). The two paths add each
+# receiver's increments in other orders (the kernel in edge order,
+# index_add_ with atomics), about one ulp of the sum a round; that can flip
+# the rounding of a cumulative relay counter, a displacement of one counter
+# ulp that stays in the system and moves the receiver's ratio z / m by that
+# ulp over its mass ("a round" below, at the median mass). The flips have
+# random signs and the gossip averages them, so T rounds move a ratio by
+# about sqrt(T) of that; a fault of K1 (a lost or doubled increment) moves
+# it by O(1). Limit: 1e-2 absolute on the ratios and the gap curves. On
+# the random graph a few agents hear one sender of many out-links and hold
+# masses down to ~1e-6, where one counter ulp over the mass exceeds the
+# limit with no fault: their ratios are held where m >= A1_MASS_FLOOR, and
+# every agent's (z, m) to the same 1e-2.
+A1_LIMIT = 1e-2
+A1_MASS_FLOOR = 1e-3
+
+
+def hps_scenario(n_agents: int):
+    """benchmarks/hps_bench.py's step set-up (:65-74): N/8 complete 8-agent
+    networks built with no (N, N) array, drop 0.1, fusion every 8 rounds,
+    B = 4, w from default_rng(1) -> (HPSRuntime, w (N, 4) float32)."""
+    from repro_torch.core import hier_edge_list, hps_runtime_from_edge_list
+    el, rep_mask = hier_edge_list([8] * (n_agents // 8), topology="complete")
+    rt = hps_runtime_from_edge_list(el, rep_mask, drop_prob=0.1,
+                                    gamma_period=8, B=4)
+    w = np.random.default_rng(1).normal(size=(n_agents, A1_D))
+    return rt, w.astype(np.float32)
+
+
+def pushsum_scenario(n_agents: int):
+    """benchmarks/pushsum_sweep.py's graph (:128-134): a Hamiltonian cycle
+    plus 2N random extra edges, dst-sorted, and w drawn after it from the
+    same default_rng(0) -> (EdgeList, w (N, 4) float32)."""
+    from repro_torch.core import random_strongly_connected_edge_list
+    rng = np.random.default_rng(0)
+    el = random_strongly_connected_edge_list(n_agents, 2.0, rng)
+    return el, rng.normal(size=(n_agents, A1_D)).astype(np.float32)
+
+
+def hold_a1(what: str, pairs: dict, state, T: int) -> None:
+    """Kernel-path tensors against plain-path ones within ``A1_LIMIT``:
+    ``pairs`` maps a name to (kernel, plain) or (kernel, plain, rows held);
+    ``state`` is the kernel run's final state."""
+    counter = max(state.sigma_zm.abs().max().item(),
+                  state.rho_zm.abs().max().item())
+    fig = (float(np.spacing(np.float32(counter)))
+           / state.m.median().item())
+    msg = []
+    for name, (a, b, *rows) in pairs.items():
+        diff = (a - b).abs().reshape(a.shape[0], -1).amax(dim=1)
+        held = diff if not rows else diff[rows[0]]
+        gap = held.max().item()
+        msg.append(f"{name} {gap:.3e}" + (
+            f" (m >= {A1_MASS_FLOOR}: {held.numel()} of {diff.numel()}; "
+            f"all {diff.max().item():.3e})" if rows else ""))
+        require(gap <= A1_LIMIT, f"{what}: {name} within {A1_LIMIT} of the "
+                f"plain path")
+    log(f"[{what}] kernel vs plain, max gap: " + ", ".join(msg)
+        + f"; largest relay counter {counter:.1f}, a round {fig:.3e}, "
+        f"sqrt(T) of it {fig * T ** 0.5:.3e}; limit {A1_LIMIT}")
+
+
+def k1_d5_args(dev, src, offsets, dst, seed: int):
+    """K1's inputs at D = 5 over an engine's dst-sorted index: sigma and
+    rho normal, 0.9 of the links live -> (the CUDA wrapper's arguments,
+    dst for the plain version)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    N, E = offsets.shape[0] - 1, src.shape[0]
+    sigma = torch.randn((N, A1_D + 1), generator=g, device=dev)
+    rho = torch.randn((E, A1_D + 1), generator=g, device=dev)
+    live = torch.rand(E, generator=g, device=dev) < 0.9
+    return (sigma, rho, live, src, offsets), dst
+
+
+def algorithm1_phases(dev) -> dict:
+    """Phases 6a-6d -> K1's D = 5 inputs at both full shapes (``k1``: name
+    -> (args, dst)), its largest error there, and its launches on the HPS
+    and push-sum main paths."""
+    import torch
+    from repro_torch.core import (ExecutionPlan, run_hps_runtime,
+                                  run_pushsum_sparse, sparse_mass_invariant)
+    from repro_torch.kernels.pushsum_edge import dst_offsets
+    out = {"k1": {}}
+    N, T = N_FULL, T_MAIN
+
+    # ---- phase 6a: K1 at D = 5 against its plain version -----------------
+    hrt, hw = hps_scenario(N)
+    hrt = hrt.to(dev)
+    el, pw = pushsum_scenario(N)
+    src, dst = (torch.from_numpy(a).to(dev) for a in (el.src, el.dst))
+    offsets = dst_offsets(dst, N)
+    out["k1"]["hps"] = k1_d5_args(dev, hrt.src, hrt.offsets, hrt.dst, 7)
+    out["k1"]["pushsum"] = k1_d5_args(dev, src, offsets, dst, 8)
+    indeg = np.bincount(el.dst, minlength=N)
+    out["k1_err"] = max(k1_hold(f"D=5 {name} shape", k1, d, None)
+                        for name, (k1, d) in out["k1"].items())
+    log(f"[a1 kernels] edge_scatter at D=5 (its scalar-row tiled kernel): "
+        f"rho_new bit-equal, recv bit-equal to the float32 edge-order sum "
+        f"at the HPS shape (N={N}, E={hrt.src.shape[0]}, in-degree 7) and "
+        f"the push-sum shape (E={el.E}, in-degree 1..{indeg.max()}, mean "
+        f"{indeg.mean():.2f}); max_abs_err against index_add_ "
+        f"{out['k1_err']:.3e}")
+
+    # ---- phase 6b: the HPS main path at full size ------------------------
+    plan_k = ExecutionPlan(store="gap", dst_sorted=True)
+    hw_d = torch.from_numpy(hw).to(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    res_k = run_hps_runtime(hw_d, hrt, T, seed=0, plan=plan_k)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    log(f"[hps main] N={N} E={hrt.src.shape[0]} M={hrt.M.item()} T={T}, "
+        f"Γ 8, B 4, drop 0.1, store gap: kernels {wall:.2f} s, launches "
+        f"{counts}")
+    require(counts == _only(edge_scatter=T, edge_scatter_tiled=T),
+            "HPS main: K1 launched T times, all on its edge-tiled kernel")
+    out["hps_launches"] = counts["edge_scatter"]
+    res_p = run_hps_runtime(hw_d, hrt, T, seed=0,
+                            plan=plan_k.replace(backend="torch"))
+    torch.cuda.synchronize()
+    require(_counts() == counts, "HPS main: the plain path launched no "
+            "kernel")
+    require(res_k.ratio.shape == (N, A1_D) and res_k.gap.shape == (T,),
+            "HPS main: result shapes")
+    require(bool(torch.isfinite(res_k.ratio).all())
+            and bool(torch.isfinite(res_k.gap).all()), "HPS main: finite")
+    inv = sparse_mass_invariant(res_k.final_state, hrt.src, hrt.valid)
+    require(abs(inv[-1].item() - N) <= 1e-4 * N, "HPS main: mass conserved")
+    hold_a1("hps main", {"ratio": (res_k.ratio, res_p.ratio),
+                         "gap curve": (res_k.gap, res_p.gap)},
+            res_k.final_state, T)
+    g = res_k.gap
+    log(f"[hps main] gap after rounds 1/50/100/200: {g[0].item():.4f} "
+        f"{g[49].item():.4f} {g[99].item():.4f} {g[-1].item():.4f}; "
+        f"total mass {inv[-1].item():.3f}; value invariant off sum(w) by "
+        f"{(inv[:-1] - hw_d.sum(0)).abs().max().item():.3e}")
+    # 16,384 networks meet only through one representative each, which
+    # hands half of its 1/8 share to the pool every Γ rounds: the networks'
+    # means converge slowly, so the gap falls by about a quarter in T
+    require(g[-1].item() < g[99].item() < g[49].item() < g[0].item(),
+            "HPS main: the gap falls")
+
+    # ---- phase 6c: the push-sum main path at full size -------------------
+    plan_k = ExecutionPlan(dst_sorted=True)
+    pw_d = torch.from_numpy(pw).to(dev)
+    ps_args = dict(drop_prob=0.2, B=4, record_every=T)
+    _zero_counts()
+    t0 = time.perf_counter()
+    fin_k, traj_k = run_pushsum_sparse(pw_d, src, dst, T, plan=plan_k,
+                                       **ps_args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    log(f"[pushsum main] N={N} E={el.E} largest in-degree {indeg.max()} "
+        f"T={T}, drop 0.2, B 4, record_every T: kernels {wall:.2f} s, "
+        f"launches {counts}")
+    require(counts == _only(edge_scatter=T, edge_scatter_tiled=T),
+            "push-sum main: K1 launched T times, all on its edge-tiled "
+            "kernel")
+    out["pushsum_launches"] = counts["edge_scatter"]
+    fin_p, traj_p = run_pushsum_sparse(pw_d, src, dst, T,
+                                       plan=plan_k.replace(backend="torch"),
+                                       **ps_args)
+    torch.cuda.synchronize()
+    require(_counts() == counts, "push-sum main: the plain path launched "
+            "no kernel")
+    require(traj_k.shape == (1, N, A1_D)
+            and bool(torch.isfinite(traj_k).all()), "push-sum main: one "
+            "finite frame")
+    inv = sparse_mass_invariant(fin_k, src, torch.ones_like(src,
+                                                            dtype=torch.bool))
+    w_sum = pw_d.sum(0)
+    value_tol = 1e-4 * pw_d.abs().sum(0)
+    require(bool(((inv[:-1] - w_sum).abs() <= value_tol).all()),
+            "push-sum main: the value invariant holds against sum(w)")
+    require(abs(inv[-1].item() - N) <= 1e-4 * N, "push-sum main: mass "
+            "conserved")
+    hold_a1("pushsum main", {
+        "final frame": (traj_k[-1], traj_p[-1], fin_k.m >= A1_MASS_FLOOR),
+        "final (z, m)": (fin_k.zm, fin_p.zm)}, fin_k, T)
+    spread = (traj_k[-1] - pw_d.mean(0)).abs().max().item()
+    log(f"[pushsum main] invariant off sum(w) by "
+        f"{(inv[:-1] - w_sum).abs().max().item():.3e} (limit 1e-4 sum|w|, "
+        f"{value_tol.min().item():.2f}); total mass {inv[-1].item():.3f}; "
+        f"worst |ratio - mean(w)| at T {spread:.4e} (at 0: "
+        f"{(pw_d - pw_d.mean(0)).abs().max().item():.3f})")
+
+    # ---- phase 6d: Theorem 1 on the card ---------------------------------
+    theorem1_phase(dev)
+    return out
+
+
+def theorem1_phase(dev) -> None:
+    """benchmarks/hps_bench.py's six consensus scenarios (:33-62) through
+    the kernels and the plain path, each gap curve held within A1_LIMIT;
+    then tests/test_hps_engine.py's envelope (:452-497) per configuration,
+    every gap at or below theorem1_bound + 1e-6."""
+    import torch
+    from repro_torch.core import (ExecutionPlan, HPSConfig, make_hierarchy,
+                                  run_hps, theorem1_bound)
+    rng = np.random.default_rng(0)
+    gap_plan = ExecutionPlan(store="gap")
+
+    def curves(sizes, gamma, B, drop, T, topology="complete"):
+        topo = make_hierarchy(sizes, topology=topology, seed=0)
+        w = rng.normal(size=(topo.N, 4)).astype(np.float32)
+        cfg = HPSConfig(topo=topo, gamma_period=gamma, B=B, drop_prob=drop)
+        _zero_counts()
+        k = run_hps(w, cfg, T, seed=0, plan=gap_plan)
+        torch.cuda.synchronize()
+        require(_counts() == _only(edge_scatter=T, edge_scatter_tiled=T),
+                f"theorem 1 {sizes}: K1 launched T times")
+        p = run_hps(w, cfg, T, seed=0, plan=gap_plan.replace(
+            backend="torch"))
+        err = (k.gap - p.gap).abs().max().item()
+        require(err <= A1_LIMIT, f"theorem 1 {sizes} B={B}: gap curve "
+                f"within {A1_LIMIT} of the plain path")
+        return k.gap.cpu().numpy(), err
+
+    for B in (1, 2, 8):
+        g, err = curves([6, 6, 6], 8, B, 0.7, 600)
+        log(f"[theorem1] hps_consensus_B{B} (3x6 complete, drop 0.7, Γ 8): "
+            f"err_t300 {g[300]:.3e}; kernel vs plain {err:.2e}")
+    for sizes in ([24], [12, 12], [6, 6, 6, 6]):
+        g, err = curves(sizes, 4, 2, 0.2, 900, topology="ring")
+        log(f"[theorem1] hps_consensus_ringM{len(sizes)} (N=24 rings, drop "
+            f"0.2, Γ 4, B 2): err_t600 {g[600]:.3e}; kernel vs plain "
+            f"{err:.2e}")
+    g, err = curves([6, 6, 6], 4, 1, 0.1, 600)
+    log(f"[theorem1] hps_decay_checkpoints: err(100;200;400) "
+        f"{g[100]:.1e};{g[200]:.1e};{g[400]:.1e}; kernel vs plain "
+        f"{err:.2e}")
+
+    topo = make_hierarchy([4, 4], topology="complete", seed=5)
+    w = np.random.default_rng(3).normal(size=(topo.N, 2)).astype(np.float32)
+    worst, n_runs = -np.inf, 0
+    for gamma in (2, 4):
+        for drop in (0.0, 0.3):
+            for B in (1, 2):
+                cfg = HPSConfig(topo=topo, gamma_period=gamma, B=B,
+                                drop_prob=drop)
+                bound_t = np.asarray([theorem1_bound(cfg, w, t)
+                                      for t in range(300)])
+                for seed in (0, 1):
+                    gap = run_hps(w, cfg, 300, seed=seed,
+                                  plan=gap_plan).gap.cpu().numpy()
+                    require(bool((gap <= bound_t + 1e-6).all()),
+                            f"theorem 1 envelope Γ={gamma} drop={drop} "
+                            f"B={B} seed={seed}")
+                    worst = max(worst, float((gap - bound_t).max()))
+                    n_runs += 1
+    log(f"[theorem1] envelope on 2x4 complete: {n_runs} runs (Γ 2/4 x drop "
+        f"0/0.3 x B 1/2 x seeds 0/1, T 300) through the kernels, every gap "
+        f"under theorem1_bound + 1e-6; worst gap - bound {worst:.3e}")
+
+
+def k1_d5_times(flush, k1_shapes: dict, d4_ms: float) -> dict:
+    """K1 at D = 5 at the HPS and push-sum shapes: :func:`three_ways`, the
+    plain version (host-inclusive), the byte bound and a device copy of
+    the same bytes (half read, half written), the L2 flushed before each
+    run -> name -> timings."""
+    import torch
+    from repro_torch.kernels.pushsum_edge import (edge_scatter_cuda,
+                                                  edge_scatter_ref)
+    out = {}
+    for name, (k1, dst) in k1_shapes.items():
+        E, D = k1[1].shape
+        outs = edge_scatter_cuda(*k1)
+        moved = nbytes(*k1, *outs)
+        t = three_ways(lambda k1=k1: edge_scatter_cuda(*k1), TIMED_RUNS,
+                       flush)
+        t["plain_ms"] = event_ms(
+            lambda k1=k1, dst=dst: edge_scatter_ref(*k1[:4], dst),
+            TIMED_RUNS, flush)
+        t["bound_ms"], t["bound_by"] = bound(moved, 2 * E * D)
+        a = torch.ones(moved // 8, device=k1[0].device)
+        b = torch.empty_like(a)
+        t["copy_ms"] = event_ms(lambda a=a, b=b: b.copy_(a), TIMED_RUNS,
+                                flush, hide_host=True)
+        t.update(E=E, D=D, mb=moved / 1e6)
+        out[name] = t
+        log(f"[timing] edge_scatter D=5 at the {name} shape (E={E}, "
+            f"{moved / 1e6:.2f} MB): device {t['ms']:.5f} ms with the host "
+            f"hidden, kernel alone {t['kernel_ms']}, host-inclusive "
+            f"{t['host_inclusive_ms']:.5f}; plain {t['plain_ms']:.5f}; bound "
+            f"{t['bound_ms']:.5f} ({t['bound_by']}); a device copy of the "
+            f"same bytes {t['copy_ms']:.5f}; D=4 at the Alg. 3 shape in this "
+            f"call {d4_ms:.5f}; medians of {TIMED_RUNS}, L2 flushed")
+    return out
+
+
+def algorithm1_step_timing(dev) -> None:
+    """Milliseconds per step of both Algorithm 1 engines at N = 16,384 and
+    131,072, kernel and plain path (median of STEP_RUNS runs of STEP_T
+    steps; HPS store final, push-sum one frame at the end), and profiles
+    of the full-size kernel-path steps."""
+    import torch
+    from repro_torch.core import (ExecutionPlan, run_hps_runtime,
+                                  run_pushsum_sparse)
+    for n_agents in (N_SMALL, N_FULL):
+        rt, w = hps_scenario(n_agents)
+        rt, w = rt.to(dev), torch.from_numpy(w).to(dev)
+        el, pw = pushsum_scenario(n_agents)
+        src, dst, pw = (torch.from_numpy(a).to(dev)
+                        for a in (el.src, el.dst, pw))
+        runs = {}
+        for backend in ("auto", "torch"):
+            hplan = ExecutionPlan(backend=backend, store="final",
+                                  dst_sorted=True)
+            pplan = ExecutionPlan(backend=backend, dst_sorted=True)
+            runs[("hps", backend)] = (
+                lambda T=STEP_T, plan=hplan: run_hps_runtime(
+                    w, rt, T, seed=0, plan=plan))
+            runs[("pushsum", backend)] = (
+                lambda T=STEP_T, plan=pplan: run_pushsum_sparse(
+                    pw, src, dst, T, drop_prob=0.2, B=4, record_every=T,
+                    plan=plan))
+        ms = {}
+        for key, run in runs.items():
+            run()
+            ms[key] = event_ms(run, STEP_RUNS) / STEP_T
+        for engine in ("hps", "pushsum"):
+            log(f"[timing] {engine} step at N={n_agents}: kernel "
+                f"{ms[(engine, 'auto')]:.4f} ms, plain "
+                f"{ms[(engine, 'torch')]:.4f} ms (median of {STEP_RUNS} runs "
+                f"of {STEP_T} steps)")
+        if n_agents == N_FULL:
+            for engine in ("hps", "pushsum"):
+                profile_step(runs[(engine, "auto")], f"{engine} N={n_agents}",
+                             ms[(engine, "auto")])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1049,6 +1412,9 @@ def main() -> int:
     # ---- phase 6: Byzantine oracle scenarios ------------------------------
     byzantine_oracles(dev)
 
+    # ---- phases 6a-6d: Algorithm 1, push-sum and HPS, through K1 ----------
+    a1 = algorithm1_phases(dev)
+
     # ---- phase 7: timing ------------------------------------------------
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
@@ -1059,6 +1425,8 @@ def main() -> int:
     kt["byz_trim"]["widths"] = k3_width_times(dev, flush)
     kt["edge_scatter"].update({f"pushsum_sparse_{k}": v for k, v in
                                k1_sparse_times(dev, flush).items()})
+    kt["edge_scatter"]["d5"] = k1_d5_times(flush, a1["k1"],
+                                           kt["edge_scatter"]["ms"])
     step_ms, cells = {}, {}
     for n_agents in (N_SMALL, N_FULL):
         smodel, srt, sM = (model, rt, M) if n_agents == N_FULL \
@@ -1087,12 +1455,16 @@ def main() -> int:
                     store="final", dst_sorted=True)),
             f"social N={n_agents}", step_ms[(n_agents, "auto")])
     byzantine_step_timing(bmodel, bsetup, battack, dev)
+    algorithm1_step_timing(dev)
 
     kernels = [
         {"name": "edge_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/edge_scatter.cu",
          "replaces": "src/repro/kernels/pushsum_edge/pushsum_edge.py:114",
-         "launches": launches["edge_scatter"], "max_abs_err": k1_err,
+         "launches": launches["edge_scatter"],
+         "launches_hps": a1["hps_launches"],
+         "launches_pushsum": a1["pushsum_launches"],
+         "max_abs_err": k1_err, "d5_max_abs_err": a1["k1_err"],
          **kt["edge_scatter"]},
         {"name": "social_innov", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/social_innov.cu",

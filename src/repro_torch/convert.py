@@ -19,12 +19,14 @@ import torch
 
 from .core.byzantine import ByzRuntime
 from .core.graphs import EdgeList
-from .core.pushsum import SparsePushSumState
+from .core.hps import HPSRuntime, hps_runtime_from_edge_list
+from .core.pushsum import PushSumState, SparsePushSumState
 from .core.signals import SignalModel
 from .core.social import SocialRuntime, social_runtime_from_edge_list
 
 __all__ = ["signal_model_from_numpy", "social_runtime_from_numpy",
-           "sparse_state_from_numpy", "byz_runtime_from_numpy",
+           "hps_runtime_from_numpy", "sparse_state_from_numpy",
+           "dense_state_from_numpy", "byz_runtime_from_numpy",
            "params_from_jax", "train_state_from_jax", "tree_to_numpy"]
 
 
@@ -44,6 +46,24 @@ def social_runtime_from_numpy(src, dst, valid, rep_mask, drop_prob, gamma,
     return social_runtime_from_edge_list(
         el, rep_mask, drop_prob=float(drop_prob),
         gamma_period=int(gamma), B=int(B))
+
+
+def hps_runtime_from_numpy(src, dst, valid, rep_mask, drop_prob, gamma, B,
+                           M) -> HPSRuntime:
+    """The eight leaves of a reference ``HPSRuntime``, as numpy values; the
+    port's hoisted CSR offsets are computed from them."""
+    rep_mask = np.asarray(rep_mask, bool)
+    el = EdgeList(src=np.asarray(src, np.int32), dst=np.asarray(dst, np.int32),
+                  n=rep_mask.shape[0], valid=np.asarray(valid, bool))
+    return hps_runtime_from_edge_list(
+        el, rep_mask, drop_prob=float(drop_prob), gamma_period=int(gamma),
+        B=int(B), M=int(M))
+
+
+def dense_state_from_numpy(z, m, sigma, sigma_m, rho, rho_m) -> PushSumState:
+    """The six fields of a reference dense ``PushSumState``."""
+    return PushSumState(*(torch.tensor(np.asarray(a), dtype=torch.float32)
+                          for a in (z, m, sigma, sigma_m, rho, rho_m)))
 
 
 def sparse_state_from_numpy(z, m, sigma, sigma_m, rho,

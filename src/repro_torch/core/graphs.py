@@ -26,6 +26,9 @@ __all__ = [
     "complete",
     "random_strongly_connected",
     "is_strongly_connected",
+    "diameter",
+    "has_single_source_component",
+    "beta_i",
     "HierTopology",
     "make_hierarchy",
     "EdgeList",
@@ -42,6 +45,8 @@ __all__ = [
     "NeighborList",
     "neighbor_lists",
     "edge_neighbor_lists",
+    "edge_masks",
+    "link_schedule",
 ]
 
 
@@ -102,6 +107,18 @@ def is_strongly_connected(adj: np.ndarray) -> bool:
     if n == 0:
         return False
     return bool(_reach(adj, 0).all() and _reach(adj.T, 0).all())
+
+
+def diameter(adj: np.ndarray) -> int:
+    """Diameter of a strongly connected digraph (max shortest-path length)."""
+    n = adj.shape[0]
+    dist = np.where(adj, 1, np.inf)
+    np.fill_diagonal(dist, 0)
+    for k in range(n):  # Floyd–Warshall; n is small in all our sims
+        dist = np.minimum(dist, dist[:, k : k + 1] + dist[k : k + 1, :])
+    if np.isinf(dist).any():
+        raise ValueError("graph is not strongly connected")
+    return int(dist.max())
 
 
 def strongly_connected_components(adj: np.ndarray) -> list[list[int]]:
@@ -167,6 +184,10 @@ def source_components(adj: np.ndarray) -> list[list[int]]:
         if cu != cv:
             has_in[cv] = True
     return [comps[ci] for ci in range(len(comps)) if not has_in[ci]]
+
+
+def has_single_source_component(adj: np.ndarray) -> bool:
+    return len(source_components(adj)) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +268,12 @@ def check_assumption3(
     return True
 
 
+def beta_i(adj: np.ndarray) -> float:
+    """beta_i = 1 / max_j (d_j + 1)^2 — the per-network contraction constant."""
+    d_out = adj.sum(axis=1)
+    return 1.0 / float((d_out.max() + 1) ** 2)
+
+
 # ---------------------------------------------------------------------------
 # Hierarchical system
 # ---------------------------------------------------------------------------
@@ -283,6 +310,14 @@ class HierTopology:
     def block(self, i: int) -> np.ndarray:
         off, sz = self.offsets[i], self.sizes[i]
         return self.adj[off : off + sz, off : off + sz]
+
+    def d_star(self) -> int:
+        """D*: the largest sub-network diameter (Theorem 1)."""
+        return max(diameter(self.block(i)) for i in range(self.M))
+
+    def min_beta(self) -> float:
+        """min_i beta_i over the sub-networks (Theorem 1)."""
+        return min(beta_i(self.block(i)) for i in range(self.M))
 
     def rep_mask(self) -> np.ndarray:
         mask = np.zeros(self.N, dtype=bool)
@@ -365,6 +400,14 @@ class EdgeList:
         deg = np.zeros(self.n, dtype=np.int32)
         np.add.at(deg, self.src[self.valid], 1)
         return deg
+
+    def to_dense(self) -> np.ndarray:
+        """(N, N) bool adjacency of the valid edges."""
+        if self.is_batched:
+            raise ValueError("pass one topology draw")
+        adj = np.zeros((self.n, self.n), dtype=bool)
+        adj[self.src[self.valid], self.dst[self.valid]] = True
+        return adj
 
 
 def edge_list(adj: np.ndarray) -> EdgeList:
@@ -604,3 +647,37 @@ def edge_neighbor_lists(el: EdgeList, deg_max: int | None = None
     idx[dst, slot] = src
     valid[dst, slot] = True
     return NeighborList(idx=idx, valid=valid, n=n)
+
+
+def edge_masks(masks: np.ndarray, el: EdgeList) -> np.ndarray:
+    """Project a dense (T, N, N) link schedule onto the edge list -> (T, E),
+    False on padding edges. The sparse<->dense equivalence tests use it;
+    the engines draw (E,) masks per round and never build the schedule."""
+    if el.is_batched:
+        raise ValueError("pass one topology draw")
+    masks = np.asarray(masks)
+    return masks[:, el.src, el.dst] & el.valid[None, :]
+
+
+# ---------------------------------------------------------------------------
+# Packet-drop schedules
+# ---------------------------------------------------------------------------
+
+def link_schedule(
+    adj: np.ndarray,
+    T: int,
+    drop_prob: float,
+    B: int,
+    seed: int = 0,
+) -> np.ndarray:
+    """(T, N, N) bool operational-link masks with guaranteed B-connectivity.
+
+    Each existing link drops packets i.i.d. with ``drop_prob``, but is forced
+    operational at every ``t`` with ``t % B == B - 1`` so the paper's fault
+    model ("operational at least once every B iterations") holds exactly.
+    """
+    rng = np.random.default_rng(seed)
+    up = rng.random((T, *adj.shape)) >= drop_prob
+    t_idx = np.arange(T) % B == B - 1
+    up[t_idx] = True
+    return up & adj[None, :, :]

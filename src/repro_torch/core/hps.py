@@ -1,21 +1,98 @@
-"""Hierarchical push-sum configuration and the parameter-server fusion.
+"""Hierarchical push-sum (HPS) — Algorithm 1 of the paper.
 
-The port of ``repro.core.hps``'s :class:`HPSConfig`, of :func:`hps_fusion`
-on its ``F = 0``, all-reps-alive path — each representative keeps half of
-its (z, m), the parameter server averages the halves over the M networks,
-and pushes the average back (Algorithm 1 lines 13-21); a masked mean that
-needs no kernel — and of :func:`ps_trimmed_pool`, the Byzantine-resilient
-PS reduction of Algorithm 2 (lines 10-22).
+The port of ``repro.core.hps`` on its synchronous, float32, single-device
+path. M sub-networks each run fast robust push-sum in parallel
+(block-diagonal adjacency); every Γ iterations each network's designated
+representative pushes half of its (value, mass) to the parameter server,
+which averages the halves and pushes the average back:
+
+    z_rep <- 1/2 z_rep + 1/(2M) sum_i z_{i0}
+    m_rep <- 1/2 m_rep + 1/(2M) sum_i m_{i0}
+
+Theorem 1: with Γ = B D*, the consensus error decays as ``gamma^(t / 2Γ)``
+with ``gamma = 1 - (1/4M^2) (min_i beta_i)^(2 D* B)``
+(:func:`theorem1_bound`).
+
+The engine (:func:`run_hps_runtime`) runs the consensus half of every
+iteration on the sparse edge-list core
+(:func:`repro_torch.core.pushsum.sparse_pushsum_step`), whose delivery is
+the CUDA edge scatter on the card. The reference's ``lax.scan`` is a
+Python loop over ``t`` that reads nothing back to the host: ``drop_prob``,
+``gamma``, ``B`` and ``M`` are 0-d device tensors of an
+:class:`HPSRuntime`, the fusion round ``(t + 1) % gamma == 0`` is selected
+with ``torch.where``, and the per-round link masks are drawn on the
+``hps_stream_fold(t) = ~t`` fold domain, the reference's bit for bit. The
+share factors, the CSR offsets and the consensus target are hoisted out of
+the loop.
+
+``store`` selects what the loop keeps: ``"trajectory"`` the (T, N, d)
+ratio history, ``"gap"`` one 0-d tensor a round, the worst consensus error
+``max_{j,k} |z_j/m_j - mean(w)|`` (Theorem 1's left side), stacked to (T,)
+after the loop, plus the final ratios, and ``"final"`` the final ratios
+only.
+
+PS-side fusion: ``F = 0`` is the exact Algorithm 1 fusion above (a masked
+mean); ``F > 0`` drops the F largest and F smallest representative
+contributions per coordinate before averaging (:func:`ps_trimmed_pool`),
+the rule Algorithm 2's parameter server reduces through as well. The
+trimmed rule is resilient, not average-preserving.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..kernels.byz_trim.ref import trim_gather_ref
 from .graphs import EdgeList, HierTopology, edge_list, sort_by_dst
+from .plan import ExecutionPlan, resolve_device
+from .prng import Key, prng_key
+from .pushsum import (
+    PushSumState,
+    SparsePushSumState,
+    _frames,
+    _out_degree,
+    edge_index_tensors,
+    init_sparse_state,
+    init_state,
+    pushsum_step,
+    ratios,
+    sparse_pushsum_step,
+    sparse_ratios,
+    step_edge_mask,
+)
 
-__all__ = ["HPSConfig", "hps_fusion", "ps_trimmed_pool"]
+__all__ = [
+    "HPSConfig",
+    "HPSResult",
+    "HPSRuntime",
+    "HPS_STORES",
+    "hps_stream_fold",
+    "ps_trimmed_pool",
+    "hps_fusion",
+    "hps_step",
+    "make_hps_runtime",
+    "hps_runtime_from_edge_list",
+    "run_hps",
+    "run_hps_runtime",
+    "run_hps_dense",
+    "theorem1_bound",
+]
+
+HPS_STORES = ("trajectory", "gap", "final")
+
+
+def hps_stream_fold(t: int) -> int:
+    """Fold-in value of the HPS link-mask stream at iteration ``t``: ``~t``.
+
+    A negative Python int, which :func:`repro_torch.core.prng.fold_in`
+    reinterprets as its uint32 pattern ``2^32 - 1 - t``, as the reference's
+    ``~np.int32(t)`` is: the stream lives at the top of the fold domain,
+    disjoint from the social engine's ``2t + s`` and the Byzantine
+    engine's ``3t + s`` for any horizon below 2^31 / 3."""
+    return ~t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,28 +104,23 @@ class HPSConfig:
     B: int = 1                 # link-reliability window
     drop_prob: float = 0.0     # packet-drop probability per link per round
 
+    def rep_mask(self) -> torch.Tensor:
+        """(N,) bool designated representatives."""
+        return torch.from_numpy(self.topo.rep_mask())
+
+    def adj(self) -> torch.Tensor:
+        """(N, N) bool block-diagonal adjacency."""
+        return torch.from_numpy(np.asarray(self.topo.adj, bool))
+
     def edge_index(self) -> EdgeList:
         """The topology's dst-sorted sparse edge index."""
         el, _, _ = sort_by_dst(edge_list(self.topo.adj))
         return el
 
 
-def hps_fusion(
-    z: torch.Tensor, m: torch.Tensor, rep_mask: torch.Tensor, M: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Apply the fusion at the representatives: ``0.5 * x + pool`` with
-    ``pool = sum_reps x / (2 M)``. Non-representatives are untouched.
-
-    ``M`` is the number of sub-networks (``topo.M``), not a count of the
-    mask, exactly as in the reference."""
-    repf = rep_mask.to(z.dtype)
-    denom = 2.0 * M
-    pooled_z = (z * repf[:, None]).sum(dim=0) / denom
-    pooled_m = (m * repf).sum() / denom
-    z_new = torch.where(rep_mask[:, None], 0.5 * z + pooled_z[None, :], z)
-    m_new = torch.where(rep_mask, 0.5 * m + pooled_m, m)
-    return z_new, m_new
-
+# ---------------------------------------------------------------------------
+# PS-side fusion: one masked-pool reduction for Algorithms 1 and 2
+# ---------------------------------------------------------------------------
 
 def ps_trimmed_pool(
     pool: torch.Tensor,    # (R, *coord) candidate values at the PS
@@ -59,21 +131,297 @@ def ps_trimmed_pool(
 
     Per scalar coordinate independently: drop invalid slots, drop the F
     largest and F smallest of the rest, average the survivors (at least
-    one in the denominator). A masked sort along the pool axis and a rank
-    window, as the reference's single-virtual-receiver lowering through
-    its sort-based trim; the pool holds one row per queried
-    representative, so no kernel is needed.
-
-    ``valid`` is the reference's pool mask, kept for parity with it: the
-    reference clears the rows of churned representatives there. Algorithm
-    2's fusion without faults passes an all-true mask (``deg = R``).
+    one in the denominator). Routed, as in the reference, through the
+    plain trim-gather (:func:`repro_torch.kernels.byz_trim.
+    trim_gather_ref`, with its NaN-canonical sort) as one virtual receiver
+    whose slots are the pool's rows. The pool is Algorithm 2's queried
+    representatives, or Algorithm 1's whole (N, d+1) state masked to the
+    representatives (up to N slots, past K3's 64), once every Γ rounds:
+    it stays plain on every device.
     """
-    r = pool.reshape(pool.shape[0], -1)                    # (R, P)
-    big = torch.finfo(r.dtype).max / 4
-    s = torch.sort(torch.where(valid[:, None], r, big), dim=0).values
-    deg = valid.sum()
-    ranks = torch.arange(r.shape[0], device=r.device)[:, None]
-    keep = (ranks >= F) & (ranks < deg - F)
-    tsum = (s * keep.to(r.dtype)).sum(dim=0)
-    kept = (deg - 2 * F).clamp_min(0).to(r.dtype)
-    return (tsum / kept.clamp_min(1.0)).reshape(pool.shape[1:])
+    R = pool.shape[0]
+    r = pool.reshape(R, -1)                                # (R, P)
+    tsum, kept = trim_gather_ref(
+        r,
+        torch.arange(R, dtype=torch.int32, device=r.device)[None, :],
+        valid[None, :],
+        r.new_zeros(()).expand(1, *r.shape),               # no substitution
+        torch.zeros((1, R), dtype=torch.bool, device=r.device),
+        F,
+    )
+    return (tsum[0] / kept[0].clamp_min(1.0)).reshape(pool.shape[1:])
+
+
+def _fuse(zm: torch.Tensor, rep_mask: torch.Tensor, M,
+          F: int = 0) -> torch.Tensor:
+    """The fusion on the joint (N, d+1) value-and-mass state: each
+    representative keeps half and adds the pooled halves."""
+    if F == 0:
+        pooled = (zm * rep_mask.to(zm.dtype)[:, None]).sum(dim=0) / (2.0 * M)
+    else:
+        pooled = 0.5 * ps_trimmed_pool(zm, rep_mask, F)
+    return torch.where(rep_mask[:, None], 0.5 * zm + pooled[None, :], zm)
+
+
+def hps_fusion(
+    z: torch.Tensor, m: torch.Tensor, rep_mask: torch.Tensor, M, F: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Apply the hierarchical fusion at the representatives; the others
+    are untouched.
+
+    ``F = 0``: ``0.5 * x + sum_reps x / (2 M)``, lines 13-21 of Algorithm
+    1. ``M`` is the number of sub-networks (``topo.M``, a Python int or a
+    0-d tensor on the state's device), not a count of the mask, exactly as
+    in the reference. ``F > 0``: ``0.5 * x + 0.5 * ps_trimmed_pool(...)``
+    over the representatives' (z, m) rows, which needs ``M >= 2F + 1``
+    and is not average-preserving."""
+    zm = _fuse(torch.cat([z, m[:, None]], dim=1), rep_mask, M, F)
+    return zm[:, :-1], zm[:, -1]
+
+
+def hps_step(
+    state: PushSumState,
+    mask: torch.Tensor,
+    adj: torch.Tensor,
+    rep_mask: torch.Tensor,
+    M: int,
+    do_fusion,             # bool or 0-d bool tensor — (t + 1) % Γ == 0
+) -> PushSumState:
+    """One dense HPS iteration: robust push-sum, then (where ``do_fusion``)
+    the PS fusion. The (N, N)-mask step :func:`run_hps_dense` runs."""
+    st = pushsum_step(state, mask, adj)
+    z_f, m_f = hps_fusion(st.z, st.m, rep_mask, M)
+    do = torch.as_tensor(do_fusion, device=st.z.device)
+    return st._replace(z=torch.where(do, z_f, st.z),
+                       m=torch.where(do, m_f, st.m))
+
+
+# ---------------------------------------------------------------------------
+# Runtime: the per-scenario tensors of one (topology, M, Γ, drop, B) config
+# ---------------------------------------------------------------------------
+
+class HPSResult(NamedTuple):
+    """Engine output; shapes depend on the store.
+
+    ``"trajectory"``: ``ratio`` (T, N, d) and ``gap`` (T,), derived after
+    the loop. ``"gap"``: ``ratio`` the final (N, d) and ``gap`` the (T,)
+    curve reduced each round. ``"final"``: ``ratio`` (N, d) and the final
+    0-d ``gap``.
+    """
+
+    ratio: torch.Tensor
+    final_state: SparsePushSumState
+    gap: torch.Tensor
+
+
+class HPSRuntime(NamedTuple):
+    """Everything the loop reads that can vary per scenario, as tensors.
+
+    ``offsets`` is the hoisted (N+1,) int32 CSR offsets of ``dst`` for the
+    CUDA edge scatter, or ``None`` when the index is not dst-sorted (the
+    CUDA route then raises). ``M`` is the topology's sub-network count, the
+    fusion weight's ``1 / 2M``."""
+
+    src: torch.Tensor             # (E,) int32 sender per edge
+    dst: torch.Tensor             # (E,) int32 receiver per edge
+    valid: torch.Tensor           # (E,) bool — False on padding edges
+    offsets: torch.Tensor | None  # (N+1,) int32 CSR offsets of dst
+    rep_mask: torch.Tensor        # (N,) bool — designated representatives
+    drop_prob: torch.Tensor       # () f32 per-link packet-drop probability
+    gamma: torch.Tensor           # () i32 PS fusion period
+    B: torch.Tensor               # () i32 link-reliability window
+    M: torch.Tensor               # () i32 sub-network count
+
+    def to(self, device) -> "HPSRuntime":
+        return HPSRuntime(*(None if x is None else x.to(device)
+                            for x in self))
+
+
+def hps_runtime_from_edge_list(
+    el: EdgeList,
+    rep_mask: np.ndarray,
+    *,
+    drop_prob: float,
+    gamma_period: int,
+    B: int = 1,
+    M: int | None = None,
+    e_max: int | None = None,
+) -> HPSRuntime:
+    """Build an :class:`HPSRuntime` (CPU tensors) from a sparse edge index,
+    with no (N, N) array (pair with :func:`graphs.hier_edge_list`).
+
+    ``M`` defaults to the representative count; ``e_max`` pads the edge
+    axis with inert ``valid=False`` edges whose ``dst = N - 1``, which keeps
+    a sorted layout sorted. The CSR offsets are computed here, once, when
+    the index is dst-sorted."""
+    rep_mask = np.asarray(rep_mask, bool)
+    return HPSRuntime(
+        *edge_index_tensors(el, e_max),
+        rep_mask=torch.from_numpy(rep_mask.copy()),
+        drop_prob=torch.tensor(drop_prob, dtype=torch.float32),
+        gamma=torch.tensor(gamma_period, dtype=torch.int32),
+        B=torch.tensor(B, dtype=torch.int32),
+        M=torch.tensor(int(rep_mask.sum()) if M is None else M,
+                       dtype=torch.int32),
+    )
+
+
+def make_hps_runtime(cfg: HPSConfig, e_max: int | None = None) -> HPSRuntime:
+    """Host-side set-up of one :class:`HPSConfig` scenario."""
+    return hps_runtime_from_edge_list(
+        cfg.edge_index(),
+        cfg.topo.rep_mask(),
+        drop_prob=cfg.drop_prob,
+        gamma_period=cfg.gamma_period,
+        B=cfg.B,
+        M=cfg.topo.M,
+        e_max=e_max,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The loop
+# ---------------------------------------------------------------------------
+
+def _hps_scan_core(
+    key: Key,
+    rt: HPSRuntime,
+    w: torch.Tensor,       # (N, d) initial values
+    *,
+    T: int,
+    store: str,
+    backend: str,
+    F: int = 0,
+) -> tuple[SparsePushSumState, tuple[torch.Tensor, torch.Tensor]]:
+    """Algorithm 1's loop over the runtime's tensors, all on ``w``'s device.
+
+    Returns ``(final_state, (ratio, gap))`` with the store-dependent shapes
+    of :class:`HPSResult`."""
+    N = w.shape[0]
+    E = rt.src.shape[0]
+    state = init_sparse_state(w, E)
+    # loop invariants of the fixed edge index and inputs
+    share = 1.0 / (_out_degree(rt.src, rt.valid, N, w.dtype) + 1.0)
+    target = w.mean(dim=0)
+    ys = []
+    for t in range(T):
+        # --- consensus (Alg. 1 lines 3-12) ---
+        mask = step_edge_mask(key, t, E, rt.drop_prob, rt.B,
+                              fold_t=hps_stream_fold(t))
+        st = sparse_pushsum_step(state, mask, rt.src, rt.dst, rt.valid,
+                                 backend, share=share, offsets=rt.offsets)
+        # --- PS fusion every Γ (lines 13-21) ---
+        do_fusion = (t + 1) % rt.gamma == 0
+        state = st._replace(zm=torch.where(
+            do_fusion, _fuse(st.zm, rt.rep_mask, rt.M, F), st.zm))
+        if store == "trajectory":
+            ys.append(sparse_ratios(state))
+        elif store == "gap":
+            ys.append((sparse_ratios(state) - target).abs().max())
+    if store == "trajectory":
+        traj = _frames(ys, w)
+        return state, (traj, (traj - target).abs().amax(dim=(1, 2)))
+    fr = sparse_ratios(state)
+    if store == "gap":
+        return state, (fr, torch.stack(ys) if ys else w.new_zeros(0))
+    return state, (fr, (fr - target).abs().max())
+
+
+def run_hps_runtime(
+    w,
+    rt: HPSRuntime,
+    T: int,
+    seed: int = 0,
+    *,
+    F: int = 0,
+    plan: ExecutionPlan | None = None,
+    device=None,
+) -> HPSResult:
+    """Run Algorithm 1 on a prebuilt :class:`HPSRuntime`.
+
+    ``seed`` drives the per-round link masks on the ``hps_stream_fold``
+    domain; ``F > 0`` swaps the PS average for the trimmed-pool rule.
+    ``plan.store=None`` means ``"trajectory"``; ``plan.dst_sorted=True``
+    asserts a dst-sorted edge index and is checked against the runtime.
+    ``device=None`` means the card, and raises where there is none; pass
+    ``device="cpu"`` to run the plain PyTorch path on the CPU.
+    """
+    plan = ExecutionPlan() if plan is None else plan
+    store = "trajectory" if plan.store is None else plan.store
+    if store not in HPS_STORES:
+        raise ValueError(f"store must be one of {HPS_STORES}, got {store!r}")
+    if plan.dst_sorted and rt.offsets is None:
+        raise ValueError("plan.dst_sorted=True but the runtime's edge index "
+                         "is not dst-sorted")
+    dev = resolve_device(device)
+    final, (ratio, gap) = _hps_scan_core(
+        prng_key(seed), rt.to(dev),
+        torch.as_tensor(w, dtype=torch.float32, device=dev),
+        T=T, store=store, backend=plan.backend, F=F)
+    return HPSResult(ratio=ratio, final_state=final, gap=gap)
+
+
+def run_hps(
+    w,
+    cfg: HPSConfig,
+    T: int,
+    seed: int = 0,
+    *,
+    F: int = 0,
+    plan: ExecutionPlan | None = None,
+    device=None,
+) -> HPSResult:
+    """Run HPS for T iterations on an :class:`HPSConfig` scenario (whose
+    edge index is always dst-sorted); see :func:`run_hps_runtime`."""
+    plan = ExecutionPlan() if plan is None else plan
+    return run_hps_runtime(w, make_hps_runtime(cfg), T, seed=seed, F=F,
+                           plan=plan.replace(dst_sorted=True), device=device)
+
+
+def run_hps_dense(
+    w,
+    cfg: HPSConfig,
+    T: int,
+    seed: int = 0,
+    *,
+    device=None,
+) -> tuple[PushSumState, torch.Tensor]:
+    """The dense reference: (N, N) masks, O(N^2 d) relay state, for small
+    N only. It draws the same per-round (E,) masks as :func:`run_hps` at
+    the same seed (over the dst-sorted edge index, on the
+    ``hps_stream_fold`` domain) and scatters them to (N, N), so the two
+    agree to float32 reduction order. Returns the final dense state and
+    the (T, N, d) ratio trajectory."""
+    dev = resolve_device(device)
+    el = cfg.edge_index()
+    src = torch.from_numpy(el.src).long().to(dev)
+    dst = torch.from_numpy(el.dst).long().to(dev)
+    n = cfg.topo.N
+    adj = cfg.adj().to(dev)
+    rep_mask = cfg.rep_mask().to(dev)
+    drop = torch.tensor(cfg.drop_prob, dtype=torch.float32, device=dev)
+    B = torch.tensor(cfg.B, dtype=torch.int32, device=dev)
+    key = prng_key(seed)
+    state = init_state(torch.as_tensor(w, dtype=torch.float32, device=dev))
+    traj = []
+    for t in range(T):
+        mask_e = step_edge_mask(key, t, el.E, drop, B,
+                                fold_t=hps_stream_fold(t))
+        mask = torch.zeros((n, n), dtype=torch.bool, device=dev)
+        mask[src, dst] = mask_e
+        state = hps_step(state, mask, adj, rep_mask, cfg.topo.M,
+                         (t + 1) % cfg.gamma_period == 0)
+        traj.append(ratios(state))
+    return state, _frames(traj, state.z)
+
+
+def theorem1_bound(cfg: HPSConfig, w, t: int) -> float:
+    """The right side of Theorem 1 at iteration t (loose, by the paper's own
+    Remark 3)."""
+    topo = cfg.topo
+    M = topo.M
+    contraction = topo.min_beta() ** (2 * topo.d_star() * cfg.B)
+    gamma = 1.0 - contraction / (4.0 * M * M)
+    norm_sum = float(np.linalg.norm(np.asarray(w), axis=1).sum())
+    lead = 4.0 * M * M * norm_sum / (contraction * topo.N)
+    return lead * gamma ** max(t // (2 * cfg.gamma_period) - 1, 0)

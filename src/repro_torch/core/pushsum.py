@@ -1,11 +1,20 @@
-"""Sparse edge-list robust push-sum — the consensus half of Algorithm 3.
+"""Fast robust push-sum over packet-dropping links — the consensus half of
+Algorithms 1 and 3.
 
-The port of the synchronous path of ``repro.core.pushsum``'s edge-list
-core. Each agent keeps a value ``z`` (N, d) and a mass ``m`` (N,), its
-cumulative offer ``sigma`` per out-link, and each directed edge keeps the
-cumulative value ``rho`` its receiver last heard. One round stages the
-send, lets every operational edge latch the sender's new cumulative,
-integrates the increments at the receivers and re-stages (Su '18 Alg. 1).
+The port of the synchronous path of ``repro.core.pushsum``. Each agent
+keeps a value ``z`` (N, d) and a mass ``m`` (N,), its cumulative offer
+``sigma`` per out-link, and each directed link keeps the cumulative value
+``rho`` its receiver last heard. One round stages the send, lets every
+operational link latch the sender's new cumulative, integrates the
+increments at the receivers and re-stages (Su '18 Alg. 1).
+
+Two state representations, as in the reference:
+
+* **dense** (:class:`PushSumState`, ``rho`` (N, N, d)): the executable spec
+  the sparse engine is tested against, for small N only;
+* **sparse edge-list** (:class:`SparsePushSumState`, ``rho`` (E, d+1)):
+  the engine; :func:`run_pushsum_sparse` runs it for T rounds with the
+  delivery through the CUDA edge scatter on the card.
 
 Layout: value and mass live in ONE (·, d+1) tensor whose last column is
 the mass — ``zm`` (N, d+1), ``sigma_zm`` (N, d+1), ``rho_zm`` (E, d+1) —
@@ -15,22 +24,127 @@ views of the reference's six fields.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..kernels.pushsum_edge import edge_scatter
-from .prng import Key, fold_in, uniform
+from ..kernels.pushsum_edge import dst_offsets, edge_scatter
+from .graphs import EdgeList, _dst_offsets, is_dst_sorted
+from .plan import ExecutionPlan, resolve_device
+from .prng import Key, fold_in, prng_key, uniform
 
 __all__ = [
+    "PushSumState",
+    "init_state",
+    "pushsum_step",
+    "ratios",
+    "run_pushsum",
+    "mass_invariant",
     "SparsePushSumState",
     "init_sparse_state",
     "sparse_pushsum_step",
     "sparse_ratios",
     "sparse_mass_invariant",
+    "run_pushsum_sparse",
     "step_edge_mask",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Dense reference implementation
+# ---------------------------------------------------------------------------
+
+class PushSumState(NamedTuple):
+    z: torch.Tensor        # (N, d) value
+    m: torch.Tensor        # (N,)   mass
+    sigma: torch.Tensor    # (N, d) cumulative value offered per out-link
+    sigma_m: torch.Tensor  # (N,)
+    rho: torch.Tensor      # (N, N, d) cumulative value heard per in-link
+    rho_m: torch.Tensor    # (N, N)
+
+
+def init_state(w: torch.Tensor) -> PushSumState:
+    """w: (N, d) initial values; push-sum drives z/m -> mean(w)."""
+    n, d = w.shape
+    zeros = functools.partial(torch.zeros, dtype=w.dtype, device=w.device)
+    return PushSumState(z=w, m=torch.ones_like(w[:, 0]), sigma=zeros((n, d)),
+                        sigma_m=zeros(n), rho=zeros((n, n, d)),
+                        rho_m=zeros((n, n)))
+
+
+def pushsum_step(
+    state: PushSumState,
+    mask: torch.Tensor,   # (N, N) bool — operational links this round
+    adj: torch.Tensor,    # (N, N) bool — underlying topology (defines d_out)
+) -> PushSumState:
+    """One dense round. The mask is intersected with the topology, so a
+    stray True on a non-edge never touches relay state."""
+    z, m, sigma, sigma_m, rho, rho_m = state
+    share = 1.0 / (adj.sum(dim=1).to(z.dtype) + 1.0)     # (N,)
+    # first half: stage the cumulative send
+    sigma_p = sigma + z * share[:, None]
+    sigma_m_p = sigma_m + m * share
+    # delivery: operational existing links latch the new cumulative
+    live = mask & adj
+    rho_new = torch.where(live[:, :, None], sigma_p[:, None, :], rho)
+    rho_m_new = torch.where(live, sigma_m_p[:, None], rho_m)
+    recv = (rho_new - rho).sum(dim=0)
+    recv_m = (rho_m_new - rho_m).sum(dim=0)
+    # integrate, then re-stage at once
+    z_p = z * share[:, None] + recv
+    m_p = m * share + recv_m
+    return PushSumState(z_p * share[:, None], m_p * share,
+                        sigma_p + z_p * share[:, None], sigma_m_p + m_p * share,
+                        rho_new, rho_m_new)
+
+
+def ratios(state: PushSumState) -> torch.Tensor:
+    """The push-sum estimate z/m per agent, (N, d)."""
+    return state.z / state.m.clamp_min(1e-30)[:, None]
+
+
+def run_pushsum(
+    w,                    # (N, d) inputs
+    adj,                  # (N, N) bool topology
+    masks,                # (T, N, N) bool operational-link schedule
+    record_every: int = 1,
+    *,
+    device=None,
+) -> tuple[PushSumState, torch.Tensor]:
+    """Run T dense rounds -> final state and the (T // record_every, N, d)
+    ratios after rounds ``record_every - 1, 2 record_every - 1, ...``.
+    ``device=None`` means the card."""
+    dev = resolve_device(device)
+    adj = torch.as_tensor(adj, dtype=torch.bool, device=dev)
+    masks = torch.as_tensor(masks, dtype=torch.bool, device=dev)
+    state = init_state(torch.as_tensor(w, dtype=torch.float32, device=dev))
+    traj = []
+    for t in range(masks.shape[0]):
+        state = pushsum_step(state, masks[t], adj)
+        if (t + 1) % record_every == 0:
+            traj.append(ratios(state))
+    return state, _frames(traj, state.z)
+
+
+def mass_invariant(state: PushSumState, adj: torch.Tensor) -> torch.Tensor:
+    """sum_j z_j + sum_{(j', j) in E} (sigma_j' - rho_j'j), (d,): equal to
+    sum_j w_j, the mass preservation Theorem 1 relies on."""
+    adj_f = adj.to(state.z.dtype)
+    in_flight = ((state.sigma[:, None, :] - state.rho)
+                 * adj_f[:, :, None]).sum(dim=(0, 1))
+    return state.z.sum(dim=0) + in_flight
+
+
+def _frames(frames: list[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    """Recorded (N, d) frames stacked to (K, N, d), (0, N, d) if none."""
+    return torch.stack(frames) if frames else like.new_zeros((0, *like.shape))
+
+
+# ---------------------------------------------------------------------------
+# Sparse edge-list implementation
+# ---------------------------------------------------------------------------
 
 
 class SparsePushSumState(NamedTuple):
@@ -85,6 +199,33 @@ def _out_degree(src: torch.Tensor, valid: torch.Tensor, n: int,
     """(N,) out-degree over valid edges."""
     return torch.zeros(n, dtype=dtype, device=src.device).index_add_(
         0, src, valid.to(dtype))
+
+
+def edge_index_tensors(el: EdgeList, e_max: int | None = None):
+    """A single edge index as the engines' CPU tensors -> ``(src, dst,
+    valid, offsets)``. ``e_max`` pads the edge axis with inert
+    ``valid=False`` edges whose ``dst = N - 1``, which keeps a sorted
+    layout sorted; ``offsets`` is the (N+1,) int32 CSR offsets of ``dst``
+    when it is dst-sorted (the CUDA edge scatter's hoisted argument), else
+    ``None``."""
+    if el.is_batched:
+        raise ValueError("pass one topology draw")
+    src, dst, valid = el.src, el.dst, el.valid
+    if e_max is not None:
+        pad = e_max - el.E
+        if pad < 0:
+            raise ValueError(f"e_max={e_max} < edge count {el.E}")
+        src = np.concatenate([src, np.zeros(pad, np.int32)])
+        dst = np.concatenate([dst, np.full(pad, el.n - 1, np.int32)])
+        valid = np.concatenate([valid, np.zeros(pad, bool)])
+    for name, idx in (("src", src), ("dst", dst)):
+        if idx.size and not (idx.min() >= 0 and idx.max() < el.n):
+            raise ValueError(f"{name} indices must lie in [0, {el.n})")
+    offsets = (torch.from_numpy(_dst_offsets(dst, el.n))
+               if is_dst_sorted(dst) else None)
+    return (torch.tensor(src, dtype=torch.int32),
+            torch.tensor(dst, dtype=torch.int32),
+            torch.tensor(valid, dtype=torch.bool), offsets)
 
 
 def sparse_pushsum_step(
@@ -161,3 +302,72 @@ def step_edge_mask(
     kt = fold_in(key, t if fold_t is None else fold_t)
     up = uniform(kt, n_edges, drop_prob.device) >= drop_prob
     return up | ((t % B) == (B - 1))
+
+
+def run_pushsum_sparse(
+    w,                     # (N, d) inputs
+    src,                   # (E,) int32
+    dst,                   # (E,) int32
+    T: int,
+    *,
+    drop_prob: float = 0.0,
+    B: int = 1,
+    key: Key | None = None,
+    valid=None,
+    masks=None,            # optional explicit (T, E) bool schedule
+    record_every: int = 1,
+    plan: ExecutionPlan | None = None,
+    device=None,
+) -> tuple[SparsePushSumState, torch.Tensor]:
+    """Run T synchronous rounds of the edge-list core.
+
+    Masks are (E,) Bernoulli draws from ``key`` (default ``prng_key(0)``)
+    folded at the plain round index ``t``, with forced delivery at ``t %
+    B == B - 1``: the reference's draws bit for bit. An explicit ``masks``
+    (T, E) schedule replaces them (see :func:`graphs.edge_masks`); its
+    length must be T. ``valid`` (default all True) marks padding edges.
+
+    Returns the final state and the ratios recorded after rounds
+    ``record_every - 1, 2 record_every - 1, ...``: only those frames are
+    kept, so ``record_every = T`` holds one (N, d) frame.
+
+    ``plan.backend`` picks the delivery route and ``plan.dst_sorted``
+    asserts (and checks) a dst-sorted index; the share factors and the
+    CSR offsets of a sorted index are computed once, before the loop.
+    ``device=None`` means the card, and raises where there is none.
+    """
+    plan = ExecutionPlan() if plan is None else plan
+    dev = resolve_device(device)
+    w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+    src = torch.as_tensor(src, dtype=torch.int32, device=dev)
+    dst = torch.as_tensor(dst, dtype=torch.int32, device=dev)
+    E = src.shape[0]
+    valid = (torch.ones(E, dtype=torch.bool, device=dev) if valid is None
+             else torch.as_tensor(valid, dtype=torch.bool, device=dev))
+    if masks is not None:
+        masks = torch.as_tensor(masks, dtype=torch.bool, device=dev)
+        if masks.shape[0] != T:
+            raise ValueError(
+                f"masks schedule has {masks.shape[0]} rounds but T={T}")
+    # loop invariants of the fixed edge index, read back once
+    offsets = None
+    if E and bool((dst[1:] >= dst[:-1]).all()):
+        offsets = dst_offsets(dst, w.shape[0])
+    elif plan.dst_sorted:
+        raise ValueError("plan.dst_sorted=True but the edge index is not "
+                         "dst-sorted")
+    share = 1.0 / (_out_degree(src, valid, w.shape[0]) + 1.0)
+    key = prng_key(0) if key is None else key
+    drop = torch.tensor(drop_prob, dtype=torch.float32, device=dev)
+    Bt = torch.tensor(B, dtype=torch.int32, device=dev)
+    state = init_sparse_state(w, E)
+    traj = []
+    for t in range(T):
+        mask = (masks[t] if masks is not None
+                else step_edge_mask(key, t, E, drop, Bt))
+        state = sparse_pushsum_step(state, mask, src, dst, valid,
+                                    plan.backend, share=share,
+                                    offsets=offsets)
+        if (t + 1) % record_every == 0:
+            traj.append(sparse_ratios(state))
+    return state, _frames(traj, state.z)

@@ -29,13 +29,14 @@ import numpy as np
 import torch
 
 from ..kernels.social_innov import innovation_step
-from .graphs import EdgeList, _dst_offsets, is_dst_sorted
+from .graphs import EdgeList
 from .hps import HPSConfig, hps_fusion
 from .plan import ExecutionPlan, resolve_device
 from .prng import Key, fold_in, prng_key, uniform
 from .pushsum import (
     SparsePushSumState,
     _out_degree,
+    edge_index_tensors,
     init_sparse_state,
     sparse_pushsum_step,
     step_edge_mask,
@@ -135,26 +136,8 @@ def social_runtime_from_edge_list(
     ``dst = N - 1``, which keeps a sorted layout sorted. The CSR offsets
     are computed here, once, when the index is dst-sorted.
     """
-    if el.is_batched:
-        raise ValueError("pass one topology draw")
-    src, dst, valid = el.src, el.dst, el.valid
-    if e_max is not None:
-        pad = e_max - el.E
-        if pad < 0:
-            raise ValueError(f"e_max={e_max} < edge count {el.E}")
-        src = np.concatenate([src, np.zeros(pad, np.int32)])
-        dst = np.concatenate([dst, np.full(pad, el.n - 1, np.int32)])
-        valid = np.concatenate([valid, np.zeros(pad, bool)])
-    for name, idx in (("src", src), ("dst", dst)):
-        if idx.size and not (idx.min() >= 0 and idx.max() < el.n):
-            raise ValueError(f"{name} indices must lie in [0, {el.n})")
-    offsets = (torch.from_numpy(_dst_offsets(dst, el.n))
-               if is_dst_sorted(dst) else None)
     return SocialRuntime(
-        src=torch.tensor(src, dtype=torch.int32),
-        dst=torch.tensor(dst, dtype=torch.int32),
-        valid=torch.tensor(valid, dtype=torch.bool),
-        offsets=offsets,
+        *edge_index_tensors(el, e_max),
         rep_mask=torch.tensor(np.asarray(rep_mask, bool)),
         drop_prob=torch.tensor(drop_prob, dtype=torch.float32),
         gamma=torch.tensor(gamma_period, dtype=torch.int32),

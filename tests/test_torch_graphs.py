@@ -214,3 +214,55 @@ def test_edge_neighbor_lists_equal_dense_neighbor_lists(topology):
     empty = tg.EdgeList(src=np.zeros(0, np.int32), dst=np.zeros(0, np.int32),
                         n=4, valid=np.zeros(0, bool))
     assert tg.edge_neighbor_lists(empty).idx.shape == (4, 1)
+
+
+# ---- Algorithm 1's graph helpers: diameters, contraction constants,
+# source components, and the dense link schedules ----
+
+@pytest.mark.parametrize("g", range(6))
+def test_algorithm1_helpers_match_reference(g):
+    adj = list(_digraphs())[g]
+    np.fill_diagonal(adj, False)
+    assert (tg.has_single_source_component(adj)
+            == jg.has_single_source_component(adj))
+    if adj.any():
+        assert tg.beta_i(adj) == jg.beta_i(adj)
+    if jg.is_strongly_connected(adj):
+        assert tg.diameter(adj) == jg.diameter(adj)
+    else:
+        with pytest.raises(ValueError, match="strongly connected"):
+            tg.diameter(adj)
+
+
+@pytest.mark.parametrize("sizes,topology", [
+    ([4, 6, 5], "ring+"), ([24], "ring"), ([6, 6, 6, 6], "ring"),
+    ([4, 4], "complete"), ([3, 9], "ring+")])
+def test_topology_constants_match_reference(sizes, topology):
+    a = tg.make_hierarchy(sizes, topology, seed=3)
+    b = jg.make_hierarchy(sizes, topology, seed=3)
+    assert a.d_star() == b.d_star()
+    assert a.min_beta() == b.min_beta()
+
+
+@pytest.mark.parametrize("drop,B,seed", [(0.0, 1, 0), (0.4, 3, 1),
+                                         (0.9, 5, 2)])
+def test_link_schedule_and_edge_masks_match_reference(drop, B, seed):
+    adj = jg.random_strongly_connected(11, 0.3, np.random.default_rng(seed))
+    a = tg.link_schedule(adj, 17, drop, B, seed=seed)
+    b = jg.link_schedule(adj, 17, drop, B, seed=seed)
+    assert a.dtype == b.dtype
+    np.testing.assert_array_equal(a, b)
+    for el_t, el_j in ((tg.edge_list(adj), jg.edge_list(adj)),
+                       (tg.sort_by_dst(tg.edge_list(adj))[0],
+                        jg.sort_by_dst(jg.edge_list(adj))[0])):
+        np.testing.assert_array_equal(tg.edge_masks(a, el_t),
+                                      jg.edge_masks(b, el_j))
+        np.testing.assert_array_equal(el_t.to_dense(), el_j.to_dense())
+        np.testing.assert_array_equal(el_t.to_dense(), adj)
+    # padding edges are never operational
+    padded = tg.EdgeList(src=np.array([0, 3], np.int32),
+                         dst=np.array([1, 0], np.int32), n=11,
+                         valid=np.array([True, False]))
+    masks = tg.edge_masks(np.ones((2, 11, 11), bool), padded)
+    np.testing.assert_array_equal(masks, [[True, False]] * 2)
+    assert padded.to_dense().sum() == 1

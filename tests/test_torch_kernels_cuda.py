@@ -45,7 +45,10 @@ import torch
 
 from repro_torch.core import attacks
 from repro_torch.core.byzantine import ByzantineConfig, run_byzantine_learning
-from repro_torch.core.graphs import make_hierarchy
+from repro_torch.core.graphs import (make_hierarchy,
+                                     random_strongly_connected_edge_list)
+from repro_torch.core.hps import HPSConfig, run_hps
+from repro_torch.core.pushsum import run_pushsum_sparse, sparse_mass_invariant
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.signals import make_confused_model
 from repro_torch.kernels.byz_trim import (
@@ -319,11 +322,12 @@ def test_edge_scatter_kernel_matches_plain(cuda_device, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", K1_CASES)
 @pytest.mark.parametrize("D,tiled", [(4, None), (4, False), (3, None),
-                                     (40, None), (40, False)])
+                                     (5, None), (40, None), (40, False)])
 def test_edge_scatter_kernels_give_the_edge_order_sum(cuda_device, case, D,
                                                       tiled):
     """Both kernels, as the wrapper picks them by D (the edge-tiled one at
-    D <= 32: its vector path at D = 4, its scalar path at D = 3; the
+    D <= 32: its vector path at D = 4, its scalar path at D = 3 and at
+    D = 5, the Algorithm 1 engines' width; the
     column walk at D = 40) and as asked for: rho_new bit-equal to the plain
     version, recv bit-equal to the float32 edge-order sum."""
     from repro_torch.kernels.pushsum_edge.ops import TILED_D_MAX
@@ -1265,3 +1269,52 @@ def test_train_cli_takes_48_workers_through_k4(cuda_device, capsys):
     assert np.isfinite(float(lines[0].split()[3]))
     assert trimmed_mean_cuda.launches == k4 + 1
     assert swa_prefill_cuda.launches == k6 + 48 * 2
+
+
+# ---- Algorithm 1's engines through K1 at D = 5 ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [0, 1])
+def test_hps_kernel_path_matches_plain(cuda_device, F):
+    """run_hps through K1 (T launches, all on the edge-tiled kernel) against
+    the plain path on the card: the gap curves and final ratios within
+    1e-4 (the two paths add a receiver's increments in other orders)."""
+    cfg = HPSConfig(make_hierarchy([6, 6, 6], "ring+", seed=1), 8, B=2,
+                    drop_prob=0.3)
+    w = np.random.default_rng(0).normal(size=(18, 4)).astype(np.float32)
+    plan = ExecutionPlan(store="gap")
+    before = edge_scatter_cuda.launches_tiled
+    k = run_hps(w, cfg, 60, F=F, plan=plan, device=cuda_device)
+    torch.cuda.synchronize()
+    assert edge_scatter_cuda.launches_tiled == before + 60
+    p = run_hps(w, cfg, 60, F=F, plan=plan.replace(backend="torch"),
+                device=cuda_device)
+    assert edge_scatter_cuda.launches_tiled == before + 60
+    torch.testing.assert_close(k.gap, p.gap, rtol=0, atol=1e-4)
+    torch.testing.assert_close(k.ratio, p.ratio, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_pushsum_engine_kernel_path_matches_plain(cuda_device):
+    """run_pushsum_sparse through K1 against the plain path on the card,
+    on pushsum_sweep's kind of graph: states within 1e-4 and the value
+    and mass invariants held."""
+    rng = np.random.default_rng(0)
+    el = random_strongly_connected_edge_list(500, 2.0, rng)
+    w = rng.normal(size=(500, 4)).astype(np.float32)
+    before = edge_scatter_cuda.launches_tiled
+    k, tk = run_pushsum_sparse(w, el.src, el.dst, 40, drop_prob=0.2, B=4,
+                               record_every=8, device=cuda_device)
+    torch.cuda.synchronize()
+    assert edge_scatter_cuda.launches_tiled == before + 40
+    p, tp = run_pushsum_sparse(w, el.src, el.dst, 40, drop_prob=0.2, B=4,
+                               record_every=8, device=cuda_device,
+                               plan=ExecutionPlan(backend="torch"))
+    assert tk.shape == (5, 500, 4)
+    torch.testing.assert_close(k.zm, p.zm, rtol=0, atol=1e-4)
+    inv = sparse_mass_invariant(k, torch.from_numpy(el.src).to(cuda_device),
+                                torch.ones(el.E, dtype=torch.bool,
+                                           device=cuda_device)).cpu()
+    np.testing.assert_allclose(inv[:-1].numpy(), w.sum(axis=0), rtol=1e-4,
+                               atol=1e-3)
+    np.testing.assert_allclose(inv[-1].item(), 500, rtol=1e-5)
