@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: Algorithm 3
 (social learning), Algorithm 2 (Byzantine-resilient learning), Algorithm 1
-(push-sum consensus and hierarchical push-sum), the serving path of the dense GQA models (Qwen3-8B) and of RWKV6 (RWKV6-1.6B),
+(push-sum consensus and hierarchical push-sum), grids of Algorithm 1 and
+3 scenarios run as one graph, the serving path of the dense GQA models (Qwen3-8B) and of RWKV6 (RWKV6-1.6B),
 and decentralized robust training (paper_sim).
 
 Phases (any failure raises and the script exits non-zero):
@@ -56,6 +57,31 @@ Phases (any failure raises and the script exits non-zero):
              gap curve through the kernels against the plain path, and
              tests/test_hps_engine.py's envelope (16 runs on 2x4 complete
              networks) under theorem1_bound;
+6e. hps grid — run_hps_grid over 256 complete 8-agent networks (N =
+             2,048), drop 0/0.1/0.3/0.6 x Γ 4/8 x 8 seeds = 64 scenarios,
+             B 4, T = 200, as one block-diagonal graph of 131,072 nodes
+             and 917,504 links: K1 launches T times for all of them; the
+             rows against the plain path, every row's mass, every gap
+             curve under theorem1_bound; rows 0 and 63 against their
+             single runs on the card (link masks and K1's recv bit-equal);
+             then benchmarks/hps_bench.py's 48-scenario grid (N = 18, M
+             2/3/6, mixed E) at T = 300; timings;
+6f. social grid — run_social_grid on the same networks, m = 3, drop
+             0/0.3/0.6/0.9 x Γ 4/8 x 8 seeds, T = 200: K1 and K2 launch T
+             times; beliefs and decisions against the plain path; rows 0
+             and 63 against their single runs (masks, signal uniforms,
+             K1's recv and K2's outputs bit-equal); then
+             benchmarks/social_learning.py's 48-scenario sweep at T = 300,
+             every agent's final belief in theta* above 0.9 where drop <
+             0.9; timings;
+6g. pushsum sweep — run_pushsum_sweep over two draws of
+             benchmarks/pushsum_sweep.py's graph at N = 4,096, drop
+             0/0.3/0.6/0.9 x 4 seeds = 32 scenarios, B 4, T = 200, one
+             graph of 131,072 nodes: K1 launches T times; every row's
+             mass gap within 1e-4 N, err falls where drop < 0.9, the rows
+             against the plain path and rows 0 and 31 against their single
+             runs; timings (each grid's step, its scenario-step, one
+             scenario alone, and a profile);
 7. timing  — K1-K3 three ways (device time with the host's enqueueing
              hidden, the JSON time; the kernel alone under the profiler;
              host-inclusive), K1's column walk beside its edge-tiled kernel,
@@ -1234,6 +1260,520 @@ def algorithm1_step_timing(dev) -> None:
                              ms[(engine, "auto")])
 
 
+# ---------------------------------------------------------------------------
+# Scenario batching: K scenarios of Algorithms 1 and 3 as one block-diagonal
+# graph, one K1 (and K2) launch a round for all of them
+# ---------------------------------------------------------------------------
+
+GRID_NETS = 256                 # complete 8-agent networks a scenario
+GRID_SEEDS = 8
+PS_SWEEP_N = 4_096              # push-sum sweep: nodes a graph draw
+SWEEP_RUNS = 10                 # timing: median of SWEEP_RUNS x STEP_T steps
+# a grid row against the port's single run of its scenario on the card:
+# the masks and K1's recv bit-equal, the rest within the CPU tests' limits
+# (tests/test_torch_sweeps.py): the fusion pools each scenario's
+# representatives with a reduction over (K, N, d+1) where the single run
+# reduces (N, d+1), which the card may order otherwise
+HPS_ROW_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def hps_grid_configs(sizes, drops, gammas, B):
+    """Each drop x Γ on one hierarchy of ``sizes`` complete networks, in
+    run_hps_sweep's order -> (base config, expanded configs)."""
+    import dataclasses
+    from repro_torch.core import HPSConfig, make_hierarchy
+    base = HPSConfig(make_hierarchy(sizes, topology="complete"),
+                     gamma_period=8, B=B)
+    return base, [dataclasses.replace(base, drop_prob=float(np.float32(d)),
+                                      gamma_period=g)
+                  for d in drops for g in gammas]
+
+
+def row_masks_equal(fold, res_seed, rows, E, drops, Bs, T, dev) -> None:
+    """Every round's batched link-mask draw of the whole grid (keys folded
+    for all rounds at once, one draw of K x E) against each row's own
+    one-key draw (step_edge_mask), bit for bit, over rows ``rows``."""
+    import torch
+    from repro_torch.core.prng import Key, fold_rounds, prng_key
+    from repro_torch.core.pushsum import edge_mask, step_edge_mask
+    seeds = res_seed.numpy()
+    keys = fold_rounds(Key(np.zeros_like(seeds), seeds),
+                       [fold(t) for t in range(T)], dev)
+    for t in range(T):
+        batch = edge_mask(Key(keys.k0[t], keys.k1[t]), t, E, drops, Bs)
+        for k in rows:
+            one = step_edge_mask(prng_key(int(seeds[k])), t, E, drops[k],
+                                 Bs[k], fold_t=fold(t))
+            require(torch.equal(batch[k * E:(k + 1) * E], one),
+                    f"row {k}'s link mask at round {t} bit-equal to its "
+                    f"single draw")
+
+
+def row_recv_equal(what, src, valid, offsets, K, rows, D, dev,
+                   flush) -> float:
+    """K1 over a stacked graph of K blocks (``src``, ``valid``, CSR
+    ``offsets``) against K1 over row k's own block on the same random
+    inputs: rho_new and recv bit-equal, for rows ``rows`` -> the stacked
+    launch's device ms with the host hidden, L2 flushed (logged beside its
+    byte bound)."""
+    import torch
+    from repro_torch.kernels.pushsum_edge import edge_scatter_cuda
+    N, E = (offsets.shape[0] - 1) // K, src.shape[0] // K
+    g = torch.Generator(device=dev).manual_seed(5)
+    sigma = torch.randn((K * N, D), generator=g, device=dev)
+    rho = torch.randn((K * E, D), generator=g, device=dev)
+    live = (torch.rand(K * E, generator=g, device=dev) < 0.7) & valid
+    args = (sigma, rho, live, src, offsets)
+    rho_b, recv_b = edge_scatter_cuda(*args)
+    for k in rows:
+        n, e = slice(k * N, (k + 1) * N), slice(k * E, (k + 1) * E)
+        rho_1, recv_1 = edge_scatter_cuda(
+            sigma[n].contiguous(), rho[e].contiguous(), live[e].contiguous(),
+            (src[e] - k * N).contiguous(),
+            (offsets[k * N:(k + 1) * N + 1] - k * E).contiguous())
+        require(torch.equal(rho_b[e], rho_1) and torch.equal(recv_b[n], recv_1),
+                f"{what}: K1's rho_new and recv of row {k} bit-equal to its "
+                f"single graph's")
+    ms = event_ms(lambda: edge_scatter_cuda(*args), TIMED_RUNS, flush,
+                  hide_host=True)
+    b_ms, by = bound(nbytes(*args, rho_b, recv_b), 2 * K * E * D)
+    log(f"[timing] {what}: edge_scatter at the grid's shape (K·N={K * N}, "
+        f"K·E={K * E}, D={D}): {ms:.5f} ms with the host hidden, bound "
+        f"{b_ms:.5f} ({by}); median of {TIMED_RUNS}, L2 flushed")
+    return ms
+
+
+def theorem1_curve(cfg, w, T: int) -> np.ndarray:
+    """theorem1_bound(cfg, w, t) for t < T: the bound moves every 2Γ
+    rounds, so it is evaluated once for each of those steps."""
+    from repro_torch.core import theorem1_bound
+    span = 2 * cfg.gamma_period
+    at = [theorem1_bound(cfg, w, s * span) for s in range((T - 1) // span + 1)]
+    return np.asarray([at[t // span] for t in range(T)])
+
+
+def hold_rows(what, pairs: dict, tol: dict) -> str:
+    """Grid rows against single runs within ``tol`` -> the measured gaps."""
+    import torch
+    msg = []
+    for name, (a, b) in pairs.items():
+        gap = (a - b).abs().max().item()
+        msg.append(f"{name} {gap:.3e}")
+        require(bool(torch.isclose(a, b, **tol).all()),
+                f"{what}: {name} within {tol} of the single run")
+    return ", ".join(msg)
+
+
+def grid_timing(label: str, core, single, K: int, n_single: int) -> None:
+    """ms a grid step (``core(T)``, the entry point's loop on its stacked
+    inputs), ms a scenario-step, the single run of one scenario alone
+    (``single(T)``), and a profile of the grid's steps."""
+    grid_ms = event_ms(lambda: core(STEP_T), SWEEP_RUNS) / STEP_T
+    one_ms = event_ms(lambda: single(STEP_T), SWEEP_RUNS) / STEP_T
+    log(f"[timing] {label} grid step (K={K}): {grid_ms:.4f} ms, "
+        f"{grid_ms / K:.5f} ms a scenario-step; one scenario alone at "
+        f"N={n_single}: {one_ms:.4f} ms a step, {one_ms * K / grid_ms:.2f}x "
+        f"the grid's scenario-step (median of {SWEEP_RUNS} runs of "
+        f"{STEP_T} steps, store final)")
+    profile_step(core, f"{label} grid K={K}", grid_ms)
+
+
+def sweep_phases(dev) -> dict:
+    """Phases 6e-6g -> each grid's kernel launches on its main run and K1's
+    (and K2's) device ms at its shape."""
+    import torch
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = flush_buf.zero_        # evict the 50 MB L2 between timed runs
+    return {"hps_grid": hps_grid_phase(dev, flush),
+            "social_grid": social_grid_phase(dev, flush),
+            "pushsum_sweep": pushsum_sweep_phase(dev, flush)}
+
+
+def hps_grid_phase(dev, flush) -> dict:
+    """Phase 6e: 64 HPS scenarios of N = 2,048 as one graph of 131,072."""
+    import torch
+    from repro_torch.core import (ExecutionPlan, HPSConfig, make_hierarchy,
+                                  make_hps_runtime, run_hps_grid,
+                                  run_hps_runtime, stack_runtimes)
+    from repro_torch.core.hps import _hps_scan_core, hps_stream_fold
+    from repro_torch.core.prng import Key
+    T = T_MAIN
+    base, cfgs = hps_grid_configs([8] * GRID_NETS, (0.0, 0.1, 0.3, 0.6),
+                                  (4, 8), B=4)
+    N = base.topo.N
+    seeds = list(range(GRID_SEEDS))
+    w = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(N, A1_D)).astype(np.float32)).to(dev)
+    plan = ExecutionPlan(store="gap")
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = run_hps_grid(w, cfgs, T, seeds, plan=plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    K = res.K
+    per_cfg = [make_hps_runtime(c) for c in cfgs]
+    rts = [per_cfg[int(c)] for c in res.cfg]
+    rt = stack_runtimes(rts).to(dev)
+    log(f"[hps grid] {len(cfgs)} configs (drop 0/0.1/0.3/0.6 x Γ 4/8, B 4) "
+        f"x {GRID_SEEDS} seeds = {K} scenarios of N={N} ({GRID_NETS} "
+        f"complete 8-agent networks): one graph of K·N={K * N}, "
+        f"K·E={rt.src.shape[0]}; T={T} store gap: {wall:.2f} s, launches "
+        f"{counts}")
+    require(K * N == N_FULL and rt.src.shape[0] == 917_504,
+            "HPS grid: K·N = 131,072 and K·E = 917,504")
+    require(counts == _only(edge_scatter=T, edge_scatter_tiled=T),
+            "HPS grid: K1 launched T times for all K scenarios, on its "
+            "edge-tiled kernel")
+    res_p = run_hps_grid(w, cfgs, T, seeds, plan=plan.replace(
+        backend="torch"))
+    torch.cuda.synchronize()
+    require(_counts() == counts, "HPS grid: the plain path launched no "
+            "kernel")
+    require(res.ratio.shape == (K, N, A1_D) and res.gap.shape == (K, T)
+            and bool(torch.isfinite(res.ratio).all())
+            and bool(torch.isfinite(res.gap).all()),
+            "HPS grid: finite rows of the expected shapes")
+    d_ratio = (res.ratio - res_p.ratio).abs().max().item()
+    d_gap = (res.gap - res_p.gap).abs().max().item()
+    require(max(d_ratio, d_gap) <= A1_LIMIT, f"HPS grid: rows within "
+            f"{A1_LIMIT} of the plain path")
+    # every row's mass: the same loop on the same stacked runtime
+    state, _ = _hps_scan_core(
+        Key(np.zeros(K, np.int64), res.seed.numpy()), rt, w, T=T,
+        store="final", backend="auto")
+    mass = state.m.view(K, N).sum(1) + (
+        (state.sigma_m[rt.src.long()] - state.rho_m)
+        * rt.valid).view(K, -1).sum(1)
+    require(bool(((mass - N).abs() <= 1e-4 * N).all()), "HPS grid: every "
+            "row's mass within 1e-4 N")
+    # every gap curve under Theorem 1's bound (it moves every 2Γ rounds)
+    bounds = [theorem1_curve(c, w.cpu().numpy(), T) for c in cfgs]
+    worst = -np.inf
+    for k in range(K):
+        bound_t = bounds[int(res.cfg[k])]
+        gap = res.gap[k].cpu().numpy()
+        require(bool((gap <= bound_t + 1e-6).all()), f"HPS grid row {k}: "
+                f"gap under theorem1_bound")
+        worst = max(worst, float((gap / bound_t).max()))
+    g = res.gap
+    log(f"[hps grid] kernel vs plain: ratio {d_ratio:.3e}, gap curves "
+        f"{d_gap:.3e} (limit {A1_LIMIT}); mass off N by at most "
+        f"{(mass - N).abs().max().item():.3e}; worst gap / theorem1_bound "
+        f"{worst:.3e}; gap at T by drop 0/0.1/0.3/0.6 (Γ 8, seed 0): "
+        + " ".join(f"{g[k, -1].item():.4f}" for k in range(K)
+                   if int(res.gamma[k]) == 8 and int(res.seed[k]) == 0))
+    # rows 0 and K-1 against the single run of their scenario on the card
+    rows = (0, K - 1)
+    E = rt.src.shape[0] // K
+    row_masks_equal(hps_stream_fold, res.seed, rows, E,
+                    rt.drop_prob, rt.B, T, dev)
+    k1_ms = row_recv_equal("HPS grid", rt.src, rt.valid, rt.offsets, K,
+                           rows, A1_D + 1, dev, flush)
+    for k in rows:
+        cfg, seed = cfgs[int(res.cfg[k])], int(res.seed[k])
+        one = run_hps_runtime(w, rts[k], T, seed=seed, plan=plan)
+        gaps = hold_rows(f"HPS grid row {k}", {
+            "ratio": (res.ratio[k], one.ratio), "gap": (res.gap[k], one.gap)},
+            HPS_ROW_TOL)
+        log(f"[hps grid] row {k} (drop {cfg.drop_prob:.2g}, Γ "
+            f"{cfg.gamma_period}, seed {seed}) against its single run on the "
+            f"card: link masks and K1's recv bit-equal; {gaps}")
+
+    # benchmarks/hps_bench.py's grid (:112-125): 4 hierarchies of N = 18
+    # (M 3, 3, 2, 6; mixed E) x Γ 4/8 x drop 0/0.3 x 3 seeds, T = 300
+    topos = [make_hierarchy([6, 6, 6], topology="complete", seed=0),
+             make_hierarchy([6, 6, 6], topology="ring+",
+                            extra_edge_prob=0.8, seed=1),
+             make_hierarchy([9, 9], topology="complete", seed=2),
+             make_hierarchy([3] * 6, topology="complete", seed=3)]
+    bcfgs = [HPSConfig(topo=t, gamma_period=gm, B=2, drop_prob=d)
+             for t in topos for gm in (4, 8) for d in (0.0, 0.3)]
+    bw = np.random.default_rng(0).normal(size=(18, 3)).astype(np.float32)
+    _zero_counts()
+    bres = run_hps_grid(bw, bcfgs, 300, list(range(3)))
+    torch.cuda.synchronize()
+    require(_counts() == _only(edge_scatter=300, edge_scatter_tiled=300),
+            "hps_bench grid: K1 launched T times")
+    bres_p = run_hps_grid(bw, bcfgs, 300, list(range(3)),
+                          plan=ExecutionPlan(backend="torch"))
+    d_b = (bres.gap - bres_p.gap).abs().max().item()
+    require(d_b <= A1_LIMIT, "hps_bench grid: gap curves within the limit "
+            "of the plain path")
+    bbounds = [theorem1_curve(c, bw, 300) for c in bcfgs]
+    for k in range(bres.K):
+        bound_t = bbounds[int(bres.cfg[k])]
+        require(bool((bres.gap[k].cpu().numpy() <= bound_t + 1e-6).all()),
+                f"hps_bench grid row {k}: gap under theorem1_bound")
+    log(f"[hps grid] hps_bench grid: {bres.K} scenarios (M "
+        f"{sorted(set(bres.M.tolist()))}, E padded to "
+        f"{max(int(np.count_nonzero(c.topo.adj)) for c in bcfgs)}), T 300, "
+        f"K1 300 launches; kernel vs plain gap curves {d_b:.3e}; every "
+        f"curve under theorem1_bound; worst final gap "
+        f"{bres.gap[:, -1].max().item():.3e}")
+
+    def core(T):
+        return _hps_scan_core(Key(np.zeros(K, np.int64), res.seed.numpy()),
+                              rt, w, T=T, store="final", backend="auto")
+
+    one_rt = rts[0].to(dev)
+    grid_timing("hps", core, lambda T: run_hps_runtime(
+        w, one_rt, T, seed=0, plan=ExecutionPlan(store="final")), K, N)
+    return {"launches": counts["edge_scatter"], "k1_ms": k1_ms}
+
+
+def social_grid_phase(dev, flush) -> dict:
+    """Phase 6f: 64 Algorithm 3 scenarios of N = 2,048 as one graph."""
+    import torch
+    from repro_torch.core import (ExecutionPlan, HPSConfig, make_confused_model,
+                                  make_hierarchy, make_social_runtime,
+                                  run_social_grid, run_social_runtime,
+                                  run_social_sweep, stack_runtimes)
+    from repro_torch.core.prng import (Key, fold_in, fold_rounds, prng_key,
+                                       uniform)
+    from repro_torch.core.social import (STREAM_LINK, STREAM_SIGNAL,
+                                         _social_scan_core,
+                                         social_stream_fold)
+    from repro_torch.kernels.social_innov import innovation_cuda
+    T = T_MAIN
+    base, cfgs = hps_grid_configs([8] * GRID_NETS, (0.0, 0.3, 0.6, 0.9),
+                                  (4, 8), B=4)
+    N, M = base.topo.N, base.topo.M
+    model = make_confused_model(N=N, m=3, truth=1, confusion=0.5)
+    seeds = list(range(GRID_SEEDS))
+    plan = ExecutionPlan(store="log_ratio")
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = run_social_grid(model, cfgs, T, seeds, plan=plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    K = res.K
+    per_cfg = [make_social_runtime(c) for c in cfgs]
+    rts = [per_cfg[int(c)] for c in res.cfg]
+    rt = stack_runtimes(rts).to(dev)
+    log(f"[social grid] {len(cfgs)} configs (drop 0/0.3/0.6/0.9 x Γ 4/8, B "
+        f"4) x {GRID_SEEDS} seeds = {K} scenarios of N={N}, m=3, truth 1, "
+        f"confusion 0.5: one graph of K·N={K * N}, K·E={rt.src.shape[0]}; "
+        f"T={T} store log_ratio: {wall:.2f} s, launches {counts}")
+    require(K * N == N_FULL, "social grid: K·N = 131,072")
+    require(counts == _only(edge_scatter=T, edge_scatter_tiled=T,
+                            social_innov=T),
+            "social grid: K1 and K2 launched T times each for all K "
+            "scenarios, K1 on its edge-tiled kernel")
+    res_p = run_social_grid(model, cfgs, T, seeds,
+                            plan=plan.replace(backend="torch"))
+    torch.cuda.synchronize()
+    require(_counts() == counts, "social grid: the plain path launched no "
+            "kernel")
+    bk, bp = res.beliefs, res_p.beliefs
+    require(bk.shape == (K, N, 3) and res.log_ratio.shape == (K, T)
+            and bool(torch.isfinite(bk).all())
+            and bool(torch.isfinite(res.log_ratio).all()),
+            "social grid: finite rows of the expected shapes")
+    # phase 3's limits: beliefs 1e-2, worst-log-ratio curves 5e-2, the
+    # argmax equal where the top two beliefs are more than 2e-2 apart
+    d_b = (bk - bp).abs().max().item()
+    d_l = (res.log_ratio - res_p.log_ratio).abs().max().item()
+    require(d_b <= 1e-2 and d_l <= 5e-2, "social grid: beliefs and log "
+            "ratios within phase 3's limits of the plain path")
+    top2 = bp.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2e-2
+    require(torch.equal(bk.argmax(-1)[decided], bp.argmax(-1)[decided]),
+            "social grid: decisions equal")
+    learned = (bk.argmax(-1) == model.truth).float().mean(1)
+    log(f"[social grid] kernel vs plain: beliefs {d_b:.3e}, log-ratio "
+        f"curves {d_l:.3e}; decisions equal on {int(decided.sum())}/{K * N} "
+        f"decided agents; share deciding theta* by drop 0/0.3/0.6/0.9 (Γ 8, "
+        f"seed 0): " + " ".join(f"{learned[k].item():.4f}" for k in range(K)
+                               if int(res.gamma[k]) == 8
+                               and int(res.seed[k]) == 0))
+    rows = (0, K - 1)
+    E = rt.src.shape[0] // K
+    row_masks_equal(lambda t: social_stream_fold(t, STREAM_LINK),
+                    res.seed, rows, E, rt.drop_prob, rt.B, T, dev)
+    k1_ms = row_recv_equal("social grid", rt.src, rt.valid, rt.offsets, K,
+                           rows, 4, dev, flush)
+    # the signal draw and K2 per agent: each row's slice of the batched
+    # uniforms and of K2 over the K·N agents equals its own
+    seeds_np = res.seed.numpy()
+    sk = fold_rounds(Key(np.zeros_like(seeds_np), seeds_np),
+                     [social_stream_fold(t, STREAM_SIGNAL) for t in (0, T - 1)],
+                     dev)
+    tables = model.tables.to(dev)
+    lt, cdf = torch.log(tables), torch.cumsum(tables[:, 1, :], dim=-1)
+    g = torch.Generator(device=dev).manual_seed(3)
+    z = torch.randn((K * N, 3), generator=g, device=dev)
+    mass = torch.rand(K * N, generator=g, device=dev) + 0.5
+    for i, t in enumerate((0, T - 1)):
+        u = uniform(Key(sk.k0[i], sk.k1[i]), N, dev)
+        z_b, mu_b = innovation_cuda(z, mass, u.reshape(-1),
+                                    cdf.repeat(K, 1), lt.repeat(K, 1, 1))
+        for k in rows:
+            u1 = uniform(fold_in(prng_key(int(seeds_np[k])),
+                                 social_stream_fold(t, STREAM_SIGNAL)), N, dev)
+            n = slice(k * N, (k + 1) * N)
+            z_1, mu_1 = innovation_cuda(z[n].contiguous(),
+                                        mass[n].contiguous(), u1, cdf, lt)
+            require(torch.equal(u[k], u1) and torch.equal(z_b[n], z_1)
+                    and torch.equal(mu_b[n], mu_1),
+                    f"social grid row {k}: signal uniforms and K2's z_new "
+                    f"and mu bit-equal to its single run's at round {t}")
+    k2_args = (z, mass, u.reshape(-1), cdf.repeat(K, 1), lt.repeat(K, 1, 1))
+    k2_ms = event_ms(lambda: innovation_cuda(*k2_args), TIMED_RUNS, flush,
+                     hide_host=True)
+    b_ms, by = bound(nbytes(*k2_args, z_b, mu_b), 0)
+    log(f"[timing] social grid: social_innov at the grid's shape (K·N="
+        f"{K * N}, m=3, S={cdf.shape[1]}): {k2_ms:.5f} ms with the host "
+        f"hidden, bound {b_ms:.5f} ({by}); median of {TIMED_RUNS}, L2 "
+        f"flushed")
+    for k in rows:
+        cfg, seed = cfgs[int(res.cfg[k])], int(res.seed[k])
+        one = run_social_runtime(model, rts[k], M, T, seed=seed,
+                                 signal_seed=seed, plan=plan)
+        gaps = hold_rows(f"social grid row {k}", {
+            "beliefs": (res.beliefs[k], one.beliefs)}, dict(rtol=0, atol=1e-3))
+        gaps += ", " + hold_rows(f"social grid row {k}", {
+            "log ratio": (res.log_ratio[k], one.log_ratio)},
+            dict(rtol=1e-3, atol=1e-2))
+        top2 = one.beliefs.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2e-2
+        require(torch.equal(res.beliefs[k].argmax(-1)[clear],
+                            one.beliefs.argmax(-1)[clear]),
+                f"social grid row {k}: decisions equal to its single run's")
+        log(f"[social grid] row {k} (drop {cfg.drop_prob:.2g}, Γ "
+            f"{cfg.gamma_period}, seed {seed}) against its single run on the "
+            f"card: link masks, signal uniforms, K1's recv and K2's outputs "
+            f"bit-equal, decisions equal; {gaps}")
+
+    # benchmarks/social_learning.py's sweep (:144-153): 3 x 6 complete,
+    # drop 0/0.3/0.6/0.9 x Γ 4/8/16 x 4 seeds, T = 300
+    topo = make_hierarchy([6, 6, 6], topology="complete", seed=0)
+    bmodel = make_confused_model(N=topo.N, m=3, truth=1, confusion=0.5,
+                                 seed=0)
+    bcfg = HPSConfig(topo=topo, gamma_period=8, B=4, drop_prob=0.0)
+    _zero_counts()
+    bres = run_social_sweep(bmodel, bcfg, 300,
+                            drop_probs=(0.0, 0.3, 0.6, 0.9),
+                            gammas=(4, 8, 16), seeds=range(4))
+    torch.cuda.synchronize()
+    require(_counts() == _only(edge_scatter=300, edge_scatter_tiled=300,
+                               social_innov=300),
+            "social_learning sweep: K1 and K2 launched T times")
+    final = bres.beliefs[:, :, bmodel.truth].min(dim=1).values
+    ok = final[bres.drop_prob < 0.9]
+    require(bres.K == 48 and bool((ok > 0.9).all()),
+            "social_learning sweep: every agent's final belief in theta* "
+            "above 0.9 in every row with drop < 0.9")
+    log(f"[social grid] social_learning sweep: {bres.K} scenarios, T 300, "
+        f"K1 and K2 300 launches each; least final belief in theta* "
+        f"{ok.min().item():.6f} over drop < 0.9, "
+        f"{final[bres.drop_prob >= 0.9].min().item():.6f} at drop 0.9")
+
+    keys = Key(np.zeros(K, np.int64), res.seed.numpy())
+
+    def core(T):
+        return _social_scan_core(keys, keys, rt, lt, cdf, truth=1, M=M, T=T,
+                                 store="final", backend="auto")
+
+    one_rt = rts[0].to(dev)
+    grid_timing("social", core, lambda T: run_social_runtime(
+        model, one_rt, M, T, seed=0, plan=ExecutionPlan(store="final")),
+        K, N)
+    return {"launches": counts["edge_scatter"],
+            "k2_launches": counts["social_innov"], "k1_ms": k1_ms,
+            "k2_ms": k2_ms}
+
+
+def pushsum_sweep_phase(dev, flush) -> dict:
+    """Phase 6g: 2 graph draws x 4 drops x 4 seeds of N = 4,096 as one
+    graph of 131,072."""
+    import torch
+    from repro_torch.core import (ExecutionPlan, random_strongly_connected_edge_list,
+                                  run_pushsum_sparse, run_pushsum_sweep,
+                                  sort_by_dst, stack_edge_lists)
+    from repro_torch.core.prng import prng_key
+    from repro_torch.core.sweeps import _pushsum_grid, _pushsum_sweep_core
+    T, n = T_MAIN, PS_SWEEP_N
+    # benchmarks/pushsum_sweep.py's graph (:128), two draws from one rng
+    rng = np.random.default_rng(0)
+    draws = [random_strongly_connected_edge_list(n, 2.0, rng)
+             for _ in range(2)]
+    w = torch.from_numpy(rng.normal(size=(n, A1_D)).astype(np.float32)).to(dev)
+    el = sort_by_dst(stack_edge_lists([d.to_dense() for d in draws]))[0]
+    drops = (0.0, 0.3, 0.6, 0.9)
+    kw = dict(drop_probs=drops, seeds=range(4), B=4)
+    plan = ExecutionPlan(dst_sorted=True)
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = run_pushsum_sweep(w, el, T, plan=plan, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    K = res.K
+    log(f"[pushsum sweep] 2 draws (E {draws[0].E} and {draws[1].E}, padded "
+        f"to {el.E}) x drop 0/0.3/0.6/0.9 x 4 seeds = {K} scenarios of "
+        f"N={n}, B 4: one graph of K·N={K * n}, K·E={K * el.E}; T={T}: "
+        f"{wall:.2f} s, launches {counts}")
+    require(K * n == N_FULL, "push-sum sweep: K·N = 131,072")
+    require(counts == _only(edge_scatter=T, edge_scatter_tiled=T),
+            "push-sum sweep: K1 launched T times for all K scenarios, on "
+            "its edge-tiled kernel")
+    res_p = run_pushsum_sweep(w, el, T, plan=plan.replace(backend="torch"),
+                              **kw)
+    torch.cuda.synchronize()
+    require(_counts() == counts, "push-sum sweep: the plain path launched "
+            "no kernel")
+    require(res.err.shape == (K, T) and res.final_ratio.shape == (K, n, A1_D)
+            and bool(torch.isfinite(res.final_ratio).all()),
+            "push-sum sweep: finite rows of the expected shapes")
+    require(bool((res.mass_gap.abs() <= 1e-4 * n).all()),
+            "push-sum sweep: every row's mass gap within 1e-4 N")
+    falls = res.err[:, -1] < res.err[:, 0]
+    require(bool(falls[res.drop_prob < 0.9].all()), "push-sum sweep: err "
+            "falls in every row with drop < 0.9")
+    d_r = (res.final_ratio - res_p.final_ratio).abs().max().item()
+    d_e = (res.err - res_p.err).abs().max().item()
+    require(max(d_r, d_e) <= A1_LIMIT, f"push-sum sweep: rows within "
+            f"{A1_LIMIT} of the plain path")
+    log(f"[pushsum sweep] kernel vs plain: final ratios {d_r:.3e}, err "
+        f"curves {d_e:.3e} (limit {A1_LIMIT}); largest |mass gap| "
+        f"{res.mass_gap.abs().max().item():.3e}; err at T by drop "
+        f"0/0.3/0.6/0.9 (graph 0, seed 0): "
+        + " ".join(f"{res.err[k, -1].item():.3e}" for k in range(K)
+                   if int(res.graph[k]) == 0 and int(res.seed[k]) == 0))
+    args, _ = _pushsum_grid(el, drops, range(4), 4, plan, dev)
+    rows = (0, K - 1)
+    row_masks_equal(lambda t: t, res.seed, rows, el.E, args[5], args[6], T,
+                    dev)
+    k1_ms = row_recv_equal("push-sum sweep", args[1], args[3], args[4], K,
+                           rows, A1_D + 1, dev, flush)
+    target = w.mean(0)
+    for k in rows:
+        g = int(res.graph[k])
+        fin, traj = run_pushsum_sparse(
+            w, el.src[g], el.dst[g], T, drop_prob=float(res.drop_prob[k]),
+            B=4, key=prng_key(int(res.seed[k])), valid=el.valid[g],
+            record_every=1, plan=plan)
+        err = (traj - target).abs().amax(dim=(1, 2))
+        gaps = hold_rows(f"push-sum sweep row {k}", {
+            "final ratios": (res.final_ratio[k], traj[-1]),
+            "err": (res.err[k], err)}, HPS_ROW_TOL)
+        log(f"[pushsum sweep] row {k} (graph {g}, drop "
+            f"{float(res.drop_prob[k]):.2g}, seed {int(res.seed[k])}) against "
+            f"its single run on the card: link masks and K1's recv "
+            f"bit-equal; {gaps}")
+
+    def core(T):
+        return _pushsum_sweep_core(*args, w, T=T, backend="auto")
+
+    src0, dst0, valid0 = (torch.from_numpy(a[0]).to(dev)
+                          for a in (el.src, el.dst, el.valid))
+    grid_timing("pushsum", core, lambda T: run_pushsum_sparse(
+        w, src0, dst0, T, drop_prob=0.0, B=4, valid=valid0, record_every=T,
+        plan=plan), K, n)
+    return {"launches": counts["edge_scatter"], "k1_ms": k1_ms}
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1415,6 +1955,9 @@ def main() -> int:
     # ---- phases 6a-6d: Algorithm 1, push-sum and HPS, through K1 ----------
     a1 = algorithm1_phases(dev)
 
+    # ---- phases 6e-6g: scenario grids as one block-diagonal graph ---------
+    sw = sweep_phases(dev)
+
     # ---- phase 7: timing ------------------------------------------------
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
@@ -1464,12 +2007,21 @@ def main() -> int:
          "launches": launches["edge_scatter"],
          "launches_hps": a1["hps_launches"],
          "launches_pushsum": a1["pushsum_launches"],
+         "launches_hps_grid": sw["hps_grid"]["launches"],
+         "launches_social_grid": sw["social_grid"]["launches"],
+         "launches_pushsum_sweep": sw["pushsum_sweep"]["launches"],
+         "hps_grid_ms": sw["hps_grid"]["k1_ms"],
+         "social_grid_ms": sw["social_grid"]["k1_ms"],
+         "pushsum_sweep_ms": sw["pushsum_sweep"]["k1_ms"],
          "max_abs_err": k1_err, "d5_max_abs_err": a1["k1_err"],
          **kt["edge_scatter"]},
         {"name": "social_innov", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/social_innov.cu",
          "replaces": "src/repro/kernels/social_innov/social_innov.py:75",
-         "launches": launches["social_innov"], "max_abs_err": k2_err,
+         "launches": launches["social_innov"],
+         "launches_social_grid": sw["social_grid"]["k2_launches"],
+         "social_grid_ms": sw["social_grid"]["k2_ms"],
+         "max_abs_err": k2_err,
          **kt["social_innov"]},
         {"name": "byz_trim", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/byz_trim.cu",

@@ -33,6 +33,7 @@ __all__ = [
     "make_hierarchy",
     "EdgeList",
     "edge_list",
+    "stack_edge_lists",
     "sort_by_dst",
     "is_dst_sorted",
     "random_strongly_connected_edge_list",
@@ -422,22 +423,50 @@ def edge_list(adj: np.ndarray) -> EdgeList:
     )
 
 
+def stack_edge_lists(adjs: Sequence[np.ndarray]) -> EdgeList:
+    """Batch G topology draws of one node count into a padded
+    :class:`EdgeList` whose src/dst/valid are (G, E_max).
+
+    Padding edges point ``0 -> 0`` with ``valid=False``; the sparse core
+    intersects every mask with ``valid``, so they never carry mass."""
+    els = [edge_list(a) for a in adjs]
+    n = els[0].n
+    if any(el.n != n for el in els):
+        raise ValueError("all topology draws must have the same node count")
+    E = max(el.E for el in els)
+    src = np.zeros((len(els), E), dtype=np.int32)
+    dst = np.zeros((len(els), E), dtype=np.int32)
+    valid = np.zeros((len(els), E), dtype=bool)
+    for g, el in enumerate(els):
+        src[g, : el.E] = el.src
+        dst[g, : el.E] = el.dst
+        valid[g, : el.E] = True
+    return EdgeList(src=src, dst=dst, n=n, valid=valid)
+
+
 def sort_by_dst(el: EdgeList, return_offsets: bool = False):
-    """Stable-sort a single edge index by receiver -> ``(sorted, perm, inv)``.
+    """Stable-sort an edge index by receiver -> ``(sorted, perm, inv)``.
 
     ``perm`` maps a sorted position to its original edge and ``inv`` the
     reverse. With ``return_offsets=True`` a fourth value is returned: the
-    (N+1,) int32 CSR offsets, ``offsets[v] : offsets[v + 1]`` being the run
-    of sorted edges whose receiver is ``v``. The CUDA edge-scatter kernel
-    walks exactly these runs.
+    (..., N+1) int32 CSR offsets, ``offsets[..., v] : offsets[..., v + 1]``
+    being the run of sorted edges whose receiver is ``v``. The CUDA
+    edge-scatter kernel walks exactly these runs.
+
+    A batched index (G, E) sorts each draw on its own (``perm``, ``inv``
+    and ``offsets`` gain the leading G axis); the padding edges of
+    :func:`stack_edge_lists` keep ``dst = 0`` and sort into the ``dst == 0``
+    run, after its real edges.
     """
-    if el.is_batched:
-        raise ValueError("sort one topology draw at a time")
-    perm = np.argsort(el.dst, kind="stable").astype(np.int32)
+    perm = np.argsort(el.dst, axis=-1, kind="stable").astype(np.int32)
     inv = np.empty_like(perm)
-    inv[perm] = np.arange(perm.shape[0], dtype=np.int32)
+    np.put_along_axis(inv, perm, np.broadcast_to(
+        np.arange(perm.shape[-1], dtype=np.int32), perm.shape), axis=-1)
     sorted_el = EdgeList(
-        src=el.src[perm], dst=el.dst[perm], n=el.n, valid=el.valid[perm]
+        src=np.take_along_axis(el.src, perm, axis=-1),
+        dst=np.take_along_axis(el.dst, perm, axis=-1),
+        n=el.n,
+        valid=np.take_along_axis(el.valid, perm, axis=-1),
     )
     if not return_offsets:
         return sorted_el, perm, inv
@@ -445,13 +474,17 @@ def sort_by_dst(el: EdgeList, return_offsets: bool = False):
 
 
 def is_dst_sorted(dst: np.ndarray) -> bool:
-    return bool(np.all(dst[1:] >= dst[:-1]))
+    """Whether every row of ``dst`` (E,) or (G, E) is non-decreasing."""
+    return bool(np.all(dst[..., 1:] >= dst[..., :-1]))
 
 
 def _dst_offsets(sorted_dst: np.ndarray, n: int) -> np.ndarray:
-    """(N+1,) int32 CSR offsets of a dst-sorted edge index."""
-    return np.searchsorted(
-        sorted_dst, np.arange(n + 1), side="left").astype(np.int32)
+    """(..., N+1) int32 CSR offsets of a dst-sorted edge index."""
+    grid = np.arange(n + 1)
+    if sorted_dst.ndim == 1:
+        return np.searchsorted(sorted_dst, grid, side="left").astype(np.int32)
+    return np.stack([np.searchsorted(row, grid, side="left")
+                     for row in sorted_dst]).astype(np.int32)
 
 
 def random_strongly_connected_edge_list(

@@ -18,12 +18,14 @@ iteration on the sparse edge-list core
 (:func:`repro_torch.core.pushsum.sparse_pushsum_step`), whose delivery is
 the CUDA edge scatter on the card. The reference's ``lax.scan`` is a
 Python loop over ``t`` that reads nothing back to the host: ``drop_prob``,
-``gamma``, ``B`` and ``M`` are 0-d device tensors of an
-:class:`HPSRuntime`, the fusion round ``(t + 1) % gamma == 0`` is selected
-with ``torch.where``, and the per-round link masks are drawn on the
+``gamma``, ``B`` and ``M`` are device tensors of an :class:`HPSRuntime`,
+the fusion round ``(t + 1) % gamma == 0`` is selected with
+``torch.where``, and the per-round link masks are drawn on the
 ``hps_stream_fold(t) = ~t`` fold domain, the reference's bit for bit. The
-share factors, the CSR offsets and the consensus target are hoisted out of
-the loop.
+share factors, the CSR offsets, the consensus target and every round's
+folded key are hoisted out of the loop. A grid of scenarios
+(:mod:`repro_torch.core.sweeps`) runs through the same loop as one
+block-diagonal graph.
 
 ``store`` selects what the loop keeps: ``"trajectory"`` the (T, N, d)
 ratio history, ``"gap"`` one 0-d tensor a round, the worst consensus error
@@ -48,13 +50,14 @@ import torch
 from ..kernels.byz_trim.ref import trim_gather_ref
 from .graphs import EdgeList, HierTopology, edge_list, sort_by_dst
 from .plan import ExecutionPlan, resolve_device
-from .prng import Key, prng_key
+from .prng import Key, fold_rounds, prng_key
 from .pushsum import (
     PushSumState,
     SparsePushSumState,
     _frames,
     _out_degree,
     edge_index_tensors,
+    edge_mask,
     init_sparse_state,
     init_state,
     pushsum_step,
@@ -154,13 +157,20 @@ def ps_trimmed_pool(
 
 def _fuse(zm: torch.Tensor, rep_mask: torch.Tensor, M,
           F: int = 0) -> torch.Tensor:
-    """The fusion on the joint (N, d+1) value-and-mass state: each
-    representative keeps half and adds the pooled halves."""
+    """The fusion on the joint (K, N, d+1) value-and-mass state of K
+    scenarios (``rep_mask`` (K, N), ``M`` an int or a (K,) tensor): each
+    representative keeps half and adds the halves pooled over its own
+    scenario's representatives."""
     if F == 0:
-        pooled = (zm * rep_mask.to(zm.dtype)[:, None]).sum(dim=0) / (2.0 * M)
+        if torch.is_tensor(M) and M.ndim:
+            M = M[:, None]
+        pooled = ((zm * rep_mask.to(zm.dtype)[..., None]).sum(dim=-2)
+                  / (2.0 * M))
     else:
-        pooled = 0.5 * ps_trimmed_pool(zm, rep_mask, F)
-    return torch.where(rep_mask[:, None], 0.5 * zm + pooled[None, :], zm)
+        pooled = 0.5 * torch.stack([ps_trimmed_pool(x, r, F)
+                                    for x, r in zip(zm, rep_mask)])
+    return torch.where(rep_mask[..., None], 0.5 * zm + pooled[:, None, :],
+                       zm)
 
 
 def hps_fusion(
@@ -175,7 +185,8 @@ def hps_fusion(
     in the reference. ``F > 0``: ``0.5 * x + 0.5 * ps_trimmed_pool(...)``
     over the representatives' (z, m) rows, which needs ``M >= 2F + 1``
     and is not average-preserving."""
-    zm = _fuse(torch.cat([z, m[:, None]], dim=1), rep_mask, M, F)
+    zm = _fuse(torch.cat([z, m[:, None]], dim=1)[None], rep_mask[None], M,
+               F)[0]
     return zm[:, :-1], zm[:, -1]
 
 
@@ -296,35 +307,56 @@ def _hps_scan_core(
     """Algorithm 1's loop over the runtime's tensors, all on ``w``'s device.
 
     Returns ``(final_state, (ratio, gap))`` with the store-dependent shapes
-    of :class:`HPSResult`."""
-    N = w.shape[0]
-    E = rt.src.shape[0]
-    state = init_sparse_state(w, E)
+    of :class:`HPSResult`. A runtime of K scenarios stacked into one
+    block-diagonal graph (:func:`repro_torch.core.sweeps.stack_runtimes`:
+    K·N nodes, (K,) scalars) runs them in lockstep from a key of K words,
+    each scenario starting from ``w``: one consensus step and one fusion a
+    round for all of them, and every output gains a leading K. A runtime
+    with 0-d scalars is the one-scenario case and keeps the unbatched
+    shapes."""
+    N, d = w.shape
+    K = rt.drop_prob.numel()
+    E = rt.src.shape[0] // K
+    drop, gamma, B, M = (x.reshape(-1) for x in (rt.drop_prob, rt.gamma,
+                                                  rt.B, rt.M))
+    rep = rt.rep_mask.view(K, N)
+    state = init_sparse_state(w.repeat(K, 1), K * E)
     # loop invariants of the fixed edge index and inputs
-    share = 1.0 / (_out_degree(rt.src, rt.valid, N, w.dtype) + 1.0)
+    share = 1.0 / (_out_degree(rt.src, rt.valid, K * N, w.dtype) + 1.0)
     target = w.mean(dim=0)
+    keys = fold_rounds(key, [hps_stream_fold(t) for t in range(T)],
+                       w.device)
+
+    def ratios_k(st):
+        return sparse_ratios(st).view(K, N, d)
+
     ys = []
     for t in range(T):
         # --- consensus (Alg. 1 lines 3-12) ---
-        mask = step_edge_mask(key, t, E, rt.drop_prob, rt.B,
-                              fold_t=hps_stream_fold(t))
+        mask = edge_mask(Key(keys.k0[t], keys.k1[t]), t, E, drop, B)
         st = sparse_pushsum_step(state, mask, rt.src, rt.dst, rt.valid,
                                  backend, share=share, offsets=rt.offsets)
-        # --- PS fusion every Γ (lines 13-21) ---
-        do_fusion = (t + 1) % rt.gamma == 0
+        # --- PS fusion every Γ (lines 13-21), per scenario ---
+        zm = st.zm.view(K, N, d + 1)
+        do_fusion = ((t + 1) % gamma == 0)[:, None, None]
         state = st._replace(zm=torch.where(
-            do_fusion, _fuse(st.zm, rt.rep_mask, rt.M, F), st.zm))
+            do_fusion, _fuse(zm, rep, M, F), zm).view(K * N, d + 1))
         if store == "trajectory":
-            ys.append(sparse_ratios(state))
+            ys.append(ratios_k(state))
         elif store == "gap":
-            ys.append((sparse_ratios(state) - target).abs().max())
+            ys.append((ratios_k(state) - target).abs().amax(dim=(1, 2)))
     if store == "trajectory":
-        traj = _frames(ys, w)
-        return state, (traj, (traj - target).abs().amax(dim=(1, 2)))
-    fr = sparse_ratios(state)
-    if store == "gap":
-        return state, (fr, torch.stack(ys) if ys else w.new_zeros(0))
-    return state, (fr, (fr - target).abs().max())
+        ratio = (torch.stack(ys, dim=1) if ys
+                 else w.new_zeros((K, 0, N, d)))
+        gap = (ratio - target).abs().amax(dim=(2, 3))
+    else:
+        ratio = ratios_k(state)
+        gap = ((torch.stack(ys, dim=1) if ys else w.new_zeros((K, 0)))
+               if store == "gap"
+               else (ratio - target).abs().amax(dim=(1, 2)))
+    if rt.drop_prob.ndim == 0:
+        ratio, gap = ratio[0], gap[0]
+    return state, (ratio, gap)
 
 
 def run_hps_runtime(

@@ -30,7 +30,11 @@ sync, while a draw runs as int64 tensor arithmetic masked to 32 bits on
 the device it is asked for (torch's uint32 operator coverage is partial).
 A *tensor of keys* (what ``split`` returns) holds its words as two int64
 tensors; ``fold_in``, ``threefry2x32`` and ``randint`` take it as they take
-a single key, so a draw per key is one vectorized pass, not a loop.
+a single key, so a draw per key is one vectorized pass, not a loop. A
+tensor of keys of shape (K, 1) draws (K, n) in one pass
+(``random_bits``, ``uniform``): the scenario batches draw every
+scenario's round this way, their keys folded for all rounds up front by
+:func:`fold_rounds`.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["Key", "prng_key", "fold_in", "threefry2x32", "random_bits",
+__all__ = ["Key", "prng_key", "fold_in", "fold_rounds", "threefry2x32",
+           "random_bits",
            "uniform", "split", "randint", "randint_n", "choice", "normal",
            "gumbel", "categorical"]
 
@@ -91,8 +96,23 @@ def fold_in(key: Key, data) -> Key:
     return Key(*threefry2x32(key.k0, key.k1, 0, int(data) & _M32))
 
 
+def fold_rounds(key: Key, folds, device) -> Key:
+    """``fold_in(k, f)`` for each fold value ``f`` of ``folds`` (T,) and
+    each key ``k`` of ``key`` (words that are Python ints, or arrays of K
+    words), computed on the host in one vectorized threefry -> a Key of
+    (T, K, 1) int64 tensors on ``device``. Row ``t`` is a tensor of K keys
+    whose draws broadcast to (K, n), so an engine's loop folds nothing and
+    reads nothing back."""
+    k0, k1 = (np.atleast_1d(np.asarray(k, dtype=np.int64))[None, :]
+              for k in key)
+    data = (np.asarray(folds, dtype=np.int64).reshape(-1) & _M32)[:, None]
+    return Key(*(torch.from_numpy(np.ascontiguousarray(w[..., None])).to(
+        device) for w in threefry2x32(k0, k1, 0, data)))
+
+
 def random_bits(key: Key, n: int, device) -> torch.Tensor:
-    """(n,) int64 tensor of the uint32 bits ``jax.random.bits(key, (n,))``."""
+    """(n,) int64 tensor of the uint32 bits ``jax.random.bits(key, (n,))``;
+    a tensor of keys of shape (K, 1) gives (K, n), one row a key."""
     if not 0 <= n < (1 << 32):
         raise ValueError(f"draw size {n} is outside the 32-bit counter")
     lo = torch.arange(n, dtype=torch.int64, device=device)
@@ -101,7 +121,8 @@ def random_bits(key: Key, n: int, device) -> torch.Tensor:
 
 
 def uniform(key: Key, n: int, device) -> torch.Tensor:
-    """(n,) float32 ``jax.random.uniform(key, (n,))`` in [0, 1)."""
+    """(n,) float32 ``jax.random.uniform(key, (n,))`` in [0, 1); (K, n) for
+    a tensor of keys of shape (K, 1)."""
     bits = (random_bits(key, n, device) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
 

@@ -49,6 +49,7 @@ __all__ = [
     "sparse_mass_invariant",
     "run_pushsum_sparse",
     "step_edge_mask",
+    "edge_mask",
 ]
 
 
@@ -297,11 +298,21 @@ def step_edge_mask(
     with several streams per iteration gives the link mask its own fold
     domain while the B-window still runs on the iteration ``t``.
     ``drop_prob`` and ``B`` are 0-d tensors on the device the mask is drawn
-    on; nothing is read back to the host.
+    on; nothing is read back to the host. A batch of K scenarios passes a
+    tensor of K keys of shape (K, 1) with ``drop_prob`` and ``B`` of shape
+    (K,), and gets their (K·E,) masks, scenario k's at ``[k E, (k+1) E)``.
     """
-    kt = fold_in(key, t if fold_t is None else fold_t)
-    up = uniform(kt, n_edges, drop_prob.device) >= drop_prob
-    return up | ((t % B) == (B - 1))
+    return edge_mask(fold_in(key, t if fold_t is None else fold_t), t,
+                     n_edges, drop_prob, B)
+
+
+def edge_mask(kt: Key, t: int, n_edges: int, drop_prob: torch.Tensor,
+              B: torch.Tensor) -> torch.Tensor:
+    """:func:`step_edge_mask` from the round's already-folded key ``kt``
+    (one key, or a (K, 1) tensor of keys with (K,) ``drop_prob`` and
+    ``B``) -> (E,) or (K·E,)."""
+    up = uniform(kt, n_edges, drop_prob.device) >= drop_prob[..., None]
+    return (up | ((t % B) == (B - 1))[..., None]).reshape(-1)
 
 
 def run_pushsum_sparse(

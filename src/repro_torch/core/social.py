@@ -16,10 +16,12 @@ The two per-iteration halves run through the port's kernels:
 
 The reference's ``lax.scan`` is a Python loop over ``t`` here. The loop
 reads nothing back to the host: ``drop_prob``, ``gamma`` and ``B`` stay
-0-d device tensors and the fusion round is selected with ``torch.where``,
-and PRNG keys are host values (:mod:`repro_torch.core.prng`) folded per
-iteration in the reference's disjoint domains ``2t + stream``, so the link
-masks and signals are the reference's bit for bit.
+device tensors and the fusion round is selected with ``torch.where``,
+and the PRNG keys (:mod:`repro_torch.core.prng`) are folded on the host
+for every round before the loop, in the reference's disjoint domains
+``2t + stream``, so the link masks and signals are the reference's bit
+for bit. A grid of scenarios (:mod:`repro_torch.core.sweeps`) runs
+through the same loop as one block-diagonal graph.
 """
 from __future__ import annotations
 
@@ -30,16 +32,16 @@ import torch
 
 from ..kernels.social_innov import innovation_step
 from .graphs import EdgeList
-from .hps import HPSConfig, hps_fusion
+from .hps import HPSConfig, _fuse
 from .plan import ExecutionPlan, resolve_device
-from .prng import Key, fold_in, prng_key, uniform
+from .prng import Key, fold_rounds, prng_key, uniform
 from .pushsum import (
     SparsePushSumState,
     _out_degree,
     edge_index_tensors,
+    edge_mask,
     init_sparse_state,
     sparse_pushsum_step,
-    step_edge_mask,
 )
 from .signals import SignalModel, pairwise_kl
 
@@ -174,53 +176,72 @@ def _social_scan_core(
     """Algorithm 3's loop over the runtime's tensors, all on one device.
 
     Returns ``(final_state, (beliefs, log_ratio))`` with the store-dependent
-    shapes of :class:`SocialLearningResult`.
+    shapes of :class:`SocialLearningResult`. A runtime of K scenarios
+    stacked into one block-diagonal graph (:func:`repro_torch.core.sweeps.
+    stack_runtimes`: K·N nodes, (K,) scalars) runs them in lockstep from
+    keys of K words: one consensus step, one innovation step over the K·N
+    agents (the tables repeated K times) and one fusion a round for all of
+    them, and every output gains a leading K. A runtime with 0-d scalars
+    is the one-scenario case and keeps the unbatched shapes.
     """
     N, m = log_tables.shape[0], log_tables.shape[1]
-    E = rt.src.shape[0]
+    K = rt.drop_prob.numel()
+    E = rt.src.shape[0] // K
     dev = log_tables.device
+    drop, gamma, B = (x.reshape(-1) for x in (rt.drop_prob, rt.gamma, rt.B))
+    rep = rt.rep_mask.view(K, N)
+    if K > 1:
+        log_tables, cdf = log_tables.repeat(K, 1, 1), cdf.repeat(K, 1)
     # z accumulates per-hypothesis log-likelihood sums; init 0 (line 1)
-    state = init_sparse_state(torch.zeros((N, m), device=dev), E)
+    state = init_sparse_state(torch.zeros((K * N, m), device=dev), K * E)
     # loop invariants of the fixed edge index
-    share = 1.0 / (_out_degree(rt.src, rt.valid, N) + 1.0)
+    share = 1.0 / (_out_degree(rt.src, rt.valid, K * N) + 1.0)
     wrong_col = torch.arange(m, device=dev) == truth
-    mu = torch.zeros((N, m), device=dev)
+    mask_keys = fold_rounds(
+        mask_key, [social_stream_fold(t, STREAM_LINK) for t in range(T)],
+        dev)
+    sig_keys = fold_rounds(
+        sig_key, [social_stream_fold(t, STREAM_SIGNAL) for t in range(T)],
+        dev)
+    mu = torch.zeros((K * N, m), device=dev)
     ys = []
     for t in range(T):
         # --- consensus (lines 4-12) ---
-        mask = step_edge_mask(mask_key, t, E, rt.drop_prob, rt.B,
-                              fold_t=social_stream_fold(t, STREAM_LINK))
+        mask = edge_mask(Key(mask_keys.k0[t], mask_keys.k1[t]), t, E, drop,
+                         B)
         st = sparse_pushsum_step(state, mask, rt.src, rt.dst, rt.valid,
                                  backend, share=share, offsets=rt.offsets)
         # --- innovation + belief (lines 13-16), one fused pass ---
-        u = uniform(fold_in(sig_key, social_stream_fold(t, STREAM_SIGNAL)),
-                    N, dev)
+        u = uniform(Key(sig_keys.k0[t], sig_keys.k1[t]), N, dev)
         m_t = st.m.contiguous()
-        z, mu = innovation_step(st.z.contiguous(), m_t, u, cdf, log_tables,
-                                backend)
+        z, mu = innovation_step(st.z.contiguous(), m_t, u.reshape(-1), cdf,
+                                log_tables, backend)
         # --- PS fusion every Γ (lines 17-22), applied post-innovation;
         # the emitted belief is the pre-fusion one ---
-        z_f, m_f = hps_fusion(z, m_t, rt.rep_mask, M)
-        do_fusion = (t + 1) % rt.gamma == 0
-        state = st._replace(zm=torch.cat([
-            torch.where(do_fusion, z_f, z),
-            torch.where(do_fusion, m_f, m_t)[:, None]], dim=1))
+        zm = torch.cat([z, m_t[:, None]], dim=1).view(K, N, m + 1)
+        do_fusion = ((t + 1) % gamma == 0)[:, None, None]
+        state = st._replace(zm=torch.where(
+            do_fusion, _fuse(zm, rep, M), zm).view(K * N, m + 1))
         if store == "trajectory":
-            ys.append(mu)
+            ys.append(mu.view(K, N, m))
         elif store == "log_ratio":
             log_mu = torch.log(mu.clamp_min(_MU_FLOOR))
             lr = log_mu - log_mu[:, truth : truth + 1]
-            ys.append(lr.masked_fill(wrong_col, -torch.inf).max())
-    if store == "trajectory":
-        beliefs = (torch.stack(ys) if ys
-                   else torch.zeros((0, N, m), device=dev))
-        log_mu = torch.log(beliefs.clamp_min(_MU_FLOOR))
-        return state, (beliefs, log_mu - log_mu[:, :, truth : truth + 1])
+            ys.append(lr.masked_fill(wrong_col, -torch.inf).view(
+                K, N, m).amax(dim=(1, 2)))
+    beliefs = mu.view(K, N, m)
     if store == "log_ratio":
-        curve = torch.stack(ys) if ys else torch.zeros(0, device=dev)
-        return state, (mu, curve)
-    log_mu = torch.log(mu.clamp_min(_MU_FLOOR))
-    return state, (mu, log_mu - log_mu[:, truth : truth + 1])
+        log_ratio = (torch.stack(ys, dim=1) if ys
+                     else torch.zeros((K, 0), device=dev))
+    else:
+        if store == "trajectory":
+            beliefs = (torch.stack(ys, dim=1) if ys
+                       else torch.zeros((K, 0, N, m), device=dev))
+        log_mu = torch.log(beliefs.clamp_min(_MU_FLOOR))
+        log_ratio = log_mu - log_mu[..., truth : truth + 1]
+    if rt.drop_prob.ndim == 0:
+        beliefs, log_ratio = beliefs[0], log_ratio[0]
+    return state, (beliefs, log_ratio)
 
 
 def run_social_runtime(

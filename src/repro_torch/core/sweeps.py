@@ -1,0 +1,504 @@
+"""Scenario sweeps — grids of (topology × M × Γ × drop) × seed scenarios run
+in lockstep.
+
+The port of the synchronous, single-device part of ``repro.core.sweeps``.
+The reference runs a grid as one ``jax.vmap`` over its scan; torch has no
+``vmap`` over hand-written kernels, so the port stacks the K scenarios of
+a call into **one block-diagonal graph** (:func:`stack_runtimes`): scenario
+k's nodes are ``[k N, (k+1) N)`` and its edges ``[k E, (k+1) E)``, in the
+reference's padded, dst-sorted order, with one CSR ``offsets`` over the
+K·N receivers; the per-scenario scalars (drop, Γ, B, M) become (K,)
+tensors. The engines' own loops (:func:`repro_torch.core.hps._hps_scan_core`,
+:func:`repro_torch.core.social._social_scan_core`, of which a single run
+is the K = 1 case) then take one consensus step a round for all K
+scenarios, so the CUDA edge scatter launches once a round whatever K is,
+and the social innovation kernel once a round over the K·N agents. Link
+masks are drawn for all K keys in one threefry pass, (K, E) then (K·E,),
+on the engines' own fold domains.
+
+Five entry points:
+
+* :func:`run_pushsum_sweep` — Theorem 1 dynamics (Alg. 1 consensus) over
+  topology draw × drop × seed grids;
+* :func:`run_hps_grid` / :func:`run_hps_sweep` — Algorithm 1 over
+  (topology, M, Γ, drop) × seed grids; M varies per scenario;
+* :func:`run_social_grid` / :func:`run_social_sweep` — Algorithm 3 over
+  (topology, drop, Γ) × seed grids; M is shared.
+
+Every result row is one scenario on the leading K axis, in the
+reference's order (config or graph major, then drop, Γ, seed). The fault
+and async index columns are always ``None``: those planes are not ported
+yet. Not ported either: ``mesh=`` sharding, the jit and runtime caches and
+their registry, and the Byzantine sweep and grid.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from .graphs import EdgeList, _dst_offsets, is_dst_sorted
+from .hps import HPS_STORES, HPSConfig, HPSRuntime, _hps_scan_core
+from .hps import make_hps_runtime
+from .plan import ExecutionPlan, resolve_device
+from .prng import Key, fold_rounds
+from .pushsum import (
+    _out_degree,
+    edge_mask,
+    init_sparse_state,
+    sparse_pushsum_step,
+    sparse_ratios,
+)
+from .signals import SignalModel
+from .social import (
+    SOCIAL_STORES,
+    SocialRuntime,
+    _social_scan_core,
+    make_social_runtime,
+)
+
+__all__ = [
+    "PushSumSweepResult",
+    "HPSSweepResult",
+    "SocialSweepResult",
+    "stack_runtimes",
+    "run_pushsum_sweep",
+    "run_hps_grid",
+    "run_hps_sweep",
+    "run_social_grid",
+    "run_social_sweep",
+]
+
+_M32 = 0xFFFFFFFF
+
+#: Index-column order of the shared ``describe()``: scenario coordinates
+#: first, then ``fault``, then ``async_`` (minor-most), as the reference.
+_AXIS_ORDER = ("graph", "cfg", "drop_prob", "gamma", "M", "F", "seed",
+               "fault", "async_")
+
+#: Fields of the result tuples that are payload, not index columns.
+_PAYLOAD_FIELDS = frozenset({
+    "err", "final_ratio", "mass_gap", "beliefs", "log_ratio", "ratio",
+    "gap", "r", "decisions",
+})
+
+
+def _describe_result(res) -> str:
+    """Shared ``describe()``: one line per index column in the fixed
+    scenario -> fault -> async order, naming levels and payload shapes."""
+    lines = [
+        f"{type(res).__name__}: K={res.K} scenarios "
+        "(row order: scenario coords -> fault -> async_, async minor-most)"
+    ]
+    for name in _AXIS_ORDER:
+        if name not in res._fields:
+            continue
+        v = getattr(res, name)
+        if v is None:
+            lines.append(f"  {name:<9} absent (no axis)")
+            continue
+        uniq = np.unique(np.asarray(v))
+        preview = ", ".join(str(x) for x in uniq[:6])
+        if uniq.size > 6:
+            preview += ", ..."
+        lines.append(f"  {name:<9} {uniq.size} level(s): [{preview}]")
+    payload = [f"{n}{tuple(getattr(res, n).shape)}" for n in res._fields
+               if n in _PAYLOAD_FIELDS and getattr(res, n) is not None]
+    lines.append("  payload: " + ", ".join(payload))
+    return "\n".join(lines)
+
+
+class PushSumSweepResult(NamedTuple):
+    """One row per (graph, drop, seed) scenario, leading axis K. Payload on
+    the run's device, index columns on the CPU."""
+
+    err: torch.Tensor          # (K, T) max-agent consensus error per round
+    final_ratio: torch.Tensor  # (K, N, d) z/m estimates at T
+    mass_gap: torch.Tensor     # (K, d) value invariant minus sum(w) at T
+    drop_prob: torch.Tensor    # (K,) scenario coordinates
+    seed: torch.Tensor         # (K,)
+    graph: torch.Tensor        # (K,) topology-draw index
+    fault: torch.Tensor | None = None   # no fault axis (not ported)
+    async_: torch.Tensor | None = None  # no async axis (not ported)
+
+    @property
+    def K(self) -> int:
+        return int(self.err.shape[0])
+
+    def describe(self) -> str:
+        return _describe_result(self)
+
+
+class SocialSweepResult(NamedTuple):
+    """One row per (config, seed) scenario, leading axis K; ``beliefs`` /
+    ``log_ratio`` have the shapes of
+    :class:`repro_torch.core.social.SocialLearningResult` for the store
+    with a leading K. ``cfg`` indexes into the (expanded) config list."""
+
+    beliefs: torch.Tensor
+    log_ratio: torch.Tensor
+    drop_prob: torch.Tensor  # (K,)
+    gamma: torch.Tensor      # (K,)
+    seed: torch.Tensor       # (K,)
+    cfg: torch.Tensor        # (K,) config index
+    fault: torch.Tensor | None = None
+    async_: torch.Tensor | None = None
+
+    @property
+    def K(self) -> int:
+        return int(self.seed.shape[0])
+
+    def describe(self) -> str:
+        return _describe_result(self)
+
+
+class HPSSweepResult(NamedTuple):
+    """One row per (config, seed) scenario, leading axis K; ``ratio`` /
+    ``gap`` have the shapes of :class:`repro_torch.core.hps.HPSResult` for
+    the store with a leading K. ``M`` is each scenario's sub-network
+    count."""
+
+    ratio: torch.Tensor
+    gap: torch.Tensor
+    drop_prob: torch.Tensor  # (K,)
+    gamma: torch.Tensor      # (K,)
+    M: torch.Tensor          # (K,)
+    seed: torch.Tensor       # (K,)
+    cfg: torch.Tensor        # (K,) config index
+    fault: torch.Tensor | None = None
+    async_: torch.Tensor | None = None
+
+    @property
+    def K(self) -> int:
+        return int(self.seed.shape[0])
+
+    def describe(self) -> str:
+        return _describe_result(self)
+
+
+# ---------------------------------------------------------------------------
+# Stacking K scenarios into one block-diagonal graph
+# ---------------------------------------------------------------------------
+
+def _block_diagonal(src, dst, valid, offsets, n: int):
+    """(K, E) edge rows of K graphs over ``n`` nodes each (``offsets``
+    (K, n+1) or ``None``) -> the (K·E,) edge index and (K·n+1,) CSR offsets
+    of one graph of K·n nodes, node ids of row k shifted by k·n."""
+    K, E = src.shape
+    shift = torch.arange(K, dtype=torch.int32, device=src.device)[:, None]
+    src_b = (src + shift * n).reshape(-1)
+    dst_b = (dst + shift * n).reshape(-1)
+    if offsets is not None:
+        offsets = torch.cat([(offsets[:, :-1] + shift * E).reshape(-1),
+                             offsets.new_tensor([K * E])])
+    return src_b, dst_b, valid.reshape(-1), offsets
+
+
+def stack_runtimes(rts: Sequence[HPSRuntime] | Sequence[SocialRuntime]):
+    """K single-scenario runtimes of one type, node count N and (padded)
+    edge count E -> one runtime of the same type over K·N nodes and K·E
+    edges, its scalars (K,) tensors.
+
+    Scenario k keeps its edges' order at ``[k E, (k+1) E)``, so its (E,)
+    link-mask draw lines up edge for edge. Each scenario's receivers lie
+    in its own block, so a dst-sorted index stays sorted (the ``e_max``
+    pads sit at ``dst = N - 1`` of their block) and the offsets are one
+    CSR over the K·N receivers; ``None`` unless every runtime has them."""
+    rts = list(rts)
+    if not rts:
+        raise ValueError("need at least one runtime")
+    kind = type(rts[0])
+    N, E = rts[0].rep_mask.shape[0], rts[0].src.shape[0]
+    if any(type(r) is not kind or r.rep_mask.shape[0] != N
+           or r.src.shape[0] != E or r.drop_prob.ndim for r in rts):
+        raise ValueError("stack single-scenario runtimes of one type, node "
+                         "count and edge count")
+    offsets = (None if any(r.offsets is None for r in rts)
+               else torch.stack([r.offsets for r in rts]))
+    edges = _block_diagonal(*(torch.stack([getattr(r, f) for r in rts])
+                              for f in ("src", "dst", "valid")), offsets, N)
+    rest = {f: torch.cat([getattr(r, f).reshape(-1) for r in rts])
+            for f in kind._fields[4:]}
+    return kind(*edges, **rest)
+
+
+def _seeds(seeds) -> np.ndarray:
+    """Seeds as the uint32 words of their keys, int64."""
+    return np.atleast_1d(np.asarray(seeds, dtype=np.int64)) & _M32
+
+
+def _keys(seeds: np.ndarray) -> Key:
+    """``prng_key(s)`` for every seed, as a Key of K words."""
+    return Key(np.zeros_like(seeds), seeds)
+
+
+# ---------------------------------------------------------------------------
+# Algorithm 1 consensus: graph draws x drop x seed
+# ---------------------------------------------------------------------------
+
+def _scenario_grid(n_graphs: int, drop_probs, seeds):
+    """Flatten the (graph x drop x seed) grid into K-long coordinate arrays."""
+    drop_probs = np.atleast_1d(np.asarray(drop_probs, np.float32))
+    g, d, s = np.meshgrid(np.arange(n_graphs, dtype=np.int32), drop_probs,
+                          _seeds(seeds), indexing="ij")
+    return g.ravel(), d.ravel(), s.ravel()
+
+
+def _pushsum_sweep_core(keys: Key, src, dst, valid, offsets, drop, B,
+                        w: torch.Tensor, *, T: int, backend: str):
+    """K push-sum scenarios on one block-diagonal graph of K·N nodes, from
+    ``w`` each -> (err (K, T), final ratios (K, N, d), value invariant minus
+    sum(w), (K, d))."""
+    N, d = w.shape
+    K = drop.numel()
+    E = src.shape[0] // K
+    state = init_sparse_state(w.repeat(K, 1), K * E)
+    share = 1.0 / (_out_degree(src, valid, K * N, w.dtype) + 1.0)
+    target = w.mean(dim=0)
+    kts = fold_rounds(keys, range(T), w.device)
+    errs = []
+    for t in range(T):
+        mask = edge_mask(Key(kts.k0[t], kts.k1[t]), t, E, drop, B)
+        state = sparse_pushsum_step(state, mask, src, dst, valid, backend,
+                                    share=share, offsets=offsets)
+        errs.append((sparse_ratios(state).view(K, N, d) - target).abs()
+                    .amax(dim=(1, 2)))
+    err = torch.stack(errs, dim=1) if errs else w.new_zeros((K, 0))
+    in_flight = ((state.sigma[src] - state.rho)
+                 * valid.to(w.dtype)[:, None]).view(K, E, d).sum(dim=1)
+    invariant = state.z.view(K, N, d).sum(dim=1) + in_flight
+    return err, sparse_ratios(state).view(K, N, d), invariant - w.sum(dim=0)
+
+
+def run_pushsum_sweep(
+    w,                     # (N, d) initial values, shared by scenarios
+    el: EdgeList,          # one graph or stacked draws (leading G axis)
+    T: int,
+    *,
+    drop_probs: Sequence[float] | float = 0.0,
+    seeds: Sequence[int] | int = 0,
+    B: int = 4,
+    plan: ExecutionPlan | None = None,
+    device=None,
+) -> PushSumSweepResult:
+    """Every topology draw of ``el`` (see :func:`graphs.stack_edge_lists`)
+    × every drop probability × every seed, K = G·|drop_probs|·|seeds|
+    scenarios, as one block-diagonal graph.
+
+    Each row is :func:`repro_torch.core.pushsum.run_pushsum_sparse` on its
+    draw's edge index with ``key=prng_key(seed)``: link masks folded at the
+    plain round index, forced delivery at ``t % B == B - 1``. ``err`` is the
+    worst ``|z/m - mean(w)|`` after each round, ``mass_gap`` the value
+    invariant minus ``sum(w)`` at T. ``plan.backend`` picks the delivery
+    route (the CUDA edge scatter needs every draw dst-sorted, see
+    :func:`graphs.sort_by_dst`) and ``plan.dst_sorted`` asserts that they
+    are. ``device=None`` means the card, and raises where there is none.
+    """
+    plan = ExecutionPlan() if plan is None else plan
+    dev = resolve_device(device)
+    w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+    if w.shape[0] != el.n:
+        raise ValueError(f"w has {w.shape[0]} rows but the graph {el.n} "
+                         f"nodes")
+    args, (gi, dp, sd) = _pushsum_grid(el, drop_probs, seeds, B, plan, dev)
+    err, final, gap = _pushsum_sweep_core(*args, w, T=T, backend=plan.backend)
+    return PushSumSweepResult(
+        err=err, final_ratio=final, mass_gap=gap,
+        drop_prob=torch.from_numpy(dp), seed=torch.from_numpy(sd),
+        graph=torch.from_numpy(gi))
+
+
+def _pushsum_grid(el: EdgeList, drop_probs, seeds, B: int,
+                  plan: ExecutionPlan, dev):
+    """The (graph x drop x seed) scenarios of ``el`` stacked into one
+    block-diagonal graph on ``dev`` -> (the arguments of
+    :func:`_pushsum_sweep_core` before ``w``, the (K,) coordinates)."""
+    src, dst, valid = (np.atleast_2d(a) for a in (el.src, el.dst, el.valid))
+    offsets = None
+    if is_dst_sorted(dst):
+        offsets = torch.from_numpy(_dst_offsets(dst, el.n))
+    elif plan.dst_sorted:
+        raise ValueError("plan.dst_sorted=True but the edge index is not "
+                         "dst-sorted")
+    gi, dp, sd = _scenario_grid(src.shape[0], drop_probs, seeds)
+    rows = torch.from_numpy(gi).long()
+    edges = _block_diagonal(
+        torch.from_numpy(src)[rows], torch.from_numpy(dst)[rows],
+        torch.from_numpy(valid)[rows],
+        None if offsets is None else offsets[rows], el.n)
+    args = (_keys(sd), *(None if x is None else x.to(dev) for x in edges),
+            torch.from_numpy(dp).to(dev),
+            torch.full((gi.shape[0],), B, dtype=torch.int32, device=dev))
+    return args, (gi, dp, sd)
+
+
+# ---------------------------------------------------------------------------
+# Algorithms 1 and 3: (config) x seed grids
+# ---------------------------------------------------------------------------
+
+def _config_grid(cfgs, seeds, make_runtime, dev):
+    """The configs' runtimes padded to the widest E (as the reference pads
+    a mixed-E grid), one per (config, seed) scenario in config-major
+    order, stacked -> (runtime on ``dev``, config index (K,), seeds (K,))."""
+    e_max = max(int(np.count_nonzero(c.topo.adj)) for c in cfgs)
+    runtimes = [make_runtime(c, e_max=e_max) for c in cfgs]
+    gi, sd = np.meshgrid(np.arange(len(cfgs), dtype=np.int32),
+                         _seeds(seeds), indexing="ij")
+    gi, sd = gi.ravel(), sd.ravel()
+    return stack_runtimes([runtimes[g] for g in gi]).to(dev), gi, sd
+
+
+def _coords(cfgs, gi):
+    """Per-scenario drop and Γ columns of the configs ``gi`` index."""
+    drops = np.asarray([c.drop_prob for c in cfgs], np.float32)
+    gammas = np.asarray([c.gamma_period for c in cfgs], np.int32)
+    return torch.from_numpy(drops[gi]), torch.from_numpy(gammas[gi])
+
+
+def _expand(cfg, drop_probs, gammas) -> list[HPSConfig]:
+    """Cross each base config with every drop and every Γ (defaults: the
+    base's own), base-major, then drop, then Γ."""
+    bases = [cfg] if isinstance(cfg, HPSConfig) else list(cfg)
+    expanded = []
+    for base in bases:
+        dps = ([base.drop_prob] if drop_probs is None
+               else np.atleast_1d(np.asarray(drop_probs, np.float32)).tolist())
+        gms = ([base.gamma_period] if gammas is None
+               else np.atleast_1d(np.asarray(gammas, np.int32)).tolist())
+        for dp in dps:
+            for g in gms:
+                expanded.append(dataclasses.replace(
+                    base, drop_prob=float(dp), gamma_period=int(g)))
+    return expanded
+
+
+def run_hps_grid(
+    w,
+    cfgs: Sequence[HPSConfig],
+    T: int,
+    seeds: Sequence[int] | int,
+    *,
+    plan: ExecutionPlan | None = None,
+    device=None,
+) -> HPSSweepResult:
+    """Algorithm 1 over every (config, seed) pair, K = |cfgs|·|seeds|
+    scenarios, as one block-diagonal graph through the HPS loop.
+
+    Configs share N (and ``w`` (N, d) is shared by every scenario); the
+    sub-network count M varies per scenario through its ``1 / 2M`` fusion
+    weight. Edge lists are padded to the widest E as
+    :func:`repro_torch.core.hps.make_hps_runtime` pads them, so a row is
+    ``run_hps_runtime(w, make_hps_runtime(cfg, e_max=E_max), T, seed=s)``,
+    which is ``run_hps(w, cfg, T, seed=s)`` when the config's E is the
+    grid's. ``plan.store`` defaults to ``"gap"`` (the (K, T) worst
+    consensus-error curves and the final (K, N, d) ratios); the other
+    stores are ``"trajectory"`` and ``"final"``. ``device=None`` means the
+    card, and raises where there is none.
+    """
+    plan = ExecutionPlan() if plan is None else plan
+    store = "gap" if plan.store is None else plan.store
+    cfgs = list(cfgs)
+    if not cfgs:
+        raise ValueError("need at least one config")
+    if store not in HPS_STORES:
+        raise ValueError(f"store must be one of {HPS_STORES}, got {store!r}")
+    N = cfgs[0].topo.N
+    if any(c.topo.N != N for c in cfgs) or np.shape(w)[0] != N:
+        raise ValueError("grid configs (and w) must share the node count N")
+    dev = resolve_device(device)
+    rt, gi, sd = _config_grid(cfgs, seeds, make_hps_runtime, dev)
+    _, (ratio, gap) = _hps_scan_core(
+        _keys(sd), rt, torch.as_tensor(w, dtype=torch.float32, device=dev),
+        T=T, store=store, backend=plan.backend)
+    drops, gammas = _coords(cfgs, gi)
+    Ms = np.asarray([c.topo.M for c in cfgs], np.int32)
+    return HPSSweepResult(
+        ratio=ratio, gap=gap, drop_prob=drops, gamma=gammas,
+        M=torch.from_numpy(Ms[gi]), seed=torch.from_numpy(sd),
+        cfg=torch.from_numpy(gi))
+
+
+def run_hps_sweep(
+    w,
+    cfg: HPSConfig | Sequence[HPSConfig],
+    T: int,
+    *,
+    drop_probs: Sequence[float] | float | None = None,
+    gammas: Sequence[int] | int | None = None,
+    seeds: Sequence[int] | int = 0,
+    plan: ExecutionPlan | None = None,
+    device=None,
+) -> HPSSweepResult:
+    """Cross-product (config × drop × Γ × seed) Algorithm 1 sweep: each base
+    config crossed with every ``drop_probs`` value and every ``gammas``
+    period (defaults: the base's own), run by :func:`run_hps_grid`. Row
+    order: base-major, then drop, then Γ, then seed."""
+    return run_hps_grid(w, _expand(cfg, drop_probs, gammas), T, seeds,
+                        plan=plan, device=device)
+
+
+def run_social_grid(
+    model: SignalModel,
+    cfgs: Sequence[HPSConfig],
+    T: int,
+    seeds: Sequence[int] | int,
+    *,
+    plan: ExecutionPlan | None = None,
+    device=None,
+) -> SocialSweepResult:
+    """Algorithm 3 over every (config, seed) pair, K = |cfgs|·|seeds|
+    scenarios, as one block-diagonal graph through the social loop.
+
+    Configs (and the model) share N and M. A scenario's seed drives both of
+    its streams (link masks and signals, on their disjoint fold domains),
+    so a row is ``run_social_runtime(model, make_social_runtime(cfg,
+    e_max=E_max), M, T, seed=s, signal_seed=s)``, which is
+    ``run_social_learning(model, cfg, T, seed=s, signal_seed=s)`` when the
+    config's E is the grid's. ``plan.store`` defaults to ``"log_ratio"``
+    (the (K, T) worst log-ratio curves and the final (K, N, m) beliefs);
+    the other stores are ``"trajectory"`` and ``"final"``. ``device=None``
+    means the card, and raises where there is none.
+    """
+    plan = ExecutionPlan() if plan is None else plan
+    store = "log_ratio" if plan.store is None else plan.store
+    cfgs = list(cfgs)
+    if not cfgs:
+        raise ValueError("need at least one config")
+    if store not in SOCIAL_STORES:
+        raise ValueError(f"store must be one of {SOCIAL_STORES}, got {store!r}")
+    N, M = cfgs[0].topo.N, cfgs[0].topo.M
+    if any(c.topo.N != N or c.topo.M != M for c in cfgs) or model.N != N:
+        raise ValueError("grid configs (and the model) must share (N, M)")
+    dev = resolve_device(device)
+    rt, gi, sd = _config_grid(cfgs, seeds, make_social_runtime, dev)
+    tables = model.tables.to(dev, torch.float32)
+    keys = _keys(sd)
+    _, (beliefs, log_ratio) = _social_scan_core(
+        keys, keys, rt, torch.log(tables),
+        torch.cumsum(tables[:, model.truth, :], dim=-1),
+        truth=model.truth, M=M, T=T, store=store, backend=plan.backend)
+    drops, gammas = _coords(cfgs, gi)
+    return SocialSweepResult(
+        beliefs=beliefs, log_ratio=log_ratio, drop_prob=drops,
+        gamma=gammas, seed=torch.from_numpy(sd), cfg=torch.from_numpy(gi))
+
+
+def run_social_sweep(
+    model: SignalModel,
+    cfg: HPSConfig | Sequence[HPSConfig],
+    T: int,
+    *,
+    drop_probs: Sequence[float] | float | None = None,
+    gammas: Sequence[int] | int | None = None,
+    seeds: Sequence[int] | int = 0,
+    plan: ExecutionPlan | None = None,
+    device=None,
+) -> SocialSweepResult:
+    """Cross-product (config × drop × Γ × seed) Algorithm 3 sweep: each base
+    config crossed with every ``drop_probs`` value and every ``gammas``
+    period (defaults: the base's own), run by :func:`run_social_grid`. Row
+    order: base-major, then drop, then Γ, then seed."""
+    return run_social_grid(model, _expand(cfg, drop_probs, gammas), T, seeds,
+                           plan=plan, device=device)

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 
 from repro.core.hps import ps_trimmed_pool as jax_pool
 from repro.kernels.byz_trim.byz_trim import trim_gather_pallas

@@ -64,6 +64,43 @@ def test_edge_list_sort_and_offsets():
     assert tg.is_dst_sorted(out_a[0].dst) and not tg.is_dst_sorted(a.dst)
 
 
+@pytest.mark.parametrize("n,p,G", [(12, 0.1, 3), (32, 0.02, 2), (5, 0.5, 1)])
+def test_stack_edge_lists_and_batched_sort_match_reference(n, p, G):
+    """Padding edges 0 -> 0 with valid False; a batched sort sorts each
+    draw on its own (the pads into the dst == 0 run) with perm, inv and
+    offsets gaining the leading G axis."""
+    rng = np.random.default_rng(n)
+    adjs = [jg.random_strongly_connected(n, p, rng) for _ in range(G)]
+    a, b = tg.stack_edge_lists(adjs), jg.stack_edge_lists(adjs)
+    _same_edge_list(a, b)
+    assert a.is_batched and a.src.shape == (G, max(x.sum() for x in adjs))
+    pad = ~a.valid
+    assert (a.src[pad] == 0).all() and (a.dst[pad] == 0).all()
+    out_a = tg.sort_by_dst(a, return_offsets=True)
+    out_b = jg.sort_by_dst(b, return_offsets=True)
+    _same_edge_list(out_a[0], out_b[0])
+    for x, y in zip(out_a[1:], out_b[1:]):
+        assert x.dtype == y.dtype and x.shape[0] == G
+        np.testing.assert_array_equal(x, y)
+    assert tg.is_dst_sorted(out_a[0].dst)
+    for g in range(G):       # each row as the single-draw sort of its row
+        row = tg.EdgeList(src=a.src[g], dst=a.dst[g], n=n, valid=a.valid[g])
+        one = tg.sort_by_dst(row, return_offsets=True)
+        _same_edge_list(one[0], tg.EdgeList(
+            src=out_a[0].src[g], dst=out_a[0].dst[g], n=n,
+            valid=out_a[0].valid[g]))
+        for x, y in zip(one[1:], out_a[1:]):
+            np.testing.assert_array_equal(x, y[g])
+        # the pads sort in after the real dst == 0 edges
+        zero = out_a[0].valid[g][:out_a[3][g, 1]]
+        assert (np.diff(zero.astype(int)) <= 0).all()
+
+
+def test_stack_edge_lists_needs_one_node_count():
+    with pytest.raises(ValueError, match="same node count"):
+        tg.stack_edge_lists([tg.ring(4), tg.ring(5)])
+
+
 @pytest.mark.parametrize("sort", [True, False])
 def test_random_strongly_connected_edge_list(sort):
     a = tg.random_strongly_connected_edge_list(

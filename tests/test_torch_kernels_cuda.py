@@ -42,14 +42,20 @@ held within 1e-4 of each leaf's largest entry (float32)."""
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 
 from repro_torch.core import attacks
 from repro_torch.core.byzantine import ByzantineConfig, run_byzantine_learning
 from repro_torch.core.graphs import (make_hierarchy,
-                                     random_strongly_connected_edge_list)
+                                     random_strongly_connected_edge_list,
+                                     sort_by_dst, stack_edge_lists)
 from repro_torch.core.hps import HPSConfig, run_hps
+from repro_torch.core.social import run_social_learning
+from repro_torch.core.sweeps import (run_hps_grid, run_pushsum_sweep,
+                                     run_social_grid, stack_runtimes)
 from repro_torch.core.pushsum import run_pushsum_sparse, sparse_mass_invariant
 from repro_torch.core.plan import ExecutionPlan
+from repro_torch.core.prng import prng_key
 from repro_torch.core.signals import make_confused_model
 from repro_torch.kernels.byz_trim import (
     DEG_MAX_CAP,
@@ -1318,3 +1324,96 @@ def test_pushsum_engine_kernel_path_matches_plain(cuda_device):
     np.testing.assert_allclose(inv[:-1].numpy(), w.sum(axis=0), rtol=1e-4,
                                atol=1e-3)
     np.testing.assert_allclose(inv[-1].item(), 500, rtol=1e-5)
+
+
+# ---- scenario grids: K scenarios as one block-diagonal graph ----
+
+@pytest.mark.cuda
+def test_k1_on_a_block_diagonal_graph_equals_each_block(cuda_device):
+    """K1 over K stacked graphs gives each block's rho_new and recv bit for
+    bit as over that block alone (each receiver's run in edge order)."""
+    from repro_torch.core.hps import make_hps_runtime
+    cfgs = [HPSConfig(make_hierarchy(s, "ring+", seed=i), 4)
+            for i, s in enumerate(([6, 6, 6], [9, 9], [3] * 6))]
+    e_max = max(int(np.count_nonzero(c.topo.adj)) for c in cfgs)
+    rts = [make_hps_runtime(c, e_max=e_max).to(cuda_device) for c in cfgs]
+    st = stack_runtimes(rts)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    sigma = torch.randn((54, 5), generator=g, device=cuda_device)
+    rho = torch.randn((3 * e_max, 5), generator=g, device=cuda_device)
+    live = (torch.rand(3 * e_max, generator=g, device=cuda_device) < 0.6
+            ) & st.valid
+    rho_b, recv_b = edge_scatter_cuda(sigma, rho, live, st.src, st.offsets)
+    for k, rt in enumerate(rts):
+        n, e = slice(18 * k, 18 * (k + 1)), slice(e_max * k, e_max * (k + 1))
+        rho_1, recv_1 = edge_scatter_cuda(sigma[n].contiguous(),
+                                          rho[e].contiguous(),
+                                          live[e].contiguous(), rt.src,
+                                          rt.offsets)
+        assert torch.equal(rho_b[e], rho_1) and torch.equal(recv_b[n], recv_1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["hps", "social", "pushsum"])
+def test_grid_rows_equal_single_runs_on_the_card(cuda_device, engine):
+    """A grid of 8 scenarios through K1 (and K2) on the card, one launch a
+    round for all of them; each row against the single run of its
+    scenario on the card within the limits tests/test_torch_sweeps.py
+    states for the reference (the fusion pool reduces (K, N, d+1) where
+    the single run reduces (N, d+1), which the card may order
+    otherwise)."""
+    topo = make_hierarchy([6, 6, 6], "ring+", seed=1)
+    cfgs = [HPSConfig(topo, gamma_period=g, B=2, drop_prob=d)
+            for d in (0.0, 0.4) for g in (3, 8)]
+    T = 40
+    k1, k2 = edge_scatter_cuda.launches_tiled, innovation_cuda.launches
+    if engine == "hps":
+        w = np.random.default_rng(0).normal(size=(18, 4)).astype(np.float32)
+        res = run_hps_grid(w, cfgs, T, [0, 5], device=cuda_device)
+    elif engine == "social":
+        model = make_confused_model(N=18, m=3, truth=1, confusion=0.3, seed=0)
+        res = run_social_grid(model, cfgs, T, [0, 5], device=cuda_device)
+    else:
+        rng = np.random.default_rng(0)
+        draws = [random_strongly_connected_edge_list(200, 2.0, rng)
+                 for _ in range(2)]
+        w = rng.normal(size=(200, 4)).astype(np.float32)
+        el = sort_by_dst(stack_edge_lists([d.to_dense() for d in draws]))[0]
+        res = run_pushsum_sweep(w, el, T, drop_probs=[0.0, 0.4],
+                                seeds=[0, 5], device=cuda_device)
+    torch.cuda.synchronize()
+    assert edge_scatter_cuda.launches_tiled == k1 + T
+    assert innovation_cuda.launches == k2 + T * (engine == "social")
+    for k in range(res.K):
+        seed = int(res.seed[k])
+        if engine == "pushsum":
+            g = int(res.graph[k])
+            _, traj = run_pushsum_sparse(
+                w, el.src[g], el.dst[g], T, drop_prob=float(res.drop_prob[k]),
+                B=4, key=prng_key(seed), valid=el.valid[g],
+                device=cuda_device)
+            torch.testing.assert_close(res.final_ratio[k], traj[-1],
+                                       rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(
+                res.err[k], (traj - torch.from_numpy(w).to(cuda_device)
+                             .mean(0)).abs().amax(dim=(1, 2)),
+                rtol=1e-4, atol=1e-5)
+            continue
+        cfg = cfgs[int(res.cfg[k])]
+        if engine == "hps":
+            one = run_hps(w, cfg, T, seed=seed, device=cuda_device,
+                          plan=ExecutionPlan(store="gap"))
+            torch.testing.assert_close(res.ratio[k], one.ratio, rtol=1e-4,
+                                       atol=1e-5)
+            torch.testing.assert_close(res.gap[k], one.gap, rtol=1e-4,
+                                       atol=1e-5)
+        else:
+            one = run_social_learning(model, cfg, T, seed=seed,
+                                      signal_seed=seed, device=cuda_device,
+                                      plan=ExecutionPlan(store="log_ratio"))
+            torch.testing.assert_close(res.beliefs[k], one.beliefs, rtol=0,
+                                       atol=1e-3)
+            torch.testing.assert_close(res.log_ratio[k], one.log_ratio,
+                                       rtol=1e-3, atol=1e-2)
+            assert torch.equal(res.beliefs[k].argmax(-1),
+                               one.beliefs.argmax(-1))

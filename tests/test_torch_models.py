@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced

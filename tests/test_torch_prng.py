@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 
 from repro.core.pushsum import step_edge_mask as jax_step_edge_mask
 from repro_torch.core.prng import fold_in, prng_key, random_bits, uniform

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 
 from repro.kernels.pushsum_edge.pushsum_edge import edge_scatter_pallas
 from repro.kernels.pushsum_edge.ref import edge_scatter_ref as jax_ref

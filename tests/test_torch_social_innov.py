@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 
 from repro.kernels.social_innov.ref import innovation_ref as jax_ref
 from repro.kernels.social_innov.social_innov import innovation_pallas

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 
 from repro.kernels.swa.prefill import swa_prefill_pallas
 from repro.kernels.swa.ref import attn_decode_ref as jax_attn_decode_ref

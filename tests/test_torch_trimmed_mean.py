@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 
 from repro.kernels.trimmed_mean.ops import (
     trimmed_mean_pytree as jax_trimmed_mean_pytree,

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (caps torch threads under xdist)
 
 from repro.kernels.wkv6 import ops as jax_ops
 from repro.kernels.wkv6.ref import wkv6_chunked_jnp
