@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: Algorithm 3
 (social learning), Algorithm 2 (Byzantine-resilient learning), Algorithm 1
-(push-sum consensus and hierarchical push-sum), grids of Algorithm 1 and
-3 scenarios run as one graph, the serving path of the dense GQA models (Qwen3-8B) and of RWKV6 (RWKV6-1.6B),
+(push-sum consensus and hierarchical push-sum), grids of Algorithm 1, 2
+and 3 scenarios run as one graph, the serving path of the dense GQA models (Qwen3-8B) and of RWKV6 (RWKV6-1.6B),
 and decentralized robust training (paper_sim).
 
 Phases (any failure raises and the script exits non-zero):
@@ -82,6 +82,20 @@ Phases (any failure raises and the script exits non-zero):
              against the plain path and rows 0 and 31 against their single
              runs; timings (each grid's step, its scenario-step, one
              scenario alone, and a profile);
+6h. byzantine grid — run_byzantine_grid over the same 256 networks at
+             confusion 0.25, 4 configs (F/Byzantine/Γ 0/-/10, 1/2/10,
+             2/2,9/10, 2/2,9/4) x 16 seeds = 64 scenarios, large_value
+             lies, T = 200, one neighbor-list graph of 131,072 receivers:
+             K3 launches T times, each with F per receiver; rows against
+             the plain path, every row's normal agents in C deciding
+             theta* (share > 0.99); rows 0 and 63 against their single
+             runs (signal uniforms and K3's tsum bit-equal); then
+             run_byzantine_sweep on the F 2, Γ 10 config over 16 seeds
+             with sign_flip, extreme_pull and random_noise, and
+             benchmarks/byzantine_bench.py's 48-scenario grid; K3 with F
+             per receiver bit-equal to the rank-order sum at the grid's
+             shape and at the edge cases; timings (K3 with F per receiver
+             beside an int F, the grid step, a profile);
 7. timing  — K1-K3 three ways (device time with the host's enqueueing
              hidden, the JSON time; the kernel alone under the profiler;
              host-inclusive), K1's column walk beside its edge-tiled kernel,
@@ -346,7 +360,8 @@ def trim_sorted(r, idx, valid, msgs, byz):
     q = torch.arange(idx.shape[1], device=idx.device)[None, :]
 
     def survivors(F):
-        return ((q >= F) & (q < deg[:, None] - F))[:, :, None]
+        f = F[:, None] if torch.is_tensor(F) else F
+        return ((q >= f) & (q < deg[:, None] - f))[:, :, None]
 
     return sorted_vals, survivors
 
@@ -354,7 +369,7 @@ def trim_sorted(r, idx, valid, msgs, byz):
 def rank_order_tsum(r, idx, valid, msgs, byz, F):
     """The trim-gather's survivor sum as K3 forms it: the ranks F .. deg -
     F - 1 of :func:`trim_sorted` added in float32 in rank order, from 0 ->
-    (N, P)."""
+    (N, P). ``F`` is an int or an (N,) tensor per receiver."""
     import torch
     sorted_vals, survivors = trim_sorted(r, idx, valid, msgs, byz)
     on = survivors(F)
@@ -1380,13 +1395,14 @@ def grid_timing(label: str, core, single, K: int, n_single: int) -> None:
 
 def sweep_phases(dev) -> dict:
     """Phases 6e-6g -> each grid's kernel launches on its main run and K1's
-    (and K2's) device ms at its shape."""
+    (and K2's) device ms at its shape, and the L2 flush they timed with."""
     import torch
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_        # evict the 50 MB L2 between timed runs
     return {"hps_grid": hps_grid_phase(dev, flush),
             "social_grid": social_grid_phase(dev, flush),
-            "pushsum_sweep": pushsum_sweep_phase(dev, flush)}
+            "pushsum_sweep": pushsum_sweep_phase(dev, flush),
+            "flush": flush}
 
 
 def hps_grid_phase(dev, flush) -> dict:
@@ -1774,6 +1790,284 @@ def pushsum_sweep_phase(dev, flush) -> dict:
         plan=plan), K, n)
     return {"launches": counts["edge_scatter"], "k1_ms": k1_ms}
 
+
+# ---------------------------------------------------------------------------
+# Algorithm 2's scenario batching: K scenarios as one block-diagonal
+# neighbor-list graph, one K3 launch a round for all of them, each
+# receiver trimming its own scenario's F
+# ---------------------------------------------------------------------------
+
+BYZ_GRID_SEEDS = 16
+# (F, Byzantine agents, Γ) of the grid's four configs
+BYZ_GRID_CFGS = ((0, (), BYZ_GAMMA), (1, (2,), BYZ_GAMMA),
+                 (BYZ_F, BYZ_AGENTS, BYZ_GAMMA), (BYZ_F, BYZ_AGENTS, 4))
+BYZ_SWEEP_ATTACKS = ("sign_flip", "extreme_pull", "random_noise")
+
+
+def byz_grid_setup():
+    """byz_scenario's networks at N = 2,048 (256 complete 8-agent
+    networks, confusion 0.25) and the grid's four configs -> (model,
+    configs)."""
+    from repro_torch.core import (ByzantineConfig, attacks,
+                                  make_confused_model, make_hierarchy)
+    topo = make_hierarchy([8] * GRID_NETS, topology="complete", seed=0)
+    model = make_confused_model(N=topo.N, m=3, truth=0, confusion=0.25,
+                                seed=1)
+    atk = attacks.large_value(1e3)
+    return model, [ByzantineConfig(topo=topo, F=F, byz=byz, gamma_period=g,
+                                   attack=atk)
+                   for F, byz, g in BYZ_GRID_CFGS]
+
+
+def hold_byz(what, rk, rp, dk, dp, normal) -> str:
+    """Byzantine rows (r (K, N, 3, 3), final decisions (K, N)) against
+    another run of the same scenarios: r within byzantine_main's limits,
+    final decisions equal where the decision margin is clear -> gaps."""
+    import torch
+    gap = (rk - rp).abs().max().item()
+    require(bool(torch.isclose(rk, rp, rtol=2e-6, atol=1e-2).all()),
+            f"{what}: r within rtol 2e-6, atol 1e-2")
+    eye = torch.eye(3, dtype=torch.bool, device=rp.device)
+    worst = torch.where(eye, torch.inf, rp).min(dim=-1).values
+    top2 = worst.topk(2, dim=-1).values
+    clear = normal & ((top2[..., 0] - top2[..., 1]) > BYZ_MARGIN)
+    require(torch.equal(dk[clear], dp[clear]), f"{what}: decisions equal "
+            f"where the margin is clear")
+    return (f"r {gap:.3e}, final decisions equal on {int(clear.sum())}/"
+            f"{int(normal.sum())} normal agents with margin > {BYZ_MARGIN}")
+
+
+def byzantine_grid_phase(dev, flush) -> dict:
+    """Phase 6h: 4 Byzantine configs x 16 seeds of N = 2,048 as one
+    neighbor-list graph of 131,072 receivers; the sweep's attacks;
+    benchmarks/byzantine_bench.py's grid; K3 with F per receiver; timings
+    -> K3's launches on the grid's run and its grid-shape timings."""
+    import torch
+    from repro_torch.core import (ByzantineConfig, ExecutionPlan, attacks,
+                                  make_byzantine_runtime, make_confused_model,
+                                  make_hierarchy, run_byzantine_grid,
+                                  run_byzantine_runtime, run_byzantine_sweep,
+                                  stack_runtimes)
+    from repro_torch.core.byzantine import (STREAM_SIGNAL, _build_scan,
+                                            stream_fold)
+    from repro_torch.core.prng import (Key, fold_in, fold_rounds, prng_key,
+                                       uniform)
+    from repro_torch.kernels.byz_trim import trim_gather_cuda
+    T = T_MAIN
+    model, cfgs = byz_grid_setup()
+    N, M = cfgs[0].topo.N, cfgs[0].topo.M
+    seeds = list(range(BYZ_GRID_SEEDS))
+    atk = cfgs[0].attack
+    plan = ExecutionPlan(store="decisions")
+    t0 = time.perf_counter()
+    per_cfg = [make_byzantine_runtime(model, c)[0] for c in cfgs]
+    setup_s = time.perf_counter() - t0
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = run_byzantine_grid(model, cfgs, T, seeds, plan=plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    K = res.K
+    rts = [per_cfg[int(c)] for c in res.cfg]
+    rt = stack_runtimes(rts).to(dev)
+    n_c = [int(r.in_C.sum()) // 8 for r in per_cfg]
+    log(f"[byzantine grid] {len(cfgs)} configs (F/Byzantine/Γ "
+        f"{', '.join(f'{F}/{list(b)}/{g}' for F, b, g in BYZ_GRID_CFGS)}; "
+        f"networks in C {n_c} of {M}) x {BYZ_GRID_SEEDS} seeds = {K} "
+        f"scenarios of N={N}: one neighbor-list graph of K·N={K * N} "
+        f"receivers, deg_max {rt.nbr_idx.shape[1]}; large_value(1e3), T={T} "
+        f"store decisions: {wall:.2f} s (set-up of the 4 runtimes "
+        f"{setup_s:.2f} s), launches {counts}")
+    require(K * N == N_FULL, "Byzantine grid: K·N = 131,072")
+    require(counts == _only(byz_trim=T, byz_trim_tensor_f=T),
+            "Byzantine grid: K3 launched T times for all K scenarios, each "
+            "with F per receiver")
+    res_p = run_byzantine_grid(model, cfgs, T, seeds,
+                               plan=plan.replace(backend="torch"))
+    torch.cuda.synchronize()
+    require(_counts() == counts, "Byzantine grid: the plain path launched "
+            "no kernel")
+    require(res.r.shape == (K, N, 3, 3) and res.decisions.shape == (K, T, N)
+            and bool(torch.isfinite(res.r).all()),
+            "Byzantine grid: finite rows of the expected shapes")
+    normal = ~rt.byz_mask.view(K, N)
+    in_C = rt.in_C.view(K, N)
+    gaps = hold_byz("Byzantine grid, kernel vs plain", res.r, res_p.r,
+                    res.decisions[:, -1], res_p.decisions[:, -1], normal)
+    share = ((res.decisions[:, -1] == model.truth) & normal & in_C).sum(1) \
+        / (normal & in_C).sum(1)
+    require(bool((share > 0.99).all()), "Byzantine grid: the share of "
+            "normal agents in C deciding theta* above 0.99 in every row")
+    log(f"[byzantine grid] kernel vs plain: {gaps}; share of normal agents "
+        f"in C deciding theta* by config (seed 0): "
+        + " ".join(f"{share[k].item():.4f}" for k in range(K)
+                   if int(res.seed[k]) == 0)
+        + f"; least over all rows {share.min().item():.4f}")
+
+    # rows 0 and K-1 against their single runs on the card: the signal
+    # uniforms and K3's tsum bit-equal, the rows within the limits
+    rows = (0, K - 1)
+    sk = fold_rounds(Key(np.zeros(K, np.int64), res.seed.numpy()),
+                     [stream_fold(t, STREAM_SIGNAL) for t in (0, T - 1)],
+                     dev)
+    for i, t in enumerate((0, T - 1)):
+        u = uniform(Key(sk.k0[i], sk.k1[i]), N, dev)
+        for k in rows:
+            u1 = uniform(fold_in(prng_key(int(res.seed[k])),
+                                 stream_fold(t, STREAM_SIGNAL)), N, dev)
+            require(torch.equal(u[k], u1), f"Byzantine grid row {k}: signal "
+                    f"uniforms bit-equal to its single run's at round {t}")
+    g = torch.Generator(device=dev).manual_seed(8)
+    r_in = torch.randn((K * N, 9), generator=g, device=dev) * 30
+    lies = torch.full((), 1e3, device=dev).expand(K * N, rt.nbr_idx.shape[1],
+                                                  9)
+    F_recv = torch.from_numpy(np.repeat(rt.F, N).astype(np.int32)).to(dev)
+    k3 = (r_in, rt.nbr_idx, rt.nbr_valid, lies, rt.byz_nbr, F_recv)
+    tsum_b, kept_b = trim_gather_cuda(*k3)
+    require(same_bits(tsum_b, rank_order_tsum(*k3)),
+            "Byzantine grid: K3's tsum with F per receiver bit-equal to the "
+            "float32 rank-order sum at the grid's shape")
+    for k in rows:
+        n = slice(k * N, (k + 1) * N)
+        one = rts[k].to(dev)
+        t1, k1 = trim_gather_cuda(r_in[n].contiguous(), one.nbr_idx,
+                                  one.nbr_valid, lies[n], one.byz_nbr,
+                                  int(rt.F[k]))
+        require(torch.equal(tsum_b[n], t1) and torch.equal(kept_b[n], k1),
+                f"Byzantine grid row {k}: K3's tsum and kept bit-equal to "
+                f"its single graph's with an int F")
+        cfg, seed = cfgs[int(res.cfg[k])], int(res.seed[k])
+        single = run_byzantine_runtime(model, one, None, M, atk, T,
+                                       seed=seed, plan=plan)
+        gaps = hold_byz(f"Byzantine grid row {k} vs its single run",
+                        res.r[k:k + 1], single.r[None],
+                        res.decisions[k:k + 1, -1], single.decisions[None, -1],
+                        normal[k:k + 1])
+        log(f"[byzantine grid] row {k} (F {cfg.F}, Byzantine "
+            f"{list(cfg.byz)}, Γ {cfg.gamma_period}, seed {seed}) against "
+            f"its single run on the card: signal uniforms and K3's tsum "
+            f"bit-equal; {gaps}")
+
+    # the sweep on the (F 2, Γ 10) config over 16 seeds, three attacks
+    sweep_cfg = cfgs[2]
+    srt = stack_runtimes([per_cfg[2]] * BYZ_GRID_SEEDS).to(dev)
+    s_normal = ~srt.byz_mask.view(BYZ_GRID_SEEDS, N)
+    s_in_C = srt.in_C.view(BYZ_GRID_SEEDS, N)
+    for name in BYZ_SWEEP_ATTACKS:
+        satk = [attacks.ATTACKS[name]()]
+        _zero_counts()
+        sk_res = run_byzantine_sweep(model, sweep_cfg, T, seeds, satk,
+                                     plan=plan)[name]
+        torch.cuda.synchronize()
+        require(_counts() == _only(byz_trim=T, byz_trim_tensor_f=T),
+                f"Byzantine sweep {name}: K3 launched T times")
+        sp_res = run_byzantine_sweep(model, sweep_cfg, T, seeds, satk,
+                                     plan=plan.replace(backend="torch"))[name]
+        require(bool(torch.isfinite(sk_res.r).all()),
+                f"Byzantine sweep {name}: finite rows")
+        gaps = hold_byz(f"Byzantine sweep {name}, kernel vs plain",
+                        sk_res.r, sp_res.r, sk_res.decisions[:, -1],
+                        sp_res.decisions[:, -1], s_normal)
+        single = run_byzantine_runtime(model, per_cfg[2], None, M, satk[0],
+                                       T, seed=0, plan=plan, device=dev)
+        gaps0 = hold_byz(f"Byzantine sweep {name} row 0 vs its single run",
+                         sk_res.r[:1], single.r[None],
+                         sk_res.decisions[:1, -1],
+                         single.decisions[None, -1], s_normal[:1])
+        s_share = ((sk_res.decisions[:, -1] == model.truth) & s_normal
+                   & s_in_C).sum(1) / (s_normal & s_in_C).sum(1)
+        require(bool((s_share > 0.99).all()), f"Byzantine sweep {name}: "
+                f"normal agents in C learn theta* in every row")
+        log(f"[byzantine sweep] {name} (F 2, Γ 10, {BYZ_GRID_SEEDS} seeds): "
+            f"K3 {T} launches; kernel vs plain: {gaps}; row 0 vs its single "
+            f"run: {gaps0}; least share deciding theta* "
+            f"{s_share.min().item():.4f}")
+
+    # benchmarks/byzantine_bench.py's grid (:140-177): 3 ring+ topologies
+    # of 3 x 5 agents x F 0|1 x 8 seeds = 48 scenarios, T = 200
+    bmodel = make_confused_model(N=15, m=3, truth=0, confusion=0.0, seed=0)
+    batk = attacks.large_value()
+    bcfgs = []
+    for s in range(3):
+        topo = make_hierarchy([5, 5, 5], topology="ring+",
+                              extra_edge_prob=0.9, seed=s)
+        bcfgs += [ByzantineConfig(topo=topo, F=0, byz=(), gamma_period=4,
+                                  attack=batk),
+                  ByzantineConfig(topo=topo, F=1, byz=(1,), gamma_period=4,
+                                  attack=batk)]
+    _zero_counts()
+    t0 = time.perf_counter()
+    bres = run_byzantine_grid(bmodel, bcfgs, T, list(range(8)), plan=plan)
+    torch.cuda.synchronize()
+    b_wall = time.perf_counter() - t0
+    require(_counts() == _only(byz_trim=T, byz_trim_tensor_f=T),
+            "byzantine_bench grid: K3 launched T times")
+    dec = bres.decisions[:, -1].cpu().numpy()
+    accs = []
+    for k in range(bres.K):
+        bm = np.zeros(15, bool)
+        bm[list(bcfgs[int(bres.cfg[k])].byz)] = True
+        accs.append(float((dec[k][~bm] == bmodel.truth).mean()))
+    log(f"[byzantine grid] byzantine_bench grid: {bres.K} scenarios (3 "
+        f"ring+ topologies x F 0|1 x 8 seeds), T {T}: {b_wall:.2f} s, K3 "
+        f"{T} launches; mean accuracy {np.mean(accs):.3f} (least "
+        f"{min(accs):.3f})")
+    require(bres.K == 48, "byzantine_bench grid: 48 scenarios")
+
+    # K3 with a tensor F at the grid's shape beside the int-F call, and at
+    # TRIM_EDGE's cases with mixed F per receiver
+    grid_ms = event_ms(lambda: trim_gather_cuda(*k3), TIMED_RUNS, flush,
+                       hide_host=True)
+    k3_int = k3[:5] + (BYZ_F,)
+    int_ms = event_ms(lambda: trim_gather_cuda(*k3_int), TIMED_RUNS, flush,
+                      hide_host=True)
+    dm = rt.nbr_idx.shape[1]
+    b_ms, by = bound(nbytes(*k3[:3], rt.byz_nbr, F_recv, tsum_b, kept_b) + 4,
+                     K * N * 9 * dm * (2 * BYZ_F + 1))
+    log(f"[timing] byz_trim at the Byzantine grid's shape (K·N={K * N}, "
+        f"deg_max {dm}, P 9, stride-0 lies): F per receiver {grid_ms:.5f} "
+        f"ms, int F = {BYZ_F} {int_ms:.5f} ms ({grid_ms / int_ms:.3f}x), "
+        f"with the host hidden; bound {b_ms:.5f} ({by}); medians of "
+        f"{TIMED_RUNS}, L2 flushed")
+    names, under = [], 0
+    rng = np.random.default_rng(9)
+    for name, _, case_args in trim_edge_cases(dev):
+        n_r, dm_c = case_args[1].shape
+        f = rng.integers(0, max(4, dm_c // 2 + 1) + 1, size=n_r)
+        f[::5] = 0
+        F_t = torch.from_numpy(f.astype(np.int32)).to(dev)
+        tk, kk = trim_gather_cuda(*case_args, F_t)
+        deg = case_args[2].sum(1)
+        require(same_bits(tk, rank_order_tsum(*case_args, F_t))
+                and torch.equal(kk, (deg - 2 * F_t).clamp_min(0).float()),
+                f"trim_gather {name} with F per receiver: tsum bit-equal to "
+                f"the rank-order sum, kept max(deg - 2F, 0)")
+        under += int(((deg <= 2 * F_t) & (deg > 0)).sum())
+        names.append(name)
+    require(under > 0, "trim_gather with F per receiver: rows with deg <= "
+            "2F among the edge cases")
+    log(f"[kernels] byz_trim with F per receiver (0 .. deg_max / 2 + 1, "
+        f"every fifth row 0; {under} rows with 0 < deg <= 2F): tsum "
+        f"bit-equal to the float32 rank-order sum and kept bit-equal at the "
+        f"grid's shape and {len(names)} edge cases ({', '.join(names)})")
+
+    # the grid step, a scenario-step, one scenario alone, a profile
+    keys = Key(np.zeros(K, np.int64), res.seed.numpy())
+
+    def core(T):
+        return _build_scan(model, rt, None, M, atk, T, mode="pairwise",
+                           core="sparse", backend="auto", store="final",
+                           device=dev)(keys)
+
+    one_rt = rts[2].to(dev)
+    grid_timing("byzantine", core, lambda T: run_byzantine_runtime(
+        model, one_rt, None, M, atk, T, seed=0,
+        plan=ExecutionPlan(store="final")), K, N)
+    return {"launches": counts["byz_trim"], "ms": grid_ms, "int_f_ms": int_ms,
+            "bound_ms": b_ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1958,6 +2252,9 @@ def main() -> int:
     # ---- phases 6e-6g: scenario grids as one block-diagonal graph ---------
     sw = sweep_phases(dev)
 
+    # ---- phase 6h: Algorithm 2's grid as one neighbor-list graph ---------
+    bg = byzantine_grid_phase(dev, sw["flush"])
+
     # ---- phase 7: timing ------------------------------------------------
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
@@ -2027,6 +2324,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/byz_trim.cu",
          "replaces": "src/repro/kernels/byz_trim/byz_trim.py:91",
          "launches": launches["byz_trim"], "max_abs_err": k3_err,
+         "launches_byzantine_grid": bg["launches"],
+         "byzantine_grid_ms": bg["ms"],
+         "byzantine_grid_int_f_ms": bg["int_f_ms"],
+         "byzantine_grid_bound_ms": bg["bound_ms"],
          **kt["byz_trim"]},
     ]
     kernels += serve_phases(dev, flush)
@@ -2120,7 +2421,8 @@ def _wrappers() -> dict:
 # wrapper, attribute)
 SUB_COUNTS = {"swa_prefill_tc": ("swa_prefill", "launches_tc"),
               "attn_decode_tc": ("attn_decode", "launches_tc"),
-              "edge_scatter_tiled": ("edge_scatter", "launches_tiled")}
+              "edge_scatter_tiled": ("edge_scatter", "launches_tiled"),
+              "byz_trim_tensor_f": ("byz_trim", "launches_tensor_f")}
 
 
 def _zero_counts() -> None:
@@ -2131,9 +2433,10 @@ def _zero_counts() -> None:
 
 
 def _counts() -> dict[str, int]:
-    """Launches of each wrapper, and of K6's and K5's tensor-core kernels
-    and K1's edge-tiled one alone (``swa_prefill_tc``, ``attn_decode_tc``,
-    ``edge_scatter_tiled``, part of their wrappers' counts)."""
+    """Launches of each wrapper, and of K6's and K5's tensor-core kernels,
+    K1's edge-tiled one and K3's calls with F per receiver alone
+    (``swa_prefill_tc``, ``attn_decode_tc``, ``edge_scatter_tiled``,
+    ``byz_trim_tensor_f``, part of their wrappers' counts)."""
     out = {name: fn.launches for name, fn in _wrappers().items()}
     for key, (name, attr) in SUB_COUNTS.items():
         out[key] = getattr(_wrappers()[name], attr)

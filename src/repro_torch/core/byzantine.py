@@ -26,12 +26,17 @@ message tensor filtered by :func:`trimmed_neighbor_mean` and is kept as the
 equivalence oracle. ``mode="ovr"`` runs the one-vs-rest ablation through
 the same loop with pair shape (m,).
 
-The reference's ``lax.scan`` is a Python loop over ``t`` here. PRNG keys
-are host values folded in the reference's disjoint domains ``3t + stream``
-(:func:`stream_fold`), so signals, ``random_noise`` lies and the fusion's
-representative draws are the reference's bit for bit. ``t`` and Γ are host
-ints, so the fusion round is chosen on the host and its draws and pool
-sort run only every Γ rounds, with no device sync.
+The reference's ``lax.scan`` is a Python loop over ``t`` here, over K
+scenarios in lockstep: a single run is the K = 1 case of the loop that
+:mod:`repro_torch.core.sweeps` runs over a stacked runtime (one
+block-diagonal neighbor-list graph of K·N receivers, each trimming its
+own scenario's F). PRNG keys are host values folded up front in the
+reference's disjoint domains ``3t + stream`` (:func:`stream_fold`), for
+every scenario and round at once, so signals, ``random_noise`` lies and
+the fusion's representative draws are the reference's bit for bit. ``t``
+and each scenario's Γ are host ints, so the fusion rounds are chosen on
+the host and their draws and pool sorts run only where a scenario fuses,
+with no device sync.
 
 Set-up: :func:`byzantine_runtime_from_edge_list` builds the runtime from a
 sparse edge index with no (N, N) array — A3 once per distinct block
@@ -58,7 +63,8 @@ from .graphs import (
 )
 from .hps import ps_trimmed_pool
 from .plan import ExecutionPlan, resolve_device
-from .prng import Key, choice, fold_in, prng_key, randint, split, uniform
+from .prng import (Key, choice, fold_in, fold_rounds, prng_key, randint,
+                   split, uniform)
 from .signals import SignalModel, pairwise_kl
 
 __all__ = [
@@ -240,9 +246,17 @@ class ByzRuntime(NamedTuple):
 
     The reference's fields, plus ``byz_nbr``: whether a slot's sender is
     Byzantine does not change between rounds, so it is gathered once here
-    rather than every round. ``F`` and ``gamma`` are host ints: the trim
-    kernel takes F as an argument and the loop picks fusion rounds on the
-    host."""
+    rather than every round. One scenario's ``F`` and ``gamma`` are host
+    ints: the trim kernel takes F as an argument and the loop picks fusion
+    rounds on the host.
+
+    The stacked form of K scenarios
+    (:func:`repro_torch.core.sweeps.stack_runtimes`) is one block-diagonal
+    neighbor-list graph of K·N receivers: scenario k's rows, the senders
+    they name and its network ``offsets`` are shifted by k·N, every row
+    padded to the common ``deg_max``. Its ``F`` and ``gamma`` are (K,)
+    int numpy arrays, still on the host: the trim kernel takes F per
+    receiver and each scenario fuses on its own Γ."""
 
     nbr_idx: torch.Tensor    # (N, deg_max) int32 in-neighbor sender per slot
     nbr_valid: torch.Tensor  # (N, deg_max) bool — False on padding slots
@@ -252,8 +266,8 @@ class ByzRuntime(NamedTuple):
     in_C: torch.Tensor       # (N,) bool
     offsets: torch.Tensor    # (M,) int32 network block starts
     sizes: torch.Tensor      # (M,) int32 network block sizes
-    F: int                   # trim count
-    gamma: int               # PS fusion period
+    F: int | np.ndarray      # trim count ((K,) when stacked)
+    gamma: int | np.ndarray  # PS fusion period ((K,) when stacked)
 
     def to(self, device) -> "ByzRuntime":
         return ByzRuntime(*(x.to(device) if isinstance(x, torch.Tensor)
@@ -394,33 +408,52 @@ def gossip_adjacency(rt: ByzRuntime) -> np.ndarray:
     return adj
 
 
+
+
 # ---------------------------------------------------------------------------
 # Gossip lowerings (Alg. 2 lines 6-9)
 # ---------------------------------------------------------------------------
 
+def _scenario_keys(key: Key):
+    """The K keys of a key of K numpy words, one by one, as Python ints."""
+    return [Key(int(a), int(b)) for a, b in zip(key.k0, key.k1)]
+
+
 def _sparse_gossip(key: Key, t: int, r: torch.Tensor, rt: ByzRuntime, *,
-                   attack: Attack, mode: str, backend: str):
-    """Neighbor-list trim-gather -> (trimmed_sum (N, *pair), kept (N,))."""
+                   K: int, F, nbr_local: torch.Tensor, attack: Attack,
+                   mode: str, backend: str):
+    """Neighbor-list trim-gather of K scenarios' K·N receivers in one call
+    -> (trimmed_sum (K·N, *pair), kept (K·N,)). ``key`` holds K words,
+    ``nbr_local`` (K, N, deg_max) the senders in scenario numbering and
+    ``F`` the trim count (an int, or a (K·N,) tensor per receiver)."""
     n, pair = r.shape[0], tuple(r.shape[1:])
+    N, dm = n // K, rt.nbr_idx.shape[1]
     if attack.nbr_messages is not None:
-        bmsg = attack.nbr_messages(key, t, r, rt.nbr_idx)
+        bmsg = attack.nbr_messages(key, t, r.view((K, N) + pair),
+                                   nbr_local).reshape((n, dm) + pair)
     else:
-        # compatibility path for attacks without a sparse form: build the
-        # dense point-to-point tensor and gather the needed slots
-        full = attack.messages(key, t, r if mode == "pairwise"
-                               else r[:, :, None])
-        if mode == "ovr":
-            full = full[..., 0]
-        picked = full[rt.nbr_idx.long(),
-                      torch.arange(n, device=r.device)[:, None]]
-        bmsg = picked.expand(tuple(rt.nbr_idx.shape) + pair)
+        # compatibility path for attacks without a sparse form: build each
+        # scenario's dense point-to-point tensor and gather its slots
+        picked = []
+        for k, kk in enumerate(_scenario_keys(key)):
+            rk = r[k * N:(k + 1) * N]
+            full = attack.messages(kk, t, rk if mode == "pairwise"
+                                   else rk[:, :, None])
+            if mode == "ovr":
+                full = full[..., 0]
+            picked.append(full[nbr_local[k].long(),
+                               torch.arange(N, device=r.device)[:, None]])
+        bmsg = torch.cat(picked)
     return trim_gather_pairs(r, rt.nbr_idx, rt.nbr_valid, bmsg, rt.byz_nbr,
-                             rt.F, backend)
+                             F, backend)
 
 
 def _dense_gossip(key: Key, t: int, r: torch.Tensor, rt: ByzRuntime, *,
-                  attack: Attack, mode: str, adj: torch.Tensor):
-    """(N, N) broadcast + sort oracle -> (trimmed_sum, kept)."""
+                  K: int, F, nbr_local, attack: Attack, mode: str,
+                  adj: torch.Tensor):
+    """(N, N) broadcast + sort oracle of one scenario -> (trimmed_sum,
+    kept)."""
+    (key,) = _scenario_keys(key)
     n, pair = r.shape[0], tuple(r.shape[1:])
     honest = r[:, None].expand((n, n) + pair)
     if mode == "pairwise":
@@ -430,8 +463,8 @@ def _dense_gossip(key: Key, t: int, r: torch.Tensor, rt: ByzRuntime, *,
     sender = rt.byz_mask.reshape((n, 1) + (1,) * len(pair))
     msgs = torch.where(sender, byz, honest)
     if mode == "pairwise":
-        return trimmed_neighbor_mean(msgs, adj, rt.F)
-    tsum, kept = trimmed_neighbor_mean(msgs[..., None], adj, rt.F)
+        return trimmed_neighbor_mean(msgs, adj, F)
+    tsum, kept = trimmed_neighbor_mean(msgs[..., None], adj, F)
     return tsum[..., 0], kept
 
 
@@ -447,45 +480,60 @@ class _RepPlan(NamedTuple):
     n_reps: int
 
 
-def _select_reps(key: Key, rt: ByzRuntime, plan: _RepPlan | None):
-    """Random representative selection for a fusion round -> (n_reps,)
-    int64 agent indices. ``split(key, n)[i]`` is ``fold_in(key, i)``, so the
-    reference's ``split(key, |C| + 1)`` is a tensor split of the first |C|
-    keys and a host fold of the last."""
+def _select_reps(key: Key, rt: ByzRuntime, plan: _RepPlan | None, K: int,
+                 N: int) -> torch.Tensor:
+    """Random representative selection for a fusion round of K scenarios
+    -> (K, n_reps) int64 agent indices of the K·N. ``split(key, n)[i]`` is
+    ``fold_in(key, i)``, so the reference's ``split(key, |C| + 1)`` is a
+    tensor split of the first |C| keys and a host fold of the last; each
+    scenario splits its own key, K at once."""
     dev = rt.offsets.device
+    offs = rt.offsets.view(K, -1).long()
+    sizes = rt.sizes.view(K, -1)
     if plan is None:
-        keys = split(key, rt.offsets.shape[0], dev)
-        return rt.offsets.long() + randint(keys, 0, rt.sizes)
+        keys = split(key, offs.shape[1], dev)               # (K, M)
+        return offs + randint(keys, 0, sizes)
     # one rep from each network in C + (2F+1-|C|) uniform from outside C
     n_c = plan.C.shape[0]
-    picks = rt.offsets[plan.C].long() + randint(split(key, n_c, dev), 0,
-                                                rt.sizes[plan.C])
-    extra = choice(fold_in(key, n_c), plan.non_C, plan.n_reps - n_c)
-    return torch.cat([picks, extra.long()])
+    picks = offs[:, plan.C] + randint(split(key, n_c, dev), 0,
+                                      sizes[:, plan.C])
+    extra = torch.stack([choice(fold_in(kk, n_c), plan.non_C,
+                                plan.n_reps - n_c)
+                         for kk in _scenario_keys(key)]).long()
+    shift = torch.arange(K, device=dev)[:, None] * N
+    return torch.cat([picks, extra + shift], dim=1)
 
 
 def _fusion(key: Key, t: int, r_in: torch.Tensor, rt: ByzRuntime, *,
-            n_reps: int, rep_plan: _RepPlan | None, attack: Attack):
-    """PS fusion round: query reps, trim F from each end, push w_tilde back
-    to the queried reps outside C."""
-    pair = tuple(r_in.shape[1:])
-    sl = (-1,) + (1,) * len(pair)
-    reps = _select_reps(key, rt, rep_plan)                 # (n_reps,)
-    rep_vals = r_in[reps]                                  # (n_reps, *pair)
+            K: int, F, n_reps: int, rep_plan: _RepPlan | None,
+            attack: Attack):
+    """PS fusion round of K scenarios: each queries its reps, trims its F
+    from each end of its own pool (``F`` an int, or a (K,) tensor), and
+    pushes its w_tilde back to its queried reps outside C."""
+    n, pair = r_in.shape[0], tuple(r_in.shape[1:])
+    N = n // K
+    sl = (K, n_reps) + (1,) * len(pair)
+    reps = _select_reps(key, rt, rep_plan, K, N)           # (K, n_reps)
+    rep_vals = r_in[reps]                                  # (K, n_reps, *pair)
+    local = reps - torch.arange(K, device=reps.device)[:, None] * N
     if attack.nbr_messages is not None:
-        reply = attack.nbr_messages(key, t, r_in, reps[None, :])[0]
+        reply = attack.nbr_messages(key, t, r_in.view((K, N) + pair),
+                                    local[:, None, :])[:, 0]
     elif len(pair) == 2:
-        reply = attack.ps_reply(key, t, r_in)[reps]
+        reply = torch.stack([
+            attack.ps_reply(kk, t, r_in[k * N:(k + 1) * N])[local[k]]
+            for k, kk in enumerate(_scenario_keys(key))])
     else:
         reply = rep_vals        # no sparse reply defined: state is replayed
     rep_vals = torch.where(rt.byz_mask[reps].reshape(sl), reply, rep_vals)
     w = ps_trimmed_pool(
-        rep_vals, torch.ones(n_reps, dtype=torch.bool, device=r_in.device),
-        rt.F)
-    adopt = torch.zeros(r_in.shape[0], dtype=torch.bool, device=r_in.device)
-    adopt[reps] = True
+        rep_vals,
+        torch.ones((K, n_reps), dtype=torch.bool, device=r_in.device), F)
+    adopt = torch.zeros(n, dtype=torch.bool, device=r_in.device)
+    adopt[reps.reshape(-1)] = True
     adopt &= ~rt.in_C
-    return torch.where(adopt.reshape(sl), w, r_in)
+    return torch.where(adopt.view((K, N) + (1,) * len(pair)), w[:, None],
+                       r_in.view((K, N) + pair)).view(r_in.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -510,28 +558,31 @@ def _decisions(r: torch.Tensor, mode: str) -> torch.Tensor:
         else r.argmax(dim=-1).to(torch.int32)
 
 
-def _innovation(key: Key, t: int, cdf: torch.Tensor, log_tables: torch.Tensor,
+def _innovation(key: Key, cdf: torch.Tensor, log_tables: torch.Tensor,
                 mode: str) -> torch.Tensor:
-    """One private signal per agent -> per-pair statistic increment."""
-    N, m, S = log_tables.shape
-    u = uniform(fold_in(key, stream_fold(t, STREAM_SIGNAL)), N, cdf.device)
+    """One private signal per agent of K scenarios -> per-pair statistic
+    increment, (K·N, *pair). ``key`` is the round's (K, 1) tensor of keys,
+    one (N,) uniform draw each; ``cdf`` and ``log_tables`` hold the K·N
+    agents' rows."""
+    n, m, S = log_tables.shape
+    u = uniform(key, n // key.k0.shape[0], cdf.device).reshape(n)
     # searchsorted(side="left") over the inclusive cumsum counts the
     # entries strictly below u; clamp to the alphabet (an fp32 cumsum can
     # end below 1.0)
     sig = torch.searchsorted(cdf, u[:, None], side="left").clamp_max(S - 1)
-    ll = torch.gather(log_tables, 2, sig[:, None, :].expand(N, m, 1))[..., 0]
+    ll = torch.gather(log_tables, 2, sig[:, None, :].expand(n, m, 1))[..., 0]
     if mode == "pairwise":
-        return ll[:, :, None] - ll[:, None, :]       # (N, m, m) antisymmetric
+        return ll[:, :, None] - ll[:, None, :]       # (n, m, m) antisymmetric
     eye = torch.eye(m, dtype=torch.bool, device=ll.device)
     rest = torch.where(eye[None], -torch.inf, ll[:, None, :])
-    return ll - rest.max(dim=-1).values              # (N, m) one-vs-rest
+    return ll - rest.max(dim=-1).values              # (n, m) one-vs-rest
 
 
 def _scan_core(
-    base_key: Key,
+    keys: Key,
     rt: ByzRuntime,
     *,
-    gossip,                  # gossip(key, t, r, rt) -> (tsum, kept)
+    gossip,                  # gossip(key, t, r, rt, K=, F=, nbr_local=)
     log_tables: torch.Tensor,  # (N, m, S) hoisted log-likelihood tables
     cdf: torch.Tensor,         # (N, S) hoisted truth-row inclusive cumsum
     T: int,
@@ -541,61 +592,106 @@ def _scan_core(
     rep_plan: _RepPlan | None,
     n_reps: int,
 ) -> ByzantineResult:
-    """Algorithm 2's loop over the runtime's tensors, all on one device."""
+    """Algorithm 2's loop over K scenarios in lockstep, all on one device:
+    ``keys`` holds K numpy words and ``rt`` is one scenario's runtime (K =
+    1) or the stacked runtime of K. Every output has a leading K.
+
+    Round keys are folded on the host up front for every scenario and
+    stream; the signals of all K·N agents are one (K, N) draw, the gossip
+    one trim-gather launch (F per receiver when stacked), and a fusion
+    round, chosen on the host when any scenario's ``(t + 1) % Γ_k == 0``,
+    draws every scenario's representatives from its own key and pools
+    each scenario apart; the scenarios not fusing keep their state through
+    ``torch.where``."""
     N, m = log_tables.shape[0], log_tables.shape[1]
+    K = len(keys.k0)
     dev = log_tables.device
     pair = (m, m) if mode == "pairwise" else (m,)
-    sl = (N,) + (1,) * len(pair)
+    n = K * N
+    sl = (n,) + (1,) * len(pair)
     active = rt.active.reshape(sl)
     byz = rt.byz_mask.reshape(sl)
-    r = torch.zeros((N,) + pair, device=dev)
+    dm = rt.nbr_idx.shape[1]
+    nbr_local = (rt.nbr_idx.view(K, N, dm)
+                 - torch.arange(K, dtype=torch.int32, device=dev)[:, None,
+                                                                  None] * N)
+    gammas = np.atleast_1d(np.asarray(rt.gamma, np.int64))
+    if isinstance(rt.F, np.ndarray):
+        F_recv = torch.from_numpy(np.repeat(rt.F, N).astype(np.int32)).to(dev)
+        F_pool = torch.from_numpy(rt.F.astype(np.int64)).to(dev)
+    else:
+        F_recv = F_pool = rt.F
+    fuse_at = (np.arange(1, T + 1)[:, None] % gammas[None, :]) == 0  # (T, K)
+    fuse_dev = torch.from_numpy(fuse_at).to(dev)
+    if K > 1:
+        log_tables = log_tables.repeat(K, 1, 1)
+        cdf = cdf.repeat(K, 1)
+    sig_keys = fold_rounds(keys, [stream_fold(t, STREAM_SIGNAL)
+                                  for t in range(T)], dev)
+    gos_keys = fold_rounds(keys, [stream_fold(t, STREAM_GOSSIP)
+                                  for t in range(T)], None)
+    fus_keys = fold_rounds(keys, [stream_fold(t, STREAM_FUSION)
+                                  for t in range(T)], None)
+    r = torch.zeros((n,) + pair, device=dev)
     cum_llr = torch.zeros_like(r)
     rs, decs = [], []
     for t in range(T):
         # ---- innovation accumulator (cumulative LLR of all signals so far)
-        cum_llr = cum_llr + _innovation(base_key, t, cdf, log_tables, mode)
+        cum_llr = cum_llr + _innovation(
+            Key(sig_keys.k0[t], sig_keys.k1[t]), cdf, log_tables, mode)
         # ---- intra-C gossip with trimming (lines 6-9)
-        gk = fold_in(base_key, stream_fold(t, STREAM_GOSSIP))
-        tsum, kept = gossip(gk, t, r, rt)
+        tsum, kept = gossip(Key(gos_keys.k0[t], gos_keys.k1[t]), t, r, rt,
+                            K=K, F=F_recv, nbr_local=nbr_local)
         r_gossip = (tsum + r) / (kept.reshape(sl) + 1.0) + cum_llr
         r_new = torch.where(active, r_gossip, r)
-        # ---- PS fusion every Γ (lines 10-22), decided on the host
-        if (t + 1) % rt.gamma == 0:
-            fk = fold_in(base_key, stream_fold(t, STREAM_FUSION))
-            r_new = _fusion(fk, t, r_new, rt, n_reps=n_reps,
+        # ---- PS fusion (lines 10-22) in the rounds where a scenario's Γ
+        # divides t + 1, decided on the host
+        if fuse_at[t].any():
+            fused = _fusion(Key(fus_keys.k0[t], fus_keys.k1[t]), t, r_new,
+                            rt, K=K, F=F_pool, n_reps=n_reps,
                             rep_plan=rep_plan, attack=attack)
+            r_new = fused if fuse_at[t].all() else torch.where(
+                fuse_dev[t].view((K, 1) + (1,) * len(pair)),
+                fused.view((K, N) + pair),
+                r_new.view((K, N) + pair)).view(r_new.shape)
         # Byzantine agents' own state is meaningless; keep it at 0.
         r = torch.where(byz, 0.0, r_new)
         if store != "final":
-            decs.append(_decisions(r, mode))
+            decs.append(_decisions(r, mode).view(K, N))
             if store == "trajectory":
-                rs.append(r)
+                rs.append(r.view((K, N) + pair))
     tail = (lambda x: x[..., None]) if mode == "ovr" else (lambda x: x)
 
     def stack(xs, shape, dtype):
-        return (torch.stack(xs) if xs
-                else torch.zeros((0,) + shape, dtype=dtype, device=dev))
+        return (torch.stack(xs, dim=1) if xs
+                else torch.zeros((K, 0) + shape, dtype=dtype, device=dev))
 
+    r_k = r.view((K, N) + pair)
     if store == "trajectory":
-        return ByzantineResult(r=tail(stack(rs, r.shape, r.dtype)),
+        return ByzantineResult(r=tail(stack(rs, (N,) + pair, r.dtype)),
                                decisions=stack(decs, (N,), torch.int32))
     if store == "decisions":
-        return ByzantineResult(r=tail(r),
+        return ByzantineResult(r=tail(r_k),
                                decisions=stack(decs, (N,), torch.int32))
-    return ByzantineResult(r=tail(r), decisions=_decisions(r, mode))
+    return ByzantineResult(r=tail(r_k),
+                           decisions=_decisions(r, mode).view(K, N))
 
 
 def _build_scan(model: SignalModel, rt: ByzRuntime, extra_reps, n_reps: int,
                 attack: Attack, T: int, *, mode: str, core: str,
                 backend: str, store: str, device):
-    """Validate the options, move the runtime and hoisted tables to the
-    device once, and return ``run(base_key) -> ByzantineResult``."""
+    """Validate the options, move the runtime (one scenario's, or K
+    stacked) and hoisted tables to the device once, and return
+    ``run(keys) -> ByzantineResult`` with a leading K, ``keys`` a key of
+    K numpy words."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if core not in CORES:
         raise ValueError(f"core must be one of {CORES}, got {core!r}")
     if store not in STORES:
         raise ValueError(f"store must be one of {STORES}, got {store!r}")
+    if core == "dense" and isinstance(rt.F, np.ndarray):
+        raise ValueError("the dense oracle runs one scenario at a time")
     dev = resolve_device(device)
     rt_d = rt.to(dev)
     rep_plan = None
@@ -617,7 +713,7 @@ def _build_scan(model: SignalModel, rt: ByzRuntime, extra_reps, n_reps: int,
             _dense_gossip, attack=attack, mode=mode,
             adj=torch.from_numpy(gossip_adjacency(rt)).to(dev))
     tables = model.tables.to(dev, torch.float32)
-    run = functools.partial(
+    return functools.partial(
         _scan_core,
         rt=rt_d,
         gossip=gossip,
@@ -630,7 +726,15 @@ def _build_scan(model: SignalModel, rt: ByzRuntime, extra_reps, n_reps: int,
         rep_plan=rep_plan,
         n_reps=n_reps,
     )
-    return run
+
+
+def _one(key: Key) -> Key:
+    """A single key as a key of one numpy word each."""
+    return Key(np.asarray([key.k0], np.int64), np.asarray([key.k1], np.int64))
+
+
+def _first(res: ByzantineResult) -> ByzantineResult:
+    return ByzantineResult(r=res.r[0], decisions=res.decisions[0])
 
 
 def make_byzantine_scan(
@@ -653,12 +757,14 @@ def make_byzantine_scan(
     ``core`` the sparse neighbor-list trim or the dense broadcast oracle;
     ``backend`` the sparse trim's route (:mod:`repro_torch.kernels.
     dispatch`); ``store`` what the loop keeps (:class:`ByzantineResult`).
-    ``device=None`` means the card, and raises where there is none.
+    ``device=None`` means the card, and raises where there is none. The
+    run is the one-scenario case of the loop the scenario sweeps run.
     """
     rt, extra_reps, n_reps = make_byzantine_runtime(model, cfg)
-    return _build_scan(model, rt, extra_reps, n_reps, cfg.attack, T,
-                       mode=mode, core=core, backend=backend, store=store,
-                       device=device)
+    run = _build_scan(model, rt, extra_reps, n_reps, cfg.attack, T,
+                      mode=mode, core=core, backend=backend, store=store,
+                      device=device)
+    return lambda key: _first(run(_one(key)))
 
 
 def run_byzantine_runtime(
@@ -690,7 +796,7 @@ def run_byzantine_runtime(
     run = _build_scan(model, rt, extra_reps, n_reps, attack, T, mode=mode,
                       core=core, backend=plan.backend, store=store,
                       device=device)
-    return run(prng_key(seed))
+    return _first(run(_one(prng_key(seed))))
 
 
 def run_byzantine_learning(

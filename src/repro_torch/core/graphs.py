@@ -46,6 +46,7 @@ __all__ = [
     "NeighborList",
     "neighbor_lists",
     "edge_neighbor_lists",
+    "stack_neighbor_lists",
     "edge_masks",
     "link_schedule",
 ]
@@ -604,8 +605,8 @@ class NeighborList:
     valid slots); rows are padded to a common ``deg_max`` with ``idx = 0``,
     ``valid = False`` slots, which consumers mask out before trimming.
     Batched/stacked lists (see :func:`stack_neighbor_lists`) carry a leading
-    scenario axis on ``idx``/``valid`` so topology draws with different
-    degree profiles can ride one ``jax.vmap`` axis.
+    scenario axis on ``idx``/``valid``, topology draws of different degree
+    profiles padded to one ``deg_max``.
     """
 
     idx: np.ndarray    # (N, deg_max) int32 sender per slot, 0 on padding
@@ -679,6 +680,22 @@ def edge_neighbor_lists(el: EdgeList, deg_max: int | None = None
     valid = np.zeros((n, dm), dtype=bool)
     idx[dst, slot] = src
     valid[dst, slot] = True
+    return NeighborList(idx=idx, valid=valid, n=n)
+
+
+def stack_neighbor_lists(nls: Sequence[NeighborList]) -> NeighborList:
+    """Batch neighbor lists onto a leading scenario axis, padded to the
+    widest ``deg_max`` with ``idx = 0``, ``valid = False`` slots; ``n``
+    must agree across entries."""
+    n = nls[0].n
+    if any(nl.n != n for nl in nls):
+        raise ValueError("all neighbor lists must have the same node count")
+    dm = max(nl.deg_max for nl in nls)
+    idx = np.zeros((len(nls), n, dm), dtype=np.int32)
+    valid = np.zeros((len(nls), n, dm), dtype=bool)
+    for g, nl in enumerate(nls):
+        idx[g, :, : nl.deg_max] = nl.idx
+        valid[g, :, : nl.deg_max] = nl.valid
     return NeighborList(idx=idx, valid=valid, n=n)
 
 

@@ -126,33 +126,39 @@ class HPSConfig:
 # ---------------------------------------------------------------------------
 
 def ps_trimmed_pool(
-    pool: torch.Tensor,    # (R, *coord) candidate values at the PS
-    valid: torch.Tensor,   # (R,) bool — pool membership mask
-    F: int,
+    pool: torch.Tensor,    # (R, *coord), or (K, R, *coord) for K pools
+    valid: torch.Tensor,   # (R,) or (K, R) bool — pool membership mask
+    F,                     # int, or (K,) int tensor: each pool's own F
 ) -> torch.Tensor:
-    """Trimmed mean over the parameter server's candidate pool, (*coord,).
+    """Trimmed mean over the parameter server's candidate pool, (*coord,),
+    or over each of K pools at once, (K, *coord).
 
     Per scalar coordinate independently: drop invalid slots, drop the F
     largest and F smallest of the rest, average the survivors (at least
     one in the denominator). Routed, as in the reference, through the
     plain trim-gather (:func:`repro_torch.kernels.byz_trim.
-    trim_gather_ref`, with its NaN-canonical sort) as one virtual receiver
-    whose slots are the pool's rows. The pool is Algorithm 2's queried
-    representatives, or Algorithm 1's whole (N, d+1) state masked to the
-    representatives (up to N slots, past K3's 64), once every Γ rounds:
-    it stays plain on every device.
+    trim_gather_ref`, with its NaN-canonical sort), each pool one virtual
+    receiver whose slots are its rows, trimming its own F. The pool is
+    Algorithm 2's queried representatives, or Algorithm 1's whole (N,
+    d+1) state masked to the representatives (up to N slots, past K3's
+    64), once every Γ rounds: it stays plain on every device.
     """
-    R = pool.shape[0]
-    r = pool.reshape(R, -1)                                # (R, P)
+    batched = valid.dim() == 2
+    if not batched:
+        pool, valid = pool[None], valid[None]
+    K, R = valid.shape
+    r = pool.reshape(K * R, -1)                            # (K R, P)
     tsum, kept = trim_gather_ref(
         r,
-        torch.arange(R, dtype=torch.int32, device=r.device)[None, :],
-        valid[None, :],
-        r.new_zeros(()).expand(1, *r.shape),               # no substitution
-        torch.zeros((1, R), dtype=torch.bool, device=r.device),
+        torch.arange(K * R, dtype=torch.int32, device=r.device).view(K, R),
+        valid,
+        r.new_zeros(()).expand(K, R, r.shape[1]),          # no substitution
+        torch.zeros((K, R), dtype=torch.bool, device=r.device),
         F,
     )
-    return (tsum[0] / kept[0].clamp_min(1.0)).reshape(pool.shape[1:])
+    out = (tsum / kept.clamp_min(1.0)[:, None]).reshape(
+        (K,) + tuple(pool.shape[2:]))
+    return out if batched else out[0]
 
 
 def _fuse(zm: torch.Tensor, rep_mask: torch.Tensor, M,
@@ -160,15 +166,14 @@ def _fuse(zm: torch.Tensor, rep_mask: torch.Tensor, M,
     """The fusion on the joint (K, N, d+1) value-and-mass state of K
     scenarios (``rep_mask`` (K, N), ``M`` an int or a (K,) tensor): each
     representative keeps half and adds the halves pooled over its own
-    scenario's representatives."""
+    scenario's representatives (with F > 0, K trimmed pools at once)."""
     if F == 0:
         if torch.is_tensor(M) and M.ndim:
             M = M[:, None]
         pooled = ((zm * rep_mask.to(zm.dtype)[..., None]).sum(dim=-2)
                   / (2.0 * M))
     else:
-        pooled = 0.5 * torch.stack([ps_trimmed_pool(x, r, F)
-                                    for x, r in zip(zm, rep_mask)])
+        pooled = 0.5 * ps_trimmed_pool(zm, rep_mask, F)
     return torch.where(rep_mask[..., None], 0.5 * zm + pooled[:, None, :],
                        zm)
 

@@ -34,7 +34,9 @@ a single key, so a draw per key is one vectorized pass, not a loop. A
 tensor of keys of shape (K, 1) draws (K, n) in one pass
 (``random_bits``, ``uniform``): the scenario batches draw every
 scenario's round this way, their keys folded for all rounds up front by
-:func:`fold_rounds`.
+:func:`fold_rounds`. A key whose words are numpy arrays of K words folds
+on the host (``fold_in`` of K keys in microseconds, no device work) and
+draws as the (K, 1) tensor of those keys on the draw's device.
 """
 from __future__ import annotations
 
@@ -65,8 +67,9 @@ class Key(NamedTuple):
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 with 20 rounds, as ``jax.random`` implements it.
 
-    Every word may be a Python int or an int64 tensor holding uint32
-    values; tensors broadcast (the same code serves all cases)."""
+    Every word may be a Python int, an int64 numpy array or an int64
+    tensor holding uint32 values; arrays broadcast (the same code serves
+    all cases)."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
@@ -102,19 +105,43 @@ def fold_rounds(key: Key, folds, device) -> Key:
     words), computed on the host in one vectorized threefry -> a Key of
     (T, K, 1) int64 tensors on ``device``. Row ``t`` is a tensor of K keys
     whose draws broadcast to (K, n), so an engine's loop folds nothing and
-    reads nothing back."""
+    reads nothing back. ``device=None`` keeps the words on the host, (T,
+    K) numpy arrays: row ``t`` is then a key of K numpy words, which
+    folds further on the host."""
     k0, k1 = (np.atleast_1d(np.asarray(k, dtype=np.int64))[None, :]
               for k in key)
     data = (np.asarray(folds, dtype=np.int64).reshape(-1) & _M32)[:, None]
+    words = threefry2x32(k0, k1, 0, data)
+    if device is None:
+        return Key(*words)
     return Key(*(torch.from_numpy(np.ascontiguousarray(w[..., None])).to(
-        device) for w in threefry2x32(k0, k1, 0, data)))
+        device) for w in words))
+
+
+def _words(key: Key, device) -> Key:
+    """A key as a draw takes it: numpy arrays of K words become the (K,
+    1) int64 tensor of those keys on ``device`` (to a card from pinned
+    memory, so the copy does not wait for the device); ints and tensors
+    stay."""
+    cuda = torch.device(device).type == "cuda"
+
+    def word(w):
+        if not isinstance(w, np.ndarray):
+            return w
+        t = torch.from_numpy(np.ascontiguousarray(w, np.int64)[..., None])
+        return (t.pin_memory().to(device, non_blocking=True) if cuda
+                else t.to(device))
+
+    return Key(word(key.k0), word(key.k1))
 
 
 def random_bits(key: Key, n: int, device) -> torch.Tensor:
     """(n,) int64 tensor of the uint32 bits ``jax.random.bits(key, (n,))``;
-    a tensor of keys of shape (K, 1) gives (K, n), one row a key."""
+    a tensor of keys of shape (K, 1), or a key of K numpy words, gives (K,
+    n), one row a key."""
     if not 0 <= n < (1 << 32):
         raise ValueError(f"draw size {n} is outside the 32-bit counter")
+    key = _words(key, device)
     lo = torch.arange(n, dtype=torch.int64, device=device)
     out0, out1 = threefry2x32(key.k0, key.k1, torch.zeros_like(lo), lo)
     return out0 ^ out1
@@ -129,9 +156,11 @@ def uniform(key: Key, n: int, device) -> torch.Tensor:
 
 def split(key: Key, n: int, device) -> Key:
     """``jax.random.split(key, n)`` as a tensor of ``n`` keys on ``device``;
-    key ``i`` equals ``fold_in(key, i)``."""
+    key ``i`` equals ``fold_in(key, i)``. K keys (a (K, 1) tensor of keys,
+    or K numpy words) split into (K, n)."""
     if not 0 <= n < (1 << 32):
         raise ValueError(f"split count {n} is outside the 32-bit counter")
+    key = _words(key, device)
     lo = torch.arange(n, dtype=torch.int64, device=device)
     return Key(*threefry2x32(key.k0, key.k1, torch.zeros_like(lo), lo))
 
@@ -196,14 +225,15 @@ def normal(key: Key, shape, device) -> torch.Tensor:
     for bit; the inverse error function is XLA's single-precision
     polynomial (Giles' approximation), evaluated op by op here, so a
     value may differ from jax's by the rounding of those ops (a few ulp;
-    ``tests/test_torch_prng.py`` states the bound)."""
+    ``tests/test_torch_prng.py`` states the bound). K keys (see
+    :func:`random_bits`) draw (K, *shape), one draw a key."""
     shape = tuple(shape)
     n = math.prod(shape)
     bits = (random_bits(key, n, device) >> 9) | 0x3F800000
     f = bits.to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(-0.99999994, dtype=torch.float32)   # nextafter(-1, 0)
     u = torch.maximum(f * 2.0 + lo.to(device), lo.to(device))
-    return (_SQRT2 * _erfinv_f32(u)).reshape(shape)
+    return (_SQRT2 * _erfinv_f32(u)).reshape(tuple(bits.shape[:-1]) + shape)
 
 
 def gumbel(key: Key, shape, dtype: torch.dtype, device) -> torch.Tensor:

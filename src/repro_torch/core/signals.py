@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .prng import Key, split, uniform
+
 __all__ = [
     "SignalModel",
     "make_confused_model",
@@ -50,6 +52,25 @@ class SignalModel:
 
     def log_tables(self) -> torch.Tensor:
         return torch.log(self.tables)
+
+    def sample(self, key: Key, t_steps: int = 1) -> torch.Tensor:
+        """(t_steps, N) int32 signals drawn from l_j(. | theta*), on the
+        tables' device: agent j's draws are ``jax.random.choice(split(key,
+        N)[j], S, (t_steps,), p=l_j(. | theta*))`` bit for bit, the inverse
+        CDF of a uniform, ``searchsorted(cumsum(p), cumsum(p)[-1] * (1 -
+        u))``."""
+        dev = self.tables.device
+        cdf = torch.cumsum(self.tables[:, self.truth, :].float(), dim=-1)
+        keys = split(key, self.N, dev)
+        u = uniform(Key(keys.k0[:, None], keys.k1[:, None]), t_steps, dev)
+        x = cdf[:, -1:] * (1.0 - u)                          # (N, t_steps)
+        return torch.searchsorted(cdf, x).to(torch.int32).T
+
+    def log_lik(self, signals: torch.Tensor) -> torch.Tensor:
+        """signals: (N,) ints -> (N, m) log l_j(s_j | theta_k)."""
+        logt = self.log_tables()
+        idx = signals.long().reshape(-1, 1, 1).expand(-1, self.m, 1)
+        return torch.gather(logt, 2, idx)[:, :, 0]
 
 
 def pairwise_kl(tables: np.ndarray) -> np.ndarray:

@@ -14,22 +14,31 @@ is the K = 1 case) then take one consensus step a round for all K
 scenarios, so the CUDA edge scatter launches once a round whatever K is,
 and the social innovation kernel once a round over the K·N agents. Link
 masks are drawn for all K keys in one threefry pass, (K, E) then (K·E,),
-on the engines' own fold domains.
+on the engines' own fold domains. Algorithm 2 stacks its neighbor lists
+the same way (:func:`stack_runtimes` of ``ByzRuntime`` runtimes: one
+block-diagonal neighbor-list graph of K·N receivers), and its loop
+(:func:`repro_torch.core.byzantine._scan_core`) launches the trim-gather
+kernel once a round for all K scenarios, each receiver trimming its own
+scenario's F.
 
-Five entry points:
+Seven entry points:
 
 * :func:`run_pushsum_sweep` — Theorem 1 dynamics (Alg. 1 consensus) over
   topology draw × drop × seed grids;
 * :func:`run_hps_grid` / :func:`run_hps_sweep` — Algorithm 1 over
   (topology, M, Γ, drop) × seed grids; M varies per scenario;
 * :func:`run_social_grid` / :func:`run_social_sweep` — Algorithm 3 over
-  (topology, drop, Γ) × seed grids; M is shared.
+  (topology, drop, Γ) × seed grids; M is shared;
+* :func:`run_byzantine_sweep` — Algorithm 2 on one config over a seed
+  batch, for each of a list of attacks;
+* :func:`run_byzantine_grid` — Algorithm 2 over (topology, F, Byzantine
+  set, Γ) × seed grids; N and M are shared.
 
 Every result row is one scenario on the leading K axis, in the
 reference's order (config or graph major, then drop, Γ, seed). The fault
 and async index columns are always ``None``: those planes are not ported
-yet. Not ported either: ``mesh=`` sharding, the jit and runtime caches and
-their registry, and the Byzantine sweep and grid.
+yet. Not ported either: ``mesh=`` sharding, and the jit and runtime
+caches and their registry.
 """
 from __future__ import annotations
 
@@ -39,6 +48,14 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from .attacks import Attack
+from .byzantine import (
+    ByzantineConfig,
+    ByzantineResult,
+    ByzRuntime,
+    _build_scan,
+    make_byzantine_runtime,
+)
 from .graphs import EdgeList, _dst_offsets, is_dst_sorted
 from .hps import HPS_STORES, HPSConfig, HPSRuntime, _hps_scan_core
 from .hps import make_hps_runtime
@@ -63,12 +80,15 @@ __all__ = [
     "PushSumSweepResult",
     "HPSSweepResult",
     "SocialSweepResult",
+    "ByzantineGridResult",
     "stack_runtimes",
     "run_pushsum_sweep",
     "run_hps_grid",
     "run_hps_sweep",
     "run_social_grid",
     "run_social_sweep",
+    "run_byzantine_sweep",
+    "run_byzantine_grid",
 ]
 
 _M32 = 0xFFFFFFFF
@@ -196,7 +216,8 @@ def _block_diagonal(src, dst, valid, offsets, n: int):
     return src_b, dst_b, valid.reshape(-1), offsets
 
 
-def stack_runtimes(rts: Sequence[HPSRuntime] | Sequence[SocialRuntime]):
+def stack_runtimes(rts: Sequence[HPSRuntime] | Sequence[SocialRuntime]
+                   | Sequence[ByzRuntime]):
     """K single-scenario runtimes of one type, node count N and (padded)
     edge count E -> one runtime of the same type over K·N nodes and K·E
     edges, its scalars (K,) tensors.
@@ -205,11 +226,15 @@ def stack_runtimes(rts: Sequence[HPSRuntime] | Sequence[SocialRuntime]):
     link-mask draw lines up edge for edge. Each scenario's receivers lie
     in its own block, so a dst-sorted index stays sorted (the ``e_max``
     pads sit at ``dst = N - 1`` of their block) and the offsets are one
-    CSR over the K·N receivers; ``None`` unless every runtime has them."""
+    CSR over the K·N receivers; ``None`` unless every runtime has them.
+    ``ByzRuntime`` runtimes of one N and network count stack as
+    :func:`_stack_byz_runtimes` sets out."""
     rts = list(rts)
     if not rts:
         raise ValueError("need at least one runtime")
     kind = type(rts[0])
+    if kind is ByzRuntime:
+        return _stack_byz_runtimes(rts)
     N, E = rts[0].rep_mask.shape[0], rts[0].src.shape[0]
     if any(type(r) is not kind or r.rep_mask.shape[0] != N
            or r.src.shape[0] != E or r.drop_prob.ndim for r in rts):
@@ -222,6 +247,39 @@ def stack_runtimes(rts: Sequence[HPSRuntime] | Sequence[SocialRuntime]):
     rest = {f: torch.cat([getattr(r, f).reshape(-1) for r in rts])
             for f in kind._fields[4:]}
     return kind(*edges, **rest)
+
+
+def _stack_byz_runtimes(rts: Sequence[ByzRuntime]) -> ByzRuntime:
+    """K single-scenario Algorithm 2 runtimes of one agent count N and
+    network count M -> the stacked runtime of one block-diagonal
+    neighbor-list graph of K·N receivers: rows padded to the common
+    ``deg_max`` with invalid slots, as the reference pads a grid, then
+    scenario k's senders and network offsets shifted by k·N; ``F`` and
+    ``gamma`` (K,) int numpy arrays."""
+    N, M = rts[0].byz_mask.shape[0], rts[0].offsets.shape[0]
+    if any(type(r) is not ByzRuntime or r.byz_mask.shape[0] != N
+           or r.offsets.shape[0] != M or not isinstance(r.F, int)
+           for r in rts):
+        raise ValueError("stack single-scenario runtimes of one agent "
+                         "count and network count")
+    dm = max(int(r.nbr_idx.shape[1]) for r in rts)
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((N, dm - x.shape[1]))], dim=1)
+
+    return ByzRuntime(
+        nbr_idx=torch.cat([pad(r.nbr_idx) + k * N
+                           for k, r in enumerate(rts)]),
+        nbr_valid=torch.cat([pad(r.nbr_valid) for r in rts]),
+        byz_nbr=torch.cat([pad(r.byz_nbr) for r in rts]),
+        byz_mask=torch.cat([r.byz_mask for r in rts]),
+        active=torch.cat([r.active for r in rts]),
+        in_C=torch.cat([r.in_C for r in rts]),
+        offsets=torch.cat([r.offsets + k * N for k, r in enumerate(rts)]),
+        sizes=torch.cat([r.sizes for r in rts]),
+        F=np.asarray([r.F for r in rts], np.int64),
+        gamma=np.asarray([r.gamma for r in rts], np.int64),
+    )
 
 
 def _seeds(seeds) -> np.ndarray:
@@ -502,3 +560,141 @@ def run_social_sweep(
     order: base-major, then drop, then Γ, then seed."""
     return run_social_grid(model, _expand(cfg, drop_probs, gammas), T, seeds,
                            plan=plan, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Algorithm 2: seed sweeps and (config) x seed grids
+# ---------------------------------------------------------------------------
+
+class ByzantineGridResult(NamedTuple):
+    """One row per (config, seed) scenario, leading axis K; ``r`` /
+    ``decisions`` have the shapes of
+    :class:`repro_torch.core.byzantine.ByzantineResult` for the store with
+    a leading K. ``cfg`` indexes into the configs passed to
+    :func:`run_byzantine_grid`, ``F`` and ``seed`` are the scenario
+    coordinates."""
+
+    r: torch.Tensor
+    decisions: torch.Tensor
+    cfg: torch.Tensor        # (K,) config index
+    F: torch.Tensor          # (K,) trim count of that config
+    seed: torch.Tensor       # (K,)
+    fault: torch.Tensor | None = None
+    async_: torch.Tensor | None = None
+
+    @property
+    def K(self) -> int:
+        return int(self.decisions.shape[0])
+
+    def describe(self) -> str:
+        return _describe_result(self)
+
+
+def run_byzantine_sweep(
+    model: SignalModel,
+    cfg: ByzantineConfig,
+    T: int,
+    seeds: Sequence[int] | int,
+    attacks: Sequence[Attack] | None = None,
+    *,
+    mode: str = "pairwise",
+    core: str = "sparse",
+    plan: ExecutionPlan | None = None,
+    device=None,
+) -> dict[str, ByzantineResult]:
+    """Algorithm 2 on one config over a seed batch, for each attack
+    (default: just ``cfg.attack``) -> ``{attack.name: ByzantineResult}``
+    with a leading seed axis: with ``store="trajectory"`` (the default)
+    ``r`` is (S, T, N, m, m) and ``decisions`` (S, T, N).
+
+    Row s is ``run_byzantine_learning(model, cfg, T, seed=seeds[s])``
+    with that attack. On the sparse core the S scenarios run as one
+    block-diagonal neighbor-list graph of S·N receivers through one loop
+    (one trim-gather launch a round for all of them); the M < 2F+1
+    representative branch draws each scenario's extra representatives
+    from its own key. ``core="dense"`` is the oracle and runs one
+    scenario at a time. ``plan.backend`` selects the trim route and
+    ``plan.store`` what is kept. ``device=None`` means the card, and
+    raises where there is none.
+    """
+    plan = ExecutionPlan() if plan is None else plan
+    store = "trajectory" if plan.store is None else plan.store
+    dev = resolve_device(device)
+    sd = _seeds(seeds)
+    keys = _keys(sd)
+    rt, extra_reps, n_reps = make_byzantine_runtime(model, cfg)
+    if core == "sparse":
+        rt = stack_runtimes([rt] * sd.shape[0]).to(dev)
+    out = {}
+    for atk in attacks if attacks is not None else [cfg.attack]:
+        run = _build_scan(model, rt, extra_reps, n_reps, atk, T, mode=mode,
+                          core=core, backend=plan.backend, store=store,
+                          device=dev)
+        if core == "sparse":
+            out[atk.name] = run(keys)
+            continue
+        rows = [run(Key(keys.k0[s:s + 1], keys.k1[s:s + 1]))
+                for s in range(sd.shape[0])]
+        out[atk.name] = ByzantineResult(
+            r=torch.cat([x.r for x in rows]),
+            decisions=torch.cat([x.decisions for x in rows]))
+    return out
+
+
+def run_byzantine_grid(
+    model: SignalModel,
+    cfgs: Sequence[ByzantineConfig],
+    T: int,
+    seeds: Sequence[int] | int,
+    *,
+    attack: Attack | None = None,
+    mode: str = "pairwise",
+    plan: ExecutionPlan | None = None,
+    device=None,
+) -> ByzantineGridResult:
+    """Algorithm 2 over every (config, seed) pair, K = |cfgs|·|seeds|
+    scenarios in config-major order, as one block-diagonal neighbor-list
+    graph of K·N receivers through one loop.
+
+    Configs (and the model) share N and the network count M, and each
+    must satisfy M >= 2F+1 (one representative per network; the M < 2F+1
+    branch is the sweep's). Topology, F, the Byzantine set and Γ vary per
+    scenario: neighbor rows are padded to the widest ``deg_max``, the
+    trim-gather kernel takes F per receiver and each scenario fuses on
+    its own Γ. ``attack`` overrides every config's attack (default: the
+    first config's). A row is ``run_byzantine_learning(model, cfg, T,
+    seed=s)`` with that attack and ``deg_max`` padding, which leaves the
+    trim unchanged. ``plan.store`` defaults to ``"decisions"`` (the (K, T,
+    N) decision curves and the final (K, N, *pair) statistics).
+    ``device=None`` means the card, and raises where there is none.
+    """
+    plan = ExecutionPlan() if plan is None else plan
+    store = "decisions" if plan.store is None else plan.store
+    cfgs = list(cfgs)
+    if not cfgs:
+        raise ValueError("need at least one config")
+    atk = attack if attack is not None else cfgs[0].attack
+    N, M = cfgs[0].topo.N, cfgs[0].topo.M
+    if any(c.topo.N != N or c.topo.M != M for c in cfgs) or model.N != N:
+        raise ValueError("grid configs (and the model) must share (N, M)")
+    dev = resolve_device(device)
+    runtimes = []
+    for c in cfgs:
+        rt, extra_reps, _ = make_byzantine_runtime(model, c)
+        if extra_reps is not None:
+            raise ValueError(
+                "grid configs must satisfy M >= 2F+1 (the all-networks "
+                f"representative rule); config with F={c.F}, M={M} needs "
+                "the static extra-reps branch")
+        runtimes.append(rt)
+    gi, sd = np.meshgrid(np.arange(len(cfgs), dtype=np.int32),
+                         _seeds(seeds), indexing="ij")
+    gi, sd = gi.ravel(), sd.ravel()
+    rt = stack_runtimes([runtimes[g] for g in gi])
+    run = _build_scan(model, rt, None, M, atk, T, mode=mode, core="sparse",
+                      backend=plan.backend, store=store, device=dev)
+    res = run(_keys(sd))
+    Fs = np.asarray([c.F for c in cfgs], np.int32)
+    return ByzantineGridResult(
+        r=res.r, decisions=res.decisions, cfg=torch.from_numpy(gi),
+        F=torch.from_numpy(Fs[gi]), seed=torch.from_numpy(sd))

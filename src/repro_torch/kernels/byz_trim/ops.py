@@ -10,6 +10,11 @@ memory and sorts each (receiver, coordinate)'s slots as ordered keys by a
 sorting network in registers, so ``deg_max`` is capped at
 :data:`DEG_MAX_CAP`; the wrapper raises above it and never falls back to
 the plain version.
+
+``F`` is one trim count for every receiver (a Python int) or an (N,)
+int32 tensor on ``r``'s device, receiver j trimming ``F[j]`` from each
+end: the scenario grids stack scenarios of different F into one graph. A
+tensor F on a CUDA tensor goes to the kernel like an int F does.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ __all__ = ["trim_gather", "trim_gather_pairs", "trim_gather_cuda",
 
 DEG_MAX_CAP = 64    # the widest sorting network of the kernel
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
-             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+             + [ctypes.c_int, ctypes.c_void_p])
 
 
 def trim_gather(
@@ -35,7 +41,7 @@ def trim_gather(
     nbr_valid: torch.Tensor,  # (N, deg_max) bool
     byz_msgs: torch.Tensor,   # (N, deg_max, P), any strides
     byz_nbr: torch.Tensor,    # (N, deg_max) bool
-    F: int,
+    F: int | torch.Tensor,    # int, or (N,) int32 per receiver
     backend: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gather + Byzantine substitution + 2F trim -> ``(trimmed_sum (N, P),
@@ -51,7 +57,7 @@ def trim_gather_pairs(
     nbr_valid: torch.Tensor,
     byz_msgs: torch.Tensor,   # (N, deg_max, *pair)
     byz_nbr: torch.Tensor,
-    F: int,
+    F: int | torch.Tensor,
     backend: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pair-shaped wrapper: flattens the trailing pair axes into the
@@ -72,13 +78,17 @@ def trim_gather_cuda(
     nbr_valid: torch.Tensor,
     byz_msgs: torch.Tensor,
     byz_nbr: torch.Tensor,
-    F: int,
+    F: int | torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA trim-gather kernel on the current stream.
 
     ``byz_msgs`` may be any view with non-negative strides (a broadcast
     attack's ``expand`` has stride 0); every other tensor must be
-    contiguous. ``trim_gather_cuda.launches`` counts the launches."""
+    contiguous. A tensor ``F`` is checked for values below 0 once per
+    version of the tensor (a read back to the host), so a loop that hands
+    the same F over every round pays that once. A receiver with deg <= 2F
+    keeps nothing. ``trim_gather_cuda.launches`` counts the launches, and
+    ``trim_gather_cuda.launches_tensor_f`` those with a tensor F."""
     if not r.is_cuda:
         raise ValueError("the CUDA trim-gather needs CUDA tensors")
     if r.dim() != 2 or nbr_idx.dim() != 2:
@@ -90,9 +100,19 @@ def trim_gather_cuda(
     if not 1 <= dm <= DEG_MAX_CAP:
         raise ValueError(f"deg_max={dm} is outside the kernel's range "
                          f"[1, {DEG_MAX_CAP}]")
-    if not isinstance(F, int) or F < 0:
-        raise ValueError(f"F must be a non-negative int, got {F!r}")
     dev = r.device
+    f_recv = None
+    if isinstance(F, torch.Tensor):
+        _build.check_arg(F, "F", torch.int32, (n,), dev)
+        f_recv, F = F, 0
+        if getattr(f_recv, "_byz_trim_checked", None) != f_recv._version:
+            if int(f_recv.min()) < 0:
+                raise ValueError("F must be a non-negative int or (N,) "
+                                 "tensor; it holds a negative count")
+            f_recv._byz_trim_checked = f_recv._version
+    elif not isinstance(F, int) or F < 0:
+        raise ValueError(f"F must be a non-negative int or (N,) tensor, "
+                         f"got {F!r}")
     _build.check_arg(r, "r", torch.float32, (n, P), dev)
     _build.check_arg(nbr_idx, "nbr_idx", torch.int32, (n, dm), dev)
     _build.check_arg(nbr_valid, "nbr_valid", torch.bool, (n, dm), dev)
@@ -110,11 +130,14 @@ def trim_gather_cuda(
     fn = _build.function("byz_trim", "byz_trim_f32", _ARGTYPES)
     code = fn(r.data_ptr(), nbr_idx.data_ptr(), nbr_valid.data_ptr(),
               byz_msgs.data_ptr(), *byz_msgs.stride(), byz_nbr.data_ptr(),
-              tsum.data_ptr(), kept.data_ptr(), n, dm, P, F, dev.index,
+              tsum.data_ptr(), kept.data_ptr(), n, dm, P, min(F, dm),
+              None if f_recv is None else f_recv.data_ptr(), dev.index,
               torch.cuda.current_stream(dev).cuda_stream)
     _build.check_status("byz_trim", code)
     trim_gather_cuda.launches += 1
+    trim_gather_cuda.launches_tensor_f += f_recv is not None
     return tsum, kept
 
 
 trim_gather_cuda.launches = 0
+trim_gather_cuda.launches_tensor_f = 0

@@ -12,6 +12,9 @@ independently (the paper's "collection of scalar dynamics"):
     trimmed_sum[j, p] = sum of the survivors
     kept[j]           = max(deg_j - 2F, 0)
 
+F is one count for every receiver, or an (N,) integer tensor of each
+receiver's own.
+
 ``kept`` is the survivor count Algorithm 2's update divides by; it does not
 depend on the pair coordinate because padding is per slot, not per value.
 Any ``byz_msgs`` view is accepted, including the stride-0 ``expand`` of a
@@ -31,7 +34,7 @@ def trim_gather_ref(
     nbr_valid: torch.Tensor,  # (N, deg_max) bool
     byz_msgs: torch.Tensor,   # (N, deg_max, P) attack values per slot
     byz_nbr: torch.Tensor,    # (N, deg_max) bool — slot's sender is Byzantine
-    F: int,
+    F: int | torch.Tensor,    # int, or (N,) per receiver
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(trimmed_sum (N, P), kept (N,) float)``."""
     big = torch.finfo(r.dtype).max / 4
@@ -43,8 +46,13 @@ def trim_gather_ref(
     s = torch.sort(torch.where(masked.isnan(), torch.nan, masked),
                    dim=1).values
     deg = nbr_valid.sum(dim=1)                              # (N,)
+    if isinstance(F, torch.Tensor):
+        F = F.to(deg.dtype)
+        f3 = F[:, None, None]
+    else:
+        f3 = F
     ranks = torch.arange(masked.shape[1], device=r.device)[None, :, None]
-    keep = (ranks >= F) & (ranks < (deg[:, None, None] - F))
+    keep = (ranks >= f3) & (ranks < (deg[:, None, None] - f3))
     tsum = (s * keep.to(r.dtype)).sum(dim=1)
     kept = (deg - 2 * F).clamp_min(0).to(r.dtype)
     return tsum, kept

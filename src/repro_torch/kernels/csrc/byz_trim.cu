@@ -9,6 +9,10 @@
 //     drop invalid slots, then the F largest and the F smallest values
 //     tsum[j, p] = sum of the survivors;  kept[j] = max(deg_j - 2F, 0)
 //
+// F is one count for every receiver, or F[j], receiver j's own (a grid of
+// scenarios stacked into one graph trims each scenario's receivers by its
+// own F).
+//
 // The order is IEEE's with every NaN above +inf, as a sort puts it (the
 // TPU kernel's argmax, too, takes a NaN as the largest value), so a NaN or
 // inf lie among the F largest or smallest is trimmed away.
@@ -44,12 +48,16 @@
 //    in sort order whatever the ties; with deg <= 2F no rank qualifies and
 //    tsum is exactly 0. Survivors are summed, never taken as total minus
 //    extremes, which cancels at the 1e3..1e6 attack magnitudes beside O(1)
-//    honest values. F is a runtime argument.
+//    honest values. F is a runtime argument: one int, or a per-receiver
+//    array that each thread reads for its own receiver, so the receivers
+//    of one block may have different rank windows. Either is clamped to
+//    [0, CAP]: a larger F keeps nothing, as F = CAP does.
 //
 // Bound: bytes. Per round the kernel reads r, nbr_idx, nbr_valid, byz_nbr
 // and (where it is not a broadcast view) byz_msgs, and writes tsum and
 // kept; at N = 131,072, deg_max = 7, P = 9 that is 15.5 MB with a stride-0
-// byz_msgs and 48.5 MB with a materialized one. What holds it above that
+// byz_msgs and 48.5 MB with a materialized one. A per-receiver F adds 4
+// bytes a receiver (0.5 MB there). What holds it above that
 // is instruction issue and each block's two dependent round trips (the
 // table's, then its gathers'): at 8 slots the kernel is 320 SASS
 // instructions, most of them issued once by every one of a round's 1.18 M
@@ -152,7 +160,8 @@ trim_gather_kernel(const float* __restrict__ r,
                    long long ms0, long long ms1, long long ms2,
                    const bool* __restrict__ byz_nbr,
                    float* __restrict__ tsum, float* __restrict__ kept,
-                   int n, int dm, int P, int F, int rb) {
+                   int n, int dm, int P, int F,
+                   const int* __restrict__ f_recv, int rb) {
     // a receiver's CAP table entries lie in one warp's lanes (in two
     // warps', PARTS popcounts, at 64 slots)
     constexpr int PARTS = CAP > 32 ? CAP / 32 : 1;
@@ -215,9 +224,12 @@ trim_gather_kernel(const float* __restrict__ r,
         if (PARTS > 1) deg += s_deg[jl * PARTS + 1];
         using Mask = typename std::conditional<(CAP <= 32), unsigned,
                                                unsigned long long>::type;
-        const int cnt = max(deg - 2 * F, 0);
+        // this receiver's F: with deg > 2f, f < CAP / 2 and cnt + f <= CAP
+        const int f = f_recv == nullptr ? F
+            : min(max(__ldg(f_recv + v0 + jl), 0), CAP);
+        const int cnt = max(deg - 2 * f, 0);
         const Mask win = cnt == 0 ? Mask{0}
-            : ((~Mask{0}) >> (8 * sizeof(Mask) - cnt)) << F;
+            : ((~Mask{0}) >> (8 * sizeof(Mask) - cnt)) << f;
         float sum = 0.0f;
 #pragma unroll
         for (int q = 0; q < CAP; ++q)
@@ -232,24 +244,25 @@ cudaError_t launch(const float* r, const int* nbr_idx, const bool* nbr_valid,
                    const float* byz_msgs, long long ms0, long long ms1,
                    long long ms2, const bool* byz_nbr, float* tsum,
                    float* kept, int n, int dm, int P, int F,
-                   cudaStream_t stream) {
+                   const int* f_recv, cudaStream_t stream) {
     const int rb = std::max(1, std::min(THREADS / P, SLOTS / CAP));
     const int threads = std::min(THREADS, (rb * P + 31) / 32 * 32);
     const unsigned blocks = static_cast<unsigned>((n + rb - 1) / rb);
     trim_gather_kernel<CAP><<<blocks, threads, 0, stream>>>(
         r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2, byz_nbr, tsum, kept,
-        n, dm, P, F, rb);
+        n, dm, P, std::min(F, CAP), f_recv, rb);
     return cudaGetLastError();
 }
 
 // Launches on the caller's stream and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a shape the kernel does not take.
+// cudaErrorInvalidValue for a shape the kernel does not take. f_recv is
+// null (every receiver trims F) or n per-receiver counts on the device.
 extern "C" int byz_trim_f32(const float* r, const int* nbr_idx,
                             const bool* nbr_valid, const float* byz_msgs,
                             long long ms0, long long ms1, long long ms2,
                             const bool* byz_nbr, float* tsum, float* kept,
-                            int n, int dm, int P, int F, int device,
-                            cudaStream_t stream) {
+                            int n, int dm, int P, int F, const int* f_recv,
+                            int device, cudaStream_t stream) {
     if (n < 1 || P < 1 || dm < 1 || dm > CAP_MAX || F < 0
         || ms2 > INT_MAX / P)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -257,15 +270,15 @@ extern "C" int byz_trim_f32(const float* r, const int* nbr_idx,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dm <= 8)
         err = launch<8>(r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2,
-                        byz_nbr, tsum, kept, n, dm, P, F, stream);
+                        byz_nbr, tsum, kept, n, dm, P, F, f_recv, stream);
     else if (dm <= 16)
         err = launch<16>(r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2,
-                         byz_nbr, tsum, kept, n, dm, P, F, stream);
+                         byz_nbr, tsum, kept, n, dm, P, F, f_recv, stream);
     else if (dm <= 32)
         err = launch<32>(r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2,
-                         byz_nbr, tsum, kept, n, dm, P, F, stream);
+                         byz_nbr, tsum, kept, n, dm, P, F, f_recv, stream);
     else
         err = launch<64>(r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2,
-                         byz_nbr, tsum, kept, n, dm, P, F, stream);
+                         byz_nbr, tsum, kept, n, dm, P, F, f_recv, stream);
     return static_cast<int>(err);
 }

@@ -185,13 +185,17 @@ def k3_table(valid, byz, cap, threads):
 
 def k3_emulate(r, idx, valid, msgs, byz_nbr, F):
     """K3 in numpy -> (tsum, kept), block by block through
-    :func:`k3_table`."""
+    :func:`k3_table`. ``F`` is an int or (N,) per receiver: each receiver
+    (each thread of a block) builds its rank window from its own F,
+    clamped to [0, CAP]."""
     n, dm = idx.shape
     P = r.shape[1]
     cap, threads, blocks = k3_blocks(n, dm, P)
+    f_all = np.clip(np.broadcast_to(np.asarray(F, np.int64), (n,)), 0, cap)
     tsum = np.zeros((n, P), np.float32)
     kept = np.zeros(n, np.float32)
     for v0, nv in blocks:
+        F = f_all[v0:v0 + nv]
         kind, deg = k3_table(valid[v0:v0 + nv], byz_nbr[v0:v0 + nv], cap,
                              threads)
         vals = np.full((nv, cap, P), np.nan, np.float32)
@@ -366,3 +370,94 @@ def test_plain_trims_order_sign_bit_nans_as_jnp_sort(dm):
         bound = dm * np.finfo(np.float32).eps * np.where(
             np.isfinite(x), np.abs(x), 0).sum(0) / (dm - 2 * F)
         assert (np.abs(got - ref)[fin] <= bound[fin]).all()
+
+
+# ---------------------------------------------------------------------------
+# F per receiver: a grid of scenarios stacked into one graph trims each
+# scenario's receivers by its own F
+# ---------------------------------------------------------------------------
+
+def mixed_f(n, seed, top=4):
+    """(N,) int32 trim counts 0..top, neighbours in a block differing,
+    every fifth 0."""
+    f = np.random.default_rng(seed).integers(0, top + 1, size=n)
+    f[::5] = 0
+    return f.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", TRIM_CASES + K3_CASES)
+def test_plain_with_tensor_f_is_each_rows_own_f(case):
+    """The plain version with an (N,) tensor F equals the reference's plain
+    version called with each F on its own rows (kept equal, tsum within
+    the order bound, bit-equal to the port's own int-F call on those
+    rows); a uniform tensor F equals the int call bit for bit."""
+    P = 3 if case in ("wide", "deg_max_64") else 9
+    prob = trim_problem(case, P, 2, seed=7)
+    n = prob[0].shape[0]
+    Fr = mixed_f(n, 1)
+    args = tuple(map(torch.from_numpy, prob))
+    tsum, kept = trim_gather_ref(*args, torch.from_numpy(Fr))
+    fin = finite_rows(*prob)
+    for F in np.unique(Fr):
+        rows = Fr == F
+        want = jax_ref(*map(jnp.asarray, prob), int(F))
+        np.testing.assert_array_equal(kept.numpy()[rows],
+                                      np.asarray(want[1])[rows])
+        on = rows & fin
+        err = np.abs(tsum.numpy()[on] - np.asarray(want[0])[on])
+        assert (err <= trim_sum_bound(*prob, int(F))[on]).all()
+        own = trim_gather_ref(*args, int(F))
+        assert same_bits(tsum.numpy()[rows], own[0].numpy()[rows])
+        assert torch.equal(kept[rows], own[1][rows])
+    uniform = trim_gather_ref(*args, torch.full((n,), 2, dtype=torch.int32))
+    assert all(same_bits(a.numpy(), b.numpy()) for a, b in
+               zip(uniform, trim_gather_ref(*args, 2)))
+    assert (tsum.numpy()[(kept.numpy() == 0) & fin] == 0).all()
+
+
+@pytest.mark.parametrize("case", TRIM_CASES + K3_CASES)
+def test_k3_arithmetic_with_f_per_receiver(case):
+    """The emulated kernel with a per-receiver F (0 .. deg_max / 2 + 1, so
+    F = 0 rows and rows with deg <= 2F sit beside trimmed rows in one
+    block) is, row by row, its own run at that row's F, and equals the
+    float32 rank-order sum at that F bit for bit."""
+    P = 3 if case in ("wide", "deg_max_64") else 9
+    prob = trim_problem(case, P, 2, seed=11)
+    n, dm = prob[1].shape
+    Fr = mixed_f(n, 2, top=max(4, dm // 2 + 1))
+    tsum, kept = k3_emulate(*prob, Fr)
+    for F in np.unique(Fr):
+        rows = Fr == F
+        t1, k1 = k3_emulate(*prob, int(F))
+        assert same_bits(tsum[rows], t1[rows])
+        np.testing.assert_array_equal(kept[rows], k1[rows])
+        assert same_bits(tsum[rows],
+                         trim_rank_order_sum(*prob, int(F))[rows])
+    deg = prob[2].sum(1)
+    assert ((deg <= 2 * Fr) & (deg > 0)).any() and (Fr == 0).any()
+    assert (tsum[kept == 0] == 0).all()
+
+
+def test_k3_clamps_f_past_the_slot_count():
+    """An F past the network's width keeps nothing, as F = CAP does."""
+    prob = trim_problem("random", 9, 2, seed=3)
+    n = prob[0].shape[0]
+    big = k3_emulate(*prob, np.full(n, 1000, np.int32))
+    assert (big[0] == 0).all() and (big[1] == 0).all()
+    ref = trim_gather_ref(*map(torch.from_numpy, prob),
+                          torch.full((n,), 1000, dtype=torch.int32))
+    assert (ref[0] == 0).all() and (ref[1] == 0).all()
+
+
+def test_pairs_wrapper_takes_a_tensor_f():
+    prob = trim_problem("random", 9, 1)
+    r, idx, valid, msgs, byz_nbr = map(torch.from_numpy, prob)
+    Fr = torch.from_numpy(mixed_f(r.shape[0], 3))
+    flat = trim_gather(r, idx, valid, msgs, byz_nbr, Fr)
+    tsum, kept = trim_gather_pairs(r.reshape(-1, 3, 3), idx, valid,
+                                   msgs.reshape(*msgs.shape[:2], 3, 3),
+                                   byz_nbr, Fr, backend="torch")
+    assert torch.equal(tsum.reshape(r.shape), flat[0])
+    assert torch.equal(kept, flat[1])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        trim_gather_cuda(r, idx, valid, msgs, byz_nbr, Fr)

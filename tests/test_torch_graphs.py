@@ -148,6 +148,36 @@ def test_confused_model_needs_N_at_least_m():
         ts.make_confused_model(2, 3)
 
 
+@pytest.mark.parametrize("N,m,S,truth,seed,t_steps", [
+    (18, 3, 4, 1, 0, 25), (64, 3, 4, 0, 7, 1), (10, 5, 6, 4, 2**32 - 1, 40)])
+def test_signal_model_sample_and_log_lik(N, m, S, truth, seed, t_steps):
+    """``sample`` draws the reference's signals bit for bit for the same
+    seed (jax.random.choice with p, through split keys); ``log_lik``
+    gathers the same table entries (the logs within one ulp: torch's and
+    XLA's ``log``)."""
+    import jax
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core.prng import prng_key
+
+    jm = js.make_confused_model(N, m, S, truth, confusion=0.3, seed=1)
+    tm = convert.signal_model_from_numpy(np.asarray(jm.tables), truth)
+    got = tm.sample(prng_key(seed), t_steps)
+    want = np.asarray(jm.sample(jax.random.PRNGKey(seed), t_steps))
+    assert got.shape == want.shape == (t_steps, N)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 <= want.min() and want.max() < S
+    for row in got:
+        ll = tm.log_lik(row).numpy()
+        ref = np.asarray(jm.log_lik(jax.numpy.asarray(row.numpy())))
+        assert ll.shape == ref.shape == (N, m)
+        np.testing.assert_allclose(ll, ref, rtol=2e-7, atol=0)
+        np.testing.assert_array_equal(
+            ll, tm.log_tables().numpy()[np.arange(N), :, row.numpy()])
+    assert torch.equal(tm.log_lik(got[0].long()), tm.log_lik(got[0]))
+
+
 # ---- Algorithm 2's graph analysis: components, reduced graphs, A3, and
 # the padded neighbor lists ----
 
@@ -220,6 +250,25 @@ def test_neighbor_lists_match_reference(deg_max, shuffle_seed):
     np.testing.assert_array_equal(a.in_degree(), b.in_degree())
     with pytest.raises(ValueError, match="deg_max"):
         tg.neighbor_lists(topo.adj, deg_max=1)
+
+
+def test_stack_neighbor_lists_matches_reference():
+    """Lists of three topologies of one node count (deg_max 1, 4 and the
+    widest) batched on a leading axis, padded to the widest deg_max; a
+    node-count mismatch raises."""
+    topos = [jg.make_hierarchy([5, 5, 5], "ring", seed=0),
+             jg.make_hierarchy([5, 5, 5], "complete", seed=0),
+             jg.make_hierarchy([5, 7, 3], "ring+", seed=2)]
+    got = tg.stack_neighbor_lists([tg.neighbor_lists(t.adj) for t in topos])
+    want = jg.stack_neighbor_lists([jg.neighbor_lists(t.adj) for t in topos])
+    assert got.n == want.n and got.deg_max == want.deg_max
+    for x, y in ((got.idx, want.idx), (got.valid, want.valid)):
+        assert x.dtype == y.dtype and x.shape == (3, 15, want.deg_max)
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(got.in_degree(), want.in_degree())
+    with pytest.raises(ValueError, match="node count"):
+        tg.stack_neighbor_lists([tg.neighbor_lists(topos[0].adj),
+                                 tg.neighbor_lists(jg.ring(4))])
 
 
 @pytest.mark.parametrize("topology", ["ring", "complete", "ring+"])

@@ -51,8 +51,9 @@ from repro_torch.core.graphs import (make_hierarchy,
                                      sort_by_dst, stack_edge_lists)
 from repro_torch.core.hps import HPSConfig, run_hps
 from repro_torch.core.social import run_social_learning
-from repro_torch.core.sweeps import (run_hps_grid, run_pushsum_sweep,
-                                     run_social_grid, stack_runtimes)
+from repro_torch.core.sweeps import (run_byzantine_grid, run_hps_grid,
+                                     run_pushsum_sweep, run_social_grid,
+                                     stack_runtimes)
 from repro_torch.core.pushsum import run_pushsum_sparse, sparse_mass_invariant
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.prng import prng_key
@@ -259,9 +260,11 @@ def trim_sorted(r, idx, valid, msgs, byz_nbr):
 
 
 def survivors(deg, F, dm):
-    """(N, deg_max) bool: the ranks F .. deg - F - 1 of each sorted row."""
+    """(N, deg_max) bool: the ranks F .. deg - F - 1 of each sorted row
+    (``F`` an int, or (N,) per row)."""
     q = np.arange(dm)[None, :]
-    return (q >= F) & (q < deg[:, None] - F)
+    f = np.reshape(F, (-1, 1))
+    return (q >= f) & (q < deg[:, None] - f)
 
 
 def trim_sum_bound(r, idx, valid, msgs, byz_nbr, F):
@@ -536,6 +539,86 @@ def test_trim_gather_kernel_rejects_bad_arguments(cuda_device):
                          byz_nbr[:, :1].expand(-1, wide).contiguous(), 1)
     with pytest.raises(ValueError, match="F must"):
         trim_gather_cuda(r, idx, valid, msgs, byz_nbr, -1)
+    n = r.shape[0]
+    Fr = torch.ones(n, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        trim_gather_cuda(r, idx, valid, msgs, byz_nbr, Fr.long())
+    with pytest.raises(ValueError, match="shape"):
+        trim_gather_cuda(r, idx, valid, msgs, byz_nbr, Fr[:-1])
+    with pytest.raises(ValueError, match="is on"):
+        trim_gather_cuda(r, idx, valid, msgs, byz_nbr, Fr.cpu())
+    Fr[3] = -1
+    with pytest.raises(ValueError, match="F must"):
+        trim_gather_cuda(r, idx, valid, msgs, byz_nbr, Fr)
+
+
+def mixed_trim_counts(n, dm, seed):
+    """(N,) int32 trim counts 0 .. deg_max / 2 + 1, every fifth 0: F = 0
+    rows, trimmed rows and rows with deg <= 2F side by side in a block."""
+    f = np.random.default_rng(seed).integers(0, max(4, dm // 2 + 1) + 1,
+                                             size=n)
+    f[::5] = 0
+    return f.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRIM_CASES + K3_CASES)
+def test_trim_gather_kernel_with_f_per_receiver(cuda_device, case):
+    """A per-receiver F: tsum bit-equal to the float32 rank-order sum at
+    each row's own F, kept bit-equal to the plain version's, through the
+    kernel (one launch, counted as a tensor-F launch)."""
+    prob = trim_problem(case, 9, 2, seed=21)
+    n, dm = prob[1].shape
+    Fr = mixed_trim_counts(n, dm, dm)
+    args = [torch.from_numpy(a).to(cuda_device) for a in prob]
+    before = (trim_gather_cuda.launches, trim_gather_cuda.launches_tensor_f)
+    tsum, kept = trim_gather(*args, torch.from_numpy(Fr).to(cuda_device))
+    torch.cuda.synchronize()
+    assert (trim_gather_cuda.launches, trim_gather_cuda.launches_tensor_f) \
+        == (before[0] + 1, before[1] + 1)
+    tsum, kept = tsum.cpu().numpy(), kept.cpu().numpy()
+    want = trim_rank_order_sum(*prob, Fr)
+    np.testing.assert_array_equal(np.isnan(tsum), np.isnan(want))
+    np.testing.assert_array_equal(tsum.view(np.int32)[~np.isnan(want)],
+                                  want.view(np.int32)[~np.isnan(want)])
+    k_ref = trim_gather_ref(*map(torch.from_numpy, prob),
+                            torch.from_numpy(Fr))[1].numpy()
+    np.testing.assert_array_equal(kept, k_ref)
+    assert (tsum[k_ref == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [0, 1, 3])
+def test_trim_gather_kernel_uniform_tensor_f_is_the_int_call(cuda_device, F):
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in trim_problem("scattered", 9, F, seed=F)]
+    Fr = torch.full((args[0].shape[0],), F, dtype=torch.int32,
+                    device=cuda_device)
+    got = trim_gather_cuda(*args, Fr)
+    want = trim_gather_cuda(*args, F)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_byzantine_grid_kernel_path_matches_plain(cuda_device):
+    """benchmarks/byzantine_bench.py's grid (3 ring+ topologies of 3 x 5
+    agents x F 0|1, here Γ 3 and 4) x 2 seeds: K3 launched once a round
+    for all scenarios, with F per receiver; decisions equal to the plain
+    path's on the card and r within the dense oracle's limits."""
+    model = make_confused_model(N=15, m=3, truth=0, confusion=0.0, seed=0)
+    cfgs = [ByzantineConfig(make_hierarchy([5, 5, 5], topology="ring+",
+                                           extra_edge_prob=0.9, seed=s),
+                            F, byz, 3 + F, attacks.sign_flip())
+            for s in range(3) for F, byz in ((0, ()), (1, (1,)))]
+    before = (trim_gather_cuda.launches, trim_gather_cuda.launches_tensor_f)
+    got = run_byzantine_grid(model, cfgs, 60, [0, 5])
+    torch.cuda.synchronize()
+    assert (trim_gather_cuda.launches, trim_gather_cuda.launches_tensor_f) \
+        == (before[0] + 60, before[1] + 60)
+    plain = run_byzantine_grid(model, cfgs, 60, [0, 5],
+                               plan=ExecutionPlan(backend="torch"))
+    assert torch.equal(got.decisions, plain.decisions)
+    torch.testing.assert_close(got.r, plain.r, rtol=1e-5, atol=1e-3)
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """Milliseconds a step of the port's single-scenario engines on the kernel
 path, for the port whose ``src/`` is given (default: this checkout's):
-Algorithm 3 (``run_social_runtime``), HPS (``run_hps_runtime``) and
-push-sum (``run_pushsum_sparse``) at chip_smoke.py's step set-ups, at N =
-131,072 and at the grids' scenario size (N = 2,048; push-sum 4,096).
+Algorithm 3 (``run_social_runtime``), Algorithm 2
+(``run_byzantine_runtime``), HPS (``run_hps_runtime``) and push-sum
+(``run_pushsum_sparse``) at chip_smoke.py's step set-ups, at N = 131,072
+and at the grids' scenario size (N = 2,048; push-sum 4,096).
 CUDA-event medians of ``--runs`` runs of ``STEP_T`` steps, store final.
 Each tree runs in a process of its own, so two trees are compared on one
 card by runs in turns in one command (parent, tree, tree, parent):
@@ -38,8 +39,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("engine_step_times: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.core import (ExecutionPlan, run_hps_runtime,
-                                  run_pushsum_sparse, run_social_runtime)
+    from repro_torch.core import (ExecutionPlan, run_byzantine_runtime,
+                                  run_hps_runtime, run_pushsum_sparse,
+                                  run_social_runtime)
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -48,7 +50,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     cs.log(f"{card}; port under {src}")
-    _build.build(("edge_scatter", "social_innov"))
+    _build.build(("edge_scatter", "social_innov", "byz_trim"))
     final = ExecutionPlan(store="final", dst_sorted=True)
     runs = {}
     for n in (cs.N_FULL, 2_048):
@@ -57,6 +59,14 @@ def main(argv=None) -> int:
         rt = rt.to(dev)
         runs[f"social_N{n}"] = lambda T, model=model, rt=rt, M=M: (
             run_social_runtime(model, rt, M, T, seed=0, plan=final))
+        bmodel, (brt, extra, n_reps), batk = cs.byz_scenario(n)
+        bmodel = type(bmodel)(tables=bmodel.tables.to(dev),
+                              truth=bmodel.truth)
+        brt = brt.to(dev)
+        runs[f"byzantine_N{n}"] = (
+            lambda T, m=bmodel, b=brt, x=extra, r=n_reps, a=batk:
+            run_byzantine_runtime(m, b, x, r, a, T, seed=0,
+                                  plan=ExecutionPlan(store="final")))
         hrt, hw = cs.hps_scenario(n)
         hrt, hw = hrt.to(dev), torch.from_numpy(hw).to(dev)
         runs[f"hps_N{n}"] = lambda T, hrt=hrt, hw=hw: run_hps_runtime(
