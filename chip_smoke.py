@@ -96,6 +96,28 @@ Phases (any failure raises and the script exits non-zero):
              per receiver bit-equal to the rank-order sum at the grid's
              shape and at the edge cases; timings (K3 with F per receiver
              beside an int F, the grid step, a profile);
+6i. planes — the fault and async planes through the four engines at N =
+             131,072 (the main cells), T = 200: Alg. 3 under the chaos
+             lane's severe model, the churn model and make_async_model(0.6,
+             8); HPS and push-sum under the severe and the async model;
+             Alg. 2 under the severe model; each through the kernels and
+             the plain path: K1, K2 and K3 launch T times where the engine
+             uses them (K1 on its identity-source route under async),
+             outputs finite, mass within 1e-4 N, decisions equal on the
+             clear agents; the fault, liveness, wake and mask draws on the
+             card bit-equal to the CPU's; the degenerate models bit-equal
+             to no plane on the kernel path; K1's identity-source route at
+             the HPS and push-sum shapes bit-equal to the edge-order sum;
+             timings (kernel and plain in turns) and profiles;
+6j. planes grid — the social grid of 6f and the HPS grid of 6e (2 seeds)
+             crossed with benchmarks/chaos.py's four fault models (K·N =
+             131,072), the social grid crossed with social_learning.py's
+             nine (wake, staleness) cells (N = 18, T = 600), the Byzantine
+             grid of 6h under the severe model: each kernel once a round
+             for all K; rows 0 and K-1 against their single runs (draws
+             bit-equal, state within the single paths' limits); timings;
+             then examples/quickstart_torch.py on the card (its sections'
+             asserts; each loop's kernels launched once a round);
 7. timing  — K1-K3 three ways (device time with the host's enqueueing
              hidden, the JSON time; the kernel alone under the profiler;
              host-inclusive), K1's column walk beside its edge-tiled kernel,
@@ -216,7 +238,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 TIMED_RUNS = 30
-STEP_RUNS, STEP_T = 20, 50
+STEP_RUNS, STEP_T = 10, 50
 BYZ_F, BYZ_AGENTS, BYZ_GAMMA = 2, (2, 9), 10
 SERVE_B, SERVE_S, SERVE_GEN = 8, 2048, 32
 # Byzantine main path: decisions are compared where the decision margin
@@ -590,7 +612,8 @@ def k1_hold(what, k1, dst, tiled, by_order=False) -> float:
     from repro_torch.kernels.pushsum_edge.ops import TILED_D_MAX
     before = edge_scatter_cuda.launches_tiled
     rho_k, recv_k = edge_scatter_cuda(*k1, tiled=tiled)
-    rho_p, recv_p = edge_scatter_ref(*k1[:4], dst)
+    rho_p, recv_p = edge_scatter_ref(*k1[:4], dst,
+                                     n_recv=k1[4].numel() - 1)
     want = edge_order_recv(rho_p, k1[1], k1[4])
     torch.cuda.synchronize()
     on_tiled = k1[0].shape[1] <= TILED_D_MAX if tiled is None else tiled
@@ -980,10 +1003,12 @@ def pushsum_scenario(n_agents: int):
     return el, rng.normal(size=(n_agents, A1_D)).astype(np.float32)
 
 
-def hold_a1(what: str, pairs: dict, state, T: int) -> None:
+def hold_a1(what: str, pairs: dict, state, T: int,
+            floor: float = A1_MASS_FLOOR) -> None:
     """Kernel-path tensors against plain-path ones within ``A1_LIMIT``:
-    ``pairs`` maps a name to (kernel, plain) or (kernel, plain, rows held);
-    ``state`` is the kernel run's final state."""
+    ``pairs`` maps a name to (kernel, plain) or (kernel, plain, rows held:
+    those with m >= ``floor``); ``state`` is the kernel run's final
+    state."""
     counter = max(state.sigma_zm.abs().max().item(),
                   state.rho_zm.abs().max().item())
     fig = (float(np.spacing(np.float32(counter)))
@@ -994,7 +1019,7 @@ def hold_a1(what: str, pairs: dict, state, T: int) -> None:
         held = diff if not rows else diff[rows[0]]
         gap = held.max().item()
         msg.append(f"{name} {gap:.3e}" + (
-            f" (m >= {A1_MASS_FLOOR}: {held.numel()} of {diff.numel()}; "
+            f" (m >= {floor}: {held.numel()} of {diff.numel()}; "
             f"all {diff.max().item():.3e})" if rows else ""))
         require(gap <= A1_LIMIT, f"{what}: {name} within {A1_LIMIT} of the "
                 f"plain path")
@@ -1379,10 +1404,11 @@ def hold_rows(what, pairs: dict, tol: dict) -> str:
     return ", ".join(msg)
 
 
-def grid_timing(label: str, core, single, K: int, n_single: int) -> None:
+def grid_timing(label: str, core, single, K: int, n_single: int,
+                profile: bool = True) -> None:
     """ms a grid step (``core(T)``, the entry point's loop on its stacked
     inputs), ms a scenario-step, the single run of one scenario alone
-    (``single(T)``), and a profile of the grid's steps."""
+    (``single(T)``), and (``profile``) a profile of the grid's steps."""
     grid_ms = event_ms(lambda: core(STEP_T), SWEEP_RUNS) / STEP_T
     one_ms = event_ms(lambda: single(STEP_T), SWEEP_RUNS) / STEP_T
     log(f"[timing] {label} grid step (K={K}): {grid_ms:.4f} ms, "
@@ -1390,7 +1416,8 @@ def grid_timing(label: str, core, single, K: int, n_single: int) -> None:
         f"N={n_single}: {one_ms:.4f} ms a step, {one_ms * K / grid_ms:.2f}x "
         f"the grid's scenario-step (median of {SWEEP_RUNS} runs of "
         f"{STEP_T} steps, store final)")
-    profile_step(core, f"{label} grid K={K}", grid_ms)
+    if profile:
+        profile_step(core, f"{label} grid K={K}", grid_ms)
 
 
 def sweep_phases(dev) -> dict:
@@ -1758,7 +1785,7 @@ def pushsum_sweep_phase(dev, flush) -> dict:
         f"0/0.3/0.6/0.9 (graph 0, seed 0): "
         + " ".join(f"{res.err[k, -1].item():.3e}" for k in range(K)
                    if int(res.graph[k]) == 0 and int(res.seed[k]) == 0))
-    args, _ = _pushsum_grid(el, drops, range(4), 4, plan, dev)
+    args, _, _ = _pushsum_grid(el, drops, range(4), 4, plan, dev)
     rows = (0, K - 1)
     row_masks_equal(lambda t: t, res.seed, rows, el.E, args[5], args[6], T,
                     dev)
@@ -2068,6 +2095,680 @@ def byzantine_grid_phase(dev, flush) -> dict:
             "bound_ms": b_ms}
 
 
+# ---------------------------------------------------------------------------
+# Phases 6i-6j: the fault and async planes (core/faults.py,
+# core/asyncrony.py) through the four engines and their grids, on K1-K3
+# ---------------------------------------------------------------------------
+
+# A faulted or async run against the plain path. The plain path adds each
+# receiver's increments through index_add_'s atomics, in another order a
+# run, so the two paths differ by about an ulp of a relay counter a round,
+# which moves z / m by that ulp over the mass. Churn freezes dead agents
+# and drains the mass of networks that lose their links (to 1e-23 on these
+# cells), so beliefs and ratios are held where m >= PLANE_MASS_FLOOR (H100
+# runs: Alg. 3 severe 1.2e-4 there, 6.4e-3 at m >= 1e-3 in one run and
+# past 1e-2 in another; push-sum severe 1.8e-5), every (z, m) within
+# A1_LIMIT, and the decisions of Alg. 3 equal wherever the top two beliefs
+# are more than 2e-2 apart (phase 3's rule), those of Alg. 2 where the
+# decision margin is clear (hold_byz, phase 5's rule).
+PLANE_MASS_FLOOR = 0.1
+PLANE_T_DEGENERATE = 50         # rounds of the degenerate bit-identity runs
+
+
+PLANE_DESC = {
+    "severe": "gilbert_elliott_model(8.0, 0.5, leave 0.1, join 0.25, PS "
+              "crash 0.5)",
+    "churn": "make_fault_model(leave 0.02, join 0.3)",
+    "async": "make_async_model(0.6, 8)"}
+
+
+def plane_plans() -> dict:
+    """The chaos lane's severe model (benchmarks/chaos.py:52-56), the churn
+    row's (benchmarks/social_learning.py:190) and the async acceptance
+    cell (benchmarks/social_learning.py:282), as plans (PLANE_DESC)."""
+    from repro_torch.core import (ExecutionPlan, gilbert_elliott_model,
+                                  make_async_model, make_fault_model)
+    return {"severe": ExecutionPlan(faults=gilbert_elliott_model(
+                8.0, 0.5, leave_prob=0.1, join_prob=0.25, ps_crash_prob=0.5)),
+            "churn": ExecutionPlan(faults=make_fault_model(leave_prob=0.02,
+                                                           join_prob=0.3)),
+            "async": ExecutionPlan(async_=make_async_model(0.6, 8))}
+
+
+def chaos_models() -> list:
+    """benchmarks/chaos.py:49-56's fault grid: burst 8 or 32 x churn 0.1 or
+    0.3, half the time bad, a coin-flip PS, rejoin 0.25."""
+    from repro_torch.core import gilbert_elliott_model
+    return [gilbert_elliott_model(L, 0.5, leave_prob=c, join_prob=0.25,
+                                  ps_crash_prob=0.5)
+            for L in (8.0, 32.0) for c in (0.1, 0.3)]
+
+
+def plane_engines(dev, model, rt, M, bmodel, bsetup, battack) -> dict:
+    """The four engines at N = 131,072 on the main cells of PERF.md §4 ->
+    name: run(plan, T), the plan's route and planes applied."""
+    import torch
+    from repro_torch.core import (run_byzantine_runtime, run_hps_runtime,
+                                  run_pushsum_sparse, run_social_runtime)
+    rt_d = rt.to(dev)
+    hrt, hw = hps_scenario(N_FULL)
+    hrt, hw = hrt.to(dev), torch.from_numpy(hw).to(dev)
+    el, pw = pushsum_scenario(N_FULL)
+    src, dst, pw = (torch.from_numpy(a).to(dev) for a in (el.src, el.dst,
+                                                           pw))
+    brt, extra, n_reps = bsetup
+    brt = brt.to(dev)
+    return {
+        "social": lambda plan, T: run_social_runtime(
+            model, rt_d, M, T, seed=0,
+            plan=plan.replace(store="final", dst_sorted=True)),
+        "hps": lambda plan, T: run_hps_runtime(
+            hw, hrt, T, seed=0, plan=plan.replace(store="gap",
+                                                  dst_sorted=True)),
+        "pushsum": lambda plan, T: run_pushsum_sparse(
+            pw, src, dst, T, drop_prob=0.2, B=4, record_every=T,
+            plan=plan.replace(dst_sorted=True)),
+        "byzantine": lambda plan, T: run_byzantine_runtime(
+            bmodel, brt, extra, n_reps, battack, T, seed=0,
+            plan=plan.replace(store="decisions")),
+        "_edges": {"social": (rt_d.src, rt_d.valid),
+                   "hps": (hrt.src, hrt.valid),
+                   "pushsum": (src, torch.ones_like(src, dtype=torch.bool))},
+        "_byz": brt,
+    }
+
+
+def plane_outputs(engine: str, res) -> tuple:
+    """A run's outputs, flat: the state and what the engine emits."""
+    if engine == "pushsum":
+        return (*res[0], res[1])
+    if engine == "byzantine":
+        return tuple(res)
+    return (res[0], res[2], *res.final_state)
+
+
+def plane_launches(engine: str, T: int, on_async: bool) -> dict:
+    if engine == "byzantine":
+        return _only(byz_trim=T)
+    k2 = {"social_innov": T} if engine == "social" else {}
+    return _only(edge_scatter=T, edge_scatter_tiled=T,
+                 edge_scatter_edge_rows=T if on_async else 0, **k2)
+
+
+def hold_plane(engine: str, what: str, k, p, edges, N: int, T: int,
+               truth: int, byz=None) -> str:
+    """A faulted or async run of ``engine`` on the kernels (``k``) against
+    the plain path (``p``) at the limits above -> the gaps, logged."""
+    import torch
+    from repro_torch.core import decide, sparse_mass_invariant
+    if engine == "byzantine":
+        normal = ~byz.byz_mask
+        require(bool(torch.isfinite(k.r).all()), f"{what}: finite")
+        gaps = hold_byz(what, k.r[None], p.r[None], k.decisions[None, -1],
+                        p.decisions[None, -1], normal[None])
+        require(torch.equal(k.decisions[-1], decide(k.r)),
+                f"{what}: final decisions follow r")
+        share = ((k.decisions[-1] == truth) & normal & byz.in_C).float().sum() \
+            / (normal & byz.in_C).float().sum()
+        return f"{gaps}; share of normal agents in C deciding theta* " \
+               f"{share.item():.4f}"
+    state_k = k[0] if engine == "pushsum" else k.final_state
+    state_p = p[0] if engine == "pushsum" else p.final_state
+    out = plane_outputs(engine, k)
+    require(all(bool(torch.isfinite(x).all()) for x in out
+                if x.is_floating_point()), f"{what}: outputs finite")
+    inv = sparse_mass_invariant(state_k, *edges)
+    require(abs(inv[-1].item() - N) <= 1e-4 * N,
+            f"{what}: mass within 1e-4 N")
+    heavy = state_k.m >= PLANE_MASS_FLOOR
+    if engine == "social":
+        bk, bp = k.beliefs, p.beliefs
+        diff = (bk - bp).abs().amax(dim=-1)
+        by_mass = ", ".join(
+            f"m >= {f:g}: {diff[state_k.m >= f].max().item():.3e} on "
+            f"{int((state_k.m >= f).sum())}" for f in (1e-1, 1e-2, 1e-3, 0))
+        top2 = bp.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2e-2
+        flips = int((bk.argmax(-1) != bp.argmax(-1))[clear].sum())
+        d_zm = (state_k.zm - state_p.zm).abs().max().item()
+        log(f"[planes] {what}: belief gap by mass {by_mass}; decisions "
+            f"that differ on {flips}/{int(clear.sum())} clear agents; (z, m) "
+            f"{d_zm:.3e}")
+        d_b = diff[heavy].max().item()
+        require(d_b <= 1e-2, f"{what}: beliefs within 1e-2 of the plain "
+                f"path where m >= {PLANE_MASS_FLOOR}")
+        require(d_zm <= A1_LIMIT, f"{what}: (z, m) within {A1_LIMIT} of the "
+                f"plain path")
+        require(flips == 0, f"{what}: decisions equal where the top two "
+                f"beliefs are more than 2e-2 apart")
+        return (f"beliefs {d_b:.3e} on {int(heavy.sum())}/{N} agents with m "
+                f">= {PLANE_MASS_FLOOR}, (z, m) {d_zm:.3e}; decisions equal "
+                f"on {int(clear.sum())}/{N} clear agents, deciding theta* "
+                f"{(bk.argmax(-1) == truth).float().mean().item():.4f}; total "
+                f"mass {inv[-1].item():.3f}")
+    ratio_k = k[1][-1] if engine == "pushsum" else k.ratio
+    ratio_p = p[1][-1] if engine == "pushsum" else p.ratio
+    pairs = {"final ratio": (ratio_k, ratio_p, heavy),
+             "final (z, m)": (state_k.zm, state_p.zm)}
+    if engine == "hps":
+        pairs["gap curve"] = (k.gap, p.gap)
+    hold_a1(what, pairs, state_k, T, floor=PLANE_MASS_FLOOR)
+    return f"total mass {inv[-1].item():.3f}; least mass " \
+           f"{state_k.m.min().item():.3e}"
+
+
+def plane_draws_equal(dev, engine: str, plan, N: int, T: int, key,
+                      src=None, dst=None, brt=None) -> None:
+    """The fault, liveness, wake and link-mask draws of ``engine``'s loop
+    on the card against the same draws on the CPU, bit for bit: round 0
+    from the initial state and round T - 1 from a random one."""
+    import torch
+    from repro_torch.core import faults as fa
+    from repro_torch.core.hps import hps_stream_fold
+    from repro_torch.core.prng import Key, fold_in, fold_rounds
+    from repro_torch.core.pushsum import PlaneRounds, round_mask
+    from repro_torch.core.social import STREAM_LINK, social_stream_fold
+    g = np.random.default_rng(T)
+    if engine == "byzantine":
+        shape = tuple(brt.nbr_idx.shape)
+        rand = fa.FaultState(torch.from_numpy(g.random(shape) < 0.5),
+                             torch.from_numpy(g.random(shape[0]) < 0.8))
+        fe, fc = (fold_rounds(key, [fa.fault_stream_fold(
+            t, fa.ENGINE_BYZANTINE, s) for t in (0, T - 1)], None)
+                  for s in (fa.FAULT_EDGE, fa.FAULT_CHURN))
+        for i, fs0 in enumerate((fa.init_fault_state(shape[0], shape),
+                                 rand)):
+            (fs_d, drop_d), (fs_c, drop_c) = (
+                fa.advance_faults_nbr(
+                    Key(fe.k0[i], fe.k1[i]), Key(fc.k0[i], fc.k1[i]),
+                    plan.faults.to(d),
+                    fa.FaultState(*(x.to(d) for x in fs0)))
+                for d in (dev, "cpu"))
+            require(all(torch.equal(a.cpu(), b) for a, b in zip(
+                (*fs_d, drop_d), (*fs_c, drop_c))),
+                f"byzantine at round {(0, T - 1)[i]}: the slot chain, "
+                f"liveness and drop draws on the card bit-equal to the CPU's")
+        return
+    eng = {"social": fa.ENGINE_SOCIAL, "hps": fa.ENGINE_HPS,
+           "pushsum": fa.ENGINE_PUSHSUM}[engine]
+    link = {"social": lambda t: social_stream_fold(t, STREAM_LINK),
+            "hps": hps_stream_fold, "pushsum": lambda t: t}[engine]
+    E = src.shape[0]
+    rand = fa.FaultState(torch.from_numpy(g.random(E) < 0.5),
+                         torch.from_numpy(g.random(N) < 0.8))
+    drop, B = torch.tensor(0.1), torch.tensor(4, dtype=torch.int32)
+    for t in (0, T - 1):
+        draws = []
+        for d in (dev, "cpu"):
+            pr = PlaneRounds.build(key, T, eng, plan.faults, plan.async_, E,
+                                   d)
+            fs, _ = pr.init(N, E, 1, d)
+            if fs is not None and t:
+                fs = fa.FaultState(*(x.to(d) for x in rand))
+            fs, awake = pr.step(t, fs, N)
+            mask = round_mask(fold_in(key, link(t)), t, E, drop.to(d),
+                              B.to(d), pr.faults, fs, src.to(d), dst.to(d))
+            draws.append([x for x in (mask, awake,
+                                      *(() if fs is None else fs))
+                          if x is not None])
+        require(all(torch.equal(a.cpu(), b) for a, b in zip(*draws)),
+                f"{engine} at round {t}: the fault, liveness, wake and link "
+                f"mask draws on the card bit-equal to the CPU's")
+
+
+def turns_ms(fns: dict, runs: int = SWEEP_RUNS, steps: int = STEP_T) -> dict:
+    """Median ms a step of each ``fns[name](steps)``, the runs taken in
+    turns (name after name, ``runs`` times)."""
+    times = {name: [] for name in fns}
+    for fn in fns.values():
+        fn(min(5, steps))
+    for _ in range(runs):
+        for name, fn in fns.items():
+            times[name].append(event_ms(lambda fn=fn: fn(steps), 1) / steps)
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def plane_single_phase(dev, model, rt, M, bmodel, bsetup, battack) -> dict:
+    """Phase 6i: the four engines at N = 131,072 under the planes, kernel
+    path against plain path; the draws on the card against the CPU's; the
+    degenerate models bit-equal to no plane on the kernel path; K1's
+    identity-source route at the engines' shapes; timings -> launches."""
+    import torch
+    from repro_torch.core import (ExecutionPlan, make_async_model,
+                                  make_fault_model)
+    from repro_torch.core.prng import prng_key
+    T, N = T_MAIN, N_FULL
+    plans = plane_plans()
+    runs = plane_engines(dev, model, rt, M, bmodel, bsetup, battack)
+    cells = [("social", "severe"), ("social", "churn"), ("social", "async"),
+             ("hps", "severe"), ("hps", "async"), ("pushsum", "severe"),
+             ("pushsum", "async"), ("byzantine", "severe")]
+    out = {}
+    for engine, name in cells:
+        plan = plans[name]
+        what = f"planes {engine} {name}"
+        _zero_counts()
+        t0 = time.perf_counter()
+        res_k = runs[engine](plan, T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        require(counts == plane_launches(engine, T, plan.async_ is not None),
+                f"{what}: each kernel of the engine launched T times"
+                + (", K1 on its identity-source route" if plan.async_
+                   is not None else ""))
+        out[(engine, name)] = counts
+        res_p = runs[engine](plan.replace(backend="torch"), T)
+        torch.cuda.synchronize()
+        require(_counts() == counts, f"{what}: the plain path launched no "
+                f"kernel")
+        gaps = hold_plane(engine, what, res_k, res_p,
+                          runs["_edges"].get(engine), N, T,
+                          bmodel.truth if engine == "byzantine"
+                          else model.truth, byz=runs["_byz"])
+        log(f"[planes] {engine} N={N} T={T} under {name} "
+            f"({PLANE_DESC[name]}): "
+            f"kernels {wall:.2f} s, launches {counts}; kernel vs plain: "
+            f"{gaps}")
+    # the draws: the card's against the CPU's
+    hrt, _ = hps_scenario(N)
+    el, _ = pushsum_scenario(N)
+    setups = {"social": (rt.src, rt.dst), "hps": (hrt.src, hrt.dst),
+              "pushsum": (torch.from_numpy(el.src), torch.from_numpy(el.dst))}
+    for engine, name in (("social", "severe"), ("social", "async"),
+                         ("pushsum", "severe")):
+        plane_draws_equal(dev, engine, plans[name], N, T, prng_key(0),
+                          src=setups[engine][0], dst=setups[engine][1])
+    plane_draws_equal(dev, "byzantine", plans["severe"], N, T, prng_key(0),
+                      brt=bsetup[0])
+    log(f"[planes] draws: the Gilbert–Elliott chain, churn liveness and "
+        f"faulted link masks of the social and push-sum loops (severe "
+        f"model; E up to {rt.src.shape[0]}; HPS runs the same code on "
+        f"another fold), the social loop's wake coins "
+        f"and link masks (async model) and the Byzantine slot chain, "
+        f"liveness and drop coins, at rounds 0 and {T - 1}, bit-equal on the "
+        f"card and the CPU")
+    # degenerate models on the kernel path: bit-equal to no plane
+    Td = PLANE_T_DEGENERATE
+    for engine in ("social", "hps", "pushsum", "byzantine"):
+        base = plane_outputs(engine, runs[engine](ExecutionPlan(), Td))
+        deg = [ExecutionPlan(faults=make_fault_model())]
+        if engine != "byzantine":
+            deg.append(ExecutionPlan(async_=make_async_model()))
+        for plan in deg:
+            got = plane_outputs(engine, runs[engine](plan, Td))
+            require(all(torch.equal(a, b) for a, b in zip(base, got)),
+                    f"{engine}: the degenerate {plan} bit-equal to no plane "
+                    f"on the kernel path")
+    log(f"[planes] degenerate models (make_fault_model(), and "
+        f"make_async_model() but for Alg. 2) through the four engines on the "
+        f"kernel path, T={Td}: bit-equal to faults=None / async_=None")
+    # K1's identity-source route at the engines' shapes, and its time
+    # beside the node route's on the same edges (host hidden, L2 flushed)
+    from repro_torch.kernels.pushsum_edge import dst_offsets, edge_scatter_cuda
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev).zero_
+    out["k1_identity_ms"] = {}
+    for label, (src, dst) in (("hps", (hrt.src, hrt.dst)),
+                              ("pushsum", (el.src, el.dst))):
+        dst_d = torch.as_tensor(dst).to(dev)
+        src_d = torch.as_tensor(src).to(dev)
+        E = dst_d.shape[0]
+        g = torch.Generator(device=dev).manual_seed(11)
+        snap = torch.randn((E, A1_D + 1), generator=g, device=dev)
+        sigma = torch.randn((N, A1_D + 1), generator=g, device=dev)
+        rho = torch.randn((E, A1_D + 1), generator=g, device=dev)
+        live = torch.rand(E, generator=g, device=dev) < 0.6
+        ident = torch.arange(E, dtype=torch.int32, device=dev)
+        offsets = dst_offsets(dst_d, N)
+        k1 = (snap, rho, live, ident, offsets)
+        err = k1_hold(f"identity-source route, {label} shape", k1, dst_d,
+                      None)
+        node = (sigma, rho, live, src_d, offsets)
+        ms = {name: event_ms(lambda a=a: edge_scatter_cuda(*a), TIMED_RUNS,
+                             flush, hide_host=True)
+              for name, a in (("identity", k1), ("node", node))}
+        out["k1_identity_ms"][label] = ms["identity"]
+        # each input read once, rho_new and recv written once
+        b_ms, by = bound(nbytes(*k1, rho) + N * (A1_D + 1) * 4,
+                         2 * E * (A1_D + 1))
+        log(f"[planes] edge_scatter's identity-source route (the async "
+            f"delivery) at the {label} shape (E={E}, D={A1_D + 1}): rho_new "
+            f"bit-equal, recv bit-equal to the float32 edge-order sum; "
+            f"against index_add_ {err:.3e}; {ms['identity']:.5f} ms with the "
+            f"host hidden beside the node route's {ms['node']:.5f} on the "
+            f"same edges (bound {b_ms:.5f}, {by}; median of {TIMED_RUNS}, "
+            f"L2 flushed)")
+    # timings: kernel and plain paths in turns and a profile (Alg. 3
+    # severe and async, Alg. 2 severe), the kernel path alone (HPS severe,
+    # push-sum async); the plane-free steps are phase 7's. (Profiles are
+    # few: in a long process the profiler stops recording some launches.)
+    for engine, name, turns in (("social", "severe", True),
+                                ("social", "async", True),
+                                ("byzantine", "severe", True),
+                                ("hps", "severe", False),
+                                ("pushsum", "async", False)):
+        plan, fn = plans[name], runs[engine]
+        paths = {"kernel": lambda T, p=plan, fn=fn: fn(p, T)}
+        if turns:
+            paths["plain"] = lambda T, p=plan, fn=fn: fn(
+                p.replace(backend="torch"), T)
+        runs_n = SWEEP_RUNS if turns else 3
+        ms = turns_ms(paths, runs=runs_n)
+        log(f"[timing] {engine} under {name} at N={N}: kernel "
+            f"{ms['kernel']:.4f} ms"
+            + (f", plain {ms['plain']:.4f} ms" if turns else "")
+            + f" a step ({'in turns, ' if turns else ''}median of {runs_n} "
+            f"runs of {STEP_T} steps)")
+        if turns:
+            profile_step(paths["kernel"], f"{engine} {name} N={N}",
+                         ms["kernel"])
+    return out
+
+
+def plane_grid_rows(what, engine, res, rows, models, N, E, T, dev) -> None:
+    """Rows of a crossed grid against their single runs' draws: each row's
+    slice of the grid's stacked fault and wake draws (rounds 0 and T - 1,
+    from the initial state) bit-equal to its single run's."""
+    import torch
+    from repro_torch.core import faults as fa
+    from repro_torch.core.asyncrony import AsyncModel, stack_async_models
+    from repro_torch.core.prng import Key, prng_key
+    from repro_torch.core.pushsum import PlaneRounds
+    eng = {"social": fa.ENGINE_SOCIAL, "hps": fa.ENGINE_HPS}[engine]
+    seeds = res.seed.numpy()
+    K = len(seeds)
+    keys = Key(np.zeros(K, np.int64), seeds)
+    fl, al = models
+    fm = (None if res.fault is None
+          else fa.stack_fault_models([fl[int(i)] for i in res.fault]))
+    am = (None if res.async_ is None
+          else stack_async_models([al[int(i)] for i in res.async_]))
+    grid = PlaneRounds.build(keys, T, eng, fm, am, E, dev)
+    for t in (0, T - 1):
+        fs, _ = grid.init(K * N, K * E, 1, dev)
+        fs_b, wake_b = grid.step(t, fs, K * N)
+        for k in rows:
+            one = PlaneRounds.build(
+                prng_key(int(seeds[k])), T, eng,
+                None if fm is None else fa.FaultModel(*(x[k] for x in fm)),
+                None if am is None else AsyncModel(*(x[k] for x in am)),
+                E, dev)
+            fs1, _ = one.init(N, E, 1, dev)
+            fs1, wake1 = one.step(t, fs1, N)
+            n, e = slice(k * N, (k + 1) * N), slice(k * E, (k + 1) * E)
+            pairs = []
+            if fs_b is not None:
+                pairs += [(fs_b.edge_bad[e], fs1.edge_bad),
+                          (fs_b.node_live[n], fs1.node_live)]
+            if wake_b is not None:
+                pairs.append((wake_b[n], wake1))
+            require(all(torch.equal(a, b) for a, b in pairs),
+                    f"{what} row {k}: the fault and wake draws of round {t} "
+                    f"bit-equal to its single run's")
+
+
+def plane_grid_phase(dev) -> dict:
+    """Phase 6j: the social grid of 6f and the HPS grid of 6e crossed with
+    the chaos lane's four fault models (seeds cut to keep K·N = 131,072),
+    the social grid crossed with social_learning.py's nine (wake,
+    staleness) cells, the Byzantine grid of 6h under the severe model;
+    two rows of each against their single runs; timings -> launches."""
+    import torch
+    from repro_torch.core import (ExecutionPlan, HPSConfig,
+                                  make_async_model, make_confused_model,
+                                  make_byzantine_runtime, make_hierarchy,
+                                  make_hps_runtime, make_social_runtime,
+                                  run_byzantine_grid, run_byzantine_runtime,
+                                  run_hps_grid, run_hps_runtime,
+                                  run_social_grid, run_social_runtime,
+                                  stack_runtimes)
+    from repro_torch.core import faults as fa
+    T = T_MAIN
+    faults = chaos_models()
+    seeds = list(range(GRID_SEEDS // len(faults)))
+    out = {}
+    # ---- the social grid of 6f x the four fault models ----
+    base, cfgs = hps_grid_configs([8] * GRID_NETS, (0.0, 0.3, 0.6, 0.9),
+                                  (4, 8), B=4)
+    N, M = base.topo.N, base.topo.M
+    model = make_confused_model(N=N, m=3, truth=1, confusion=0.5)
+    plan = ExecutionPlan(store="log_ratio", faults=faults)
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = run_social_grid(model, cfgs, T, seeds, plan=plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    K = res.K
+    log(f"[planes grid] social: {len(cfgs)} configs x {len(seeds)} seeds x "
+        f"{len(faults)} fault models = {K} scenarios of N={N}, T={T}: "
+        f"{wall:.2f} s, launches {counts}")
+    require(K * N == N_FULL and res.fault.tolist() == list(range(4)) * (
+        K // 4), "social x faults grid: K·N = 131,072, fault-minor rows")
+    require(counts == _only(edge_scatter=T, edge_scatter_tiled=T,
+                            social_innov=T),
+            "social x faults grid: K1 and K2 launched T times for all K")
+    require(bool(torch.isfinite(res.beliefs).all())
+            and bool(torch.isfinite(res.log_ratio).all()),
+            "social x faults grid: finite")
+    out["social_faults"] = counts
+    rows = (0, K - 1)
+    E = make_social_runtime(cfgs[0]).src.shape[0]
+    plane_grid_rows("social x faults grid", "social", res, rows,
+                    (faults, None), N, E, T, dev)
+    for k in rows:
+        cfg, seed = cfgs[int(res.cfg[k])], int(res.seed[k])
+        one = run_social_runtime(
+            model, make_social_runtime(cfg), M, T, seed=seed,
+            signal_seed=seed, plan=ExecutionPlan(
+                store="log_ratio", faults=faults[int(res.fault[k])]))
+        top2 = one.beliefs.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2e-2
+        gaps = hold_rows(f"social x faults row {k}", {
+            "beliefs": (res.beliefs[k][clear], one.beliefs[clear])},
+            dict(rtol=0, atol=1e-3))
+        require(torch.equal(res.beliefs[k].argmax(-1)[clear],
+                            one.beliefs.argmax(-1)[clear]),
+                f"social x faults row {k}: decisions equal to its single "
+                f"run's")
+        log(f"[planes grid] social row {k} (drop {cfg.drop_prob:.2g}, Γ "
+            f"{cfg.gamma_period}, seed {seed}, fault {int(res.fault[k])}) "
+            f"against its single run: fault draws bit-equal; {gaps} on "
+            f"{int(clear.sum())}/{N} clear agents, decisions equal")
+
+    # ---- the HPS grid of 6e x the four fault models ----
+    hbase, hcfgs = hps_grid_configs([8] * GRID_NETS, (0.0, 0.1, 0.3, 0.6),
+                                    (4, 8), B=4)
+    w = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(N, A1_D)).astype(np.float32)).to(dev)
+    hplan = ExecutionPlan(store="gap", faults=faults)
+    _zero_counts()
+    t0 = time.perf_counter()
+    hres = run_hps_grid(w, hcfgs, T, seeds, plan=hplan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    log(f"[planes grid] HPS: {len(hcfgs)} configs x {len(seeds)} seeds x "
+        f"{len(faults)} fault models = {hres.K} scenarios of N={N}, "
+        f"d={A1_D}, T={T}: {wall:.2f} s, launches {counts}")
+    require(counts == _only(edge_scatter=T, edge_scatter_tiled=T),
+            "HPS x faults grid: K1 launched T times for all K")
+    require(bool(torch.isfinite(hres.gap).all())
+            and bool(torch.isfinite(hres.ratio).all()),
+            "HPS x faults grid: finite")
+    out["hps_faults"] = counts
+    hE = make_hps_runtime(hcfgs[0]).src.shape[0]
+    plane_grid_rows("HPS x faults grid", "hps", hres, rows,
+                    (faults, None), N, hE, T, dev)
+    for k in rows:
+        cfg, seed = hcfgs[int(hres.cfg[k])], int(hres.seed[k])
+        one = run_hps_runtime(w, make_hps_runtime(cfg), T, seed=seed,
+                              plan=ExecutionPlan(
+                                  store="gap",
+                                  faults=faults[int(hres.fault[k])]))
+        gaps = hold_rows(f"HPS x faults row {k}", {
+            "gap curve": (hres.gap[k], one.gap)}, HPS_ROW_TOL)
+        log(f"[planes grid] HPS row {k} (drop {cfg.drop_prob:.2g}, Γ "
+            f"{cfg.gamma_period}, seed {seed}, fault {int(hres.fault[k])}) "
+            f"against its single run: fault draws bit-equal; {gaps}")
+
+    # ---- benchmarks/social_learning.py:244-250's nine async cells ----
+    topo = make_hierarchy([6, 6, 6], topology="complete", seed=0)
+    amodel = make_confused_model(N=topo.N, m=3, truth=1, confusion=0.5,
+                                 seed=0)
+    acfg = HPSConfig(topo=topo, gamma_period=8, B=1_000_000, drop_prob=0.1)
+    wakes, stales = (1.0, 0.9, 0.6), (0, 2, 8)
+    ams = [make_async_model(q, s) for q in wakes for s in stales]
+    aT = 600
+    _zero_counts()
+    t0 = time.perf_counter()
+    ares = run_social_grid(amodel, [acfg], aT, [0, 1, 2, 3], plan=ExecutionPlan(
+        store="log_ratio", async_=ams))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    log(f"[planes grid] social x async: 9 (wake, staleness) cells x 4 seeds "
+        f"= {ares.K} scenarios of N=18, T={aT}: {wall:.2f} s, launches "
+        f"{counts}")
+    require(counts == _only(edge_scatter=aT, edge_scatter_tiled=aT,
+                            edge_scatter_edge_rows=aT, social_innov=aT),
+            "social x async grid: K1 (identity-source route) and K2 "
+            "launched T times for all K")
+    require(bool(torch.isfinite(ares.log_ratio).all()),
+            "social x async grid: finite")
+    out["social_async"] = counts
+    arows = (0, ares.K - 1)
+    plane_grid_rows("social x async grid", "social", ares, arows,
+                    (None, ams), 18, make_social_runtime(acfg).src.shape[0],
+                    aT, dev)
+    for k in arows:
+        seed = int(ares.seed[k])
+        one = run_social_runtime(
+            amodel, make_social_runtime(acfg), topo.M, aT, seed=seed,
+            signal_seed=seed, plan=ExecutionPlan(
+                store="log_ratio", async_=ams[int(ares.async_[k])]))
+        gaps = hold_rows(f"social x async row {k}", {
+            "log ratio": (ares.log_ratio[k], one.log_ratio)},
+            dict(rtol=1e-3, atol=1e-2))
+        log(f"[planes grid] social x async row {k} (cell "
+            f"{int(ares.async_[k])}, seed {seed}) against its single run: "
+            f"wake draws bit-equal; {gaps}")
+    med = [float(ares.log_ratio[a::9, -1].median()) for a in range(9)]
+    log("[planes grid] social x async: median final worst log ratio by "
+        "(wake, staleness): " + " ".join(
+            f"({q}, {s}) {m:+.2f}" for (q, s), m in zip(
+                [(q, s) for q in wakes for s in stales], med)))
+
+    # ---- the Byzantine grid of 6h under the severe model ----
+    bmodel, bcfgs = byz_grid_setup()
+    bplan = ExecutionPlan(store="decisions", faults=plane_plans()[
+        "severe"].faults)
+    bseeds = list(range(BYZ_GRID_SEEDS))
+    _zero_counts()
+    t0 = time.perf_counter()
+    bres = run_byzantine_grid(bmodel, bcfgs, T, bseeds, plan=bplan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    log(f"[planes grid] Byzantine under severe: {bres.K} scenarios of "
+        f"N={N}, T={T}: {wall:.2f} s, launches {counts}")
+    require(counts == _only(byz_trim=T, byz_trim_tensor_f=T),
+            "Byzantine x severe grid: K3 launched T times for all K, with F "
+            "per receiver")
+    require(bool(torch.isfinite(bres.r).all())
+            and bres.fault.tolist() == [0] * bres.K,
+            "Byzantine x severe grid: finite, the fault column all zeros")
+    out["byzantine_faults"] = counts
+    per_cfg = [make_byzantine_runtime(bmodel, c)[0] for c in bcfgs]
+    brt = stack_runtimes([per_cfg[int(c)] for c in bres.cfg])
+    normal = ~brt.byz_mask.view(bres.K, N).to(dev)
+    from repro_torch.core.prng import Key, fold_rounds, prng_key
+    for t in (0, T - 1):
+        fk = [fold_rounds(Key(np.zeros(bres.K, np.int64), bres.seed.numpy()),
+                          [fa.fault_stream_fold(t, fa.ENGINE_BYZANTINE, s)],
+                          dev) for s in (fa.FAULT_EDGE, fa.FAULT_CHURN)]
+        fs_b, drop_b = fa.advance_faults_nbr(
+            Key(fk[0].k0[0], fk[0].k1[0]), Key(fk[1].k0[0], fk[1].k1[0]),
+            bplan.faults.to(dev), fa.init_fault_state(
+                bres.K * N, tuple(brt.nbr_idx.shape), dev))
+        for k in rows:
+            fs1, drop1 = fa.step_faults_nbr(
+                prng_key(int(bres.seed[k])), t, bplan.faults.to(dev),
+                fa.init_fault_state(N, tuple(brt.nbr_idx[:N].shape), dev),
+                engine=fa.ENGINE_BYZANTINE)
+            n = slice(k * N, (k + 1) * N)
+            require(torch.equal(fs_b.edge_bad[n], fs1.edge_bad)
+                    and torch.equal(fs_b.node_live[n], fs1.node_live)
+                    and torch.equal(drop_b[n], drop1),
+                    f"Byzantine x severe row {k}: slot, liveness and drop "
+                    f"draws of round {t} bit-equal to its single run's")
+    for k in rows:
+        cfg, seed = bcfgs[int(bres.cfg[k])], int(bres.seed[k])
+        one = run_byzantine_runtime(bmodel, per_cfg[int(bres.cfg[k])], None,
+                                    M, cfg.attack, T, seed=seed, plan=bplan)
+        gaps = hold_byz(f"Byzantine x severe row {k} vs its single run",
+                        bres.r[k:k + 1], one.r[None],
+                        bres.decisions[k:k + 1, -1], one.decisions[None, -1],
+                        normal[k:k + 1])
+        log(f"[planes grid] Byzantine row {k} (F {cfg.F}, Γ "
+            f"{cfg.gamma_period}, seed {seed}) against its single run: "
+            f"draws bit-equal; {gaps}")
+
+    # ---- timings: each grid's step, its scenario-step, one scenario alone
+    # (the social and Byzantine grids; the HPS grid's faulted step is the
+    # single HPS step's, timed in 6i)
+    from repro_torch.core.byzantine import _build_scan
+    from repro_torch.core.prng import Key
+    from repro_torch.core.social import _social_scan_core
+    srt = stack_runtimes([make_social_runtime(cfgs[int(c)])
+                          for c in res.cfg]).to(dev)
+    skeys = Key(np.zeros(K, np.int64), res.seed.numpy())
+    sfm = fa.stack_fault_models([faults[int(i)] for i in res.fault])
+    tables = model.tables.to(dev)
+    lt, cdf = torch.log(tables), torch.cumsum(tables[:, 1, :], dim=-1)
+    one_s = make_social_runtime(cfgs[0]).to(dev)
+    grid_timing("social x faults", lambda T: _social_scan_core(
+        skeys, skeys, srt, lt, cdf, truth=1, M=M, T=T, store="final",
+        backend="auto", faults=sfm), lambda T: run_social_runtime(
+        model, one_s, M, T, seed=0, plan=ExecutionPlan(
+            store="final", faults=faults[0])), K, N)
+    bkeys = Key(np.zeros(bres.K, np.int64), bres.seed.numpy())
+    brt_d = brt.to(dev)
+    one_b = per_cfg[2].to(dev)
+    grid_timing("byzantine x severe", lambda T: _build_scan(
+        bmodel, brt_d, None, M, bcfgs[0].attack, T, mode="pairwise",
+        core="sparse", backend="auto", store="final", device=dev,
+        faults=bplan.faults)(bkeys), lambda T: run_byzantine_runtime(
+        bmodel, one_b, None, M, bcfgs[0].attack, T, seed=0,
+        plan=bplan.replace(store="final")), bres.K, N, profile=False)
+    return out
+
+
+def quickstart_torch_phase() -> None:
+    """examples/quickstart_torch.py on the card: every section's asserts,
+    and the launches of K1 (on its identity-source route in the async
+    grid), K2 and K3 its loops make."""
+    import importlib.util
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    _zero_counts()
+    t0 = time.perf_counter()
+    mod.main()
+    torch.cuda.synchronize()
+    counts = _counts()
+    log(f"[quickstart_torch] all sections passed in "
+        f"{time.perf_counter() - t0:.2f} s, launches {counts}")
+    # Alg. 3 500 + sweep 300 + HPS grid 2000 + phase diagram 400 + async
+    # 400 rounds of K1; Alg. 3, the phase diagram and async of K2; Alg. 2
+    require(counts == _only(edge_scatter=3600, edge_scatter_tiled=3600,
+                            edge_scatter_edge_rows=400, social_innov=1300,
+                            byz_trim=500),
+            "quickstart_torch: each loop's kernels launched once a round")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2094,6 +2795,13 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    started = [time.perf_counter()]
+
+    def lap(done: str) -> None:
+        """Log the seconds since the last lap, which ``done`` took."""
+        now = time.perf_counter()
+        log(f"[phase] {done}: {now - started[0]:.1f} s")
+        started[0] = now
 
     # ---- phase 1: build -------------------------------------------------
     t0 = time.perf_counter()
@@ -2159,6 +2867,7 @@ def main() -> int:
             "byzantine set-up: deg_max 7, one rep per network, some "
             "networks outside C")
 
+    lap("phases 1 and set-up")
     # ---- phase 2: kernels against their plain versions ------------------
     args = engine_args(dev, model, rt_d, brt_d)
     k1_err = edge_scatter_checks(dev, args)
@@ -2167,6 +2876,7 @@ def main() -> int:
     k3_err = trim_gather_checks(dev, args)
     m_hyp = model.m
 
+    lap("phase 2")
     # ---- phase 3: the main path at full size ----------------------------
     plan_k = ExecutionPlan(store="log_ratio", dst_sorted=True)
     plan_p = plan_k.replace(backend="torch")
@@ -2225,6 +2935,7 @@ def main() -> int:
         f"share deciding theta* {learned:.4f}; worst log ratio at T "
         f"{res_k.log_ratio[-1].item():.3f}; total mass {mass_total:.3f}")
 
+    lap("phase 3")
     # ---- phase 4: quickstart scenario -----------------------------------
     topo = make_hierarchy([6, 6, 6], topology="complete", seed=0)
     qmodel = make_confused_model(N=topo.N, m=3, truth=1, confusion=0.5,
@@ -2240,21 +2951,34 @@ def main() -> int:
     log(f"[quickstart] min final belief in theta*: {qmin:.6f}")
     require(qmin > 0.95, "quickstart learns theta*")
 
+    lap("phase 4")
     # ---- phase 5: the Byzantine main path at full size ------------------
     launches["byz_trim"] = byzantine_main(bmodel, bsetup, battack, dev)
 
+    lap("phase 5")
     # ---- phase 6: Byzantine oracle scenarios ------------------------------
     byzantine_oracles(dev)
 
+    lap("phase 6")
     # ---- phases 6a-6d: Algorithm 1, push-sum and HPS, through K1 ----------
     a1 = algorithm1_phases(dev)
 
+    lap("phases 6a-6d")
     # ---- phases 6e-6g: scenario grids as one block-diagonal graph ---------
     sw = sweep_phases(dev)
 
+    lap("phases 6e-6g")
     # ---- phase 6h: Algorithm 2's grid as one neighbor-list graph ---------
     bg = byzantine_grid_phase(dev, sw["flush"])
 
+    lap("phase 6h")
+    # ---- phases 6i-6j: the fault and async planes -------------------------
+    pl = plane_single_phase(dev, model, rt, M, bmodel, bsetup, battack)
+    k1_identity_ms = pl.pop("k1_identity_ms")
+    pl.update(plane_grid_phase(dev))
+    quickstart_torch_phase()
+
+    lap("phases 6i-6j and quickstart_torch")
     # ---- phase 7: timing ------------------------------------------------
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
@@ -2297,6 +3021,11 @@ def main() -> int:
     byzantine_step_timing(bmodel, bsetup, battack, dev)
     algorithm1_step_timing(dev)
 
+    def plane_launches(kernel: str) -> dict:
+        """Phases 6i-6j's launches of ``kernel``, by run."""
+        return {(k if isinstance(k, str) else " ".join(k)): c[kernel]
+                for k, c in pl.items() if c[kernel]}
+
     kernels = [
         {"name": "edge_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/edge_scatter.cu",
@@ -2310,6 +3039,10 @@ def main() -> int:
          "hps_grid_ms": sw["hps_grid"]["k1_ms"],
          "social_grid_ms": sw["social_grid"]["k1_ms"],
          "pushsum_sweep_ms": sw["pushsum_sweep"]["k1_ms"],
+         "launches_planes": plane_launches("edge_scatter"),
+         "launches_planes_edge_rows": plane_launches(
+             "edge_scatter_edge_rows"),
+         "identity_route_ms": k1_identity_ms,
          "max_abs_err": k1_err, "d5_max_abs_err": a1["k1_err"],
          **kt["edge_scatter"]},
         {"name": "social_innov", "route": "cuda",
@@ -2318,6 +3051,7 @@ def main() -> int:
          "launches": launches["social_innov"],
          "launches_social_grid": sw["social_grid"]["k2_launches"],
          "social_grid_ms": sw["social_grid"]["k2_ms"],
+         "launches_planes": plane_launches("social_innov"),
          "max_abs_err": k2_err,
          **kt["social_innov"]},
         {"name": "byz_trim", "route": "cuda",
@@ -2328,11 +3062,16 @@ def main() -> int:
          "byzantine_grid_ms": bg["ms"],
          "byzantine_grid_int_f_ms": bg["int_f_ms"],
          "byzantine_grid_bound_ms": bg["bound_ms"],
+         "launches_planes": plane_launches("byz_trim"),
          **kt["byz_trim"]},
     ]
+    lap("phase 7")
     kernels += serve_phases(dev, flush)
+    lap("phases 8-11")
     kernels.append(rwkv_phases(dev, flush))
+    lap("phases 12-15b")
     kernels.append(train_phases(dev, flush))
+    lap("phases 16-18")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2422,7 +3161,9 @@ def _wrappers() -> dict:
 SUB_COUNTS = {"swa_prefill_tc": ("swa_prefill", "launches_tc"),
               "attn_decode_tc": ("attn_decode", "launches_tc"),
               "edge_scatter_tiled": ("edge_scatter", "launches_tiled"),
-              "byz_trim_tensor_f": ("byz_trim", "launches_tensor_f")}
+              "byz_trim_tensor_f": ("byz_trim", "launches_tensor_f"),
+              "edge_scatter_edge_rows": ("edge_scatter",
+                                         "launches_edge_rows")}
 
 
 def _zero_counts() -> None:
@@ -3023,8 +3764,9 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
             lambda: F.scaled_dot_product_attention(
                 q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))]
     ms5, plain5, lib5 = times5[True]
+    # (None where the profiler of a long process records no launch of it)
     kernel5 = kernel_times(lambda: attn_decode_cuda(q, k, v, lens), 10,
-                           flush)["attn_decode_tc_kernel"]
+                           flush).get("attn_decode_tc_kernel", (None, 0))
     # bytes: q, the valid K and V rows, lengths and the output once each
     kv_bytes = 2 * B * Hkv * n_valid * dh * k.element_size()
     b5, by5 = bound(nbytes(q, lens, o5) + kv_bytes,
@@ -3035,7 +3777,8 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
         f"ms, plain {plain5:.5f}, SDPA {lib5:.5f}; host-inclusive "
         f"{times5[False][0]:.5f}, plain {times5[False][1]:.5f}, SDPA "
         f"{times5[False][2]:.5f}; kernel alone (profiler, L2 flushed) "
-        f"{kernel5[0]:.5f} (mean of {kernel5[1]} launches); bound {b5:.5f} "
+        + ("not measured" if kernel5[0] is None else f"{kernel5[0]:.5f}")
+        + f" (mean of {kernel5[1]} launches); bound {b5:.5f} "
         f"({by5}); SDPA max diff "
         f"{(sdpa5[:, :, 0].float() - o5.float()).abs().max().item():.3e}")
     out["attn_decode"] = {"ms": ms5, "plain_ms": plain5, "bound_ms": b5,

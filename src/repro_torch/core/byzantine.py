@@ -61,8 +61,11 @@ from .graphs import (
     edge_list,
     edge_neighbor_lists,
 )
+from .faults import (ENGINE_BYZANTINE, FAULT_CHURN, FAULT_EDGE, FaultModel,
+                     advance_faults_nbr, fault_stream_fold, init_fault_state,
+                     ps_alive_rounds)
 from .hps import ps_trimmed_pool
-from .plan import ExecutionPlan, resolve_device
+from .plan import ExecutionPlan, check_plan, resolve_device
 from .prng import (Key, choice, fold_in, fold_rounds, prng_key, randint,
                    split, uniform)
 from .signals import SignalModel, pairwise_kl
@@ -506,10 +509,12 @@ def _select_reps(key: Key, rt: ByzRuntime, plan: _RepPlan | None, K: int,
 
 def _fusion(key: Key, t: int, r_in: torch.Tensor, rt: ByzRuntime, *,
             K: int, F, n_reps: int, rep_plan: _RepPlan | None,
-            attack: Attack):
+            attack: Attack, live: torch.Tensor | None = None):
     """PS fusion round of K scenarios: each queries its reps, trims its F
     from each end of its own pool (``F`` an int, or a (K,) tensor), and
-    pushes its w_tilde back to its queried reps outside C."""
+    pushes its w_tilde back to its queried reps outside C. ``live`` (K·N,)
+    bool (churn): dead representatives neither answer (their pool slots
+    are masked) nor adopt."""
     n, pair = r_in.shape[0], tuple(r_in.shape[1:])
     N = n // K
     sl = (K, n_reps) + (1,) * len(pair)
@@ -528,10 +533,13 @@ def _fusion(key: Key, t: int, r_in: torch.Tensor, rt: ByzRuntime, *,
     rep_vals = torch.where(rt.byz_mask[reps].reshape(sl), reply, rep_vals)
     w = ps_trimmed_pool(
         rep_vals,
-        torch.ones((K, n_reps), dtype=torch.bool, device=r_in.device), F)
+        torch.ones((K, n_reps), dtype=torch.bool, device=r_in.device)
+        if live is None else live[reps], F)
     adopt = torch.zeros(n, dtype=torch.bool, device=r_in.device)
     adopt[reps.reshape(-1)] = True
     adopt &= ~rt.in_C
+    if live is not None:
+        adopt &= live
     return torch.where(adopt.view((K, N) + (1,) * len(pair)), w[:, None],
                        r_in.view((K, N) + pair)).view(r_in.shape)
 
@@ -591,6 +599,7 @@ def _scan_core(
     store: str,
     rep_plan: _RepPlan | None,
     n_reps: int,
+    faults: FaultModel | None = None,
 ) -> ByzantineResult:
     """Algorithm 2's loop over K scenarios in lockstep, all on one device:
     ``keys`` holds K numpy words and ``rt`` is one scenario's runtime (K =
@@ -602,7 +611,15 @@ def _scan_core(
     round, chosen on the host when any scenario's ``(t + 1) % Γ_k == 0``,
     draws every scenario's representatives from its own key and pools
     each scenario apart; the scenarios not fusing keep their state through
-    ``torch.where``."""
+    ``torch.where``.
+
+    ``faults`` (one :class:`repro_torch.core.faults.FaultModel` over every
+    scenario) runs the fault plane on ``ENGINE_BYZANTINE``'s streams: each
+    round's slot validity ``nbr_valid & ~drop & live[nbr_idx] & live``
+    goes to K3, a dead agent's statistic and cumulative LLR freeze, dead
+    representatives leave the fusion, and the PS coins of all T × K
+    rounds, drawn on the host up front, are ANDed into the host's fusion
+    rounds."""
     N, m = log_tables.shape[0], log_tables.shape[1]
     K = len(keys.k0)
     dev = log_tables.device
@@ -622,6 +639,15 @@ def _scan_core(
     else:
         F_recv = F_pool = rt.F
     fuse_at = (np.arange(1, T + 1)[:, None] % gammas[None, :]) == 0  # (T, K)
+    fs = None
+    if faults is not None:
+        # PS crash: a fusion round is skipped where the server is down
+        fuse_at &= ps_alive_rounds(keys, T, faults, engine=ENGINE_BYZANTINE)
+        faults = faults.to(dev)
+        fe, fc = (fold_rounds(keys, [fault_stream_fold(t, ENGINE_BYZANTINE, s)
+                                     for t in range(T)], dev)
+                  for s in (FAULT_EDGE, FAULT_CHURN))
+        fs = init_fault_state(n, rt.nbr_idx.shape, dev)
     fuse_dev = torch.from_numpy(fuse_at).to(dev)
     if K > 1:
         log_tables = log_tables.repeat(K, 1, 1)
@@ -635,21 +661,37 @@ def _scan_core(
     r = torch.zeros((n,) + pair, device=dev)
     cum_llr = torch.zeros_like(r)
     rs, decs = [], []
+    live = None
     for t in range(T):
+        rt_t = rt
+        if fs is not None:
+            fs, drop = advance_faults_nbr(Key(fe.k0[t], fe.k1[t]),
+                                          Key(fc.k0[t], fc.k1[t]), faults, fs)
+            live = fs.node_live
+            # a dropped slot or a dead end silences the slot; the trim's
+            # kept count shrinks with it
+            rt_t = rt._replace(nbr_valid=rt.nbr_valid & ~drop
+                               & live[rt.nbr_idx] & live[:, None])
         # ---- innovation accumulator (cumulative LLR of all signals so far)
-        cum_llr = cum_llr + _innovation(
+        cum_new = cum_llr + _innovation(
             Key(sig_keys.k0[t], sig_keys.k1[t]), cdf, log_tables, mode)
+        # dead agents observe no signal: the accumulator freezes
+        cum_llr = cum_new if live is None else torch.where(
+            live.reshape(sl), cum_new, cum_llr)
         # ---- intra-C gossip with trimming (lines 6-9)
-        tsum, kept = gossip(Key(gos_keys.k0[t], gos_keys.k1[t]), t, r, rt,
+        tsum, kept = gossip(Key(gos_keys.k0[t], gos_keys.k1[t]), t, r, rt_t,
                             K=K, F=F_recv, nbr_local=nbr_local)
         r_gossip = (tsum + r) / (kept.reshape(sl) + 1.0) + cum_llr
         r_new = torch.where(active, r_gossip, r)
+        if live is not None:
+            # dead agents neither gossip nor update: stale rejoin
+            r_new = torch.where(live.reshape(sl), r_new, r)
         # ---- PS fusion (lines 10-22) in the rounds where a scenario's Γ
-        # divides t + 1, decided on the host
+        # divides t + 1 (and its PS is up), decided on the host
         if fuse_at[t].any():
             fused = _fusion(Key(fus_keys.k0[t], fus_keys.k1[t]), t, r_new,
                             rt, K=K, F=F_pool, n_reps=n_reps,
-                            rep_plan=rep_plan, attack=attack)
+                            rep_plan=rep_plan, attack=attack, live=live)
             r_new = fused if fuse_at[t].all() else torch.where(
                 fuse_dev[t].view((K, 1) + (1,) * len(pair)),
                 fused.view((K, N) + pair),
@@ -679,7 +721,8 @@ def _scan_core(
 
 def _build_scan(model: SignalModel, rt: ByzRuntime, extra_reps, n_reps: int,
                 attack: Attack, T: int, *, mode: str, core: str,
-                backend: str, store: str, device):
+                backend: str, store: str, device,
+                faults: FaultModel | None = None):
     """Validate the options, move the runtime (one scenario's, or K
     stacked) and hoisted tables to the device once, and return
     ``run(keys) -> ByzantineResult`` with a leading K, ``keys`` a key of
@@ -692,6 +735,10 @@ def _build_scan(model: SignalModel, rt: ByzRuntime, extra_reps, n_reps: int,
         raise ValueError(f"store must be one of {STORES}, got {store!r}")
     if core == "dense" and isinstance(rt.F, np.ndarray):
         raise ValueError("the dense oracle runs one scenario at a time")
+    if core == "dense" and faults is not None:
+        # the dense oracle gossips over a fixed (N, N) adjacency and cannot
+        # see the round's fault-silenced slots
+        raise ValueError("faults need core='sparse'")
     dev = resolve_device(device)
     rt_d = rt.to(dev)
     rep_plan = None
@@ -725,6 +772,7 @@ def _build_scan(model: SignalModel, rt: ByzRuntime, extra_reps, n_reps: int,
         store=store,
         rep_plan=rep_plan,
         n_reps=n_reps,
+        faults=faults,
     )
 
 
@@ -757,6 +805,8 @@ def make_byzantine_scan(
     ``core`` the sparse neighbor-list trim or the dense broadcast oracle;
     ``backend`` the sparse trim's route (:mod:`repro_torch.kernels.
     dispatch`); ``store`` what the loop keeps (:class:`ByzantineResult`).
+    The execution planes arrive only as plan fields, so the fault plane
+    runs through :func:`run_byzantine_runtime` / :func:`run_byzantine_learning`.
     ``device=None`` means the card, and raises where there is none. The
     run is the one-scenario case of the loop the scenario sweeps run.
     """
@@ -788,14 +838,17 @@ def run_byzantine_runtime(
     ``plan.backend`` selects the trim route and ``plan.store`` what the
     loop keeps (``None`` means ``"trajectory"``); ``plan.dst_sorted`` is
     not read, as neighbor rows are receiver-major by construction.
-    ``device=None`` means the card, and raises where there is none; pass
-    ``device="cpu"`` to run the plain PyTorch path on the CPU.
+    ``plan.faults`` runs the fault plane (sparse core only); the engine
+    has no async mode, so ``plan.async_`` raises. ``device=None`` means
+    the card, and raises where there is none; pass ``device="cpu"`` to run
+    the plain PyTorch path on the CPU.
     """
-    plan = ExecutionPlan() if plan is None else plan
+    plan = check_plan(plan, "run_byzantine_runtime",
+                      ("backend", "store", "dst_sorted", "faults"))
     store = "trajectory" if plan.store is None else plan.store
     run = _build_scan(model, rt, extra_reps, n_reps, attack, T, mode=mode,
                       core=core, backend=plan.backend, store=store,
-                      device=device)
+                      device=device, faults=plan.faults)
     return _first(run(_one(prng_key(seed))))
 
 
@@ -812,6 +865,8 @@ def run_byzantine_learning(
 ) -> ByzantineResult:
     """Run Algorithm 2 for T iterations (single scenario); see
     :func:`run_byzantine_runtime`."""
+    check_plan(plan, "run_byzantine_learning",
+               ("backend", "store", "dst_sorted", "faults"))
     rt, extra_reps, n_reps = make_byzantine_runtime(model, cfg)
     return run_byzantine_runtime(model, rt, extra_reps, n_reps, cfg.attack,
                                  T, seed, mode=mode, core=core, plan=plan,

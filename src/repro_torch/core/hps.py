@@ -48,21 +48,24 @@ import numpy as np
 import torch
 
 from ..kernels.byz_trim.ref import trim_gather_ref
+from .asyncrony import AsyncModel, is_degenerate_async
+from .faults import ENGINE_HPS, FaultModel, ps_alive_rounds
 from .graphs import EdgeList, HierTopology, edge_list, sort_by_dst
-from .plan import ExecutionPlan, resolve_device
+from .plan import ExecutionPlan, check_plan, resolve_device
 from .prng import Key, fold_rounds, prng_key
 from .pushsum import (
+    PlaneRounds,
     PushSumState,
     SparsePushSumState,
     _frames,
     _out_degree,
     edge_index_tensors,
-    edge_mask,
     init_sparse_state,
     init_state,
+    plane_step,
     pushsum_step,
     ratios,
-    sparse_pushsum_step,
+    round_mask,
     sparse_ratios,
     step_edge_mask,
 )
@@ -162,24 +165,31 @@ def ps_trimmed_pool(
 
 
 def _fuse(zm: torch.Tensor, rep_mask: torch.Tensor, M,
-          F: int = 0) -> torch.Tensor:
+          F: int = 0, live: torch.Tensor | None = None) -> torch.Tensor:
     """The fusion on the joint (K, N, d+1) value-and-mass state of K
     scenarios (``rep_mask`` (K, N), ``M`` an int or a (K,) tensor): each
     representative keeps half and adds the halves pooled over its own
-    scenario's representatives (with F > 0, K trimmed pools at once)."""
+    scenario's representatives (with F > 0, K trimmed pools at once).
+
+    ``live`` (K, N) bool (churn): only live representatives pool and
+    adopt; at F = 0 the weight ``1 / 2M`` becomes ``1 / (2 max(live
+    reps, 1))``, so the fusion keeps the live representatives' mass."""
+    eff = rep_mask if live is None else rep_mask & live
     if F == 0:
-        if torch.is_tensor(M) and M.ndim:
+        if live is not None:
+            M = eff.sum(dim=-1, keepdim=True).to(zm.dtype).clamp_min(1.0)
+        elif torch.is_tensor(M) and M.ndim:
             M = M[:, None]
-        pooled = ((zm * rep_mask.to(zm.dtype)[..., None]).sum(dim=-2)
+        pooled = ((zm * eff.to(zm.dtype)[..., None]).sum(dim=-2)
                   / (2.0 * M))
     else:
-        pooled = 0.5 * ps_trimmed_pool(zm, rep_mask, F)
-    return torch.where(rep_mask[..., None], 0.5 * zm + pooled[:, None, :],
-                       zm)
+        pooled = 0.5 * ps_trimmed_pool(zm, eff, F)
+    return torch.where(eff[..., None], 0.5 * zm + pooled[:, None, :], zm)
 
 
 def hps_fusion(
     z: torch.Tensor, m: torch.Tensor, rep_mask: torch.Tensor, M, F: int = 0,
+    *, live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Apply the hierarchical fusion at the representatives; the others
     are untouched.
@@ -189,9 +199,10 @@ def hps_fusion(
     0-d tensor on the state's device), not a count of the mask, exactly as
     in the reference. ``F > 0``: ``0.5 * x + 0.5 * ps_trimmed_pool(...)``
     over the representatives' (z, m) rows, which needs ``M >= 2F + 1``
-    and is not average-preserving."""
+    and is not average-preserving. ``live`` (N,) bool: only live
+    representatives pool and adopt (:func:`_fuse`)."""
     zm = _fuse(torch.cat([z, m[:, None]], dim=1)[None], rep_mask[None], M,
-               F)[0]
+               F, None if live is None else live[None])[0]
     return zm[:, :-1], zm[:, -1]
 
 
@@ -308,6 +319,8 @@ def _hps_scan_core(
     store: str,
     backend: str,
     F: int = 0,
+    faults: FaultModel | None = None,
+    async_: AsyncModel | None = None,
 ) -> tuple[SparsePushSumState, tuple[torch.Tensor, torch.Tensor]]:
     """Algorithm 1's loop over the runtime's tensors, all on ``w``'s device.
 
@@ -318,7 +331,16 @@ def _hps_scan_core(
     each scenario starting from ``w``: one consensus step and one fusion a
     round for all of them, and every output gains a leading K. A runtime
     with 0-d scalars is the one-scenario case and keeps the unbatched
-    shapes."""
+    shapes.
+
+    ``faults`` (0-d or (K,) leaves) runs the fault plane on ``ENGINE_HPS``:
+    the Gilbert–Elliott chain and churn on their streams, the link
+    uniforms on the ``~t`` fold, dead agents frozen, dead representatives
+    out of the fusion, and a fusion round skipped where the PS coin (all
+    T × K drawn on the host up front) says the server is down.
+    ``async_`` runs the async plane (wake coins on ``ENGINE_HPS``'s
+    stream, delivery from the per-edge buffer through K1); the fusion
+    stays on the global Γ clock."""
     N, d = w.shape
     K = rt.drop_prob.numel()
     E = rt.src.shape[0] // K
@@ -331,6 +353,11 @@ def _hps_scan_core(
     target = w.mean(dim=0)
     keys = fold_rounds(key, [hps_stream_fold(t) for t in range(T)],
                        w.device)
+    planes = PlaneRounds.build(key, T, ENGINE_HPS, faults, async_, E,
+                               w.device)
+    fs, abuf = planes.init(K * N, K * E, d, w.device)
+    ps_up = None if faults is None else torch.from_numpy(
+        ps_alive_rounds(key, T, faults, engine=ENGINE_HPS)).to(w.device)
 
     def ratios_k(st):
         return sparse_ratios(st).view(K, N, d)
@@ -338,14 +365,22 @@ def _hps_scan_core(
     ys = []
     for t in range(T):
         # --- consensus (Alg. 1 lines 3-12) ---
-        mask = edge_mask(Key(keys.k0[t], keys.k1[t]), t, E, drop, B)
-        st = sparse_pushsum_step(state, mask, rt.src, rt.dst, rt.valid,
-                                 backend, share=share, offsets=rt.offsets)
+        fs, awake = planes.step(t, fs, K * N)
+        mask = round_mask(Key(keys.k0[t], keys.k1[t]), t, E, drop, B,
+                          planes.faults, fs, rt.src, rt.dst)
+        st, abuf = plane_step(state, mask, rt.src, rt.dst, rt.valid,
+                              backend, share=share, offsets=rt.offsets,
+                              fs=fs, awake=awake, abuf=abuf, planes=planes)
         # --- PS fusion every Γ (lines 13-21), per scenario ---
         zm = st.zm.view(K, N, d + 1)
-        do_fusion = ((t + 1) % gamma == 0)[:, None, None]
+        do_fusion = (t + 1) % gamma == 0
+        if ps_up is not None:
+            # PS crash: the round's fusion is skipped
+            do_fusion = do_fusion & ps_up[t]
+        live = None if fs is None else fs.node_live.view(K, N)
         state = st._replace(zm=torch.where(
-            do_fusion, _fuse(zm, rep, M, F), zm).view(K * N, d + 1))
+            do_fusion[:, None, None], _fuse(zm, rep, M, F, live),
+            zm).view(K * N, d + 1))
         if store == "trajectory":
             ys.append(ratios_k(state))
         elif store == "gap":
@@ -380,10 +415,14 @@ def run_hps_runtime(
     domain; ``F > 0`` swaps the PS average for the trimmed-pool rule.
     ``plan.store=None`` means ``"trajectory"``; ``plan.dst_sorted=True``
     asserts a dst-sorted edge index and is checked against the runtime.
-    ``device=None`` means the card, and raises where there is none; pass
-    ``device="cpu"`` to run the plain PyTorch path on the CPU.
+    ``plan.faults`` and ``plan.async_`` run the fault and async planes
+    (:func:`_hps_scan_core`); a degenerate async model runs the
+    synchronous loop. ``device=None`` means the card, and raises where
+    there is none; pass ``device="cpu"`` to run the plain PyTorch path on
+    the CPU.
     """
-    plan = ExecutionPlan() if plan is None else plan
+    plan = check_plan(plan, "run_hps_runtime",
+                      ("backend", "store", "dst_sorted", "faults", "async_"))
     store = "trajectory" if plan.store is None else plan.store
     if store not in HPS_STORES:
         raise ValueError(f"store must be one of {HPS_STORES}, got {store!r}")
@@ -394,7 +433,8 @@ def run_hps_runtime(
     final, (ratio, gap) = _hps_scan_core(
         prng_key(seed), rt.to(dev),
         torch.as_tensor(w, dtype=torch.float32, device=dev),
-        T=T, store=store, backend=plan.backend, F=F)
+        T=T, store=store, backend=plan.backend, F=F, faults=plan.faults,
+        async_=None if is_degenerate_async(plan.async_) else plan.async_)
     return HPSResult(ratio=ratio, final_state=final, gap=gap)
 
 
@@ -410,7 +450,8 @@ def run_hps(
 ) -> HPSResult:
     """Run HPS for T iterations on an :class:`HPSConfig` scenario (whose
     edge index is always dst-sorted); see :func:`run_hps_runtime`."""
-    plan = ExecutionPlan() if plan is None else plan
+    plan = check_plan(plan, "run_hps",
+                      ("backend", "store", "faults", "async_"))
     return run_hps_runtime(w, make_hps_runtime(cfg), T, seed=seed, F=F,
                            plan=plan.replace(dst_sorted=True), device=device)
 

@@ -8,6 +8,16 @@ The port's plan carries only the fields its engines support so far:
 ``store``       what the loop keeps; ``None`` keeps the engine's default.
 ``dst_sorted``  asserts that the runtime's edge index is dst-sorted; the
                 entry point checks the claim against the runtime.
+``faults``      a :class:`repro_torch.core.faults.FaultModel`, or a
+                sequence of them (the grids cross a fault-minor axis);
+                ``None`` is the fault-free program.
+``async_``      a :class:`repro_torch.core.asyncrony.AsyncModel`, or a
+                sequence (the grids cross an async axis, minor-most);
+                ``None`` is the synchronous program.
+
+Each entry point names the fields it honours (:func:`check_plan`): any
+other field set away from its default raises ``ValueError``, as the
+reference's ``resolve_plan(_supports=...)`` does.
 
 Science knobs (``T``, ``drop_prob``, ``gamma``, ``B``, seeds) stay
 parameters of each entry point, as in the reference.
@@ -15,10 +25,11 @@ parameters of each entry point, as in the reference.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
-__all__ = ["ExecutionPlan", "resolve_device"]
+__all__ = ["ExecutionPlan", "check_plan", "resolve_device"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,9 +39,31 @@ class ExecutionPlan:
     backend: str = "auto"
     store: str | None = None
     dst_sorted: bool = False
+    faults: Any = None
+    async_: Any = None
 
     def replace(self, **kw) -> "ExecutionPlan":
         return dataclasses.replace(self, **kw)
+
+
+_DEFAULT = ExecutionPlan()
+
+
+def check_plan(plan: ExecutionPlan | None, entry: str,
+               supports: tuple[str, ...]) -> ExecutionPlan:
+    """``plan`` (``None`` means the default), after checking that every
+    field ``entry`` does not honour keeps its default."""
+    plan = _DEFAULT if plan is None else plan
+    for f in dataclasses.fields(ExecutionPlan):
+        if f.name in supports:
+            continue
+        value, default = getattr(plan, f.name), getattr(_DEFAULT, f.name)
+        # identity for the model fields: their tensors compare elementwise
+        if (value is not None) if default is None else value != default:
+            raise ValueError(
+                f"{entry}() does not support the plan field {f.name!r} "
+                f"(supported: {sorted(supports)})")
+    return plan
 
 
 def resolve_device(device=None) -> torch.device:

@@ -21,6 +21,11 @@ the mass — ``zm`` (N, d+1), ``sigma_zm`` (N, d+1), ``rho_zm`` (E, d+1) —
 so the edge scatter handles both recursions in one pass with no per-round
 concat or split. ``z``/``m``/``sigma``/``sigma_m``/``rho``/``rho_m`` are
 views of the reference's six fields.
+
+The sparse step carries the fault plane (:mod:`.faults`: churn masks a
+dead agent's edges and freezes its rows of ``zm`` and ``sigma_zm``) and
+the async plane (:mod:`.asyncrony`: awake senders latch the per-edge
+buffer, which K1 then delivers as its source rows).
 """
 from __future__ import annotations
 
@@ -31,9 +36,14 @@ import numpy as np
 import torch
 
 from ..kernels.pushsum_edge import dst_offsets, edge_scatter
+from .asyncrony import (AsyncBuffer, AsyncModel, async_stream_fold,
+                        init_async_buffer, is_degenerate_async, wake_rows)
+from .faults import (ENGINE_PUSHSUM, FAULT_CHURN, FAULT_EDGE, FaultModel,
+                     FaultState, advance_faults, fault_stream_fold,
+                     faulty_edge_mask, freeze, init_fault_state)
 from .graphs import EdgeList, _dst_offsets, is_dst_sorted
-from .plan import ExecutionPlan, resolve_device
-from .prng import Key, fold_in, prng_key, uniform
+from .plan import ExecutionPlan, check_plan, resolve_device
+from .prng import Key, fold_in, fold_rounds, prng_key, uniform
 
 __all__ = [
     "PushSumState",
@@ -50,6 +60,7 @@ __all__ = [
     "run_pushsum_sparse",
     "step_edge_mask",
     "edge_mask",
+    "PlaneRounds",
 ]
 
 
@@ -239,31 +250,71 @@ def sparse_pushsum_step(
     *,
     share: torch.Tensor | None = None,
     offsets: torch.Tensor | None = None,
-) -> SparsePushSumState:
-    """One synchronous fast-robust-push-sum round on edge-list state.
+    faults: FaultState | None = None,
+    awake: torch.Tensor | None = None,
+    abuf: AsyncBuffer | None = None,
+    staleness: torch.Tensor | None = None,
+) -> SparsePushSumState | tuple[SparsePushSumState, AsyncBuffer]:
+    """One fast-robust-push-sum round on edge-list state.
 
     ``share`` optionally supplies the hoisted (N,) ``1 / (d_out + 1)``
     factors of the fixed edge index. ``offsets`` optionally supplies the
     hoisted (N+1,) CSR offsets of a dst-sorted index for the CUDA edge
     scatter (:func:`repro_torch.kernels.pushsum_edge.edge_scatter`). The
     mask is intersected with ``valid``, so padding edges never carry mass.
+
+    ``faults`` (a :class:`repro_torch.core.faults.FaultState`): an edge
+    with a dead end is down and a dead agent's rows of ``zm`` and
+    ``sigma_zm`` are frozen; per-edge ``rho`` needs no freeze (a masked
+    edge never latches).
+
+    ``awake`` (N,) bool + ``abuf`` + ``staleness`` (0-d, or (E,) per
+    edge), all three together, run one async tick and return ``(state,
+    abuf)``: awake (and live) senders latch ``sigma_p[src]`` into their
+    edges' buffer slots, and K1 delivers the slots (its source rows, with
+    the identity source index) where the link is up, the receiver awake
+    and the slot at most ``staleness`` ticks old; asleep agents' rows are
+    frozen. The degenerate model gives the synchronous step bit for bit.
     """
     zm, sigma_zm, rho_zm = state
+    n = zm.shape[0]
     if share is None:
-        share = 1.0 / (_out_degree(src, valid, zm.shape[0], zm.dtype) + 1.0)
+        share = 1.0 / (_out_degree(src, valid, n, zm.dtype) + 1.0)
     share = share[:, None]
     # first half: stage the cumulative send
     sigma_p = sigma_zm + zm * share
-    # delivery + integration: operational edges latch the new cumulative
-    rho_new, recv = edge_scatter(sigma_p, rho_zm, mask & valid, src, dst,
-                                 backend, offsets=offsets)
+    if faults is not None:
+        # a dead endpoint takes the edge down in both directions
+        mask = mask & faults.node_live[src] & faults.node_live[dst]
+    live = mask & valid
+    abuf_new = None
+    if abuf is not None:
+        send = awake[src] & valid
+        if faults is not None:
+            send = send & faults.node_live[src]
+        snap = torch.where(send[:, None], sigma_p[src], abuf.snap)
+        age = torch.where(send, 0, abuf.age + 1)
+        abuf_new = AsyncBuffer(snap=snap, age=age)
+        live = live & awake[dst] & (age <= staleness)
+        ident = torch.arange(src.shape[0], dtype=torch.int32,
+                             device=src.device)
+        rho_new, recv = edge_scatter(snap, rho_zm, live, ident, dst, backend,
+                                     offsets=offsets, n_recv=n)
+    else:
+        # delivery + integration: operational edges latch the new cumulative
+        rho_new, recv = edge_scatter(sigma_p, rho_zm, live, src, dst,
+                                     backend, offsets=offsets)
     zm_p = zm * share + recv
     # second half: re-stage at once
-    return SparsePushSumState(
-        zm=zm_p * share,
-        sigma_zm=sigma_p + zm_p * share,
-        rho_zm=rho_new,
-    )
+    zm_n = zm_p * share
+    sigma_n = sigma_p + zm_p * share
+    for on in (awake, None if faults is None else faults.node_live):
+        if on is not None:
+            # asleep or dead agents do nothing: their rows carry over
+            zm_n = freeze(on, zm_n, zm)
+            sigma_n = freeze(on, sigma_n, sigma_zm)
+    new = SparsePushSumState(zm=zm_n, sigma_zm=sigma_n, rho_zm=rho_new)
+    return new if abuf is None else (new, abuf_new)
 
 
 def sparse_ratios(state: SparsePushSumState) -> torch.Tensor:
@@ -315,6 +366,90 @@ def edge_mask(kt: Key, t: int, n_edges: int, drop_prob: torch.Tensor,
     return (up | ((t % B) == (B - 1))[..., None]).reshape(-1)
 
 
+class PlaneRounds(NamedTuple):
+    """The fault and async planes of one engine loop, set up once: the
+    models on the device as (1 | K,) columns, every round's fault and
+    wake keys folded on the host up front, and the per-edge staleness.
+    ``None`` fields are planes that are off."""
+
+    faults: FaultModel | None
+    edge_keys: Key | None     # (T, K, 1) FAULT_EDGE keys
+    churn_keys: Key | None    # (T, K, 1) FAULT_CHURN keys
+    async_: AsyncModel | None
+    wake_keys: Key | None     # (T, K, 1) wake keys
+    staleness: torch.Tensor | None   # (K·E,) int32, each edge's bound
+
+    @staticmethod
+    def build(key: Key, T: int, engine: int, faults: FaultModel | None,
+              async_: AsyncModel | None, n_edges: int,
+              device) -> "PlaneRounds":
+        """``n_edges`` is one scenario's E; ``key`` one key or K words."""
+        fe = fc = wk = stale = None
+        if faults is not None:
+            faults = faults.to(device)
+            fe, fc = (fold_rounds(key, [fault_stream_fold(t, engine, s)
+                                        for t in range(T)], device)
+                      for s in (FAULT_EDGE, FAULT_CHURN))
+        if async_ is not None:
+            async_ = async_.to(device)
+            wk = fold_rounds(key, [async_stream_fold(t, engine)
+                                   for t in range(T)], device)
+            stale = async_.staleness.reshape(-1, 1).expand(
+                -1, n_edges).reshape(-1)
+        return PlaneRounds(faults, fe, fc, async_, wk, stale)
+
+    def init(self, n_nodes: int, n_edges: int, d: int, device):
+        """The loop's initial fault state and async buffer (``None`` for a
+        plane that is off); sizes are the stacked K·N and K·E."""
+        fs = (None if self.faults is None
+              else init_fault_state(n_nodes, n_edges, device))
+        abuf = (None if self.async_ is None
+                else init_async_buffer(n_edges, d, device=device))
+        return fs, abuf
+
+    def step(self, t: int, fs: FaultState | None, n_nodes: int):
+        """Round t's fault state (advanced) and wake mask (or ``None``)."""
+        if fs is not None:
+            fs = advance_faults(_row(self.edge_keys, t),
+                                _row(self.churn_keys, t), self.faults, fs)
+        awake = None
+        if self.async_ is not None:
+            K = self.wake_keys.k0.shape[1]
+            awake = wake_rows(_row(self.wake_keys, t), n_nodes // K,
+                              self.async_.wake_prob)
+        return fs, awake
+
+
+def _row(keys: Key, t: int) -> Key:
+    return Key(keys.k0[t], keys.k1[t])
+
+
+def plane_step(state, mask, src, dst, valid, backend, *, share, offsets,
+               fs, awake, abuf, planes: PlaneRounds):
+    """One round of :func:`sparse_pushsum_step` with the planes that are
+    on -> ``(state, abuf)``."""
+    if abuf is None:
+        return sparse_pushsum_step(state, mask, src, dst, valid, backend,
+                                   share=share, offsets=offsets,
+                                   faults=fs), None
+    return sparse_pushsum_step(state, mask, src, dst, valid, backend,
+                               share=share, offsets=offsets, faults=fs,
+                               awake=awake, abuf=abuf,
+                               staleness=planes.staleness)
+
+
+def round_mask(kt: Key, t: int, n_edges: int, drop: torch.Tensor,
+               B: torch.Tensor, fm: FaultModel | None, fs,
+               src, dst) -> torch.Tensor:
+    """Round t's (K·E,) link mask from its folded link key(s): the
+    Bernoulli mask of :func:`edge_mask`, or the fault plane's on the same
+    link uniforms (the degenerate model gives the same mask)."""
+    if fm is None:
+        return edge_mask(kt, t, n_edges, drop, B)
+    u = uniform(kt, n_edges, drop.device)
+    return faulty_edge_mask(u, t, fm, fs, src, dst, drop, B)
+
+
 def run_pushsum_sparse(
     w,                     # (N, d) inputs
     src,                   # (E,) int32
@@ -345,17 +480,31 @@ def run_pushsum_sparse(
     ``plan.backend`` picks the delivery route and ``plan.dst_sorted``
     asserts (and checks) a dst-sorted index; the share factors and the
     CSR offsets of a sorted index are computed once, before the loop.
-    ``device=None`` means the card, and raises where there is none.
+    ``plan.faults`` (a :class:`repro_torch.core.faults.FaultModel`) runs
+    the fault plane on the link uniforms of the same fold ``t``;
+    ``plan.async_`` (an :class:`repro_torch.core.asyncrony.AsyncModel`)
+    the async plane, whose delivery runs through K1 on the per-edge
+    buffer (a degenerate model runs the synchronous loop). Neither goes
+    with an explicit ``masks`` schedule. ``device=None`` means the card,
+    and raises where there is none.
     """
-    plan = ExecutionPlan() if plan is None else plan
+    plan = check_plan(plan, "run_pushsum_sparse",
+                      ("backend", "dst_sorted", "faults", "async_"))
+    faults = plan.faults
+    async_ = None if is_degenerate_async(plan.async_) else plan.async_
     dev = resolve_device(device)
     w = torch.as_tensor(w, dtype=torch.float32, device=dev)
     src = torch.as_tensor(src, dtype=torch.int32, device=dev)
     dst = torch.as_tensor(dst, dtype=torch.int32, device=dev)
-    E = src.shape[0]
+    N, E = w.shape[0], src.shape[0]
     valid = (torch.ones(E, dtype=torch.bool, device=dev) if valid is None
              else torch.as_tensor(valid, dtype=torch.bool, device=dev))
     if masks is not None:
+        for name, m in (("faults", faults), ("async_", async_)):
+            if m is not None:
+                raise ValueError(
+                    f"plan.{name} needs key-driven masks; an explicit masks "
+                    f"schedule already fixes the link realization")
         masks = torch.as_tensor(masks, dtype=torch.bool, device=dev)
         if masks.shape[0] != T:
             raise ValueError(
@@ -363,22 +512,29 @@ def run_pushsum_sparse(
     # loop invariants of the fixed edge index, read back once
     offsets = None
     if E and bool((dst[1:] >= dst[:-1]).all()):
-        offsets = dst_offsets(dst, w.shape[0])
+        offsets = dst_offsets(dst, N)
     elif plan.dst_sorted:
         raise ValueError("plan.dst_sorted=True but the edge index is not "
                          "dst-sorted")
-    share = 1.0 / (_out_degree(src, valid, w.shape[0]) + 1.0)
+    share = 1.0 / (_out_degree(src, valid, N) + 1.0)
     key = prng_key(0) if key is None else key
     drop = torch.tensor(drop_prob, dtype=torch.float32, device=dev)
     Bt = torch.tensor(B, dtype=torch.int32, device=dev)
     state = init_sparse_state(w, E)
+    planes = PlaneRounds.build(key, T, ENGINE_PUSHSUM, faults, async_, E,
+                               dev)
+    fs, abuf = planes.init(N, E, w.shape[1], dev)
     traj = []
     for t in range(T):
-        mask = (masks[t] if masks is not None
-                else step_edge_mask(key, t, E, drop, Bt))
-        state = sparse_pushsum_step(state, mask, src, dst, valid,
-                                    plan.backend, share=share,
-                                    offsets=offsets)
+        if masks is not None:
+            mask, awake = masks[t], None
+        else:
+            fs, awake = planes.step(t, fs, N)
+            mask = round_mask(fold_in(key, t), t, E, drop, Bt,
+                              planes.faults, fs, src, dst)
+        state, abuf = plane_step(state, mask, src, dst, valid, plan.backend,
+                                 share=share, offsets=offsets, fs=fs,
+                                 awake=awake, abuf=abuf, planes=planes)
         if (t + 1) % record_every == 0:
             traj.append(sparse_ratios(state))
     return state, _frames(traj, state.z)

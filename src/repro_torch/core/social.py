@@ -22,6 +22,11 @@ for every round before the loop, in the reference's disjoint domains
 ``2t + stream``, so the link masks and signals are the reference's bit
 for bit. A grid of scenarios (:mod:`repro_torch.core.sweeps`) runs
 through the same loop as one block-diagonal graph.
+
+The fault and async planes (:mod:`.faults`, :mod:`.asyncrony`) run in the
+same loop: a dead or asleep agent gossips nothing and observes no signal
+(its accumulator and belief stay frozen), dead representatives leave the
+fusion, and a crashed PS skips the round's fusion.
 """
 from __future__ import annotations
 
@@ -31,17 +36,20 @@ import numpy as np
 import torch
 
 from ..kernels.social_innov import innovation_step
+from .asyncrony import AsyncModel, is_degenerate_async
+from .faults import ENGINE_SOCIAL, FaultModel, freeze, ps_alive_rounds
 from .graphs import EdgeList
 from .hps import HPSConfig, _fuse
-from .plan import ExecutionPlan, resolve_device
+from .plan import ExecutionPlan, check_plan, resolve_device
 from .prng import Key, fold_rounds, prng_key, uniform
 from .pushsum import (
+    PlaneRounds,
     SparsePushSumState,
     _out_degree,
     edge_index_tensors,
-    edge_mask,
     init_sparse_state,
-    sparse_pushsum_step,
+    plane_step,
+    round_mask,
 )
 from .signals import SignalModel, pairwise_kl
 
@@ -172,6 +180,8 @@ def _social_scan_core(
     T: int,
     store: str,
     backend: str,
+    faults: FaultModel | None = None,
+    async_: AsyncModel | None = None,
 ) -> tuple[SparsePushSumState, tuple[torch.Tensor, torch.Tensor]]:
     """Algorithm 3's loop over the runtime's tensors, all on one device.
 
@@ -183,6 +193,13 @@ def _social_scan_core(
     agents (the tables repeated K times) and one fusion a round for all of
     them, and every output gains a leading K. A runtime with 0-d scalars
     is the one-scenario case and keeps the unbatched shapes.
+
+    ``faults`` and ``async_`` (0-d or (K,) leaves) run the planes on
+    ``ENGINE_SOCIAL``'s streams of the mask key: the link uniforms stay on
+    the link fold, K2 runs over every agent and a dead or asleep agent's
+    accumulator and belief then keep their previous values; dead
+    representatives leave the fusion, and the PS coins of all T × K
+    rounds are drawn on the host up front.
     """
     N, m = log_tables.shape[0], log_tables.shape[1]
     K = rt.drop_prob.numel()
@@ -190,6 +207,10 @@ def _social_scan_core(
     dev = log_tables.device
     drop, gamma, B = (x.reshape(-1) for x in (rt.drop_prob, rt.gamma, rt.B))
     rep = rt.rep_mask.view(K, N)
+    # M as a device scalar: the live fusion divides by a tensor, and a
+    # division by a Python scalar runs as a multiply by its reciprocal on
+    # the card, so the degenerate fault model would differ by an ulp
+    M = torch.tensor(float(M), device=dev)
     if K > 1:
         log_tables, cdf = log_tables.repeat(K, 1, 1), cdf.repeat(K, 1)
     # z accumulates per-hypothesis log-likelihood sums; init 0 (line 1)
@@ -203,25 +224,44 @@ def _social_scan_core(
     sig_keys = fold_rounds(
         sig_key, [social_stream_fold(t, STREAM_SIGNAL) for t in range(T)],
         dev)
+    planes = PlaneRounds.build(mask_key, T, ENGINE_SOCIAL, faults, async_,
+                               E, dev)
+    fs, abuf = planes.init(K * N, K * E, m, dev)
+    ps_up = None if faults is None else torch.from_numpy(
+        ps_alive_rounds(mask_key, T, faults, engine=ENGINE_SOCIAL)).to(dev)
     mu = torch.zeros((K * N, m), device=dev)
     ys = []
     for t in range(T):
         # --- consensus (lines 4-12) ---
-        mask = edge_mask(Key(mask_keys.k0[t], mask_keys.k1[t]), t, E, drop,
-                         B)
-        st = sparse_pushsum_step(state, mask, rt.src, rt.dst, rt.valid,
-                                 backend, share=share, offsets=rt.offsets)
+        fs, awake = planes.step(t, fs, K * N)
+        mask = round_mask(Key(mask_keys.k0[t], mask_keys.k1[t]), t, E, drop,
+                          B, planes.faults, fs, rt.src, rt.dst)
+        st, abuf = plane_step(state, mask, rt.src, rt.dst, rt.valid,
+                              backend, share=share, offsets=rt.offsets,
+                              fs=fs, awake=awake, abuf=abuf, planes=planes)
         # --- innovation + belief (lines 13-16), one fused pass ---
         u = uniform(Key(sig_keys.k0[t], sig_keys.k1[t]), N, dev)
         m_t = st.m.contiguous()
-        z, mu = innovation_step(st.z.contiguous(), m_t, u.reshape(-1), cdf,
-                                log_tables, backend)
+        z_t = st.z.contiguous()
+        z, mu_t = innovation_step(z_t, m_t, u.reshape(-1), cdf, log_tables,
+                                  backend)
+        for on in (awake, None if fs is None else fs.node_live):
+            if on is not None:
+                # asleep or dead agents observe nothing: the accumulator
+                # stays post-consensus and the belief stale
+                z = freeze(on, z, z_t)
+                mu_t = freeze(on, mu_t, mu)
+        mu = mu_t
         # --- PS fusion every Γ (lines 17-22), applied post-innovation;
         # the emitted belief is the pre-fusion one ---
         zm = torch.cat([z, m_t[:, None]], dim=1).view(K, N, m + 1)
-        do_fusion = ((t + 1) % gamma == 0)[:, None, None]
+        do_fusion = (t + 1) % gamma == 0
+        if ps_up is not None:
+            do_fusion = do_fusion & ps_up[t]
+        live = None if fs is None else fs.node_live.view(K, N)
         state = st._replace(zm=torch.where(
-            do_fusion, _fuse(zm, rep, M), zm).view(K * N, m + 1))
+            do_fusion[:, None, None], _fuse(zm, rep, M, live=live),
+            zm).view(K * N, m + 1))
         if store == "trajectory":
             ys.append(mu.view(K, N, m))
         elif store == "log_ratio":
@@ -260,11 +300,14 @@ def run_social_runtime(
     ``seed`` drives the per-round link masks and ``signal_seed`` (default
     ``seed``) the private signals. ``plan.store=None`` means
     ``"trajectory"``; ``plan.dst_sorted=True`` asserts a dst-sorted edge
-    index and is checked against the runtime. ``device=None`` means the
-    card, and raises where there is none; pass ``device="cpu"`` to run the
-    plain PyTorch path on the CPU.
+    index and is checked against the runtime. ``plan.faults`` and
+    ``plan.async_`` run the fault and async planes; a degenerate async
+    model runs the synchronous loop. ``device=None`` means the card, and
+    raises where there is none; pass ``device="cpu"`` to run the plain
+    PyTorch path on the CPU.
     """
-    plan = ExecutionPlan() if plan is None else plan
+    plan = check_plan(plan, "run_social_runtime",
+                      ("backend", "store", "dst_sorted", "faults", "async_"))
     store = "trajectory" if plan.store is None else plan.store
     if store not in SOCIAL_STORES:
         raise ValueError(f"store must be one of {SOCIAL_STORES}, got {store!r}")
@@ -284,6 +327,8 @@ def run_social_runtime(
         T=T,
         store=store,
         backend=plan.backend,
+        faults=plan.faults,
+        async_=None if is_degenerate_async(plan.async_) else plan.async_,
     )
     return SocialLearningResult(
         beliefs=beliefs, final_state=final, log_ratio=log_ratio)
@@ -302,7 +347,8 @@ def run_social_learning(
     """Run Algorithm 3 for T iterations on an :class:`HPSConfig` scenario
     (whose edge index is always dst-sorted); see :func:`run_social_runtime`.
     """
-    plan = ExecutionPlan() if plan is None else plan
+    plan = check_plan(plan, "run_social_learning",
+                      ("backend", "store", "faults", "async_"))
     return run_social_runtime(
         model, make_social_runtime(cfg), cfg.topo.M, T,
         seed=seed, signal_seed=signal_seed,

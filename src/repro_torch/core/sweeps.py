@@ -35,10 +35,15 @@ Seven entry points:
   set, Γ) × seed grids; N and M are shared.
 
 Every result row is one scenario on the leading K axis, in the
-reference's order (config or graph major, then drop, Γ, seed). The fault
-and async index columns are always ``None``: those planes are not ported
-yet. Not ported either: ``mesh=`` sharding, and the jit and runtime
-caches and their registry.
+reference's order: config or graph major, then drop, Γ, seed, then the
+fault axis (``plan.faults``: a model or a list, fault-minor) and the async
+axis (``plan.async_``, minor-most). A crossed grid is still one
+block-diagonal graph; its fault and async models ride as (K,) tensors and
+K1, K2 and K3 still launch once a round for all K. A single degenerate
+async model adds no axis (the synchronous loop). The Byzantine grid and
+sweep take one fault model over every scenario (the grid's ``fault``
+column all zeros) and no async model. Not ported: ``mesh=`` sharding, and
+the jit and runtime caches and their registry.
 """
 from __future__ import annotations
 
@@ -48,6 +53,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from .asyncrony import (AsyncModel, is_degenerate_async,
+                        stack_async_models)
 from .attacks import Attack
 from .byzantine import (
     ByzantineConfig,
@@ -56,16 +63,18 @@ from .byzantine import (
     _build_scan,
     make_byzantine_runtime,
 )
+from .faults import ENGINE_PUSHSUM, FaultModel, stack_fault_models
 from .graphs import EdgeList, _dst_offsets, is_dst_sorted
 from .hps import HPS_STORES, HPSConfig, HPSRuntime, _hps_scan_core
 from .hps import make_hps_runtime
-from .plan import ExecutionPlan, resolve_device
+from .plan import ExecutionPlan, check_plan, resolve_device
 from .prng import Key, fold_rounds
 from .pushsum import (
+    PlaneRounds,
     _out_degree,
-    edge_mask,
     init_sparse_state,
-    sparse_pushsum_step,
+    plane_step,
+    round_mask,
     sparse_ratios,
 )
 from .signals import SignalModel
@@ -140,8 +149,8 @@ class PushSumSweepResult(NamedTuple):
     drop_prob: torch.Tensor    # (K,) scenario coordinates
     seed: torch.Tensor         # (K,)
     graph: torch.Tensor        # (K,) topology-draw index
-    fault: torch.Tensor | None = None   # no fault axis (not ported)
-    async_: torch.Tensor | None = None  # no async axis (not ported)
+    fault: torch.Tensor | None = None   # (K,) fault-model index, or no axis
+    async_: torch.Tensor | None = None  # (K,) async-model index, minor-most
 
     @property
     def K(self) -> int:
@@ -292,6 +301,49 @@ def _keys(seeds: np.ndarray) -> Key:
     return Key(np.zeros_like(seeds), seeds)
 
 
+def _cross(coords, models, kind, stack):
+    """Cross a model list (or one model) into the flattened (K,)
+    coordinates, model-minor -> (coords, model index (K·NM,), the models
+    stacked to (NM,) leaves); ``(coords, None, None)`` without models."""
+    if models is None:
+        return coords, None, None
+    ml = [models] if isinstance(models, kind) else list(models)
+    if not ml:
+        raise ValueError(f"a {kind.__name__} axis needs at least one model")
+    k = coords[0].shape[0]
+    return (tuple(np.repeat(c, len(ml)) for c in coords),
+            np.tile(np.arange(len(ml), dtype=np.int32), k), stack(ml))
+
+
+def _plane_axes(coords, plan: ExecutionPlan):
+    """The fault axis, then the async axis (minor-most), crossed into the
+    coordinates as the reference crosses them -> (coords, fault index,
+    per-row fault models, async index, per-row async models), the models
+    with (K,) leaves. A single degenerate async model is no axis."""
+    async_ = plan.async_
+    if isinstance(async_, AsyncModel) and is_degenerate_async(async_):
+        async_ = None
+    coords, fi, fm = _cross(coords, plan.faults, FaultModel,
+                            stack_fault_models)
+    n = len(coords)
+    if fi is not None:
+        coords = coords + (fi,)
+    coords, ai, am = _cross(coords, async_, AsyncModel, stack_async_models)
+    coords, fi = coords[:n], (None if fi is None else coords[n])
+
+    def rows(models, idx):
+        if models is None:
+            return None
+        sel = torch.from_numpy(idx).long()
+        return type(models)(*(x[sel] for x in models))
+
+    return coords, fi, rows(fm, fi), ai, rows(am, ai)
+
+
+def _index(x):
+    return None if x is None else torch.from_numpy(x)
+
+
 # ---------------------------------------------------------------------------
 # Algorithm 1 consensus: graph draws x drop x seed
 # ---------------------------------------------------------------------------
@@ -305,10 +357,12 @@ def _scenario_grid(n_graphs: int, drop_probs, seeds):
 
 
 def _pushsum_sweep_core(keys: Key, src, dst, valid, offsets, drop, B,
-                        w: torch.Tensor, *, T: int, backend: str):
+                        w: torch.Tensor, *, T: int, backend: str,
+                        faults: FaultModel | None = None,
+                        async_=None):
     """K push-sum scenarios on one block-diagonal graph of K·N nodes, from
     ``w`` each -> (err (K, T), final ratios (K, N, d), value invariant minus
-    sum(w), (K, d))."""
+    sum(w), (K, d)). ``faults`` / ``async_`` carry (K,) leaves."""
     N, d = w.shape
     K = drop.numel()
     E = src.shape[0] // K
@@ -316,11 +370,17 @@ def _pushsum_sweep_core(keys: Key, src, dst, valid, offsets, drop, B,
     share = 1.0 / (_out_degree(src, valid, K * N, w.dtype) + 1.0)
     target = w.mean(dim=0)
     kts = fold_rounds(keys, range(T), w.device)
+    planes = PlaneRounds.build(keys, T, ENGINE_PUSHSUM, faults, async_, E,
+                               w.device)
+    fs, abuf = planes.init(K * N, K * E, d, w.device)
     errs = []
     for t in range(T):
-        mask = edge_mask(Key(kts.k0[t], kts.k1[t]), t, E, drop, B)
-        state = sparse_pushsum_step(state, mask, src, dst, valid, backend,
-                                    share=share, offsets=offsets)
+        fs, awake = planes.step(t, fs, K * N)
+        mask = round_mask(Key(kts.k0[t], kts.k1[t]), t, E, drop, B,
+                          planes.faults, fs, src, dst)
+        state, abuf = plane_step(state, mask, src, dst, valid, backend,
+                                 share=share, offsets=offsets, fs=fs,
+                                 awake=awake, abuf=abuf, planes=planes)
         errs.append((sparse_ratios(state).view(K, N, d) - target).abs()
                     .amax(dim=(1, 2)))
     err = torch.stack(errs, dim=1) if errs else w.new_zeros((K, 0))
@@ -352,27 +412,34 @@ def run_pushsum_sweep(
     invariant minus ``sum(w)`` at T. ``plan.backend`` picks the delivery
     route (the CUDA edge scatter needs every draw dst-sorted, see
     :func:`graphs.sort_by_dst`) and ``plan.dst_sorted`` asserts that they
-    are. ``device=None`` means the card, and raises where there is none.
+    are. ``plan.faults`` and ``plan.async_`` (a model or a list) cross the
+    fault and async axes, model-minor; the ``fault`` and ``async_``
+    columns index the lists. ``device=None`` means the card, and raises
+    where there is none.
     """
-    plan = ExecutionPlan() if plan is None else plan
+    plan = check_plan(plan, "run_pushsum_sweep",
+                      ("backend", "dst_sorted", "faults", "async_"))
     dev = resolve_device(device)
     w = torch.as_tensor(w, dtype=torch.float32, device=dev)
     if w.shape[0] != el.n:
         raise ValueError(f"w has {w.shape[0]} rows but the graph {el.n} "
                          f"nodes")
-    args, (gi, dp, sd) = _pushsum_grid(el, drop_probs, seeds, B, plan, dev)
-    err, final, gap = _pushsum_sweep_core(*args, w, T=T, backend=plan.backend)
+    args, (gi, dp, sd), (fi, fm, ai, am) = _pushsum_grid(
+        el, drop_probs, seeds, B, plan, dev)
+    err, final, gap = _pushsum_sweep_core(*args, w, T=T, backend=plan.backend,
+                                          faults=fm, async_=am)
     return PushSumSweepResult(
         err=err, final_ratio=final, mass_gap=gap,
         drop_prob=torch.from_numpy(dp), seed=torch.from_numpy(sd),
-        graph=torch.from_numpy(gi))
+        graph=torch.from_numpy(gi), fault=_index(fi), async_=_index(ai))
 
 
 def _pushsum_grid(el: EdgeList, drop_probs, seeds, B: int,
                   plan: ExecutionPlan, dev):
-    """The (graph x drop x seed) scenarios of ``el`` stacked into one
-    block-diagonal graph on ``dev`` -> (the arguments of
-    :func:`_pushsum_sweep_core` before ``w``, the (K,) coordinates)."""
+    """The (graph x drop x seed [x fault x async]) scenarios of ``el``
+    stacked into one block-diagonal graph on ``dev`` -> (the arguments of
+    :func:`_pushsum_sweep_core` before ``w``, the (K,) coordinates, the
+    fault and async indices and models)."""
     src, dst, valid = (np.atleast_2d(a) for a in (el.src, el.dst, el.valid))
     offsets = None
     if is_dst_sorted(dst):
@@ -381,6 +448,7 @@ def _pushsum_grid(el: EdgeList, drop_probs, seeds, B: int,
         raise ValueError("plan.dst_sorted=True but the edge index is not "
                          "dst-sorted")
     gi, dp, sd = _scenario_grid(src.shape[0], drop_probs, seeds)
+    (gi, dp, sd), fi, fm, ai, am = _plane_axes((gi, dp, sd), plan)
     rows = torch.from_numpy(gi).long()
     edges = _block_diagonal(
         torch.from_numpy(src)[rows], torch.from_numpy(dst)[rows],
@@ -389,23 +457,25 @@ def _pushsum_grid(el: EdgeList, drop_probs, seeds, B: int,
     args = (_keys(sd), *(None if x is None else x.to(dev) for x in edges),
             torch.from_numpy(dp).to(dev),
             torch.full((gi.shape[0],), B, dtype=torch.int32, device=dev))
-    return args, (gi, dp, sd)
+    return args, (gi, dp, sd), (fi, fm, ai, am)
 
 
 # ---------------------------------------------------------------------------
 # Algorithms 1 and 3: (config) x seed grids
 # ---------------------------------------------------------------------------
 
-def _config_grid(cfgs, seeds, make_runtime, dev):
+def _config_grid(cfgs, seeds, make_runtime, dev, plan: ExecutionPlan):
     """The configs' runtimes padded to the widest E (as the reference pads
-    a mixed-E grid), one per (config, seed) scenario in config-major
-    order, stacked -> (runtime on ``dev``, config index (K,), seeds (K,))."""
+    a mixed-E grid), one per (config, seed [, fault [, async]]) scenario in
+    config-major order, stacked -> (runtime on ``dev``, config index (K,),
+    seeds (K,), the fault and async indices and models)."""
     e_max = max(int(np.count_nonzero(c.topo.adj)) for c in cfgs)
     runtimes = [make_runtime(c, e_max=e_max) for c in cfgs]
     gi, sd = np.meshgrid(np.arange(len(cfgs), dtype=np.int32),
                          _seeds(seeds), indexing="ij")
-    gi, sd = gi.ravel(), sd.ravel()
-    return stack_runtimes([runtimes[g] for g in gi]).to(dev), gi, sd
+    (gi, sd), fi, fm, ai, am = _plane_axes((gi.ravel(), sd.ravel()), plan)
+    return (stack_runtimes([runtimes[g] for g in gi]).to(dev), gi, sd,
+            (fi, fm, ai, am))
 
 
 def _coords(cfgs, gi):
@@ -452,10 +522,13 @@ def run_hps_grid(
     which is ``run_hps(w, cfg, T, seed=s)`` when the config's E is the
     grid's. ``plan.store`` defaults to ``"gap"`` (the (K, T) worst
     consensus-error curves and the final (K, N, d) ratios); the other
-    stores are ``"trajectory"`` and ``"final"``. ``device=None`` means the
-    card, and raises where there is none.
+    stores are ``"trajectory"`` and ``"final"``. ``plan.faults`` and
+    ``plan.async_`` cross the fault and async axes (model-minor, async
+    minor-most). ``device=None`` means the card, and raises where there is
+    none.
     """
-    plan = ExecutionPlan() if plan is None else plan
+    plan = check_plan(plan, "run_hps_grid",
+                      ("backend", "store", "faults", "async_"))
     store = "gap" if plan.store is None else plan.store
     cfgs = list(cfgs)
     if not cfgs:
@@ -466,16 +539,17 @@ def run_hps_grid(
     if any(c.topo.N != N for c in cfgs) or np.shape(w)[0] != N:
         raise ValueError("grid configs (and w) must share the node count N")
     dev = resolve_device(device)
-    rt, gi, sd = _config_grid(cfgs, seeds, make_hps_runtime, dev)
+    rt, gi, sd, (fi, fm, ai, am) = _config_grid(cfgs, seeds,
+                                                make_hps_runtime, dev, plan)
     _, (ratio, gap) = _hps_scan_core(
         _keys(sd), rt, torch.as_tensor(w, dtype=torch.float32, device=dev),
-        T=T, store=store, backend=plan.backend)
+        T=T, store=store, backend=plan.backend, faults=fm, async_=am)
     drops, gammas = _coords(cfgs, gi)
     Ms = np.asarray([c.topo.M for c in cfgs], np.int32)
     return HPSSweepResult(
         ratio=ratio, gap=gap, drop_prob=drops, gamma=gammas,
         M=torch.from_numpy(Ms[gi]), seed=torch.from_numpy(sd),
-        cfg=torch.from_numpy(gi))
+        cfg=torch.from_numpy(gi), fault=_index(fi), async_=_index(ai))
 
 
 def run_hps_sweep(
@@ -492,7 +566,10 @@ def run_hps_sweep(
     """Cross-product (config × drop × Γ × seed) Algorithm 1 sweep: each base
     config crossed with every ``drop_probs`` value and every ``gammas``
     period (defaults: the base's own), run by :func:`run_hps_grid`. Row
-    order: base-major, then drop, then Γ, then seed."""
+    order: base-major, then drop, then Γ, then seed, then fault, then
+    async."""
+    check_plan(plan, "run_hps_sweep",
+               ("backend", "store", "faults", "async_"))
     return run_hps_grid(w, _expand(cfg, drop_probs, gammas), T, seeds,
                         plan=plan, device=device)
 
@@ -516,10 +593,13 @@ def run_social_grid(
     ``run_social_learning(model, cfg, T, seed=s, signal_seed=s)`` when the
     config's E is the grid's. ``plan.store`` defaults to ``"log_ratio"``
     (the (K, T) worst log-ratio curves and the final (K, N, m) beliefs);
-    the other stores are ``"trajectory"`` and ``"final"``. ``device=None``
-    means the card, and raises where there is none.
+    the other stores are ``"trajectory"`` and ``"final"``. ``plan.faults``
+    and ``plan.async_`` cross the fault and async axes (model-minor, async
+    minor-most). ``device=None`` means the card, and raises where there is
+    none.
     """
-    plan = ExecutionPlan() if plan is None else plan
+    plan = check_plan(plan, "run_social_grid",
+                      ("backend", "store", "faults", "async_"))
     store = "log_ratio" if plan.store is None else plan.store
     cfgs = list(cfgs)
     if not cfgs:
@@ -530,17 +610,20 @@ def run_social_grid(
     if any(c.topo.N != N or c.topo.M != M for c in cfgs) or model.N != N:
         raise ValueError("grid configs (and the model) must share (N, M)")
     dev = resolve_device(device)
-    rt, gi, sd = _config_grid(cfgs, seeds, make_social_runtime, dev)
+    rt, gi, sd, (fi, fm, ai, am) = _config_grid(
+        cfgs, seeds, make_social_runtime, dev, plan)
     tables = model.tables.to(dev, torch.float32)
     keys = _keys(sd)
     _, (beliefs, log_ratio) = _social_scan_core(
         keys, keys, rt, torch.log(tables),
         torch.cumsum(tables[:, model.truth, :], dim=-1),
-        truth=model.truth, M=M, T=T, store=store, backend=plan.backend)
+        truth=model.truth, M=M, T=T, store=store, backend=plan.backend,
+        faults=fm, async_=am)
     drops, gammas = _coords(cfgs, gi)
     return SocialSweepResult(
         beliefs=beliefs, log_ratio=log_ratio, drop_prob=drops,
-        gamma=gammas, seed=torch.from_numpy(sd), cfg=torch.from_numpy(gi))
+        gamma=gammas, seed=torch.from_numpy(sd), cfg=torch.from_numpy(gi),
+        fault=_index(fi), async_=_index(ai))
 
 
 def run_social_sweep(
@@ -557,7 +640,10 @@ def run_social_sweep(
     """Cross-product (config × drop × Γ × seed) Algorithm 3 sweep: each base
     config crossed with every ``drop_probs`` value and every ``gammas``
     period (defaults: the base's own), run by :func:`run_social_grid`. Row
-    order: base-major, then drop, then Γ, then seed."""
+    order: base-major, then drop, then Γ, then seed, then fault, then
+    async."""
+    check_plan(plan, "run_social_sweep",
+               ("backend", "store", "faults", "async_"))
     return run_social_grid(model, _expand(cfg, drop_probs, gammas), T, seeds,
                            plan=plan, device=device)
 
@@ -614,10 +700,12 @@ def run_byzantine_sweep(
     representative branch draws each scenario's extra representatives
     from its own key. ``core="dense"`` is the oracle and runs one
     scenario at a time. ``plan.backend`` selects the trim route and
-    ``plan.store`` what is kept. ``device=None`` means the card, and
-    raises where there is none.
+    ``plan.store`` what is kept; ``plan.faults`` lays one fault model over
+    every seed (sparse core); ``plan.async_`` raises (no async mode).
+    ``device=None`` means the card, and raises where there is none.
     """
-    plan = ExecutionPlan() if plan is None else plan
+    plan = check_plan(plan, "run_byzantine_sweep",
+                      ("backend", "store", "faults"))
     store = "trajectory" if plan.store is None else plan.store
     dev = resolve_device(device)
     sd = _seeds(seeds)
@@ -629,7 +717,7 @@ def run_byzantine_sweep(
     for atk in attacks if attacks is not None else [cfg.attack]:
         run = _build_scan(model, rt, extra_reps, n_reps, atk, T, mode=mode,
                           core=core, backend=plan.backend, store=store,
-                          device=dev)
+                          device=dev, faults=plan.faults)
         if core == "sparse":
             out[atk.name] = run(keys)
             continue
@@ -666,9 +754,12 @@ def run_byzantine_grid(
     seed=s)`` with that attack and ``deg_max`` padding, which leaves the
     trim unchanged. ``plan.store`` defaults to ``"decisions"`` (the (K, T,
     N) decision curves and the final (K, N, *pair) statistics).
-    ``device=None`` means the card, and raises where there is none.
+    ``plan.faults`` lays one fault model over every scenario (the
+    ``fault`` column then all zeros); ``plan.async_`` raises (no async
+    mode). ``device=None`` means the card, and raises where there is none.
     """
-    plan = ExecutionPlan() if plan is None else plan
+    plan = check_plan(plan, "run_byzantine_grid",
+                      ("backend", "store", "faults"))
     store = "decisions" if plan.store is None else plan.store
     cfgs = list(cfgs)
     if not cfgs:
@@ -692,9 +783,12 @@ def run_byzantine_grid(
     gi, sd = gi.ravel(), sd.ravel()
     rt = stack_runtimes([runtimes[g] for g in gi])
     run = _build_scan(model, rt, None, M, atk, T, mode=mode, core="sparse",
-                      backend=plan.backend, store=store, device=dev)
+                      backend=plan.backend, store=store, device=dev,
+                      faults=plan.faults)
     res = run(_keys(sd))
     Fs = np.asarray([c.F for c in cfgs], np.int32)
     return ByzantineGridResult(
         r=res.r, decisions=res.decisions, cfg=torch.from_numpy(gi),
-        F=torch.from_numpy(Fs[gi]), seed=torch.from_numpy(sd))
+        F=torch.from_numpy(Fs[gi]), seed=torch.from_numpy(sd),
+        fault=None if plan.faults is None
+        else torch.zeros(gi.shape[0], dtype=torch.int32))

@@ -30,20 +30,29 @@ _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def edge_scatter(
-    sigma: torch.Tensor,   # (N, D) float32
+    sigma: torch.Tensor,   # (n_src, D) float32 source rows
     rho: torch.Tensor,     # (E, D) float32
     live: torch.Tensor,    # (E,) bool
-    src: torch.Tensor,     # (E,) int32
-    dst: torch.Tensor,     # (E,) int32
+    src: torch.Tensor,     # (E,) int32 source row per edge
+    dst: torch.Tensor,     # (E,) int32 receiver per edge
     backend: str = "auto",
     *,
     offsets: torch.Tensor | None = None,   # (N+1,) int32 CSR offsets of dst
+    n_recv: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mask-latch + per-receiver increment sum -> ``(rho_new, recv)``."""
+    """Mask-latch + per-receiver increment sum -> ``(rho_new, recv)``.
+
+    The source rows need not be the receivers: ``n_recv`` (default
+    ``sigma``'s rows, or ``offsets``' length - 1) is the receiver count,
+    and the async engines pass the per-edge snapshot (E, D) as ``sigma``
+    with the identity ``src``."""
+    if n_recv is None:
+        n_recv = (sigma.shape[0] if offsets is None
+                  else offsets.numel() - 1)
     if resolve_backend(backend, sigma) == "torch":
-        return edge_scatter_ref(sigma, rho, live, src, dst)
+        return edge_scatter_ref(sigma, rho, live, src, dst, n_recv=n_recv)
     if offsets is None:
-        offsets = dst_offsets(dst, sigma.shape[0])
+        offsets = dst_offsets(dst, n_recv)
     return edge_scatter_cuda(sigma, rho, live, src, offsets)
 
 
@@ -71,20 +80,25 @@ def edge_scatter_cuda(
     """Launch a CUDA edge-scatter kernel on the current stream.
 
     ``offsets`` must be the CSR offsets of the dst-sorted index the edges
-    are laid out in. ``tiled`` picks the kernel: the edge-tiled one (D <=
+    are laid out in; their length - 1 is the receiver count, and ``sigma``
+    holds the (n_src, D) source rows ``src`` indexes (the nodes, or the
+    async engines' per-edge snapshot). ``tiled`` picks the kernel: the edge-tiled one (D <=
     ``TILED_D_MAX``) or the column walk; ``None`` takes the tiled one
     wherever it can. Both give the same result bit for bit.
-    ``edge_scatter_cuda.launches`` counts the launches, and
-    ``edge_scatter_cuda.launches_tiled`` those of the tiled kernel."""
+    ``edge_scatter_cuda.launches`` counts the launches,
+    ``edge_scatter_cuda.launches_tiled`` those of the tiled kernel and
+    ``edge_scatter_cuda.launches_edge_rows`` those whose source rows are
+    not the receivers (the async delivery's per-edge snapshot)."""
     if not sigma.is_cuda:
         raise ValueError("the CUDA edge scatter needs CUDA tensors")
-    n, D = sigma.shape
+    n_src, D = sigma.shape
+    n = offsets.numel() - 1
     E = rho.shape[0]
-    if n == 0 or D == 0 or max(n, E) * D >= 2**31:
-        raise ValueError(f"unsupported edge-scatter shape N={n}, E={E}, "
-                         f"D={D}")
+    if n < 1 or D == 0 or max(n, n_src, E) * D >= 2**31:
+        raise ValueError(f"unsupported edge-scatter shape N={n}, "
+                         f"n_src={n_src}, E={E}, D={D}")
     dev = sigma.device
-    _build.check_arg(sigma, "sigma", torch.float32, (n, D), dev)
+    _build.check_arg(sigma, "sigma", torch.float32, (n_src, D), dev)
     _build.check_arg(rho, "rho", torch.float32, (E, D), dev)
     _build.check_arg(live, "live", torch.bool, (E,), dev)
     _build.check_arg(src, "src", torch.int32, (E,), dev)
@@ -95,7 +109,7 @@ def edge_scatter_cuda(
         raise ValueError(f"the edge-tiled kernel takes D <= {TILED_D_MAX}, "
                          f"got D={D}")
     rho_new = torch.empty_like(rho)
-    recv = torch.empty_like(sigma)
+    recv = sigma.new_empty((n, D))
     fn = _build.function("edge_scatter", "edge_scatter_f32", _ARGTYPES)
     code = fn(sigma.data_ptr(), rho.data_ptr(), live.data_ptr(),
               src.data_ptr(), offsets.data_ptr(), rho_new.data_ptr(),
@@ -104,8 +118,10 @@ def edge_scatter_cuda(
     _build.check_status("edge_scatter", code)
     edge_scatter_cuda.launches += 1
     edge_scatter_cuda.launches_tiled += int(tiled)
+    edge_scatter_cuda.launches_edge_rows += int(n_src != n)
     return rho_new, recv
 
 
 edge_scatter_cuda.launches = 0
 edge_scatter_cuda.launches_tiled = 0
+edge_scatter_cuda.launches_edge_rows = 0

@@ -4,6 +4,10 @@
     rho_new[e] = sigma[src[e]] if live[e] else rho[e]
     recv[v]    = sum_{e : dst[e] == v} (rho_new[e] - rho[e])
 
+``sigma``'s rows are the sources ``src`` indexes: the nodes, or the async
+engines' per-edge snapshot with the identity index; ``n_recv`` (default
+``sigma``'s row count) is the number of receivers.
+
 ``sigma`` and ``rho`` carry the value columns and the mass column as one
 (·, d+1) matrix, so one reduction serves both push-sum recursions. Any edge
 order is accepted. The CPU path of the engines runs this, and the CUDA
@@ -17,13 +21,17 @@ __all__ = ["edge_scatter_ref"]
 
 
 def edge_scatter_ref(
-    sigma: torch.Tensor,   # (N, D) staged cumulative send per node
+    sigma: torch.Tensor,   # (n_src, D) staged cumulative send per source
     rho: torch.Tensor,     # (E, D) last heard cumulative per edge
     live: torch.Tensor,    # (E,) bool — operational AND valid this round
     src: torch.Tensor,     # (E,) int32
     dst: torch.Tensor,     # (E,) int32
+    *,
+    n_recv: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(rho_new (E, D), recv (N, D))``."""
+    """Returns ``(rho_new (E, D), recv (n_recv, D))``."""
+    n = sigma.shape[0] if n_recv is None else n_recv
     rho_new = torch.where(live[:, None], sigma[src], rho)
-    recv = torch.zeros_like(sigma).index_add_(0, dst, rho_new - rho)
+    recv = sigma.new_zeros((n, sigma.shape[1])).index_add_(0, dst,
+                                                           rho_new - rho)
     return rho_new, recv

@@ -406,3 +406,48 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensors"):
         ts.run_byzantine_grid(tm, cfgs, 2, [0], device="cpu",
                               plan=ExecutionPlan(backend="cuda"))
+
+
+# ---- the fault plane over a grid and a sweep ----
+
+def _severe(mod):
+    """The chaos lane's severe model (benchmarks/chaos.py:52-56)."""
+    return mod.gilbert_elliott_model(8.0, 0.5, leave_prob=0.1,
+                                     join_prob=0.25, ps_crash_prob=0.5)
+
+
+def test_grid_and_sweep_under_faults_match_reference_and_single_runs():
+    """One fault model over every scenario: the grid (slot draws at the
+    grid's common padded deg_max) and the sweep against the reference,
+    the grid's fault column all zeros, each row bit-equal to the port's
+    single run of its scenario under the same model."""
+    import repro.core.faults as jfa
+    import repro.core.plan as jplan
+    import repro_torch.core.faults as tfa
+    jm, tm = _models()
+    jc, tc = _grid_cfgs(jg, jb, ja, (3, 4)), _grid_cfgs(tg, tb, ta, (3, 4))
+    plan = ExecutionPlan(faults=_severe(tfa))
+    got = ts.run_byzantine_grid(tm, tc, T, SEEDS, device="cpu", plan=plan)
+    want = js.run_byzantine_grid(jm, jc, T, SEEDS, plan=jplan.ExecutionPlan(
+        faults=_severe(jfa)))
+    _close(got.r, got.decisions, want.r, want.decisions)
+    np.testing.assert_array_equal(got.fault.numpy(), np.asarray(want.fault))
+    assert got.fault.tolist() == [0] * got.K and got.async_ is None
+    dm = max(tb.make_byzantine_runtime(tm, c)[0].nbr_idx.shape[1]
+             for c in tc)
+    for k in (0, 5, got.K - 1):
+        rt, extra, n_reps = tb.make_byzantine_runtime(tm, tc[int(got.cfg[k])],
+                                                      deg_max=dm)
+        one = tb.run_byzantine_runtime(
+            tm, rt, extra, n_reps, tc[0].attack, T, int(got.seed[k]),
+            device="cpu", plan=plan.replace(store="decisions"))
+        assert torch.equal(got.r[k], one.r) and torch.equal(
+            got.decisions[k], one.decisions), k
+    atk = _attack(ta, "sign_flip")
+    sw = ts.run_byzantine_sweep(tm, tc[1], T, SEEDS, [atk], device="cpu",
+                                plan=plan)["sign_flip"]
+    ref = js.run_byzantine_sweep(jm, jc[1], T, SEEDS,
+                                 [_attack(ja, "sign_flip")],
+                                 plan=jplan.ExecutionPlan(
+                                     faults=_severe(jfa)))["sign_flip"]
+    _close(sw.r, sw.decisions, ref.r, ref.decisions)

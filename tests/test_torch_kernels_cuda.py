@@ -1500,3 +1500,119 @@ def test_grid_rows_equal_single_runs_on_the_card(cuda_device, engine):
                                        rtol=1e-3, atol=1e-2)
             assert torch.equal(res.beliefs[k].argmax(-1),
                                one.beliefs.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# The fault and async planes on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K1_CASES)
+@pytest.mark.parametrize("D", [4, 5])
+def test_edge_scatter_kernel_with_per_edge_source_rows(cuda_device, case, D):
+    """The async delivery route: K1 with the (E, D) snapshot as its source
+    rows and the identity source index, the receiver count from the
+    offsets; rho_new bit-equal to the plain version and recv to the
+    float32 edge-order sum."""
+    _, rho, live, _, dst = edge_problem(case, seed=D, D=D)
+    n, E = 23, rho.shape[0]
+    snap = np.random.default_rng(D).normal(size=(E, D)).astype(np.float32)
+    ident = np.arange(E, dtype=np.int32)
+    offsets = np.searchsorted(dst, np.arange(n + 1)).astype(np.int32)
+    before = edge_scatter_cuda.launches_tiled
+    rho_new, recv = edge_scatter_cuda(*[
+        torch.from_numpy(a).to(cuda_device)
+        for a in (snap, rho, live, ident, offsets)])
+    torch.cuda.synchronize()
+    assert edge_scatter_cuda.launches_tiled == before + 1
+    assert recv.shape == (n, D)
+    ref = edge_scatter_ref(*map(torch.from_numpy, (snap, rho, live, ident,
+                                                   dst)), n_recv=n)
+    assert torch.equal(rho_new.cpu(), ref[0])
+    np.testing.assert_array_equal(
+        recv.cpu().numpy(), edge_order_recv(ref[0].numpy(), rho, dst, n))
+    got = edge_scatter(*[torch.from_numpy(a).to(cuda_device)
+                         for a in (snap, rho, live, ident, dst)], n_recv=n)
+    assert torch.equal(got[1], recv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRIM_CASES)
+@pytest.mark.parametrize("F", [1, 2])
+def test_trim_gather_kernel_under_a_fault_masked_valid(cuda_device, case, F):
+    """K3 with a round's fault-masked slot validity (dropped slots and
+    dead senders and receivers off): tsum bit-equal to the rank-order sum,
+    kept to the plain version."""
+    r, idx, valid, msgs, byz_nbr = trim_problem(case, 9, F, seed=F + 30)
+    rng = np.random.default_rng(F)
+    live = rng.random(r.shape[0]) < 0.8
+    masked = valid & (rng.random(valid.shape) >= 0.3) & live[idx] \
+        & live[:, None]
+    prob = (r, idx, masked, msgs, byz_nbr)
+    tsum, kept = trim_gather(*[torch.from_numpy(a).to(cuda_device)
+                               for a in prob], F)
+    want = trim_rank_order_sum(*prob, F)
+    tsum = tsum.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(tsum), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(tsum.view(np.int32)[ok],
+                                  want.view(np.int32)[ok])
+    np.testing.assert_array_equal(
+        kept.cpu().numpy(),
+        trim_gather_ref(*map(torch.from_numpy, prob), F)[1].numpy())
+
+
+def _plane_runs(engine, plan):
+    """One engine on the card under ``plan`` -> its outputs."""
+    topo = make_hierarchy([6, 6, 6], topology="complete", seed=0)
+    if engine == "pushsum":
+        el = sort_by_dst(random_strongly_connected_edge_list(
+            64, 2.0, np.random.default_rng(0)))[0]
+        w = np.random.default_rng(1).normal(size=(64, 4)).astype(np.float32)
+        st, traj = run_pushsum_sparse(w, el.src, el.dst, 40, drop_prob=0.2,
+                                      B=4, record_every=10, plan=plan)
+        return (*st, traj)
+    if engine == "hps":
+        w = np.random.default_rng(2).normal(size=(18, 4)).astype(np.float32)
+        res = run_hps(w, HPSConfig(topo, 4, B=2, drop_prob=0.2), 40,
+                      plan=plan.replace(store="gap"))
+        return (res.ratio, res.gap, *res.final_state)
+    model = make_confused_model(N=18, m=3, truth=1, confusion=0.3, seed=0)
+    if engine == "social":
+        res = run_social_learning(model, HPSConfig(topo, 4, B=2,
+                                                   drop_prob=0.3), 40,
+                                  plan=plan.replace(store="log_ratio"))
+        return (res.beliefs, res.log_ratio, *res.final_state)
+    bmodel, cfg, _ = byzantine_oracle_scenario("large_value")
+    res = run_byzantine_learning(bmodel, cfg, 40,
+                                 plan=plan.replace(store="final"))
+    return tuple(res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["pushsum", "hps", "social", "byzantine"])
+def test_degenerate_planes_are_bit_identical_on_the_card(cuda_device,
+                                                         engine):
+    """The degenerate fault model (and, but for Alg. 2, the degenerate
+    async model) through the kernels equal the plane-free run bit for bit;
+    a real model launches the engine's kernels once a round."""
+    from repro_torch.core.asyncrony import make_async_model
+    from repro_torch.core.faults import make_fault_model
+    base = _plane_runs(engine, ExecutionPlan())
+    plans = [ExecutionPlan(faults=make_fault_model())]
+    if engine != "byzantine":
+        plans.append(ExecutionPlan(async_=make_async_model()))
+    for plan in plans:
+        got = _plane_runs(engine, plan)
+        assert all(torch.equal(a, b) for a, b in zip(base, got)), plan
+    counter = trim_gather_cuda if engine == "byzantine" else edge_scatter_cuda
+    before = counter.launches, innovation_cuda.launches
+    severe = make_fault_model(p_gb=0.125, p_bg=0.125, leave_prob=0.1,
+                              join_prob=0.25, ps_crash_prob=0.5)
+    out = _plane_runs(engine, ExecutionPlan(
+        faults=severe, async_=None if engine == "byzantine"
+        else make_async_model(0.6, 8)))
+    torch.cuda.synchronize()
+    assert counter.launches == before[0] + 40
+    assert innovation_cuda.launches == before[1] + 40 * (engine == "social")
+    assert all(torch.isfinite(x).all() for x in out if x.is_floating_point())

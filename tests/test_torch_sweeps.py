@@ -26,11 +26,16 @@ import repro.core.pushsum as jp
 import repro.core.signals as jsig
 import repro.core.social as jsoc
 import repro.core.sweeps as js
+import repro.core.asyncrony as jas
+import repro.core.faults as jfa
+import repro.core.plan as jplan
 import repro_torch.core.graphs as tg
 import repro_torch.core.signals as tsig
 from repro_torch.core import hps as th
 from repro_torch.core import social as tsoc
 from repro_torch.core import sweeps as ts
+from repro_torch.core import asyncrony as tas
+from repro_torch.core import faults as tfa
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.core.prng import Key, fold_rounds, prng_key
 from repro_torch.core.pushsum import edge_mask, run_pushsum_sparse
@@ -530,3 +535,170 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensors"):
         ts.run_hps_grid(w, [cfg], 2, [0], device="cpu",
                         plan=ExecutionPlan(backend="cuda"))
+
+
+# ---- (h) the fault and async axes ----
+
+def _fault_models(mod):
+    """The degenerate model, then benchmarks/chaos.py:52-56's four
+    (burst 8 or 32 x churn 0.1 or 0.3, half the time bad, a coin-flip
+    PS, rejoin 0.25)."""
+    return [mod.make_fault_model()] + [
+        mod.gilbert_elliott_model(L, 0.5, leave_prob=c, join_prob=0.25,
+                                  ps_crash_prob=0.5)
+        for L in (8.0, 32.0) for c in (0.1, 0.3)]
+
+
+def _async_models(mod):
+    return [mod.make_async_model(1.0, 0), mod.make_async_model(0.6, 8)]
+
+
+def _plans(n_faults=5, n_async=2):
+    jf_ = _fault_models(jfa)[:n_faults] if n_faults else None
+    tf_ = _fault_models(tfa)[:n_faults] if n_faults else None
+    ja_ = _async_models(jas)[:n_async] if n_async else None
+    ta_ = _async_models(tas)[:n_async] if n_async else None
+    return dict(faults=jf_, async_=ja_), dict(faults=tf_, async_=ta_)
+
+
+def _plane_coords(got, want, names):
+    for name in names + ("fault", "async_"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), name)
+    assert got.describe() == want.describe()
+
+
+@pytest.fixture(scope="module")
+def plane_runs():
+    """The push-sum sweep on one draw x 2 drops x 2 seeds x 5 faults x 2
+    async models (K = 40), and the social grid of the uniform configs x
+    one seed x 5 faults x 2 async models (K = 60), port and reference."""
+    adjs, w, kw = _pushsum_case()
+    kw = dict(kw)
+    tel = tg.sort_by_dst(tg.edge_list(adjs[0]))[0]
+    jel = jg.sort_by_dst(jg.edge_list(adjs[0]))[0]
+    jp_, tp_ = _plans()
+    ps = (tel, w, kw,
+          ts.run_pushsum_sweep(w, tel, 20, device="cpu",
+                               plan=ExecutionPlan(**tp_), **kw),
+          js.run_pushsum_sweep(w, jel, 20, plan=jplan.ExecutionPlan(**jp_),
+                               **kw))
+    tc = _social_cfgs("uniform", tg, th.HPSConfig)
+    jc = _social_cfgs("uniform", jg, jh.HPSConfig)
+    soc = (tc,
+           ts.run_social_grid(_model(tsig), tc, T_GRID, [3], device="cpu",
+                              plan=ExecutionPlan(store="final", **tp_)),
+           js.run_social_grid(_model(jsig), jc, T_GRID, [3],
+                              plan=jplan.ExecutionPlan(store="final", **jp_)))
+    return ps, soc
+
+
+def test_pushsum_sweep_fault_and_async_axes_match_reference(plane_runs):
+    (_, _, _, got, want), _ = plane_runs
+    assert got.K == 40
+    _plane_coords(got, want, ("drop_prob", "seed", "graph"))
+    np.testing.assert_array_equal(got.fault.numpy(),
+                                  np.repeat(np.tile(np.arange(5), 4), 2))
+    np.testing.assert_array_equal(got.async_.numpy(), np.tile([0, 1], 20))
+    for name in ("err", "final_ratio", "mass_gap"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   err_msg=name, rtol=1e-4, atol=1e-4)
+    assert torch.isfinite(got.err).all()
+
+
+def test_social_grid_fault_and_async_axes_match_reference(plane_runs):
+    _, (_, got, want) = plane_runs
+    assert got.K == 60
+    _plane_coords(got, want, ("drop_prob", "gamma", "seed", "cfg"))
+    # beliefs and decisions where the top two beliefs are more than 1e-2
+    # apart (chip_smoke.py's rule): a drained mass magnifies one ulp of z
+    gb, wb = got.beliefs.numpy(), np.asarray(want.beliefs)
+    top2 = np.sort(wb, -1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 1e-2
+    assert clear.mean() > 0.8
+    np.testing.assert_array_equal(gb.argmax(-1)[clear], wb.argmax(-1)[clear])
+    np.testing.assert_allclose(gb[clear], wb[clear], atol=1e-3)
+
+
+def test_plane_rows_equal_single_runs(plane_runs):
+    """Each crossed row bit-equal to the port's single run under its own
+    fault and async model (the social grid, every fifth row; the push-sum
+    sweep, every row)."""
+    (el, w, kw, ps, _), (cfgs, soc, _) = plane_runs
+    fms, ams = _fault_models(tfa), _async_models(tas)
+    for k in range(ps.K):
+        _, traj = run_pushsum_sparse(
+            w, el.src, el.dst, 20, drop_prob=float(ps.drop_prob[k]), B=4,
+            key=prng_key(int(ps.seed[k])), device="cpu",
+            record_every=20, plan=ExecutionPlan(
+                faults=fms[int(ps.fault[k])], async_=ams[int(ps.async_[k])]))
+        assert torch.equal(ps.final_ratio[k], traj[-1]), k
+    model = _model(tsig)
+    for k in range(0, soc.K, 5):
+        one = tsoc.run_social_learning(
+            model, cfgs[int(soc.cfg[k])], T_GRID, seed=3, signal_seed=3,
+            device="cpu", plan=ExecutionPlan(
+                store="final", faults=fms[int(soc.fault[k])],
+                async_=ams[int(soc.async_[k])]))
+        assert torch.equal(soc.beliefs[k], one.beliefs), k
+
+
+def test_hps_sweep_fault_and_async_axes_match_reference():
+    topo_t, topo_j = (g.make_hierarchy([6, 6, 6], topology="complete",
+                                       seed=0) for g in (tg, jg))
+    jp_, tp_ = _plans(n_faults=3)
+    got = ts.run_hps_sweep(_w(), th.HPSConfig(topo_t, 4, B=2), T_GRID,
+                           drop_probs=[0.1, 0.4], seeds=[0], device="cpu",
+                           plan=ExecutionPlan(**tp_))
+    want = js.run_hps_sweep(_w(), jh.HPSConfig(topo_j, 4, B=2), T_GRID,
+                            drop_probs=[0.1, 0.4], seeds=[0],
+                            plan=jplan.ExecutionPlan(**jp_))
+    assert got.K == 12
+    _plane_coords(got, want, ("drop_prob", "gamma", "M", "seed", "cfg"))
+    np.testing.assert_allclose(got.gap.numpy(), np.asarray(want.gap),
+                               atol=1e-4)
+    np.testing.assert_allclose(got.ratio.numpy(), np.asarray(want.ratio),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_batched_degenerate_async_row_matches_the_sync_rows(pushsum_runs):
+    """The degenerate model on a grid's async axis runs the buffered
+    loop; its rows hold to the synchronous sweep's (the reference's
+    tolerance, tests/test_async.py:318-333)."""
+    el, w, kw, sync, _ = pushsum_runs
+    got = ts.run_pushsum_sweep(w, el, 30, device="cpu", plan=ExecutionPlan(
+        async_=[tas.make_async_model(), tas.make_async_model(0.5, 1)]), **kw)
+    np.testing.assert_allclose(got.err[0::2].numpy(), sync.err.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.final_ratio[0::2].numpy(),
+                               sync.final_ratio.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_single_models_as_axes():
+    """One degenerate async model adds no axis; one fault model is an
+    axis of one level (the column all zeros)."""
+    adjs, w, kw = _pushsum_case()
+    el = tg.sort_by_dst(tg.edge_list(adjs[0]))[0]
+    res = ts.run_pushsum_sweep(w, el, 4, device="cpu", plan=ExecutionPlan(
+        async_=tas.make_async_model(), faults=tfa.make_fault_model()), **kw)
+    assert res.async_ is None and res.K == 4
+    assert res.fault.tolist() == [0, 0, 0, 0]
+    res = ts.run_pushsum_sweep(w, el, 4, device="cpu", plan=ExecutionPlan(
+        async_=tas.make_async_model(0.5, 1)), **kw)
+    assert res.fault is None and res.async_.tolist() == [0, 0, 0, 0]
+    with pytest.raises(ValueError, match="at least one"):
+        ts.run_pushsum_sweep(w, el, 4, device="cpu",
+                             plan=ExecutionPlan(faults=[]), **kw)
+
+
+def test_grids_reject_unsupported_plan_fields():
+    cfgs = _hps_cfgs("uniform", tg, th.HPSConfig)[:1]
+    for call in (
+            lambda p: ts.run_hps_grid(_w(), cfgs, 2, [0], device="cpu",
+                                      plan=p),
+            lambda p: ts.run_social_sweep(_model(tsig), cfgs[0], 2,
+                                          device="cpu", plan=p)):
+        with pytest.raises(ValueError, match="does not support"):
+            call(ExecutionPlan(dst_sorted=True))
