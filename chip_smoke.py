@@ -118,6 +118,24 @@ Phases (any failure raises and the script exits non-zero):
              bit-equal, state within the single paths' limits); timings;
              then examples/quickstart_torch.py on the card (its sections'
              asserts; each loop's kernels launched once a round);
+6k. precision — the precision policy: K1, K2 and K3 on bf16 and fp16
+             storage at the engines' main shapes (K1 at D = 4 on both
+             kernels, at D = 5 and on its identity-source route; K3 with
+             stride-0 lies, an int F and F per receiver) against their
+             plain versions: rho_new and z_new bit-equal, recv and tsum
+             bit-equal to the float32 edge-order and rank-order sums of the
+             upcast storage values; the four engines at N = 131,072 under
+             policy bf16, T = 32 (the envelope's horizon: bf16 storage is
+             for short windows), through the kernels (each launching T
+             times on half storage) and the plain path: decisions equal on
+             clear agents, ratios within 4 bf16 ulps of their scale where
+             m >= 0.1; policy fp32 bit-equal to no policy on the
+             kernel path; tests/test_bf16_envelope.py's T = 32 envelope on
+             the kernel path (its ten scenarios and the HPS main cell); the
+             HPS grid of 6e under bf16 (K1 once a round for all 64
+             scenarios); each variant's time beside its float32 kernel's
+             and its bound, and the four engines' ms a step under bf16 and
+             fp32 in turns;
 7. timing  — K1-K3 three ways (device time with the host's enqueueing
              hidden, the JSON time; the kernel alone under the profiler;
              host-inclusive), K1's column walk beside its edge-tiled kernel,
@@ -205,7 +223,8 @@ Phases (any failure raises and the script exits non-zero):
 
 The build phase prints ptxas' registers and spills of every K4
 instantiation (4 to 64 workers), K1's three kernels, every K3 width (8 to
-64 slots) and K2's kernel, which must not spill, of K6's tensor-core
+64 slots) and K2's kernel, each K1-K3 kernel at float32, bf16 and fp16
+storage, which must not spill, of K6's tensor-core
 kernel, K7's three passes and K5's tensor-core kernel, and the count of HGMMA (wgmma) and HMMA (mma.sync) instructions in
 the built K6, K7 and K5 libraries (cuobjdump -sass): HGMMA in K6's and
 HMMA in K7's and K5's must be nonzero.
@@ -244,6 +263,9 @@ SERVE_B, SERVE_S, SERVE_GEN = 8, 2048, 32
 # Byzantine main path: decisions are compared where the decision margin
 # (the winner's min_b r(a, b) minus the runner-up's) exceeds this gap
 BYZ_MARGIN = 1e-2
+# the same under the bf16 policy, where r is stored to 8 mantissa bits: a
+# margin of a few bf16 ulps of |r| ~ 1e2..1e3
+PREC_BYZ_MARGIN = 16.0
 
 
 def require(ok, what: str) -> None:
@@ -1308,7 +1330,9 @@ def algorithm1_step_timing(dev) -> None:
 GRID_NETS = 256                 # complete 8-agent networks a scenario
 GRID_SEEDS = 8
 PS_SWEEP_N = 4_096              # push-sum sweep: nodes a graph draw
-SWEEP_RUNS = 10                 # timing: median of SWEEP_RUNS x STEP_T steps
+# timing: median of SWEEP_RUNS x STEP_T steps; few runs, so that the
+# script keeps well inside its time limit as phases are added
+SWEEP_RUNS = 6
 # a grid row against the port's single run of its scenario on the card:
 # the masks and K1's recv bit-equal, the rest within the CPU tests' limits
 # (tests/test_torch_sweeps.py): the fusion pools each scenario's
@@ -2744,6 +2768,431 @@ def plane_grid_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6k: the precision policy (core/precision.py): K1-K3's half-storage
+# variants, the four engines and the HPS grid under bf16
+# ---------------------------------------------------------------------------
+
+HALF = ("bfloat16", "float16")
+EPS_BF16 = 2.0 ** -8             # bfloat16's unit roundoff
+# tests/test_bf16_envelope.py's constants: the bf16 policy's mass drift
+# (x EPS x T) and consensus-gap perturbation (x EPS x spread(w)) at T = 32
+C_MASS, C_GAP, ENVELOPE_T = 2.0, 32.0, 32
+# rounds of the bf16 engine runs: the envelope's horizon. bf16 storage is
+# for short windows: past ~2^8 increments of a cumulative relay counter a
+# round's delivery rounds away (tests/test_bf16_envelope.py's horizon
+# cliff); at T = 100 the main cells under bf16 lost 70% of their mass
+PREC_T = ENVELOPE_T
+
+
+def half_dtype(name: str):
+    import torch
+    return getattr(torch, name)
+
+
+def k1_half_hold(what, k1, dst, tiled, st) -> float:
+    """One K1 call on ``st`` storage held against the plain version:
+    rho_new bit-equal, recv (float32) bit-equal to the float32 edge-order
+    sum of the upcast storage differences and within K1's float32 limits
+    of the plain version's index_add_ -> the largest error against it."""
+    import torch
+    from repro_torch.kernels.pushsum_edge import (edge_scatter_cuda,
+                                                  edge_scatter_ref)
+    a = (k1[0].to(st), k1[1].to(st), *k1[2:])
+    before = edge_scatter_cuda.launches_half
+    rho_k, recv_k = edge_scatter_cuda(*a, tiled=tiled)
+    rho_p, recv_p = edge_scatter_ref(*a[:4], dst, n_recv=a[4].numel() - 1,
+                                     accum_dtype=torch.float32)
+    want = edge_order_recv(rho_p.float(), a[1].float(), a[4])
+    torch.cuda.synchronize()
+    require(edge_scatter_cuda.launches_half == before + 1,
+            f"edge_scatter {what}: counted as a half-storage launch")
+    require(rho_k.dtype == st and recv_k.dtype == torch.float32,
+            f"edge_scatter {what}: rho_new at storage, recv float32")
+    require(torch.equal(rho_k, rho_p), f"edge_scatter {what}: rho_new "
+            f"bit-equal")
+    require(torch.equal(recv_k, want), f"edge_scatter {what}: recv "
+            f"bit-equal to the float32 edge-order sum")
+    require(bool(((recv_k - recv_p).abs()
+                  <= 1e-5 * recv_p.abs() + 1e-6).all()),
+            f"edge_scatter {what}: recv against the plain version")
+    return (recv_k - recv_p).abs().max().item()
+
+
+def half_kernel_checks(dev, args, k1_d5) -> dict:
+    """K1, K2 and K3 on half storage at the engines' main shapes, bf16 and
+    fp16 -> {kernel: {storage: largest error against the plain
+    version}}."""
+    import torch
+    from repro_torch.kernels.byz_trim import trim_gather_cuda, trim_gather_ref
+    from repro_torch.kernels.pushsum_edge import dst_offsets
+    from repro_torch.kernels.social_innov import (innovation_cuda,
+                                                  innovation_ref)
+    out = {"edge_scatter": {}, "social_innov": {}, "byz_trim": {}}
+    hps_k1, hps_dst = k1_d5["hps"]
+    N, E = hps_k1[4].numel() - 1, hps_k1[1].shape[0]
+    g = torch.Generator(device=dev).manual_seed(12)
+    snap = torch.randn((E, A1_D + 1), generator=g, device=dev)
+    ident = torch.arange(E, dtype=torch.int32, device=dev)
+    ident_k1 = (snap, hps_k1[1], hps_k1[2], ident, hps_k1[4])
+    for name in HALF:
+        st = half_dtype(name)
+        errs = [k1_half_hold(f"{name} D=4 main shape tiled={t}",
+                             args["k1"], args["dst"], t, st)
+                for t in (None, False)]
+        errs += [k1_half_hold(f"{name} D=5 HPS shape tiled={t}", hps_k1,
+                              hps_dst, t, st) for t in (None, False)]
+        errs.append(k1_half_hold(f"{name} identity-source route, HPS shape",
+                                 ident_k1, hps_dst, None, st))
+        out["edge_scatter"][name] = max(errs)
+        # K2: storage-typed z and mass, float32 u, cdf and tables
+        z, mass, u, cdf, lt = args["k2"]
+        a = (z.to(st), mass.to(st), u, cdf, lt)
+        before = innovation_cuda.launches_half
+        zk, mu_k = innovation_cuda(*a)
+        zp, mu_p = innovation_ref(*a, accum_dtype=torch.float32)
+        torch.cuda.synchronize()
+        require(innovation_cuda.launches_half == before + 1,
+                f"social_innov {name}: counted as a half-storage launch")
+        require(zk.dtype == st and mu_k.dtype == torch.float32,
+                f"social_innov {name}: z_new at storage, mu float32")
+        require(torch.equal(zk, zp), f"social_innov {name}: z_new "
+                f"bit-equal")
+        torch.testing.assert_close(mu_k, mu_p, rtol=1e-5, atol=1e-6)
+        require(bool(torch.isfinite(mu_k).all()), f"social_innov {name}: "
+                f"finite")
+        out["social_innov"][name] = (mu_k - mu_p).abs().max().item()
+        # K3: storage-typed r and lies (stride 0), an int F and F per
+        # receiver (the grids' form)
+        r, idx, valid, lies, byz, F = args["k3"]
+        r_h = r.to(st)
+        lies_h = torch.full((), 1e3, dtype=st, device=dev).expand(lies.shape)
+        f_recv = torch.from_numpy(np.random.default_rng(13).integers(
+            0, 4, size=r.shape[0]).astype(np.int32)).to(dev)
+        worst = 0.0
+        for label, FF in (("int F", F), ("F per receiver", f_recv)):
+            before = trim_gather_cuda.launches_half
+            tk, kk = trim_gather_cuda(r_h, idx, valid, lies_h, byz, FF)
+            tp, kp = trim_gather_ref(r_h, idx, valid, lies_h, byz, FF,
+                                     accum_dtype=torch.float32)
+            want = rank_order_tsum(r_h.float(), idx, valid, lies_h.float(),
+                                   byz, FF)
+            bnd, fin = trim_sum_bound(r_h.float(), idx, valid,
+                                      lies_h.float(), byz, FF)
+            torch.cuda.synchronize()
+            what = f"trim_gather {name} {label}"
+            require(trim_gather_cuda.launches_half == before + 1,
+                    f"{what}: counted as a half-storage launch")
+            require(tk.dtype == kk.dtype == torch.float32,
+                    f"{what}: tsum and kept float32")
+            require(torch.equal(kk, kp), f"{what}: kept bit-equal")
+            require(same_bits(tk, want), f"{what}: tsum bit-equal to the "
+                    f"float32 rank-order sum")
+            err = (tk - tp).abs()[fin]
+            require(bool((err <= bnd[fin]).all()), f"{what}: tsum within "
+                    f"the order bound of the plain version")
+            worst = max(worst, err.max().item())
+        out["byz_trim"][name] = worst
+    log(f"[precision kernels] bf16 and fp16 storage at the main shapes: K1 "
+        f"(D = 4 on both kernels, D = 5 at the HPS shape, the "
+        f"identity-source route) rho_new bit-equal, recv bit-equal to the "
+        f"float32 edge-order sum; K2 z_new bit-equal, mu within rtol 1e-5 "
+        f"atol 1e-6; K3 (stride-0 lies, int F and F per receiver) kept "
+        f"bit-equal, tsum bit-equal to the float32 rank-order sum; largest "
+        f"errors against the plain versions {out}")
+    return out
+
+
+def hold_half_engine(engine: str, k, p, edges, N: int, truth: int,
+                     byz=None) -> str:
+    """A bf16 run of ``engine`` on the kernels (``k``) against the plain
+    path on the card (``p``) -> the gaps, logged."""
+    import torch
+    from repro_torch.core import sparse_mass_invariant
+    if engine == "byzantine":
+        normal = ~byz.byz_mask
+        require(bool(torch.isfinite(k.r).all()), "bf16 byzantine: finite")
+        eye = torch.eye(3, dtype=torch.bool, device=p.r.device)
+        worst = torch.where(eye, torch.inf, p.r).min(dim=-1).values
+        top2 = worst.topk(2, dim=-1).values
+        clear = normal & ((top2[..., 0] - top2[..., 1]) > PREC_BYZ_MARGIN)
+        require(torch.equal(k.decisions[-1][clear], p.decisions[-1][clear]),
+                "bf16 byzantine: decisions equal where the margin is clear")
+        share = ((k.decisions[-1] == truth) & normal & byz.in_C).float() \
+            .sum() / (normal & byz.in_C).float().sum()
+        return (f"r {(k.r - p.r).abs().max().item():.3e}; final decisions "
+                f"equal on {int(clear.sum())}/{int(normal.sum())} normal "
+                f"agents with margin > {PREC_BYZ_MARGIN}; normal agents in C "
+                f"deciding theta* {share.item():.4f}")
+    state_k = k[0] if engine == "pushsum" else k.final_state
+    state_p = p[0] if engine == "pushsum" else p.final_state
+    require(state_k.zm.dtype == torch.bfloat16, f"bf16 {engine}: state "
+            f"stored in bf16")
+    require(all(bool(torch.isfinite(x).all()) for x in
+                plane_outputs(engine, k) if x.is_floating_point()),
+            f"bf16 {engine}: outputs finite")
+    inv = sparse_mass_invariant(state_k, *edges)
+    mass_dev = abs(inv[-1].item() - N) / N
+    if engine == "social":
+        bk, bp = k.beliefs, p.beliefs
+        top2 = bp.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2e-2
+        flips = int((bk.argmax(-1) != bp.argmax(-1))[clear].sum())
+        require(flips == 0, "bf16 social: decisions equal where the top "
+                "two beliefs are more than 2e-2 apart")
+        return (f"beliefs {(bk - bp).abs().max().item():.3e}, (z, m) "
+                f"{(state_k.zm.float() - state_p.zm.float()).abs().max()
+                   .item():.3e}; decisions equal on {int(clear.sum())}/{N} "
+                f"clear agents, deciding theta* "
+                f"{(bk.argmax(-1) == truth).float().mean().item():.4f}; "
+                f"total mass off N by {mass_dev:.3e} of N")
+    ratio_k = k[1][-1] if engine == "pushsum" else k.ratio
+    ratio_p = p[1][-1] if engine == "pushsum" else p.ratio
+    heavy = state_k.m.float() >= PLANE_MASS_FLOOR
+    diff = (ratio_k - ratio_p).abs().amax(dim=-1)
+    gap = diff[heavy].max().item() if bool(heavy.any()) else 0.0
+    # the two paths order the receiver sums (and HPS's pools) otherwise,
+    # which can flip a bf16 rounding: 4 bf16 ulps of the ratios' scale
+    limit = 4 * EPS_BF16 * ratio_p.abs().max().item()
+    require(gap <= limit, f"bf16 {engine}: ratios within {limit:.3e} of "
+            f"the plain path where m >= {PLANE_MASS_FLOOR}")
+    return (f"final ratios {gap:.3e} (m >= {PLANE_MASS_FLOOR}: "
+            f"{int(heavy.sum())} of {N}), all {diff.max().item():.3e}; "
+            f"total mass off N by {mass_dev:.3e} of N")
+
+
+def precision_phase(dev, args, k1_d5, model, rt, M, bmodel, bsetup,
+                    battack) -> dict:
+    """Phase 6k -> each kernel's largest errors on half storage, its
+    launches on the bf16 main paths and its half-storage timings."""
+    import torch
+    from repro_torch.core import ExecutionPlan
+    out = {"errs": half_kernel_checks(dev, args, k1_d5), "launches": {}}
+    T, N = PREC_T, N_FULL
+    runs = plane_engines(dev, model, rt, M, bmodel, bsetup, battack)
+    bf16 = ExecutionPlan(policy="bf16")
+    for engine in ("social", "hps", "pushsum", "byzantine"):
+        what = f"bf16 {engine}"
+        _zero_counts()
+        t0 = time.perf_counter()
+        res_k = runs[engine](bf16, T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        if engine == "byzantine":
+            want = _only(byz_trim=T, byz_trim_half=T)
+        else:
+            k2 = ({"social_innov": T, "social_innov_half": T}
+                  if engine == "social" else {})
+            want = _only(edge_scatter=T, edge_scatter_tiled=T,
+                         edge_scatter_half=T, **k2)
+        require(counts == want, f"{what}: each kernel of the engine "
+                f"launched T times, on half storage")
+        for name, c in counts.items():
+            if c:
+                out["launches"].setdefault(name, {})[engine] = c
+        res_p = runs[engine](bf16.replace(backend="torch"), T)
+        torch.cuda.synchronize()
+        require(_counts() == counts, f"{what}: the plain path launched no "
+                f"kernel")
+        gaps = hold_half_engine(engine, res_k, res_p,
+                                runs["_edges"].get(engine), N,
+                                bmodel.truth if engine == "byzantine"
+                                else model.truth, byz=runs["_byz"])
+        log(f"[precision] {engine} N={N} T={T} under policy bf16: kernels "
+            f"{wall:.2f} s, launches {counts}; kernel vs plain: {gaps}")
+    # policy="fp32" is the pre-policy program on the kernel path
+    Td = PLANE_T_DEGENERATE
+    for engine in ("social", "hps", "pushsum", "byzantine"):
+        base = plane_outputs(engine, runs[engine](ExecutionPlan(), Td))
+        got = plane_outputs(engine, runs[engine](
+            ExecutionPlan(policy="fp32"), Td))
+        require(all(torch.equal(a, b) for a, b in zip(base, got)),
+                f"{engine}: policy fp32 bit-equal to no policy on the "
+                f"kernel path")
+    log(f"[precision] policy fp32 through the four engines on the kernel "
+        f"path, T={Td}: bit-equal to policy None")
+    envelope_phase(dev)
+    out["hps_grid"] = half_hps_grid(dev)
+    out["times"] = half_times(dev, args, k1_d5, runs)
+    return out
+
+
+def envelope_scenarios(k: int, seed: int):
+    """tests/test_bf16_envelope.py's scenario draws: k (drop, Γ, topology,
+    seed) from one seeded generator."""
+    rng = np.random.default_rng(seed)
+    return [(float(rng.uniform(0.0, 0.6)), int(rng.choice([2, 4, 8, 16])),
+             ("ring", "complete", "ring+")[int(rng.integers(3))],
+             int(rng.integers(1000))) for _ in range(k)]
+
+
+def envelope_phase(dev) -> None:
+    """tests/test_bf16_envelope.py's T = 32 envelope on the kernel path,
+    its scenarios drawn as the test draws them (three 5-agent networks):
+    each run under fp32 and bf16; on the mass test's ten scenarios the
+    bf16 run's relative drift of the value invariant within C_MASS * EPS *
+    T and the fp32 run's within 1e-5, on the gap test's ten the final gaps
+    within C_GAP * EPS * spread(w). Then the same two figures at the HPS
+    main cell (N = 131,072), logged: the constants were calibrated on 15
+    agents, and the gap is a maximum over the agents."""
+    import torch
+    from repro_torch.core import (ExecutionPlan, HPSConfig, make_hierarchy,
+                                  make_hps_runtime, run_hps_runtime,
+                                  sparse_mass_invariant)
+    T = ENVELOPE_T
+
+    def pair(rt_, w, seed):
+        res = {p: run_hps_runtime(w, rt_, T, seed=seed, plan=ExecutionPlan(
+            store="gap", dst_sorted=True, policy=p)) for p in (None, "bf16")}
+        drift = {}
+        for p, r in res.items():
+            inv = sparse_mass_invariant(r.final_state, rt_.src, rt_.valid)
+            drift[p] = ((inv[:-1] - w.sum(0)).abs()
+                        / w.abs().sum(0).clamp_min(1e-6)).max().item()
+        gap = abs(res["bf16"].gap[-1].item() - res[None].gap[-1].item())
+        return drift, gap, (w.max() - w.min()).item(), res
+
+    def cell(drop, gamma, topology, seed):
+        topo = make_hierarchy([5, 5, 5], topology=topology, seed=seed)
+        cfg = HPSConfig(topo=topo, gamma_period=gamma, B=4, drop_prob=drop)
+        w = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=(topo.N, 3)).astype(np.float32)).to(dev)
+        return make_hps_runtime(cfg).to(dev), w, seed
+
+    worst_drift = worst_gap = 0.0
+    for sc in envelope_scenarios(10, seed=7):
+        drift, _, _, _ = pair(*cell(*sc))
+        require(drift[None] <= 1e-5, f"envelope {sc}: fp32 drift at "
+                f"roundoff")
+        require(drift["bf16"] <= C_MASS * EPS_BF16 * T,
+                f"envelope {sc}: bf16 mass drift within C_MASS EPS T")
+        worst_drift = max(worst_drift, drift["bf16"] / (EPS_BF16 * T))
+    for sc in envelope_scenarios(10, seed=11):
+        _, gap, spread, _ = pair(*cell(*sc))
+        require(gap <= C_GAP * EPS_BF16 * spread, f"envelope {sc}: gap "
+                f"perturbation within C_GAP EPS spread(w)")
+        worst_gap = max(worst_gap, gap / (EPS_BF16 * spread))
+    hrt, hw = hps_scenario(N_FULL)
+    drift, gap, spread, res = pair(hrt.to(dev), torch.from_numpy(hw).to(dev),
+                                   0)
+    log(f"[precision] envelope on the kernel path, T={T}: worst bf16 mass "
+        f"drift {worst_drift:.3f} EPS T over the mass test's ten scenarios "
+        f"(C_MASS {C_MASS}), worst gap perturbation {worst_gap:.3f} EPS "
+        f"spread over the gap test's ten (C_GAP {C_GAP}); at the HPS main "
+        f"cell (N={N_FULL}): bf16 drift {drift['bf16'] / (EPS_BF16 * T):.3f}"
+        f" EPS T (fp32 {drift[None]:.3e}), gap bf16 "
+        f"{res['bf16'].gap[-1].item():.5f} vs fp32 "
+        f"{res[None].gap[-1].item():.5f}: {gap / (EPS_BF16 * spread):.3f} "
+        f"EPS spread")
+
+
+def half_hps_grid(dev) -> dict:
+    """The HPS grid of 6e under policy bf16: 64 scenarios as one graph of
+    131,072 nodes, K1 launching once a round for all of them on half
+    storage; each row's final gap against the plain path's -> the
+    launches."""
+    import torch
+    from repro_torch.core import ExecutionPlan, run_hps_grid
+    T = PREC_T
+    base, cfgs = hps_grid_configs([8] * GRID_NETS, (0.0, 0.1, 0.3, 0.6),
+                                  (4, 8), B=4)
+    N = base.topo.N
+    w = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(N, A1_D)).astype(np.float32)).to(dev)
+    plan = ExecutionPlan(store="gap", policy="bf16")
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = run_hps_grid(w, cfgs, T, list(range(GRID_SEEDS)), plan=plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    require(res.K * N == N_FULL, "bf16 HPS grid: K·N = 131,072")
+    require(counts == _only(edge_scatter=T, edge_scatter_tiled=T,
+                            edge_scatter_half=T),
+            "bf16 HPS grid: K1 launched T times for all K scenarios, on "
+            "half storage")
+    res_p = run_hps_grid(w, cfgs, T, list(range(GRID_SEEDS)),
+                         plan=plan.replace(backend="torch"))
+    torch.cuda.synchronize()
+    require(_counts() == counts, "bf16 HPS grid: the plain path launched "
+            "no kernel")
+    require(bool(torch.isfinite(res.gap).all()), "bf16 HPS grid: finite")
+    d_gap = (res.gap - res_p.gap).abs().max().item()
+    log(f"[precision] HPS grid of 6e under bf16: {res.K} scenarios of "
+        f"N={N}, T={T}: {wall:.2f} s, launches {counts}; gap curves against "
+        f"the plain path {d_gap:.3e}; final gap range "
+        f"{res.gap[:, -1].min().item():.4f}..{res.gap[:, -1].max().item():.4f}")
+    return {"launches": counts["edge_scatter_half"]}
+
+
+def half_times(dev, args, k1_d5, runs) -> dict:
+    """Each half-storage variant's device time with the host hidden (L2
+    flushed) beside its float32 kernel's in the same process and its
+    bound; then ms a step of the four engines under bf16 and fp32, in
+    turns -> {kernel: {storage: {ms, fp32_ms, bound_ms, bound_by}}}."""
+    import torch
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.kernels.byz_trim import trim_gather_cuda
+    from repro_torch.kernels.pushsum_edge import edge_scatter_cuda
+    from repro_torch.kernels.social_innov import innovation_cuda
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev).zero_
+    out = {"edge_scatter": {}, "edge_scatter_d5": {}, "social_innov": {},
+           "byz_trim": {}}
+    k1, k1_5 = args["k1"], k1_d5["hps"][0]
+    z, mass, u, cdf, lt = args["k2"]
+    r, idx, valid, lies, byz, F = args["k3"]
+    N, m_hyp, S = z.shape[0], z.shape[1], cdf.shape[1]
+    dm, P = idx.shape[1], r.shape[1]
+    k3_ops = N * P * dm * (2 * BYZ_F + 1)
+
+    def timed(fn, inputs, outputs, ops):
+        ms = event_ms(fn, TIMED_RUNS, flush, hide_host=True)
+        b_ms, by = bound(nbytes(*inputs, *outputs), ops)
+        return {"ms": ms, "bound_ms": b_ms, "bound_by": by}
+
+    for name in ("float32",) + HALF:
+        st = half_dtype(name)
+        for key, a in (("edge_scatter", k1), ("edge_scatter_d5", k1_5)):
+            ah = (a[0].to(st), a[1].to(st), *a[2:])
+            o = edge_scatter_cuda(*ah)
+            E, D = ah[1].shape
+            out[key][name] = timed(lambda ah=ah: edge_scatter_cuda(*ah), ah,
+                                   o, 2 * E * D)
+        a2 = (z.to(st), mass.to(st), u, cdf, lt)
+        o = innovation_cuda(*a2)
+        out["social_innov"][name] = timed(lambda: innovation_cuda(*a2), a2,
+                                          o, N * (S + m_hyp * 8))
+        r_h = r.to(st)
+        lies_h = torch.full((), 1e3, dtype=st, device=dev).expand(lies.shape)
+        a3 = (r_h, idx, valid, lies_h, byz, F)
+        o = trim_gather_cuda(*a3)
+        out["byz_trim"][name] = timed(lambda: trim_gather_cuda(*a3),
+                                      (r_h, idx, valid, byz), o, k3_ops)
+        out["byz_trim"][name]["bound_ms"] += st.itemsize / HBM_BYTES_PER_S \
+            * 1e3                         # the one stride-0 lie
+    for key, t in out.items():
+        log(f"[timing] {key} by storage, device ms with the host hidden "
+            f"(median of {TIMED_RUNS}, L2 flushed) and bound: " + "; ".join(
+                f"{name} {v['ms']:.5f} (bound {v['bound_ms']:.5f}, "
+                f"{v['bound_by']})" for name, v in t.items()))
+    plans = {"fp32": ExecutionPlan(), "bf16": ExecutionPlan(policy="bf16")}
+    steps = {}
+    for engine in ("social", "hps", "pushsum", "byzantine"):
+        fn = runs[engine]
+        ms = turns_ms({p: (lambda T, p=p, fn=fn: fn(plans[p], T))
+                       for p in plans})
+        steps[engine] = ms
+        log(f"[timing] {engine} at N={N_FULL}, kernel path: fp32 "
+            f"{ms['fp32']:.4f} ms, bf16 {ms['bf16']:.4f} ms a step (in "
+            f"turns, median of {SWEEP_RUNS} runs of {STEP_T} steps)")
+        if engine in ("social", "byzantine"):
+            profile_step(lambda T, fn=fn: fn(plans["bf16"], T),
+                         f"{engine} bf16 N={N_FULL}", ms["bf16"])
+    out["steps"] = steps
+    return out
+
+
 def quickstart_torch_phase() -> None:
     """examples/quickstart_torch.py on the card: every section's asserts,
     and the launches of K1 (on its identity-source route in the async
@@ -2812,15 +3261,18 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         log(f"[build] {b.name}: {b.seconds:.2f} s -> {b.path.name}; "
             + " | ".join(ptxas))
+    # K1-K3 by storage type: float, __nv_bfloat16, __half
+    storage = ("f", "13__nv_bfloat16", "6__half")
     for name, kernel in (
             *(("trimmed_mean", f"trimmed_mean_kernelILi{w}E")
               for w in (4, 8, 16, 32, 64)),
-            ("edge_scatter", "edge_scatter_tiledILi4E"),
-            ("edge_scatter", "edge_scatter_tiledILi1E"),
-            ("edge_scatter", "edge_scatter_walk"),
-            *(("byz_trim", f"trim_gather_kernelILi{w}E")
-              for w in (8, 16, 32, 64)),
-            ("social_innov", "social_innov_staged")):
+            *(("edge_scatter", f"edge_scatter_tiledI{t}Li{v}E")
+              for t in storage for v in (4, 1)),
+            *(("edge_scatter", f"edge_scatter_walkI{t}E") for t in storage),
+            *(("byz_trim", f"trim_gather_kernelI{t}Li{w}E")
+              for t in storage for w in (8, 16, 32, 64)),
+            *(("social_innov", f"social_innov_stagedI{t}E")
+              for t in storage)):
         report = ptxas_report(built[name].log, kernel)
         log(f"[build] ptxas, {kernel}: {report}")
         require(report.count("0 bytes spill stores") == 1
@@ -2979,6 +3431,11 @@ def main() -> int:
     quickstart_torch_phase()
 
     lap("phases 6i-6j and quickstart_torch")
+    # ---- phase 6k: the precision policy -----------------------------------
+    prec = precision_phase(dev, args, a1["k1"], model, rt, M, bmodel, bsetup,
+                           battack)
+
+    lap("phase 6k")
     # ---- phase 7: timing ------------------------------------------------
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
@@ -3044,7 +3501,7 @@ def main() -> int:
              "edge_scatter_edge_rows"),
          "identity_route_ms": k1_identity_ms,
          "max_abs_err": k1_err, "d5_max_abs_err": a1["k1_err"],
-         **kt["edge_scatter"]},
+         **kt["edge_scatter"], **half_entry(prec, "edge_scatter")},
         {"name": "social_innov", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/social_innov.cu",
          "replaces": "src/repro/kernels/social_innov/social_innov.py:75",
@@ -3053,7 +3510,7 @@ def main() -> int:
          "social_grid_ms": sw["social_grid"]["k2_ms"],
          "launches_planes": plane_launches("social_innov"),
          "max_abs_err": k2_err,
-         **kt["social_innov"]},
+         **kt["social_innov"], **half_entry(prec, "social_innov")},
         {"name": "byz_trim", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/byz_trim.cu",
          "replaces": "src/repro/kernels/byz_trim/byz_trim.py:91",
@@ -3063,7 +3520,7 @@ def main() -> int:
          "byzantine_grid_int_f_ms": bg["int_f_ms"],
          "byzantine_grid_bound_ms": bg["bound_ms"],
          "launches_planes": plane_launches("byz_trim"),
-         **kt["byz_trim"]},
+         **kt["byz_trim"], **half_entry(prec, "byz_trim")},
     ]
     lap("phase 7")
     kernels += serve_phases(dev, flush)
@@ -3077,6 +3534,25 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def half_entry(prec: dict, name: str) -> dict:
+    """Phase 6k's figures of one of K1-K3 for the kernels line: its
+    half-storage launches on the bf16 main paths (by engine), and by
+    storage its largest error against the plain version, its time with
+    the host hidden and its bound (K1 at D = 4, and at D = 5 under
+    ``d5``)."""
+    launches = prec["launches"].get(f"{name}_half", {})
+    out = {"launches_half": sum(launches.values()),
+           "launches_half_by_engine": launches, "half": {}}
+    for st in HALF:
+        out["half"][st] = {"max_abs_err": prec["errs"][name][st],
+                           **prec["times"][name][st]}
+        if name == "edge_scatter":
+            out["half"][st]["d5"] = prec["times"]["edge_scatter_d5"][st]
+    if name == "edge_scatter":
+        out["launches_half_hps_grid"] = prec["hps_grid"]["launches"]
+    return out
 
 
 def kernel_times(fn, runs: int,
@@ -3163,7 +3639,10 @@ SUB_COUNTS = {"swa_prefill_tc": ("swa_prefill", "launches_tc"),
               "edge_scatter_tiled": ("edge_scatter", "launches_tiled"),
               "byz_trim_tensor_f": ("byz_trim", "launches_tensor_f"),
               "edge_scatter_edge_rows": ("edge_scatter",
-                                         "launches_edge_rows")}
+                                         "launches_edge_rows"),
+              "edge_scatter_half": ("edge_scatter", "launches_half"),
+              "social_innov_half": ("social_innov", "launches_half"),
+              "byz_trim_half": ("byz_trim", "launches_half")}
 
 
 def _zero_counts() -> None:

@@ -32,7 +32,9 @@ tensor, so it is written once per receiver, (K R, P), and expanded over
 the slots with stride 0 (4.7 MB a round at 131,072 receivers and P = 9,
 against 33 MB for every slot); a constant lie stays all stride 0. ``key`` is a
 :class:`~repro_torch.core.prng.Key` and ``t`` the host iteration count, so
-``random_noise`` draws the reference's uniforms bit for bit.
+``random_noise`` draws the reference's uniforms bit for bit. A lie comes
+out in ``r``'s dtype, except ``random_noise``'s float32 draws, which the
+engine casts to the storage dtype as the reference does.
 """
 from __future__ import annotations
 
@@ -114,7 +116,9 @@ def sign_flip(scale: float = 2.0) -> Attack:
     """
 
     def val(r, lead=0):
-        return -scale * r.mean(dim=lead)
+        # the mean in float32, rounded once to r's dtype, as jnp.mean of a
+        # half-precision r takes it
+        return -scale * r.mean(dim=lead, dtype=torch.float32).to(r.dtype)
 
     def messages(key, t, r):
         return _broadcast(val(r), r.shape[0])

@@ -1,7 +1,7 @@
 """Hierarchical Byzantine-resilient non-Bayesian learning — Algorithm 2 / Thm 3.
 
-The port of ``repro.core.byzantine`` on its synchronous, fp32,
-single-device path. The curse of dimensionality of vector Byzantine
+The port of ``repro.core.byzantine`` on its synchronous, single-device
+path. The curse of dimensionality of vector Byzantine
 consensus is dodged by running one **scalar** dynamic per ordered
 hypothesis pair (theta1, theta2): agent j's statistic ``r_t^j(t1, t2)``
 accumulates trimmed-averaged neighbor statistics plus the *cumulative*
@@ -38,6 +38,12 @@ and each scenario's Γ are host ints, so the fusion rounds are chosen on
 the host and their draws and pool sorts run only where a scenario fuses,
 with no device sync.
 
+The precision policy (``policy=``, :mod:`.precision`) carries the pairwise
+statistic and the cumulative LLR at its storage dtype, casts the lies to
+it, and runs the gossip trim (K3 on half storage on the card), the
+fusion pool and the innovation arithmetic in its accum dtype; the
+statistics come out float32.
+
 Set-up: :func:`byzantine_runtime_from_edge_list` builds the runtime from a
 sparse edge index with no (N, N) array — A3 once per distinct block
 adjacency, one ``pairwise_kl`` for all agents, neighbor rows from the edge
@@ -66,6 +72,7 @@ from .faults import (ENGINE_BYZANTINE, FAULT_CHURN, FAULT_EDGE, FaultModel,
                      ps_alive_rounds)
 from .hps import ps_trimmed_pool
 from .plan import ExecutionPlan, check_plan, resolve_device
+from .precision import policy_dtypes
 from .prng import (Key, choice, fold_in, fold_rounds, prng_key, randint,
                    split, uniform)
 from .signals import SignalModel, pairwise_kl
@@ -424,11 +431,13 @@ def _scenario_keys(key: Key):
 
 def _sparse_gossip(key: Key, t: int, r: torch.Tensor, rt: ByzRuntime, *,
                    K: int, F, nbr_local: torch.Tensor, attack: Attack,
-                   mode: str, backend: str):
+                   mode: str, backend: str, accum_dtype=None):
     """Neighbor-list trim-gather of K scenarios' K·N receivers in one call
     -> (trimmed_sum (K·N, *pair), kept (K·N,)). ``key`` holds K words,
     ``nbr_local`` (K, N, deg_max) the senders in scenario numbering and
-    ``F`` the trim count (an int, or a (K·N,) tensor per receiver)."""
+    ``F`` the trim count (an int, or a (K·N,) tensor per receiver). The
+    lies are cast to ``r``'s (storage) dtype; the sums are taken in
+    ``accum_dtype``."""
     n, pair = r.shape[0], tuple(r.shape[1:])
     N, dm = n // K, rt.nbr_idx.shape[1]
     if attack.nbr_messages is not None:
@@ -447,16 +456,20 @@ def _sparse_gossip(key: Key, t: int, r: torch.Tensor, rt: ByzRuntime, *,
             picked.append(full[nbr_local[k].long(),
                                torch.arange(N, device=r.device)[:, None]])
         bmsg = torch.cat(picked)
+    if bmsg.dtype != r.dtype:
+        bmsg = bmsg.to(r.dtype)
     return trim_gather_pairs(r, rt.nbr_idx, rt.nbr_valid, bmsg, rt.byz_nbr,
-                             F, backend)
+                             F, backend, accum_dtype=accum_dtype)
 
 
 def _dense_gossip(key: Key, t: int, r: torch.Tensor, rt: ByzRuntime, *,
                   K: int, F, nbr_local, attack: Attack, mode: str,
-                  adj: torch.Tensor):
+                  adj: torch.Tensor, accum_dtype=None):
     """(N, N) broadcast + sort oracle of one scenario -> (trimmed_sum,
-    kept)."""
+    kept), on ``r`` upcast to ``accum_dtype``."""
     (key,) = _scenario_keys(key)
+    if accum_dtype is not None:
+        r = r.to(accum_dtype)
     n, pair = r.shape[0], tuple(r.shape[1:])
     honest = r[:, None].expand((n, n) + pair)
     if mode == "pairwise":
@@ -509,12 +522,14 @@ def _select_reps(key: Key, rt: ByzRuntime, plan: _RepPlan | None, K: int,
 
 def _fusion(key: Key, t: int, r_in: torch.Tensor, rt: ByzRuntime, *,
             K: int, F, n_reps: int, rep_plan: _RepPlan | None,
-            attack: Attack, live: torch.Tensor | None = None):
+            attack: Attack, live: torch.Tensor | None = None,
+            accum_dtype=None):
     """PS fusion round of K scenarios: each queries its reps, trims its F
     from each end of its own pool (``F`` an int, or a (K,) tensor), and
     pushes its w_tilde back to its queried reps outside C. ``live`` (K·N,)
     bool (churn): dead representatives neither answer (their pool slots
-    are masked) nor adopt."""
+    are masked) nor adopt. The pool is summed in ``accum_dtype`` and
+    w_tilde goes back to ``r_in``'s dtype."""
     n, pair = r_in.shape[0], tuple(r_in.shape[1:])
     N = n // K
     sl = (K, n_reps) + (1,) * len(pair)
@@ -523,7 +538,7 @@ def _fusion(key: Key, t: int, r_in: torch.Tensor, rt: ByzRuntime, *,
     local = reps - torch.arange(K, device=reps.device)[:, None] * N
     if attack.nbr_messages is not None:
         reply = attack.nbr_messages(key, t, r_in.view((K, N) + pair),
-                                    local[:, None, :])[:, 0]
+                                    local[:, None, :])[:, 0].to(r_in.dtype)
     elif len(pair) == 2:
         reply = torch.stack([
             attack.ps_reply(kk, t, r_in[k * N:(k + 1) * N])[local[k]]
@@ -534,7 +549,8 @@ def _fusion(key: Key, t: int, r_in: torch.Tensor, rt: ByzRuntime, *,
     w = ps_trimmed_pool(
         rep_vals,
         torch.ones((K, n_reps), dtype=torch.bool, device=r_in.device)
-        if live is None else live[reps], F)
+        if live is None else live[reps], F,
+        accum_dtype=accum_dtype).to(r_in.dtype)
     adopt = torch.zeros(n, dtype=torch.bool, device=r_in.device)
     adopt[reps.reshape(-1)] = True
     adopt &= ~rt.in_C
@@ -600,6 +616,7 @@ def _scan_core(
     rep_plan: _RepPlan | None,
     n_reps: int,
     faults: FaultModel | None = None,
+    policy=None,
 ) -> ByzantineResult:
     """Algorithm 2's loop over K scenarios in lockstep, all on one device:
     ``keys`` holds K numpy words and ``rt`` is one scenario's runtime (K =
@@ -619,8 +636,14 @@ def _scan_core(
     goes to K3, a dead agent's statistic and cumulative LLR freeze, dead
     representatives leave the fusion, and the PS coins of all T × K
     rounds, drawn on the host up front, are ANDed into the host's fusion
-    rounds."""
+    rounds.
+
+    ``policy`` carries r and the cumulative LLR at its storage dtype and
+    runs the innovation sum, the gossip trim and update and the fusion
+    pool in its accum dtype; the statistics come out float32."""
     N, m = log_tables.shape[0], log_tables.shape[1]
+    st, _, ac = policy_dtypes(policy)
+    accum = None if policy is None else ac
     K = len(keys.k0)
     dev = log_tables.device
     pair = (m, m) if mode == "pairwise" else (m,)
@@ -658,7 +681,7 @@ def _scan_core(
                                   for t in range(T)], None)
     fus_keys = fold_rounds(keys, [stream_fold(t, STREAM_FUSION)
                                   for t in range(T)], None)
-    r = torch.zeros((n,) + pair, device=dev)
+    r = torch.zeros((n,) + pair, dtype=st, device=dev)
     cum_llr = torch.zeros_like(r)
     rs, decs = [], []
     live = None
@@ -673,16 +696,19 @@ def _scan_core(
             rt_t = rt._replace(nbr_valid=rt.nbr_valid & ~drop
                                & live[rt.nbr_idx] & live[:, None])
         # ---- innovation accumulator (cumulative LLR of all signals so far)
-        cum_new = cum_llr + _innovation(
-            Key(sig_keys.k0[t], sig_keys.k1[t]), cdf, log_tables, mode)
+        cum_new = (cum_llr.to(ac) + _innovation(
+            Key(sig_keys.k0[t], sig_keys.k1[t]), cdf, log_tables,
+            mode)).to(st)
         # dead agents observe no signal: the accumulator freezes
         cum_llr = cum_new if live is None else torch.where(
             live.reshape(sl), cum_new, cum_llr)
         # ---- intra-C gossip with trimming (lines 6-9)
         tsum, kept = gossip(Key(gos_keys.k0[t], gos_keys.k1[t]), t, r, rt_t,
-                            K=K, F=F_recv, nbr_local=nbr_local)
-        r_gossip = (tsum + r) / (kept.reshape(sl) + 1.0) + cum_llr
-        r_new = torch.where(active, r_gossip, r)
+                            K=K, F=F_recv, nbr_local=nbr_local,
+                            accum_dtype=accum)
+        r_gossip = ((tsum + r.to(ac)) / (kept.reshape(sl) + 1.0)
+                    + cum_llr.to(ac))
+        r_new = torch.where(active, r_gossip, r.to(ac)).to(st)
         if live is not None:
             # dead agents neither gossip nor update: stale rejoin
             r_new = torch.where(live.reshape(sl), r_new, r)
@@ -691,7 +717,8 @@ def _scan_core(
         if fuse_at[t].any():
             fused = _fusion(Key(fus_keys.k0[t], fus_keys.k1[t]), t, r_new,
                             rt, K=K, F=F_pool, n_reps=n_reps,
-                            rep_plan=rep_plan, attack=attack, live=live)
+                            rep_plan=rep_plan, attack=attack, live=live,
+                            accum_dtype=accum)
             r_new = fused if fuse_at[t].all() else torch.where(
                 fuse_dev[t].view((K, 1) + (1,) * len(pair)),
                 fused.view((K, N) + pair),
@@ -708,9 +735,9 @@ def _scan_core(
         return (torch.stack(xs, dim=1) if xs
                 else torch.zeros((K, 0) + shape, dtype=dtype, device=dev))
 
-    r_k = r.view((K, N) + pair)
+    r_k = r.float().view((K, N) + pair)
     if store == "trajectory":
-        return ByzantineResult(r=tail(stack(rs, (N,) + pair, r.dtype)),
+        return ByzantineResult(r=tail(stack(rs, (N,) + pair, r.dtype).float()),
                                decisions=stack(decs, (N,), torch.int32))
     if store == "decisions":
         return ByzantineResult(r=tail(r_k),
@@ -722,11 +749,12 @@ def _scan_core(
 def _build_scan(model: SignalModel, rt: ByzRuntime, extra_reps, n_reps: int,
                 attack: Attack, T: int, *, mode: str, core: str,
                 backend: str, store: str, device,
-                faults: FaultModel | None = None):
+                faults: FaultModel | None = None, policy=None):
     """Validate the options, move the runtime (one scenario's, or K
     stacked) and hoisted tables to the device once, and return
     ``run(keys) -> ByzantineResult`` with a leading K, ``keys`` a key of
     K numpy words."""
+    accum = None if policy is None else policy_dtypes(policy)[2]
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if core not in CORES:
@@ -754,11 +782,12 @@ def _build_scan(model: SignalModel, rt: ByzRuntime, extra_reps, n_reps: int,
             n_reps=n_reps)
     if core == "sparse":
         gossip = functools.partial(_sparse_gossip, attack=attack, mode=mode,
-                                   backend=backend)
+                                   backend=backend, accum_dtype=accum)
     else:
         gossip = functools.partial(
             _dense_gossip, attack=attack, mode=mode,
-            adj=torch.from_numpy(gossip_adjacency(rt)).to(dev))
+            adj=torch.from_numpy(gossip_adjacency(rt)).to(dev),
+            accum_dtype=accum)
     tables = model.tables.to(dev, torch.float32)
     return functools.partial(
         _scan_core,
@@ -773,6 +802,7 @@ def _build_scan(model: SignalModel, rt: ByzRuntime, extra_reps, n_reps: int,
         rep_plan=rep_plan,
         n_reps=n_reps,
         faults=faults,
+        policy=policy,
     )
 
 
@@ -794,6 +824,7 @@ def make_byzantine_scan(
     core: str = "sparse",
     backend: str = "auto",
     store: str = "trajectory",
+    policy=None,
     device=None,
 ) -> Callable[[Key], ByzantineResult]:
     """Build Algorithm 2's loop for a fixed (model, cfg, T).
@@ -804,7 +835,8 @@ def make_byzantine_scan(
     selects pairwise (m, m) dynamics or the one-vs-rest (m,) ablation;
     ``core`` the sparse neighbor-list trim or the dense broadcast oracle;
     ``backend`` the sparse trim's route (:mod:`repro_torch.kernels.
-    dispatch`); ``store`` what the loop keeps (:class:`ByzantineResult`).
+    dispatch`); ``store`` what the loop keeps (:class:`ByzantineResult`);
+    ``policy`` the precision policy (:mod:`repro_torch.core.precision`).
     The execution planes arrive only as plan fields, so the fault plane
     runs through :func:`run_byzantine_runtime` / :func:`run_byzantine_learning`.
     ``device=None`` means the card, and raises where there is none. The
@@ -813,7 +845,7 @@ def make_byzantine_scan(
     rt, extra_reps, n_reps = make_byzantine_runtime(model, cfg)
     run = _build_scan(model, rt, extra_reps, n_reps, cfg.attack, T,
                       mode=mode, core=core, backend=backend, store=store,
-                      device=device)
+                      device=device, policy=policy)
     return lambda key: _first(run(_one(key)))
 
 
@@ -839,16 +871,17 @@ def run_byzantine_runtime(
     loop keeps (``None`` means ``"trajectory"``); ``plan.dst_sorted`` is
     not read, as neighbor rows are receiver-major by construction.
     ``plan.faults`` runs the fault plane (sparse core only); the engine
-    has no async mode, so ``plan.async_`` raises. ``device=None`` means
-    the card, and raises where there is none; pass ``device="cpu"`` to run
-    the plain PyTorch path on the CPU.
+    has no async mode, so ``plan.async_`` raises. ``plan.policy`` is the
+    precision policy (K3 on half storage on the card). ``device=None``
+    means the card, and raises where there is none; pass ``device="cpu"``
+    to run the plain PyTorch path on the CPU.
     """
     plan = check_plan(plan, "run_byzantine_runtime",
-                      ("backend", "store", "dst_sorted", "faults"))
+                      ("backend", "store", "dst_sorted", "faults", "policy"))
     store = "trajectory" if plan.store is None else plan.store
     run = _build_scan(model, rt, extra_reps, n_reps, attack, T, mode=mode,
                       core=core, backend=plan.backend, store=store,
-                      device=device, faults=plan.faults)
+                      device=device, faults=plan.faults, policy=plan.policy)
     return _first(run(_one(prng_key(seed))))
 
 
@@ -866,7 +899,7 @@ def run_byzantine_learning(
     """Run Algorithm 2 for T iterations (single scenario); see
     :func:`run_byzantine_runtime`."""
     check_plan(plan, "run_byzantine_learning",
-               ("backend", "store", "dst_sorted", "faults"))
+               ("backend", "store", "dst_sorted", "faults", "policy"))
     rt, extra_reps, n_reps = make_byzantine_runtime(model, cfg)
     return run_byzantine_runtime(model, rt, extra_reps, n_reps, cfg.attack,
                                  T, seed, mode=mode, core=core, plan=plan,

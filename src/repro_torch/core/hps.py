@@ -1,7 +1,6 @@
 """Hierarchical push-sum (HPS) — Algorithm 1 of the paper.
 
-The port of ``repro.core.hps`` on its synchronous, float32, single-device
-path. M sub-networks each run fast robust push-sum in parallel
+The port of ``repro.core.hps`` on its single-device path. M sub-networks each run fast robust push-sum in parallel
 (block-diagonal adjacency); every Γ iterations each network's designated
 representative pushes half of its (value, mass) to the parameter server,
 which averages the halves and pushes the average back:
@@ -38,6 +37,11 @@ mean); ``F > 0`` drops the F largest and F smallest representative
 contributions per coordinate before averaging (:func:`ps_trimmed_pool`),
 the rule Algorithm 2's parameter server reduces through as well. The
 trimmed rule is resilient, not average-preserving.
+
+The precision policy (``plan.policy``, :mod:`.precision`) stores the
+state at its storage dtype; the fusion pools are summed in the accum
+dtype and the results go back to storage; the ratio and gap diagnostics
+are float32.
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ from .asyncrony import AsyncModel, is_degenerate_async
 from .faults import ENGINE_HPS, FaultModel, ps_alive_rounds
 from .graphs import EdgeList, HierTopology, edge_list, sort_by_dst
 from .plan import ExecutionPlan, check_plan, resolve_device
+from .precision import policy_dtypes
 from .prng import Key, fold_rounds, prng_key
 from .pushsum import (
     PlaneRounds,
@@ -132,6 +137,8 @@ def ps_trimmed_pool(
     pool: torch.Tensor,    # (R, *coord), or (K, R, *coord) for K pools
     valid: torch.Tensor,   # (R,) or (K, R) bool — pool membership mask
     F,                     # int, or (K,) int tensor: each pool's own F
+    *,
+    accum_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Trimmed mean over the parameter server's candidate pool, (*coord,),
     or over each of K pools at once, (K, *coord).
@@ -145,6 +152,8 @@ def ps_trimmed_pool(
     Algorithm 2's queried representatives, or Algorithm 1's whole (N,
     d+1) state masked to the representatives (up to N slots, past K3's
     64), once every Γ rounds: it stays plain on every device.
+    ``accum_dtype`` is the dtype of the survivor sums and the mean
+    (``None``: the pool's).
     """
     batched = valid.dim() == 2
     if not batched:
@@ -158,6 +167,7 @@ def ps_trimmed_pool(
         r.new_zeros(()).expand(K, R, r.shape[1]),          # no substitution
         torch.zeros((K, R), dtype=torch.bool, device=r.device),
         F,
+        accum_dtype,
     )
     out = (tsum / kept.clamp_min(1.0)[:, None]).reshape(
         (K,) + tuple(pool.shape[2:]))
@@ -165,7 +175,8 @@ def ps_trimmed_pool(
 
 
 def _fuse(zm: torch.Tensor, rep_mask: torch.Tensor, M,
-          F: int = 0, live: torch.Tensor | None = None) -> torch.Tensor:
+          F: int = 0, live: torch.Tensor | None = None,
+          accum_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The fusion on the joint (K, N, d+1) value-and-mass state of K
     scenarios (``rep_mask`` (K, N), ``M`` an int or a (K,) tensor): each
     representative keeps half and adds the halves pooled over its own
@@ -173,23 +184,28 @@ def _fuse(zm: torch.Tensor, rep_mask: torch.Tensor, M,
 
     ``live`` (K, N) bool (churn): only live representatives pool and
     adopt; at F = 0 the weight ``1 / 2M`` becomes ``1 / (2 max(live
-    reps, 1))``, so the fusion keeps the live representatives' mass."""
+    reps, 1))``, so the fusion keeps the live representatives' mass.
+    ``accum_dtype`` is the dtype the pools and the update run in; the
+    result is in ``zm``'s dtype (``None``: all in ``zm``'s)."""
+    ad = zm.dtype if accum_dtype is None else accum_dtype
     eff = rep_mask if live is None else rep_mask & live
+    za = zm.to(ad)
     if F == 0:
         if live is not None:
-            M = eff.sum(dim=-1, keepdim=True).to(zm.dtype).clamp_min(1.0)
+            M = eff.sum(dim=-1, keepdim=True).to(ad).clamp_min(1.0)
         elif torch.is_tensor(M) and M.ndim:
             M = M[:, None]
-        pooled = ((zm * eff.to(zm.dtype)[..., None]).sum(dim=-2)
-                  / (2.0 * M))
+        pooled = ((za * eff.to(ad)[..., None]).sum(dim=-2) / (2.0 * M))
     else:
-        pooled = 0.5 * ps_trimmed_pool(zm, eff, F)
-    return torch.where(eff[..., None], 0.5 * zm + pooled[:, None, :], zm)
+        pooled = 0.5 * ps_trimmed_pool(zm, eff, F, accum_dtype=accum_dtype)
+    return torch.where(eff[..., None], 0.5 * za + pooled[:, None, :],
+                       za).to(zm.dtype)
 
 
 def hps_fusion(
     z: torch.Tensor, m: torch.Tensor, rep_mask: torch.Tensor, M, F: int = 0,
     *, live: torch.Tensor | None = None,
+    accum_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Apply the hierarchical fusion at the representatives; the others
     are untouched.
@@ -200,9 +216,10 @@ def hps_fusion(
     in the reference. ``F > 0``: ``0.5 * x + 0.5 * ps_trimmed_pool(...)``
     over the representatives' (z, m) rows, which needs ``M >= 2F + 1``
     and is not average-preserving. ``live`` (N,) bool: only live
-    representatives pool and adopt (:func:`_fuse`)."""
+    representatives pool and adopt (:func:`_fuse`). ``accum_dtype``: the
+    pools run in it and (z, m) come back in their own dtype."""
     zm = _fuse(torch.cat([z, m[:, None]], dim=1)[None], rep_mask[None], M,
-               F, None if live is None else live[None])[0]
+               F, None if live is None else live[None], accum_dtype)[0]
     return zm[:, :-1], zm[:, -1]
 
 
@@ -321,6 +338,7 @@ def _hps_scan_core(
     F: int = 0,
     faults: FaultModel | None = None,
     async_: AsyncModel | None = None,
+    policy=None,
 ) -> tuple[SparsePushSumState, tuple[torch.Tensor, torch.Tensor]]:
     """Algorithm 1's loop over the runtime's tensors, all on ``w``'s device.
 
@@ -340,14 +358,17 @@ def _hps_scan_core(
     T × K drawn on the host up front) says the server is down.
     ``async_`` runs the async plane (wake coins on ``ENGINE_HPS``'s
     stream, delivery from the per-edge buffer through K1); the fusion
-    stays on the global Γ clock."""
+    stays on the global Γ clock. ``policy`` keeps the state at its
+    storage dtype, with the receiver sums and the fusion pools in its
+    accum dtype; ratios and gaps are float32."""
     N, d = w.shape
+    ac = policy_dtypes(policy)[2]
     K = rt.drop_prob.numel()
     E = rt.src.shape[0] // K
     drop, gamma, B, M = (x.reshape(-1) for x in (rt.drop_prob, rt.gamma,
                                                   rt.B, rt.M))
     rep = rt.rep_mask.view(K, N)
-    state = init_sparse_state(w.repeat(K, 1), K * E)
+    state = init_sparse_state(w.repeat(K, 1), K * E, policy)
     # loop invariants of the fixed edge index and inputs
     share = 1.0 / (_out_degree(rt.src, rt.valid, K * N, w.dtype) + 1.0)
     target = w.mean(dim=0)
@@ -355,7 +376,7 @@ def _hps_scan_core(
                        w.device)
     planes = PlaneRounds.build(key, T, ENGINE_HPS, faults, async_, E,
                                w.device)
-    fs, abuf = planes.init(K * N, K * E, d, w.device)
+    fs, abuf = planes.init(K * N, K * E, d, w.device, state.zm.dtype)
     ps_up = None if faults is None else torch.from_numpy(
         ps_alive_rounds(key, T, faults, engine=ENGINE_HPS)).to(w.device)
 
@@ -370,7 +391,8 @@ def _hps_scan_core(
                           planes.faults, fs, rt.src, rt.dst)
         st, abuf = plane_step(state, mask, rt.src, rt.dst, rt.valid,
                               backend, share=share, offsets=rt.offsets,
-                              fs=fs, awake=awake, abuf=abuf, planes=planes)
+                              fs=fs, awake=awake, abuf=abuf, planes=planes,
+                              policy=policy)
         # --- PS fusion every Γ (lines 13-21), per scenario ---
         zm = st.zm.view(K, N, d + 1)
         do_fusion = (t + 1) % gamma == 0
@@ -379,7 +401,8 @@ def _hps_scan_core(
             do_fusion = do_fusion & ps_up[t]
         live = None if fs is None else fs.node_live.view(K, N)
         state = st._replace(zm=torch.where(
-            do_fusion[:, None, None], _fuse(zm, rep, M, F, live),
+            do_fusion[:, None, None],
+            _fuse(zm, rep, M, F, live, None if policy is None else ac),
             zm).view(K * N, d + 1))
         if store == "trajectory":
             ys.append(ratios_k(state))
@@ -417,12 +440,14 @@ def run_hps_runtime(
     asserts a dst-sorted edge index and is checked against the runtime.
     ``plan.faults`` and ``plan.async_`` run the fault and async planes
     (:func:`_hps_scan_core`); a degenerate async model runs the
-    synchronous loop. ``device=None`` means the card, and raises where
-    there is none; pass ``device="cpu"`` to run the plain PyTorch path on
-    the CPU.
+    synchronous loop. ``plan.policy`` is the precision policy (state at
+    its storage dtype, K1 on half storage on the card). ``device=None``
+    means the card, and raises where there is none; pass ``device="cpu"``
+    to run the plain PyTorch path on the CPU.
     """
     plan = check_plan(plan, "run_hps_runtime",
-                      ("backend", "store", "dst_sorted", "faults", "async_"))
+                      ("backend", "store", "dst_sorted", "faults", "async_",
+                       "policy"))
     store = "trajectory" if plan.store is None else plan.store
     if store not in HPS_STORES:
         raise ValueError(f"store must be one of {HPS_STORES}, got {store!r}")
@@ -434,7 +459,8 @@ def run_hps_runtime(
         prng_key(seed), rt.to(dev),
         torch.as_tensor(w, dtype=torch.float32, device=dev),
         T=T, store=store, backend=plan.backend, F=F, faults=plan.faults,
-        async_=None if is_degenerate_async(plan.async_) else plan.async_)
+        async_=None if is_degenerate_async(plan.async_) else plan.async_,
+        policy=plan.policy)
     return HPSResult(ratio=ratio, final_state=final, gap=gap)
 
 
@@ -451,7 +477,7 @@ def run_hps(
     """Run HPS for T iterations on an :class:`HPSConfig` scenario (whose
     edge index is always dst-sorted); see :func:`run_hps_runtime`."""
     plan = check_plan(plan, "run_hps",
-                      ("backend", "store", "faults", "async_"))
+                      ("backend", "store", "faults", "async_", "policy"))
     return run_hps_runtime(w, make_hps_runtime(cfg), T, seed=seed, F=F,
                            plan=plan.replace(dst_sorted=True), device=device)
 

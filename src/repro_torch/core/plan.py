@@ -14,6 +14,9 @@ The port's plan carries only the fields its engines support so far:
 ``async_``      a :class:`repro_torch.core.asyncrony.AsyncModel`, or a
                 sequence (the grids cross an async axis, minor-most);
                 ``None`` is the synchronous program.
+``policy``      the precision policy: a name (``"fp32"``, ``"bf16"``), a
+                :class:`repro_torch.core.precision.Policy`, or ``None``
+                (the dtype-transparent float32 program).
 
 Each entry point names the fields it honours (:func:`check_plan`): any
 other field set away from its default raises ``ValueError``, as the
@@ -29,6 +32,8 @@ from typing import Any
 
 import torch
 
+from .precision import resolve_policy
+
 __all__ = ["ExecutionPlan", "check_plan", "resolve_device"]
 
 
@@ -41,6 +46,7 @@ class ExecutionPlan:
     dst_sorted: bool = False
     faults: Any = None
     async_: Any = None
+    policy: Any = None
 
     def replace(self, **kw) -> "ExecutionPlan":
         return dataclasses.replace(self, **kw)
@@ -54,6 +60,8 @@ def check_plan(plan: ExecutionPlan | None, entry: str,
     """``plan`` (``None`` means the default), after checking that every
     field ``entry`` does not honour keeps its default."""
     plan = _DEFAULT if plan is None else plan
+    if plan.policy is not None:
+        resolve_policy(plan.policy)     # an unknown name raises here
     for f in dataclasses.fields(ExecutionPlan):
         if f.name in supports:
             continue

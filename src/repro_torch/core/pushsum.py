@@ -25,7 +25,9 @@ views of the reference's six fields.
 The sparse step carries the fault plane (:mod:`.faults`: churn masks a
 dead agent's edges and freezes its rows of ``zm`` and ``sigma_zm``) and
 the async plane (:mod:`.asyncrony`: awake senders latch the per-edge
-buffer, which K1 then delivers as its source rows).
+buffer, which K1 then delivers as its source rows), and the precision
+policy (:mod:`.precision`: every field stored at the storage dtype, the
+staging in the compute dtype, the receiver sums in the accum dtype).
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from .faults import (ENGINE_PUSHSUM, FAULT_CHURN, FAULT_EDGE, FaultModel,
                      faulty_edge_mask, freeze, init_fault_state)
 from .graphs import EdgeList, _dst_offsets, is_dst_sorted
 from .plan import ExecutionPlan, check_plan, resolve_device
+from .precision import HALF_DTYPES, policy_dtypes
 from .prng import Key, fold_in, fold_rounds, prng_key, uniform
 
 __all__ = [
@@ -194,15 +197,19 @@ class SparsePushSumState(NamedTuple):
                 for f in ("z", "m", "sigma", "sigma_m", "rho", "rho_m")}
 
 
-def init_sparse_state(w: torch.Tensor, n_edges: int) -> SparsePushSumState:
+def init_sparse_state(w: torch.Tensor, n_edges: int,
+                      policy=None) -> SparsePushSumState:
     """w: (N, d) initial values; ``n_edges`` the (padded) edge count E.
-    Mass starts at 1, every cumulative at 0."""
+    Mass starts at 1, every cumulative at 0. ``policy`` (a
+    :class:`repro_torch.core.precision.Policy`, a name or ``None``) sets
+    the storage dtype of every field; ``None`` keeps ``w.dtype``."""
     n, d = w.shape
-    ones = torch.ones((n, 1), dtype=w.dtype, device=w.device)
+    dt = policy_dtypes(policy, w.dtype)[0]
+    ones = torch.ones((n, 1), dtype=dt, device=w.device)
     return SparsePushSumState(
-        zm=torch.cat([w, ones], dim=1),
-        sigma_zm=torch.zeros((n, d + 1), dtype=w.dtype, device=w.device),
-        rho_zm=torch.zeros((n_edges, d + 1), dtype=w.dtype, device=w.device),
+        zm=torch.cat([w.to(dt), ones], dim=1),
+        sigma_zm=torch.zeros((n, d + 1), dtype=dt, device=w.device),
+        rho_zm=torch.zeros((n_edges, d + 1), dtype=dt, device=w.device),
     )
 
 
@@ -254,6 +261,7 @@ def sparse_pushsum_step(
     awake: torch.Tensor | None = None,
     abuf: AsyncBuffer | None = None,
     staleness: torch.Tensor | None = None,
+    policy=None,
 ) -> SparsePushSumState | tuple[SparsePushSumState, AsyncBuffer]:
     """One fast-robust-push-sum round on edge-list state.
 
@@ -275,14 +283,25 @@ def sparse_pushsum_step(
     the identity source index) where the link is up, the receiver awake
     and the slot at most ``staleness`` ticks old; asleep agents' rows are
     frozen. The degenerate model gives the synchronous step bit for bit.
+
+    ``policy`` (:mod:`repro_torch.core.precision`) keeps the reference's
+    cast points: the send is staged in the compute dtype and quantized to
+    storage before delivery, K1 sums each receiver's increments in the
+    accum dtype, the integration adds them in accum, and the re-stage
+    reads the quantized send back, so a receiver latches exactly what the
+    sender keeps and the telescoping sums re-measure the rounding every
+    round. ``None`` keeps the state's dtype throughout (the pre-policy
+    program; ``"fp32"`` is the same program).
     """
     zm, sigma_zm, rho_zm = state
     n = zm.shape[0]
+    st, cp, ac = policy_dtypes(policy, zm.dtype)
     if share is None:
-        share = 1.0 / (_out_degree(src, valid, n, zm.dtype) + 1.0)
-    share = share[:, None]
-    # first half: stage the cumulative send
-    sigma_p = sigma_zm + zm * share
+        share = 1.0 / (_out_degree(src, valid, n, cp) + 1.0)
+    share = share.to(cp)[:, None]
+    # first half: stage the cumulative send (compute), quantize to storage;
+    # the quantized value is delivered AND re-staged
+    sigma_p = (sigma_zm.to(cp) + zm.to(cp) * share).to(st)
     if faults is not None:
         # a dead endpoint takes the edge down in both directions
         mask = mask & faults.node_live[src] & faults.node_live[dst]
@@ -299,15 +318,18 @@ def sparse_pushsum_step(
         ident = torch.arange(src.shape[0], dtype=torch.int32,
                              device=src.device)
         rho_new, recv = edge_scatter(snap, rho_zm, live, ident, dst, backend,
-                                     offsets=offsets, n_recv=n)
+                                     offsets=offsets, n_recv=n,
+                                     accum_dtype=ac)
     else:
         # delivery + integration: operational edges latch the new cumulative
         rho_new, recv = edge_scatter(sigma_p, rho_zm, live, src, dst,
-                                     backend, offsets=offsets)
-    zm_p = zm * share + recv
-    # second half: re-stage at once
-    zm_n = zm_p * share
-    sigma_n = sigma_p + zm_p * share
+                                     backend, offsets=offsets,
+                                     accum_dtype=ac)
+    zm_p = (zm.to(cp) * share).to(ac) + recv
+    # second half: re-stage at once, down to storage
+    zm_pc = zm_p.to(cp)
+    zm_n = (zm_pc * share).to(st)
+    sigma_n = (sigma_p.to(cp) + zm_pc * share).to(st)
     for on in (awake, None if faults is None else faults.node_live):
         if on is not None:
             # asleep or dead agents do nothing: their rows carry over
@@ -317,9 +339,17 @@ def sparse_pushsum_step(
     return new if abuf is None else (new, abuf_new)
 
 
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """A half-storage tensor upcast to float32; others as they are."""
+    return x.float() if x.dtype in HALF_DTYPES else x
+
+
 def sparse_ratios(state: SparsePushSumState) -> torch.Tensor:
-    """The push-sum estimate z/m per agent, (N, d)."""
-    return state.z / state.m.clamp_min(1e-30)[:, None]
+    """The push-sum estimate z/m per agent, (N, d). A half-storage state
+    is upcast to float32 first (the 1e-30 mass floor underflows in half
+    precision), as in the reference."""
+    zm = _full(state.zm)
+    return zm[:, :-1] / zm[:, -1].clamp_min(1e-30)[:, None]
 
 
 def sparse_mass_invariant(
@@ -328,10 +358,11 @@ def sparse_mass_invariant(
     """sum_j zm_j + sum_{e valid} (sigma_zm[src[e]] - rho_zm[e]), (d+1,).
 
     The first d entries are the reference's invariant (``sum_j w_j``); the
-    last is the total mass, which push-sum conserves at N."""
-    in_flight = ((state.sigma_zm[src] - state.rho_zm)
-                 * valid.to(state.zm.dtype)[:, None]).sum(dim=0)
-    return state.zm.sum(dim=0) + in_flight
+    last is the total mass, which push-sum conserves at N. A half-storage
+    state is upcast to float32 before the sums."""
+    zm, sigma, rho = (_full(x) for x in state)
+    in_flight = ((sigma[src] - rho) * valid.to(zm.dtype)[:, None]).sum(dim=0)
+    return zm.sum(dim=0) + in_flight
 
 
 def step_edge_mask(
@@ -398,13 +429,15 @@ class PlaneRounds(NamedTuple):
                 -1, n_edges).reshape(-1)
         return PlaneRounds(faults, fe, fc, async_, wk, stale)
 
-    def init(self, n_nodes: int, n_edges: int, d: int, device):
+    def init(self, n_nodes: int, n_edges: int, d: int, device,
+             dtype: torch.dtype = torch.float32):
         """The loop's initial fault state and async buffer (``None`` for a
-        plane that is off); sizes are the stacked K·N and K·E."""
+        plane that is off); sizes are the stacked K·N and K·E, ``dtype``
+        the buffer's (the state's storage dtype)."""
         fs = (None if self.faults is None
               else init_fault_state(n_nodes, n_edges, device))
         abuf = (None if self.async_ is None
-                else init_async_buffer(n_edges, d, device=device))
+                else init_async_buffer(n_edges, d, dtype, device=device))
         return fs, abuf
 
     def step(self, t: int, fs: FaultState | None, n_nodes: int):
@@ -425,17 +458,17 @@ def _row(keys: Key, t: int) -> Key:
 
 
 def plane_step(state, mask, src, dst, valid, backend, *, share, offsets,
-               fs, awake, abuf, planes: PlaneRounds):
+               fs, awake, abuf, planes: PlaneRounds, policy=None):
     """One round of :func:`sparse_pushsum_step` with the planes that are
-    on -> ``(state, abuf)``."""
+    on, under ``policy`` -> ``(state, abuf)``."""
     if abuf is None:
         return sparse_pushsum_step(state, mask, src, dst, valid, backend,
                                    share=share, offsets=offsets,
-                                   faults=fs), None
+                                   faults=fs, policy=policy), None
     return sparse_pushsum_step(state, mask, src, dst, valid, backend,
                                share=share, offsets=offsets, faults=fs,
                                awake=awake, abuf=abuf,
-                               staleness=planes.staleness)
+                               staleness=planes.staleness, policy=policy)
 
 
 def round_mask(kt: Key, t: int, n_edges: int, drop: torch.Tensor,
@@ -485,11 +518,14 @@ def run_pushsum_sparse(
     ``plan.async_`` (an :class:`repro_torch.core.asyncrony.AsyncModel`)
     the async plane, whose delivery runs through K1 on the per-edge
     buffer (a degenerate model runs the synchronous loop). Neither goes
-    with an explicit ``masks`` schedule. ``device=None`` means the card,
-    and raises where there is none.
+    with an explicit ``masks`` schedule. ``plan.policy`` stores the state
+    at the policy's storage dtype (K1 on half storage on the card); the
+    recorded ratios are float32. ``device=None`` means the card, and
+    raises where there is none.
     """
     plan = check_plan(plan, "run_pushsum_sparse",
-                      ("backend", "dst_sorted", "faults", "async_"))
+                      ("backend", "dst_sorted", "faults", "async_",
+                       "policy"))
     faults = plan.faults
     async_ = None if is_degenerate_async(plan.async_) else plan.async_
     dev = resolve_device(device)
@@ -520,10 +556,10 @@ def run_pushsum_sparse(
     key = prng_key(0) if key is None else key
     drop = torch.tensor(drop_prob, dtype=torch.float32, device=dev)
     Bt = torch.tensor(B, dtype=torch.int32, device=dev)
-    state = init_sparse_state(w, E)
+    state = init_sparse_state(w, E, plan.policy)
     planes = PlaneRounds.build(key, T, ENGINE_PUSHSUM, faults, async_, E,
                                dev)
-    fs, abuf = planes.init(N, E, w.shape[1], dev)
+    fs, abuf = planes.init(N, E, w.shape[1], dev, state.zm.dtype)
     traj = []
     for t in range(T):
         if masks is not None:
@@ -534,7 +570,8 @@ def run_pushsum_sparse(
                               planes.faults, fs, src, dst)
         state, abuf = plane_step(state, mask, src, dst, valid, plan.backend,
                                  share=share, offsets=offsets, fs=fs,
-                                 awake=awake, abuf=abuf, planes=planes)
+                                 awake=awake, abuf=abuf, planes=planes,
+                                 policy=plan.policy)
         if (t + 1) % record_every == 0:
             traj.append(sparse_ratios(state))
-    return state, _frames(traj, state.z)
+    return state, _frames(traj, w)

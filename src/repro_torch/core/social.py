@@ -1,7 +1,7 @@
 """Non-Bayesian learning over packet-dropping links — Algorithm 3 / Theorem 2.
 
-The port of ``repro.core.social`` on its synchronous, fp32, single-device
-path. Each iteration interleaves one push-sum round on the per-hypothesis
+The port of ``repro.core.social`` on its single-device path. Each
+iteration interleaves one push-sum round on the per-hypothesis
 log-likelihood accumulator ``z`` (N, m) and the mass ``m`` (N,) with the
 local innovation ``z += log l(s_t | .)`` and the dual-averaging belief
 ``mu_j = softmax(z_j / m_j)``, in Algorithm 3's order: consensus (lines
@@ -27,6 +27,12 @@ The fault and async planes (:mod:`.faults`, :mod:`.asyncrony`) run in the
 same loop: a dead or asleep agent gossips nothing and observes no signal
 (its accumulator and belief stay frozen), dead representatives leave the
 fusion, and a crashed PS skips the round's fusion.
+
+The precision policy (``plan.policy``, :mod:`.precision`) stores the
+consensus state and the carried belief at its storage dtype, so under a
+half policy no float32 (N, m) value persists across rounds; the
+innovation and the belief run in its accum dtype (K2 on half storage on
+the card), and the beliefs and log-ratios come out float32.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from .faults import ENGINE_SOCIAL, FaultModel, freeze, ps_alive_rounds
 from .graphs import EdgeList
 from .hps import HPSConfig, _fuse
 from .plan import ExecutionPlan, check_plan, resolve_device
+from .precision import policy_dtypes
 from .prng import Key, fold_rounds, prng_key, uniform
 from .pushsum import (
     PlaneRounds,
@@ -182,6 +189,7 @@ def _social_scan_core(
     backend: str,
     faults: FaultModel | None = None,
     async_: AsyncModel | None = None,
+    policy=None,
 ) -> tuple[SparsePushSumState, tuple[torch.Tensor, torch.Tensor]]:
     """Algorithm 3's loop over the runtime's tensors, all on one device.
 
@@ -200,8 +208,16 @@ def _social_scan_core(
     accumulator and belief then keep their previous values; dead
     representatives leave the fusion, and the PS coins of all T × K
     rounds are drawn on the host up front.
+
+    ``policy``: the state and the carried belief at its storage dtype;
+    K2 takes the storage-typed accumulator and mass, adds the signal's
+    log-likelihood in the accum dtype and emits the belief in it; the
+    fusion pools in accum. The trajectory store keeps each round's accum
+    belief, the others the carried (storage) one, upcast to float32.
     """
     N, m = log_tables.shape[0], log_tables.shape[1]
+    st, _, ac = policy_dtypes(policy)
+    accum = None if policy is None else ac
     K = rt.drop_prob.numel()
     E = rt.src.shape[0] // K
     dev = log_tables.device
@@ -214,7 +230,8 @@ def _social_scan_core(
     if K > 1:
         log_tables, cdf = log_tables.repeat(K, 1, 1), cdf.repeat(K, 1)
     # z accumulates per-hypothesis log-likelihood sums; init 0 (line 1)
-    state = init_sparse_state(torch.zeros((K * N, m), device=dev), K * E)
+    state = init_sparse_state(torch.zeros((K * N, m), device=dev), K * E,
+                              policy)
     # loop invariants of the fixed edge index
     share = 1.0 / (_out_degree(rt.src, rt.valid, K * N) + 1.0)
     wrong_col = torch.arange(m, device=dev) == truth
@@ -226,32 +243,33 @@ def _social_scan_core(
         dev)
     planes = PlaneRounds.build(mask_key, T, ENGINE_SOCIAL, faults, async_,
                                E, dev)
-    fs, abuf = planes.init(K * N, K * E, m, dev)
+    fs, abuf = planes.init(K * N, K * E, m, dev, st)
     ps_up = None if faults is None else torch.from_numpy(
         ps_alive_rounds(mask_key, T, faults, engine=ENGINE_SOCIAL)).to(dev)
-    mu = torch.zeros((K * N, m), device=dev)
+    mu = torch.zeros((K * N, m), dtype=st, device=dev)   # carried belief
     ys = []
     for t in range(T):
         # --- consensus (lines 4-12) ---
         fs, awake = planes.step(t, fs, K * N)
         mask = round_mask(Key(mask_keys.k0[t], mask_keys.k1[t]), t, E, drop,
                           B, planes.faults, fs, rt.src, rt.dst)
-        st, abuf = plane_step(state, mask, rt.src, rt.dst, rt.valid,
+        cs, abuf = plane_step(state, mask, rt.src, rt.dst, rt.valid,
                               backend, share=share, offsets=rt.offsets,
-                              fs=fs, awake=awake, abuf=abuf, planes=planes)
+                              fs=fs, awake=awake, abuf=abuf, planes=planes,
+                              policy=policy)
         # --- innovation + belief (lines 13-16), one fused pass ---
         u = uniform(Key(sig_keys.k0[t], sig_keys.k1[t]), N, dev)
-        m_t = st.m.contiguous()
-        z_t = st.z.contiguous()
+        m_t = cs.m.contiguous()
+        z_t = cs.z.contiguous()
         z, mu_t = innovation_step(z_t, m_t, u.reshape(-1), cdf, log_tables,
-                                  backend)
+                                  backend, accum_dtype=accum)
         for on in (awake, None if fs is None else fs.node_live):
             if on is not None:
                 # asleep or dead agents observe nothing: the accumulator
                 # stays post-consensus and the belief stale
                 z = freeze(on, z, z_t)
-                mu_t = freeze(on, mu_t, mu)
-        mu = mu_t
+                mu_t = freeze(on, mu_t, mu.to(mu_t.dtype))
+        mu = mu_t.to(st)
         # --- PS fusion every Γ (lines 17-22), applied post-innovation;
         # the emitted belief is the pre-fusion one ---
         zm = torch.cat([z, m_t[:, None]], dim=1).view(K, N, m + 1)
@@ -259,17 +277,18 @@ def _social_scan_core(
         if ps_up is not None:
             do_fusion = do_fusion & ps_up[t]
         live = None if fs is None else fs.node_live.view(K, N)
-        state = st._replace(zm=torch.where(
-            do_fusion[:, None, None], _fuse(zm, rep, M, live=live),
+        state = cs._replace(zm=torch.where(
+            do_fusion[:, None, None],
+            _fuse(zm, rep, M, live=live, accum_dtype=accum),
             zm).view(K * N, m + 1))
         if store == "trajectory":
-            ys.append(mu.view(K, N, m))
+            ys.append(mu_t.view(K, N, m))
         elif store == "log_ratio":
-            log_mu = torch.log(mu.clamp_min(_MU_FLOOR))
+            log_mu = torch.log(mu_t.clamp_min(_MU_FLOOR))
             lr = log_mu - log_mu[:, truth : truth + 1]
             ys.append(lr.masked_fill(wrong_col, -torch.inf).view(
                 K, N, m).amax(dim=(1, 2)))
-    beliefs = mu.view(K, N, m)
+    beliefs = mu.float().view(K, N, m)
     if store == "log_ratio":
         log_ratio = (torch.stack(ys, dim=1) if ys
                      else torch.zeros((K, 0), device=dev))
@@ -302,12 +321,14 @@ def run_social_runtime(
     ``"trajectory"``; ``plan.dst_sorted=True`` asserts a dst-sorted edge
     index and is checked against the runtime. ``plan.faults`` and
     ``plan.async_`` run the fault and async planes; a degenerate async
-    model runs the synchronous loop. ``device=None`` means the card, and
-    raises where there is none; pass ``device="cpu"`` to run the plain
-    PyTorch path on the CPU.
+    model runs the synchronous loop. ``plan.policy`` is the precision
+    policy (K1 and K2 on half storage on the card). ``device=None`` means
+    the card, and raises where there is none; pass ``device="cpu"`` to
+    run the plain PyTorch path on the CPU.
     """
     plan = check_plan(plan, "run_social_runtime",
-                      ("backend", "store", "dst_sorted", "faults", "async_"))
+                      ("backend", "store", "dst_sorted", "faults", "async_",
+                       "policy"))
     store = "trajectory" if plan.store is None else plan.store
     if store not in SOCIAL_STORES:
         raise ValueError(f"store must be one of {SOCIAL_STORES}, got {store!r}")
@@ -329,6 +350,7 @@ def run_social_runtime(
         backend=plan.backend,
         faults=plan.faults,
         async_=None if is_degenerate_async(plan.async_) else plan.async_,
+        policy=plan.policy,
     )
     return SocialLearningResult(
         beliefs=beliefs, final_state=final, log_ratio=log_ratio)
@@ -348,7 +370,7 @@ def run_social_learning(
     (whose edge index is always dst-sorted); see :func:`run_social_runtime`.
     """
     plan = check_plan(plan, "run_social_learning",
-                      ("backend", "store", "faults", "async_"))
+                      ("backend", "store", "faults", "async_", "policy"))
     return run_social_runtime(
         model, make_social_runtime(cfg), cfg.topo.M, T,
         seed=seed, signal_seed=signal_seed,

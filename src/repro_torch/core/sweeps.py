@@ -40,7 +40,10 @@ fault axis (``plan.faults``: a model or a list, fault-minor) and the async
 axis (``plan.async_``, minor-most). A crossed grid is still one
 block-diagonal graph; its fault and async models ride as (K,) tensors and
 K1, K2 and K3 still launch once a round for all K. A single degenerate
-async model adds no axis (the synchronous loop). The Byzantine grid and
+async model adds no axis (the synchronous loop). Every entry point takes
+``plan.policy``, the precision policy of the whole block-diagonal graph
+(one policy for all K scenarios, so the kernels still launch once a round
+on half storage). The Byzantine grid and
 sweep take one fault model over every scenario (the grid's ``fault``
 column all zeros) and no async model. Not ported: ``mesh=`` sharding, and
 the jit and runtime caches and their registry.
@@ -71,6 +74,7 @@ from .plan import ExecutionPlan, check_plan, resolve_device
 from .prng import Key, fold_rounds
 from .pushsum import (
     PlaneRounds,
+    _full,
     _out_degree,
     init_sparse_state,
     plane_step,
@@ -359,20 +363,21 @@ def _scenario_grid(n_graphs: int, drop_probs, seeds):
 def _pushsum_sweep_core(keys: Key, src, dst, valid, offsets, drop, B,
                         w: torch.Tensor, *, T: int, backend: str,
                         faults: FaultModel | None = None,
-                        async_=None):
+                        async_=None, policy=None):
     """K push-sum scenarios on one block-diagonal graph of K·N nodes, from
     ``w`` each -> (err (K, T), final ratios (K, N, d), value invariant minus
-    sum(w), (K, d)). ``faults`` / ``async_`` carry (K,) leaves."""
+    sum(w), (K, d)). ``faults`` / ``async_`` carry (K,) leaves; ``policy``
+    is the precision policy (the invariant is summed in float32)."""
     N, d = w.shape
     K = drop.numel()
     E = src.shape[0] // K
-    state = init_sparse_state(w.repeat(K, 1), K * E)
+    state = init_sparse_state(w.repeat(K, 1), K * E, policy)
     share = 1.0 / (_out_degree(src, valid, K * N, w.dtype) + 1.0)
     target = w.mean(dim=0)
     kts = fold_rounds(keys, range(T), w.device)
     planes = PlaneRounds.build(keys, T, ENGINE_PUSHSUM, faults, async_, E,
                                w.device)
-    fs, abuf = planes.init(K * N, K * E, d, w.device)
+    fs, abuf = planes.init(K * N, K * E, d, w.device, state.zm.dtype)
     errs = []
     for t in range(T):
         fs, awake = planes.step(t, fs, K * N)
@@ -380,13 +385,15 @@ def _pushsum_sweep_core(keys: Key, src, dst, valid, offsets, drop, B,
                           planes.faults, fs, src, dst)
         state, abuf = plane_step(state, mask, src, dst, valid, backend,
                                  share=share, offsets=offsets, fs=fs,
-                                 awake=awake, abuf=abuf, planes=planes)
+                                 awake=awake, abuf=abuf, planes=planes,
+                                 policy=policy)
         errs.append((sparse_ratios(state).view(K, N, d) - target).abs()
                     .amax(dim=(1, 2)))
     err = torch.stack(errs, dim=1) if errs else w.new_zeros((K, 0))
-    in_flight = ((state.sigma[src] - state.rho)
+    z, sigma, rho = (_full(x) for x in (state.z, state.sigma, state.rho))
+    in_flight = ((sigma[src] - rho)
                  * valid.to(w.dtype)[:, None]).view(K, E, d).sum(dim=1)
-    invariant = state.z.view(K, N, d).sum(dim=1) + in_flight
+    invariant = z.view(K, N, d).sum(dim=1) + in_flight
     return err, sparse_ratios(state).view(K, N, d), invariant - w.sum(dim=0)
 
 
@@ -418,7 +425,8 @@ def run_pushsum_sweep(
     where there is none.
     """
     plan = check_plan(plan, "run_pushsum_sweep",
-                      ("backend", "dst_sorted", "faults", "async_"))
+                      ("backend", "dst_sorted", "faults", "async_",
+                       "policy"))
     dev = resolve_device(device)
     w = torch.as_tensor(w, dtype=torch.float32, device=dev)
     if w.shape[0] != el.n:
@@ -427,7 +435,8 @@ def run_pushsum_sweep(
     args, (gi, dp, sd), (fi, fm, ai, am) = _pushsum_grid(
         el, drop_probs, seeds, B, plan, dev)
     err, final, gap = _pushsum_sweep_core(*args, w, T=T, backend=plan.backend,
-                                          faults=fm, async_=am)
+                                          faults=fm, async_=am,
+                                          policy=plan.policy)
     return PushSumSweepResult(
         err=err, final_ratio=final, mass_gap=gap,
         drop_prob=torch.from_numpy(dp), seed=torch.from_numpy(sd),
@@ -528,7 +537,7 @@ def run_hps_grid(
     none.
     """
     plan = check_plan(plan, "run_hps_grid",
-                      ("backend", "store", "faults", "async_"))
+                      ("backend", "store", "faults", "async_", "policy"))
     store = "gap" if plan.store is None else plan.store
     cfgs = list(cfgs)
     if not cfgs:
@@ -543,7 +552,8 @@ def run_hps_grid(
                                                 make_hps_runtime, dev, plan)
     _, (ratio, gap) = _hps_scan_core(
         _keys(sd), rt, torch.as_tensor(w, dtype=torch.float32, device=dev),
-        T=T, store=store, backend=plan.backend, faults=fm, async_=am)
+        T=T, store=store, backend=plan.backend, faults=fm, async_=am,
+        policy=plan.policy)
     drops, gammas = _coords(cfgs, gi)
     Ms = np.asarray([c.topo.M for c in cfgs], np.int32)
     return HPSSweepResult(
@@ -569,7 +579,7 @@ def run_hps_sweep(
     order: base-major, then drop, then Γ, then seed, then fault, then
     async."""
     check_plan(plan, "run_hps_sweep",
-               ("backend", "store", "faults", "async_"))
+               ("backend", "store", "faults", "async_", "policy"))
     return run_hps_grid(w, _expand(cfg, drop_probs, gammas), T, seeds,
                         plan=plan, device=device)
 
@@ -599,7 +609,7 @@ def run_social_grid(
     none.
     """
     plan = check_plan(plan, "run_social_grid",
-                      ("backend", "store", "faults", "async_"))
+                      ("backend", "store", "faults", "async_", "policy"))
     store = "log_ratio" if plan.store is None else plan.store
     cfgs = list(cfgs)
     if not cfgs:
@@ -618,7 +628,7 @@ def run_social_grid(
         keys, keys, rt, torch.log(tables),
         torch.cumsum(tables[:, model.truth, :], dim=-1),
         truth=model.truth, M=M, T=T, store=store, backend=plan.backend,
-        faults=fm, async_=am)
+        faults=fm, async_=am, policy=plan.policy)
     drops, gammas = _coords(cfgs, gi)
     return SocialSweepResult(
         beliefs=beliefs, log_ratio=log_ratio, drop_prob=drops,
@@ -643,7 +653,7 @@ def run_social_sweep(
     order: base-major, then drop, then Γ, then seed, then fault, then
     async."""
     check_plan(plan, "run_social_sweep",
-               ("backend", "store", "faults", "async_"))
+               ("backend", "store", "faults", "async_", "policy"))
     return run_social_grid(model, _expand(cfg, drop_probs, gammas), T, seeds,
                            plan=plan, device=device)
 
@@ -705,7 +715,7 @@ def run_byzantine_sweep(
     ``device=None`` means the card, and raises where there is none.
     """
     plan = check_plan(plan, "run_byzantine_sweep",
-                      ("backend", "store", "faults"))
+                      ("backend", "store", "faults", "policy"))
     store = "trajectory" if plan.store is None else plan.store
     dev = resolve_device(device)
     sd = _seeds(seeds)
@@ -717,7 +727,8 @@ def run_byzantine_sweep(
     for atk in attacks if attacks is not None else [cfg.attack]:
         run = _build_scan(model, rt, extra_reps, n_reps, atk, T, mode=mode,
                           core=core, backend=plan.backend, store=store,
-                          device=dev, faults=plan.faults)
+                          device=dev, faults=plan.faults,
+                          policy=plan.policy)
         if core == "sparse":
             out[atk.name] = run(keys)
             continue
@@ -759,7 +770,7 @@ def run_byzantine_grid(
     mode). ``device=None`` means the card, and raises where there is none.
     """
     plan = check_plan(plan, "run_byzantine_grid",
-                      ("backend", "store", "faults"))
+                      ("backend", "store", "faults", "policy"))
     store = "decisions" if plan.store is None else plan.store
     cfgs = list(cfgs)
     if not cfgs:
@@ -784,7 +795,7 @@ def run_byzantine_grid(
     rt = stack_runtimes([runtimes[g] for g in gi])
     run = _build_scan(model, rt, None, M, atk, T, mode=mode, core="sparse",
                       backend=plan.backend, store=store, device=dev,
-                      faults=plan.faults)
+                      faults=plan.faults, policy=plan.policy)
     res = run(_keys(sd))
     Fs = np.asarray([c.F for c in cfgs], np.int32)
     return ByzantineGridResult(

@@ -20,6 +20,11 @@ depend on the pair coordinate because padding is per slot, not per value.
 Any ``byz_msgs`` view is accepted, including the stride-0 ``expand`` of a
 broadcast attack. The CPU path of the engine runs this, and the CUDA kernel
 is held against it.
+
+``accum_dtype`` is the precision policy's accumulation slot: the values
+are gathered, padded and sorted in the storage dtype of ``r`` (the pad
+``finfo(r.dtype).max / 4`` too), and the survivor sum and ``kept`` are
+taken in ``accum_dtype`` (``None`` keeps ``r.dtype``).
 """
 from __future__ import annotations
 
@@ -35,8 +40,10 @@ def trim_gather_ref(
     byz_msgs: torch.Tensor,   # (N, deg_max, P) attack values per slot
     byz_nbr: torch.Tensor,    # (N, deg_max) bool — slot's sender is Byzantine
     F: int | torch.Tensor,    # int, or (N,) per receiver
+    accum_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(trimmed_sum (N, P), kept (N,) float)``."""
+    ad = r.dtype if accum_dtype is None else accum_dtype
     big = torch.finfo(r.dtype).max / 4
     gathered = r[nbr_idx.long()]                            # (N, deg_max, P)
     vals = torch.where(byz_nbr[:, :, None], byz_msgs, gathered)
@@ -53,6 +60,6 @@ def trim_gather_ref(
         f3 = F
     ranks = torch.arange(masked.shape[1], device=r.device)[None, :, None]
     keep = (ranks >= f3) & (ranks < (deg[:, None, None] - f3))
-    tsum = (s * keep.to(r.dtype)).sum(dim=1)
-    kept = (deg - 2 * F).clamp_min(0).to(r.dtype)
+    tsum = (s.to(ad) * keep.to(ad)).sum(dim=1)
+    kept = (deg - 2 * F).clamp_min(0).to(ad)
     return tsum, kept

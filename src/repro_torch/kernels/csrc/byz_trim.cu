@@ -53,6 +53,15 @@
 //    of one block may have different rank windows. Either is clamped to
 //    [0, CAP]: a larger F keeps nothing, as F = CAP does.
 //
+// Storage. The kernel is a template on the storage type T of r and
+// byz_msgs: float, or __nv_bfloat16 / __half for the precision policy's
+// half storage (byz_trim_half), stride-0 lies included. A loaded value is
+// converted to float32 (exactly) before it becomes an ordered key, so the
+// network, the slot table and the rank-order float32 sum are those of the
+// float32 kernel, and tsum is bit-equal to the float32 rank-order sum of
+// the upcast survivors; tsum and kept are float32. An invalid slot reads
+// the NaN of its storage type.
+//
 // Bound: bytes. Per round the kernel reads r, nbr_idx, nbr_valid, byz_nbr
 // and (where it is not a broadcast view) byz_msgs, and writes tsum and
 // kept; at N = 131,072, deg_max = 7, P = 9 that is 15.5 MB with a stride-0
@@ -63,6 +72,8 @@
 // instructions, most of them issued once by every one of a round's 1.18 M
 // (receiver, coordinate) threads.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 
@@ -148,15 +159,42 @@ __device__ __forceinline__ float key_value(unsigned k) {
 }
 
 // The value an invalid slot reads: a NaN, whose key ties with a valid
-// NaN's above every other key (see the note at the top).
+// NaN's above every other key (see the note at the top); 0x7fff is a NaN
+// of both half types.
 __device__ const float k_invalid_slot = __builtin_nanf("");
+__device__ const unsigned short k_invalid_half = 0x7fff;
 
-template <int CAP>
+template <typename T> __device__ __forceinline__ const T* invalid_slot();
+template <> __device__ __forceinline__ const float* invalid_slot<float>() {
+    return &k_invalid_slot;
+}
+template <>
+__device__ __forceinline__ const __nv_bfloat16* invalid_slot<__nv_bfloat16>() {
+    return reinterpret_cast<const __nv_bfloat16*>(&k_invalid_half);
+}
+template <> __device__ __forceinline__ const __half* invalid_slot<__half>() {
+    return reinterpret_cast<const __half*>(&k_invalid_half);
+}
+
+// one stored value, read through the read-only path, as float32
+__device__ __forceinline__ float load_float(const float* p) {
+    return __ldg(p);
+}
+__device__ __forceinline__ float load_float(const __nv_bfloat16* p) {
+    const unsigned short b = __ldg(reinterpret_cast<const unsigned short*>(p));
+    return __uint_as_float(static_cast<unsigned>(b) << 16);
+}
+__device__ __forceinline__ float load_float(const __half* p) {
+    const unsigned short b = __ldg(reinterpret_cast<const unsigned short*>(p));
+    return __half2float(__ushort_as_half(b));
+}
+
+template <typename T, int CAP>
 __global__ void __launch_bounds__(THREADS)
-trim_gather_kernel(const float* __restrict__ r,
+trim_gather_kernel(const T* __restrict__ r,
                    const int* __restrict__ nbr_idx,
                    const bool* __restrict__ nbr_valid,
-                   const float* __restrict__ byz_msgs,
+                   const T* __restrict__ byz_msgs,
                    long long ms0, long long ms1, long long ms2,
                    const bool* __restrict__ byz_nbr,
                    float* __restrict__ tsum, float* __restrict__ kept,
@@ -165,7 +203,7 @@ trim_gather_kernel(const float* __restrict__ r,
     // a receiver's CAP table entries lie in one warp's lanes (in two
     // warps', PARTS popcounts, at 64 slots)
     constexpr int PARTS = CAP > 32 ? CAP / 32 : 1;
-    __shared__ const float* s_src[SLOTS];
+    __shared__ const T* s_src[SLOTS];
     __shared__ int s_step[SLOTS];
     __shared__ int s_deg[THREADS * PARTS];
 
@@ -179,7 +217,7 @@ trim_gather_kernel(const float* __restrict__ r,
         const int e = s0 + threadIdx.x;
         const int jl = e / CAP;
         const int k = e % CAP;
-        const float* src = &k_invalid_slot;
+        const T* src = invalid_slot<T>();
         int step = 0;
         bool valid = false;
         if (e < entries && k < dm) {
@@ -212,12 +250,12 @@ trim_gather_kernel(const float* __restrict__ r,
     for (int t = threadIdx.x; t < nv * P; t += blockDim.x) {
         const int jl = static_cast<unsigned>(t) / static_cast<unsigned>(P);
         const int p = t - jl * P;
-        const float* const* src = s_src + jl * CAP;
+        const T* const* src = s_src + jl * CAP;
         const int* step = s_step + jl * CAP;
         unsigned key[CAP];
 #pragma unroll
         for (int k = 0; k < CAP; ++k)
-            key[k] = order_key(__ldg(src[k] + p * step[k]));
+            key[k] = order_key(load_float(src[k] + p * step[k]));
         sort_keys<CAP>(key);
 
         int deg = s_deg[jl * PARTS];
@@ -239,19 +277,45 @@ trim_gather_kernel(const float* __restrict__ r,
     }
 }
 
-template <int CAP>
-cudaError_t launch(const float* r, const int* nbr_idx, const bool* nbr_valid,
-                   const float* byz_msgs, long long ms0, long long ms1,
+template <typename T, int CAP>
+cudaError_t launch(const T* r, const int* nbr_idx, const bool* nbr_valid,
+                   const T* byz_msgs, long long ms0, long long ms1,
                    long long ms2, const bool* byz_nbr, float* tsum,
                    float* kept, int n, int dm, int P, int F,
                    const int* f_recv, cudaStream_t stream) {
     const int rb = std::max(1, std::min(THREADS / P, SLOTS / CAP));
     const int threads = std::min(THREADS, (rb * P + 31) / 32 * 32);
     const unsigned blocks = static_cast<unsigned>((n + rb - 1) / rb);
-    trim_gather_kernel<CAP><<<blocks, threads, 0, stream>>>(
+    trim_gather_kernel<T, CAP><<<blocks, threads, 0, stream>>>(
         r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2, byz_nbr, tsum, kept,
         n, dm, P, std::min(F, CAP), f_recv, rb);
     return cudaGetLastError();
+}
+
+template <typename T>
+static int launch_any(const T* r, const int* nbr_idx, const bool* nbr_valid,
+                      const T* byz_msgs, long long ms0, long long ms1,
+                      long long ms2, const bool* byz_nbr, float* tsum,
+                      float* kept, int n, int dm, int P, int F,
+                      const int* f_recv, int device, cudaStream_t stream) {
+    if (n < 1 || P < 1 || dm < 1 || dm > CAP_MAX || F < 0
+        || ms2 > INT_MAX / P)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dm <= 8)
+        err = launch<T, 8>(r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2,
+                           byz_nbr, tsum, kept, n, dm, P, F, f_recv, stream);
+    else if (dm <= 16)
+        err = launch<T, 16>(r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2,
+                            byz_nbr, tsum, kept, n, dm, P, F, f_recv, stream);
+    else if (dm <= 32)
+        err = launch<T, 32>(r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2,
+                            byz_nbr, tsum, kept, n, dm, P, F, f_recv, stream);
+    else
+        err = launch<T, 64>(r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2,
+                            byz_nbr, tsum, kept, n, dm, P, F, f_recv, stream);
+    return static_cast<int>(err);
 }
 
 // Launches on the caller's stream and returns cudaGetLastError(), or
@@ -263,22 +327,32 @@ extern "C" int byz_trim_f32(const float* r, const int* nbr_idx,
                             const bool* byz_nbr, float* tsum, float* kept,
                             int n, int dm, int P, int F, const int* f_recv,
                             int device, cudaStream_t stream) {
-    if (n < 1 || P < 1 || dm < 1 || dm > CAP_MAX || F < 0
-        || ms2 > INT_MAX / P)
-        return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dm <= 8)
-        err = launch<8>(r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2,
-                        byz_nbr, tsum, kept, n, dm, P, F, f_recv, stream);
-    else if (dm <= 16)
-        err = launch<16>(r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2,
-                         byz_nbr, tsum, kept, n, dm, P, F, f_recv, stream);
-    else if (dm <= 32)
-        err = launch<32>(r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2,
-                         byz_nbr, tsum, kept, n, dm, P, F, f_recv, stream);
-    else
-        err = launch<64>(r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2,
-                         byz_nbr, tsum, kept, n, dm, P, F, f_recv, stream);
-    return static_cast<int>(err);
+    return launch_any<float>(r, nbr_idx, nbr_valid, byz_msgs, ms0, ms1, ms2,
+                             byz_nbr, tsum, kept, n, dm, P, F, f_recv, device,
+                             stream);
+}
+
+// The same on half storage: r and byz_msgs of storage 1 (__nv_bfloat16)
+// or 2 (__half); tsum and kept float32.
+extern "C" int byz_trim_half(const void* r, const int* nbr_idx,
+                             const bool* nbr_valid, const void* byz_msgs,
+                             long long ms0, long long ms1, long long ms2,
+                             const bool* byz_nbr, float* tsum, float* kept,
+                             int n, int dm, int P, int F, const int* f_recv,
+                             int device, int storage, cudaStream_t stream) {
+    if (storage == 1) {
+        using T = __nv_bfloat16;
+        return launch_any<T>(static_cast<const T*>(r), nbr_idx, nbr_valid,
+                             static_cast<const T*>(byz_msgs), ms0, ms1, ms2,
+                             byz_nbr, tsum, kept, n, dm, P, F, f_recv, device,
+                             stream);
+    }
+    if (storage == 2) {
+        using T = __half;
+        return launch_any<T>(static_cast<const T*>(r), nbr_idx, nbr_valid,
+                             static_cast<const T*>(byz_msgs), ms0, ms1, ms2,
+                             byz_nbr, tsum, kept, n, dm, P, F, f_recv, device,
+                             stream);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -30,10 +30,24 @@
 // expf(ratio - top) / total. The block stores both output ranges with
 // 16-byte stores.
 //
+// Storage. The kernel is a template on the storage type T of z, mass and
+// z_new: float, or __nv_bfloat16 / __half for the precision policy's half
+// storage (social_innov_half); u, cdf, log_tables and mu stay float32.
+// The staging moves byte ranges, so a half range stages like a float one:
+// A = 32 agents' bf16 z at m = 3 is 192 contiguous bytes, whose aligned
+// body goes by cp.async and whose ragged ends (a 6-byte row's) go by
+// bytes. Each sum z + log_tables is taken in float32 and kept in
+// registers and in mu's staging region: z_new is that sum rounded to T
+// (round to nearest even), and the softmax reads the unrounded sum, as
+// the plain version's accum-dtype belief does.
+//
 // Bound: bytes. Per agent it reads z (m), mass, u, cdf (S) and
 // log_tables (m S) and writes z_new (m) and mu (m): 27 floats at m = 3,
-// S = 4, against a few dozen flops; 14.2 MB at N = 131,072.
+// S = 4, against a few dozen flops; 14.2 MB at N = 131,072 in float32,
+// 12.6 MB with half z, mass and z_new.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -130,22 +144,45 @@ __device__ __forceinline__ int phase(const void* g) {
     return static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
 }
 
-// a shared region of `floats` floats, its 16-byte phase slack included
-__host__ __device__ constexpr long long region_bytes(long long floats) {
-    return (4 * floats + 15) / 16 * 16 + 16;
+// a shared region of `bytes` bytes, its 16-byte phase slack included
+__host__ __device__ constexpr long long region_bytes(long long bytes) {
+    return (bytes + 15) / 16 * 16 + 16;
 }
 
+// a block's shared memory: z, mass and z_new take sb bytes an element
 __host__ __device__ constexpr long long staged_bytes(long long A,
                                                     long long m,
-                                                    long long S) {
-    return region_bytes(A * m) * 3 + region_bytes(A) * 2
-           + region_bytes(A * S) + region_bytes(A * m * S);
+                                                    long long S,
+                                                    long long sb) {
+    return region_bytes(sb * A * m) * 2 + region_bytes(4 * A * m)
+           + region_bytes(sb * A) + region_bytes(4 * A)
+           + region_bytes(4 * A * S) + region_bytes(4 * A * m * S);
 }
 
-// one agent's step, from its rows in shared memory to its outputs there
-__device__ __forceinline__ void agent_step(const float* zr, float mass_j,
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) {
+    return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+    return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_float<__half>(float x) {
+    return __float2half_rn(x);
+}
+
+// one agent's step, from its rows in shared memory to its outputs there;
+// mo holds the float32 sums until the softmax overwrites them
+template <typename T>
+__device__ __forceinline__ void agent_step(const T* zr, float mass_j,
                                            float uj, const float* c,
-                                           const float* lt_row, float* zo,
+                                           const float* lt_row, T* zo,
                                            float* mo, int m, int S) {
     int sig = 0;
     for (int s = 0; s < S; ++s) sig += (uj > c[s]) ? 1 : 0;
@@ -155,53 +192,56 @@ __device__ __forceinline__ void agent_step(const float* zr, float mass_j,
 
     float top = -INFINITY;
     for (int k = 0; k < m; ++k) {
-        const float zn = zr[k] + lt[k * S];
-        zo[k] = zn;
+        const float zn = to_float(zr[k]) + lt[k * S];
+        mo[k] = zn;
+        zo[k] = from_float<T>(zn);
         top = fmaxf(top, zn / den);
     }
     float total = 0.0f;
-    for (int k = 0; k < m; ++k) total += expf(zo[k] / den - top);
-    for (int k = 0; k < m; ++k) mo[k] = expf(zo[k] / den - top) / total;
+    for (int k = 0; k < m; ++k) total += expf(mo[k] / den - top);
+    for (int k = 0; k < m; ++k) mo[k] = expf(mo[k] / den - top) / total;
 }
 
-__global__ void social_innov_staged(const float* __restrict__ z,
-                                    const float* __restrict__ mass,
+template <typename T>
+__global__ void social_innov_staged(const T* __restrict__ z,
+                                    const T* __restrict__ mass,
                                     const float* __restrict__ u,
                                     const float* __restrict__ cdf,
                                     const float* __restrict__ log_tables,
-                                    float* __restrict__ z_new,
+                                    T* __restrict__ z_new,
                                     float* __restrict__ mu,
                                     int n, int m, int S, int A) {
+    constexpr int sb = sizeof(T);
     extern __shared__ __align__(16) unsigned char smem[];
     const long long j0 = static_cast<long long>(blockIdx.x) * A;
     const int na = static_cast<int>(min(static_cast<long long>(A), n - j0));
     unsigned char* sz = smem;
-    unsigned char* smass = sz + region_bytes(A * m);
-    unsigned char* su = smass + region_bytes(A);
-    unsigned char* scdf = su + region_bytes(A);
-    unsigned char* slt = scdf + region_bytes(A * S);
-    unsigned char* szo = slt + region_bytes(A * m * S);
-    unsigned char* smo = szo + region_bytes(A * m);
+    unsigned char* smass = sz + region_bytes(sb * A * m);
+    unsigned char* su = smass + region_bytes(sb * A);
+    unsigned char* scdf = su + region_bytes(4 * A);
+    unsigned char* slt = scdf + region_bytes(4 * A * S);
+    unsigned char* szo = slt + region_bytes(4 * A * m * S);
+    unsigned char* smo = szo + region_bytes(sb * A * m);
 
-    const float* gz = z + j0 * m;
-    const float* gmass = mass + j0;
+    const T* gz = z + j0 * m;
+    const T* gmass = mass + j0;
     const float* gu = u + j0;
     const float* gcdf = cdf + j0 * S;
     const float* glt = log_tables + j0 * m * S;
-    float* gzo = z_new + j0 * m;
+    T* gzo = z_new + j0 * m;
     float* gmo = mu + j0 * m;
     const auto* bz = reinterpret_cast<const unsigned char*>(gz);
     const auto* bmass = reinterpret_cast<const unsigned char*>(gmass);
     const auto* bu = reinterpret_cast<const unsigned char*>(gu);
     const auto* bcdf = reinterpret_cast<const unsigned char*>(gcdf);
     const auto* blt = reinterpret_cast<const unsigned char*>(glt);
-    stage_body(bz, 4 * na * m, sz);
-    stage_body(bmass, 4 * na, smass);
+    stage_body(bz, sb * na * m, sz);
+    stage_body(bmass, sb * na, smass);
     stage_body(bu, 4 * na, su);
     stage_body(bcdf, 4 * na * S, scdf);
     stage_body(blt, 4 * na * m * S, slt);
-    const EndByte e_z = stage_end(bz, 4 * na * m);
-    const EndByte e_mass = stage_end(bmass, 4 * na);
+    const EndByte e_z = stage_end(bz, sb * na * m);
+    const EndByte e_mass = stage_end(bmass, sb * na);
     const EndByte e_u = stage_end(bu, 4 * na);
     const EndByte e_cdf = stage_end(bcdf, 4 * na * S);
     const EndByte e_lt = stage_end(blt, 4 * na * m * S);
@@ -214,21 +254,45 @@ __global__ void social_innov_staged(const float* __restrict__ z,
 
     const int t = threadIdx.x;
     if (t < na) {
-        const float* z_s = reinterpret_cast<const float*>(sz + phase(gz));
+        const T* z_s = reinterpret_cast<const T*>(sz + phase(gz));
         const float* cdf_s = reinterpret_cast<const float*>(scdf
                                                             + phase(gcdf));
         const float* lt_s = reinterpret_cast<const float*>(slt + phase(glt));
-        float* zo_s = reinterpret_cast<float*>(szo + phase(gzo));
+        T* zo_s = reinterpret_cast<T*>(szo + phase(gzo));
         float* mo_s = reinterpret_cast<float*>(smo + phase(gmo));
-        agent_step(z_s + t * m,
-                   reinterpret_cast<const float*>(smass + phase(gmass))[t],
+        agent_step<T>(z_s + t * m,
+                   to_float(reinterpret_cast<const T*>(smass
+                                                       + phase(gmass))[t]),
                    reinterpret_cast<const float*>(su + phase(gu))[t],
                    cdf_s + t * S, lt_s + t * m * S, zo_s + t * m,
                    mo_s + t * m, m, S);
     }
     __syncthreads();
-    unstage(reinterpret_cast<unsigned char*>(gzo), 4 * na * m, szo);
+    unstage(reinterpret_cast<unsigned char*>(gzo), sb * na * m, szo);
     unstage(reinterpret_cast<unsigned char*>(gmo), 4 * na * m, smo);
+}
+
+template <typename T>
+static int launch(const T* z, const T* mass, const float* u, const float* cdf,
+                  const float* log_tables, T* z_new, float* mu, int n, int m,
+                  int S, int A, int device, cudaStream_t stream) {
+    if (n < 1 || m < 1 || S < 1 || A < 1 || A > THREADS)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long smem = staged_bytes(A, m, S, sizeof(T));
+    if (smem > SMEM_OPTIN) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (smem > SMEM) {
+        err = cudaFuncSetAttribute(social_innov_staged<T>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const unsigned blocks = static_cast<unsigned>((n + A - 1) / A);
+    social_innov_staged<T><<<blocks, THREADS, static_cast<int>(smem),
+                             stream>>>(z, mass, u, cdf, log_tables, z_new, mu,
+                                       n, m, S, A);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // Launches on the caller's stream with A agents a block and returns
@@ -239,20 +303,31 @@ extern "C" int social_innov_f32(const float* z, const float* mass,
                                 const float* log_tables, float* z_new,
                                 float* mu, int n, int m, int S, int A,
                                 int device, cudaStream_t stream) {
-    if (n < 1 || m < 1 || S < 1 || A < 1 || A > THREADS)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const long long smem = staged_bytes(A, m, S);
-    if (smem > SMEM_OPTIN) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (smem > SMEM) {
-        err = cudaFuncSetAttribute(social_innov_staged,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
+    return launch<float>(z, mass, u, cdf, log_tables, z_new, mu, n, m, S, A,
+                         device, stream);
+}
+
+// The same on half storage: z, mass and z_new of storage 1
+// (__nv_bfloat16) or 2 (__half); u, cdf, log_tables and mu float32.
+extern "C" int social_innov_half(const void* z, const void* mass,
+                                 const float* u, const float* cdf,
+                                 const float* log_tables, void* z_new,
+                                 float* mu, int n, int m, int S, int A,
+                                 int device, int storage,
+                                 cudaStream_t stream) {
+    if (storage == 1) {
+        using T = __nv_bfloat16;
+        return launch<T>(static_cast<const T*>(z),
+                         static_cast<const T*>(mass), u, cdf, log_tables,
+                         static_cast<T*>(z_new), mu, n, m, S, A, device,
+                         stream);
     }
-    const unsigned blocks = static_cast<unsigned>((n + A - 1) / A);
-    social_innov_staged<<<blocks, THREADS, static_cast<int>(smem), stream>>>(
-        z, mass, u, cdf, log_tables, z_new, mu, n, m, S, A);
-    return static_cast<int>(cudaGetLastError());
+    if (storage == 2) {
+        using T = __half;
+        return launch<T>(static_cast<const T*>(z),
+                         static_cast<const T*>(mass), u, cdf, log_tables,
+                         static_cast<T*>(z_new), mu, n, m, S, A, device,
+                         stream);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
 }

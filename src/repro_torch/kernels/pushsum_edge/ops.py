@@ -27,6 +27,9 @@ __all__ = ["edge_scatter", "edge_scatter_cuda", "dst_offsets",
 
 TILED_D_MAX = 32    # the widest D the edge-tiled kernel takes
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES_HALF = _ARGTYPES[:11] + [ctypes.c_int, ctypes.c_void_p]
+# the half storage dtypes the kernels take, by their code in the C entry
+_STORAGE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 
 
 def edge_scatter(
@@ -39,18 +42,25 @@ def edge_scatter(
     *,
     offsets: torch.Tensor | None = None,   # (N+1,) int32 CSR offsets of dst
     n_recv: int | None = None,
+    accum_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mask-latch + per-receiver increment sum -> ``(rho_new, recv)``.
 
     The source rows need not be the receivers: ``n_recv`` (default
     ``sigma``'s rows, or ``offsets``' length - 1) is the receiver count,
     and the async engines pass the per-edge snapshot (E, D) as ``sigma``
-    with the identity ``src``."""
+    with the identity ``src``. ``accum_dtype`` is the dtype of ``recv``
+    (``None``: ``rho``'s)."""
     if n_recv is None:
         n_recv = (sigma.shape[0] if offsets is None
                   else offsets.numel() - 1)
     if resolve_backend(backend, sigma) == "torch":
-        return edge_scatter_ref(sigma, rho, live, src, dst, n_recv=n_recv)
+        return edge_scatter_ref(sigma, rho, live, src, dst, n_recv=n_recv,
+                                accum_dtype=accum_dtype)
+    if (rho.dtype if accum_dtype is None else accum_dtype) != torch.float32:
+        raise ValueError(
+            f"the CUDA edge scatter accumulates in float32; got storage "
+            f"{rho.dtype} with accum_dtype={accum_dtype}")
     if offsets is None:
         offsets = dst_offsets(dst, n_recv)
     return edge_scatter_cuda(sigma, rho, live, src, offsets)
@@ -88,7 +98,16 @@ def edge_scatter_cuda(
     ``edge_scatter_cuda.launches`` counts the launches,
     ``edge_scatter_cuda.launches_tiled`` those of the tiled kernel and
     ``edge_scatter_cuda.launches_edge_rows`` those whose source rows are
-    not the receivers (the async delivery's per-edge snapshot)."""
+    not the receivers (the async delivery's per-edge snapshot).
+
+    ``sigma`` and ``rho`` are float32, or both bfloat16 or both float16:
+    ``rho_new`` comes out in their dtype and ``recv`` in float32 in every
+    case. ``edge_scatter_cuda.launches_half`` counts the launches on half
+    storage."""
+    st = sigma.dtype
+    if st != torch.float32 and st not in _STORAGE_CODES:
+        raise ValueError(f"the CUDA edge scatter takes a float32, bfloat16 "
+                         f"or float16 storage dtype, got {st}")
     if not sigma.is_cuda:
         raise ValueError("the CUDA edge scatter needs CUDA tensors")
     n_src, D = sigma.shape
@@ -98,8 +117,8 @@ def edge_scatter_cuda(
         raise ValueError(f"unsupported edge-scatter shape N={n}, "
                          f"n_src={n_src}, E={E}, D={D}")
     dev = sigma.device
-    _build.check_arg(sigma, "sigma", torch.float32, (n_src, D), dev)
-    _build.check_arg(rho, "rho", torch.float32, (E, D), dev)
+    _build.check_arg(sigma, "sigma", st, (n_src, D), dev)
+    _build.check_arg(rho, "rho", st, (E, D), dev)
     _build.check_arg(live, "live", torch.bool, (E,), dev)
     _build.check_arg(src, "src", torch.int32, (E,), dev)
     _build.check_arg(offsets, "offsets", torch.int32, (n + 1,), dev)
@@ -109,14 +128,21 @@ def edge_scatter_cuda(
         raise ValueError(f"the edge-tiled kernel takes D <= {TILED_D_MAX}, "
                          f"got D={D}")
     rho_new = torch.empty_like(rho)
-    recv = sigma.new_empty((n, D))
-    fn = _build.function("edge_scatter", "edge_scatter_f32", _ARGTYPES)
-    code = fn(sigma.data_ptr(), rho.data_ptr(), live.data_ptr(),
-              src.data_ptr(), offsets.data_ptr(), rho_new.data_ptr(),
-              recv.data_ptr(), n, D, int(tiled), dev.index,
-              torch.cuda.current_stream(dev).cuda_stream)
+    recv = torch.empty((n, D), dtype=torch.float32, device=dev)
+    ptrs = (sigma.data_ptr(), rho.data_ptr(), live.data_ptr(),
+            src.data_ptr(), offsets.data_ptr(), rho_new.data_ptr(),
+            recv.data_ptr(), n, D, int(tiled), dev.index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if st == torch.float32:
+        fn = _build.function("edge_scatter", "edge_scatter_f32", _ARGTYPES)
+        code = fn(*ptrs, stream)
+    else:
+        fn = _build.function("edge_scatter", "edge_scatter_half",
+                             _ARGTYPES_HALF)
+        code = fn(*ptrs, _STORAGE_CODES[st], stream)
     _build.check_status("edge_scatter", code)
     edge_scatter_cuda.launches += 1
+    edge_scatter_cuda.launches_half += int(st != torch.float32)
     edge_scatter_cuda.launches_tiled += int(tiled)
     edge_scatter_cuda.launches_edge_rows += int(n_src != n)
     return rho_new, recv
@@ -125,3 +151,4 @@ def edge_scatter_cuda(
 edge_scatter_cuda.launches = 0
 edge_scatter_cuda.launches_tiled = 0
 edge_scatter_cuda.launches_edge_rows = 0
+edge_scatter_cuda.launches_half = 0

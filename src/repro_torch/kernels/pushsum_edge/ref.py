@@ -12,6 +12,11 @@ engines' per-edge snapshot with the identity index; ``n_recv`` (default
 (·, d+1) matrix, so one reduction serves both push-sum recursions. Any edge
 order is accepted. The CPU path of the engines runs this, and the CUDA
 kernel is held against it.
+
+``accum_dtype`` is the precision policy's accumulation slot: ``rho_new``
+stays in the storage dtype of ``rho`` and ``recv`` is the sum of the
+increments ``rho_new - rho`` taken in ``accum_dtype`` (``None`` keeps the
+input dtype, the pre-policy program).
 """
 from __future__ import annotations
 
@@ -28,10 +33,12 @@ def edge_scatter_ref(
     dst: torch.Tensor,     # (E,) int32
     *,
     n_recv: int | None = None,
+    accum_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(rho_new (E, D), recv (n_recv, D))``."""
     n = sigma.shape[0] if n_recv is None else n_recv
+    ad = rho.dtype if accum_dtype is None else accum_dtype
     rho_new = torch.where(live[:, None], sigma[src], rho)
-    recv = sigma.new_zeros((n, sigma.shape[1])).index_add_(0, dst,
-                                                           rho_new - rho)
+    recv = rho.new_zeros((n, sigma.shape[1]), dtype=ad).index_add_(
+        0, dst, rho_new.to(ad) - rho.to(ad))
     return rho_new, recv

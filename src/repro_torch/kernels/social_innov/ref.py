@@ -9,6 +9,11 @@
 The clamp keeps a uniform above an fp32 cumsum that ends below 1.0 on the
 last letter. The CPU path of the engines runs this, and the CUDA kernel is
 held against it.
+
+``accum_dtype`` is the precision policy's accumulation slot: the sum
+``z + loglik`` and the belief run in it and ``mu`` comes out in it, while
+``z_new`` is that sum rounded to ``z``'s (storage) dtype; ``None`` keeps
+``z.dtype`` throughout.
 """
 from __future__ import annotations
 
@@ -29,10 +34,13 @@ def innovation_ref(
     u: torch.Tensor,           # (N,)  uniforms for this iteration
     cdf: torch.Tensor,         # (N, S) inclusive cumsum of truth-row probs
     log_tables: torch.Tensor,  # (N, m, S) log l_j(s | theta_k)
+    accum_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(z_new (N, m), mu (N, m))``."""
+    ad = z.dtype if accum_dtype is None else accum_dtype
     sig = sample_signals(u, cdf)
     idx = sig[:, None, None].expand(-1, log_tables.shape[1], 1)
-    z_new = z + log_tables.gather(2, idx)[:, :, 0]
-    mu = torch.softmax(z_new / mass.clamp_min(1e-30)[:, None], dim=-1)
-    return z_new, mu
+    z_acc = z.to(ad) + log_tables.gather(2, idx)[:, :, 0].to(ad)
+    mu = torch.softmax(z_acc / mass.to(ad).clamp_min(1e-30)[:, None],
+                       dim=-1)
+    return z_acc.to(z.dtype), mu

@@ -374,9 +374,12 @@ def test_scan_options_and_unported_planes():
     for bad in ({"mode": "both"}, {"core": "pallas"}, {"store": "gap"}):
         with pytest.raises(ValueError):
             tb.make_byzantine_scan(model, cfg, 3, device="cpu", **bad)
-    for plane in ("faults", "policy"):
-        with pytest.raises(TypeError):
-            tb.make_byzantine_scan(model, cfg, 3, device="cpu",
-                                   **{plane: None})
+    # the fault plane arrives only as a plan field; the precision policy
+    # is a parameter of the scan, as in the reference
+    with pytest.raises(TypeError):
+        tb.make_byzantine_scan(model, cfg, 3, device="cpu", faults=None)
+    half = tb.make_byzantine_scan(model, cfg, 3, store="final",
+                                  device="cpu", policy="bf16")(prng_key(0))
+    assert half.r.shape == (21, 3, 3) and half.r.dtype == torch.float32
     empty = tb.run_byzantine_learning(model, cfg, T=0, device="cpu")
     assert empty.r.shape == (0, 21, 3, 3) and empty.decisions.shape == (0, 21)

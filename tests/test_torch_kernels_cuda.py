@@ -38,7 +38,14 @@ survives the trim both give inf or NaN. The autograd wrappers of K6 and
 K7 recompute the plain versions in their backward, so for a loss linear in
 their outputs the gradients equal plain autograd's bit for bit; through a
 model (the forward's rounding reaches the upstream gradient) they are
-held within 1e-4 of each leaf's largest entry (float32)."""
+held within 1e-4 of each leaf's largest entry (float32). On bf16 and
+fp16 storage (the precision policy) K1-K3 keep their float32 sums, so
+the same rules hold on the upcast storage values: rho_new and z_new
+bit-equal, recv and tsum bit-equal to the float32 edge-order and
+rank-order sums; the engines under ``policy="bf16"`` agree with their
+plain path on the decisions of clear agents and, for the consensus
+engines, within 4 bf16 ulps of the input spread (another summation
+order can flip a bf16 rounding)."""
 import numpy as np
 import pytest
 import torch
@@ -1616,3 +1623,259 @@ def test_degenerate_planes_are_bit_identical_on_the_card(cuda_device,
     assert counter.launches == before[0] + 40
     assert innovation_cuda.launches == before[1] + 40 * (engine == "social")
     assert all(torch.isfinite(x).all() for x in out if x.is_floating_point())
+
+
+# ---------------------------------------------------------------------------
+# The precision policy: K1-K3 on half storage (bf16 and fp16), the engines
+# under policy bf16
+# ---------------------------------------------------------------------------
+
+HALF_STORAGE = {"bf16": torch.bfloat16, "fp16": torch.float16}
+
+
+def _half(a, st):
+    """A numpy float32 array rounded to ``st`` -> (the CPU tensor in
+    ``st``, its values upcast to float32 as numpy)."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(st)
+    return t, t.float().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st", sorted(HALF_STORAGE))
+@pytest.mark.parametrize("case", K1_CASES)
+@pytest.mark.parametrize("D,tiled", [(4, None), (4, False), (5, None),
+                                     (40, None)])
+def test_edge_scatter_half_kernels_give_the_edge_order_sum(cuda_device, st,
+                                                           case, D, tiled):
+    """Half storage on both kernels (the tiled kernel's 8-byte vector path
+    at D = 4, its scalar path at D = 5, the column walk at D = 40 and as
+    asked for): rho_new bit-equal to the plain version's, recv float32 and
+    bit-equal to the float32 edge-order sum of the upcast differences; one
+    launch, counted as a half-storage one."""
+    sigma, rho, live, src, dst = edge_problem(case, D=D)
+    n = sigma.shape[0]
+    offsets = np.searchsorted(dst, np.arange(n + 1)).astype(np.int32)
+    (sig_h, _), (rho_h, rho_f) = (_half(a, HALF_STORAGE[st])
+                                  for a in (sigma, rho))
+    dev_args = [sig_h.to(cuda_device), rho_h.to(cuda_device)] + [
+        torch.from_numpy(a).to(cuda_device) for a in (live, src, offsets)]
+    before = edge_scatter_cuda.launches_half
+    rho_new, recv = edge_scatter_cuda(*dev_args, tiled=tiled)
+    torch.cuda.synchronize()
+    assert edge_scatter_cuda.launches_half == before + 1
+    assert rho_new.dtype == HALF_STORAGE[st] and recv.dtype == torch.float32
+    ref = edge_scatter_ref(sig_h, rho_h, *map(torch.from_numpy, (live, src,
+                                                                 dst)),
+                           accum_dtype=torch.float32)
+    assert torch.equal(rho_new.cpu(), ref[0])
+    np.testing.assert_array_equal(
+        recv.cpu().numpy(),
+        edge_order_recv(ref[0].float().numpy(), rho_f, dst, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st", sorted(HALF_STORAGE))
+def test_edge_scatter_half_identity_route_and_unaligned_rows(cuda_device,
+                                                              st):
+    """The async delivery's per-edge source rows (identity index) on half
+    storage, and half rows two bytes off the 8-byte vector (the scalar
+    path): the same results as the plain version and the edge-order sum."""
+    dt = HALF_STORAGE[st]
+    sigma, rho, live, src, dst = edge_problem("ragged", D=4)
+    n, E = sigma.shape[0], rho.shape[0]
+    offsets = np.searchsorted(dst, np.arange(n + 1)).astype(np.int32)
+    snap = np.random.default_rng(4).normal(size=(E, 4)).astype(np.float32)
+    ident = np.arange(E, dtype=np.int32)
+    for rows, index in ((snap, ident), (sigma, src)):
+        (rows_h, _), (rho_h, rho_f) = (_half(a, dt) for a in (rows, rho))
+
+        def shifted(t):
+            buf = torch.zeros(t.numel() + 1, dtype=dt, device=cuda_device)
+            buf[1:] = t.reshape(-1).to(cuda_device)
+            return buf[1:].view(t.shape)
+
+        for shift in (False, True):
+            put = shifted if shift else (lambda t: t.to(cuda_device))
+            args = [put(rows_h), put(rho_h)] + [
+                torch.from_numpy(a).to(cuda_device)
+                for a in (live, index, offsets)]
+            rho_new, recv = edge_scatter_cuda(*args)
+            ref = edge_scatter_ref(rows_h, rho_h, torch.from_numpy(live),
+                                   torch.from_numpy(index),
+                                   torch.from_numpy(dst), n_recv=n,
+                                   accum_dtype=torch.float32)
+            torch.cuda.synchronize()
+            assert torch.equal(rho_new.cpu(), ref[0])
+            np.testing.assert_array_equal(
+                recv.cpu().numpy(),
+                edge_order_recv(ref[0].float().numpy(), rho_f, dst, n))
+
+
+@pytest.mark.cuda
+def test_half_storage_routes_raise_on_what_they_do_not_take(cuda_device):
+    """A half input on the CUDA route needs a float32 accumulation, and
+    sigma and rho of different dtypes raise: nothing reroutes to the plain
+    version."""
+    sigma, rho, live, src, dst = [torch.from_numpy(a).to(cuda_device)
+                                  for a in edge_problem("ragged")]
+    h = torch.bfloat16
+    with pytest.raises(ValueError, match="float32"):
+        edge_scatter(sigma.to(h), rho.to(h), live, src, dst, backend="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        edge_scatter(sigma.to(h), rho, live, src, dst, backend="cuda",
+                     accum_dtype=torch.float32)
+    z, mass, u, cdf, lt = [torch.from_numpy(a).to(cuda_device)
+                           for a in innov_problem(29, 3, 4, 0)]
+    with pytest.raises(ValueError, match="float32"):
+        innovation_step(z.to(h), mass.to(h), u, cdf, lt, backend="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        innovation_step(z.to(h), mass, u, cdf, lt, backend="cuda",
+                        accum_dtype=torch.float32)
+    r, idx, valid, msgs, byz = [torch.from_numpy(a).to(cuda_device)
+                                for a in trim_problem("random", 9, 1)]
+    with pytest.raises(ValueError, match="float32"):
+        trim_gather(r.to(h), idx, valid, msgs.to(h), byz, 1, "cuda")
+    with pytest.raises(ValueError, match="byz_msgs"):
+        trim_gather(r.to(h), idx, valid, msgs, byz, 1, "cuda",
+                    accum_dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st", sorted(HALF_STORAGE))
+@pytest.mark.parametrize("N,m,S,edge", K2_CASES)
+def test_innovation_half_kernel_matches_plain(cuda_device, st, N, m, S,
+                                              edge):
+    """Half z and mass (the staging moves their byte ranges): z_new at
+    storage bit-equal to the plain version's (the float32 sum rounded
+    once), mu float32 within the softmax's order."""
+    z, mass, u, cdf, lt = innov_problem(N, m, S, N, edge)
+    (z_h, _), (m_h, _) = (_half(a, HALF_STORAGE[st]) for a in (z, mass))
+    rest = [torch.from_numpy(a) for a in (u, cdf, lt)]
+    before = innovation_cuda.launches_half
+    z_k, mu_k = innovation_step(z_h.to(cuda_device), m_h.to(cuda_device),
+                                *[a.to(cuda_device) for a in rest],
+                                accum_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert innovation_cuda.launches_half == before + 1
+    z_r, mu_r = innovation_ref(z_h, m_h, *rest, accum_dtype=torch.float32)
+    assert z_k.dtype == HALF_STORAGE[st] and mu_k.dtype == torch.float32
+    assert torch.equal(z_k.cpu(), z_r)
+    torch.testing.assert_close(mu_k.cpu(), mu_r, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st", sorted(HALF_STORAGE))
+def test_innovation_half_kernel_reads_unaligned_ranges(cuda_device, st):
+    """Half z and mass starting 2 bytes off 16: ragged ends in every
+    block."""
+    dt = HALF_STORAGE[st]
+    z, mass, u, cdf, lt = innov_problem(1001, 3, 4, 3)
+    (z_h, _), (m_h, _) = (_half(a, dt) for a in (z, mass))
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        buf[1:] = t.reshape(-1).to(cuda_device)
+        return buf[1:].view(t.shape)
+
+    rest = [torch.from_numpy(a) for a in (u, cdf, lt)]
+    z_k, mu_k = innovation_cuda(shifted(z_h), shifted(m_h),
+                                *[shifted(a) for a in rest])
+    z_r, mu_r = innovation_ref(z_h, m_h, *rest, accum_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(z_k.cpu(), z_r)
+    torch.testing.assert_close(mu_k.cpu(), mu_r, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st", sorted(HALF_STORAGE))
+@pytest.mark.parametrize("case", TRIM_CASES + K3_CASES)
+@pytest.mark.parametrize("F", [0, 2, "per_receiver"])
+def test_trim_gather_half_kernel_gives_the_rank_order_sum(cuda_device, st,
+                                                          case, F):
+    """Half r and lies (a lie past fp16's range becomes inf): kept
+    bit-equal to the plain version's, tsum float32 and bit-equal to the
+    float32 rank-order sum of the upcast values, for an int F and F per
+    receiver."""
+    dt = HALF_STORAGE[st]
+    r, idx, valid, msgs, byz = trim_problem(case, 9, 2, seed=5)
+    n, dm = idx.shape
+    FF = mixed_trim_counts(n, dm, dm) if F == "per_receiver" else F
+    (r_h, r_f), (m_h, m_f) = (_half(a, dt) for a in (r, msgs))
+    rest = [torch.from_numpy(a) for a in (idx, valid)]
+    Ft = torch.from_numpy(FF) if F == "per_receiver" else FF
+    before = trim_gather_cuda.launches_half
+    tsum, kept = trim_gather(
+        r_h.to(cuda_device), *[a.to(cuda_device) for a in rest],
+        m_h.to(cuda_device), torch.from_numpy(byz).to(cuda_device),
+        Ft.to(cuda_device) if F == "per_receiver" else Ft,
+        accum_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert trim_gather_cuda.launches_half == before + 1
+    assert tsum.dtype == kept.dtype == torch.float32
+    want = trim_rank_order_sum(r_f, idx, valid, m_f, byz, FF)
+    got = tsum.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got.view(np.int32)[~np.isnan(want)],
+                                  want.view(np.int32)[~np.isnan(want)])
+    k_ref = trim_gather_ref(r_h, *rest, m_h, torch.from_numpy(byz), Ft,
+                            accum_dtype=torch.float32)[1]
+    assert torch.equal(kept.cpu(), k_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st", sorted(HALF_STORAGE))
+def test_trim_gather_half_kernel_reads_broadcast_lies(cuda_device, st):
+    dt = HALF_STORAGE[st]
+    r, idx, valid, msgs, byz = (torch.from_numpy(a).to(cuda_device)
+                                for a in trim_problem("random", 9, 1))
+    lie = torch.full((), 500.0, dtype=dt, device=cuda_device).expand(
+        msgs.shape)
+    got = trim_gather_cuda(r.to(dt), idx, valid, lie, byz, 1)
+    want = trim_gather_cuda(r.to(dt), idx, valid, lie.contiguous(), byz, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["pushsum", "hps", "social", "byzantine"])
+def test_policy_on_the_card(cuda_device, engine):
+    """``policy="fp32"`` through the kernels is the pre-policy program bit
+    for bit; ``policy="bf16"`` launches the engine's kernels once a round
+    on half storage, and its kernel path agrees with its plain path on the
+    card: the same decisions (Alg. 3 where the top two beliefs are more
+    than 2e-2 apart; Alg. 2 on the normal agents), and the ratios of the
+    consensus engines within 4 bf16 ulps of the input spread (the two
+    paths order the receiver sums and the fusion pools differently, which
+    flips a bf16 rounding now and then)."""
+    base = _plane_runs(engine, ExecutionPlan())
+    fp32 = _plane_runs(engine, ExecutionPlan(policy="fp32"))
+    assert all(torch.equal(a, b) for a, b in zip(base, fp32))
+    counters = ([trim_gather_cuda] if engine == "byzantine"
+                else [edge_scatter_cuda]
+                + ([innovation_cuda] if engine == "social" else []))
+    before = [c.launches_half for c in counters]
+    got = _plane_runs(engine, ExecutionPlan(policy="bf16"))
+    torch.cuda.synchronize()
+    assert [c.launches_half for c in counters] == [b + 40 for b in before]
+    plain = _plane_runs(engine, ExecutionPlan(policy="bf16",
+                                              backend="torch"))
+    assert all(torch.isfinite(x.float()).all() for x in got
+               if x.is_floating_point())
+    if engine == "social":
+        bk, bp = got[0], plain[0]
+        top2 = bp.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2e-2
+        assert torch.equal(bk.argmax(-1)[clear], bp.argmax(-1)[clear])
+    elif engine == "byzantine":
+        eye = torch.eye(3, dtype=torch.bool, device=cuda_device)
+        worst = torch.where(eye, torch.inf, plain[0]).min(dim=-1).values
+        top2 = worst.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 16.0
+        assert torch.equal(got[1][clear], plain[1][clear])
+    else:
+        # _plane_runs' inputs: normal draws of seed 1 (push-sum, 64 x 4)
+        # and 2 (HPS, 18 x 4)
+        w = np.random.default_rng(1 if engine == "pushsum" else 2).normal(
+            size=(64 if engine == "pushsum" else 18, 4))
+        at = -1 if engine == "pushsum" else 0
+        torch.testing.assert_close(got[at], plain[at], rtol=0,
+                                   atol=4 * 2.0 ** -8 * float(np.ptp(w)))
