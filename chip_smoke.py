@@ -240,6 +240,7 @@ file, it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3288,7 +3289,9 @@ def main() -> int:
                          ("attn_decode", "attn_decode_tc_kernelILi64ELi16"),
                          ("attn_decode", "attn_decode_tc_kernelILi128ELi8"),
                          ("attn_decode", "attn_decode_tc_kernelILi128ELi16"),
-                         ("attn_decode", "attn_decode_tc_kernelILi256ELi8")):
+                         ("attn_decode", "attn_decode_tc_kernelILi256ELi8"),
+                         ("attn_decode", "attn_decode_tc_kernelILi256ELi16"),
+                         ("attn_decode", "attn_decode_splitIfLi256ELi8")):
         log(f"[build] ptxas, {kernel}: "
             f"{ptxas_report(built[name].log, kernel)}")
     for name, op, what in (("swa_prefill", "HGMMA", "K6's tensor-core kernel"),
@@ -3527,6 +3530,18 @@ def main() -> int:
     lap("phases 8-11")
     kernels.append(rwkv_phases(dev, flush))
     lap("phases 12-15b")
+    fam = family_phases(dev, flush, lap)
+    by_name = {k["name"]: k for k in kernels}
+    for name, what, n in (("attn_decode", "decode", "launches_decode"),
+                          ("swa_prefill", "prefill", "launches_prefill")):
+        by_name[name]["launches_families"] = {
+            f: m[n] for f, m in fam["mains"].items()}
+        by_name[name]["rg_256_g10"] = fam["k256"][what]
+        by_name[name]["serve_families"] = {
+            f: {k: m[k] for k in (f"{what}_ms", f"{what}_plain_ms")}
+            for f, m in fam["mains"].items()}
+    by_name["attn_decode"]["max_abs_err"] = max(
+        by_name["attn_decode"]["max_abs_err"], fam["k256"]["err"])
     kernels.append(train_phases(dev, flush))
     lap("phases 16-18")
     log(json.dumps({"kernels": kernels}))
@@ -3828,15 +3843,23 @@ def byzantine_step_timing(model, setup, attack, dev) -> None:
                                             T, seed=0, plan=plan),
             f"byzantine N={n_agents}", ms["auto"])
 
-def serve_logits(params, cfg, prompts, toks, backend: str):
-    """The serve path's last-position logits for given tokens: prefill, then
-    a decode step on each of ``toks[:, :-1]`` (teacher-forced) -> (B, gen,
-    V)."""
+def n_stub_rows(stubs: dict) -> int:
+    """Rows a VLM's patches prepend to the sequence (0 without)."""
+    pe = stubs.get("patch_embeds")
+    return 0 if pe is None else pe.shape[1]
+
+
+def serve_logits(params, cfg, prompts, toks, backend: str, stubs=None):
+    """The serve path's last-position logits for given tokens: prefill
+    (with the family's stub inputs ``stubs``), then a decode step on each
+    of ``toks[:, :-1]`` (teacher-forced) -> (B, gen, V)."""
     import torch
     from repro_torch.models import model as M
+    stubs = stubs or {}
     S, gen = prompts.shape[1], toks.shape[1]
-    lg, cache = M.prefill(params, cfg, prompts, cache_len=S + gen + 1,
-                          backend=backend)
+    lg, cache = M.prefill(params, cfg, prompts,
+                          cache_len=S + gen + 1 + n_stub_rows(stubs),
+                          backend=backend, **stubs)
     out = [lg[:, -1]]
     for i in range(gen - 1):
         lg, cache = M.decode_step(params, cfg, cache, toks[:, i:i + 1],
@@ -3845,17 +3868,19 @@ def serve_logits(params, cfg, prompts, toks, backend: str):
     return torch.stack(out, dim=1)
 
 
-def full_logits(params, cfg, prompts, toks, block: int):
-    """The plain full forward over prompt + generated tokens, ``block``
-    requests at a time, at the positions whose logits chose ``toks`` ->
-    (B, gen, V)."""
+def full_logits(params, cfg, prompts, toks, block: int, stubs=None):
+    """The plain full forward over prompt + generated tokens (after a
+    VLM's patches), ``block`` requests at a time, at the positions whose
+    logits chose ``toks`` -> (B, gen, V)."""
     import torch
     from repro_torch.models import model as M
-    S = prompts.shape[1]
+    stubs = stubs or {}
+    S = prompts.shape[1] + n_stub_rows(stubs)
     seq = torch.cat([prompts, toks[:, :-1]], dim=1)
     out = []
     for b0 in range(0, seq.shape[0], block):
-        lg = M.forward_train(params, cfg, seq[b0:b0 + block], backend="torch")
+        lg = M.forward_train(params, cfg, seq[b0:b0 + block], backend="torch",
+                             **{k: v[b0:b0 + block] for k, v in stubs.items()})
         out.append(lg[:, S - 1:].clone())
         del lg
     return torch.cat(out)
@@ -3901,25 +3926,33 @@ def hold_logits(tag, what, toks, lk, lp, lf, min_clear=0.0) -> None:
             f"positions")
 
 
-def serve_times(params, cfg, prompts, toks, note: str = "") -> float:
+def serve_times(params, cfg, prompts, toks, note: str = "",
+                stubs=None) -> dict:
     """Time to prefill (median of 3 kernel-path and 2 plain-path runs) and
     ms per decode step (median of 3 and 2 runs of gen - 1 steps from a
-    fresh prefill), CUDA events, logged beside the weight-read floor ->
-    the kernel path's decode ms. ``note`` follows the prefill figures."""
+    fresh prefill), CUDA events around the host's calls, logged beside the
+    weight-read floor -> {"prefill_ms", "prefill_plain_ms", "decode_ms",
+    "decode_plain_ms"}. ``note`` follows the prefill figures; ``stubs``
+    are the family's stub inputs."""
     import torch
     from repro_torch.models import model as M
 
+    stubs = stubs or {}
     B, S = prompts.shape
     GEN = toks.shape[1]
 
     def prefill(backend):
-        return M.prefill(params, cfg, prompts, cache_len=S + GEN + 1,
-                         backend=backend)
+        return M.prefill(params, cfg, prompts,
+                         cache_len=S + GEN + 1 + n_stub_rows(stubs),
+                         backend=backend, **stubs)
 
     def decode_ms(backend, runs):
         ts = []
         for _ in range(runs):
             _, cache = prefill(backend)
+            # from an idle device: the host does not run ahead into the
+            # steps while the prefill still runs
+            torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -3944,28 +3977,33 @@ def serve_times(params, cfg, prompts, toks, note: str = "") -> float:
         f"{note}; decode {dec_k:.3f} ms a step (plain path {dec_p:.3f}) over "
         f"{GEN - 1} steps = {B / dec_k * 1e3:.0f} tokens/s; weight-read "
         f"floor {floor:.3f} ms a step ({weights / 1e9:.3f} GB at 3.35 TB/s)")
-    return dec_k
+    return {"prefill_ms": pre_k, "prefill_plain_ms": pre_p,
+            "decode_ms": dec_k, "decode_plain_ms": dec_p}
 
 
-def profile_decode(params, cfg, prompts, toks, step_ms: float) -> None:
-    """torch.profiler breakdown of kernel-path decode steps after one
-    prefill of ``prompts``, teacher-forced on ``toks``."""
+def profile_decode(params, cfg, prompts, toks, step_ms: float,
+                   stubs=None, steps: int = 20) -> None:
+    """torch.profiler breakdown of ``steps`` kernel-path decode steps
+    after one prefill of ``prompts`` (with the family's ``stubs``),
+    teacher-forced on ``toks``."""
     import torch
     from repro_torch.models import model as M
 
     state = {}
+    stubs = stubs or {}
 
     def run(T):
         if not state:
             _, state["cache"] = M.prefill(
                 params, cfg, prompts,
-                cache_len=prompts.shape[1] + toks.shape[1] + 1)
+                cache_len=prompts.shape[1] + toks.shape[1] + 1
+                + n_stub_rows(stubs), **stubs)
         for i in range(T):
             M.decode_step(params, cfg, state["cache"], toks[:, i:i + 1])
 
     with torch.inference_mode():
         profile_step(run, f"{cfg.name} decode (B={prompts.shape[0]}, prompt "
-                     f"{prompts.shape[1]})", step_ms)
+                     f"{prompts.shape[1]})", step_ms, steps)
 
 
 def serve_kernel_checks(dev) -> dict[str, float]:
@@ -4305,7 +4343,7 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     out["swa_prefill"].update(train_ms=ms_t, train_library_ms=lib_t)
     del q, k, v
 
-    out["decode_ms"] = serve_times(params, cfg, prompts, toks)
+    out["decode_ms"] = serve_times(params, cfg, prompts, toks)["decode_ms"]
     return out
 
 
@@ -4633,13 +4671,387 @@ def rwkv_timing(params, cfg, prompts, toks, flush, dev) -> dict:
             f"{n} {t:.5f} (mean of {c})" for n, (t, c) in passes7.items()))
     del r, k, v, lw, u, y, s
     dec = serve_times(params, cfg, prompts, toks,
-                      f", of which K7 {cfg.n_layers} x {ms7:.4f} ms")
+                      f", of which K7 {cfg.n_layers} x {ms7:.4f} ms"
+                      )["decode_ms"]
     return {"wkv6": {"ms": ms7, "plain_ms": plain7, "bound_ms": b7,
                      "bound_by": by7, "library_ms": None,
                      "floor_ms": floor7 / HBM_BYTES_PER_S * 1e3,
                      "host_inclusive_ms": host7,
                      "passes_ms": {n: t for n, (t, _) in passes7.items()}},
             "decode_ms": dec}
+
+
+# ---------------------------------------------------------------------------
+# Phases 15c-15h: the other model families' serve paths (OLMoE-1B-7B's
+# top-8 MoE, RecurrentGemma-2B's RG-LRU hybrid, Whisper-small's
+# encoder-decoder, InternVL2-26B's patch projector), K6 in prefill and K5
+# in decode once per attention layer
+# ---------------------------------------------------------------------------
+
+# name -> (arch, prompt tokens, layers: None for full depth). Each phase
+# has ~90 s of the script's time limit; InternVL2-26B's (39.8 GB of bf16
+# weights) is the longest, ~80 s at full depth on the H100
+FAMILY_CELLS = {
+    "olmoe": ("olmoe_1b_7b", SERVE_S, None),
+    "recurrentgemma": ("recurrentgemma_2b", SERVE_S, None),
+    "whisper": ("whisper_small", 64, None),
+    "internvl2": ("internvl2_26b", SERVE_S, None),
+}
+FAMILY_PROFILE_STEPS = 10     # decode steps under the profiler a family
+
+
+def family_stubs(cfg, B: int, dev, seed: int = 0) -> dict:
+    """The reference CLI's stub inputs, float32, seeded: Whisper's
+    frames (B, n_frames, d_model), the VLM's patches (B, n_patches,
+    1024)."""
+    from repro_torch.core.prng import normal, prng_key
+    from repro_torch.models import model as M
+    key = prng_key(seed)
+    if cfg.family == "audio":
+        return {"frames": normal(key, (B, cfg.n_frames, cfg.d_model), dev)}
+    if cfg.family == "vlm":
+        return {"patch_embeds": normal(key, (B, cfg.n_patches, M.D_VIS),
+                                       dev)}
+    return {}
+
+
+def attn_layers(cfg) -> int:
+    """The decoder's causal attention layers: K6's launches a prefill and
+    K5's a decode step."""
+    return sum(cfg.mixer_of(i) in ("attn", "swa") for i in range(cfg.n_layers))
+
+
+def k5_256_checks(dev, flush) -> dict:
+    """Phase 15a: both K5 kernels at head size 256 with 10 and 16 query
+    heads per KV head against the plain version, at RecurrentGemma's
+    decode shape (B = 8, a 2,048-row ring: every decode step of the serve
+    main sees the full ring; 2,047 rows for a ragged last tile), with
+    phase 8's tolerance (bf16 rtol 2^-8, float32 1e-5; atol 1e-5). Then K5
+    and K6 timed at RecurrentGemma's shapes beside their plain versions,
+    SDPA and their bounds -> {"err", "decode", "prefill"}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.swa import (attn_decode_cuda, attn_decode_ref,
+                                         swa_prefill_cuda, swa_prefill_ref)
+    from repro_torch.kernels.swa.ops import _TICKETS
+    g = torch.Generator(device=dev).manual_seed(25)
+    bf16, f32 = torch.bfloat16, torch.float32
+    err = 0.0
+    B, Wc, dh = SERVE_B, 2048, 256
+    for H in (10, 16):
+        for dtype in (bf16, f32):
+            for n in (2048, 2047):
+                q = torch.randn((B, H, dh), generator=g, device=dev).to(dtype)
+                k = (2 * torch.randn((B, 1, Wc, dh), generator=g,
+                                     device=dev)).to(dtype)
+                v = torch.randn((B, 1, Wc, dh), generator=g,
+                                device=dev).to(dtype)
+                L = torch.full((B,), n, dtype=torch.int32, device=dev)
+                before = attn_decode_cuda.launches_tc
+                got = attn_decode_cuda(q, k, v, L)
+                torch.cuda.synchronize()
+                require(attn_decode_cuda.launches_tc - before
+                        == (dtype == bf16), "K5 at 256: the kernel by dtype")
+                want = attn_decode_ref(q.float(), k.float(), v.float(), L)
+                tol = 2 ** -8 if dtype == bf16 else 1e-5
+                torch.testing.assert_close(got.float(), want, rtol=tol,
+                                           atol=1e-5)
+                e = (got.float() - want).abs().max().item()
+                err = max(err, e)
+                log(f"[families] K5 dh=256 G={H} {str(dtype)[6:]} {n} of "
+                    f"{Wc} rows: max_abs_err {e:.3e}")
+    torch.cuda.synchronize()
+    require(all(int(t.abs().sum()) == 0 for t in _TICKETS.values()),
+            "K5's ticket counters are back at zero")
+
+    H, Hkv, S = 10, 1, SERVE_S
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf16)
+
+    q, k, v = rn(B, H, dh), rn(B, Hkv, Wc, dh), rn(B, Hkv, Wc, dh)
+    L = torch.full((B,), Wc, dtype=torch.int32, device=dev)
+    o5 = attn_decode_cuda(q, k, v, L)
+    fns = (lambda: attn_decode_cuda(q, k, v, L),
+           lambda: attn_decode_ref(q, k, v, L),
+           lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                                  enable_gqa=True))
+    ms5, plain5, lib5 = (event_ms(fn, TIMED_RUNS, flush, True) for fn in fns)
+    host5 = event_ms(fns[0], TIMED_RUNS, flush)
+    b5, by5 = bound(nbytes(q, k, v, L, o5), 4 * B * H * Wc * dh, BF16_FLOPS)
+    log(f"[timing] attn_decode at RecurrentGemma's decode shape (B={B}, "
+        f"H={H}, Hkv={Hkv}, dh={dh}, a full {Wc}-row ring, bf16): device "
+        f"{ms5:.5f} ms, plain {plain5:.5f}, SDPA {lib5:.5f}; host-inclusive "
+        f"{host5:.5f}; bound {b5:.5f} ({by5})")
+    q, k, v = rn(B, S, H, dh), rn(B, S, Hkv, dh), rn(B, S, Hkv, dh)
+    o6 = swa_prefill_cuda(q, k, v, Wc)
+    tr = (0, 2, 1, 3)
+    ms6 = event_ms(lambda: swa_prefill_cuda(q, k, v, Wc), 5, flush)
+    plain6 = event_ms(lambda: swa_prefill_ref(q, k, v, Wc), 3, flush)
+    lib6 = event_ms(lambda: F.scaled_dot_product_attention(
+        q.permute(tr), k.permute(tr), v.permute(tr), is_causal=True,
+        enable_gqa=True), 5, flush)
+    flops6 = 4 * dh * B * H * (S * (S + 1) // 2)   # the window holds S
+    b6, by6 = bound(nbytes(q, k, v, o6), flops6, BF16_FLOPS)
+    log(f"[timing] swa_prefill at RecurrentGemma's prefill shape (B={B}, "
+        f"S={S}, H={H}, Hkv={Hkv}, dh={dh}, window {Wc}, bf16, the FMA "
+        f"kernel): {ms6:.4f} ms = {flops6 / ms6 / 1e9:.1f} TFLOP/s, plain "
+        f"{plain6:.4f}, SDPA {lib6:.4f}, bound {b6:.4f} ({by6})")
+    return {"err": err,
+            "decode": {"ms": ms5, "plain_ms": plain5, "bound_ms": b5,
+                       "bound_by": by5, "library_ms": lib5,
+                       "host_inclusive_ms": host5},
+            "prefill": {"ms": ms6, "plain_ms": plain6, "bound_ms": b6,
+                        "bound_by": by6, "library_ms": lib6}}
+
+
+def record_routes(fn) -> list:
+    """Run ``fn()`` with ``repro_torch.models.layers.moe_route`` wrapped:
+    -> the expert ids (T, k) of each MoE call, in call order."""
+    from repro_torch.models import layers as L
+    orig, seen = L.moe_route, []
+
+    def rec(p, xt, k):
+        out = orig(p, xt, k)
+        seen.append(out[2])
+        return out
+
+    L.moe_route = rec
+    try:
+        fn()
+    finally:
+        L.moe_route = orig
+    return seen
+
+
+def route_flips(ids_a: list, ids_b: list) -> float:
+    """The share of (token, choice) routes of one path that the other
+    does not take: experts in a token's top-k set on one path and not the
+    other, over all tokens, choices and layers."""
+    miss = tot = 0
+    for a, b in zip(ids_a, ids_b, strict=True):
+        same = (a[:, :, None] == b[:, None, :]).any(-1)
+        miss += int((~same).sum())
+        tot += same.numel()
+    return miss / tot
+
+
+def family_main(name: str, dev, flush) -> dict:
+    """One family's serve main at published widths, bf16, seeded weights:
+    8 requests through ``launch.serve.generate`` (K6 once per attention
+    layer in prefill, K5 once per attention layer a decode step, on the
+    routes of phase 15a's table), logits held by phase 9's rule against
+    the plain serve path and the plain full forward, then timed and the
+    decode profiled -> counts and times."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.prng import prng_key, randint_n
+    from repro_torch.kernels.swa.ops import prefill_kernel
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    arch, S, depth = FAMILY_CELLS[name]
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    tag = f"[{name}]"
+    B, GEN = SERVE_B, SERVE_GEN
+    t0 = time.perf_counter()
+    params = M.init_params(0, cfg, dev)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    weights = nbytes(*leaves)
+    nA = attn_layers(cfg)
+    log(f"{tag} {cfg.name} ({cfg.source}): {cfg.n_layers} layers"
+        + ("" if depth is None else " (depth cut)")
+        + f" ({nA} attention), d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}; {n_params} parameters "
+        f"({weights / 1e9:.2f} GB; config param_count {cfg.param_count()}) "
+        f"drawn in {time.perf_counter() - t0:.2f} s")
+    prompts = randint_n(prng_key(0), B * S, 0, cfg.vocab, dev).reshape(B, S)
+    stubs = family_stubs(cfg, B, dev)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        toks, lk = generate(params, cfg, prompts, GEN, **stubs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    log(f"{tag} main: {B} requests x {S} prompt tokens"
+        + (f" after {n_stub_rows(stubs)} patches" if n_stub_rows(stubs)
+           else "") + (f", {cfg.n_frames} frames" if "frames" in stubs
+                       else "")
+        + f", {GEN} tokens each in {wall:.2f} s, launches {counts}, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    tc6 = prefill_kernel(torch.bfloat16, cfg.head_dim) == "tc"
+    require(counts == _only(swa_prefill=nA, swa_prefill_tc=nA * tc6,
+                            attn_decode=nA * (GEN - 1),
+                            attn_decode_tc=nA * (GEN - 1)),
+            f"{tag} K6 once per attention layer in prefill (on its "
+            f"{'tensor-core' if tc6 else 'FMA'} kernel) and K5 once per "
+            f"attention layer a decode step (tensor cores)")
+    require(toks.shape == (B, GEN) and lk.shape == (B, GEN, cfg.vocab)
+            and bool(torch.isfinite(lk).all()), f"{tag} serve outputs")
+    what = f"{B} x {S} prompt tokens, {GEN} tokens"
+    with torch.inference_mode():
+        lp = serve_logits(params, cfg, prompts, toks, "torch", stubs)
+        require(_counts() == counts, f"{tag} the plain path launched no "
+                "kernel")
+        if cfg.ffn_kind == "moe":
+            moe_checks(tag, params, cfg, prompts, toks, lk, lp, stubs)
+        else:
+            lf = full_logits(params, cfg, prompts, toks, 2, stubs)
+            hold_logits(tag, what, toks, lk, lp, lf)
+            del lf
+    del lk, lp
+    times = serve_times(params, cfg, prompts, toks, stubs=stubs)
+    profile_decode(params, cfg, prompts, toks, times["decode_ms"], stubs,
+                   FAMILY_PROFILE_STEPS)
+    del params, stubs
+    torch.cuda.empty_cache()
+    return {"launches_prefill": counts["swa_prefill"],
+            "launches_decode": counts["attn_decode"],
+            "layers": cfg.n_layers, **times}
+
+
+def moe_checks(tag, params, cfg, prompts, toks, lk, lp, stubs) -> None:
+    """OLMoE's logits. Capacity drops depend on how many tokens a call
+    routes (cap = ceil(T k / E * 1.25): 2,560 a prefill of 8 x 2,048, 2 a
+    decode step of 8), so the full forward, one call over each request's
+    whole sequence, drops other assignments than the serve paths: it is
+    held at a drop-free capacity (capacity factor E / k, cap = T), where
+    serving and the full forward compute one function. At the published
+    capacity the kernel path is held against the plain serve path. A
+    route flips when bf16 rounding (another attention or GEMM order) moves
+    a token's router probabilities across a top-8 tie; the flipped token's
+    output then differs by its gate times the difference of two experts'
+    outputs, and every later token sees it through attention. The rule is
+    phase 9's, relative to the plain serve path's own gap (its GEMM shapes
+    differ from the full forward's, so its routes flip too): the kernel
+    path's rms gap within twice the plain path's + 1e-3 of the logits' rms,
+    its max gap within four times + a bf16 ulp of the largest logit, and
+    its greedy choices equal where the margin is clear."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    S, GEN = prompts.shape[1], toks.shape[1]
+    ids = {}
+    for backend in ("auto", "torch"):
+        ids[backend] = record_routes(lambda: M.prefill(
+            params, cfg, prompts, cache_len=S + GEN + 1, backend=backend))
+    flips = route_flips(ids["auto"], ids["torch"])
+    T = prompts.numel()
+    log(f"{tag} routes on the {T}-token prompt: {flips:.6f} of the "
+        f"(token, choice) routes of {len(ids['auto'])} MoE layers differ "
+        f"between the kernel and the plain serve path; capacity "
+        f"{L.moe_capacity(T, cfg)} a prefill, "
+        f"{L.moe_capacity(prompts.shape[0], cfg)} a decode step")
+    del ids
+    mk, rk = logit_gaps(lk, lp)
+    rf = lp.float().pow(2).mean().sqrt().item()
+    log(f"{tag} published capacity: kernel path against the plain serve "
+        f"path max {mk:.4e} rms {rk:.4e} (logits rms {rf:.4f})")
+    # the drop-free run: the same weights, capacity factor E / k
+    cfg_df = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                 / cfg.top_k)
+    _zero_counts()
+    tk, lk2 = generate(params, cfg_df, prompts, GEN)
+    lp2 = serve_logits(params, cfg_df, prompts, tk, "torch")
+    lf2 = full_logits(params, cfg_df, prompts, tk, 2)
+    hold_logits(tag, f"drop-free capacity, {prompts.shape[0]} x {S} "
+                f"prompt tokens, {GEN} tokens", tk, lk2, lp2, lf2)
+    del lk2, lp2, lf2
+
+
+def fp32_family_checks(dev) -> None:
+    """Phase 15h: each family at 2 layers in float32 (RecurrentGemma at
+    3, one whole (rglru, rglru, swa) repeat, so that an attention layer
+    runs; Whisper with 2 encoder layers too) on a ragged prompt (4 x 1,000
+    tokens, Whisper 4 x 200 after 1,500 frames, InternVL2 after 256
+    patches), 16 tokens, through the float32 kernels (K6's FMA kernel, K5's
+    split kernel, at 256 with G = 10 on two blocks a split), against the
+    plain serve path and the plain full forward, as phases 11 and 15 hold
+    them: atol 1e-3 + rtol 1e-3. OLMoE runs at a drop-free capacity (see
+    :func:`moe_checks`)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.prng import prng_key, randint_n
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    for name, (arch, _, _) in FAMILY_CELLS.items():
+        cfg = get_config(arch)
+        extra = {"n_layers": 3 if cfg.family == "hybrid" else 2,
+                 "dtype": "float32"}
+        if cfg.encoder_layers:
+            extra["encoder_layers"] = 2
+        if cfg.ffn_kind == "moe":
+            extra["capacity_factor"] = cfg.n_experts / cfg.top_k
+        cfg32 = dataclasses.replace(cfg, **extra)
+        S = 200 if cfg.family == "audio" else 1000
+        params = M.init_params(1, cfg32, dev)
+        p32 = randint_n(prng_key(1), 4 * S, 0, cfg.vocab, dev).reshape(4, S)
+        stubs = family_stubs(cfg32, 4, dev, seed=1)
+        nA = attn_layers(cfg32)
+        with torch.inference_mode():
+            _zero_counts()
+            t32, l32 = generate(params, cfg32, p32, 16, **stubs)
+            require(_counts() == _only(swa_prefill=nA, attn_decode=nA * 15),
+                    f"[{name} fp32] launches")
+            lp32 = serve_logits(params, cfg32, p32, t32, "torch", stubs)
+            lf32 = full_logits(params, cfg32, p32, t32, 4, stubs)
+        m32, r32 = logit_gaps(l32, lf32)
+        mp32, _ = logit_gaps(lp32, lf32)
+        log(f"[{name} fp32] {cfg32.n_layers} layers, 4 x {S} prompt tokens, "
+            f"16 tokens: kernel path max {m32:.3e} rms {r32:.3e}, plain "
+            f"serve path max {mp32:.3e}, against the plain full forward "
+            f"(|logit| up to {lf32.abs().max().item():.3f})")
+        torch.testing.assert_close(l32, lf32, atol=1e-3, rtol=1e-3)
+        torch.testing.assert_close(lp32, lf32, atol=1e-3, rtol=1e-3)
+        require(torch.equal(t32, l32.argmax(-1)),
+                f"[{name} fp32] greedy tokens")
+        del params, l32, lp32, lf32, stubs
+        torch.cuda.empty_cache()
+
+
+def serve_robust_phase() -> None:
+    """``examples/serve_robust_torch.py`` on the card for one family
+    (RecurrentGemma at reduced size), in its own process."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "serve_robust_torch.py"),
+         "--arch", "recurrentgemma_2b"], capture_output=True, text=True,
+        env=env, timeout=300)
+    tail = out.stdout.strip().splitlines()[-1:] or ["(no output)"]
+    log(f"[serve_robust_torch] exit {out.returncode}: {tail[0]}")
+    require(out.returncode == 0 and tail[0] == "serve_robust OK",
+            "examples/serve_robust_torch.py on the card:\n"
+            + out.stdout[-2000:] + out.stderr[-2000:])
+
+
+def family_phases(dev, flush, lap) -> dict:
+    """Phases 15c-15h -> K5's and K6's figures of the families."""
+    k256 = k5_256_checks(dev, flush)
+    lap("phase 15c (K5 at head size 256)")
+    mains = {}
+    for i, name in enumerate(FAMILY_CELLS):
+        mains[name] = family_main(name, dev, flush)
+        lap(f"phase 15{'defg'[i]} ({name})")
+    fp32_family_checks(dev)
+    serve_robust_phase()
+    lap("phase 15h (float32 at 2-3 layers, serve_robust_torch)")
+    return {"k256": k256, "mains": mains}
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,10 @@
 """Architecture registry of the port: ``get_config(name)`` / ``--arch <id>``.
 
-The ids and aliases are ``repro.configs``'s. The port runs the dense
-decoder family (attention or sliding-window attention mixers, a dense MLP)
-and RWKV6 (the ``wkv6`` mixer with the ``rwkv_cm`` channel mix), so only
-those configs are copied here, each with the reference's exact
-public-literature dimensions. The other families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The ids and aliases are ``repro.configs``'s, and every id's config is a
+copy of the reference's with its exact public-literature dimensions: the
+dense decoders, RWKV6, the MoE decoders (OLMoE-1B-7B, Qwen3-MoE-235B),
+the RG-LRU hybrid (RecurrentGemma-2B), the encoder-decoder (Whisper-small)
+and the VLM backbone (InternVL2-26B).
 """
 from __future__ import annotations
 
@@ -40,26 +39,11 @@ _ALIASES = {
     "minitron-4b": "minitron_4b",
 }
 
-# archs whose mixer or FFN kind the port does not run yet -> (kind, item)
-_NOT_PORTED = {
-    "olmoe_1b_7b": ("the moe FFN", "ROADMAP queue 1 item 9d"),
-    "qwen3_moe_235b_a22b": ("the moe FFN", "ROADMAP queue 1 item 9d"),
-    "recurrentgemma_2b": ("the rglru mixer", "ROADMAP queue 1 item 9d"),
-    "whisper_small": ("the audio family", "ROADMAP queue 1 item 9d"),
-    "internvl2_26b": ("the vlm family", "ROADMAP queue 1 item 9d"),
-}
-
 
 def get_config(name: str) -> ArchConfig:
     key = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if key not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ALIASES)}")
-    if key in _NOT_PORTED:
-        what, item = _NOT_PORTED[key]
-        raise NotImplementedError(
-            f"arch {key!r} needs {what}, which the PyTorch port does not run "
-            f"yet ({item}); the port runs: "
-            f"{sorted(a for a in ARCH_IDS if a not in _NOT_PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{key}")
     return mod.CONFIG
 

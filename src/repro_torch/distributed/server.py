@@ -113,10 +113,14 @@ def call_with_retry(
 def make_prefill_step(cfg: ArchConfig, cache_len: int | None = None,
                       backend: str = "auto"):
     """``prefill_step(params, batch) -> (logits, cache)`` with
-    ``batch["tokens"]`` (B, S)."""
+    ``batch["tokens"]`` (B, S) and, where the family takes them, the stub
+    inputs ``batch["frames"]`` (audio) and ``batch["patch_embeds"]``
+    (VLM)."""
     def prefill_step(params, batch):
         return M.prefill(params, cfg, batch["tokens"], cache_len=cache_len,
-                         backend=backend)
+                         backend=backend,
+                         patch_embeds=batch.get("patch_embeds"),
+                         frames=batch.get("frames"))
 
     return prefill_step
 

@@ -36,14 +36,18 @@
 // memory into one (m, l, acc) partial a block. The last block of a
 // (request, KV head) to finish, by an atomic ticket after a fence, merges
 // the partials of every split and writes the output, then resets its
-// ticket counter to 0 for the next call.
+// ticket counter to 0 for the next call. Groups of 9-16 query heads
+// (RecurrentGemma's 10 at head size 256) fill all 16 rows of the product;
+// at head size 256 their fragments of q are read from shared memory each
+// tile rather than held in 64 registers beside the 128 of the accumulator.
 //
 // attn_decode (float32): split and combine. Each of the 4 warps walks
 // every 4th row of the chunk, a lane holding dh / 32 elements of the row,
 // and keeps an (m, l, acc) triple per query head in registers; the warps
 // merge theirs in shared memory and the block writes one float32 partial
-// per query head to scratch. A second kernel merges the partials of the
-// splits that hold valid rows. Its limit is rtol 1e-5, which a
+// per query head to scratch. A block holds at most 8 query heads at head
+// size 256 (16 below), so a larger group runs as several blocks a split.
+// A second kernel merges the partials of the splits that hold valid rows. Its limit is rtol 1e-5, which a
 // bf16-operand product cannot be shown to meet.
 //
 // Bound: bytes. A step reads each valid K and V row once: at B = 8,
@@ -93,7 +97,10 @@ __global__ void __launch_bounds__(kWarps * 32) attn_decode_split(
         float* __restrict__ part_acc, int H, int Hkv, int Wc, int G,
         int chunk, int n_split, float scale) {
     constexpr int E = DH / 32;
-    const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+    const int split = blockIdx.x % n_split, kvh = blockIdx.y, b = blockIdx.z;
+    // the block's query heads: GMAX of the group from g0 (fewer at its end)
+    const int g0 = blockIdx.x / n_split * GMAX;
+    const int Gc = min(GMAX, G - g0);
     const int len = valid_rows(lengths, b, Wc);
     const int start = split * chunk;
     if (start >= len) return;
@@ -107,9 +114,9 @@ __global__ void __launch_bounds__(kWarps * 32) attn_decode_split(
         l[g] = 0.0f;
 #pragma unroll
         for (int e = 0; e < E; ++e) { qr[g][e] = 0.0f; acc[g][e] = 0.0f; }
-        if (g < G) {
-            load_row<E>(q + (static_cast<long long>(b) * H + kvh * G + g) * DH
-                        + lane * E, qr[g]);
+        if (g < Gc) {
+            load_row<E>(q + (static_cast<long long>(b) * H + kvh * G + g0 + g)
+                        * DH + lane * E, qr[g]);
 #pragma unroll
             for (int e = 0; e < E; ++e) qr[g][e] *= scale;
         }
@@ -123,7 +130,7 @@ __global__ void __launch_bounds__(kWarps * 32) attn_decode_split(
         load_row<E>(v + base + static_cast<long long>(w) * DH, vr);
 #pragma unroll
         for (int g = 0; g < GMAX; ++g) {
-            if (g >= G) break;
+            if (g >= Gc) break;
             float s = 0.0f;
 #pragma unroll
             for (int e = 0; e < E; ++e) s = fmaf(qr[g][e], kr[e], s);
@@ -151,7 +158,7 @@ __global__ void __launch_bounds__(kWarps * 32) attn_decode_split(
         for (int e = 0; e < E; ++e) sm_acc[warp][g][lane * E + e] = acc[g][e];
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < G * DH; i += kWarps * 32) {
+    for (int i = threadIdx.x; i < Gc * DH; i += kWarps * 32) {
         const int g = i / DH, d = i % DH;
         float M = sm_m[0][g];
 #pragma unroll
@@ -163,8 +170,8 @@ __global__ void __launch_bounds__(kWarps * 32) attn_decode_split(
             L = fmaf(c, sm_l[w][g], L);
             A = fmaf(c, sm_acc[w][g][d], A);
         }
-        const long long row = (static_cast<long long>(b) * H + kvh * G + g)
-                              * n_split + split;
+        const long long row = (static_cast<long long>(b) * H + kvh * G + g0
+                               + g) * n_split + split;
         part_acc[row * DH + d] = A;
         if (d == 0) { part_m[row] = M; part_l[row] = L; }
     }
@@ -204,7 +211,8 @@ struct Args {
 
 template <typename T, int DH, int GMAX>
 cudaError_t launch(const Args& a) {
-    const dim3 grid(a.n_split, a.Hkv, a.B);
+    const int n_gc = (a.G + GMAX - 1) / GMAX;    // blocks a (split, kv head)
+    const dim3 grid(a.n_split * n_gc, a.Hkv, a.B);
     attn_decode_split<T, DH, GMAX><<<grid, kWarps * 32, 0, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), a.lengths, a.part_m, a.part_l,
@@ -219,15 +227,16 @@ cudaError_t launch(const Args& a) {
 
 // GMAX: the smallest of 1, 2, 4, 8, 16 that holds G; the warp-merge
 // buffer (4 * GMAX * DH floats) stays within 32 KB of static shared memory.
+// At head size 256 a block takes at most 8 query heads: a group of 9-16
+// runs as two blocks a (split, kv head), each reading the rows once.
 template <typename T, int DH>
 cudaError_t by_group(const Args& a) {
+    if (a.G > 16) return cudaErrorInvalidValue;
     if (a.G <= 1) return launch<T, DH, 1>(a);
     if (a.G <= 2) return launch<T, DH, 2>(a);
     if (a.G <= 4) return launch<T, DH, 4>(a);
-    if (a.G <= 8) return launch<T, DH, 8>(a);
-    if constexpr (DH <= 128) {
-        if (a.G <= 16) return launch<T, DH, 16>(a);
-    }
+    if (a.G <= 8 || DH > 128) return launch<T, DH, 8>(a);
+    if constexpr (DH <= 128) return launch<T, DH, 16>(a);
     return cudaErrorInvalidValue;
 }
 
@@ -247,12 +256,17 @@ using bf16 = __nv_bfloat16;
 constexpr int kTile = 64;       // cache rows a stage
 constexpr int kTcThreads = 128;
 
-template <int DH>
+template <int DH, int GM>
 struct TcShape {
     static constexpr int kStages = DH == 256 ? 2 : 3;
     static constexpr int kRow = DH + 8;           // bf16 row stride in smem
     static constexpr int kStage = 2 * kTile * kRow;  // K then V, elements
-    static constexpr int kSmem = kStages * kStage * 2;
+    // at (256, 16) q's A fragments (64 registers) are read from a padded
+    // copy of q's 16 rows in shared memory, after the stages, instead of
+    // being held in registers beside the 128 of the accumulator
+    static constexpr bool kQSmem = DH == 256 && GM == 16;
+    static constexpr int kSmem = (kStages * kStage
+                                  + (kQSmem ? 16 * kRow : 0)) * 2;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -335,7 +349,7 @@ __global__ void __launch_bounds__(kTcThreads) attn_decode_tc_kernel(
         float* __restrict__ part_acc, int* __restrict__ tickets,
         bf16* __restrict__ out, int H, int Hkv, int Wc, int G, int chunk,
         int n_split, float scale) {
-    using S = TcShape<DH>;
+    using S = TcShape<DH, GM>;
     constexpr int KS = DH / 16, ND = DH / 8;
     extern __shared__ float4 smem4[];
     bf16* stages = reinterpret_cast<bf16*>(smem4);
@@ -379,9 +393,20 @@ __global__ void __launch_bounds__(kTcThreads) attn_decode_tc_kernel(
         cp_commit();
     }
 
-    // q's A fragments: rows g (and g + 8) are query heads kvh * G + row
-    uint32_t qa[KS][4];
-    {
+    // q's A fragments: rows g (and g + 8) are query heads kvh * G + row;
+    // in registers, or at (256, 16) rows of a zero-padded copy in smem
+    uint32_t qa[S::kQSmem ? 1 : KS][4];
+    bf16* qs = stages + S::kStages * S::kStage;
+    if constexpr (S::kQSmem) {
+        const bf16* q0 = q + head0 * DH;
+        for (int idx = tid; idx < 16 * (DH / 8); idx += kTcThreads) {
+            const int r = idx / (DH / 8), c = (idx % (DH / 8)) * 8;
+            const uint4 val = r < G
+                ? *reinterpret_cast<const uint4*>(q0 + r * DH + c)
+                : make_uint4(0u, 0u, 0u, 0u);
+            *reinterpret_cast<uint4*>(qs + r * S::kRow + c) = val;
+        }
+    } else {
         const bf16* q0 = q + head0 * DH;
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
@@ -418,15 +443,29 @@ __global__ void __launch_bounds__(kTcThreads) attn_decode_tc_kernel(
         const int row0 = start + tile * kTile + 16 * w;   // the warp's rows
         float sc[2][4];
 #pragma unroll
-        for (int n = 0; n < 2; ++n) {
+        for (int n = 0; n < 2; ++n)
 #pragma unroll
             for (int e = 0; e < 4; ++e) sc[n][e] = 0.0f;
-            const bf16* kr = ks + (16 * w + 8 * n + g) * S::kRow + 2 * t;
 #pragma unroll
-            for (int s = 0; s < KS; ++s)
-                mma_rows<GM>(sc[n], qa[s],
-                             *reinterpret_cast<const uint32_t*>(kr + 16 * s),
-                             *reinterpret_cast<const uint32_t*>(kr + 16 * s + 8));
+        for (int s = 0; s < KS; ++s) {
+            uint32_t a[4];
+            if constexpr (S::kQSmem) {
+                const bf16* qr = qs + g * S::kRow + 16 * s + 2 * t;
+                a[0] = *reinterpret_cast<const uint32_t*>(qr);
+                a[1] = *reinterpret_cast<const uint32_t*>(qr + 8 * S::kRow);
+                a[2] = *reinterpret_cast<const uint32_t*>(qr + 8);
+                a[3] = *reinterpret_cast<const uint32_t*>(qr + 8 * S::kRow + 8);
+            } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) a[e] = qa[s][e];
+            }
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+                const bf16* kr = ks + (16 * w + 8 * n + g) * S::kRow + 2 * t
+                                 + 16 * s;
+                mma_rows<GM>(sc[n], a, *reinterpret_cast<const uint32_t*>(kr),
+                             *reinterpret_cast<const uint32_t*>(kr + 8));
+            }
         }
         // scale in float32; rows at or past the length are -inf
 #pragma unroll
@@ -576,7 +615,7 @@ struct TcArgs {
 
 template <int DH, int GM>
 cudaError_t launch_tc(const TcArgs& a) {
-    using S = TcShape<DH>;
+    using S = TcShape<DH, GM>;
     static bool configured = false;
     if (!configured) {
         cudaError_t err = cudaFuncSetAttribute(
@@ -595,9 +634,7 @@ cudaError_t launch_tc(const TcArgs& a) {
 template <int DH>
 cudaError_t tc_by_group(const TcArgs& a) {
     if (a.G <= 8) return launch_tc<DH, 8>(a);
-    if constexpr (DH <= 128) {
-        if (a.G <= 16) return launch_tc<DH, 16>(a);
-    }
+    if (a.G <= 16) return launch_tc<DH, 16>(a);
     return cudaErrorInvalidValue;
 }
 
@@ -620,7 +657,7 @@ extern "C" int attn_decode(const void* q, const void* k,
     return static_cast<int>(by_head_dim<float>(dh, a));
 }
 
-// bf16 q, k, v and out; head sizes 64, 128 and 256; G <= 16 (<= 8 at 256).
+// bf16 q, k, v and out; head sizes 64, 128 and 256; G <= 16.
 // chunk: cache rows a split, a multiple of 64. part_*: float32 scratch of
 // B * H * n_split (m, l) and B * H * n_split * dh (acc). tickets: B * Hkv
 // int32, zero before the call and zero after it. The wrapper checks

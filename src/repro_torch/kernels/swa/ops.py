@@ -41,9 +41,10 @@ from .ref import attn_decode_ref, swa_prefill_ref
 __all__ = ["attn_decode", "attn_decode_cuda", "swa_prefill",
            "swa_prefill_cuda", "SwaPrefillFn", "HEAD_DIMS", "TC_HEAD_DIMS",
            "prefill_kernel", "tma_strides", "decode_kernel",
-           "decode_splits"]
+           "decode_splits", "DECODE_MAX_GROUP"]
 
 HEAD_DIMS = (64, 128, 256)
+DECODE_MAX_GROUP = 16        # query heads per KV head the decode kernels take
 TC_HEAD_DIMS = (64, 128)     # the tensor-core prefill kernel's head sizes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the decode kernel's split blocks aim at about this many blocks in all
@@ -189,7 +190,7 @@ def attn_decode_cuda(
         raise ValueError("q must be (B, H, dh) and k, v (B, Hkv, Wc, dh)")
     B, H, dh = q.shape
     Hkv, Wc = k.shape[1], k.shape[2]
-    _check_heads("q", q, dh, H, Hkv, 16 if dh <= 128 else 8)
+    _check_heads("q", q, dh, H, Hkv, DECODE_MAX_GROUP)
     if B == 0 or Wc == 0 or B > 65535 or Hkv > 65535:
         raise ValueError(f"unsupported decode shape B={B}, Hkv={Hkv}, "
                          f"Wc={Wc}")

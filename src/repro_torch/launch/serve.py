@@ -10,8 +10,12 @@ plain versions on the CPU). Weights are seeded
 random draws; the prompts are ``jax.random.randint(PRNGKey(seed), (B, S),
 0, vocab)`` bit for bit, and temperature sampling draws its Gumbel noise as
 ``jax.random.categorical`` does, keyed ``fold_in(PRNGKey(seed), i)`` at
-decode step ``i``, through the port's threefry. It prints the generated
-token ids, one row per request, then ``done``.
+decode step ``i``, through the port's threefry. The stub inputs are the
+reference CLI's: Whisper's frames ``normal(PRNGKey(seed), (B, n_frames,
+d_model))`` and the VLM's patches ``normal(PRNGKey(seed), (B, n_patches,
+1024))``, float32, drawn by the port's ``prng.normal`` (jax's to a few
+ulp). It prints the generated token ids, one row per request, then
+``done``.
 """
 from __future__ import annotations
 
@@ -24,22 +28,31 @@ __all__ = ["generate", "main"]
 
 def generate(params, cfg, prompts: torch.Tensor, gen: int,
              temperature: float = 0.0, seed: int = 0,
-             backend: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
-    """Prefill ``prompts`` (B, S), then ``gen - 1`` decode steps, the cache
-    sized ``S + gen + 1`` as the reference's CLI sizes it. The first token
-    is the argmax of the prefill logits; later ones the argmax, or with
-    ``temperature > 0`` a categorical draw of ``logits / temperature``.
-    -> (token ids (B, gen), the last-position logits (B, gen, V) each token
-    was chosen from)."""
+             backend: str = "auto", *, frames: torch.Tensor | None = None,
+             patch_embeds: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefill ``prompts`` (B, S) (with Whisper's ``frames`` or the VLM's
+    ``patch_embeds``), then ``gen - 1`` decode steps, the cache sized
+    ``S + gen + 1``, plus the patches for a VLM, as the reference's CLI
+    sizes it. The first token is the argmax of the prefill logits; later
+    ones the argmax, or with ``temperature > 0`` a categorical draw of
+    ``logits / temperature``. -> (token ids (B, gen), the last-position
+    logits (B, gen, V) each token was chosen from)."""
     from ..core.prng import categorical, fold_in, prng_key
     from ..distributed.server import make_decode_step, make_prefill_step
 
     S = prompts.shape[1]
-    prefill_step = make_prefill_step(cfg, cache_len=S + gen + 1,
+    n_patch = 0 if patch_embeds is None else patch_embeds.shape[1]
+    prefill_step = make_prefill_step(cfg, cache_len=S + gen + 1 + n_patch,
                                      backend=backend)
     decode_step = make_decode_step(cfg, backend=backend)
     key = prng_key(seed)
-    logits, cache = prefill_step(params, {"tokens": prompts})
+    batch = {"tokens": prompts}
+    if frames is not None:
+        batch["frames"] = frames
+    if patch_embeds is not None:
+        batch["patch_embeds"] = patch_embeds
+    logits, cache = prefill_step(params, batch)
     tok = logits[:, -1].argmax(-1)[:, None]
     toks, seen = [tok], [logits[:, -1]]
     for i in range(gen - 1):
@@ -70,7 +83,7 @@ def main(argv=None) -> None:
 
     from ..configs import get_config, reduced
     from ..core.plan import resolve_device
-    from ..core.prng import prng_key, randint_n
+    from ..core.prng import normal, prng_key, randint_n
     from ..models import model as M
 
     cfg = get_config(args.arch)
@@ -81,9 +94,15 @@ def main(argv=None) -> None:
     B, S = args.batch, args.prompt_len
     prompts = randint_n(prng_key(args.seed), B * S, 0, cfg.vocab,
                         dev).reshape(B, S)
+    key = prng_key(args.seed)
+    stubs = {}
+    if cfg.family == "audio":
+        stubs["frames"] = normal(key, (B, cfg.n_frames, cfg.d_model), dev)
+    if cfg.family == "vlm":
+        stubs["patch_embeds"] = normal(key, (B, cfg.n_patches, M.D_VIS), dev)
     with torch.inference_mode():
         toks, _ = generate(params, cfg, prompts, args.gen, args.temperature,
-                           args.seed, args.backend)
+                           args.seed, args.backend, **stubs)
     print("generated token ids:")
     for row in toks.tolist():
         print("  ", row)

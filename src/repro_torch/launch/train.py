@@ -16,7 +16,8 @@ versions on the CPU).
 Weights are seeded random draws; the data is the reference's synthetic
 markov stream, bit for bit. Robust modes print ``step N loss X
 consensus_spread Y`` at the reference's cadence, the mean mode ``step N
-loss X``, then ``done``.
+loss X``, then ``done``. The MoE, audio and VLM families raise
+NotImplementedError (ROADMAP queue 1 item 9d-2).
 """
 from __future__ import annotations
 
@@ -78,6 +79,7 @@ def build(args: argparse.Namespace, cfg=None, record: bool = False):
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = reduced(cfg)
+    M.check_trainable(cfg)
     dev = resolve_device(args.device)
     n_workers = args.workers
     byz = tuple(int(b) for b in args.byzantine.split(",") if b)

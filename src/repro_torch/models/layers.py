@@ -1,5 +1,5 @@
-"""Model building blocks of the dense decoders and of RWKV6: the port of
-the dense-attention and RWKV6 subsets of ``repro.models.layers``.
+"""Model building blocks: the port of ``repro.models.layers`` (attention,
+the dense MLP, the MoE FFN, RWKV6, the RG-LRU and cross-attention).
 
 Every block is a pair of functions, ``init_<block>(gen, cfg) -> params``
 and ``<block>(params, x, ...) -> y``, on plain tensors; parameters are
@@ -19,10 +19,21 @@ the plain versions, which for a whole sequence are ``_naive_attention`` /
 ``_chunked_attention``, faithful to the reference's. The RWKV6 time mix
 runs its scan over a whole sequence through :func:`repro_torch.kernels.
 wkv6.wkv6` (kernel K7 on the card) and a decode step through the plain
-``wkv6_decode_step``.
+``wkv6_decode_step``. Non-causal attention (Whisper's encoder and its
+cross-attention) is plain torch on every route, as the reference runs it
+outside any Pallas kernel. The MoE FFN's dispatch and expert products and
+the RG-LRU's scan are plain torch too: the reference has no kernel for
+them.
+
+Where the reference multiplies a float32 activation by a bf16 weight, JAX
+promotes the product to float32; torch raises on mixed operands, so
+:func:`_matmul` makes that promotion explicit (cross-attention K/V over
+Whisper's float32 encoder output, the VLM patch projection; the encoder
+itself casts its weights to the frames' dtype, ``model.encode``).
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -43,6 +54,12 @@ def _dt(cfg: ArchConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+def _matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in JAX's promoted dtype (float32 @ bf16 is float32)."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
 # ---------------------------------------------------------------------------
 # initializers / norms
 # ---------------------------------------------------------------------------
@@ -54,6 +71,8 @@ def _dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
     order. The draws differ from ``jax.random``'s; tests convert the
     reference's parameters instead (``repro_torch.convert``)."""
     fan_in = shape[0] if len(shape) >= 2 else 1
+    if len(shape) == 3:    # (E, d, f) expert weights: fan-in is the middle
+        fan_in = shape[1]
     std = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=torch.float32)
@@ -230,27 +249,38 @@ def _chunked_attention(q, k, v, *, causal: bool, window: int,
     return out.to(q.dtype)
 
 
-def causal_attention(q, k, v, cfg: ArchConfig, *, window: int,
-                     backend: str = "auto") -> torch.Tensor:
-    """Causal attention over a whole sequence, (B, S, H, dh): the
-    ``swa_prefill`` kernel on the card; with ``backend="torch"`` the plain
-    path the reference takes (``cfg.attn_impl``; ``"auto"`` is chunked from
-    S = 2048 on)."""
-    if resolve_backend(backend, q) == "cuda":
-        return swa_prefill(q, k, v, window, backend="cuda")
+def _plain_attention(q, k, v, cfg: ArchConfig, *, causal: bool,
+                     window: int) -> torch.Tensor:
+    """The reference's attention over a whole sequence (``cfg.attn_impl``;
+    ``"auto"`` is chunked from S = 2048 on)."""
     impl = cfg.attn_impl
     if impl == "auto":
         impl = "chunked" if q.shape[1] >= 2048 else "naive"
     fn = _chunked_attention if impl == "chunked" else _naive_attention
-    return fn(q, k, v, causal=True, window=window)
+    return fn(q, k, v, causal=causal, window=window)
+
+
+def causal_attention(q, k, v, cfg: ArchConfig, *, window: int,
+                     backend: str = "auto") -> torch.Tensor:
+    """Causal attention over a whole sequence, (B, S, H, dh): the
+    ``swa_prefill`` kernel on the card; with ``backend="torch"`` the plain
+    path the reference takes."""
+    if resolve_backend(backend, q) == "cuda":
+        return swa_prefill(q, k, v, window, backend="cuda")
+    return _plain_attention(q, k, v, cfg, causal=True, window=window)
 
 
 def attention_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
                     positions: torch.Tensor, *, window: int = 0,
+                    causal: bool = True,
                     backend: str = "auto") -> torch.Tensor:
-    """x: (B, S, d) pre-normed input -> (B, S, d)."""
+    """x: (B, S, d) pre-normed input -> (B, S, d). Causal attention takes
+    the kernel route; non-causal (Whisper's encoder) is plain torch."""
     q, k, v = _qk_project(p, x, cfg, positions)
-    out = causal_attention(q, k, v, cfg, window=window, backend=backend)
+    if causal:
+        out = causal_attention(q, k, v, cfg, window=window, backend=backend)
+    else:
+        out = _plain_attention(q, k, v, cfg, causal=False, window=window)
     B, S, H, dh = out.shape
     return out.reshape(B, S, H * dh) @ p["wo"]
 
@@ -324,6 +354,93 @@ def mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     else:
         h = _gelu((x @ p["w_up"]).float()).to(x.dtype)
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k, capacity-bounded dispatch)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    d, f, E, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, _dt(cfg)
+    return {"router": _dense_init(gen, (d, E), torch.float32, scale=0.02),
+            "w_gate": _dense_init(gen, (E, d, f), dt),
+            "w_up": _dense_init(gen, (E, d, f), dt),
+            "w_down": _dense_init(gen, (E, f, d), dt)}
+
+
+def moe_route(p: Params, xt: torch.Tensor, k: int):
+    """The float32 router of tokens xt (T, d) -> (probs (T, E), gates
+    (T, k), expert ids (T, k)). The top k are taken by a stable descending
+    sort, so that among equal probabilities the lower expert id comes
+    first, as ``jax.lax.top_k`` orders them (``torch.topk`` promises no
+    order among ties)."""
+    probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return probs, top.values[:, :k], top.indices[:, :k]
+
+
+def moe_capacity(T: int, cfg: ArchConfig) -> int:
+    """Slots an expert: ``max(1, ceil(T k / E * capacity_factor))``."""
+    return max(1, math.ceil(T * cfg.top_k / cfg.n_experts
+                            * cfg.capacity_factor))
+
+
+def moe_slots(ids: torch.Tensor, E: int, cap: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(slot, kept) of each flat (token, choice) assignment of ids (T, k):
+    its rank among the assignments to the same expert in token-major order
+    (a stable sort by expert id in place of the reference's (T k, E)
+    one-hot cumsum), slot ``expert * cap + rank``, kept while rank < cap.
+    Dropped assignments get slot ``E * cap``."""
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    ranks = torch.empty_like(flat)
+    ranks[order] = torch.arange(flat.numel(), device=flat.device) \
+        - starts[flat[order]]
+    kept = ranks < cap
+    slot = torch.where(kept, flat * cap + ranks, E * cap)
+    return slot, kept
+
+
+def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with per-expert capacity -> (y, aux): the
+    reference's ``_moe_block_gspmd`` (its ``moe_block`` takes that path
+    whenever no mesh has a "model" axis, as on one card).
+
+    Renormalized gates; the Switch aux ``E sum_e f_e P_e router_aux_coef``;
+    the (E cap, d) dispatch buffer, in which assignments ranked at or past
+    ``cap`` are dropped with their gate mass; the expert FFN as batched
+    products over the expert axis; the gate-weighted combine, the k
+    products (rounded to x's dtype, as the reference's are) summed in
+    float32."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, d)
+    probs, gates, ids = moe_route(p, xt, k)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    frac = torch.bincount(ids.reshape(-1), minlength=E).float() / (T * k)
+    aux = E * torch.sum(frac * probs.mean(dim=0)) * cfg.router_aux_coef
+
+    cap = moe_capacity(T, cfg)
+    slot, kept = moe_slots(ids, E, cap)
+    tok = torch.arange(T, device=x.device).repeat_interleave(k)
+    buf = x.new_zeros((E * cap, d))
+    buf[slot[kept]] = xt[tok[kept]]
+    h = buf.view(E, cap, d)
+
+    act = F.silu if cfg.act == "swiglu" else _gelu
+    g = act(torch.bmm(h, p["w_gate"]).float()).to(x.dtype)
+    u = torch.bmm(h, p["w_up"])
+    y_e = torch.bmm(g * u, p["w_down"]).view(E * cap, d)
+
+    w = (gates.reshape(-1) * kept).to(x.dtype)
+    per = y_e[slot.clamp_max(E * cap - 1)] * w[:, None]
+    y = per.view(T, k, d).float().sum(dim=1).to(x.dtype)
+    return y.view(B, S, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -470,3 +587,156 @@ def rwkv_cm_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
     kk = torch.square(torch.relu((mix(0) @ p["wk"]).float())).to(x.dtype)
     r = torch.sigmoid((mix(1) @ p["wr"]).float()).to(x.dtype)
     return r * (kk @ p["wv"])
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma / Griffin recurrent block)
+# ---------------------------------------------------------------------------
+
+_RGLRU_C = 8.0
+_CONV_W = 4        # the temporal conv's width
+
+
+def init_rglru(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    d, w, dt = cfg.d_model, cfg.rnn_width, _dt(cfg)
+    return {"w_in": _dense_init(gen, (d, w), dt),
+            "w_gate_branch": _dense_init(gen, (d, w), dt),
+            "conv_w": _dense_init(gen, (_CONV_W, w), dt, scale=0.5),
+            "conv_b": torch.zeros((w,), dtype=dt, device=gen.device),
+            "wa": _dense_init(gen, (w, w), dt, scale=0.02),
+            "wx": _dense_init(gen, (w, w), dt, scale=0.02),
+            # softplus^-1 of the decay parameter
+            "lam": torch.full((w,), 4.0, device=gen.device),
+            "w_out": _dense_init(gen, (w, d), dt)}
+
+
+def _combine(x, y):
+    """The scan's operator, x before y: (a_x a_y, a_y b_x + b_y)."""
+    return x[0] * y[0], y[0] * x[1] + y[1]
+
+
+def _assoc_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of :func:`_combine` along axis 1 in log depth:
+    ``jax.lax.associative_scan``'s odd/even recursion, so the products
+    are formed in the reference's order."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    odd = _assoc_scan(*_combine((a[:, 0:-1:2], b[:, 0:-1:2]),
+                                (a[:, 1::2], b[:, 1::2])))
+    if n % 2 == 0:
+        even = _combine((odd[0][:, :-1], odd[1][:, :-1]),
+                        (a[:, 2::2], b[:, 2::2]))
+    else:
+        even = _combine(odd, (a[:, 2::2], b[:, 2::2]))
+    out = []
+    for e0, ev, od in zip((a, b), even, odd):
+        r = torch.empty_like(e0)
+        r[:, 0] = e0[:, 0]
+        r[:, 2::2] = ev
+        r[:, 1::2] = od
+        out.append(r)
+    return out
+
+
+def _rglru_scan(a: torch.Tensor, b: torch.Tensor,
+                h0: torch.Tensor | None = None) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along axis 1 (float32), the initial state
+    folded into the first step as the reference folds it."""
+    if h0 is not None:
+        b = b.clone()
+        b[:, 0] += a[:, 0] * h0
+    return _assoc_scan(a, b)[1]
+
+
+def _rglru_core(p: Params, xw: torch.Tensor, h0=None):
+    """xw: (B, S, w) post-conv activations -> (h, a, b), float32."""
+    xf = xw.float()
+    r = torch.sigmoid(xf @ p["wa"].float())
+    i = torch.sigmoid(xf @ p["wx"].float())
+    log_a = -_RGLRU_C * r * F.softplus(p["lam"])        # (B, S, w) <= 0
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
+        * (i * xf)
+    return _rglru_scan(a, b, h0), a, b
+
+
+def _causal_conv(p: Params, xw: torch.Tensor) -> torch.Tensor:
+    """The width-4 causal temporal conv in xw's dtype, summed in the
+    reference's order."""
+    S = xw.shape[1]
+    pad = F.pad(xw, (0, 0, _CONV_W - 1, 0))
+    w = p["conv_w"]
+    conv = pad[:, 3:S + 3] * w[3]
+    for i in range(1, _CONV_W):
+        conv = conv + pad[:, 3 - i:S + 3 - i] * w[3 - i]
+    return conv + p["conv_b"]
+
+
+def rglru_mix(p: Params, x: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The recurrent block over a whole sequence from a zero state ->
+    (out (B, S, d), the input projection xw (B, S, w), h (B, S, w)
+    float32): prefill keeps xw's last rows and h's last row."""
+    xw = x @ p["w_in"]
+    h, _, _ = _rglru_core(p, _causal_conv(p, xw))
+    gate = _gelu((x @ p["w_gate_branch"]).float())
+    return (h * gate).to(x.dtype) @ p["w_out"], xw, h
+
+
+def rglru_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Training/prefill path (full sequence, pre-normed input)."""
+    return rglru_mix(p, x)[0]
+
+
+def rglru_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                 cache: Params) -> tuple[torch.Tensor, Params]:
+    """Single-token decode. cache ``{"h": (B, w) float32, "conv": (B, 3,
+    w)}``, updated in place (the reference returns a new one); the same
+    dict is returned."""
+    xw = x @ p["w_in"]                                   # (B, 1, w)
+    hist = torch.cat([cache["conv"], xw.to(cache["conv"].dtype)], dim=1)
+    conv = (torch.einsum("btw,tw->bw", hist.float(), p["conv_w"].float())
+            + p["conv_b"].float())[:, None, :]
+    h, _, _ = _rglru_core(p, conv, h0=cache["h"])
+    h = h[:, 0]
+    gate = _gelu((x[:, 0] @ p["w_gate_branch"]).float())
+    y = (h * gate).to(x.dtype) @ p["w_out"]
+    cache["h"].copy_(h)
+    cache["conv"].copy_(hist[:, 1:])
+    return y[:, None, :], cache
+
+
+def init_rglru_cache(cfg: ArchConfig, B: int, device=None) -> Params:
+    w = cfg.rnn_width
+    return {"h": torch.zeros((B, w), device=device),
+            "conv": torch.zeros((B, _CONV_W - 1, w), dtype=_dt(cfg),
+                                device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (Whisper's decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    d, hd, H, dt = cfg.d_model, cfg.head_dim, cfg.n_heads, _dt(cfg)
+    return {"wq": _dense_init(gen, (d, H * hd), dt),
+            "wk": _dense_init(gen, (d, H * hd), dt),
+            "wv": _dense_init(gen, (d, H * hd), dt),
+            "wo": _dense_init(gen, (H * hd, d), dt)}
+
+
+def cross_attention_block(p: Params, x: torch.Tensor, enc: torch.Tensor,
+                          cfg: ArchConfig) -> torch.Tensor:
+    """x: (B, S, d) queries; enc: (B, T, d) encoder output (keys and
+    values) -> (B, S, d) in x's dtype. Plain non-causal attention, as in
+    the reference. A float32 ``enc`` makes K and V float32 (JAX's
+    promotion), and the output is cast back to the queries' dtype."""
+    B, S, _ = x.shape
+    T = enc.shape[1]
+    hd, H = cfg.head_dim, cfg.n_heads
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = _matmul(enc, p["wk"]).reshape(B, T, H, hd)
+    v = _matmul(enc, p["wv"]).reshape(B, T, H, hd)
+    out = _naive_attention(q, k, v, causal=False, window=0)
+    return out.reshape(B, S, H * hd) @ p["wo"]

@@ -901,6 +901,89 @@ def test_serve_path_through_the_kernels_matches_plain(cuda_device, arch,
                                    rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bf16", "fp32"])
+@pytest.mark.parametrize("case", [
+    (8, 10, 1, 2048, "full"),        # RecurrentGemma's decode: G = 10
+    (8, 10, 1, 2048, "ragged"),
+    (3, 16, 1, 300, "ragged"),       # G = 16
+    (2, 20, 2, 77, "empty_one"),     # G = 10 over two KV heads
+])
+def test_attn_decode_kernels_take_ten_and_sixteen_heads_at_256(cuda_device,
+                                                                 case, dt):
+    """Both K5 kernels at head size 256 with 9-16 query heads per KV head
+    (the tensor-core kernel's 16-row product with q in shared memory; the
+    split kernel's two blocks a split) against the plain version."""
+    B, H, Hkv, Wc, lens = case
+    q, k, v, L = decode_problem(B, H, Hkv, Wc, 256, lens, seed=H)
+    dtype = _DT[dt]
+    tq, tk, tv = (torch.from_numpy(a).to(cuda_device, dtype)
+                  for a in (q, k, v))
+    tl = torch.from_numpy(L).to(cuda_device)
+    before = attn_decode_cuda.launches_tc
+    got = attn_decode_cuda(tq, tk, tv, tl)
+    torch.cuda.synchronize()
+    assert attn_decode_cuda.launches_tc == before + (dt == "bf16")
+    assert all(int(t.abs().sum()) == 0 for t in _TICKETS.values())
+    want = attn_decode_ref(tq.float(), tk.float(), tv.float(), tl)
+    torch.testing.assert_close(got.float(), want, rtol=_attn_tol(dtype),
+                               atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,extra", [
+    ("olmoe_1b_7b", {}),
+    ("recurrentgemma_2b", {"window": 8}),
+    ("whisper_small", {}),
+    ("internvl2_26b", {}),
+])
+def test_family_serve_path_through_the_kernels_matches_plain(
+        cuda_device, arch, extra):
+    """Reduced float32 models of the other families on the card: prefill
+    + decode through K6 (once per attention layer) and K5 (once per
+    attention layer a step) against the plain path (float32, another
+    summation order: atol = rtol = 1e-4)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(reduced(get_config(arch)), **extra)
+    params = M.init_params(0, cfg, cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 20), device=cuda_device,
+                         generator=gen)
+    stubs = {}
+    if cfg.family == "audio":
+        stubs["frames"] = torch.randn((2, cfg.n_frames, cfg.d_model),
+                                      device=cuda_device, generator=gen)
+    if cfg.family == "vlm":
+        stubs["patch_embeds"] = torch.randn((2, cfg.n_patches, M.D_VIS),
+                                            device=cuda_device,
+                                            generator=gen)
+    S, steps = 15, 5
+    n_attn = sum(cfg.mixer_of(i) in ("attn", "swa")
+                 for i in range(cfg.n_layers))
+    outs = {}
+    for backend in ("auto", "torch"):
+        k6, k5 = swa_prefill_cuda.launches, attn_decode_cuda.launches
+        lg, cache = M.prefill(params, cfg, toks[:, :S],
+                              cache_len=S + steps + cfg.n_patches,
+                              backend=backend, **stubs)
+        got = [lg[:, 0]]
+        for i in range(steps - 1):
+            lg, cache = M.decode_step(params, cfg, cache,
+                                      toks[:, S + i:S + i + 1],
+                                      backend=backend)
+            got.append(lg[:, 0])
+        torch.cuda.synchronize()
+        n = n_attn if backend == "auto" else 0
+        assert swa_prefill_cuda.launches == k6 + n
+        assert attn_decode_cuda.launches == k5 + n * (steps - 1)
+        outs[backend] = torch.stack(got, 1)
+    torch.testing.assert_close(outs["auto"], outs["torch"], rtol=1e-4,
+                               atol=1e-4)
+
+
 # (BH, T, dtype, lw: "model" | a constant log-decay)
 WKV_CASES = [
     (1, 1, "fp32", "model"), (5, 63, "bf16", "model"),

@@ -225,10 +225,17 @@ def test_full_qwen3_8b_config_and_unported_families():
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jax_get_config("qwen3_8b"))
     assert 8.1e9 < cfg.param_count() < 8.3e9
-    for arch in ("olmoe_1b_7b", "qwen3_moe_235b_a22b",
-                 "recurrentgemma_2b", "whisper_small", "internvl2_26b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
+    # the other families build too, each the reference's config with its
+    # parameter count in the published range
+    for arch, lo, hi in (("olmoe_1b_7b", 6.5e9, 7.2e9),
+                         ("qwen3_moe_235b_a22b", 2.2e11, 2.4e11),
+                         ("recurrentgemma_2b", 2.5e9, 3.0e9),
+                         ("whisper_small", 2.0e8, 2.6e8),
+                         ("internvl2_26b", 1.9e10, 2.1e10)):
+        other = get_config(arch)
+        assert dataclasses.asdict(other) == dataclasses.asdict(
+            jax_get_config(arch))
+        assert lo < other.param_count() < hi
     with pytest.raises(KeyError):
         get_config("gpt2")
 
