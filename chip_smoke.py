@@ -2,7 +2,8 @@
 (social learning), Algorithm 2 (Byzantine-resilient learning), Algorithm 1
 (push-sum consensus and hierarchical push-sum), grids of Algorithm 1, 2
 and 3 scenarios run as one graph, the serving path of the dense GQA models (Qwen3-8B) and of RWKV6 (RWKV6-1.6B),
-and decentralized robust training (paper_sim).
+and decentralized robust training (paper_sim; OLMoE-1B-7B, Whisper-small and
+InternVL2-26B).
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -196,6 +197,13 @@ Phases (any failure raises and the script exits non-zero):
              the full 24 layers in float32 (2 x 2,048-token prompts, 8
              tokens) by the rule of phase 13, where the greedy choices must
              agree on at least half the positions;
+15c-15h. families serve — K5 at head size 256 with G 10 and 16 against
+             its plain version; OLMoE-1B-7B, RecurrentGemma-2B,
+             Whisper-small and InternVL2-26B served at published widths
+             and full depth through K5/K6 against
+             the plain paths (OLMoE's logits at a drop-free capacity), timed
+             and profiled; each at 2-3 layers in float32;
+             examples/serve_robust_torch.py;
 16. train kernels — the trimmed mean (K4) against its sort-based plain
              version at the main path's (8, 99,496,704) for F in {0, 2} and
              at edge cases (W 3..64, D 1/3/4,097, a column offset of 1,
@@ -219,7 +227,35 @@ Phases (any failure raises and the script exits non-zero):
 18. train timing — K4 three ways at F = 2 and F = 0, its plain version,
              its bound and torch.mean at the main shape; step times of
              both paths (medians of 5, in turns), peak memory and a
-             profile of a kernel-path step.
+             profile of a kernel-path step;
+19. family train kernels — K6's gradients through SwaPrefillFn against
+             plain autograd at the three families' training shapes (bf16;
+             OLMoE 4 x 1,024 at head 128, Whisper's decoder 2 x 448 at
+             64, InternVL2 4 x 2,048 at 128 with G 6), held as phase 16
+             holds them; K4 against its plain version at each robust
+             cell's (W, D_total) (OLMoE (3, ~1.05e9) F 1, Whisper (8,
+             ~2.24e8) F 2);
+20. family train mains — through launch.train.build at published
+             widths, bf16, seeded weights, 10 steps (the plain path 3),
+             the stub inputs in
+             each batch: OLMoE-1B-7B at 2 layers (stacked, remat),
+             trimmed_mean W 3 F 1, Byzantine 1, 3 x 4 x 1,024 tokens;
+             Whisper-small at full depth, trimmed_mean W 8 F 2, Byzantine
+             2 and 5, 8 x 2 x 448 tokens with 1,500 float32 frames a row;
+             InternVL2-26B at 2 layers, mean, lr 3e-5, 4 x (256 float32
+             patches + 1,792 tokens). K6 workers x layers x 2 a step
+             (forward and remat) on its tensor-core kernel, K4 once a
+             robust step; the
+             loss falls, the copies equal, the plain path agrees (losses,
+             first-step aggregate; OLMoE's plain first step on the kernel
+             path's routes, the recompute's routes equal the forward's);
+             examples/robust_training_torch.py at its 200 steps runs in
+             its own process beside the Whisper and InternVL2 cells (their
+             logged walls are on a shared card), its loss falling;
+21. family train timing — K6 at the three training shapes (host
+             hidden) beside its plain version, bound and SDPA; each cell's
+             step on both paths (medians of 5, in turns), a profile of a
+             kernel-path step and its peak memory.
 
 The build phase prints ptxas' registers and spills of every K4
 instantiation (4 to 64 workers), K1's three kernels, every K3 width (8 to
@@ -3544,6 +3580,11 @@ def main() -> int:
         by_name["attn_decode"]["max_abs_err"], fam["k256"]["err"])
     kernels.append(train_phases(dev, flush))
     lap("phases 16-18")
+    ft = family_train_phases(dev, flush, lap)
+    by_name["swa_prefill"]["launches_family_train"] = ft["k6_launches"]
+    by_name["swa_prefill"]["family_train"] = ft["k6_times"]
+    kernels[-1]["launches_family_train"] = ft["k4_launches"]
+    kernels[-1]["family_train_max_abs_err"] = ft["k4_err"]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3599,16 +3640,22 @@ def kernel_times(fn, runs: int,
     return {n: (total[n] / count[n], count[n]) for n in total}
 
 
-def profile_step(run, label: str, step_ms: float, steps: int = 20) -> None:
+def profile_step(run, label: str, step_ms: float, steps: int = 20,
+                 warm: bool = True, cpu: bool = True) -> None:
     """Device time by kernel over ``steps`` kernel-path steps
-    (torch.profiler) of ``run(T)``, after min(5, steps) unprofiled ones,
-    and the share of the unprofiled step time ``step_ms`` it covers."""
+    (torch.profiler) of ``run(T)``, after min(5, steps) unprofiled ones
+    (none without ``warm``: the caller's steps warmed it), and the share
+    of the unprofiled step time ``step_ms`` it covers. Without ``cpu``
+    the profiler records device activity alone (a step of tens of
+    thousands of ops, whose host-side events take the profiler tens of
+    seconds to average)."""
     import torch
 
-    run(min(5, steps))
+    if warm:
+        run(min(5, steps))
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA] + (
+        [torch.profiler.ProfilerActivity.CPU] if cpu else [])
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
         run(steps)
@@ -5083,8 +5130,8 @@ def tmean_bound(x, F: int):
     W * eps32 * sum |x| / (W - 2F), inf and NaN counted as 0."""
     import torch
     W = x.shape[0]
-    fin = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
-    return W * EPS32 * fin.abs().sum(dim=0) / (W - 2 * F) + 1e-30
+    fin = torch.where(torch.isfinite(x), x, 0.0)
+    return W * EPS32 * fin.abs_().sum(dim=0) / (W - 2 * F) + 1e-30
 
 
 def hold_tmean(what: str, got, want, x, F: int) -> float:
@@ -5200,6 +5247,45 @@ def tmean_kernel_checks(dev, D_full: int) -> float:
     return main_err
 
 
+def hold_k6_grads(g, shape, dtype, dev) -> None:
+    """K6's gradients through its autograd wrapper (``SwaPrefillFn``)
+    against autograd of the plain version at ``shape`` (B, S, H, Hkv, dh),
+    causal, in ``dtype``, inputs drawn from ``g``. The loss is linear in the
+    outputs (a fixed random cotangent), so the backward, a plain
+    recompute, sees the same cotangent: the gradients must be bit-equal.
+    The output is the kernel's, held to phase 8's limits against the plain
+    version in float32 (bf16 rtol 2^-8, float32 1e-5; atol 1e-5)."""
+    import torch
+    from repro_torch.kernels.swa import (swa_prefill, swa_prefill_cuda,
+                                         swa_prefill_ref)
+    B, S, H, Hkv, dh = shape
+    name = str(dtype)[6:]
+    q, k, v = (torch.randn((B, S, h, dh), generator=g, device=dev)
+               for h in (H, Hkv, Hkv))
+    up = torch.randn((B, S, H, dh), generator=g, device=dev)
+    res = {}
+    for backend in ("cuda", "torch"):
+        ins = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+        before = swa_prefill_cuda.launches
+        out = swa_prefill(*ins, 0, backend=backend)
+        require(swa_prefill_cuda.launches == before + (backend == "cuda"),
+                "K6 launch through the wrapper")
+        (out.float() * up).sum().backward()
+        res[backend] = (out.detach(), [t.grad for t in ins])
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = swa_prefill_ref(*(t.to(dtype).float() for t in (q, k, v)), 0)
+    tol = 2 ** -8 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(res["cuda"][0].float(), want, rtol=tol,
+                               atol=1e-5)
+    del want
+    require(all(torch.equal(a, b) for a, b in zip(res["cuda"][1],
+                                                  res["torch"][1])),
+            f"K6 gradients bit-equal to plain autograd at {shape} ({name})")
+    del q, k, v, up, res, out, ins
+    torch.cuda.empty_cache()
+
+
 def grad_kernel_checks(dev) -> None:
     """Phase 16b: K6's and K7's gradients through their autograd wrappers
     against autograd of their plain versions at a layer's shape
@@ -5210,42 +5296,15 @@ def grad_kernel_checks(dev) -> None:
     the same cotangent: the gradients must be bit-equal. The outputs are
     the kernels': held to the serve phases' limits."""
     import torch
-    from repro_torch.kernels.swa import (swa_prefill, swa_prefill_cuda,
-                                         swa_prefill_ref)
     from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked_ref, wkv6_cuda
     g = torch.Generator(device=dev).manual_seed(6)
 
     def rn(*shape):
         return torch.randn(shape, generator=g, device=dev)
 
-    Ba, Sa, Ha, Hkva = GRAD_ATTN
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        q, k, v = (rn(Ba, Sa, h, 64) for h in (Ha, Hkva, Hkva))
-        up = rn(Ba, Sa, Ha, 64)
-        res = {}
-        for backend in ("cuda", "torch"):
-            ins = [t.to(dtype).requires_grad_() for t in (q, k, v)]
-            before = swa_prefill_cuda.launches
-            out = swa_prefill(*ins, 0, backend=backend)
-            require(swa_prefill_cuda.launches == before
-                    + (backend == "cuda"), "K6 launch through the wrapper")
-            (out.float() * up).sum().backward()
-            res[backend] = (out.detach(), [t.grad for t in ins])
-        torch.cuda.synchronize()
-        # K6's output against the plain version in float32 on the same
-        # inputs, as phase 8 holds it: a bf16 output is rounded once
-        with torch.no_grad():
-            want = swa_prefill_ref(*(t.to(dtype).float() for t in (q, k, v)),
-                                   0)
-        tol = 2 ** -8 if dtype == torch.bfloat16 else 1e-5
-        torch.testing.assert_close(res["cuda"][0].float(), want, rtol=tol,
-                                   atol=1e-5)
-        del want
-        require(all(torch.equal(a, b) for a, b in zip(res["cuda"][1],
-                                                      res["torch"][1])),
-                f"K6 gradients bit-equal to plain autograd ({name})")
-        del q, k, v, up, res, out, ins
+        hold_k6_grads(g, (*GRAD_ATTN, 64), dtype, dev)
         B, H, T = GRAD_WKV
         r, kk, vv = (rn(B * H, T, WKV_HEAD) for _ in range(3))
         lw = -torch.exp(torch.clamp(-0.5 + rn(B * H, T, WKV_HEAD), -8, 4))
@@ -5283,14 +5342,15 @@ def grad_kernel_checks(dev) -> None:
 
 
 def run_steps(step, params, opt, data, steps: int, dev, robust=True,
-              on_step=None) -> list[float]:
-    """``steps`` steps as ``launch.train.main`` runs them -> the losses."""
+              on_step=None, stubs=None) -> list[float]:
+    """``steps`` steps as ``launch.train.main`` runs them, ``stubs`` (a
+    family's frames or patches) added to every batch -> the losses."""
     import torch
     from repro_torch.core.prng import fold_in, prng_key
     key = prng_key(0)
     losses = []
     for s in range(steps):
-        batch = data.batch(s, dev)
+        batch = {**data.batch(s, dev), **(stubs or {})}
         if robust:
             params, opt, loss = step(params, opt, batch, fold_in(key, s))
         else:
@@ -5638,6 +5698,513 @@ def train_timing(dev, k4_ms: float) -> None:
     del setups
     torch.cuda.empty_cache()
 
+
+
+# ---------------------------------------------------------------------------
+# Phases 19-21: training of the MoE, audio and VLM families at published
+# widths (OLMoE-1B-7B, Whisper-small, InternVL2-26B): K6 in every attention
+# layer's forward and remat recompute, its backward through SwaPrefillFn,
+# and K4 once a robust step
+# ---------------------------------------------------------------------------
+
+# name -> (arch, layers (None: full depth), aggregator, workers, F,
+# Byzantine workers, rows a worker, text tokens a row, peak lr). Depth and
+# rows are the only cuts: OLMoE at 2 layers (its stacked (R, ...) layout
+# with remat; 3 copies of 1.05 B parameters at 14 B each), InternVL2 at 2
+# layers in the mean mode (one copy: two robust copies of its 1.14 B
+# embedding and head parameters do not fit), Whisper at full depth. The
+# CLI's lr of 3e-4 but for InternVL2: at d_model 6,144 an Adam step of
+# 3e-4 on every weight moves a logit by ~1.5 and the loss oscillates
+# (12.00, 11.85, 12.46, 11.76, ...); a tenth of it
+FAMILY_TRAIN = {
+    "olmoe": ("olmoe_1b_7b", 2, "trimmed_mean", 3, 1, "1", 4, 1024, 3e-4),
+    "whisper": ("whisper_small", None, "trimmed_mean", 8, 2, "2,5", 2, 448,
+                3e-4),
+    "internvl2": ("internvl2_26b", 2, "mean", 1, 0, "", 4, 1792, 3e-5),
+}
+FAMILY_TRAIN_STEPS = 10
+FAMILY_PLAIN_STEPS = 3    # the plain path's steps, held against the first
+FAMILY_TIMED_STEPS = 5    # phase 21's timed steps a path
+# kernel path against the plain path (see family_train_main)
+FAMILY_LOSS_GAP, FAMILY_AGG_GAP = 1e-3, 1e-2
+
+
+def family_train_cfg(name: str):
+    """A cell's config: published widths, its depth cut."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, depth = FAMILY_TRAIN[name][:2]
+    cfg = get_config(arch)
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def family_train_argv(name: str, backend: str) -> list:
+    """``python -m repro_torch.launch.train``'s arguments of a cell."""
+    arch, _, agg, W, F, byz, rows, S, lr = FAMILY_TRAIN[name]
+    return ["--arch", arch, "--steps", str(FAMILY_TRAIN_STEPS), "--seq-len",
+            str(S), "--global-batch", str(W * rows), "--agg", agg,
+            "--trim-f", str(F), "--byzantine", byz, "--workers", str(W),
+            "--lr", str(lr), "--backend", backend, "--seed", "0"]
+
+
+def family_k6_shape(name: str) -> tuple:
+    """K6's (B, S, H, Hkv, dh) in a cell: one worker's rows, the text
+    tokens after a VLM's patch rows."""
+    cfg = family_train_cfg(name)
+    rows, S = FAMILY_TRAIN[name][6:8]
+    n_vis = cfg.n_patches if cfg.family == "vlm" else 0
+    return (rows, S + n_vis, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+
+
+def family_train_kernel_checks(dev) -> dict:
+    """Phase 19: K6's gradients through ``SwaPrefillFn`` against plain
+    autograd at each cell's training shape (one worker's call of a layer),
+    bf16, by :func:`hold_k6_grads`; then K4 against its plain version at
+    each robust cell's (W, D_total), D_total the leaves of the cell's
+    parameters: phase 16's data (randn x 1e-3, the Byzantine rows x -10),
+    the cell's F, held by :func:`hold_tmean` on the whole row (at OLMoE's
+    (3, 1.05e9) ~46 GB: x, the two results, the bound's (W, D) temporary)
+    -> D_total by cell and K4's largest error."""
+    import torch
+    from repro_torch.kernels.trimmed_mean import (trimmed_mean_cuda,
+                                                  trimmed_mean_ref)
+    from repro_torch.models import model as M
+    g = torch.Generator(device=dev).manual_seed(19)
+    for name in FAMILY_TRAIN:
+        shape = family_k6_shape(name)
+        hold_k6_grads(g, shape, torch.bfloat16, dev)
+        log(f"[family train kernels] K6 at {name}'s training shape (B, S, "
+            f"H, Hkv, dh) = {shape}, bf16: output within phase 8's limits, "
+            f"gradients through SwaPrefillFn bit-equal to plain autograd")
+    d_total, worst = {}, 0.0
+    for name, (_, _, agg, W, F, byz, *_) in FAMILY_TRAIN.items():
+        params = M.init_params(0, family_train_cfg(name), dev)
+        D = d_total[name] = sum(t.numel() for t in _leaves(params))
+        del params
+        if agg == "mean":
+            continue
+        x = torch.randn((W, D), generator=g, device=dev).mul_(1e-3)
+        for b in byz.split(","):
+            x[int(b)].mul_(-10.0)
+        got = trimmed_mean_cuda(x, F)
+        err = hold_tmean(f"{name} (W={W}, D={D}, F={F})", got,
+                         trimmed_mean_ref(x, F), x, F)
+        worst = max(worst, err)
+        log(f"[family train kernels] trimmed_mean at {name}'s (W, D_total) "
+            f"= ({W}, {D}), F = {F}, Byzantine rows {byz} at -10x: within W "
+            f"eps32 sum|x| / (W - 2F) of the plain version, max_abs_err "
+            f"{err:.3e}")
+        del x, got
+        torch.cuda.empty_cache()
+    return {"d_total": d_total, "k4_err": worst}
+
+
+class RoutePin:
+    """Stands in for ``repro_torch.models.layers.moe_route`` while
+    installed. ``record``: keeps each call's expert ids, in call order.
+    ``replay``: returns the recorded ids of the same call, the gates
+    gathered from this call's own router probabilities (the top-k values
+    where the ids agree, so the gradient reaches the router as through
+    them), and counts the (token, choice) pairs this call's own top-k
+    would route elsewhere. ``off``: the router as it is."""
+
+    def __init__(self, layers):
+        self.layers, self.route = layers, layers.moe_route
+        self.mode, self.ids, self.used, self.miss, self.pairs = \
+            "off", [], 0, 0, 0
+
+    def __enter__(self):
+        self.layers.moe_route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.route
+
+    def __call__(self, p, xt, k):
+        probs, gates, ids = self.route(p, xt, k)
+        if self.mode == "record":
+            self.ids.append(ids)
+        elif self.mode == "replay":
+            want = self.ids[self.used]
+            self.used += 1
+            same = (ids[:, :, None] == want[:, None, :]).any(-1)
+            self.miss += int((~same).sum())
+            self.pairs += same.numel()
+            ids, gates = want, probs.gather(-1, want)
+        return probs, gates, ids
+
+
+def grads_rel_rms(got: list, want: list) -> float:
+    """rms(got - want) / rms(want) over every coordinate of two gradient
+    lists, in float32."""
+    num = den = 0.0
+    for a, b in zip(got, want, strict=True):
+        num += (a.float() - b.float()).square().sum().item()
+        den += b.float().square().sum().item()
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def first_batch_loss(params, cfg, batch, W: int, robust: bool) -> float:
+    """The loss of ``batch`` under ``params`` (copy 0 of a robust cell's),
+    each worker's rows scored apart and averaged, as a step scores
+    them."""
+    import torch
+    from repro_torch.models import model as M
+    p0 = M._tmap(lambda t: t[0], params) if robust else params
+    b = batch["tokens"].shape[0] // W
+    losses = []
+    with torch.no_grad():
+        for w in range(W):
+            rows = {k: v[w * b:(w + 1) * b] for k, v in batch.items()}
+            losses.append(M.loss_fn(
+                p0, cfg, rows["tokens"], rows["labels"],
+                patch_embeds=rows.get("patch_embeds"),
+                frames=rows.get("frames")).item())
+    return float(np.mean(losses))
+
+
+def family_train_main(name: str, dev, shared: bool = False) -> dict:
+    """Phase 20 for one cell: ``FAMILY_TRAIN_STEPS`` steps through
+    ``launch.train.build(args, cfg=...)`` at published widths, bf16,
+    seeded weights, the cell's stub inputs (Whisper's 1,500 float32 frames
+    a row, InternVL2's 256 float32 patches a row; seeded, the same every
+    step) added to each batch, on the kernel path (``backend="auto"``),
+    then the first ``FAMILY_PLAIN_STEPS`` of them from the same seed on
+    the plain path (``"torch"``). ``shared``: another process
+    (the example) runs on the card, so the logged build and step walls
+    are not step times (phase 21 times the steps).
+
+    Required on the kernel path: finite losses that fall from step 0 to
+    the last, and step 0's batch scored again after the last step below
+    its step-0 loss (each step draws another batch, and a batch of a few
+    markov rows moves the loss by ~0.05). For InternVL2, whose steps at
+    its lr of 3e-5 swing by ~0.1 with the batch, the second is the test
+    of learning: the first holds little there. A robust cell's copies
+    bit-equal (one trimmed aggregate for every copy) and its
+    ``param_spread`` exactly 0 where every leaf is bf16; K6 launched
+    workers x attention layers x 2 (forward and remat recompute) a step,
+    every launch on its tensor-core kernel, K4 once a robust step and
+    nothing else; the plain path launches nothing.
+
+    Kernel path against the plain path, a rule fixed before the run:
+    each of the plain path's steps' loss within ``FAMILY_LOSS_GAP`` (1e-3)
+    relative (sound runs read up to 5.1e-5), and the first step's
+    aggregate (the mean cell: its gradient) within ``FAMILY_AGG_GAP``
+    (1e-2) relative rms. At random weights the loss sits near ln V
+    whatever attention returns, so the loss gap alone could not show a
+    wrong K6: the aggregate is the check that guards the kernel (a wrong
+    path's readings are not measured). The paths differ by K6's
+    arithmetic: its bf16 output rounds another float32 sum, so a few
+    entries move by one bf16 ulp (2^-8), and those flips travel through the
+    later layers and the backward, and move near-tied survivors of the
+    trim; a missing or wrong gradient term moves the aggregate by O(1) of
+    its rms. OLMoE's routes also flip between the paths (0.015 of the
+    serve path's (token, choice) pairs), and a flipped pair sends its token's gradient
+    to another expert: so the plain path's first step takes the kernel
+    path's routes (``RoutePin``: the same discrete choice, each path's own
+    router probabilities and arithmetic), and the share of pairs its own
+    router would have flipped is printed. The kernel path's record also
+    shows that each layer's remat recompute takes its forward's routes.
+    -> launches, losses, gaps, the peak memory of each path's run (the
+    kept first-step aggregate or gradient included)."""
+    import torch
+    from repro_torch.distributed.trainer import param_spread
+    from repro_torch.launch.train import build, parse_args
+    from repro_torch.models import layers as L
+    from repro_torch.optim.adamw import leaves
+
+    _, depth, agg, W, F, byz, rows, S, lr = FAMILY_TRAIN[name]
+    cfg = family_train_cfg(name)
+    tag = f"[{name} train]"
+    robust = agg != "mean"
+    nA = attn_layers(cfg)
+    stubs = family_stubs(cfg, W * rows, dev)
+    moe = cfg.ffn_kind == "moe"
+    pin = RoutePin(L)
+    runs = {}
+    with pin:
+        for backend in ("auto", "torch"):
+            n_steps = (FAMILY_TRAIN_STEPS if backend == "auto"
+                       else FAMILY_PLAIN_STEPS)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tc, data, pw, ow, step, _ = build(
+                parse_args(family_train_argv(name, backend)), cfg,
+                record="aggregate" if robust else True)
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            n_params = sum(t[0].numel() if robust else t.numel()
+                           for t in leaves(pw))
+            first = {}
+
+            def keep(s, st, first=first):
+                """The first step's aggregate (float32 row) or gradient;
+                every step's record freed; the router pinned in step 0
+                only."""
+                if robust:
+                    if s == 0:
+                        first["agg"] = st.aggregate[0].clone()
+                    del st.aggregate
+                else:
+                    if s == 0:
+                        first["agg"] = st.grads
+                    del st.grads
+                if s == 0:
+                    pin.mode = "off"
+
+            if moe:
+                pin.mode = "record" if backend == "auto" else "replay"
+            _zero_counts()
+            t0 = time.perf_counter()
+            losses = run_steps(step, pw, ow, data, n_steps, dev,
+                               robust=robust, on_step=keep, stubs=stubs)
+            wall = time.perf_counter() - t0
+            counts = _counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            spread = param_spread(pw).item() if robust else None
+            again = first_batch_loss(pw, cfg, {**data.batch(0, dev),
+                                               **stubs}, W, robust)
+            log(f"{tag} {backend}: {cfg.name} ({cfg.source}) "
+                f"{cfg.n_layers} layers" + ("" if depth is None else
+                                            " (depth cut)")
+                + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers
+                   else "") + f", d_model {cfg.d_model}, {cfg.n_heads}/"
+                f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+                f"vocab {cfg.vocab}"
+                + (f", {cfg.n_experts} experts top-{cfg.top_k} capacity "
+                   f"factor {cfg.capacity_factor}" if moe else "")
+                + f", {cfg.dtype}; {n_params} parameters a copy; "
+                f"{agg}" + (f" W={W} F={F} Byzantine {byz}" if robust
+                            else " (one copy)")
+                + f", {W} x {rows} rows of {S} tokens a step"
+                + (f" (+ {cfg.n_patches} patches a row)"
+                   if "patch_embeds" in stubs else "")
+                + (f" ({cfg.n_frames} frames a row)" if "frames" in stubs
+                   else "") + f", lr {lr}"
+                + f"; built in {t_build:.2f} s, {n_steps} steps in "
+                f"{wall:.2f} s" + (" (walls beside the example's process "
+                                   "on the card: not step times)"
+                                   if shared else "")
+                + f"; losses {[round(x, 4) for x in losses]} "
+                f"(step 0's batch after the last step: {again:.4f}); "
+                + (f"param_spread {spread!r}; " if robust else "")
+                + f"peak memory {peak:.2f} GB; launches {counts}")
+            require(all(np.isfinite(losses)), f"{tag} losses finite")
+            if robust:    # (OLMoE's float32 router: the mean of W equal
+                # float32 values that param_spread takes need not round
+                # back to the value, so the copies are compared directly)
+                require(all(torch.equal(t[0], t[w]) for t in leaves(pw)
+                            for w in range(1, W)),
+                        f"{tag} every copy equal (one aggregate)")
+                require(spread == 0.0 or any(
+                    t.dtype == torch.float32 for t in leaves(pw)),
+                    f"{tag} param_spread exactly 0")
+            if backend == "auto":
+                n_k6 = FAMILY_TRAIN_STEPS * W * nA * 2
+                require(counts == _only(
+                    trimmed_mean=FAMILY_TRAIN_STEPS * robust,
+                    swa_prefill=n_k6, swa_prefill_tc=n_k6),
+                    f"{tag} K6 {n_k6} times (workers x attention layers x "
+                    f"forward and remat a step, on its tensor-core kernel)"
+                    f", K4 once a robust step")
+                require(losses[-1] < losses[0] and again < losses[0],
+                        f"{tag} the loss falls")
+            else:
+                require(counts == _only(), f"{tag} the plain path "
+                        "launched no kernel")
+            runs[backend] = (losses, first["agg"], counts, peak)
+            del pw, ow, step, first, data
+            torch.cuda.empty_cache()
+    (lk, ak, counts, peak_k), (lp, ap, _, peak_p) = (runs["auto"],
+                                                     runs["torch"])
+    if moe:
+        n_moe = cfg.n_layers
+        calls = W * 2 * n_moe
+        require(len(pin.ids) == calls and pin.used == calls,
+                f"{tag} {calls} router calls in step 0 (forward and remat "
+                f"recompute of each layer, each worker), replayed one for one")
+        same = all(torch.equal(pin.ids[w * 2 * n_moe + j],
+                               pin.ids[w * 2 * n_moe + 2 * n_moe - 1 - j])
+                   for w in range(W) for j in range(n_moe))
+        log(f"{tag} routes: each layer's remat recompute takes its "
+            f"forward's routes: {same}; the plain path's own router would "
+            f"route {pin.miss / pin.pairs:.6f} of step 0's (token, choice) "
+            f"pairs elsewhere (pinned to the kernel path's)")
+        require(same, f"{tag} the remat recompute takes the forward's "
+                "routes")
+    agg_gap = rel_rms(ak, ap) if robust else grads_rel_rms(ak, ap)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    log(f"{tag} kernel vs plain path: first-step "
+        f"{'aggregate' if robust else 'gradient'} relative rms "
+        f"{agg_gap:.3e}, largest relative loss gap over "
+        f"{FAMILY_PLAIN_STEPS} steps {loss_gap:.3e} (limits "
+        f"{FAMILY_AGG_GAP}, {FAMILY_LOSS_GAP})")
+    require(agg_gap < FAMILY_AGG_GAP, f"{tag} first-step aggregates agree")
+    require(loss_gap < FAMILY_LOSS_GAP, f"{tag} losses agree")
+    del runs, ak, ap
+    torch.cuda.empty_cache()
+    return {"k6": counts["swa_prefill"], "k4": counts["trimmed_mean"],
+            "losses": lk, "plain_losses": lp, "agg_gap": agg_gap,
+            "loss_gap": loss_gap, "peak_gb": peak_k, "plain_peak_gb": peak_p}
+
+
+def family_train_timing(name: str, dev) -> dict:
+    """Phase 21 for one cell: the kernel and plain paths' steps over one
+    state (the plain step made by ``make_train_step`` beside ``build``'s),
+    CUDA-synchronized host clock, one warm-up each, then medians of
+    ``FAMILY_TIMED_STEPS`` in turns; a profile of one kernel-path step and its peak memory -> the
+    medians and the peak."""
+    import torch
+    from repro_torch.core.prng import fold_in, prng_key
+    from repro_torch.distributed.trainer import make_train_step
+    from repro_torch.launch.train import build, parse_args
+
+    _, _, agg, W, _, _, rows, S, _ = FAMILY_TRAIN[name]
+    cfg = family_train_cfg(name)
+    robust = agg != "mean"
+    tc, data, pw, ow, step_k, layout = build(
+        parse_args(family_train_argv(name, "auto")), cfg)
+    step_p = make_train_step(tc, layout, backend="torch")
+    stubs = family_stubs(cfg, W * rows, dev)
+    batches = [{**data.batch(s, dev), **stubs} for s in range(2)]
+    key = prng_key(0)
+    steps = {"auto": step_k, "torch": step_p}
+
+    def one(backend, s):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        args = (pw, ow, batches[s % 2]) + ((fold_in(key, s),) if robust
+                                           else ())
+        steps[backend](*args)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for backend in steps:
+        one(backend, 0)                                  # warm-up
+    walls = {"auto": [], "torch": []}
+    for s in range(FAMILY_TIMED_STEPS):
+        for backend in (("auto", "torch") if s % 2 == 0
+                        else ("torch", "auto")):
+            walls[backend].append(one(backend, s + 1))
+    step_ms = {b: float(np.median(w)) for b, w in walls.items()}
+    state = torch.cuda.memory_allocated() / 1e9
+    log(f"[timing] {name} train step ({agg}, {W} x {rows} x {S} tokens): "
+        f"kernel path {step_ms['auto']:.2f} ms, plain path "
+        f"{step_ms['torch']:.2f} ms (medians of {FAMILY_TIMED_STEPS}, in "
+        f"turns: "
+        f"{[round(v, 1) for v in walls['auto']]} / "
+        f"{[round(v, 1) for v in walls['torch']]})")
+    torch.cuda.reset_peak_memory_stats()
+    profile_step(lambda T: [one("auto", 10 + t) for t in range(T)],
+                 f"{name} train", step_ms["auto"], steps=1, warm=False,
+                 cpu=False)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[timing] {name} train: peak memory of the profiled kernel-path "
+        f"step {peak:.2f} GB, {state:.2f} GB resident between steps")
+    del pw, ow, steps, step_k, step_p, batches
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms["auto"], "plain_step_ms": step_ms["torch"],
+            "step_peak_gb": peak}
+
+
+def family_k6_times(dev, flush) -> dict:
+    """Phase 21: K6 at each cell's training shape (bf16, causal), timed
+    with the host hidden, beside its plain version, its operations bound
+    and SDPA (timed only) -> K6's figures by cell."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.swa import swa_prefill_cuda, swa_prefill_ref
+    g = torch.Generator(device=dev).manual_seed(21)
+    out, tr = {}, (0, 2, 1, 3)
+    for name in FAMILY_TRAIN:
+        B, S, H, Hkv, dh = family_k6_shape(name)
+        q, k, v = (torch.randn((B, S, h, dh), generator=g, device=dev)
+                   .to(torch.bfloat16) for h in (H, Hkv, Hkv))
+        o = swa_prefill_cuda(q, k, v, 0)
+        ms = event_ms(lambda: swa_prefill_cuda(q, k, v, 0), TIMED_RUNS,
+                      flush, hide_host=True)
+        plain = event_ms(lambda: swa_prefill_ref(q, k, v, 0), 3, flush)
+        lib = event_ms(lambda: F.scaled_dot_product_attention(
+            q.permute(tr), k.permute(tr), v.permute(tr), is_causal=True,
+            enable_gqa=True), TIMED_RUNS, flush, hide_host=True)
+        # operations: the band's S (S + 1) / 2 pairs per (row, head), 2 dh
+        # FLOPs for the score and 2 dh for P.V each
+        flops = 4 * dh * B * H * (S * (S + 1) // 2)
+        b, by = bound(nbytes(q, k, v, o), flops, BF16_FLOPS)
+        log(f"[timing] swa_prefill at {name}'s training shape (B={B}, "
+            f"S={S}, H={H}, Hkv={Hkv}, dh={dh}, bf16, causal): {ms:.5f} ms "
+            f"with the host hidden = {flops / ms / 1e9:.1f} TFLOP/s, plain "
+            f"{plain:.5f}, SDPA {lib:.5f} (host hidden), bound {b:.5f} "
+            f"({by}, {flops / 1e9:.2f} GFLOP)")
+        out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": b,
+                     "bound_by": by, "library_ms": lib}
+        del q, k, v, o
+        torch.cuda.empty_cache()
+    return out
+
+
+def start_robust_training_example():
+    """``examples/robust_training_torch.py`` on the card at its default
+    200 steps (paper_sim at published widths, float32, 4 workers, trimmed
+    mean F = 1, worker 1 Byzantine), started in its own process (~8 GB
+    of the card) -> (process, start time) for
+    :func:`finish_robust_training_example`."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / "robust_training_torch.py")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    return proc, time.perf_counter()
+
+
+def finish_robust_training_example(started) -> None:
+    """Wait for the example (at most 600 s): its first and last printed
+    loss, the last below the first."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = out.strip().splitlines()
+    rows = [ln.split() for ln in lines if ln.startswith("step ")]
+    require(proc.returncode == 0 and lines[-1:] == ["robust_training OK"]
+            and rows, "examples/robust_training_torch.py on the card:\n"
+            + out[-2000:] + err[-2000:])
+    first, last = float(rows[0][3]), float(rows[-1][3])
+    log(f"[robust_training_torch] {lines[0]}; {len(rows)} rows, step "
+        f"{rows[0][1]} loss {first} -> step {rows[-1][1]} loss {last} "
+        f"(consensus_spread {rows[-1][5]}) in "
+        f"{time.perf_counter() - t0:.1f} s (beside phase 20's later "
+        f"cells)")
+    require(last < first, "the example's loss falls over its 200 steps")
+
+
+def family_train_phases(dev, flush, lap) -> dict:
+    """Phases 19-21 -> K6's and K4's figures of the three train cells."""
+    checks = family_train_kernel_checks(dev)
+    lap("phase 19 (family train kernels)")
+    mains, example = {}, None
+    try:
+        for name in FAMILY_TRAIN:
+            mains[name] = family_train_main(name, dev,
+                                            shared=example is not None)
+            lap(f"phase 20 ({name} train)")
+            if example is None:    # beside the cells after OLMoE's ~66 GB
+                example = start_robust_training_example()
+        finish_robust_training_example(example)
+    finally:
+        if example is not None and example[0].poll() is None:
+            example[0].kill()
+            example[0].wait()
+    lap("phase 20 (robust_training_torch's end)")
+    k6 = family_k6_times(dev, flush)
+    times = {name: family_train_timing(name, dev) for name in FAMILY_TRAIN}
+    lap("phase 21 (family train timing)")
+    return {"k6_launches": {n: m["k6"] for n, m in mains.items()},
+            "k4_launches": {n: m["k4"] for n, m in mains.items() if m["k4"]},
+            "k6_times": k6, "k4_err": checks["k4_err"],
+            "cells": {n: {**mains[n], **times[n]} for n in FAMILY_TRAIN}}
 
 if __name__ == "__main__":
     sys.exit(main())

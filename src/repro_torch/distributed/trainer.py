@@ -61,7 +61,7 @@ class TrainConfig:
 
 
 def make_train_step(tc: TrainConfig, layout: WorkerLayout | None = None,
-                    backend: str = "auto", record: bool = False):
+                    backend: str = "auto", record: bool | str = False):
     """The step function of ``tc``'s mode. ``backend`` is the kernel route
     of the model's mixers (``"auto"``: the kernels on the card).
 
@@ -75,13 +75,16 @@ def make_train_step(tc: TrainConfig, layout: WorkerLayout | None = None,
     Parameters and optimizer state are updated in place. With ``record``
     a robust step keeps its last gradient buffer (after the Byzantine
     attack) and the aggregate, float32 (W, D_total), as ``step.grads`` and
-    ``step.aggregate``, for checks."""
+    ``step.aggregate``, for checks; ``record="aggregate"`` keeps the
+    aggregate alone (the buffer is W times its size, and is otherwise
+    freed before the optimizer's update). A mean step with ``record``
+    keeps its gradients, in ``leaves(params)`` order, as ``step.grads``."""
     if tc.fsdp:
         raise NotImplementedError(
             "fsdp=True shards parameters over devices: the port runs on one "
             "card until multi-GPU training (ROADMAP queue 1 item 8)")
     if tc.agg.kind == "mean":
-        return _make_mean_step(tc, backend)
+        return _make_mean_step(tc, backend, bool(record))
     if layout is None:
         raise ValueError("a robust step needs a worker layout "
                          "(n_pods, per_pod)")
@@ -98,32 +101,49 @@ def _micro_split(batch: dict, n_micro: int) -> dict:
     return {k: split(v) for k, v in batch.items()}
 
 
+def _loss(params: Params, cfg: ArchConfig, batch: dict, backend: str
+          ) -> torch.Tensor:
+    """``loss_fn`` of a batch: tokens and labels, and the stub inputs a
+    batch of the audio or VLM family carries (``frames``,
+    ``patch_embeds``), as the reference's ``_loss``."""
+    return M.loss_fn(params, cfg, batch["tokens"], batch["labels"], backend,
+                     patch_embeds=batch.get("patch_embeds"),
+                     frames=batch.get("frames"))
+
+
 def _grads_microbatched(params: Params, cfg: ArchConfig, batch: dict,
                         n_micro: int, backend: str
                         ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """(loss, grads in ``leaves(params)`` order). One micro-batch: the
     gradients in the parameters' dtype. Several: a float32 accumulator,
-    scaled by 1 / n_micro, as the reference's scan."""
+    scaled by 1 / n_micro, as the reference's scan. A leaf the loss does
+    not reach (a VLM's ``vis_proj`` on a text-only batch) gets a zero
+    gradient, as the reference's, so AdamW still decays it."""
     ps = leaves(params)
+
+    def grads(loss):
+        gs = torch.autograd.grad(loss, ps, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(ps, gs)]
+
     if n_micro <= 1:
-        loss = M.loss_fn(params, cfg, batch["tokens"], batch["labels"],
-                         backend)
-        return loss.detach(), list(torch.autograd.grad(loss, ps))
+        loss = _loss(params, cfg, batch, backend)
+        return loss.detach(), grads(loss)
     micro = _micro_split(batch, n_micro)
     gacc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for p in ps]
     loss_acc = torch.zeros((), dtype=torch.float32, device=ps[0].device)
     for i in range(n_micro):
-        loss = M.loss_fn(params, cfg, micro["tokens"][i],
-                         micro["labels"][i], backend)
-        for a, g in zip(gacc, torch.autograd.grad(loss, ps)):
+        loss = _loss(params, cfg, {k: v[i] for k, v in micro.items()},
+                     backend)
+        for a, g in zip(gacc, grads(loss)):
             a.add_(g.float())
         loss_acc = loss_acc + loss.detach()
     inv = 1.0 / n_micro
     return loss_acc * inv, [g * inv for g in gacc]
 
 
-def _make_mean_step(tc: TrainConfig, backend: str):
+def _make_mean_step(tc: TrainConfig, backend: str, record: bool):
     cfg = tc.arch
 
     def step(params, opt_state, batch):
@@ -131,6 +151,8 @@ def _make_mean_step(tc: TrainConfig, backend: str):
             train = M._tmap(lambda p: p.detach().requires_grad_(), params)
             loss, grads = _grads_microbatched(train, cfg, batch, tc.n_micro,
                                               backend)
+        if record:
+            step.grads = grads
         with torch.no_grad():     # a list of grads in leaves(params) order
             adamw_update(tc.opt, grads, opt_state, params)
         return params, opt_state, loss
@@ -139,7 +161,7 @@ def _make_mean_step(tc: TrainConfig, backend: str):
 
 
 def _make_robust_step(tc: TrainConfig, layout: WorkerLayout, backend: str,
-                      record: bool):
+                      record: bool | str):
     cfg = tc.arch
     agg_fn = AGGREGATORS[tc.agg.kind]
     W = layout.n_workers
@@ -180,7 +202,9 @@ def _make_robust_step(tc: TrainConfig, layout: WorkerLayout, backend: str,
         with torch.no_grad():
             agg = agg_fn(G, tc.agg, layout, step_key)
             if record:
-                step.grads, step.aggregate = G, agg
+                step.aggregate = agg
+                if record != "aggregate":
+                    step.grads = G
             del G
             shared = agg.stride(0) == 0
             per_leaf, off = [], 0

@@ -16,8 +16,12 @@ versions on the CPU).
 Weights are seeded random draws; the data is the reference's synthetic
 markov stream, bit for bit. Robust modes print ``step N loss X
 consensus_spread Y`` at the reference's cadence, the mean mode ``step N
-loss X``, then ``done``. The MoE, audio and VLM families raise
-NotImplementedError (ROADMAP queue 1 item 9d-2).
+loss X``, then ``done``.
+
+Every family trains. A batch holds tokens and labels only, as the
+reference CLI's does: the VLM trains text-only, and the audio family
+raises ValueError (its loss needs frames). Callers of :func:`build`'s step
+add ``frames`` or ``patch_embeds`` to a batch to train on them.
 """
 from __future__ import annotations
 
@@ -59,7 +63,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build(args: argparse.Namespace, cfg=None, record: bool = False):
+def build(args: argparse.Namespace, cfg=None, record: bool | str = False):
     """Everything a run needs, from the CLI's arguments -> (tc, data,
     params, opt_state, step function, layout or None). ``cfg`` overrides
     the ``--arch``/``--reduced`` choice (a cut-depth config, say). Robust
@@ -79,7 +83,6 @@ def build(args: argparse.Namespace, cfg=None, record: bool = False):
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = reduced(cfg)
-    M.check_trainable(cfg)
     dev = resolve_device(args.device)
     n_workers = args.workers
     byz = tuple(int(b) for b in args.byzantine.split(",") if b)
@@ -101,7 +104,8 @@ def build(args: argparse.Namespace, cfg=None, record: bool = False):
     params = M.init_params(args.seed, cfg, dev)
     if args.agg == "mean":
         return (tc, data, params, adamw_init(params),
-                make_train_step(tc, backend=args.backend), None)
+                make_train_step(tc, backend=args.backend, record=record),
+                None)
     layout = WorkerLayout(1, n_workers)
     params_w = replicate_for_workers(params, n_workers)
     del params

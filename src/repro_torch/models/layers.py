@@ -166,13 +166,15 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 def _qk_project(p: Params, x: torch.Tensor, cfg: ArchConfig, positions):
     """-> q (B, S, H, dh), k and v (B, S, Hkv, dh); v is a view of the
-    projection."""
+    projection. Each product promotes as JAX's does (a bf16 ``x`` against
+    float32 weights: Whisper's encoder on bf16 frames), so its cotangent
+    is rounded to x's dtype on its own, as the reference's."""
     B, S, _ = x.shape
     hd, Hkv = cfg.head_dim, cfg.n_kv_heads
     H = _n_heads_eff(cfg)
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    q = _matmul(x, p["wq"]).reshape(B, S, H, hd)
+    k = _matmul(x, p["wk"]).reshape(B, S, Hkv, hd)
+    v = _matmul(x, p["wv"]).reshape(B, S, Hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])

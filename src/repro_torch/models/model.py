@@ -24,9 +24,9 @@ Entry points:
   ``forward_train`` — full-sequence logits (``forward_hidden`` the trunk);
                       ``with_aux=True`` adds the MoE aux loss, summed over
                       layers
-  ``loss_fn``       — mean next-token cross-entropy (full or streamed),
-                      differentiable: training's objective (the dense,
-                      RWKV6 and hybrid families)
+  ``loss_fn``       — mean next-token cross-entropy (full or streamed)
+                      plus the MoE aux, differentiable: training's
+                      objective (every family)
   ``prefill``       — last-position logits + the primed caches
   ``decode_step``   — one token through the caches
 
@@ -60,10 +60,6 @@ _MIXERS = ("attn", "swa", "wkv6", "rglru")
 _MIXER_INIT = {"attn": L.init_attention, "swa": L.init_attention,
                "wkv6": L.init_wkv6, "rglru": L.init_rglru}
 _FFN_INIT = {"mlp": L.init_mlp, "moe": L.init_moe, "rwkv_cm": L.init_rwkv_cm}
-# families whose training loss needs inputs or terms the port's loss_fn
-# does not take yet: the MoE aux, the audio frames, the VLM patch slice
-_UNTRAINED = {"moe": "adds the MoE aux loss", "audio": "takes the frames",
-              "vlm": "slices the patch positions off"}
 
 
 def _tmap(fn, *trees):
@@ -74,16 +70,6 @@ def _tmap(fn, *trees):
     if isinstance(t0, (list, tuple)):
         return type(t0)(_tmap(fn, *xs) for xs in zip(*trees))
     return fn(*trees)
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for a family whose loss the port does not
-    compute as the reference does yet (ROADMAP queue 1 item 9d-2)."""
-    if cfg.family in _UNTRAINED:
-        raise NotImplementedError(
-            f"{cfg.name}: the reference's loss for the {cfg.family!r} family "
-            f"{_UNTRAINED[cfg.family]}, which the port's loss_fn does not "
-            f"yet; training it waits for ROADMAP queue 1 item 9d-2")
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +236,14 @@ def encode(params: Params, frames: torch.Tensor,
     ``enc_norm``. The reference multiplies float32 frames by bf16 weights,
     which JAX promotes to float32, so its whole encoder runs in float32;
     here each block's weights are cast to the promoted dtype first (exact
-    for bf16), and the output keeps the frames' (promoted) dtype."""
+    for bf16), and the output keeps the frames' (promoted) dtype. bf16
+    frames with float32 weights: the first norm's output stays bf16 and
+    each of its products promotes, as in the reference.
+    ``frames=None`` raises ValueError (the reference fails later, with an
+    AttributeError)."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: the audio family's encoder needs "
+                         f"frames= (B, n_frames, d_model); got frames=None")
     x = frames.to(params["embed"].device)
     pos = torch.arange(x.shape[1], device=x.device)
     for blk in params["encoder"]:
@@ -358,27 +351,33 @@ def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
 
 
 def loss_fn(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, backend: str = "auto") -> torch.Tensor:
-    """Mean next-token cross-entropy (the dense models' aux loss is 0).
+            labels: torch.Tensor, backend: str = "auto", *,
+            patch_embeds: torch.Tensor | None = None,
+            frames: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy plus the MoE aux loss summed over the
+    layers (0 without MoE), as the reference's ``loss_fn``. A VLM with
+    ``patch_embeds`` scores only the text positions: the patch rows are
+    sliced off the hidden states before the head (the reference slices
+    its full path's logits: the same values, less work). An
+    encoder-decoder takes ``frames`` (ValueError without them).
 
     With ``cfg.ce_chunk`` C > 0 the loss is streamed as in the reference:
     the trunk runs once, then each chunk of C positions is projected to
     the vocabulary and scored under ``torch.utils.checkpoint``, so the
     (B, S, V) logits never exist at once (the backward recomputes them a
     chunk at a time). A ragged last chunk is scored as it is; the
-    reference pads it and masks the padding out, which adds zeros.
-
-    The MoE, audio and VLM families raise NotImplementedError
-    (:func:`check_trainable`): their reference loss adds the aux, or takes
-    frames or patches, which this loss does not yet."""
-    check_trainable(cfg)
+    reference pads it and masks the padding out, which adds zeros."""
     labels = labels.to(params["embed"].device)
-    if cfg.ce_chunk <= 0:
-        logits = forward_train(params, cfg, tokens, backend)
-        n_tok = logits.shape[0] * logits.shape[1]
-        return _ce_from_logits(logits, labels) / n_tok
-    hidden = forward_hidden(params, cfg, tokens, backend)
+    n_vis = patch_embeds.shape[1] \
+        if cfg.family == "vlm" and patch_embeds is not None else 0
+    hidden, aux = forward_hidden(params, cfg, tokens, backend,
+                                 patch_embeds=patch_embeds, frames=frames,
+                                 with_aux=True)
+    hidden = hidden[:, n_vis:]
     B, S, _ = hidden.shape
+    if cfg.ce_chunk <= 0:
+        return _ce_from_logits(lm_logits(params, cfg, hidden),
+                               labels) / (B * S) + aux
     C = cfg.ce_chunk
 
     def chunk_ce(h, lab):
@@ -391,7 +390,7 @@ def loss_fn(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             total = total + checkpoint(chunk_ce, h, lab, use_reentrant=False)
         else:
             total = total + chunk_ce(h, lab)
-    return total / (B * S)
+    return total / (B * S) + aux
 
 
 # ---------------------------------------------------------------------------

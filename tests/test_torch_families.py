@@ -392,7 +392,8 @@ def test_short_prompt_keeps_a_zero_conv_history():
 
 
 # ---------------------------------------------------------------------------
-# training: the hybrid's loss; the other families raise
+# training: the hybrid's loss (the other families' training is held in
+# tests/test_torch_family_train.py)
 # ---------------------------------------------------------------------------
 
 def test_hybrid_loss_matches_reference():
@@ -402,19 +403,6 @@ def test_hybrid_loss_matches_reference():
     got = TM.loss_fn(tp, tcfg, torch.from_numpy(toks),
                      torch.from_numpy(labels))
     _close(float(got), float(want))
-
-
-@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "whisper_small",
-                                  "internvl2_26b"])
-def test_untrained_families_raise(arch):
-    from repro_torch.launch import train
-    cfg = reduced(get_config(arch))
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="9d-2"):
-        TM.loss_fn({}, cfg, toks, toks)
-    args = train.parse_args(["--arch", arch, "--reduced", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="9d-2"):
-        train.build(args)
 
 
 # ---------------------------------------------------------------------------

@@ -984,6 +984,62 @@ def test_family_serve_path_through_the_kernels_matches_plain(
                                atol=1e-4)
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,extra", [
+    ("olmoe_1b_7b", {"scan_layers": True, "capacity_factor": 1.0}),
+    ("whisper_small", {}),
+    ("internvl2_26b", {"scan_layers": True}),
+])
+def test_family_loss_gradients_through_k6_match_plain(cuda_device, arch,
+                                                      extra):
+    """Reduced float32 models of the MoE (capacity drops), audio and VLM
+    families with remat on the card: ``loss_fn`` with the aux, frames or
+    patches, and every gradient, K6 in each attention layer's forward and
+    remat recompute (its backward through ``SwaPrefillFn``), against the
+    plain path (float32, another summation order: the loss rtol 1e-5,
+    each gradient leaf within 1e-4 of its largest entry)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import leaves
+    cfg = dataclasses.replace(reduced(get_config(arch)), remat=True,
+                              **extra)
+    params = M.init_params(0, cfg, cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (2, 21), device=cuda_device,
+                         generator=gen)
+    stubs = {}
+    if cfg.family == "audio":
+        stubs["frames"] = torch.randn((2, cfg.n_frames, cfg.d_model),
+                                      device=cuda_device, generator=gen)
+    if cfg.family == "vlm":
+        stubs["patch_embeds"] = torch.randn((2, cfg.n_patches, M.D_VIS),
+                                            device=cuda_device,
+                                            generator=gen)
+    n_attn = sum(cfg.mixer_of(i) in ("attn", "swa")
+                 for i in range(cfg.n_layers))
+    res = {}
+    for backend in ("auto", "torch"):
+        tree = M._tmap(lambda p: p.detach().requires_grad_(), params)
+        ps = leaves(tree)
+        k6 = swa_prefill_cuda.launches
+        loss = M.loss_fn(tree, cfg, toks[:, :-1], toks[:, 1:], backend,
+                         **stubs)
+        grads = torch.autograd.grad(loss, ps, allow_unused=True)
+        torch.cuda.synchronize()
+        n = 2 * n_attn if backend == "auto" else 0
+        assert swa_prefill_cuda.launches == k6 + n
+        res[backend] = (loss.item(), grads)
+    (lk, gk), (lp, gp) = res["auto"], res["torch"]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert (a is None) == (b is None)
+        if b is not None:
+            torch.testing.assert_close(
+                a, b, rtol=1e-4, atol=1e-4 * b.abs().max().item())
+
 # (BH, T, dtype, lw: "model" | a constant log-decay)
 WKV_CASES = [
     (1, 1, "fp32", "model"), (5, 63, "bf16", "model"),

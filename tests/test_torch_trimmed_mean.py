@@ -250,6 +250,27 @@ def test_non_finite_rows_match_the_reference(value, count):
     assert (np.abs(got[fin] - want[fin]) <= trim_bound(x, F)[fin]).all()
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 32])
+def test_plain_version_sorts_column_chunks_as_one_sort(chunk, monkeypatch):
+    """The plain version sorts ``CHUNK`` columns at a time (its memory at
+    the families' D_total): with chunks of 1, 7 and 32 columns over 33,
+    ragged last chunk and NaN and inf rows included, the result is the
+    one-chunk result bit for bit, and the reference's within its bound."""
+    from repro_torch.kernels.trimmed_mean import ref
+    W, F, D = 7, 2, 33
+    x = problem(W, D, "normal", seed=5)
+    x[0, :5] = np.nan
+    x[3, 10:14] = np.inf
+    whole = trimmed_mean_ref(torch.from_numpy(x), F).numpy()
+    monkeypatch.setattr(ref, "CHUNK", chunk)
+    got = trimmed_mean_ref(torch.from_numpy(x), F).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), whole.view(np.int32))
+    want = np.asarray(jax_ref(jnp.asarray(x), F))
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    assert (np.abs(got[fin] - want[fin]) <= trim_bound(x, F)[fin]).all()
+
+
 @pytest.mark.parametrize("W,F", [(2, 1), (4, 2), (5, 3), (1, 1)])
 def test_w_at_most_2f_raises(W, F):
     x = torch.zeros((W, 8))
