@@ -234,7 +234,8 @@ Phases (any failure raises and the script exits non-zero):
              64, InternVL2 4 x 2,048 at 128 with G 6), held as phase 16
              holds them; K4 against its plain version at each robust
              cell's (W, D_total) (OLMoE (3, ~1.05e9) F 1, Whisper (8,
-             ~2.24e8) F 2);
+             ~2.24e8) F 2), each timed with the host hidden beside its
+             byte bound and torch.mean(x, 0);
 20. family train mains — through launch.train.build at published
              widths, bf16, seeded weights, 10 steps (the plain path 3),
              the stub inputs in
@@ -255,7 +256,27 @@ Phases (any failure raises and the script exits non-zero):
 21. family train timing — K6 at the three training shapes (host
              hidden) beside its plain version, bound and SDPA; each cell's
              step on both paths (medians of 5, in turns), a profile of a
-             kernel-path step and its peak memory.
+             kernel-path step and its peak memory;
+22. analysis — repro_torch.statics' lint on the kernel path (every
+             engine contract's fixture under the op recorder: no (N, N)
+             value, no (T, *) value in the reducing stores but the
+             horizon-major key words and coins, no subnormal literal; the
+             stream proofs; the signatures; no float32 carry under bf16),
+             K1, K2 and K3 launched, and a synthetic (N, N) value on the
+             card caught; HW() beside the card's name, power limit and
+             memory.
+
+Phases 3, 5, 6b, 6c, 9 and 18 also print their run's peak memory beside
+repro_torch.analysis' memory model, and require the bytes the run itself
+allocated (peak less what was allocated when it started) to be at least
+the model's terms for what the run allocates: node and edge state for the
+engines, the KV cache for serve, the gradient rows and residuals for a
+train step. Phase 7 prints each engine step beside its H100 floor
+(repro_torch.statics.memory's step bytes on HW()) and requires none under
+it (a sanity bound: the steps are host-bound, hundreds of times their
+floors, so only a byte model or a constant off by as much fails it);
+phases 10 and 18 print the model-FLOPs utilization of Qwen3-8B's
+prefill and decode and of the paper_sim train step.
 
 The build phase prints ptxas' registers and spills of every K4
 instantiation (4 to 64 workers), K1's three kernels, every K3 width (8 to
@@ -290,9 +311,6 @@ SRC = ROOT / "src"
 T_MAIN = 200
 N_FULL = 131_072
 N_SMALL = 16_384
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 TIMED_RUNS = 30
 STEP_RUNS, STEP_T = 10, 50
 BYZ_F, BYZ_AGENTS, BYZ_GAMMA = 2, (2, 9), 10
@@ -509,11 +527,142 @@ def event_ms(fn, runs: int, flush=None, hide_host: bool = False) -> float:
     return float(np.median(times))
 
 
+_HW = []
+
+
+def hw():
+    """The card's data-sheet constants,
+    ``repro_torch.analysis.roofline.HW()``: its HBM rate (``hbm_bw``), its
+    float32 rate outside the tensor cores (``fp32_flops``) and its dense
+    bf16 tensor-core rate (``peak_flops``). Loaded from this checkout's
+    file, so a tool that runs another tree's ``src/`` reads the same."""
+    if not _HW:
+        import importlib.util
+        path = SRC / "repro_torch" / "analysis" / "roofline.py"
+        spec = importlib.util.spec_from_file_location("_smoke_roofline",
+                                                      path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod
+        spec.loader.exec_module(mod)
+        _HW.append(mod.HW())
+    return _HW[0]
+
+
 def bound(bytes_moved: int, flops: int,
-          peak: float = FP32_FLOPS) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+          peak: float | None = None) -> tuple[float, str]:
+    """(ms, "bytes" | "operations"): the larger of the bytes over the HBM
+    rate and the operations over ``peak`` (default the float32 rate)."""
+    peak = hw().fp32_flops if peak is None else peak
+    t_bytes = bytes_moved / hw().hbm_bw * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def peak_run(label: str, fn, model: tuple):
+    """``fn()`` with the device's peak memory reset just before it ->
+    ``fn``'s result. Prints the peak beside ``model``, a memory model's
+    ``(prediction, own bytes, what they are, note)``, and requires the
+    bytes the run itself allocated (the peak less what was allocated when
+    it started) to be at least ``own``: the model's terms for what the run
+    allocates."""
+    import torch
+    pred, own, what, note = model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    terms = ", ".join(f"{k} {v}" for k, v in pred.items()
+                      if k.endswith("_gb") and k != "total_gb")
+    total_gb = pred["total_gb"]
+    log(f"[memory] peak {label}: measured {peak / 1e9:.3f} GB (allocated at "
+        f"its start {base / 1e9:.3f}, the run's own {(peak - base) / 1e9:.3f}"
+        f"); predicted {total_gb:.6g} GB ({terms}); measured / predicted "
+        f"{peak / 1e9 / total_gb:.3f}, the run's own / predicted "
+        f"{(peak - base) / 1e9 / total_gb:.3f}; the model's {what}: "
+        f"{own / 1e9:.6f} GB, the run's own / that "
+        f"{(peak - base) / own:.3f}" + (f"; {note}" if note else ""))
+    require(peak - base >= own, f"{label}: the run allocates at least the "
+            f"model's {what}")
+    return out
+
+
+def engine_memory(N: int, E: int, d: int) -> tuple:
+    """``peak_run``'s model of an engine run that carries push-sum's node
+    and edge state (Alg. 3, HPS, push-sum): the run allocates them."""
+    from repro_torch.analysis import pushsum_device_memory_gb
+    pred = pushsum_device_memory_gb(N, E, d)
+    own = N * (2 * d + 2) * 4 + E * (d + 1) * 4
+    return pred, own, "node plus edge state", ""
+
+
+def byz_memory(N: int, deg: int, m: int) -> tuple:
+    """``peak_run``'s model of Alg. 2's run: push-sum's model with d + 1 =
+    m^2; the run allocates its node state (the pairwise statistic r and
+    the cumulative LLR). K3 reads the neighbours' r in place, so the model's
+    per-slot edge term is not allocated."""
+    from repro_torch.analysis import pushsum_device_memory_gb
+    d = m * m - 1
+    pred = pushsum_device_memory_gb(N, N * deg, d)
+    return pred, N * (2 * d + 2) * 4, "node state (r, cumulative LLR)", (
+        "push-sum's model with d + 1 = m^2, whose per-slot edge term K3 "
+        "does not hold")
+
+
+def serve_memory(cfg, B: int, S: int, cache_len: int) -> tuple:
+    """``peak_run``'s model of a serve run (prefill + decode): the
+    parameters are allocated before it, the run allocates the KV cache."""
+    from repro_torch.analysis import serve_memory_gb
+    from repro_torch.configs import InputShape
+    pred = serve_memory_gb(cfg, InputShape("serve", S, B, "prefill"), {},
+                           cache_len)
+    cache = sum(2 * B * cfg.n_kv_heads * cache_len * cfg.head_dim * 2
+                for i in range(cfg.n_layers)
+                if cfg.mixer_of(i) in ("attn", "swa"))
+    return pred, cache, "KV cache", ""
+
+
+def train_memory(W: int) -> tuple:
+    """``peak_run``'s model of one paper_sim train step of ``W`` workers:
+    the workers' copies are allocated before it; the step allocates the
+    (W, P) float32 gradient rows (the model's float32 gradient term, once a
+    worker) and a worker's saved residuals."""
+    from repro_torch.analysis import train_memory_gb
+    from repro_torch.configs import InputShape, get_config
+    cfg = get_config("paper_sim")
+    shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    pred = train_memory_gb(cfg, shape, {"data": W}, False, 1,
+                           worker_axis=True)
+    resid = (cfg.n_layers // max(cfg.remat_group, 1)
+             * (TRAIN_BATCH // W) * TRAIN_SEQ * cfg.d_model * 2)
+    return pred, W * cfg.param_count() * 4 + resid, (
+        "gradient rows plus one worker's residuals"), (
+        f"the reference's layout puts one worker's copy on each of {W} "
+        f"devices, the port's one card holds all {W} copies: {W} x the "
+        f"prediction = {W * pred['total_gb']:.3f} GB")
+
+
+def hold_floor(label: str, ms: float, step_bytes: int) -> None:
+    """Prints an engine step beside its H100 floor (``step_bytes`` on
+    HW()) and requires the step to take at least the floor: a step under
+    it means the byte model or the constants are wrong."""
+    from repro_torch.statics.memory import step_floor
+    floor_ms = step_floor(step_bytes)["bound_step_time_s"] * 1e3
+    log(f"[floor] {label}: {step_bytes / 1e6:.3f} MB a step -> floor "
+        f"{floor_ms:.5f} ms on HW(); measured {ms:.4f} ms; floor / measured "
+        f"{floor_ms / ms:.5f}")
+    require(ms >= floor_ms, f"{label}: the step takes at least its floor")
+
+
+def log_mfu(label: str, cfg, shape, ms: float) -> None:
+    """Prints the model-FLOPs utilization of a step of ``ms``: its model
+    FLOPs (repro_torch.analysis.model_flops) over HW().peak_flops."""
+    from repro_torch.analysis import model_flops
+    mf = model_flops(cfg, shape)
+    log(f"[mfu] {label}: {mf / 1e12:.3f} model TFLOP in {ms:.3f} ms = "
+        f"{mf / (ms * 1e-3) / 1e12:.1f} TFLOP/s = "
+        f"{mf / (ms * 1e-3 * hw().peak_flops):.4f} of HW().peak_flops")
 
 
 def nbytes(*tensors) -> int:
@@ -1134,8 +1283,9 @@ def algorithm1_phases(dev) -> dict:
     hw_d = torch.from_numpy(hw).to(dev)
     _zero_counts()
     t0 = time.perf_counter()
-    res_k = run_hps_runtime(hw_d, hrt, T, seed=0, plan=plan_k)
-    torch.cuda.synchronize()
+    res_k = peak_run("HPS main (phase 6b)", lambda: run_hps_runtime(
+        hw_d, hrt, T, seed=0, plan=plan_k),
+        engine_memory(N, hrt.src.shape[0], A1_D))
     wall = time.perf_counter() - t0
     counts = _counts()
     log(f"[hps main] N={N} E={hrt.src.shape[0]} M={hrt.M.item()} T={T}, "
@@ -1175,9 +1325,10 @@ def algorithm1_phases(dev) -> dict:
     ps_args = dict(drop_prob=0.2, B=4, record_every=T)
     _zero_counts()
     t0 = time.perf_counter()
-    fin_k, traj_k = run_pushsum_sparse(pw_d, src, dst, T, plan=plan_k,
-                                       **ps_args)
-    torch.cuda.synchronize()
+    fin_k, traj_k = peak_run("push-sum main (phase 6c)",
+                             lambda: run_pushsum_sparse(
+                                 pw_d, src, dst, T, plan=plan_k, **ps_args),
+                             engine_memory(N, el.E, A1_D))
     wall = time.perf_counter() - t0
     counts = _counts()
     log(f"[pushsum main] N={N} E={el.E} largest in-degree {indeg.max()} "
@@ -1326,6 +1477,7 @@ def algorithm1_step_timing(dev) -> None:
     import torch
     from repro_torch.core import (ExecutionPlan, run_hps_runtime,
                                   run_pushsum_sparse)
+    from repro_torch.statics import memory
     for n_agents in (N_SMALL, N_FULL):
         rt, w = hps_scenario(n_agents)
         rt, w = rt.to(dev), torch.from_numpy(w).to(dev)
@@ -1348,6 +1500,10 @@ def algorithm1_step_timing(dev) -> None:
         for key, run in runs.items():
             run()
             ms[key] = event_ms(run, STEP_RUNS) / STEP_T
+        hold_floor(f"HPS N={n_agents}", ms[("hps", "auto")],
+                   memory.hps_step_bytes(n_agents, rt.src.shape[0], A1_D))
+        hold_floor(f"push-sum N={n_agents}", ms[("pushsum", "auto")],
+                   memory.pushsum_step_bytes(n_agents, el.E, A1_D))
         for engine in ("hps", "pushsum"):
             log(f"[timing] {engine} step at N={n_agents}: kernel "
                 f"{ms[(engine, 'auto')]:.4f} ms, plain "
@@ -3206,7 +3362,7 @@ def half_times(dev, args, k1_d5, runs) -> dict:
         o = trim_gather_cuda(*a3)
         out["byz_trim"][name] = timed(lambda: trim_gather_cuda(*a3),
                                       (r_h, idx, valid, byz), o, k3_ops)
-        out["byz_trim"][name]["bound_ms"] += st.itemsize / HBM_BYTES_PER_S \
+        out["byz_trim"][name]["bound_ms"] += st.itemsize / hw().hbm_bw \
             * 1e3                         # the one stride-0 lie
     for key, t in out.items():
         log(f"[timing] {key} by storage, device ms with the host hidden "
@@ -3270,6 +3426,7 @@ def main() -> int:
     from repro_torch.core import run_social_runtime, sparse_mass_invariant
     from repro_torch.core.signals import SignalModel
     from repro_torch.kernels import _build
+    from repro_torch.statics.memory import social_step_bytes
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3373,8 +3530,9 @@ def main() -> int:
     plan_p = plan_k.replace(backend="torch")
     _zero_counts()
     t0 = time.perf_counter()
-    res_k = run_social_runtime(model, rt, M, T_MAIN, seed=0, plan=plan_k)
-    torch.cuda.synchronize()
+    res_k = peak_run("Alg. 3 main (phase 3)", lambda: run_social_runtime(
+        model, rt, M, T_MAIN, seed=0, plan=plan_k),
+        engine_memory(N, E, model.m))
     wall_k = time.perf_counter() - t0
     launches = _counts()
     log(f"[main] N={N} T={T_MAIN} kernels: {wall_k:.2f} s, launches "
@@ -3503,6 +3661,8 @@ def main() -> int:
 
             run()
             step_ms[(n_agents, backend)] = event_ms(run, STEP_RUNS) / STEP_T
+        hold_floor(f"Alg. 3 N={n_agents}", step_ms[(n_agents, "auto")],
+                   social_step_bytes(n_agents, srt.src.shape[0], smodel.m))
         log(f"[timing] step at N={n_agents}: kernels "
             f"{step_ms[(n_agents, 'auto')]:.4f} ms, plain "
             f"{step_ms[(n_agents, 'torch')]:.4f} ms (median of {STEP_RUNS} "
@@ -3585,6 +3745,10 @@ def main() -> int:
     by_name["swa_prefill"]["family_train"] = ft["k6_times"]
     kernels[-1]["launches_family_train"] = ft["k4_launches"]
     kernels[-1]["family_train_max_abs_err"] = ft["k4_err"]
+    kernels[-1]["family_train"] = ft["k4_times"]
+    # ---- phase 22: the analytic models and the statics on the card -------
+    analysis_phase(dev, card)
+    lap("phase 22")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3742,9 +3906,11 @@ def byzantine_main(model, setup, attack, dev) -> int:
     plan_k = ExecutionPlan(store="decisions")
     _zero_counts()
     t0 = time.perf_counter()
-    res_k = run_byzantine_runtime(model, rt, extra_reps, n_reps, attack,
-                                  T_MAIN, seed=0, plan=plan_k, device=dev)
-    torch.cuda.synchronize()
+    res_k = peak_run(
+        "Alg. 2 main (phase 5)", lambda: run_byzantine_runtime(
+            model, rt, extra_reps, n_reps, attack, T_MAIN, seed=0,
+            plan=plan_k, device=dev),
+        byz_memory(N, rt.nbr_idx.shape[1], model.m))
     wall_k = time.perf_counter() - t0
     counts = _counts()
     log(f"[byzantine] N={N} T={T_MAIN} F={BYZ_F} kernel path: {wall_k:.2f} "
@@ -3863,6 +4029,7 @@ def byzantine_step_timing(model, setup, attack, dev) -> None:
     import torch
     from repro_torch.core import ExecutionPlan, run_byzantine_runtime
     from repro_torch.core.signals import SignalModel
+    from repro_torch.statics.memory import byz_sparse_step_bytes
 
     cells = {N_FULL: (model, setup, attack), N_SMALL: byz_scenario(N_SMALL)}
     for n_agents in (N_SMALL, N_FULL):
@@ -3880,6 +4047,10 @@ def byzantine_step_timing(model, setup, attack, dev) -> None:
 
             run()
             ms[backend] = event_ms(run, STEP_RUNS) / STEP_T
+        # the pairwise statistic's m^2 coordinates a slot
+        hold_floor(f"Alg. 2 N={n_agents}", ms["auto"],
+                   byz_sparse_step_bytes(n_agents, srt.nbr_idx.shape[1],
+                                         smodel.m ** 2))
         log(f"[timing] byzantine step at N={n_agents}: kernel "
             f"{ms['auto']:.4f} ms, plain {ms['torch']:.4f} ms (median of "
             f"{STEP_RUNS} runs of {STEP_T} steps, Γ = {BYZ_GAMMA}, "
@@ -4018,7 +4189,7 @@ def serve_times(params, cfg, prompts, toks, note: str = "",
         dec_k = decode_ms("auto", 3)
         dec_p = decode_ms("torch", 2)
     weights = nbytes(*_leaves(params))
-    floor = weights / HBM_BYTES_PER_S * 1e3
+    floor = weights / hw().hbm_bw * 1e3
     log(f"[timing] {cfg.name} serve, B={B}, prompt {S}: prefill {pre_k:.2f} "
         f"ms (plain path {pre_p:.2f}) = {B * S / pre_k:.0f} prompt tokens/ms"
         f"{note}; decode {dec_k:.3f} ms a step (plain path {dec_p:.3f}) over "
@@ -4196,12 +4367,12 @@ def serve_phases(dev, flush) -> list[dict]:
             + cfg.qk_norm * 2 * cfg.head_dim * cfg.n_layers,
             "parameter count")
     prompts = randint_n(prng_key(0), B * S, 0, cfg.vocab, dev).reshape(B, S)
-    torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     t0 = time.perf_counter()
     with torch.inference_mode():
-        toks, lk = generate(params, cfg, prompts, GEN)
-    torch.cuda.synchronize()
+        toks, lk = peak_run("Qwen3-8B serve main (phase 9)",
+                            lambda: generate(params, cfg, prompts, GEN),
+                            serve_memory(cfg, B, S, S + GEN + 1))
     wall = time.perf_counter() - t0
     counts = _counts()
     log(f"[serve] main: {B} requests x {S} prompt tokens, {GEN} tokens each "
@@ -4294,6 +4465,7 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     of CUDA-event runs, L2 flushed), then :func:`serve_times`."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.configs import InputShape
     from repro_torch.kernels.swa import (attn_decode_cuda, attn_decode_ref,
                                          swa_prefill_cuda, swa_prefill_ref)
     from repro_torch.kernels.swa.ops import decode_splits
@@ -4334,7 +4506,7 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     # bytes: q, the valid K and V rows, lengths and the output once each
     kv_bytes = 2 * B * Hkv * n_valid * dh * k.element_size()
     b5, by5 = bound(nbytes(q, lens, o5) + kv_bytes,
-                    4 * B * H * n_valid * dh, BF16_FLOPS)
+                    4 * B * H * n_valid * dh, hw().peak_flops)
     log(f"[timing] attn_decode (B={B}, H={H}, Hkv={Hkv}, Wc={Wc}, "
         f"{n_valid} valid rows, bf16, "
         f"{decode_splits(B, Hkv, Wc, dh, n_sm)[1]} splits): device {ms5:.5f} "
@@ -4365,7 +4537,7 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     # operations: the band's S (S + 1) / 2 pairs per (request, head), 2 dh
     # FLOPs for the score and 2 dh for P.V each
     flops6 = 4 * dh * B * H * (S * (S + 1) // 2)
-    b6, by6 = bound(nbytes(q, k, v, o6), flops6, BF16_FLOPS)
+    b6, by6 = bound(nbytes(q, k, v, o6), flops6, hw().peak_flops)
     log(f"[timing] swa_prefill (B={B}, S={S}, H={H}, Hkv={Hkv}, bf16, "
         f"causal): {ms6:.4f} ms = {flops6 / ms6 / 1e9:.1f} TFLOP/s, plain "
         f"{plain6:.4f}, SDPA {lib6:.4f}, bound {b6:.4f} ({by6}, "
@@ -4386,11 +4558,15 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     log(f"[timing] swa_prefill at the training shape (B={Bt}, S={St}, "
         f"H={Ht}, Hkv={Hkvt}, dh=64, bf16, causal): {ms_t:.4f} ms = "
         f"{flops_t / ms_t / 1e9:.1f} TFLOP/s, SDPA {lib_t:.4f}, bound "
-        f"{bound(0, flops_t, BF16_FLOPS)[0]:.4f} (operations)")
+        f"{bound(0, flops_t, hw().peak_flops)[0]:.4f} (operations)")
     out["swa_prefill"].update(train_ms=ms_t, train_library_ms=lib_t)
     del q, k, v
 
-    out["decode_ms"] = serve_times(params, cfg, prompts, toks)["decode_ms"]
+    st = serve_times(params, cfg, prompts, toks)
+    out["decode_ms"] = st["decode_ms"]
+    for kind in ("prefill", "decode"):
+        log_mfu(f"Qwen3-8B {kind}", cfg,
+                InputShape(kind, SERVE_S, SERVE_B, kind), st[f"{kind}_ms"])
     return out
 
 
@@ -4701,8 +4877,8 @@ def rwkv_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     G7 = group_chunks(B * H, S, torch.cuda.get_device_properties(dev)
                       .multi_processor_count)
     tc7, fma7 = wkv_ops(B * H, S, G7)
-    ops_ms7 = (tc7 / BF16_FLOPS + fma7 / FP32_FLOPS) * 1e3
-    bytes_ms7 = bytes7 / HBM_BYTES_PER_S * 1e3
+    ops_ms7 = (tc7 / hw().peak_flops + fma7 / hw().fp32_flops) * 1e3
+    bytes_ms7 = bytes7 / hw().hbm_bw * 1e3
     b7, by7 = max((bytes_ms7, "bytes"), (ops_ms7, "operations"))
     floor7 = wkv_floor_bytes(B * H, S, 2, G7)
     log(f"[timing] wkv6 (B={B}, H={H}, T={S}, K=V=64, bf16, groups of "
@@ -4712,7 +4888,7 @@ def rwkv_timing(params, cfg, prompts, toks, flush, dev) -> dict:
         f"{bytes7 / 1e6:.1f} MB; {tc7 / 1e9:.2f} GFLOP on the tensor cores "
         f"and {fma7 / 1e9:.2f} G operations on the FMA pipes = "
         f"{ops_ms7:.5f} ms at the peaks), design floor "
-        f"{floor7 / HBM_BYTES_PER_S * 1e3:.5f} ms ({floor7 / 1e6:.1f} MB); "
+        f"{floor7 / hw().hbm_bw * 1e3:.5f} ms ({floor7 / 1e6:.1f} MB); "
         f"library: none (no single PyTorch call); a launch of each pass "
         f"(profiler, L2 flushed): " + ", ".join(
             f"{n} {t:.5f} (mean of {c})" for n, (t, c) in passes7.items()))
@@ -4722,7 +4898,7 @@ def rwkv_timing(params, cfg, prompts, toks, flush, dev) -> dict:
                       )["decode_ms"]
     return {"wkv6": {"ms": ms7, "plain_ms": plain7, "bound_ms": b7,
                      "bound_by": by7, "library_ms": None,
-                     "floor_ms": floor7 / HBM_BYTES_PER_S * 1e3,
+                     "floor_ms": floor7 / hw().hbm_bw * 1e3,
                      "host_inclusive_ms": host7,
                      "passes_ms": {n: t for n, (t, _) in passes7.items()}},
             "decode_ms": dec}
@@ -4825,7 +5001,8 @@ def k5_256_checks(dev, flush) -> dict:
                                                   enable_gqa=True))
     ms5, plain5, lib5 = (event_ms(fn, TIMED_RUNS, flush, True) for fn in fns)
     host5 = event_ms(fns[0], TIMED_RUNS, flush)
-    b5, by5 = bound(nbytes(q, k, v, L, o5), 4 * B * H * Wc * dh, BF16_FLOPS)
+    b5, by5 = bound(nbytes(q, k, v, L, o5), 4 * B * H * Wc * dh,
+                    hw().peak_flops)
     log(f"[timing] attn_decode at RecurrentGemma's decode shape (B={B}, "
         f"H={H}, Hkv={Hkv}, dh={dh}, a full {Wc}-row ring, bf16): device "
         f"{ms5:.5f} ms, plain {plain5:.5f}, SDPA {lib5:.5f}; host-inclusive "
@@ -4839,7 +5016,7 @@ def k5_256_checks(dev, flush) -> dict:
         q.permute(tr), k.permute(tr), v.permute(tr), is_causal=True,
         enable_gqa=True), 5, flush)
     flops6 = 4 * dh * B * H * (S * (S + 1) // 2)   # the window holds S
-    b6, by6 = bound(nbytes(q, k, v, o6), flops6, BF16_FLOPS)
+    b6, by6 = bound(nbytes(q, k, v, o6), flops6, hw().peak_flops)
     log(f"[timing] swa_prefill at RecurrentGemma's prefill shape (B={B}, "
         f"S={S}, H={H}, Hkv={Hkv}, dh={dh}, window {Wc}, bf16, the FMA "
         f"kernel): {ms6:.4f} ms = {flops6 / ms6 / 1e9:.1f} TFLOP/s, plain "
@@ -5652,6 +5829,7 @@ def train_timing(dev, k4_ms: float) -> None:
     profile of a kernel-path step; ``k4_ms`` is K4's time, put beside the
     step's."""
     import torch
+    from repro_torch.configs import InputShape, get_config
     from repro_torch.core.prng import fold_in, prng_key
     from repro_torch.launch.train import build, parse_args
 
@@ -5680,8 +5858,11 @@ def train_timing(dev, k4_ms: float) -> None:
                         else ("torch", "auto")):
             walls[backend].append(one(backend, s + 1))
     step_ms = {b: float(np.median(w)) for b, w in walls.items()}
-    torch.cuda.reset_peak_memory_stats()
-    one("auto", 7)
+    log_mfu("paper_sim train step", get_config("paper_sim"),
+            InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            step_ms["auto"])
+    peak_run("paper_sim train step (phase 18)", lambda: one("auto", 7),
+             train_memory(TRAIN_W))
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"[timing] train step (paper_sim, {TRAIN_W} workers x "
         f"{TRAIN_BATCH // TRAIN_W} x {TRAIN_SEQ} tokens, trimmed_mean): "
@@ -5756,15 +5937,17 @@ def family_k6_shape(name: str) -> tuple:
     return (rows, S + n_vis, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
 
 
-def family_train_kernel_checks(dev) -> dict:
+def family_train_kernel_checks(dev, flush) -> dict:
     """Phase 19: K6's gradients through ``SwaPrefillFn`` against plain
     autograd at each cell's training shape (one worker's call of a layer),
     bf16, by :func:`hold_k6_grads`; then K4 against its plain version at
     each robust cell's (W, D_total), D_total the leaves of the cell's
     parameters: phase 16's data (randn x 1e-3, the Byzantine rows x -10),
     the cell's F, held by :func:`hold_tmean` on the whole row (at OLMoE's
-    (3, 1.05e9) ~46 GB: x, the two results, the bound's (W, D) temporary)
-    -> D_total by cell and K4's largest error."""
+    (3, 1.05e9) ~46 GB: x, the two results, the bound's (W, D) temporary),
+    then timed with the host hidden beside its byte bound and
+    ``torch.mean(x, 0)`` (medians of 10, L2 flushed) -> D_total by cell,
+    K4's largest error and its times by cell."""
     import torch
     from repro_torch.kernels.trimmed_mean import (trimmed_mean_cuda,
                                                   trimmed_mean_ref)
@@ -5776,7 +5959,7 @@ def family_train_kernel_checks(dev) -> dict:
         log(f"[family train kernels] K6 at {name}'s training shape (B, S, "
             f"H, Hkv, dh) = {shape}, bf16: output within phase 8's limits, "
             f"gradients through SwaPrefillFn bit-equal to plain autograd")
-    d_total, worst = {}, 0.0
+    d_total, worst, times = {}, 0.0, {}
     for name, (_, _, agg, W, F, byz, *_) in FAMILY_TRAIN.items():
         params = M.init_params(0, family_train_cfg(name), dev)
         D = d_total[name] = sum(t.numel() for t in _leaves(params))
@@ -5790,13 +5973,26 @@ def family_train_kernel_checks(dev) -> dict:
         err = hold_tmean(f"{name} (W={W}, D={D}, F={F})", got,
                          trimmed_mean_ref(x, F), x, F)
         worst = max(worst, err)
+        del got
+        torch.cuda.empty_cache()
+        out = torch.empty(D, device=dev)
+        ms = event_ms(lambda: trimmed_mean_cuda(x, F, out=out), 10, flush,
+                      hide_host=True)
+        lib = event_ms(lambda: torch.mean(x, 0), 10, flush, hide_host=True)
+        # bytes: x read once, the output written once; operations: per
+        # coordinate 2F extraction rounds of W compares and W adds
+        b, by = bound(nbytes(x, out), D * W * (2 * F + 1))
+        times[name] = {"ms": ms, "bound_ms": b, "bound_by": by,
+                       "library_ms": lib}
         log(f"[family train kernels] trimmed_mean at {name}'s (W, D_total) "
             f"= ({W}, {D}), F = {F}, Byzantine rows {byz} at -10x: within W "
             f"eps32 sum|x| / (W - 2F) of the plain version, max_abs_err "
-            f"{err:.3e}")
-        del x, got
+            f"{err:.3e}; device {ms:.5f} ms with the host hidden, bound "
+            f"{b:.5f} ({by}, {nbytes(x, out) / 1e9:.3f} GB), torch.mean "
+            f"{lib:.5f} (host hidden); medians of 10, L2 flushed")
+        del x, out
         torch.cuda.empty_cache()
-    return {"d_total": d_total, "k4_err": worst}
+    return {"d_total": d_total, "k4_err": worst, "k4_times": times}
 
 
 class RoutePin:
@@ -6130,7 +6326,7 @@ def family_k6_times(dev, flush) -> dict:
         # operations: the band's S (S + 1) / 2 pairs per (row, head), 2 dh
         # FLOPs for the score and 2 dh for P.V each
         flops = 4 * dh * B * H * (S * (S + 1) // 2)
-        b, by = bound(nbytes(q, k, v, o), flops, BF16_FLOPS)
+        b, by = bound(nbytes(q, k, v, o), flops, hw().peak_flops)
         log(f"[timing] swa_prefill at {name}'s training shape (B={B}, "
             f"S={S}, H={H}, Hkv={Hkv}, dh={dh}, bf16, causal): {ms:.5f} ms "
             f"with the host hidden = {flops / ms / 1e9:.1f} TFLOP/s, plain "
@@ -6182,7 +6378,7 @@ def finish_robust_training_example(started) -> None:
 
 def family_train_phases(dev, flush, lap) -> dict:
     """Phases 19-21 -> K6's and K4's figures of the three train cells."""
-    checks = family_train_kernel_checks(dev)
+    checks = family_train_kernel_checks(dev, flush)
     lap("phase 19 (family train kernels)")
     mains, example = {}, None
     try:
@@ -6204,7 +6400,54 @@ def family_train_phases(dev, flush, lap) -> dict:
     return {"k6_launches": {n: m["k6"] for n, m in mains.items()},
             "k4_launches": {n: m["k4"] for n, m in mains.items() if m["k4"]},
             "k6_times": k6, "k4_err": checks["k4_err"],
+            "k4_times": checks["k4_times"],
             "cells": {n: {**mains[n], **times[n]} for n in FAMILY_TRAIN}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the port's analytic models and statics on the card
+# (repro_torch.analysis, repro_torch.statics)
+# ---------------------------------------------------------------------------
+
+def analysis_phase(dev, card: str) -> None:
+    """Phase 22: the constants beside the card; the statics lint on the
+    kernel path (K1, K2, K3 must launch) and a synthetic (N, N) value on
+    the card caught."""
+    import torch
+    from repro_torch.statics import cli as statics_cli
+    from repro_torch.statics import dense
+
+    # the constants beside the card
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[analysis] HW() = {hw()}; the card: {card}, total_memory {total} "
+        f"B ({total / 1e9:.2f} GB against hbm_bytes "
+        f"{hw().hbm_bytes / 1e9:.0f} GB)")
+
+    # the lint on the kernel path
+    t0 = time.perf_counter()
+    _zero_counts()
+    findings, n_runs = statics_cli.lint("cuda")
+    counts = _counts()
+    for f in findings:
+        log(f"[analysis] lint finding: {f}")
+    require(findings == [], "the statics lint finds nothing on the kernel "
+            "path (the horizon-major keys and coins exempt by name)")
+    require(all(counts[k] > 0 for k in ("edge_scatter", "social_innov",
+                                        "byz_trim")),
+            "K1, K2 and K3 launched under the lint")
+    dims = {"N": 11, "d": 2}
+    caught = dense.find_forbidden(statics_cli.synthetic_dense(dims, dev),
+                                  dims, (("N", "N"),),
+                                  where="synthetic injection on the card")
+    require(len(caught) > 0, "a synthetic (N, N) value on the card is caught")
+    log(f"[analysis] lint on the kernel path: {n_runs} recorded fixture "
+        f"runs, the stream proofs, the signatures and the bf16 carries: 0 "
+        f"findings; launches K1 {counts['edge_scatter']} (half "
+        f"{counts['edge_scatter_half']}), K2 {counts['social_innov']} (half "
+        f"{counts['social_innov_half']}), K3 {counts['byz_trim']} (half "
+        f"{counts['byz_trim_half']}); the synthetic (N, N) injection caught: "
+        f"{caught[0].message}; {time.perf_counter() - t0:.1f} s")
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -33,7 +33,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .faults import N_ENGINES
+from ..statics import contracts as _contracts
+from ..statics.dense import HORIZON_KEYS
+from .faults import ENGINE_HPS, ENGINE_PUSHSUM, ENGINE_SOCIAL, N_ENGINES
 from .prng import Key, fold_in, uniform
 
 __all__ = [
@@ -128,3 +130,53 @@ def wake_mask(key: Key, t: int, n: int, wake_prob, *, engine: int,
     engine's wake stream."""
     p = torch.as_tensor(wake_prob, dtype=torch.float32, device=device)
     return wake_rows(fold_in(key, async_stream_fold(t, engine)), n, p)
+
+
+# ---------------------------------------------------------------------------
+# Statics contracts — one per engine that folds wake coins into its base
+# key. Same discipline as the *_faults contracts: (a) async state stays an
+# O(E·d) per-edge carry, no (N, N) and no (T, *) schedules but the keys of
+# every round (HORIZON_KEYS); (b) the wake fold-in map is proven disjoint
+# from every stream on the same base key by the shares_seed_with
+# cross-links. Over the statics horizon t < 2^20 the wake band lies in
+# [-(4·(2^20-1) + 3) - 2^25, -2^25], strictly below the fault band
+# (-2^21 - 12·2^20, -2^21]; past t ~ 2.6e6 the two bands meet, which the
+# lattice prover finds rather than assumes.
+# repro_torch.statics.cli maps each name to a concrete async fixture.
+# ---------------------------------------------------------------------------
+
+_ASYNC_FORBIDDEN = {"*": (("N", "N"), ("T", "*"))}
+
+
+def _async_streams(engine: int):
+    return (
+        _contracts.StreamDecl(
+            "async-wake", lambda t, _e=engine: async_stream_fold(t, _e)),
+    )
+
+
+_contracts.register(_contracts.EngineContract(
+    name="pushsum_async",
+    forbidden=_ASYNC_FORBIDDEN,
+    streams=_async_streams(ENGINE_PUSHSUM),
+    shares_seed_with=("pushsum", "pushsum_faults"),
+    exempt=(HORIZON_KEYS,),
+))
+
+_contracts.register(_contracts.EngineContract(
+    name="social_async",
+    forbidden=_ASYNC_FORBIDDEN,
+    streams=_async_streams(ENGINE_SOCIAL),
+    shares_seed_with=("social", "hps", "byzantine",
+                      "social_faults", "hps_faults", "hps_async"),
+    exempt=(HORIZON_KEYS,),
+))
+
+_contracts.register(_contracts.EngineContract(
+    name="hps_async",
+    forbidden=_ASYNC_FORBIDDEN,
+    streams=_async_streams(ENGINE_HPS),
+    shares_seed_with=("hps", "social", "byzantine",
+                      "hps_faults", "social_faults", "social_async"),
+    exempt=(HORIZON_KEYS,),
+))

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from ..kernels.byz_trim import trim_gather_pairs
+from ..statics.contracts import contract as statics_contract
 from .attacks import Attack
 from .graphs import (
     EdgeList,
@@ -815,6 +816,19 @@ def _first(res: ByzantineResult) -> ByzantineResult:
     return ByzantineResult(r=res.r[0], decisions=res.decisions[0])
 
 
+@statics_contract(
+    name="byzantine",
+    # Covers the production core="sparse" path ONLY: the dense broadcast
+    # oracle exists to materialize (N, N) on purpose and is exempt. The
+    # "decisions"/"trajectory" stores legitimately carry (T, N) history,
+    # so no horizon pattern is declared.
+    forbidden={"*": (("N", "N"),)},
+    streams=(
+        ("signal", lambda t: stream_fold(t, STREAM_SIGNAL)),
+        ("gossip", lambda t: stream_fold(t, STREAM_GOSSIP)),
+        ("fusion", lambda t: stream_fold(t, STREAM_FUSION)),
+    ),
+)
 def make_byzantine_scan(
     model: SignalModel,
     cfg: ByzantineConfig,

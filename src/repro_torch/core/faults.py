@@ -44,6 +44,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..statics import contracts as _contracts
+from ..statics.dense import HORIZON_KEYS
 from .prng import Key, fold_in, fold_rounds, threefry2x32, uniform
 
 __all__ = [
@@ -283,3 +285,70 @@ def freeze(live: torch.Tensor, new: torch.Tensor,
     if new.dim() == live.dim() + 1:
         return torch.where(live[:, None], new, old)
     return torch.where(live, new, old)
+
+
+# ---------------------------------------------------------------------------
+# Statics contracts — one per engine that folds fault streams into its
+# base key. Each declares (a) the fault-state shape discipline: fault
+# arrays stay O(E) + O(N), no (N, N) and no (T, *) schedules may appear in
+# a faulted run, but for the keys and PS coins of every round, folded and
+# drawn up front (HORIZON_KEYS); and (b) the fault fold-in maps, proven
+# pairwise disjoint AND disjoint from the host engine's own streams (same
+# base key) by the shares_seed_with cross-links.
+# repro_torch.statics.cli maps each name to a concrete faulted fixture.
+# ---------------------------------------------------------------------------
+
+_FAULT_FORBIDDEN = {"*": (("N", "N"), ("T", "*"))}
+
+
+def _fault_streams(engine: int, *, with_ps: bool):
+    decls = [
+        _contracts.StreamDecl(
+            "fault-edge", lambda t, _e=engine: fault_stream_fold(
+                t, _e, FAULT_EDGE)),
+        _contracts.StreamDecl(
+            "fault-churn", lambda t, _e=engine: fault_stream_fold(
+                t, _e, FAULT_CHURN)),
+    ]
+    if with_ps:
+        decls.append(_contracts.StreamDecl(
+            "fault-ps", lambda t, _e=engine: fault_stream_fold(
+                t, _e, FAULT_PS)))
+    return tuple(decls)
+
+
+# pushsum has no PS/fusion, so no FAULT_PS slot is ever drawn there.
+_contracts.register(_contracts.EngineContract(
+    name="pushsum_faults",
+    forbidden=_FAULT_FORBIDDEN,
+    streams=_fault_streams(ENGINE_PUSHSUM, with_ps=False),
+    shares_seed_with=("pushsum",),
+    exempt=(HORIZON_KEYS,),
+))
+
+_contracts.register(_contracts.EngineContract(
+    name="social_faults",
+    forbidden=_FAULT_FORBIDDEN,
+    streams=_fault_streams(ENGINE_SOCIAL, with_ps=True),
+    shares_seed_with=("social", "hps", "byzantine",
+                      "hps_faults", "byzantine_faults"),
+    exempt=(HORIZON_KEYS,),
+))
+
+_contracts.register(_contracts.EngineContract(
+    name="hps_faults",
+    forbidden=_FAULT_FORBIDDEN,
+    streams=_fault_streams(ENGINE_HPS, with_ps=True),
+    shares_seed_with=("hps", "social", "byzantine",
+                      "social_faults", "byzantine_faults"),
+    exempt=(HORIZON_KEYS,),
+))
+
+_contracts.register(_contracts.EngineContract(
+    name="byzantine_faults",
+    forbidden=_FAULT_FORBIDDEN,
+    streams=_fault_streams(ENGINE_BYZANTINE, with_ps=True),
+    shares_seed_with=("byzantine", "social", "hps",
+                      "social_faults", "hps_faults"),
+    exempt=(HORIZON_KEYS,),
+))

@@ -52,6 +52,8 @@ import numpy as np
 import torch
 
 from ..kernels.byz_trim.ref import trim_gather_ref
+from ..statics.contracts import contract as statics_contract
+from ..statics.dense import HORIZON_KEYS
 from .asyncrony import AsyncModel, is_degenerate_async
 from .faults import ENGINE_HPS, FaultModel, ps_alive_rounds
 from .graphs import EdgeList, HierTopology, edge_list, sort_by_dst
@@ -327,6 +329,21 @@ def make_hps_runtime(cfg: HPSConfig, e_max: int | None = None) -> HPSRuntime:
 # The loop
 # ---------------------------------------------------------------------------
 
+@statics_contract(
+    name="hps",
+    forbidden={
+        "*": (("N", "N"),),
+        "final": (("T", "*"),),
+        "gap": (("T", "*"),),
+    },
+    # One link-mask stream at the TOP of the uint32 fold-in space (~t):
+    # one experiment seed may root this engine together with the social or
+    # Byzantine engines, so the analyzer must also prove cross-engine
+    # disjointness against both.
+    streams=(("link", hps_stream_fold),),
+    shares_seed_with=("social", "byzantine"),
+    exempt=(HORIZON_KEYS,),
+)
 def _hps_scan_core(
     key: Key,
     rt: HPSRuntime,

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..kernels.pushsum_edge import dst_offsets, edge_scatter
+from ..statics.contracts import contract as statics_contract
 from .asyncrony import (AsyncBuffer, AsyncModel, async_stream_fold,
                         init_async_buffer, is_degenerate_async, wake_rows)
 from .faults import (ENGINE_PUSHSUM, FAULT_CHURN, FAULT_EDGE, FaultModel,
@@ -483,6 +484,15 @@ def round_mask(kt: Key, t: int, n_edges: int, drop: torch.Tensor,
     return faulty_edge_mask(u, t, fm, fs, src, dst, drop, B)
 
 
+@statics_contract(
+    name="pushsum",
+    # The sparse core's reason to exist: no (N, N) value may ever appear
+    # in the program (the trajectory output is (T, N, d) — fine).
+    forbidden={"*": (("N", "N"),)},
+    # One PRNG stream, folded at the plain iteration index; engines that
+    # add more streams must move to a strided domain (see social/byzantine).
+    streams=(("link", lambda t: t),),
+)
 def run_pushsum_sparse(
     w,                     # (N, d) inputs
     src,                   # (E,) int32

@@ -42,6 +42,8 @@ import numpy as np
 import torch
 
 from ..kernels.social_innov import innovation_step
+from ..statics.contracts import contract as statics_contract
+from ..statics.dense import HORIZON_KEYS
 from .asyncrony import AsyncModel, is_degenerate_async
 from .faults import ENGINE_SOCIAL, FaultModel, freeze, ps_alive_rounds
 from .graphs import EdgeList
@@ -175,6 +177,23 @@ def make_social_runtime(cfg: HPSConfig,
     )
 
 
+@statics_contract(
+    name="social",
+    # Dense-free everywhere; the in-loop-reducing stores must additionally
+    # never materialize a rank>=2 horizon-major value (the (T,) reduced
+    # curves are the POINT of those stores and stay allowed), but for the
+    # keys of every round, folded up front
+    forbidden={
+        "*": (("N", "N"),),
+        "final": (("T", "*"),),
+        "log_ratio": (("T", "*"),),
+    },
+    streams=(
+        ("link", lambda t: social_stream_fold(t, STREAM_LINK)),
+        ("signal", lambda t: social_stream_fold(t, STREAM_SIGNAL)),
+    ),
+    exempt=(HORIZON_KEYS,),
+)
 def _social_scan_core(
     mask_key: Key,
     sig_key: Key,
