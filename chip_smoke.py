@@ -200,7 +200,9 @@ Phases (any failure raises and the script exits non-zero):
 15c-15h. families serve — K5 at head size 256 with G 10 and 16 against
              its plain version; OLMoE-1B-7B, RecurrentGemma-2B,
              Whisper-small and InternVL2-26B served at published widths
-             and full depth through K5/K6 against
+             (Whisper at full depth; OLMoE at 8 of 16 layers,
+             RecurrentGemma at 13 of 26, InternVL2 at 12 of 48) through
+             K5/K6 against
              the plain paths (OLMoE's logits at a drop-free capacity), timed
              and profiled; each at 2-3 layers in float32;
              examples/serve_robust_torch.py;
@@ -264,7 +266,22 @@ Phases (any failure raises and the script exits non-zero):
              stream proofs; the signatures; no float32 carry under bf16),
              K1, K2 and K3 launched, and a synthetic (N, N) value on the
              card caught; HW() beside the card's name, power limit and
-             memory.
+             memory;
+23. multi-device engines — benchmarks/pushsum_sweep.py:285's cell (N =
+             2^20, E ~ 2.1 M, d = 1) cut into 8 edge shards on the emulated
+             graph axis, T = 50, float32 psum and bf16 scatter: K1 once a
+             round for all 8 shards, a round from a common state against
+             the unsharded round on the padded list (interior receivers
+             bit-equal, boundary receivers within the order bound; bf16
+             within the reduced rows' rounding), the runs side by side, the
+             halo bytes the axis counts equal to the wire model, K1 at the
+             (8 x 2^20)-receiver shape against its plain version and bound,
+             step times; Alg. 3's main cell on 4 shards (a boundary-free
+             cut) bit-equal to the unsharded run; the 2-D program on a
+             1 x 1 NCCL mesh bit-equal to its one-process run; whether
+             gloo takes CUDA tensors, and 2 gloo ranks on this card (a
+             2-shard graph axis across processes) bit-equal to the
+             emulation.
 
 Phases 3, 5, 6b, 6c, 9 and 18 also print their run's peak memory beside
 repro_torch.analysis' memory model, and require the bytes the run itself
@@ -1524,8 +1541,9 @@ GRID_NETS = 256                 # complete 8-agent networks a scenario
 GRID_SEEDS = 8
 PS_SWEEP_N = 4_096              # push-sum sweep: nodes a graph draw
 # timing: median of SWEEP_RUNS x STEP_T steps; few runs, so that the
-# script keeps well inside its time limit as phases are added
-SWEEP_RUNS = 6
+# script keeps well inside its time limit as phases are added (6 before
+# phase 23 came)
+SWEEP_RUNS = 3
 # a grid row against the port's single run of its scenario on the card:
 # the masks and K1's recv bit-equal, the rest within the CPU tests' limits
 # (tests/test_torch_sweeps.py): the fusion pools each scenario's
@@ -2002,7 +2020,7 @@ def pushsum_sweep_phase(dev, flush) -> dict:
         f"0/0.3/0.6/0.9 (graph 0, seed 0): "
         + " ".join(f"{res.err[k, -1].item():.3e}" for k in range(K)
                    if int(res.graph[k]) == 0 and int(res.seed[k]) == 0))
-    args, _, _ = _pushsum_grid(el, drops, range(4), 4, plan, dev)
+    args = _pushsum_grid(el, drops, range(4), 4, plan, dev)[0]
     rows = (0, K - 1)
     row_masks_equal(lambda t: t, res.seed, rows, el.E, args[5], args[6], T,
                     dev)
@@ -3749,6 +3767,10 @@ def main() -> int:
     # ---- phase 22: the analytic models and the statics on the card -------
     analysis_phase(dev, card)
     lap("phase 22")
+    # ---- phase 23: the multi-device engines --------------------------------
+    md = multidevice_phase(dev, flush, model, rt, M)
+    by_name["edge_scatter"].update(md)
+    lap("phase 23")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3867,6 +3889,7 @@ SUB_COUNTS = {"swa_prefill_tc": ("swa_prefill", "launches_tc"),
               "edge_scatter_edge_rows": ("edge_scatter",
                                          "launches_edge_rows"),
               "edge_scatter_half": ("edge_scatter", "launches_half"),
+              "edge_scatter_sharded": ("edge_scatter", "launches_sharded"),
               "social_innov_half": ("social_innov", "launches_half"),
               "byz_trim_half": ("byz_trim", "launches_half")}
 
@@ -4913,12 +4936,14 @@ def rwkv_timing(params, cfg, prompts, toks, flush, dev) -> dict:
 
 # name -> (arch, prompt tokens, layers: None for full depth). Each phase
 # has ~90 s of the script's time limit; InternVL2-26B's (39.8 GB of bf16
-# weights) is the longest, ~80 s at full depth on the H100
+# weights) took ~80 s at full depth on the H100, so it runs 12 of its 48
+# layers, OLMoE 8 of its 16 and RecurrentGemma 13 of its 26 (published
+# widths, the layer patterns kept; cut to make room for phase 23)
 FAMILY_CELLS = {
-    "olmoe": ("olmoe_1b_7b", SERVE_S, None),
-    "recurrentgemma": ("recurrentgemma_2b", SERVE_S, None),
+    "olmoe": ("olmoe_1b_7b", SERVE_S, 8),
+    "recurrentgemma": ("recurrentgemma_2b", SERVE_S, 13),
     "whisper": ("whisper_small", 64, None),
-    "internvl2": ("internvl2_26b", SERVE_S, None),
+    "internvl2": ("internvl2_26b", SERVE_S, 12),
 }
 FAMILY_PROFILE_STEPS = 10     # decode steps under the profiler a family
 
@@ -5905,7 +5930,7 @@ FAMILY_TRAIN = {
 }
 FAMILY_TRAIN_STEPS = 10
 FAMILY_PLAIN_STEPS = 3    # the plain path's steps, held against the first
-FAMILY_TIMED_STEPS = 5    # phase 21's timed steps a path
+FAMILY_TIMED_STEPS = 3    # phase 21's timed steps a path (5 before phase 23)
 # kernel path against the plain path (see family_train_main)
 FAMILY_LOSS_GAP, FAMILY_AGG_GAP = 1e-3, 1e-2
 
@@ -6447,6 +6472,442 @@ def analysis_phase(dev, card: str) -> None:
         f"{counts['social_innov_half']}), K3 {counts['byz_trim']} (half "
         f"{counts['byz_trim_half']}); the synthetic (N, N) injection caught: "
         f"{caught[0].message}; {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the multi-device engines. The edge-partitioned push-sum of
+# benchmarks/pushsum_sweep.py:285 (N = 2^20, S = 8 shards) on the emulated
+# graph axis (all shards in one K1 launch a round), Alg. 3's main cell cut
+# into 4 shards, and the torch.distributed path on a 1 x 1 NCCL mesh
+# ---------------------------------------------------------------------------
+
+MD_N, MD_EXTRA, MD_S, MD_T = 1 << 20, 1.0, 8, 50
+MD_DROP, MD_B = 0.2, 4
+MD_SOCIAL_S = 4
+MD_PRE = 3          # rounds before the one-round check
+
+
+def md_scenario(n: int):
+    """benchmarks/pushsum_sweep.py:285's cell: a random strongly connected
+    digraph (a Hamiltonian cycle plus n extra edges, E ~ 2.1 M at 2^20) and
+    its (n, 1) values, both from seed 0."""
+    from repro_torch.core.graphs import random_strongly_connected_edge_list
+    rng = np.random.default_rng(0)
+    el = random_strongly_connected_edge_list(n, MD_EXTRA, rng)
+    return el, rng.normal(size=(n, 1)).astype(np.float32)
+
+
+def md_lockstep(dev, pad, sh, w, policy, halo):
+    """``MD_T`` rounds of the unsharded step on the padded list and of the
+    step on the emulated axis, side by side from the same start, each on
+    its own state -> (a line on the one-round check, the two final
+    states). The one-round check, at round ``MD_PRE``, steps the axis
+    from the unsharded state: rho bit-equal; zm and sigma_zm bit-equal at
+    every receiver whose in-edges lie on one shard (fp32 psum), and at
+    the boundary receivers within the bound for two orders of one float32
+    sum, deg 2^-23 sum |increments| (plus an ulp of the value); under
+    ``"scatter"`` with half storage every receiver within the reduced
+    row's rounding to storage and one storage ulp, 2^-7 (|value| + share
+    sum |increments|), as well."""
+    import torch
+    from repro_torch.core.prng import prng_key
+    from repro_torch.core.pushsum import (EmulatedAxis, edge_index_tensors,
+                                          init_sparse_state,
+                                          partitioned_edges, shard_edge_mask,
+                                          sparse_pushsum_step,
+                                          step_edge_mask)
+    axis = EmulatedAxis(sh.n_shards)
+    src, dst, valid, offsets = (x.to(dev) for x in edge_index_tensors(pad))
+    held = [x.to(dev) for x in partitioned_edges(
+        sh.src[None], sh.dst[None], sh.valid[None], sh.n, axis)]
+    drop = torch.tensor(MD_DROP, device=dev)
+    B = torch.tensor(MD_B, dtype=torch.int32, device=dev)
+    state = init_sparse_state(torch.from_numpy(w).to(dev), pad.E, policy)
+    sharded = state
+    for t in range(MD_T):
+        mask = step_edge_mask(prng_key(0), t, pad.E, drop, B)
+        if t == MD_PRE:
+            require(torch.equal(mask, shard_edge_mask(
+                prng_key(0), t, sh.e_shard, drop, B, graph_axis=axis)),
+                "the emulated axis' mask window is the padded draw")
+            prev = state
+            got = sparse_pushsum_step(state, mask, *held[:3],
+                                      offsets=held[3], policy=policy,
+                                      graph_axis=axis, halo=halo)
+        sharded = sparse_pushsum_step(sharded, mask, *held[:3],
+                                      offsets=held[3], policy=policy,
+                                      graph_axis=axis, halo=halo)
+        state = sparse_pushsum_step(state, mask, src, dst, valid,
+                                    offsets=offsets, policy=policy)
+        if t == MD_PRE:
+            one = state
+    torch.cuda.synchronize()
+    require(torch.equal(got.rho_zm, one.rho_zm), "one round: rho_new "
+            "bit-equal")
+    inc = (one.rho_zm.float() - prev.rho_zm.float()).abs()
+    sumabs = torch.zeros((sh.n, inc.shape[1]), device=dev).index_add_(
+        0, dst, inc)
+    deg = torch.bincount(dst[valid].long(), minlength=sh.n)[:, None].float()
+    share = 1.0 / (torch.bincount(src[valid].long(), minlength=sh.n)
+                   .float() + 1.0)[:, None]
+    bnd = torch.from_numpy(sh.boundary).to(dev)
+    half = one.zm.dtype != torch.float32
+    worst = {}
+    for f in ("zm", "sigma_zm"):
+        a, b = getattr(got, f).float(), getattr(one, f).float()
+        tol = deg * EPS32 * sumabs + EPS32 * b.abs()
+        if half:
+            # the reduced row's rounding (2^-9 of |recv| <= sum |inc|), then
+            # one storage ulp of the value (2^-7 of it) either way
+            tol = tol + 2.0 ** -7 * (b.abs() + share * sumabs)
+        else:
+            require(torch.equal(a[~bnd], b[~bnd]), f"one round: {f} "
+                    f"bit-equal at the interior receivers")
+        require(bool(((a - b).abs() <= tol).all()), f"one round: {f} "
+                f"within the bound")
+        worst[f] = (a - b).abs()[bnd].max().item() if bool(bnd.any()) \
+            else 0.0
+    line = (f"one round after {MD_PRE}: rho_new bit-equal; "
+            + ("every receiver within the reduced rows' rounding"
+               if half else "interior receivers bit-equal")
+            + f"; boundary receivers {int(bnd.sum())}, largest gap zm "
+            f"{worst['zm']:.3e}, sigma {worst['sigma_zm']:.3e}")
+    return line, state, sharded
+
+
+def gloo_cuda_probe(dev) -> dict:
+    """Whether this torch's gloo takes CUDA tensors for the three
+    collectives of the graph axis, on a one-rank gloo group beside the NCCL
+    one -> {collective: "ok" or the error}."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.pushsum import collective
+    group = dist.new_group(backend="gloo")
+    x = torch.ones(8, device=dev)
+    out = {}
+    for name, fn in (
+            ("all_reduce", lambda: dist.all_reduce(x, group=group)),
+            ("reduce_scatter", lambda: collective("reduce_scatter")(
+                torch.empty(8, device=dev), x, group=group)),
+            ("all_gather", lambda: collective("all_gather")(
+                torch.empty(8, device=dev), x, group=group))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # the probe reports, the phase goes on
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    dist.destroy_process_group(group)
+    return out
+
+
+def md_gloo_rank(rank: int, port: int, out: str) -> None:
+    """One of 2 gloo ranks on this card: (a)'s sweep on a 1 x 2 mesh of
+    CUDA tensors (a shard a rank), psum and scatter, saved to ``out``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.core.sweeps import run_pushsum_sweep
+    from repro_torch.distributed.sharding import sweep_mesh
+    torch.cuda.set_device(0)    # both ranks share the one card
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = sweep_mesh(1, 2, device_type="cuda")
+        el, w = md_scenario(MD_N)
+        res = {}
+        for halo in ("psum", "scatter"):
+            r = run_pushsum_sweep(w, el, MD_T, drop_probs=[MD_DROP],
+                                  seeds=[0], B=MD_B, plan=ExecutionPlan(
+                                      mesh=mesh, graph_shards=2, halo=halo))
+            res[halo] = {f: getattr(r, f).cpu()
+                         for f in ("err", "final_ratio", "mass_gap")}
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def md_gloo_ranks(w, el) -> str:
+    """Spawn the 2 gloo ranks of :func:`md_gloo_rank` on this card and hold
+    each rank's rows against the 2-shard emulation in this process: bit
+    for bit (with 2 shards no receiver's sum has more than two non-zero
+    operands)."""
+    import multiprocessing as mp
+    import socket
+    import tempfile
+
+    import torch
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.core.sweeps import run_pushsum_sweep
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out:
+        procs = [ctx.Process(target=md_gloo_rank, args=(r, port, out))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        require(all(p.exitcode == 0 for p in procs),
+                "2 gloo ranks on the card ran to their end")
+        ranks = [torch.load(Path(out) / f"rank{r}.pt") for r in range(2)]
+    for halo in ("psum", "scatter"):
+        want = run_pushsum_sweep(w, el, MD_T, drop_probs=[MD_DROP],
+                                 seeds=[0], B=MD_B, plan=ExecutionPlan(
+                                     graph_shards=2, halo=halo))
+        for got in ranks:
+            require(all(torch.equal(got[halo][f], getattr(want, f).cpu())
+                        for f in ("err", "final_ratio", "mass_gap")),
+                    f"2 gloo ranks on the card ({halo}) equal the 2-shard "
+                    f"emulation bit for bit")
+    return ("2 gloo ranks on this card (sweep_mesh(1, 2), CUDA tensors), "
+            f"N={el.n}, T={MD_T}, psum and scatter: every rank's err, final "
+            "ratios and mass gaps bit-equal to the 2-shard emulation")
+
+
+def multidevice_phase(dev, flush, model, rt, M) -> dict:
+    """Phase 23 -> K1's figures at the partitioned shape."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis import pushsum_device_memory_gb
+    from repro_torch.analysis.roofline import pushsum_halo_wire_bytes
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.core.graphs import EdgeList, partition_edge_list
+    from repro_torch.core.prng import prng_key
+    from repro_torch.core.prng import Key
+    from repro_torch.core.pushsum import (EmulatedAxis, GraphAxis,
+                                          edge_index_tensors,
+                                          partitioned_edges, sparse_ratios)
+    from repro_torch.core.social import _social_scan_core
+    from repro_torch.core.sweeps import _pushsum_sweep_core, run_pushsum_sweep
+    from repro_torch.distributed.sharding import sweep_mesh
+    from repro_torch.kernels.pushsum_edge import (edge_scatter_cuda,
+                                                  edge_scatter_ref)
+    from repro_torch.statics.memory import pushsum_sharded_step_bytes
+
+    # ---- (a) push-sum at N = 2^20, 8 shards, emulated -------------------
+    t0 = time.perf_counter()
+    el, w = md_scenario(MD_N)
+    sh = partition_edge_list(el, MD_S)
+    pad = sh.padded_edge_list()
+    N, E, e, S = el.n, sh.e_pad, sh.e_shard, MD_S
+    n_bnd = int(sh.boundary.sum())
+    log(f"[multi] N={N} E={el.E} d=1 cut into {S} shards of {e} edges "
+        f"(E_pad {E}), {n_bnd} boundary receivers; set-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    require(0 < n_bnd <= S - 1, "at most one boundary receiver a cut")
+    kw = dict(drop_probs=[MD_DROP], seeds=[0], B=MD_B)
+
+    def sweep(edges, T, **plan):
+        return run_pushsum_sweep(w, edges, T, plan=ExecutionPlan(**plan),
+                                 **kw)
+
+    pred = pushsum_device_memory_gb(N, el.E, 1, n_shards=S)
+    held_own = N * 4 * 4 + E * 2 * 4     # node state, every shard's edges
+    out = {}
+    for tag, policy, halo in (("fp32", None, "psum"),
+                              ("bf16", "bf16", "scatter")):
+        sb = 4 if policy is None else 2
+        line, st_u, st_s = md_lockstep(dev, pad, sh, w, policy, halo)
+        # bf16: the ratios where both runs keep mass, within 4 bf16 ulps of
+        # the inputs' scale (a ratio is a convex combination of the inputs;
+        # phase 6k's rule for half storage: an agent whose m rounds
+        # towards 0 has a ratio that says nothing)
+        m_u, m_s = st_u.m.float(), st_s.m.float()
+        heavy = ((m_u >= 0.1) & (m_s >= 0.1)) if sb == 2 else \
+            torch.ones_like(m_u, dtype=torch.bool)
+        r_u, r_s = (sparse_ratios(x)[:, 0] for x in (st_u, st_s))
+        tol = (dict(rtol=1e-4, atol=1e-5) if sb == 4
+               else dict(rtol=2.0 ** -6,
+                         atol=2.0 ** -6 * float(np.abs(w).max())))
+        torch.testing.assert_close(r_s[heavy], r_u[heavy], **tol)
+        log(f"[multi] {tag} {halo}: {line}; after {MD_T} rounds side by "
+            f"side: {int((r_s != r_u).sum())} of {N} ratios differ, max "
+            f"{(r_s - r_u)[heavy].abs().max().item():.3e} on "
+            + ("every agent" if sb == 4 else
+               f"the {int(heavy.sum())} agents with m >= 0.1 in both")
+            + f" (held within "
+            f"rtol {tol['rtol']:.3g} atol {tol['atol']:.3g}), total mass "
+            f"{m_s.sum().item():.2f} (unsharded {m_u.sum().item():.2f})")
+        _zero_counts()
+        GraphAxis.wire_bytes = 0.0
+        res_s = peak_run(f"push-sum N={N} {tag} on {S} emulated shards",
+                         lambda p=policy, h=halo: sweep(
+                             el, MD_T, graph_shards=S, halo=h, policy=p),
+                         (pred, held_own, "node state plus all S shards' "
+                          "edge state (one process holds the axis)",
+                          "the model is one device's of an S-device mesh"))
+        torch.cuda.synchronize()
+        counts = _counts()
+        wire = GraphAxis.wire_bytes / MD_T
+        require(counts == _only(edge_scatter=MD_T, edge_scatter_tiled=MD_T,
+                                edge_scatter_sharded=MD_T,
+                                edge_scatter_half=MD_T * (sb == 2)),
+                f"{tag}: K1 once a round for all {S} shards")
+        res_u = sweep(pad, MD_T, policy=policy)
+        torch.cuda.synchronize()
+        require(_counts()["edge_scatter_sharded"] == MD_T,
+                "the unsharded run launched no sharded K1")
+        fr_s, fr_u = res_s.final_ratio[0, :, 0], res_u.final_ratio[0, :, 0]
+        require(torch.equal(fr_s, r_s) and torch.equal(fr_u, r_u),
+                f"{tag}: the sweeps' final ratios are the side-by-side runs'")
+        mgap = (res_s.mass_gap.abs().max().item(),
+                res_u.mass_gap.abs().max().item())
+        if sb == 4:
+            torch.testing.assert_close(res_s.err, res_u.err, **tol)
+            require(max(mgap) <= 1e-4 * N, "mass gap within 1e-4 N")
+        model_wire = pushsum_halo_wire_bytes(N, 1, S, variant=halo,
+                                             storage_bytes=sb)
+        require(wire == model_wire, f"{tag}: the axis' halo bytes a round "
+                f"are pushsum_halo_wire_bytes'")
+        shard_model = pushsum_sharded_step_bytes(N, el.E, 1, n_shards=S,
+                                                 policy=policy)
+        log(f"[multi] {tag} {halo}, run_pushsum_sweep(graph_shards={S}) "
+            f"T={MD_T}: launches {counts}; its final ratios are the "
+            f"side-by-side run's, the unsharded sweep's too; worst "
+            f"consensus error at T "
+            f"{res_s.err[0, -1].item():.4e} (unsharded "
+            f"{res_u.err[0, -1].item():.4e}); mass gap {mgap[0]:.4g} "
+            f"(unsharded "
+            f"{mgap[1]:.4g}, limit 1e-4 N = {1e-4 * N:.1f}"
+            + ("" if sb == 4 else ", not held for bf16") + f"); halo "
+            f"{wire:.0f} B a round = pushsum_halo_wire_bytes {model_wire:.0f}"
+            f" ({halo}, storage {sb} B); per-shard step bytes "
+            f"(pushsum_sharded_step_bytes) {shard_model}, the shard's held "
+            f"edge state {e * 2 * sb} B and node state {N * 4 * sb} B")
+        out[f"launches_{tag}"] = counts["edge_scatter"]
+    # step times of the sweep's loop (its host set-up apart), sharded and
+    # unsharded in turns
+    axis = EmulatedAxis(S)
+    src_l, dst_l, valid_l, off_l = (x.to(dev) for x in partitioned_edges(
+        sh.src[None], sh.dst[None], sh.valid[None], N, axis))
+    edges_u = [x.to(dev) for x in edge_index_tensors(pad)]
+    w_d = torch.from_numpy(w).to(dev)
+    coords = (Key(np.zeros(1, np.int64), np.zeros(1, np.int64)),)
+    drop_b = torch.full((1,), MD_DROP, device=dev)
+    B_b = torch.full((1,), MD_B, dtype=torch.int32, device=dev)
+
+    def loop(edges, T, **kw_):
+        _pushsum_sweep_core(*coords, *edges, drop_b, B_b, w_d, T=T,
+                            backend="auto", **kw_)
+
+    held = (src_l, dst_l, valid_l, off_l)
+    ms = turns_ms({
+        "sharded": lambda T: loop(held, T, graph_axis=axis),
+        "unsharded": lambda T: loop(edges_u, T),
+        "sharded bf16 scatter": lambda T: loop(
+            held, T, graph_axis=axis, halo="scatter", policy="bf16")})
+    setup = {}
+    for name, edges_ in (("sharded", el), ("unsharded", pad)):
+        t0 = time.perf_counter()
+        sweep(edges_, 0, **({"graph_shards": S} if name == "sharded"
+                            else {}))
+        torch.cuda.synchronize()
+        setup[name] = time.perf_counter() - t0
+    log(f"[timing] push-sum N={N}, {S} emulated shards, the sweep's loop: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+        + f" a step (in turns, median of {SWEEP_RUNS} runs of {STEP_T} "
+        f"steps); a call's host set-up (T = 0): sharded "
+        f"{setup['sharded']:.3f} s (partition, layout, CSR over {S} N "
+        f"slots), unsharded {setup['unsharded']:.3f} s")
+    out["step_ms"] = ms
+    # K1 at the partitioned shape: S N receivers
+    g = torch.Generator(device=dev).manual_seed(23)
+    sigma = torch.randn((N, 2), generator=g, device=dev)
+    rho = torch.randn((E, 2), generator=g, device=dev)
+    live = (torch.rand(E, generator=g, device=dev) < 0.8) & valid_l
+    k1 = (sigma, rho, live, src_l, off_l)
+    err = k1_hold(f"partitioned shape ({S} x {N} receivers)", k1, dst_l,
+                  None)
+    k1_ms = event_ms(lambda: edge_scatter_cuda(*k1, shards=S), TIMED_RUNS,
+                     flush, hide_host=True)
+    plain_ms = event_ms(lambda: edge_scatter_ref(*k1[:4], dst_l,
+                                                  n_recv=S * N), 5, flush)
+    b_ms, by = bound(nbytes(*k1, rho) + S * N * 2 * 4, 2 * E * 2)
+    log(f"[timing] edge_scatter at the partitioned shape ({S} x {N} "
+        f"receivers, E {E}, D 2): {k1_ms:.5f} ms with the host hidden "
+        f"(median of {TIMED_RUNS}, L2 flushed), bound {b_ms:.5f} ({by}), "
+        f"plain {plain_ms:.5f}; max_abs_err {err:.3e}")
+    out.update(partitioned_ms=k1_ms, partitioned_bound_ms=b_ms,
+               partitioned_bound_by=by, partitioned_plain_ms=plain_ms,
+               partitioned_max_abs_err=err)
+
+    # ---- (b) Alg. 3's main cell on 4 emulated shards ---------------------
+    el3 = EdgeList(src=rt.src.numpy(), dst=rt.dst.numpy(), n=rt.rep_mask
+                   .shape[0], valid=rt.valid.numpy())
+    sh3 = partition_edge_list(el3, MD_SOCIAL_S)
+    require(int(sh3.boundary.sum()) == 0 and sh3.e_pad == el3.E,
+            "Alg. 3's cut into 4 shards is boundary-free")
+    held = dict(zip(("src", "dst", "valid", "offsets"), partitioned_edges(
+        sh3.src[None], sh3.dst[None], sh3.valid[None], el3.n,
+        EmulatedAxis(MD_SOCIAL_S))))
+    tables = model.tables.to(dev, torch.float32)
+
+    def social(rt_, axis_):
+        return _social_scan_core(
+            prng_key(0), prng_key(0), rt_.to(dev), torch.log(tables),
+            torch.cumsum(tables[:, model.truth, :], dim=-1),
+            truth=model.truth, M=M, T=T_MAIN, store="log_ratio",
+            backend="auto", graph_axis=axis_)
+
+    _zero_counts()
+    fs_s, (b_s, lr_s) = social(rt._replace(**held),
+                               EmulatedAxis(MD_SOCIAL_S))
+    torch.cuda.synchronize()
+    counts = _counts()
+    require(counts == _only(edge_scatter=T_MAIN, edge_scatter_tiled=T_MAIN,
+                            edge_scatter_sharded=T_MAIN,
+                            social_innov=T_MAIN),
+            "Alg. 3 on 4 shards: K1 and K2 once a round")
+    fs_u, (b_u, lr_u) = social(rt, None)
+    torch.cuda.synchronize()
+    same = (torch.equal(b_s, b_u) and torch.equal(lr_s, lr_u)
+            and all(torch.equal(x, y) for x, y in zip(fs_s, fs_u)))
+    require(same, "Alg. 3 on a boundary-free cut: beliefs, log ratios and "
+            "the final state bit-equal to the unsharded run")
+    log(f"[multi] Alg. 3 N={el3.n} E={el3.E} T={T_MAIN} on "
+        f"{MD_SOCIAL_S} emulated shards of {sh3.e_shard} edges "
+        f"(boundary-free): launches {counts}; beliefs, worst-log-ratio "
+        f"curve and final state bit-equal to the unsharded run")
+    out["launches_social"] = counts["edge_scatter"]
+
+    # ---- (c) the torch.distributed path: a 1 x 1 NCCL mesh --------------
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = sweep_mesh(1, 1, device_type="cuda")
+        for halo in ("psum", "scatter"):
+            GraphAxis.wire_bytes = 0.0
+            got = sweep(el, MD_T, mesh=mesh, graph_shards=1, halo=halo)
+            want = sweep(el, MD_T, graph_shards=1, halo=halo)
+            torch.cuda.synchronize()
+            require(all(torch.equal(getattr(got, f), getattr(want, f))
+                        for f in ("err", "final_ratio", "mass_gap")),
+                    f"the 1 x 1 NCCL mesh ({halo}) equals the S = 1 "
+                    f"emulation bit for bit")
+        probe = gloo_cuda_probe(dev)
+    finally:
+        dist.destroy_process_group()
+    log(f"[multi] 1 x 1 NCCL mesh (sweep_mesh(1, 1)), N={N}, T={MD_T}, "
+        f"psum and scatter: err, final ratios and mass gaps bit-equal to "
+        f"the S = 1 emulation (NCCL all_reduce, reduce_scatter, "
+        f"all_gather ran); gloo on CUDA tensors (one rank): {probe}")
+    require(all(v == "ok" for v in probe.values()),
+            "gloo takes CUDA tensors for the graph axis' collectives")
+    log(f"[multi] {md_gloo_ranks(w, el)}")
+    return out
 
 
 if __name__ == "__main__":

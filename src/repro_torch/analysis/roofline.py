@@ -14,7 +14,10 @@ kernel's own count. ``MODEL_FLOPS / (FLOPs * devices)`` is the share of
 the counted compute that is model math.
 
 The reference's ``parse_collectives`` reads XLA's HLO text, which the port
-has none of; the port's collectives (ROADMAP item 8) count their own bytes.
+has none of. The port's collectives count their own bytes instead: the
+graph axes of the edge-partitioned push-sum add each halo combine's ring
+wire bytes to ``repro_torch.core.pushsum.GraphAxis.wire_bytes``, which a
+run holds against :func:`pushsum_halo_wire_bytes`.
 """
 from __future__ import annotations
 

@@ -159,7 +159,7 @@ _contracts.register(_contracts.EngineContract(
     name="pushsum_async",
     forbidden=_ASYNC_FORBIDDEN,
     streams=_async_streams(ENGINE_PUSHSUM),
-    shares_seed_with=("pushsum", "pushsum_faults"),
+    shares_seed_with=("pushsum", "pushsum_sharded", "pushsum_faults"),
     exempt=(HORIZON_KEYS,),
 ))
 

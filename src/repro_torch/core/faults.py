@@ -65,6 +65,7 @@ __all__ = [
     "stack_fault_models",
     "init_fault_state",
     "step_faults",
+    "edge_uniforms",
     "step_faults_nbr",
     "advance_faults",
     "advance_faults_nbr",
@@ -188,24 +189,51 @@ def _churn(kc: Key, fm: FaultModel, live: torch.Tensor, K: int):
                        u < _rows(fm.join_prob, u)).reshape(-1)
 
 
-def advance_faults(ke: Key, kc: Key, fm: FaultModel,
-                   fs: FaultState) -> FaultState:
+def advance_faults(ke: Key, kc: Key, fm: FaultModel, fs: FaultState, *,
+                   graph_axis=None) -> FaultState:
     """:func:`step_faults` from the round's folded edge and churn keys
-    (one key, or K keys whose state is stacked flat)."""
+    (one key, or K keys whose state is stacked flat). Under ``graph_axis``
+    (a :class:`repro_torch.core.pushsum.GraphAxis`) ``edge_bad`` holds the
+    axis' shards in their (local, K, e_shard) layout and the chain steps
+    on the window of the full padded draw."""
     K = _n_keys(ke)
-    bad = fs.edge_bad.view(K, -1)
-    u = uniform(ke, bad.shape[1], bad.device).reshape(K, -1)
+    if graph_axis is None:
+        bad = fs.edge_bad.view(K, -1)
+        u = uniform(ke, bad.shape[1], bad.device).reshape(K, -1)
+    else:
+        bad = fs.edge_bad.view(graph_axis.local, K, -1)
+        u = graph_axis.window(uniform(
+            ke, graph_axis.n_shards * bad.shape[-1], bad.device).reshape(K, -1))
     return FaultState(edge_bad=_chain(bad, u, fm).reshape(fs.edge_bad.shape),
                       node_live=_churn(kc, fm, fs.node_live, K))
 
 
+def edge_uniforms(key: Key, fold_t, e: int, device, *,
+                  graph_axis=None) -> torch.Tensor:
+    """One uniform an edge on ``fold_in(key, fold_t)`` -> (e,). Under
+    ``graph_axis`` ``e`` is the shard capacity: the full (n_shards e,) draw
+    is taken and the held shards' window returned, (local e,), so the
+    realisation is the same function of (key, t) at every shard count."""
+    kt = fold_in(key, fold_t)
+    if graph_axis is None:
+        return uniform(kt, e, device)
+    return graph_axis.window(
+        uniform(kt, graph_axis.n_shards * e, device)).reshape(-1)
+
+
 def step_faults(key: Key, t: int, fm: FaultModel, fs: FaultState, *,
-                engine: int) -> FaultState:
+                engine: int, graph_axis=None) -> FaultState:
     """Advance the Gilbert–Elliott edge chain and the churn mask one round
-    on the engine's FAULT_EDGE / FAULT_CHURN streams (unsharded)."""
+    on the engine's FAULT_EDGE / FAULT_CHURN streams. The (N,) churn draw
+    is replicated; under ``graph_axis`` the edge draw is windowed as the
+    link mask is (1-D edge state only)."""
+    if graph_axis is not None and fs.edge_bad.dim() != 1:
+        raise ValueError("sharded fault state requires 1-D edge_bad, got "
+                         f"shape {tuple(fs.edge_bad.shape)}")
     return advance_faults(
         fold_in(key, fault_stream_fold(t, engine, FAULT_EDGE)),
-        fold_in(key, fault_stream_fold(t, engine, FAULT_CHURN)), fm, fs)
+        fold_in(key, fault_stream_fold(t, engine, FAULT_CHURN)), fm, fs,
+        graph_axis=graph_axis)
 
 
 def advance_faults_nbr(ke: Key, kc: Key, fm: FaultModel, fs: FaultState):
@@ -240,11 +268,13 @@ def faulty_edge_mask(u: torch.Tensor, t: int, fm: FaultModel,
     """Per-edge up/down mask under the fault plane -> flat (E,) or (K·E,).
 
     ``u`` is the engine's own link uniform, (E,) or (K, E) for K stacked
-    scenarios with (K,) ``drop_prob`` and ``B``; with an all-good,
-    all-live state the mask is :func:`repro_torch.core.pushsum.edge_mask`'s
-    bit for bit. Bad edges drop at ``drop_bad`` and are not forced by the
-    B-window; an edge with a dead end is down."""
-    u = u.reshape(-1, u.shape[-1])
+    scenarios with (K,) ``drop_prob`` and ``B`` (or a graph axis' window,
+    (local, K, e_shard)); with an all-good, all-live state the mask is
+    :func:`repro_torch.core.pushsum.edge_mask`'s bit for bit. Bad edges
+    drop at ``drop_bad`` and are not forced by the B-window; an edge with a
+    dead end is down."""
+    if u.dim() == 1:
+        u = u[None]
     bad = fs.edge_bad.view(u.shape)
     p_eff = torch.where(bad, _rows(fm.drop_bad, u), _rows(drop_prob, u))
     forced = ((t % _rows(B, u)) == (_rows(B, u) - 1)) & ~bad
@@ -322,7 +352,7 @@ _contracts.register(_contracts.EngineContract(
     name="pushsum_faults",
     forbidden=_FAULT_FORBIDDEN,
     streams=_fault_streams(ENGINE_PUSHSUM, with_ps=False),
-    shares_seed_with=("pushsum",),
+    shares_seed_with=("pushsum", "pushsum_sharded"),
     exempt=(HORIZON_KEYS,),
 ))
 

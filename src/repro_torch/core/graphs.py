@@ -36,6 +36,8 @@ __all__ = [
     "stack_edge_lists",
     "sort_by_dst",
     "is_dst_sorted",
+    "EdgeShards",
+    "partition_edge_list",
     "random_strongly_connected_edge_list",
     "hier_edge_list",
     "block_complete_edge_list",
@@ -486,6 +488,119 @@ def _dst_offsets(sorted_dst: np.ndarray, n: int) -> np.ndarray:
         return np.searchsorted(sorted_dst, grid, side="left").astype(np.int32)
     return np.stack([np.searchsorted(row, grid, side="left")
                      for row in sorted_dst]).astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeShards:
+    """A dst-sorted edge index cut into contiguous capacity-padded shards.
+
+    The layout of the edge-partitioned push-sum: shard ``k`` owns the
+    sorted edge slots ``[k e_shard, (k+1) e_shard)``, a contiguous run of
+    receivers, so a receiver's in-edges lie on one shard or on adjacent
+    ones. Per-edge state is (e_shard, ...) a shard; node state stays
+    replicated, and each round's receiver partials are summed over the
+    shards (:func:`repro_torch.core.pushsum.sparse_pushsum_step` with
+    ``graph_axis=``).
+
+    Shard tails are padded to the common capacity ``e_shard`` with inert
+    edges (``valid=False``, ``src = 0``) that keep ``dst`` equal to the
+    shard's last real receiver, so every shard stays dst-sorted.
+
+    ``boundary[..., v]`` is True iff receiver ``v``'s in-edge run is split
+    by a shard cut: the only receivers whose round sum has more than one
+    non-zero operand, so the only ones where a sharded run can differ
+    from the unsharded one by float reduce order (the others add exact
+    ``+0.0`` partials from foreign shards).
+
+    Fields carry a leading graph axis (G, S, e_shard) when built from a
+    batched :class:`EdgeList`, else (S, e_shard); ``boundary`` is (G, N)
+    or (N,).
+    """
+
+    src: np.ndarray       # (..., S, e_shard) int32
+    dst: np.ndarray       # (..., S, e_shard) int32
+    valid: np.ndarray     # (..., S, e_shard) bool, False on padding
+    n: int                # node count
+    e_total: int          # edge count of the source EdgeList
+    boundary: np.ndarray  # (..., N) bool: receivers split by a cut
+
+    @property
+    def n_shards(self) -> int:
+        return int(self.src.shape[-2])
+
+    @property
+    def e_shard(self) -> int:
+        """Per-shard edge capacity."""
+        return int(self.src.shape[-1])
+
+    @property
+    def e_pad(self) -> int:
+        """``n_shards * e_shard``: the edge count of the unsharded program
+        a sharded run is compared with."""
+        return self.n_shards * self.e_shard
+
+    @property
+    def is_batched(self) -> bool:
+        return self.src.ndim == 3
+
+    def padded_edge_list(self) -> EdgeList:
+        """The shards concatenated back into one (..., E_pad) EdgeList.
+
+        This, not the original list, is the unsharded program a sharded
+        run equals: each round's (E_pad,) link mask indexes the padded
+        slots, and a draw's values depend on the slot, so the original
+        list gives the same masks only where ``e_pad == E`` or
+        ``drop_prob == 0``."""
+        flat = lambda a: a.reshape(*a.shape[:-2], -1)  # noqa: E731
+        return EdgeList(src=flat(self.src), dst=flat(self.dst), n=self.n,
+                        valid=flat(self.valid))
+
+
+def partition_edge_list(el: EdgeList, n_shards: int) -> EdgeShards:
+    """Cut an edge list into ``n_shards`` dst-contiguous, capacity-padded
+    shards.
+
+    The index is (re-)sorted by receiver, cut at ``k * ceil(E /
+    n_shards)`` (a cut may fall inside a receiver's run: the ``boundary``
+    index records those receivers), and each shard's tail is padded with
+    inert dst-sorted edges up to the common capacity. A batched list cuts
+    each topology draw on its own under one shared capacity, so a grid
+    rides one (G, S, e_shard) layout.
+    """
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+
+    def one(src, dst, valid):
+        s_el = sort_by_dst(EdgeList(src=src, dst=dst, n=el.n,
+                                    valid=valid))[0]
+        E = s_el.E
+        e_shard = max(-(-E // n_shards), 1)
+        src_s = np.zeros((n_shards, e_shard), np.int32)
+        dst_s = np.zeros((n_shards, e_shard), np.int32)
+        val_s = np.zeros((n_shards, e_shard), bool)
+        bnd = np.zeros(el.n, bool)
+        for k in range(n_shards):
+            lo, hi = k * e_shard, min((k + 1) * e_shard, E)
+            w = max(hi - lo, 0)
+            if w:
+                src_s[k, :w] = s_el.src[lo:hi]
+                dst_s[k, :w] = s_el.dst[lo:hi]
+                val_s[k, :w] = s_el.valid[lo:hi]
+                # the tail keeps the shard's last receiver: still sorted
+                dst_s[k, w:] = s_el.dst[hi - 1]
+            # a cut strictly inside a receiver's run marks it boundary
+            if 0 < lo < E and s_el.dst[lo - 1] == s_el.dst[lo]:
+                bnd[s_el.dst[lo]] = True
+        return src_s, dst_s, val_s, bnd
+
+    if el.is_batched:
+        parts = [one(el.src[g], el.dst[g], el.valid[g])
+                 for g in range(el.src.shape[0])]
+        src_s, dst_s, val_s, bnd = (np.stack(x) for x in zip(*parts))
+    else:
+        src_s, dst_s, val_s, bnd = one(el.src, el.dst, el.valid)
+    return EdgeShards(src=src_s, dst=dst_s, valid=val_s, n=el.n,
+                      e_total=el.E, boundary=bnd)
 
 
 def random_strongly_connected_edge_list(

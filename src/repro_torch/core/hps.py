@@ -61,11 +61,14 @@ from .plan import ExecutionPlan, check_plan, resolve_device
 from .precision import policy_dtypes
 from .prng import Key, fold_rounds, prng_key
 from .pushsum import (
+    GraphAxis,
     PlaneRounds,
     PushSumState,
     SparsePushSumState,
+    _axis_out_degree,
+    _draw_edges,
     _frames,
-    _out_degree,
+    _receivers,
     edge_index_tensors,
     init_sparse_state,
     init_state,
@@ -356,6 +359,8 @@ def _hps_scan_core(
     faults: FaultModel | None = None,
     async_: AsyncModel | None = None,
     policy=None,
+    graph_axis: GraphAxis | None = None,
+    halo: str = "psum",
 ) -> tuple[SparsePushSumState, tuple[torch.Tensor, torch.Tensor]]:
     """Algorithm 1's loop over the runtime's tensors, all on ``w``'s device.
 
@@ -377,23 +382,39 @@ def _hps_scan_core(
     stream, delivery from the per-edge buffer through K1); the fusion
     stays on the global Γ clock. ``policy`` keeps the state at its
     storage dtype, with the receiver sums and the fusion pools in its
-    accum dtype; ratios and gaps are float32."""
+    accum dtype; ratios and gaps are float32.
+
+    ``graph_axis`` (:class:`repro_torch.core.pushsum.GraphAxis`) runs the
+    consensus half edge-partitioned, as in
+    :func:`repro_torch.core.social._social_scan_core`: the runtime's edge
+    fields hold the axis' shards, the out-degree is summed over the axis
+    once, the link mask and the fault chain are windows of the full padded
+    draws on the same ``~t`` fold, and the partials are combined by
+    ``halo``; the fusion touches only the replicated node state. Not with
+    ``async_`` (``ValueError``)."""
+    if async_ is not None and graph_axis is not None:
+        raise ValueError(
+            "async_ is incompatible with graph_axis (the per-edge stale "
+            "buffer is not partitioned); run async loops unsharded")
     N, d = w.shape
     ac = policy_dtypes(policy)[2]
     K = rt.drop_prob.numel()
-    E = rt.src.shape[0] // K
+    E = _draw_edges(rt.src.shape[0], K, graph_axis)
     drop, gamma, B, M = (x.reshape(-1) for x in (rt.drop_prob, rt.gamma,
                                                   rt.B, rt.M))
     rep = rt.rep_mask.view(K, N)
-    state = init_sparse_state(w.repeat(K, 1), K * E, policy)
+    state = init_sparse_state(w.repeat(K, 1), rt.src.shape[0], policy)
     # loop invariants of the fixed edge index and inputs
-    share = 1.0 / (_out_degree(rt.src, rt.valid, K * N, w.dtype) + 1.0)
+    share = 1.0 / (_axis_out_degree(rt.src, rt.valid, K * N, graph_axis,
+                                    w.dtype) + 1.0)
+    receivers = _receivers(rt.dst, K * N, graph_axis)
     target = w.mean(dim=0)
     keys = fold_rounds(key, [hps_stream_fold(t) for t in range(T)],
                        w.device)
     planes = PlaneRounds.build(key, T, ENGINE_HPS, faults, async_, E,
                                w.device)
-    fs, abuf = planes.init(K * N, K * E, d, w.device, state.zm.dtype)
+    fs, abuf = planes.init(K * N, rt.src.shape[0], d, w.device,
+                           state.zm.dtype)
     ps_up = None if faults is None else torch.from_numpy(
         ps_alive_rounds(key, T, faults, engine=ENGINE_HPS)).to(w.device)
 
@@ -403,13 +424,14 @@ def _hps_scan_core(
     ys = []
     for t in range(T):
         # --- consensus (Alg. 1 lines 3-12) ---
-        fs, awake = planes.step(t, fs, K * N)
+        fs, awake = planes.step(t, fs, K * N, graph_axis)
         mask = round_mask(Key(keys.k0[t], keys.k1[t]), t, E, drop, B,
-                          planes.faults, fs, rt.src, rt.dst)
+                          planes.faults, fs, rt.src, receivers, graph_axis)
         st, abuf = plane_step(state, mask, rt.src, rt.dst, rt.valid,
                               backend, share=share, offsets=rt.offsets,
                               fs=fs, awake=awake, abuf=abuf, planes=planes,
-                              policy=policy)
+                              policy=policy, graph_axis=graph_axis,
+                              halo=halo)
         # --- PS fusion every Γ (lines 13-21), per scenario ---
         zm = st.zm.view(K, N, d + 1)
         do_fusion = (t + 1) % gamma == 0

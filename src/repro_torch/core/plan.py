@@ -1,7 +1,7 @@
 """ExecutionPlan — the execution knobs of the port's ``run_*`` entry points,
 and the device rule they share.
 
-The port's plan carries only the fields its engines support so far:
+The port's plan carries the reference's fields:
 
 ``backend``     ``"auto"`` | ``"torch"`` | ``"cuda"`` — per-round kernel
                 route (:mod:`repro_torch.kernels.dispatch`).
@@ -17,6 +17,19 @@ The port's plan carries only the fields its engines support so far:
 ``policy``      the precision policy: a name (``"fp32"``, ``"bf16"``), a
                 :class:`repro_torch.core.precision.Policy`, or ``None``
                 (the dtype-transparent float32 program).
+``mesh``        a ``torch.distributed`` ``DeviceMesh`` (built by
+                :func:`repro_torch.distributed.sharding.sweep_mesh`), or
+                ``None`` for one process. Every rank calls the entry point
+                with the same arguments and gets the full result.
+``data_axis``   the mesh dimension the scenario axis is split over.
+``graph_axis``  the mesh dimension the edge shards are split over.
+``graph_shards`` S: cut the graph into S edge shards
+                (:func:`repro_torch.core.graphs.partition_edge_list`); on
+                one process the S shards run as an emulation of the mesh
+                program, with a mesh its ``graph_axis`` extent must be S.
+``halo``        ``"psum"`` | ``"scatter"`` — how the shards' receiver
+                partials are combined
+                (:func:`repro_torch.core.pushsum.sparse_pushsum_step`).
 
 Each entry point names the fields it honours (:func:`check_plan`): any
 other field set away from its default raises ``ValueError``, as the
@@ -34,7 +47,10 @@ import torch
 
 from .precision import resolve_policy
 
-__all__ = ["ExecutionPlan", "check_plan", "resolve_device"]
+__all__ = ["ExecutionPlan", "HALO_VARIANTS", "check_plan", "resolve_device"]
+
+#: the halo combines of the edge-partitioned step
+HALO_VARIANTS = ("psum", "scatter")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +63,11 @@ class ExecutionPlan:
     faults: Any = None
     async_: Any = None
     policy: Any = None
+    mesh: Any = None
+    data_axis: str = "data"
+    graph_axis: str = "graph"
+    graph_shards: int | None = None
+    halo: str = "psum"
 
     def replace(self, **kw) -> "ExecutionPlan":
         return dataclasses.replace(self, **kw)
@@ -62,6 +83,11 @@ def check_plan(plan: ExecutionPlan | None, entry: str,
     plan = _DEFAULT if plan is None else plan
     if plan.policy is not None:
         resolve_policy(plan.policy)     # an unknown name raises here
+    if plan.halo not in HALO_VARIANTS:
+        raise ValueError(f"plan.halo={plan.halo!r} not in {HALO_VARIANTS}")
+    if plan.graph_shards is not None and plan.graph_shards < 1:
+        raise ValueError(f"plan.graph_shards must be >= 1, got "
+                         f"{plan.graph_shards}")
     for f in dataclasses.fields(ExecutionPlan):
         if f.name in supports:
             continue

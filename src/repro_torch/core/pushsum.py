@@ -28,6 +28,17 @@ the async plane (:mod:`.asyncrony`: awake senders latch the per-edge
 buffer, which K1 then delivers as its source rows), and the precision
 policy (:mod:`.precision`: every field stored at the storage dtype, the
 staging in the compute dtype, the receiver sums in the accum dtype).
+
+**Edge partitioning** (``graph_axis=``, a :class:`GraphAxis`): the edge
+index is cut into S dst-contiguous shards
+(:func:`repro_torch.core.graphs.partition_edge_list`), node state stays
+replicated, and each round's receiver partials are summed over the
+shards, by an all-reduce (``halo="psum"``) or a reduce-scatter, a cast to
+the storage dtype and an all-gather (``halo="scatter"``). Two axes run
+the same program: :class:`EmulatedAxis` holds all S shards in one process
+and runs them in one K1 launch (shard j's receivers offset to ``j n +
+v``), :class:`GroupAxis` holds one shard a rank of a ``torch.distributed``
+process group (a device mesh's ``graph`` dimension).
 """
 from __future__ import annotations
 
@@ -45,7 +56,7 @@ from .faults import (ENGINE_PUSHSUM, FAULT_CHURN, FAULT_EDGE, FaultModel,
                      FaultState, advance_faults, fault_stream_fold,
                      faulty_edge_mask, freeze, init_fault_state)
 from .graphs import EdgeList, _dst_offsets, is_dst_sorted
-from .plan import ExecutionPlan, check_plan, resolve_device
+from .plan import HALO_VARIANTS, ExecutionPlan, check_plan, resolve_device
 from .precision import HALF_DTYPES, policy_dtypes
 from .prng import Key, fold_in, fold_rounds, prng_key, uniform
 
@@ -65,6 +76,11 @@ __all__ = [
     "step_edge_mask",
     "edge_mask",
     "PlaneRounds",
+    "GraphAxis",
+    "EmulatedAxis",
+    "GroupAxis",
+    "shard_edge_mask",
+    "partitioned_edges",
 ]
 
 
@@ -221,6 +237,28 @@ def _out_degree(src: torch.Tensor, valid: torch.Tensor, n: int,
         0, src, valid.to(dtype))
 
 
+def _axis_out_degree(src, valid, n: int, graph_axis, dtype=torch.float32):
+    """(n,) out-degree over the valid edges of every shard of
+    ``graph_axis`` (or of the edge index, without one)."""
+    d_out = _out_degree(src, valid, n, dtype)
+    return d_out if graph_axis is None else graph_axis.allreduce(d_out)
+
+
+def _draw_edges(n_held: int, K: int, graph_axis) -> int:
+    """The edge count of one scenario's link draw: its E, or under
+    ``graph_axis`` its padded E_pad (n_shards e_shard), from the ``n_held``
+    edge slots a process holds for K scenarios."""
+    if graph_axis is None:
+        return n_held // K
+    return graph_axis.n_shards * (n_held // (K * graph_axis.local))
+
+
+def _receivers(dst, n: int, graph_axis):
+    """Each edge's receiver node: ``dst`` itself, or under ``graph_axis``
+    the node of its receiver slot (slots ``j n + v``)."""
+    return dst if graph_axis is None else dst % n
+
+
 def edge_index_tensors(el: EdgeList, e_max: int | None = None):
     """A single edge index as the engines' CPU tensors -> ``(src, dst,
     valid, offsets)``. ``e_max`` pads the edge axis with inert
@@ -248,6 +286,173 @@ def edge_index_tensors(el: EdgeList, e_max: int | None = None):
             torch.tensor(valid, dtype=torch.bool), offsets)
 
 
+class GraphAxis:
+    """The graph axis of the edge-partitioned step: ``n_shards`` edge shards
+    of one graph, of which this process holds ``local``, from shard
+    ``first`` on.
+
+    The edges a process holds are laid out shard-major, (local, K, e_shard)
+    for K scenarios, and local shard j's receivers are the slots ``j n +
+    v`` of the replicated node rows v (``n = K N``), so one K1 launch over
+    ``local n`` receivers gives every local shard's partials
+    (:func:`partitioned_edges` builds the layout). :meth:`psum` and
+    :meth:`scatter` sum the (local, n, D) partials in shard order and then
+    over the processes of the axis; :meth:`allreduce` sums a value over
+    the processes (the out-degree, the in-flight mass).
+
+    ``GraphAxis.wire_bytes`` counts the wire bytes of the halo combines,
+    every call on every axis, as a ring over S members moves them: ``2
+    (S-1)/S`` of the combined partials for the all-reduce, ``(S-1)/S`` of
+    the accum-dtype partials in and of the storage-dtype block out for
+    the reduce-scatter and the all-gather; an emulated axis counts what a
+    mesh of S would move."""
+
+    wire_bytes = 0.0
+
+    n_shards: int
+    local: int
+    first: int
+
+    def window(self, x: torch.Tensor) -> torch.Tensor:
+        """A draw over the full padded edge axis, (..., S e_shard), as the
+        held shards' slots in their layout, (local, ..., e_shard)."""
+        S = self.n_shards
+        x = x.unflatten(-1, (S, x.shape[-1] // S))
+        return x[..., self.first:self.first + self.local, :].movedim(-2, 0)
+
+    def allreduce(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _reduce_scatter_gather(self, x: torch.Tensor,
+                               storage: torch.dtype) -> torch.Tensor:
+        raise NotImplementedError
+
+    def psum(self, parts: torch.Tensor) -> torch.Tensor:
+        """(local, n, D) receiver partials -> (n, D), summed over every
+        shard of the axis."""
+        out = _shard_order_sum(parts)
+        S = self.n_shards
+        GraphAxis.wire_bytes += 2 * (S - 1) / S * out.numel() * \
+            out.element_size()
+        return self.allreduce(out)
+
+    def scatter(self, parts: torch.Tensor,
+                storage: torch.dtype) -> torch.Tensor:
+        """(local, n, D) receiver partials -> (n, D) in their dtype: the sum
+        over every shard, reduce-scattered in row blocks of ``ceil(n / S)``,
+        each block cast to ``storage``, then all-gathered and cast back."""
+        out = _shard_order_sum(parts)
+        n, S = out.shape[0], self.n_shards
+        pad = (-n) % S
+        if pad:
+            out = torch.cat([out, out.new_zeros((pad, out.shape[1]))])
+        ring = (S - 1) / S * out.numel()
+        GraphAxis.wire_bytes += ring * (
+            out.element_size() + torch.empty((), dtype=storage).element_size())
+        return self._reduce_scatter_gather(out, storage).to(out.dtype)[:n]
+
+
+def _shard_order_sum(parts: torch.Tensor) -> torch.Tensor:
+    """(local, n, D) -> (n, D), added shard after shard."""
+    out = parts[0]
+    for j in range(1, parts.shape[0]):
+        out = out + parts[j]
+    return out
+
+
+class EmulatedAxis(GraphAxis):
+    """All ``n_shards`` shards in this process: the reference's one-device
+    emulation of the mesh program. Its collectives are the shard-order
+    sums; every shard's partials come from one K1 launch."""
+
+    def __init__(self, n_shards: int):
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.n_shards, self.local, self.first = int(n_shards), int(n_shards), 0
+
+    def allreduce(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def _reduce_scatter_gather(self, x, storage):
+        return x.to(storage)
+
+    def __repr__(self) -> str:
+        return f"EmulatedAxis({self.n_shards})"
+
+
+class GroupAxis(GraphAxis):
+    """One shard a rank of a ``torch.distributed`` process group (a device
+    mesh's graph dimension, ``mesh["graph"].get_group()``): the shard of
+    its rank in the group, combined by ``all_reduce``, or by
+    ``reduce_scatter_tensor`` and ``all_gather_into_tensor``. A failed
+    collective raises."""
+
+    def __init__(self, group):
+        import torch.distributed as dist
+
+        self.group = group
+        self.n_shards = dist.get_world_size(group)
+        self.local, self.first = 1, dist.get_rank(group)
+
+    def allreduce(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def _reduce_scatter_gather(self, x, storage):
+        S = self.n_shards
+        part = x.new_empty((x.shape[0] // S, x.shape[1]))
+        collective("reduce_scatter")(part, x.contiguous(), group=self.group)
+        out = x.new_empty(x.shape, dtype=storage)
+        collective("all_gather")(out, part.to(storage), group=self.group)
+        return out
+
+    def __repr__(self) -> str:
+        return f"GroupAxis(shard {self.first} of {self.n_shards})"
+
+
+def collective(op: str):
+    """``torch.distributed``'s one-tensor ``"all_gather"`` or
+    ``"reduce_scatter"`` (``*_single``, named ``*_into_tensor`` /
+    ``*_tensor`` before torch 2.13): ``fn(output, input, group=...)``."""
+    import torch.distributed as dist
+
+    old = {"all_gather": "all_gather_into_tensor",
+           "reduce_scatter": "reduce_scatter_tensor"}[op]
+    return getattr(dist, f"{op}_single", None) or getattr(dist, old)
+
+
+def partitioned_edges(src, dst, valid, n: int, graph_axis: GraphAxis):
+    """K scenarios' edge shards, (K, S, e_shard) numpy arrays of one
+    :class:`repro_torch.core.graphs.EdgeShards` layout each (node ids in
+    ``[0, n)``), as the held shards' CPU tensors -> ``(src, dst, valid,
+    offsets)`` over K n replicated node rows.
+
+    The layout is shard-major, (local, K, e_shard): ``src`` holds node
+    ids ``k n + u``, ``dst`` the receiver slots ``(j K + k) n + v`` of
+    local shard j, and ``offsets`` the (local K n + 1,) CSR offsets of
+    ``dst``, which is sorted."""
+    src, dst, valid = (np.asarray(a)[:, graph_axis.first:
+                                     graph_axis.first + graph_axis.local]
+                       for a in (src, dst, valid))
+    K, local = src.shape[:2]
+    k = np.arange(K, dtype=np.int64)[:, None, None] * n
+    j = np.arange(local, dtype=np.int64)[None, :, None] * (K * n)
+
+    def flat(a):
+        return np.ascontiguousarray(a.transpose(1, 0, 2)).reshape(-1)
+
+    slots = flat(dst + k + j)
+    if slots.size and slots.max() >= 2**31:
+        raise ValueError("the partitioned receivers exceed int32")
+    return (torch.from_numpy(flat(src + k).astype(np.int32)),
+            torch.from_numpy(slots.astype(np.int32)),
+            torch.from_numpy(flat(valid)),
+            torch.from_numpy(_dst_offsets(slots, local * K * n)))
+
+
 def sparse_pushsum_step(
     state: SparsePushSumState,
     mask: torch.Tensor,    # (E,) bool — operational edges this round
@@ -263,6 +468,8 @@ def sparse_pushsum_step(
     abuf: AsyncBuffer | None = None,
     staleness: torch.Tensor | None = None,
     policy=None,
+    graph_axis: GraphAxis | None = None,
+    halo: str = "psum",
 ) -> SparsePushSumState | tuple[SparsePushSumState, AsyncBuffer]:
     """One fast-robust-push-sum round on edge-list state.
 
@@ -293,19 +500,39 @@ def sparse_pushsum_step(
     sender keeps and the telescoping sums re-measure the rounding every
     round. ``None`` keeps the state's dtype throughout (the pre-policy
     program; ``"fp32"`` is the same program).
+
+    ``graph_axis`` (a :class:`GraphAxis`) runs the round edge-partitioned:
+    the edge arguments and ``rho_zm`` hold the axis' shards in the layout
+    of :func:`partitioned_edges` (``dst`` the receiver slots), node state
+    is replicated, and the (local, n, D) receiver partials of the one K1
+    launch are summed over the shards, by :meth:`GraphAxis.psum`
+    (``halo="psum"``) or :meth:`GraphAxis.scatter` (``"scatter"``: the
+    reduced rows cast to the storage dtype before the gather, so not bit
+    for bit the ``"psum"`` round). A receiver whose in-edges lie on at most
+    two shards gets the same sum on either axis; against the unsharded
+    round on the padded edge list it is the same where its in-edges lie
+    on one shard. Without ``share`` the out-degree is summed over the
+    axis. The async plane does not go with a graph axis (``ValueError``).
     """
+    if halo not in HALO_VARIANTS:
+        raise ValueError(f"halo={halo!r} not in {HALO_VARIANTS}")
+    if graph_axis is not None and abuf is not None:
+        raise ValueError(
+            "async mode does not compose with graph_axis edge partitioning "
+            "(the per-edge buffer would need halo state)")
     zm, sigma_zm, rho_zm = state
     n = zm.shape[0]
     st, cp, ac = policy_dtypes(policy, zm.dtype)
     if share is None:
-        share = 1.0 / (_out_degree(src, valid, n, cp) + 1.0)
+        share = 1.0 / (_axis_out_degree(src, valid, n, graph_axis, cp) + 1.0)
     share = share.to(cp)[:, None]
     # first half: stage the cumulative send (compute), quantize to storage;
     # the quantized value is delivered AND re-staged
     sigma_p = (sigma_zm.to(cp) + zm.to(cp) * share).to(st)
     if faults is not None:
         # a dead endpoint takes the edge down in both directions
-        mask = mask & faults.node_live[src] & faults.node_live[dst]
+        receiver = _receivers(dst, n, graph_axis)
+        mask = mask & faults.node_live[src] & faults.node_live[receiver]
     live = mask & valid
     abuf_new = None
     if abuf is not None:
@@ -323,9 +550,17 @@ def sparse_pushsum_step(
                                      accum_dtype=ac)
     else:
         # delivery + integration: operational edges latch the new cumulative
+        local = 1 if graph_axis is None else graph_axis.local
         rho_new, recv = edge_scatter(sigma_p, rho_zm, live, src, dst,
                                      backend, offsets=offsets,
+                                     n_recv=local * n, shards=local,
                                      accum_dtype=ac)
+        if graph_axis is not None:
+            # the halo combine: a receiver on one shard adds exact +0.0
+            # partials from the others
+            parts = recv.view(local, n, -1)
+            recv = (graph_axis.psum(parts) if halo == "psum"
+                    else graph_axis.scatter(parts, st))
     zm_p = (zm.to(cp) * share).to(ac) + recv
     # second half: re-stage at once, down to storage
     zm_pc = zm_p.to(cp)
@@ -355,15 +590,22 @@ def sparse_ratios(state: SparsePushSumState) -> torch.Tensor:
 
 def sparse_mass_invariant(
     state: SparsePushSumState, src: torch.Tensor, valid: torch.Tensor,
+    *, graph_axis: GraphAxis | None = None,
 ) -> torch.Tensor:
     """sum_j zm_j + sum_{e valid} (sigma_zm[src[e]] - rho_zm[e]), (d+1,).
 
     The first d entries are the reference's invariant (``sum_j w_j``); the
     last is the total mass, which push-sum conserves at N. A half-storage
-    state is upcast to float32 before the sums."""
+    state is upcast to float32 before the sums. Under ``graph_axis`` the
+    in-flight term of the held shards is summed over the axis, the
+    replicated node sum counted once."""
     zm, sigma, rho = (_full(x) for x in state)
-    in_flight = ((sigma[src] - rho) * valid.to(zm.dtype)[:, None]).sum(dim=0)
-    return zm.sum(dim=0) + in_flight
+    held = (sigma[src] - rho) * valid.to(zm.dtype)[:, None]
+    if graph_axis is None:
+        return zm.sum(dim=0) + held.sum(dim=0)
+    in_flight = _shard_order_sum(
+        held.view(graph_axis.local, -1, held.shape[1]).sum(dim=1))
+    return zm.sum(dim=0) + graph_axis.allreduce(in_flight)
 
 
 def step_edge_mask(
@@ -390,12 +632,29 @@ def step_edge_mask(
 
 
 def edge_mask(kt: Key, t: int, n_edges: int, drop_prob: torch.Tensor,
-              B: torch.Tensor) -> torch.Tensor:
+              B: torch.Tensor,
+              graph_axis: GraphAxis | None = None) -> torch.Tensor:
     """:func:`step_edge_mask` from the round's already-folded key ``kt``
     (one key, or a (K, 1) tensor of keys with (K,) ``drop_prob`` and
-    ``B``) -> (E,) or (K·E,)."""
+    ``B``) -> (E,) or (K·E,). Under ``graph_axis``, ``n_edges`` is the
+    padded E_pad of one scenario and the result the held shards' window in
+    their layout, (local·K·e_shard,)."""
     up = uniform(kt, n_edges, drop_prob.device) >= drop_prob[..., None]
-    return (up | ((t % B) == (B - 1))[..., None]).reshape(-1)
+    mask = up | ((t % B) == (B - 1))[..., None]
+    if graph_axis is not None:
+        mask = graph_axis.window(mask)
+    return mask.reshape(-1)
+
+
+def shard_edge_mask(key: Key, t: int, e_shard: int, drop_prob: torch.Tensor,
+                    B: torch.Tensor, *, graph_axis: GraphAxis,
+                    fold_t: int | None = None) -> torch.Tensor:
+    """The held shards' window of round t's operational mask: the full
+    padded (n_shards e_shard,) draw of :func:`step_edge_mask`, then the
+    held shards' slots, so a sharded run masks every edge slot as the
+    unsharded run on ``EdgeShards.padded_edge_list()`` does."""
+    return edge_mask(fold_in(key, t if fold_t is None else fold_t), t,
+                     graph_axis.n_shards * e_shard, drop_prob, B, graph_axis)
 
 
 class PlaneRounds(NamedTuple):
@@ -441,11 +700,14 @@ class PlaneRounds(NamedTuple):
                 else init_async_buffer(n_edges, d, dtype, device=device))
         return fs, abuf
 
-    def step(self, t: int, fs: FaultState | None, n_nodes: int):
-        """Round t's fault state (advanced) and wake mask (or ``None``)."""
+    def step(self, t: int, fs: FaultState | None, n_nodes: int,
+             graph_axis: GraphAxis | None = None):
+        """Round t's fault state (advanced; the edge chain windowed under
+        ``graph_axis``) and wake mask (or ``None``)."""
         if fs is not None:
             fs = advance_faults(_row(self.edge_keys, t),
-                                _row(self.churn_keys, t), self.faults, fs)
+                                _row(self.churn_keys, t), self.faults, fs,
+                                graph_axis=graph_axis)
         awake = None
         if self.async_ is not None:
             K = self.wake_keys.k0.shape[1]
@@ -459,13 +721,15 @@ def _row(keys: Key, t: int) -> Key:
 
 
 def plane_step(state, mask, src, dst, valid, backend, *, share, offsets,
-               fs, awake, abuf, planes: PlaneRounds, policy=None):
+               fs, awake, abuf, planes: PlaneRounds, policy=None,
+               graph_axis: GraphAxis | None = None, halo: str = "psum"):
     """One round of :func:`sparse_pushsum_step` with the planes that are
-    on, under ``policy`` -> ``(state, abuf)``."""
+    on, under ``policy`` (and ``graph_axis``) -> ``(state, abuf)``."""
     if abuf is None:
         return sparse_pushsum_step(state, mask, src, dst, valid, backend,
                                    share=share, offsets=offsets,
-                                   faults=fs, policy=policy), None
+                                   faults=fs, policy=policy,
+                                   graph_axis=graph_axis, halo=halo), None
     return sparse_pushsum_step(state, mask, src, dst, valid, backend,
                                share=share, offsets=offsets, faults=fs,
                                awake=awake, abuf=abuf,
@@ -474,13 +738,18 @@ def plane_step(state, mask, src, dst, valid, backend, *, share, offsets,
 
 def round_mask(kt: Key, t: int, n_edges: int, drop: torch.Tensor,
                B: torch.Tensor, fm: FaultModel | None, fs,
-               src, dst) -> torch.Tensor:
+               src, dst, graph_axis: GraphAxis | None = None
+               ) -> torch.Tensor:
     """Round t's (K·E,) link mask from its folded link key(s): the
     Bernoulli mask of :func:`edge_mask`, or the fault plane's on the same
-    link uniforms (the degenerate model gives the same mask)."""
+    link uniforms (the degenerate model gives the same mask). Under
+    ``graph_axis`` the uniforms are the full padded draw's window and
+    ``dst`` holds receiver node ids (not slots)."""
     if fm is None:
-        return edge_mask(kt, t, n_edges, drop, B)
+        return edge_mask(kt, t, n_edges, drop, B, graph_axis)
     u = uniform(kt, n_edges, drop.device)
+    if graph_axis is not None:
+        u = graph_axis.window(u)
     return faulty_edge_mask(u, t, fm, fs, src, dst, drop, B)
 
 

@@ -52,9 +52,12 @@ from .plan import ExecutionPlan, check_plan, resolve_device
 from .precision import policy_dtypes
 from .prng import Key, fold_rounds, prng_key, uniform
 from .pushsum import (
+    GraphAxis,
     PlaneRounds,
     SparsePushSumState,
-    _out_degree,
+    _axis_out_degree,
+    _draw_edges,
+    _receivers,
     edge_index_tensors,
     init_sparse_state,
     plane_step,
@@ -209,6 +212,8 @@ def _social_scan_core(
     faults: FaultModel | None = None,
     async_: AsyncModel | None = None,
     policy=None,
+    graph_axis: GraphAxis | None = None,
+    halo: str = "psum",
 ) -> tuple[SparsePushSumState, tuple[torch.Tensor, torch.Tensor]]:
     """Algorithm 3's loop over the runtime's tensors, all on one device.
 
@@ -233,12 +238,23 @@ def _social_scan_core(
     log-likelihood in the accum dtype and emits the belief in it; the
     fusion pools in accum. The trajectory store keeps each round's accum
     belief, the others the carried (storage) one, upcast to float32.
+
+    ``graph_axis`` (:class:`repro_torch.core.pushsum.GraphAxis`) runs the
+    consensus half edge-partitioned: the runtime's edge fields hold the
+    axis' shards (:func:`repro_torch.core.pushsum.partitioned_edges`), the
+    out-degree is summed over the axis once, the link mask and the fault
+    chain are windows of the full padded draws, and the receiver partials
+    are combined by ``halo``. The innovation (K2) and the fusion touch
+    only the replicated node state. Not with ``async_`` (``ValueError``).
     """
+    if async_ is not None and graph_axis is not None:
+        raise ValueError(
+            "async mode does not compose with graph_axis edge partitioning")
     N, m = log_tables.shape[0], log_tables.shape[1]
     st, _, ac = policy_dtypes(policy)
     accum = None if policy is None else ac
     K = rt.drop_prob.numel()
-    E = rt.src.shape[0] // K
+    E = _draw_edges(rt.src.shape[0], K, graph_axis)
     dev = log_tables.device
     drop, gamma, B = (x.reshape(-1) for x in (rt.drop_prob, rt.gamma, rt.B))
     rep = rt.rep_mask.view(K, N)
@@ -249,10 +265,12 @@ def _social_scan_core(
     if K > 1:
         log_tables, cdf = log_tables.repeat(K, 1, 1), cdf.repeat(K, 1)
     # z accumulates per-hypothesis log-likelihood sums; init 0 (line 1)
-    state = init_sparse_state(torch.zeros((K * N, m), device=dev), K * E,
-                              policy)
+    state = init_sparse_state(torch.zeros((K * N, m), device=dev),
+                              rt.src.shape[0], policy)
     # loop invariants of the fixed edge index
-    share = 1.0 / (_out_degree(rt.src, rt.valid, K * N) + 1.0)
+    share = 1.0 / (_axis_out_degree(rt.src, rt.valid, K * N, graph_axis)
+                   + 1.0)
+    receivers = _receivers(rt.dst, K * N, graph_axis)
     wrong_col = torch.arange(m, device=dev) == truth
     mask_keys = fold_rounds(
         mask_key, [social_stream_fold(t, STREAM_LINK) for t in range(T)],
@@ -262,20 +280,22 @@ def _social_scan_core(
         dev)
     planes = PlaneRounds.build(mask_key, T, ENGINE_SOCIAL, faults, async_,
                                E, dev)
-    fs, abuf = planes.init(K * N, K * E, m, dev, st)
+    fs, abuf = planes.init(K * N, rt.src.shape[0], m, dev, st)
     ps_up = None if faults is None else torch.from_numpy(
         ps_alive_rounds(mask_key, T, faults, engine=ENGINE_SOCIAL)).to(dev)
     mu = torch.zeros((K * N, m), dtype=st, device=dev)   # carried belief
     ys = []
     for t in range(T):
         # --- consensus (lines 4-12) ---
-        fs, awake = planes.step(t, fs, K * N)
+        fs, awake = planes.step(t, fs, K * N, graph_axis)
         mask = round_mask(Key(mask_keys.k0[t], mask_keys.k1[t]), t, E, drop,
-                          B, planes.faults, fs, rt.src, rt.dst)
+                          B, planes.faults, fs, rt.src, receivers,
+                          graph_axis)
         cs, abuf = plane_step(state, mask, rt.src, rt.dst, rt.valid,
                               backend, share=share, offsets=rt.offsets,
                               fs=fs, awake=awake, abuf=abuf, planes=planes,
-                              policy=policy)
+                              policy=policy, graph_axis=graph_axis,
+                              halo=halo)
         # --- innovation + belief (lines 13-16), one fused pass ---
         u = uniform(Key(sig_keys.k0[t], sig_keys.k1[t]), N, dev)
         m_t = cs.m.contiguous()

@@ -45,8 +45,28 @@ async model adds no axis (the synchronous loop). Every entry point takes
 (one policy for all K scenarios, so the kernels still launch once a round
 on half storage). The Byzantine grid and
 sweep take one fault model over every scenario (the grid's ``fault``
-column all zeros) and no async model. Not ported: ``mesh=`` sharding, and
-the jit and runtime caches and their registry.
+column all zeros) and no async model. Not ported: the jit and runtime
+caches and their registry.
+
+**Multi-device** (``plan.mesh``, a ``torch.distributed`` ``DeviceMesh``
+of :func:`repro_torch.distributed.sharding.sweep_mesh`; SPMD: every rank
+calls the entry point with the same arguments). Every entry point but
+:func:`run_byzantine_sweep` splits its K scenarios over the mesh's
+``plan.data_axis``: K is padded to a multiple of the axis extent by
+repeating the last scenario, each rank runs its contiguous block through
+the same block-diagonal loop, and the blocks are all-gathered over the
+axis, so every rank returns the full result (pad rows sliced off). A row
+is the one the unsharded grid gives. :func:`run_pushsum_sweep` also cuts
+the graph into ``plan.graph_shards`` edge shards
+(:func:`repro_torch.core.graphs.partition_edge_list`, or an
+:class:`~repro_torch.core.graphs.EdgeShards` passed as ``el``): without a
+mesh the S shards run in one process (:class:`repro_torch.core.pushsum.
+EmulatedAxis`, K1 still once a round), with one the mesh's
+``plan.graph_axis`` carries one shard a rank (:class:`repro_torch.core.
+pushsum.GroupAxis`); ``plan.halo`` picks the combine. That is the 2-D
+(data x graph) program. The backend follows the device: NCCL meshes run
+``cuda`` entry points, gloo meshes ``cpu`` ones; a mesh of another device
+type than the run raises.
 """
 from __future__ import annotations
 
@@ -56,6 +76,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..statics.contracts import contract as statics_contract
 from .asyncrony import (AsyncModel, is_degenerate_async,
                         stack_async_models)
 from .attacks import Attack
@@ -67,16 +88,25 @@ from .byzantine import (
     make_byzantine_runtime,
 )
 from .faults import ENGINE_PUSHSUM, FaultModel, stack_fault_models
-from .graphs import EdgeList, _dst_offsets, is_dst_sorted
+from .graphs import (EdgeList, EdgeShards, _dst_offsets, is_dst_sorted,
+                     partition_edge_list)
 from .hps import HPS_STORES, HPSConfig, HPSRuntime, _hps_scan_core
 from .hps import make_hps_runtime
 from .plan import ExecutionPlan, check_plan, resolve_device
 from .prng import Key, fold_rounds
 from .pushsum import (
+    EmulatedAxis,
+    GraphAxis,
+    GroupAxis,
     PlaneRounds,
+    _axis_out_degree,
+    _draw_edges,
     _full,
-    _out_degree,
+    _receivers,
+    _shard_order_sum,
+    collective,
     init_sparse_state,
+    partitioned_edges,
     plane_step,
     round_mask,
     sparse_ratios,
@@ -349,6 +379,79 @@ def _index(x):
 
 
 # ---------------------------------------------------------------------------
+# Multi-device: the data and graph dimensions of a device mesh
+# ---------------------------------------------------------------------------
+
+class _DataSplit(NamedTuple):
+    """One rank's block of a grid's K scenario rows over the data axis."""
+
+    rows: np.ndarray    # indices of this block's rows (pad rows repeat K-1)
+    K: int              # the grid's scenario count
+    group: object       # the data axis' process group; None without a mesh
+    n_data: int         # the data axis' extent
+
+
+def _mesh_group(plan: ExecutionPlan, axis: str, dev: torch.device):
+    """The process group of the mesh dimension ``axis``, after checking
+    that the mesh has it and runs on ``dev``'s device type."""
+    mesh = plan.mesh
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh's device type {mesh.device_type!r} is "
+                         f"not the run's device {dev}")
+    if axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"the mesh has no dimension {axis!r} (its "
+                         f"dimensions: {mesh.mesh_dim_names})")
+    return mesh.get_group(axis)
+
+
+def _data_split(K: int, plan: ExecutionPlan, dev) -> _DataSplit:
+    """This rank's contiguous block of the K rows padded to a multiple of
+    the mesh's data extent (all K rows without a mesh)."""
+    if plan.mesh is None:
+        return _DataSplit(np.arange(K), K, None, 1)
+    import torch.distributed as dist
+
+    group = _mesh_group(plan, plan.data_axis, dev)
+    n = dist.get_world_size(group)
+    padded = np.minimum(np.arange(-(-K // n) * n), K - 1)
+    kb = padded.shape[0] // n
+    i = dist.get_rank(group)
+    return _DataSplit(padded[i * kb:(i + 1) * kb], K, group, n)
+
+
+def _gather(x: torch.Tensor, split: _DataSplit) -> torch.Tensor:
+    """Every rank's (Kb, ...) block of a result, gathered over the data
+    axis -> the (K, ...) rows."""
+    if split.group is None:
+        return x
+    x = x.contiguous()
+    out = x.new_empty((split.n_data * x.shape[0], *x.shape[1:]))
+    collective("all_gather")(out, x, group=split.group)
+    return out[:split.K]
+
+
+def _block_models(models, rows: np.ndarray):
+    """Per-row fault or async models (with (K,) leaves) at ``rows``."""
+    if models is None:
+        return None
+    sel = torch.from_numpy(rows).long()
+    return type(models)(*(x[sel] for x in models))
+
+
+def _graph_axis(plan: ExecutionPlan, n_shards: int, dev) -> GraphAxis:
+    """The emulated axis of ``n_shards`` shards without a mesh, else the
+    mesh's graph dimension, whose extent must be ``n_shards``."""
+    if plan.mesh is None:
+        return EmulatedAxis(n_shards)
+    axis = GroupAxis(_mesh_group(plan, plan.graph_axis, dev))
+    if axis.n_shards != n_shards:
+        raise ValueError(
+            f"mesh {plan.graph_axis} axis has {axis.n_shards} devices but "
+            f"the edge list is cut into {n_shards} shards")
+    return axis
+
+
+# ---------------------------------------------------------------------------
 # Algorithm 1 consensus: graph draws x drop x seed
 # ---------------------------------------------------------------------------
 
@@ -360,46 +463,74 @@ def _scenario_grid(n_graphs: int, drop_probs, seeds):
     return g.ravel(), d.ravel(), s.ravel()
 
 
+@statics_contract(
+    name="pushsum_sharded",
+    # The per-process law of the edge-partitioned mode: nothing (N, N),
+    # and no rank >= 2 value over the whole padded edge axis; (e_shard, d)
+    # state a shard is the budget. (The rank-1 (E_pad,) draw that every
+    # shard windows is exempt by construction.)
+    forbidden={"*": (("N", "N"), ("E", "*"))},
+    streams=(("link", lambda t: t),),
+)
 def _pushsum_sweep_core(keys: Key, src, dst, valid, offsets, drop, B,
                         w: torch.Tensor, *, T: int, backend: str,
                         faults: FaultModel | None = None,
-                        async_=None, policy=None):
+                        async_=None, policy=None,
+                        graph_axis: GraphAxis | None = None,
+                        halo: str = "psum"):
     """K push-sum scenarios on one block-diagonal graph of K·N nodes, from
     ``w`` each -> (err (K, T), final ratios (K, N, d), value invariant minus
     sum(w), (K, d)). ``faults`` / ``async_`` carry (K,) leaves; ``policy``
-    is the precision policy (the invariant is summed in float32)."""
+    is the precision policy (the invariant is summed in float32).
+
+    With ``graph_axis`` this is the edge-partitioned (2-D mesh) program of
+    one process: the edge arguments hold the axis' shards of every
+    scenario (:func:`repro_torch.core.pushsum.partitioned_edges`), node
+    state is replicated, the link masks and fault chains are windows of
+    each scenario's full padded draw, the receiver partials are combined
+    every round by ``halo``, and the out-degree and the in-flight mass are
+    summed over the axis, so every shard returns the same rows."""
     N, d = w.shape
     K = drop.numel()
-    E = src.shape[0] // K
-    state = init_sparse_state(w.repeat(K, 1), K * E, policy)
-    share = 1.0 / (_out_degree(src, valid, K * N, w.dtype) + 1.0)
+    E = _draw_edges(src.shape[0], K, graph_axis)
+    state = init_sparse_state(w.repeat(K, 1), src.shape[0], policy)
+    share = 1.0 / (_axis_out_degree(src, valid, K * N, graph_axis, w.dtype)
+                   + 1.0)
+    receivers = _receivers(dst, K * N, graph_axis)
     target = w.mean(dim=0)
     kts = fold_rounds(keys, range(T), w.device)
     planes = PlaneRounds.build(keys, T, ENGINE_PUSHSUM, faults, async_, E,
                                w.device)
-    fs, abuf = planes.init(K * N, K * E, d, w.device, state.zm.dtype)
+    fs, abuf = planes.init(K * N, src.shape[0], d, w.device, state.zm.dtype)
     errs = []
     for t in range(T):
-        fs, awake = planes.step(t, fs, K * N)
+        fs, awake = planes.step(t, fs, K * N, graph_axis)
         mask = round_mask(Key(kts.k0[t], kts.k1[t]), t, E, drop, B,
-                          planes.faults, fs, src, dst)
+                          planes.faults, fs, src, receivers, graph_axis)
         state, abuf = plane_step(state, mask, src, dst, valid, backend,
                                  share=share, offsets=offsets, fs=fs,
                                  awake=awake, abuf=abuf, planes=planes,
-                                 policy=policy)
+                                 policy=policy, graph_axis=graph_axis,
+                                 halo=halo)
         errs.append((sparse_ratios(state).view(K, N, d) - target).abs()
                     .amax(dim=(1, 2)))
     err = torch.stack(errs, dim=1) if errs else w.new_zeros((K, 0))
     z, sigma, rho = (_full(x) for x in (state.z, state.sigma, state.rho))
-    in_flight = ((sigma[src] - rho)
-                 * valid.to(w.dtype)[:, None]).view(K, E, d).sum(dim=1)
+    held = (sigma[src] - rho) * valid.to(w.dtype)[:, None]
+    if graph_axis is None:
+        in_flight = held.view(K, E, d).sum(dim=1)
+    else:
+        # shard-major (local, K, e_shard) slots: each shard's sum, then
+        # the shards in order
+        in_flight = graph_axis.allreduce(_shard_order_sum(
+            held.view(graph_axis.local, K, -1, d).sum(dim=2)))
     invariant = z.view(K, N, d).sum(dim=1) + in_flight
     return err, sparse_ratios(state).view(K, N, d), invariant - w.sum(dim=0)
 
 
 def run_pushsum_sweep(
     w,                     # (N, d) initial values, shared by scenarios
-    el: EdgeList,          # one graph or stacked draws (leading G axis)
+    el: EdgeList | EdgeShards,   # one graph or stacked draws (leading G)
     T: int,
     *,
     drop_probs: Sequence[float] | float = 0.0,
@@ -421,34 +552,51 @@ def run_pushsum_sweep(
     :func:`graphs.sort_by_dst`) and ``plan.dst_sorted`` asserts that they
     are. ``plan.faults`` and ``plan.async_`` (a model or a list) cross the
     fault and async axes, model-minor; the ``fault`` and ``async_``
-    columns index the lists. ``device=None`` means the card, and raises
-    where there is none.
+    columns index the lists. ``plan.mesh`` splits the rows over its
+    ``plan.data_axis`` (module docstring).
+
+    **Edge-partitioned** (``plan.graph_shards=S``, or ``el`` an
+    :class:`~repro_torch.core.graphs.EdgeShards`): each draw is cut into S
+    dst-contiguous shards, per-edge state is the shards', and each round's
+    receiver partials are summed over them (``plan.halo``): in this
+    process (no mesh), or over the mesh's ``plan.graph_axis``, whose
+    extent must be S. The rows equal the unsharded sweep's on
+    ``EdgeShards.padded_edge_list()`` (not on ``el``: the masks index the
+    padded slots) at every receiver whose in-edges lie on one shard, and
+    within float reduce order elsewhere. Not with ``plan.async_``.
+    ``device=None`` means the card, and raises where there is none.
     """
     plan = check_plan(plan, "run_pushsum_sweep",
                       ("backend", "dst_sorted", "faults", "async_",
-                       "policy"))
+                       "policy", "mesh", "data_axis", "graph_axis",
+                       "graph_shards", "halo"))
     dev = resolve_device(device)
     w = torch.as_tensor(w, dtype=torch.float32, device=dev)
     if w.shape[0] != el.n:
         raise ValueError(f"w has {w.shape[0]} rows but the graph {el.n} "
                          f"nodes")
-    args, (gi, dp, sd), (fi, fm, ai, am) = _pushsum_grid(
+    if plan.graph_shards is not None or isinstance(el, EdgeShards):
+        return _pushsum_sweep_sharded(w, el, T, drop_probs, seeds, B, plan,
+                                      dev)
+    args, (gi, dp, sd), (fi, fm, ai, am), split = _pushsum_grid(
         el, drop_probs, seeds, B, plan, dev)
     err, final, gap = _pushsum_sweep_core(*args, w, T=T, backend=plan.backend,
                                           faults=fm, async_=am,
                                           policy=plan.policy)
     return PushSumSweepResult(
-        err=err, final_ratio=final, mass_gap=gap,
+        err=_gather(err, split), final_ratio=_gather(final, split),
+        mass_gap=_gather(gap, split),
         drop_prob=torch.from_numpy(dp), seed=torch.from_numpy(sd),
         graph=torch.from_numpy(gi), fault=_index(fi), async_=_index(ai))
 
 
 def _pushsum_grid(el: EdgeList, drop_probs, seeds, B: int,
                   plan: ExecutionPlan, dev):
-    """The (graph x drop x seed [x fault x async]) scenarios of ``el``
-    stacked into one block-diagonal graph on ``dev`` -> (the arguments of
-    :func:`_pushsum_sweep_core` before ``w``, the (K,) coordinates, the
-    fault and async indices and models)."""
+    """The (graph x drop x seed [x fault x async]) scenarios of ``el``,
+    this rank's block of them stacked into one block-diagonal graph on
+    ``dev`` -> (the arguments of :func:`_pushsum_sweep_core` before ``w``,
+    the (K,) coordinates, the fault and async indices and the block's
+    models, the data split)."""
     src, dst, valid = (np.atleast_2d(a) for a in (el.src, el.dst, el.valid))
     offsets = None
     if is_dst_sorted(dst):
@@ -458,15 +606,56 @@ def _pushsum_grid(el: EdgeList, drop_probs, seeds, B: int,
                          "dst-sorted")
     gi, dp, sd = _scenario_grid(src.shape[0], drop_probs, seeds)
     (gi, dp, sd), fi, fm, ai, am = _plane_axes((gi, dp, sd), plan)
-    rows = torch.from_numpy(gi).long()
+    split = _data_split(gi.shape[0], plan, dev)
+    r = split.rows
+    rows = torch.from_numpy(gi[r]).long()
     edges = _block_diagonal(
         torch.from_numpy(src)[rows], torch.from_numpy(dst)[rows],
         torch.from_numpy(valid)[rows],
         None if offsets is None else offsets[rows], el.n)
-    args = (_keys(sd), *(None if x is None else x.to(dev) for x in edges),
-            torch.from_numpy(dp).to(dev),
-            torch.full((gi.shape[0],), B, dtype=torch.int32, device=dev))
-    return args, (gi, dp, sd), (fi, fm, ai, am)
+    args = (_keys(sd[r]), *(None if x is None else x.to(dev) for x in edges),
+            torch.from_numpy(dp[r]).to(dev),
+            torch.full((r.shape[0],), B, dtype=torch.int32, device=dev))
+    return (args, (gi, dp, sd),
+            (fi, _block_models(fm, r), ai, _block_models(am, r)), split)
+
+
+def _pushsum_sweep_sharded(w, el, T: int, drop_probs, seeds, B: int,
+                           plan: ExecutionPlan, dev) -> PushSumSweepResult:
+    """:func:`run_pushsum_sweep`'s edge-partitioned mode."""
+    if plan.async_ is not None and not (
+            isinstance(plan.async_, AsyncModel)
+            and is_degenerate_async(plan.async_)):
+        raise ValueError(
+            "async_ is incompatible with the edge-partitioned mode "
+            "(graph_shards): the per-edge stale buffer is not partitioned")
+    shards = (el if isinstance(el, EdgeShards)
+              else partition_edge_list(el, plan.graph_shards))
+    if plan.graph_shards is not None and \
+            shards.n_shards != plan.graph_shards:
+        raise ValueError(f"EdgeShards has {shards.n_shards} shards, "
+                         f"graph_shards={plan.graph_shards}")
+    src, dst, valid = (a if shards.is_batched else a[None]
+                       for a in (shards.src, shards.dst, shards.valid))
+    gi, dp, sd = _scenario_grid(src.shape[0], drop_probs, seeds)
+    (gi, dp, sd), fi, fm, _, _ = _plane_axes(
+        (gi, dp, sd), plan.replace(async_=None))
+    split = _data_split(gi.shape[0], plan, dev)
+    axis = _graph_axis(plan, shards.n_shards, dev)
+    r = split.rows
+    edges = partitioned_edges(src[gi[r]], dst[gi[r]], valid[gi[r]],
+                              shards.n, axis)
+    err, final, gap = _pushsum_sweep_core(
+        _keys(sd[r]), *(x.to(dev) for x in edges),
+        torch.from_numpy(dp[r]).to(dev),
+        torch.full((r.shape[0],), B, dtype=torch.int32, device=dev), w,
+        T=T, backend=plan.backend, faults=_block_models(fm, r),
+        policy=plan.policy, graph_axis=axis, halo=plan.halo)
+    return PushSumSweepResult(
+        err=_gather(err, split), final_ratio=_gather(final, split),
+        mass_gap=_gather(gap, split), drop_prob=torch.from_numpy(dp),
+        seed=torch.from_numpy(sd), graph=torch.from_numpy(gi),
+        fault=_index(fi))
 
 
 # ---------------------------------------------------------------------------
@@ -476,15 +665,18 @@ def _pushsum_grid(el: EdgeList, drop_probs, seeds, B: int,
 def _config_grid(cfgs, seeds, make_runtime, dev, plan: ExecutionPlan):
     """The configs' runtimes padded to the widest E (as the reference pads
     a mixed-E grid), one per (config, seed [, fault [, async]]) scenario in
-    config-major order, stacked -> (runtime on ``dev``, config index (K,),
-    seeds (K,), the fault and async indices and models)."""
+    config-major order; this rank's block of them stacked -> (runtime on
+    ``dev``, config index (K,), seeds (K,), the fault and async indices
+    and the block's models, the data split)."""
     e_max = max(int(np.count_nonzero(c.topo.adj)) for c in cfgs)
     runtimes = [make_runtime(c, e_max=e_max) for c in cfgs]
     gi, sd = np.meshgrid(np.arange(len(cfgs), dtype=np.int32),
                          _seeds(seeds), indexing="ij")
     (gi, sd), fi, fm, ai, am = _plane_axes((gi.ravel(), sd.ravel()), plan)
-    return (stack_runtimes([runtimes[g] for g in gi]).to(dev), gi, sd,
-            (fi, fm, ai, am))
+    split = _data_split(gi.shape[0], plan, dev)
+    r = split.rows
+    return (stack_runtimes([runtimes[g] for g in gi[r]]).to(dev), gi, sd,
+            (fi, _block_models(fm, r), ai, _block_models(am, r)), split)
 
 
 def _coords(cfgs, gi):
@@ -533,11 +725,13 @@ def run_hps_grid(
     consensus-error curves and the final (K, N, d) ratios); the other
     stores are ``"trajectory"`` and ``"final"``. ``plan.faults`` and
     ``plan.async_`` cross the fault and async axes (model-minor, async
-    minor-most). ``device=None`` means the card, and raises where there is
-    none.
+    minor-most). ``plan.mesh`` splits the rows over its ``plan.data_axis``
+    (module docstring). ``device=None`` means the card, and raises where
+    there is none.
     """
     plan = check_plan(plan, "run_hps_grid",
-                      ("backend", "store", "faults", "async_", "policy"))
+                      ("backend", "store", "faults", "async_", "policy",
+                       "mesh", "data_axis"))
     store = "gap" if plan.store is None else plan.store
     cfgs = list(cfgs)
     if not cfgs:
@@ -548,16 +742,18 @@ def run_hps_grid(
     if any(c.topo.N != N for c in cfgs) or np.shape(w)[0] != N:
         raise ValueError("grid configs (and w) must share the node count N")
     dev = resolve_device(device)
-    rt, gi, sd, (fi, fm, ai, am) = _config_grid(cfgs, seeds,
-                                                make_hps_runtime, dev, plan)
+    rt, gi, sd, (fi, fm, ai, am), split = _config_grid(
+        cfgs, seeds, make_hps_runtime, dev, plan)
     _, (ratio, gap) = _hps_scan_core(
-        _keys(sd), rt, torch.as_tensor(w, dtype=torch.float32, device=dev),
+        _keys(sd[split.rows]), rt,
+        torch.as_tensor(w, dtype=torch.float32, device=dev),
         T=T, store=store, backend=plan.backend, faults=fm, async_=am,
         policy=plan.policy)
     drops, gammas = _coords(cfgs, gi)
     Ms = np.asarray([c.topo.M for c in cfgs], np.int32)
     return HPSSweepResult(
-        ratio=ratio, gap=gap, drop_prob=drops, gamma=gammas,
+        ratio=_gather(ratio, split), gap=_gather(gap, split),
+        drop_prob=drops, gamma=gammas,
         M=torch.from_numpy(Ms[gi]), seed=torch.from_numpy(sd),
         cfg=torch.from_numpy(gi), fault=_index(fi), async_=_index(ai))
 
@@ -579,7 +775,8 @@ def run_hps_sweep(
     order: base-major, then drop, then Γ, then seed, then fault, then
     async."""
     check_plan(plan, "run_hps_sweep",
-               ("backend", "store", "faults", "async_", "policy"))
+               ("backend", "store", "faults", "async_", "policy", "mesh",
+                "data_axis"))
     return run_hps_grid(w, _expand(cfg, drop_probs, gammas), T, seeds,
                         plan=plan, device=device)
 
@@ -605,11 +802,13 @@ def run_social_grid(
     (the (K, T) worst log-ratio curves and the final (K, N, m) beliefs);
     the other stores are ``"trajectory"`` and ``"final"``. ``plan.faults``
     and ``plan.async_`` cross the fault and async axes (model-minor, async
-    minor-most). ``device=None`` means the card, and raises where there is
-    none.
+    minor-most). ``plan.mesh`` splits the rows over its ``plan.data_axis``
+    (module docstring). ``device=None`` means the card, and raises where
+    there is none.
     """
     plan = check_plan(plan, "run_social_grid",
-                      ("backend", "store", "faults", "async_", "policy"))
+                      ("backend", "store", "faults", "async_", "policy",
+                       "mesh", "data_axis"))
     store = "log_ratio" if plan.store is None else plan.store
     cfgs = list(cfgs)
     if not cfgs:
@@ -620,10 +819,10 @@ def run_social_grid(
     if any(c.topo.N != N or c.topo.M != M for c in cfgs) or model.N != N:
         raise ValueError("grid configs (and the model) must share (N, M)")
     dev = resolve_device(device)
-    rt, gi, sd, (fi, fm, ai, am) = _config_grid(
+    rt, gi, sd, (fi, fm, ai, am), split = _config_grid(
         cfgs, seeds, make_social_runtime, dev, plan)
     tables = model.tables.to(dev, torch.float32)
-    keys = _keys(sd)
+    keys = _keys(sd[split.rows])
     _, (beliefs, log_ratio) = _social_scan_core(
         keys, keys, rt, torch.log(tables),
         torch.cumsum(tables[:, model.truth, :], dim=-1),
@@ -631,7 +830,8 @@ def run_social_grid(
         faults=fm, async_=am, policy=plan.policy)
     drops, gammas = _coords(cfgs, gi)
     return SocialSweepResult(
-        beliefs=beliefs, log_ratio=log_ratio, drop_prob=drops,
+        beliefs=_gather(beliefs, split), log_ratio=_gather(log_ratio, split),
+        drop_prob=drops,
         gamma=gammas, seed=torch.from_numpy(sd), cfg=torch.from_numpy(gi),
         fault=_index(fi), async_=_index(ai))
 
@@ -653,7 +853,8 @@ def run_social_sweep(
     order: base-major, then drop, then Γ, then seed, then fault, then
     async."""
     check_plan(plan, "run_social_sweep",
-               ("backend", "store", "faults", "async_", "policy"))
+               ("backend", "store", "faults", "async_", "policy", "mesh",
+                "data_axis"))
     return run_social_grid(model, _expand(cfg, drop_probs, gammas), T, seeds,
                            plan=plan, device=device)
 
@@ -767,10 +968,13 @@ def run_byzantine_grid(
     N) decision curves and the final (K, N, *pair) statistics).
     ``plan.faults`` lays one fault model over every scenario (the
     ``fault`` column then all zeros); ``plan.async_`` raises (no async
-    mode). ``device=None`` means the card, and raises where there is none.
+    mode). ``plan.mesh`` splits the rows over its ``plan.data_axis``
+    (module docstring). ``device=None`` means the card, and raises where
+    there is none.
     """
     plan = check_plan(plan, "run_byzantine_grid",
-                      ("backend", "store", "faults", "policy"))
+                      ("backend", "store", "faults", "policy", "mesh",
+                       "data_axis"))
     store = "decisions" if plan.store is None else plan.store
     cfgs = list(cfgs)
     if not cfgs:
@@ -792,14 +996,16 @@ def run_byzantine_grid(
     gi, sd = np.meshgrid(np.arange(len(cfgs), dtype=np.int32),
                          _seeds(seeds), indexing="ij")
     gi, sd = gi.ravel(), sd.ravel()
-    rt = stack_runtimes([runtimes[g] for g in gi])
+    split = _data_split(gi.shape[0], plan, dev)
+    rt = stack_runtimes([runtimes[g] for g in gi[split.rows]])
     run = _build_scan(model, rt, None, M, atk, T, mode=mode, core="sparse",
                       backend=plan.backend, store=store, device=dev,
                       faults=plan.faults, policy=plan.policy)
-    res = run(_keys(sd))
+    res = run(_keys(sd[split.rows]))
     Fs = np.asarray([c.F for c in cfgs], np.int32)
     return ByzantineGridResult(
-        r=res.r, decisions=res.decisions, cfg=torch.from_numpy(gi),
+        r=_gather(res.r, split), decisions=_gather(res.decisions, split),
+        cfg=torch.from_numpy(gi),
         F=torch.from_numpy(Fs[gi]), seed=torch.from_numpy(sd),
         fault=None if plan.faults is None
         else torch.zeros(gi.shape[0], dtype=torch.int32))

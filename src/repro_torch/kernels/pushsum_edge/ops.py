@@ -42,6 +42,7 @@ def edge_scatter(
     *,
     offsets: torch.Tensor | None = None,   # (N+1,) int32 CSR offsets of dst
     n_recv: int | None = None,
+    shards: int = 1,
     accum_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mask-latch + per-receiver increment sum -> ``(rho_new, recv)``.
@@ -49,8 +50,11 @@ def edge_scatter(
     The source rows need not be the receivers: ``n_recv`` (default
     ``sigma``'s rows, or ``offsets``' length - 1) is the receiver count,
     and the async engines pass the per-edge snapshot (E, D) as ``sigma``
-    with the identity ``src``. ``accum_dtype`` is the dtype of ``recv``
-    (``None``: ``rho``'s)."""
+    with the identity ``src``. ``shards`` > 1 declares the receivers to
+    be ``shards`` blocks of slots, one per edge shard of an emulated graph
+    axis, over the ``n_recv / shards`` source rows
+    (:func:`repro_torch.core.pushsum.partitioned_edges`). ``accum_dtype``
+    is the dtype of ``recv`` (``None``: ``rho``'s)."""
     if n_recv is None:
         n_recv = (sigma.shape[0] if offsets is None
                   else offsets.numel() - 1)
@@ -63,7 +67,7 @@ def edge_scatter(
             f"{rho.dtype} with accum_dtype={accum_dtype}")
     if offsets is None:
         offsets = dst_offsets(dst, n_recv)
-    return edge_scatter_cuda(sigma, rho, live, src, offsets)
+    return edge_scatter_cuda(sigma, rho, live, src, offsets, shards=shards)
 
 
 def dst_offsets(dst: torch.Tensor, n: int) -> torch.Tensor:
@@ -86,6 +90,7 @@ def edge_scatter_cuda(
     offsets: torch.Tensor,
     *,
     tiled: bool | None = None,
+    shards: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch a CUDA edge-scatter kernel on the current stream.
 
@@ -98,7 +103,10 @@ def edge_scatter_cuda(
     ``edge_scatter_cuda.launches`` counts the launches,
     ``edge_scatter_cuda.launches_tiled`` those of the tiled kernel and
     ``edge_scatter_cuda.launches_edge_rows`` those whose source rows are
-    not the receivers (the async delivery's per-edge snapshot).
+    not the receivers (the async delivery's per-edge snapshot), and
+    ``edge_scatter_cuda.launches_sharded`` those whose receivers are the
+    slots of ``shards`` > 1 edge shards of the source rows (an emulated
+    graph axis: ``n = shards * n_src``).
 
     ``sigma`` and ``rho`` are float32, or both bfloat16 or both float16:
     ``rho_new`` comes out in their dtype and ``recv`` in float32 in every
@@ -116,6 +124,9 @@ def edge_scatter_cuda(
     if n < 1 or D == 0 or max(n, n_src, E) * D >= 2**31:
         raise ValueError(f"unsupported edge-scatter shape N={n}, "
                          f"n_src={n_src}, E={E}, D={D}")
+    if shards > 1 and n != shards * n_src:
+        raise ValueError(f"{shards} shards of {n_src} source rows need "
+                         f"{shards * n_src} receivers, got {n}")
     dev = sigma.device
     _build.check_arg(sigma, "sigma", st, (n_src, D), dev)
     _build.check_arg(rho, "rho", st, (E, D), dev)
@@ -144,11 +155,13 @@ def edge_scatter_cuda(
     edge_scatter_cuda.launches += 1
     edge_scatter_cuda.launches_half += int(st != torch.float32)
     edge_scatter_cuda.launches_tiled += int(tiled)
-    edge_scatter_cuda.launches_edge_rows += int(n_src != n)
+    edge_scatter_cuda.launches_edge_rows += int(shards == 1 and n_src != n)
+    edge_scatter_cuda.launches_sharded += int(shards > 1)
     return rho_new, recv
 
 
 edge_scatter_cuda.launches = 0
+edge_scatter_cuda.launches_sharded = 0
 edge_scatter_cuda.launches_tiled = 0
 edge_scatter_cuda.launches_edge_rows = 0
 edge_scatter_cuda.launches_half = 0

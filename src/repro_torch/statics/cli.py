@@ -144,6 +144,32 @@ def _hps_fixture(plane: str | None = None):
     return dims, (HPS_STORES if plane is None else ("gap",)), make
 
 
+def _pushsum_sharded_fixture():
+    """The edge-partitioned sweep of 2 scenarios over 2 shards, emulated in
+    one process (the held shards' values are what the contract budgets;
+    the reference lints its vmap emulation the same way)."""
+    from ..core.graphs import (partition_edge_list,
+                               random_strongly_connected_edge_list)
+    from ..core.plan import ExecutionPlan
+    from ..core.sweeps import run_pushsum_sweep
+
+    rng = np.random.default_rng(5)
+    el = random_strongly_connected_edge_list(11, 0.25, rng, sort=False)
+    sh = partition_edge_list(el, 2)
+    w = rng.normal(size=(11, 3)).astype(np.float32)
+    dims = {"N": 11, "d": 3, "T": 5, "S": sh.n_shards, "E": sh.e_pad,
+            "Es": sh.e_shard}
+    assert len(set(dims.values())) == len(dims), dims
+
+    def make(store, device, policy=None):
+        plan = ExecutionPlan(backend=_BACKEND, policy=policy)
+        return walk.trace(run_pushsum_sweep, w, sh, 5,
+                          drop_probs=[0.1, 0.3], seeds=0, B=2, plan=plan,
+                          device=device)
+
+    return dims, (None,), make
+
+
 def _byz_fixture(plane: str | None = None):
     from ..core import attacks
     from ..core.byzantine import (STORES, ByzantineConfig,
@@ -179,6 +205,7 @@ FIXTURES = {
     "social": _social_fixture,
     "hps": _hps_fixture,
     "byzantine": _byz_fixture,
+    "pushsum_sharded": _pushsum_sharded_fixture,
     "pushsum_faults": lambda: _pushsum_fixture("faults"),
     "social_faults": lambda: _social_fixture("faults"),
     "hps_faults": lambda: _hps_fixture("faults"),

@@ -8,10 +8,9 @@ argument. :func:`check_entrypoints` inspects the signature of every public
 
 * the entry point lacks a ``plan`` parameter, or
 * any *named* parameter (positional or keyword-only) is a covered
-  execution knob: a field of the port's ``ExecutionPlan``, a field of the
-  reference's plan the port has not grown yet (:data:`PENDING_PLAN_FIELDS`:
-  the mesh and graph-sharding knobs of multi-device runs, which must
-  arrive as plan fields too), or the retired ``use_kernel=`` alias.
+  execution knob: a field of the port's ``ExecutionPlan`` (the mesh and
+  graph-sharding knobs of multi-device runs among them), or the retired
+  ``use_kernel=`` alias.
 
 Science knobs (``drop_probs``, ``seeds``, ``T``, ``B``, ``F``,
 ``attacks``, ``mode``, ``core``, ``record_every``, ...) and the port's
@@ -25,8 +24,7 @@ import inspect
 
 from .dense import Finding
 
-__all__ = ["ENTRYPOINTS", "PENDING_PLAN_FIELDS", "check_signature",
-           "check_entrypoints"]
+__all__ = ["ENTRYPOINTS", "check_signature", "check_entrypoints"]
 
 #: module path -> public run_* entry points covered by the plan contract.
 ENTRYPOINTS: tuple[tuple[str, str], ...] = (
@@ -44,16 +42,11 @@ ENTRYPOINTS: tuple[tuple[str, str], ...] = (
     ("repro_torch.core.sweeps", "run_social_grid"),
 )
 
-#: the reference's plan fields the port's plan does not have yet
-PENDING_PLAN_FIELDS: tuple[str, ...] = (
-    "mesh", "data_axis", "graph_axis", "graph_shards", "halo")
-
-
 def _covered_names() -> frozenset[str]:
     from ..core.plan import ExecutionPlan
 
     fields = {f.name for f in dataclasses.fields(ExecutionPlan)}
-    return frozenset(fields) | set(PENDING_PLAN_FIELDS) | {"use_kernel"}
+    return frozenset(fields) | {"use_kernel"}
 
 
 def check_signature(fn, name: str) -> list[Finding]:

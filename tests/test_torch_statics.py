@@ -133,9 +133,7 @@ def test_fit_affine_of_every_port_fold_is_the_references(name, port, ref):
 @pytest.mark.parametrize("name", sorted(contracts.REGISTRY))
 def test_port_contract_is_the_references(name):
     """Patterns, fitted streams, horizon and seed links of each port
-    contract are the reference contract's of the same name; the seed
-    links leave out the sharded push-sum engine, which the port has not
-    yet (multi-GPU)."""
+    contract are the reference contract's of the same name."""
     c, j = contracts.get(name), jcontracts.get(name)
     assert dict(c.forbidden) == dict(j.forbidden)
     assert c.horizon == j.horizon == HORIZON
@@ -143,16 +141,16 @@ def test_port_contract_is_the_references(name):
              fit_affine(s.fold, s.name).b) for s in c.streams] == \
         [(s.name, jstreams.fit_affine(s.fold, s.name).a,
           jstreams.fit_affine(s.fold, s.name).b) for s in j.streams]
-    assert c.shares_seed_with == tuple(
-        o for o in j.shares_seed_with if o != "pushsum_sharded")
+    assert c.shares_seed_with == j.shares_seed_with
     has_horizon_ban = any(p[:1] == ("T",) for ps in c.forbidden.values()
                           for p in ps)
     assert c.exempt == ((dense.HORIZON_KEYS,) if has_horizon_ban else ())
 
 
 def test_registry_is_the_references_but_the_sharded_engine():
-    assert set(contracts.REGISTRY) == set(jcontracts.REGISTRY) - {
-        "pushsum_sharded"}
+    """Since the edge-partitioned push-sum was ported, the sharded engine
+    is registered too: the registry is the reference's."""
+    assert set(contracts.REGISTRY) == set(jcontracts.REGISTRY)
 
 
 def test_legacy_schemes_caught_with_the_reference_witnesses():
@@ -315,7 +313,7 @@ def test_entrypoints_are_the_references_and_lint_clean():
     from repro.core.plan import PLAN_FIELDS
     from repro_torch.core.plan import ExecutionPlan
     port = {f.name for f in dataclasses.fields(ExecutionPlan)}
-    assert port | set(signatures.PENDING_PLAN_FIELDS) == set(PLAN_FIELDS)
+    assert port == set(PLAN_FIELDS)
 
 
 def test_fake_entrypoints_flagged():
@@ -434,7 +432,7 @@ def _main(*argv) -> tuple[int, str, str]:
 def test_cli_lint_passes_on_the_cpu():
     rc, out, err = _main("lint", "--device", "cpu")
     assert rc == 0, err
-    assert "lint: PASS" in out and "11 engine contracts" in out
+    assert "lint: PASS" in out and "12 engine contracts" in out
 
 
 def test_cli_inject_flags_fail_the_lint():
