@@ -158,11 +158,12 @@ Phases (any failure raises and the script exits non-zero):
              a window edge inside a query tile, S not a multiple of the
              tile, strided views), with stated tolerances, each case on
              the kernel its dtype picks;
-9. serve main — Qwen3-8B at published widths and full depth (36 layers),
-             bf16, seeded random weights: 8 requests of 2,048-token
-             prompts, 32 greedy tokens through launch.serve.generate
-             (prefill, then 31 decode steps; K6 launches 36 times and K5
-             36 x 31, all on their tensor-core kernels); its logits
+9. serve main — Qwen3-8B at published widths and 12 of its 36 layers
+             (cut to make room for phase 24), bf16, seeded random weights:
+             8 requests of 2,048-token prompts, 32 greedy tokens through
+             launch.serve.generate (prefill, then 31 decode steps; K6
+             launches 12 times and K5 12 x 31, all on their tensor-core
+             kernels); its logits
              against the plain serve path and the plain full forward over
              the same tokens;
 10. serve timing — CUDA-event medians of K5, K6, their plain versions
@@ -181,10 +182,11 @@ Phases (any failure raises and the script exits non-zero):
              {1, 8, 256, 300}, (B, H) views of (B, T, H, 64) projections,
              float32 and bf16, the model's decay and both clip ends, with
              stated tolerances;
-13. rwkv main — RWKV6-1.6B at published widths and full depth (24
-             layers), bf16, seeded random weights: 8 requests of
-             2,048-token prompts, 32 greedy tokens through
-             launch.serve.generate (K7 launches 24 times, decode none); its
+13. rwkv main — RWKV6-1.6B at published widths and 8 of its 24 layers
+             (cut to make room for phase 24), bf16, seeded random
+             weights: 8 requests of 2,048-token prompts, 32 greedy tokens
+             through launch.serve.generate (K7 launches 8 times, decode
+             none); its
              logits against the plain serve path and the plain full
              forward;
 14. rwkv timing — K7 (device time with the host hidden, and
@@ -194,14 +196,14 @@ Phases (any failure raises and the script exits non-zero):
              decode steps;
 15. rwkv fp32 — 2 layers in float32, 4 x 1,000-token prompts (a ragged
              last chunk), 16 tokens, against the plain full forward; then
-             the full 24 layers in float32 (2 x 2,048-token prompts, 8
+             phase 13's 8 layers in float32 (2 x 2,048-token prompts, 8
              tokens) by the rule of phase 13, where the greedy choices must
              agree on at least half the positions;
 15c-15h. families serve — K5 at head size 256 with G 10 and 16 against
              its plain version; OLMoE-1B-7B, RecurrentGemma-2B,
              Whisper-small and InternVL2-26B served at published widths
              (Whisper at full depth; OLMoE at 8 of 16 layers,
-             RecurrentGemma at 13 of 26, InternVL2 at 12 of 48) through
+             RecurrentGemma at 13 of 26, InternVL2 at 6 of 48) through
              K5/K6 against
              the plain paths (OLMoE's logits at a drop-free capacity), timed
              and profiled; each at 2-3 layers in float32;
@@ -252,12 +254,13 @@ Phases (any failure raises and the script exits non-zero):
              loss falls, the copies equal, the plain path agrees (losses,
              first-step aggregate; OLMoE's plain first step on the kernel
              path's routes, the recompute's routes equal the forward's);
-             examples/robust_training_torch.py at its 200 steps runs in
-             its own process beside the Whisper and InternVL2 cells (their
-             logged walls are on a shared card), its loss falling;
+             examples/robust_training_torch.py at 100 of its default 200
+             steps (cut to make room for phase 24) runs in its own process
+             beside the Whisper and InternVL2 cells (their logged walls
+             are on a shared card), its loss falling;
 21. family train timing — K6 at the three training shapes (host
              hidden) beside its plain version, bound and SDPA; each cell's
-             step on both paths (medians of 5, in turns), a profile of a
+             step on both paths (medians of 2, in turns), a profile of a
              kernel-path step and its peak memory;
 22. analysis — repro_torch.statics' lint on the kernel path (every
              engine contract's fixture under the op recorder: no (N, N)
@@ -281,7 +284,37 @@ Phases (any failure raises and the script exits non-zero):
              1 x 1 NCCL mesh bit-equal to its one-process run; whether
              gloo takes CUDA tensors, and 2 gloo ranks on this card (a
              2-shard graph axis across processes) bit-equal to the
-             emulation.
+             emulation;
+24. the model stack over ranks — gloo ranks sharing this card, each one
+             process with its own copy or its model blocks: (a) which
+             collectives gloo takes on CUDA tensors (the refusals must be
+             what the rank communicator stages through host memory); (b)
+             paper_sim at published widths on 4 ranks, 3 robust steps of
+             trimmed_mean (F 1, Byzantine 2), hierarchical_trim on 2 x 2
+             (F 0), the sharded trim and pushsum_sparse, and one step of
+             pushsum on 2 x 2 (its ring sends staged through host memory,
+             the calls and bytes each rank staged equal to what the keys
+             give), every rank's parameters, losses and first aggregate
+             against row w of the one-process 4-worker step
+             (bit-equality reported; parameters within one bf16 ulp of
+             each leaf's largest entry, losses within 1e-3, the
+             aggregate's rel rms within 1e-2), K4 on every rank (K1 for
+             pushsum_sparse); (c) Qwen3-8B at 36 layers tensor-parallel
+             on model 2 (16 query heads on 4 KV heads a rank through K6,
+             K5 at G 4), 2 x 2,048-token prompts and 8 tokens
+             teacher-forced, held by phase 9's rule against the
+             one-process kernel path, which phase 9's rule holds against
+             the plain full forward at these 36 layers; (d) OLMoE-1B-7B at
+             8 layers expert-parallel (32 experts a rank) at a drop-free
+             capacity, prefill and 4 decode steps the same way, then at 2
+             layers in float32, 8 tokens, within atol 1e-3 + rtol 1e-3
+             and with a clear top-2 margin on at least half the positions
+             for the greedy rule; (e) paper_sim's mean
+             step at 2 layers on model 2, 3 losses within 1e-2 of one
+             process; (f) (c)'s requests through the mesh-taking steps on
+             a 1 x 1 NCCL mesh, bit-equal to the one-process run; K4, K1,
+             K5 and K6 at these shapes beside their plain versions, bounds
+             and library calls.
 
 Phases 3, 5, 6b, 6c, 9 and 18 also print their run's peak memory beside
 repro_torch.analysis' memory model, and require the bytes the run itself
@@ -329,9 +362,12 @@ T_MAIN = 200
 N_FULL = 131_072
 N_SMALL = 16_384
 TIMED_RUNS = 30
-STEP_RUNS, STEP_T = 10, 50
+STEP_RUNS, STEP_T = 6, 50     # 10 runs before phase 24
 BYZ_F, BYZ_AGENTS, BYZ_GAMMA = 2, (2, 9), 10
 SERVE_B, SERVE_S, SERVE_GEN = 8, 2048, 32
+# serve mains' depths at published widths (36 and 24 layers published; cut
+# to make room for phase 24 in the script's time limit)
+SERVE_QWEN_LAYERS, SERVE_RWKV_LAYERS = 12, 8
 # Byzantine main path: decisions are compared where the decision margin
 # (the winner's min_b r(a, b) minus the runner-up's) exceeds this gap
 BYZ_MARGIN = 1e-2
@@ -3771,6 +3807,26 @@ def main() -> int:
     md = multidevice_phase(dev, flush, model, rt, M)
     by_name["edge_scatter"].update(md)
     lap("phase 23")
+    # ---- phase 24: the model stack over ranks -----------------------------
+    mm = model_mesh_phase(dev, flush)
+    t = mm["times"]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["trimmed_mean"].update(
+        launches_ranks=mm["k4_launches"], ranks=t["k4_rank"],
+        ranks_stripe=t["k4_stripe"])
+    by_name["edge_scatter"].update(
+        launches_ranks=mm["robust"]["pushsum_sparse"]["launches"].get(
+            "edge_scatter", 0), ranks=t["k1_rank"])
+    by_name["swa_prefill"].update(ranks=t["k6_local"], launches_ranks={
+        **{name: mm[name][0]["launches"].get("swa_prefill", 0)
+           for name in MM_SERVES},
+        "mean": mm["mean"]["launches"].get("swa_prefill", 0),
+        "robust": mm["robust"]["trimmed_mean"]["launches"].get(
+            "swa_prefill", 0)})
+    by_name["attn_decode"].update(ranks=t["k5_local"], launches_ranks={
+        name: mm[name][0]["launches"].get("attn_decode", 0)
+        for name in MM_SERVES})
+    lap("phase 24")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4372,8 +4428,9 @@ def serve_phases(dev, flush) -> list[dict]:
     # ---- phase 8: the two kernels against their plain versions ----------
     errs = serve_kernel_checks(dev)
 
-    # ---- phase 9: Qwen3-8B at full width and depth, bf16 ----------------
-    cfg = get_config("qwen3_8b")
+    # ---- phase 9: Qwen3-8B at full width, SERVE_QWEN_LAYERS deep, bf16 ---
+    cfg = dataclasses.replace(get_config("qwen3_8b"),
+                              n_layers=SERVE_QWEN_LAYERS)
     B, S, GEN = SERVE_B, SERVE_S, SERVE_GEN
     t0 = time.perf_counter()
     params = M.init_params(0, cfg, dev)
@@ -4417,7 +4474,7 @@ def serve_phases(dev, flush) -> list[dict]:
         lf = full_logits(params, cfg, prompts, toks, block=2)
     # bf16 with float32 accumulation on every path; they differ only by
     # where a float32 sum rounds to bf16 (other GEMM shapes, another
-    # attention order), and those flips grow over the 36 layers
+    # attention order), and those flips grow over the layers
     hold_logits("[serve]", f"{B} x {S} prompt tokens, {GEN} tokens", toks,
                 lk, lp, lf)
 
@@ -4725,8 +4782,9 @@ def rwkv_phases(dev, flush) -> dict:
     # ---- phase 12: K7 against its plain versions -------------------------
     err = wkv_kernel_checks(dev)
 
-    # ---- phase 13: RWKV6-1.6B at full width and depth, bf16 --------------
-    cfg = get_config("rwkv6_1b6")
+    # ---- phase 13: RWKV6-1.6B at full width, SERVE_RWKV_LAYERS deep, bf16 -
+    cfg = dataclasses.replace(get_config("rwkv6_1b6"),
+                              n_layers=SERVE_RWKV_LAYERS)
     B, S, GEN = SERVE_B, SERVE_S, SERVE_GEN
     t0 = time.perf_counter()
     params = M.init_params(0, cfg, dev)
@@ -4799,11 +4857,11 @@ def rwkv_phases(dev, flush) -> dict:
     del params32, l32, lp32, lf32
     torch.cuda.empty_cache()
 
-    # ---- phase 15b: full width and depth in float32 ---------------------
+    # ---- phase 15b: phase 13's depth in float32 --------------------------
     # bf16 rounding noise grows with depth in this random-weight model
     # (the port rounds where the reference rounds: tests/test_torch_models
     # .py), so at 24 layers few bf16 positions have a clear top-2 margin;
-    # float32 at full depth keeps one on most.
+    # float32 keeps one on most.
     cfg_f = dataclasses.replace(cfg, dtype="float32")
     params_f = M.init_params(2, cfg_f, dev)
     pf = randint_n(prng_key(2), 2 * S, 0, cfg.vocab, dev).reshape(2, S)
@@ -4814,7 +4872,8 @@ def rwkv_phases(dev, flush) -> dict:
                 "launches")
         lpf = serve_logits(params_f, cfg_f, pf, tf_, backend="torch")
         lff = full_logits(params_f, cfg_f, pf, tf_, block=2)
-    hold_logits("[rwkv fp32 24 layers]", f"2 x {S} prompt tokens, 8 tokens",
+    hold_logits(f"[rwkv fp32 {cfg.n_layers} layers]",
+                f"2 x {S} prompt tokens, 8 tokens",
                 tf_, lkf, lpf, lff, min_clear=0.5)
     del params_f, lkf, lpf, lff
     torch.cuda.empty_cache()
@@ -4943,7 +5002,7 @@ FAMILY_CELLS = {
     "olmoe": ("olmoe_1b_7b", SERVE_S, 8),
     "recurrentgemma": ("recurrentgemma_2b", SERVE_S, 13),
     "whisper": ("whisper_small", 64, None),
-    "internvl2": ("internvl2_26b", SERVE_S, 12),
+    "internvl2": ("internvl2_26b", SERVE_S, 6),
 }
 FAMILY_PROFILE_STEPS = 10     # decode steps under the profiler a family
 
@@ -5930,7 +5989,8 @@ FAMILY_TRAIN = {
 }
 FAMILY_TRAIN_STEPS = 10
 FAMILY_PLAIN_STEPS = 3    # the plain path's steps, held against the first
-FAMILY_TIMED_STEPS = 3    # phase 21's timed steps a path (5 before phase 23)
+FAMILY_TIMED_STEPS = 2    # phase 21's timed steps a path (5 before phase 23,
+                          # 3 before phase 24)
 # kernel path against the plain path (see family_train_main)
 FAMILY_LOSS_GAP, FAMILY_AGG_GAP = 1e-3, 1e-2
 
@@ -6364,15 +6424,19 @@ def family_k6_times(dev, flush) -> dict:
     return out
 
 
+EXAMPLE_STEPS = 100     # of the example's default 200 (cut for phase 24)
+
+
 def start_robust_training_example():
-    """``examples/robust_training_torch.py`` on the card at its default
-    200 steps (paper_sim at published widths, float32, 4 workers, trimmed
-    mean F = 1, worker 1 Byzantine), started in its own process (~8 GB
-    of the card) -> (process, start time) for
+    """``examples/robust_training_torch.py`` on the card at
+    ``EXAMPLE_STEPS`` steps (paper_sim at published widths, float32, 4
+    workers, trimmed mean F = 1, worker 1 Byzantine), started in its own
+    process (~8 GB of the card) -> (process, start time) for
     :func:`finish_robust_training_example`."""
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     proc = subprocess.Popen(
-        [sys.executable, str(ROOT / "examples" / "robust_training_torch.py")],
+        [sys.executable, str(ROOT / "examples" / "robust_training_torch.py"),
+         "--steps", str(EXAMPLE_STEPS)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     return proc, time.perf_counter()
 
@@ -6398,7 +6462,8 @@ def finish_robust_training_example(started) -> None:
         f"(consensus_spread {rows[-1][5]}) in "
         f"{time.perf_counter() - t0:.1f} s (beside phase 20's later "
         f"cells)")
-    require(last < first, "the example's loss falls over its 200 steps")
+    require(last < first, f"the example's loss falls over its "
+            f"{EXAMPLE_STEPS} steps")
 
 
 def family_train_phases(dev, flush, lap) -> dict:
@@ -6908,6 +6973,756 @@ def multidevice_phase(dev, flush, model, rt, M) -> dict:
             "gloo takes CUDA tensors for the graph axis' collectives")
     log(f"[multi] {md_gloo_ranks(w, el)}")
     return out
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the model stack over ranks. Gloo ranks share this card (NCCL
+# refuses two ranks on one GPU); each rank runs the port's entry points on
+# its own copy, or its model blocks, and its kernels on the card
+# ---------------------------------------------------------------------------
+
+MM_W, MM_SEQ, MM_BATCH, MM_STEPS = 4, 1024, 8, 3    # (b): 2 rows a worker
+#: (b)'s runs: aggregator, F, Byzantine workers, (pods, per pod), steps.
+#: The hierarchical trim of pods of 2 takes F = 0 (a trim of F needs
+#: 2F + 1). pushsum's ring sends are gloo's host-staged path; it takes one
+#: step, whose 16 rounds stage up to 2 x 398 MB a rank each
+MM_RUNS = (("trimmed_mean", 1, (2,), (1, 4), MM_STEPS),
+           ("hierarchical_trim", 0, (2,), (2, 2), MM_STEPS),
+           ("trimmed_mean_sharded", 1, (2,), (1, 4), MM_STEPS),
+           ("pushsum_sparse", 1, (), (1, 4), MM_STEPS),
+           ("pushsum", 1, (), (2, 2), 1))
+#: (b)'s bound on the parameters against row w: one bf16 ulp at each
+#: leaf's largest entry (bit-equality is expected and reported)
+MM_PARAM_REL_GAP = 2 ** -7
+MM_SERVE_B, MM_SERVE_S, MM_SERVE_GEN = 2, 2048, 8    # (c)
+MM_QWEN_LAYERS = 36
+MM_OLMOE_LAYERS, MM_OLMOE_GEN = 8, 5                  # (d): prefill + 4
+#: (d) in float32 at 2 layers, where the greedy rule has clear margins
+MM_OLMOE_FP32_LAYERS, MM_OLMOE_FP32_GEN = 2, 8
+MM_SERVES = ("qwen3_8b", "olmoe_1b_7b", "olmoe_fp32")
+MM_MEAN_LAYERS, MM_MEAN_BATCH = 2, 8                  # (e)
+MM_PROBE_OPS = ("all_reduce", "all_gather", "all_to_all", "send_recv")
+
+
+def mm_free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mm_spawn(target, world: int, out: str) -> list:
+    """Start ``world`` ranks of ``target(rank, world, port, out)`` in
+    spawned processes -> the processes (:func:`mm_join` waits)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    port = mm_free_port()
+    procs = [ctx.Process(target=target, args=(r, world, port, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def mm_join(procs, timeout: float) -> list:
+    """Wait up to ``timeout`` seconds for ``procs`` -> their exit codes (a
+    rank still alive then is killed: None)."""
+    t0 = time.perf_counter()
+    for p in procs:
+        p.join(max(1.0, timeout - (time.perf_counter() - t0)))
+    codes = []
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+            codes.append(None)
+        else:
+            codes.append(p.exitcode)
+    return codes
+
+
+def mm_init(rank: int, world: int, port: int):
+    """A spawned rank: the port on the path, this card, the gloo group."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    return torch.device("cuda")
+
+
+def mm_probe_rank(rank: int, world: int, port: int, out: str) -> None:
+    """(a): one of 2 gloo ranks trying each collective of the rank
+    communicator on CUDA tensors, checking its values, and writing its
+    verdict before the next (``send_recv`` last: a refusal there may abort
+    the process)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.pushsum import collective
+    dev = mm_init(rank, world, port)
+    x = torch.arange(8, dtype=torch.float32, device=dev) + 10 * rank
+    other = torch.arange(8, dtype=torch.float32, device=dev) \
+        + 10 * (1 - rank)
+
+    def run(op):
+        if op == "all_reduce":
+            y = x.clone()
+            dist.all_reduce(y)
+            return torch.equal(y, x + other)
+        if op == "all_gather":
+            y = torch.empty(16, device=dev)
+            collective("all_gather")(y, x)
+            pair = (x, other) if rank == 0 else (other, x)
+            return torch.equal(y, torch.cat(pair))
+        if op == "all_to_all":
+            y = torch.empty(8, device=dev)
+            dist.all_to_all_single(y, x)
+            mine = slice(4 * rank, 4 * rank + 4)
+            pair = (x[mine], other[mine]) if rank == 0 else \
+                (other[mine], x[mine])
+            return torch.equal(y, torch.cat(pair))
+        y = torch.empty(8, device=dev)
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, 1 - rank),
+                dist.P2POp(dist.irecv, y, 1 - rank)]):
+            req.wait()
+        return torch.equal(y, other)
+
+    for op in MM_PROBE_OPS:
+        path = Path(out) / f"probe_{op}_{rank}"
+        try:
+            ok = run(op)
+            torch.cuda.synchronize()
+            path.write_text("ok" if ok else "wrong values")
+        except Exception as e:  # the probe reports, the phase goes on
+            path.write_text(f"{type(e).__name__}: "
+                            f"{str(e).splitlines()[0][:160]}")
+            break
+    dist.destroy_process_group()
+
+
+def mm_probe_verdicts(out: str, codes: list) -> dict:
+    verdicts = {}
+    for op in MM_PROBE_OPS:
+        got = [Path(out) / f"probe_{op}_{r}" for r in range(2)]
+        texts = [p.read_text() if p.exists() else None for p in got]
+        if all(t == "ok" for t in texts):
+            verdicts[op] = "ok"
+        else:
+            verdicts[op] = next((t for t in texts if t and t != "ok"),
+                                f"no verdict (rank exit codes {codes})")
+    return verdicts
+
+
+def mm_train_cfg(layers: int | None = None):
+    from repro_torch.configs import get_config
+    import dataclasses
+    cfg = get_config("paper_sim")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def mm_robust_tc(kind: str, F: int, byz: tuple):
+    from repro_torch.distributed.aggregation import AggregatorConfig
+    from repro_torch.distributed.trainer import TrainConfig
+    from repro_torch.optim import AdamWConfig
+    return TrainConfig(arch=mm_train_cfg(), agg=AggregatorConfig(
+        kind=kind, F=F), opt=AdamWConfig(lr=3e-4, warmup_steps=1,
+                                          total_steps=MM_STEPS),
+        byzantine_workers=byz)
+
+
+def mm_data(cfg, W: int, batch: int = MM_BATCH):
+    from repro_torch.data import SyntheticLMData
+    return SyntheticLMData(cfg.vocab, MM_SEQ, batch, flavour="markov",
+                           n_agents=W, seed=0)
+
+
+def mm_robust_rank(rank: int, world: int, port: int, out: str) -> None:
+    """(b): worker ``rank`` of 4 gloo ranks: paper_sim at published widths,
+    each of ``MM_RUNS`` for its steps through the mesh step on its own
+    copy, held against row w of the one-process step (saved by the
+    parent): parameters, losses, the first aggregate; the communicator's
+    host-staged calls and bytes."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.comm import Comm
+    from repro_torch.distributed.sharding import RankMesh
+    from repro_torch.distributed.trainer import make_train_step, param_spread
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import leaves
+    dev = mm_init(rank, world, port)
+    res = {}
+    try:
+        for kind, F, byz, shape, steps in MM_RUNS:
+            rm = RankMesh(init_device_mesh("cuda", shape,
+                                           mesh_dim_names=("pod", "data")))
+            comm = Comm(rm)
+            w = rm.index("pod", "data")
+            tc = mm_robust_tc(kind, F, byz)
+            params = M.init_params(0, tc.arch, dev)
+            opt = adamw_init(params)
+            step = make_train_step(tc, mesh=rm, comm=comm, record="aggregate")
+            agg0 = []
+
+            def keep(s, st):
+                if s == 0:
+                    agg0.append(st.aggregate.clone())
+
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t0 = time.perf_counter()
+            losses = run_steps(step, params, opt, mm_data(tc.arch, MM_W),
+                               steps, dev, on_step=keep)
+            wall = time.perf_counter() - t0
+            counts = _counts()
+            spread = float(param_spread(params, rm, comm))
+            exp = torch.load(Path(out) / f"exp_{kind}_{w}.pt")
+            got, want = leaves(params), [x.to(dev) for x in exp["params"]]
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            gaps = [((a.float() - b.float()).abs().max(),
+                     b.float().abs().max().clamp_min(1e-30))
+                    for a, b in zip(got, want)]
+            a0 = exp["agg0"].to(dev)
+            res[kind] = {
+                "params_bit_equal": same,
+                "params_max_abs_gap": max(g.item() for g, _ in gaps),
+                "params_rel_gap": max((g / m).item() for g, m in gaps),
+                "agg0_bit_equal": torch.equal(agg0[0], a0),
+                "agg0_rel_rms": rel_rms(agg0[0], a0),
+                "losses": losses, "want_losses": exp["losses"],
+                "loss_gap": max(abs(a - b) for a, b in
+                                zip(losses, exp["losses"])),
+                "spread": spread, "wall_s": wall,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": {k: v for k, v in counts.items() if v},
+                "staged_calls": comm.staged_calls,
+                "staged_bytes": comm.staged_bytes}
+            del params, opt, step, agg0, exp, got, want
+            torch.cuda.empty_cache()
+        (Path(out) / f"robust_{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def mm_robust_reference(dev, out: str) -> dict:
+    """(b)'s one-process runs on this card (phase 20's trainer: W stacked
+    copies, ``WorkerLayout``), each row w saved for rank w -> the losses
+    by run."""
+    import torch
+    from repro_torch.distributed.aggregation import WorkerLayout
+    from repro_torch.distributed.trainer import (make_train_step,
+                                                 replicate_for_workers,
+                                                 worker_opt_init)
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import leaves
+    losses = {}
+    for kind, F, byz, (P, Wd), steps in MM_RUNS:
+        tc = mm_robust_tc(kind, F, byz)
+        params = replicate_for_workers(M.init_params(0, tc.arch, dev), MM_W)
+        opt = worker_opt_init(params)
+        step = make_train_step(tc, WorkerLayout(P, Wd), record="aggregate")
+        agg0 = []
+
+        def keep(s, st):
+            if s == 0:
+                agg0.append(st.aggregate.clone())
+
+        losses[kind] = run_steps(step, params, opt, mm_data(tc.arch, MM_W),
+                                 steps, dev, on_step=keep)
+        for w in range(MM_W):
+            torch.save({"params": [x[w].cpu() for x in leaves(params)],
+                        "agg0": agg0[0][w].cpu(),
+                        "losses": losses[kind]},
+                       Path(out) / f"exp_{kind}_{w}.pt")
+        del params, opt, step, agg0
+        torch.cuda.empty_cache()
+    return losses
+
+
+def mm_pushsum_staged(kind: str, steps: int, shape: tuple) -> list:
+    """What the ring's sends stage through host memory on each rank of
+    (b)'s ``pushsum`` run -> [(calls, bytes)] by worker: from the keys
+    :func:`run_steps` hands the step, each round a rank sends its (D + 1,)
+    float32 cumulative when its link is up and receives when its
+    predecessor's is; a round with either is one call."""
+    from repro_torch.core.prng import fold_in, prng_key
+    from repro_torch.distributed.aggregation import _uniform_scalar
+    from repro_torch.models import model as M
+    tc = mm_robust_tc(kind, 0, ())
+    cfg = tc.agg
+    P, Wd = shape
+    row = 4 * (sum(x.numel() for x in _leaves(M.param_shapes(tc.arch))) + 1)
+    out = []
+    for w in range(P * Wd):
+        didx = w % Wd
+        prev_w = w - didx + (didx - 1) % Wd
+        calls = nbytes_ = 0
+        for s in range(steps):
+            key = fold_in(prng_key(0), s)
+            for t in range(cfg.gossip_rounds):
+                kt = fold_in(key, t)
+                forced = t % cfg.B == cfg.B - 1
+                up, heard = (forced or _uniform_scalar(fold_in(kt, v))
+                             >= cfg.drop_prob for v in (w, prev_w))
+                calls += int(up or heard)
+                nbytes_ += row * (int(up) + int(heard))
+        out.append((calls, nbytes_))
+    return out
+
+
+def mm_serve_cfg(name: str):
+    import dataclasses
+    from repro_torch.configs import get_config
+    if name == "qwen3_8b":
+        return dataclasses.replace(get_config(name),
+                                   n_layers=MM_QWEN_LAYERS)
+    # OLMoE at phase 15d's depth (or 2 layers in float32), the
+    # expert-parallel dispatch, a drop-free capacity (capacity factor
+    # E / k: cap = T)
+    cfg = get_config("olmoe_1b_7b")
+    olmoe = dataclasses.replace(cfg, n_layers=MM_OLMOE_LAYERS,
+                                moe_impl="sharded",
+                                capacity_factor=cfg.n_experts / cfg.top_k)
+    if name == "olmoe_fp32":
+        return dataclasses.replace(olmoe, n_layers=MM_OLMOE_FP32_LAYERS,
+                                   dtype="float32")
+    return olmoe
+
+
+def mm_serve_logits(params, cfg, prompts, toks, mesh=None, comm=None):
+    """:func:`serve_logits` through the entry points (the mesh-taking step
+    builders with ``mesh``): prefill, then a decode step on each of
+    ``toks[:, :-1]`` -> (B, gen, V)."""
+    import torch
+    from repro_torch.distributed.server import (make_decode_step,
+                                                make_prefill_step)
+    S, gen = prompts.shape[1], toks.shape[1]
+    pre = make_prefill_step(cfg, cache_len=S + gen + 1, mesh=mesh, comm=comm)
+    dec = make_decode_step(cfg, mesh=mesh, comm=comm)
+    with torch.inference_mode():
+        lg, cache = pre(params, {"tokens": prompts})
+        out = [lg[:, -1]]
+        for i in range(gen - 1):
+            lg, cache = dec(params, cache, toks[:, i:i + 1])
+            out.append(lg[:, -1])
+    return torch.stack(out, dim=1)
+
+
+def mm_mean_tc(cfg):
+    from repro_torch.distributed.trainer import TrainConfig
+    from repro_torch.optim import AdamWConfig
+    return TrainConfig(arch=cfg, opt=AdamWConfig(
+        lr=3e-4, warmup_steps=1, total_steps=MM_STEPS))
+
+
+def mm_model_rank(rank: int, world: int, port: int, out: str) -> None:
+    """(c)-(e): model rank ``rank`` of a (data 1, model 2) mesh of 2 gloo
+    ranks: Qwen3-8B and OLMoE-1B-7B (bf16, and float32 at 2 layers)
+    served on their model blocks through the entry points, teacher-forced
+    on the one-process tokens, and
+    paper_sim's mean step; the logits and losses are saved for the
+    parent."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.comm import Comm
+    from repro_torch.distributed.sharding import RankMesh, param_specs
+    from repro_torch.distributed.trainer import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    dev = mm_init(rank, world, port)
+    rm = RankMesh(init_device_mesh("cuda", (1, 2),
+                                   mesh_dim_names=("data", "model")))
+    comm = Comm(rm)
+    res = {}
+    try:
+        for name in MM_SERVES:
+            cfg = mm_serve_cfg(name)
+            exp = torch.load(Path(out) / f"exp_{name}.pt")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = M.init_local_params(
+                0, cfg, param_specs(M.param_shapes(cfg), cfg, rm), rm, dev)
+            torch.cuda.synchronize()
+            t_init = time.perf_counter() - t0
+            prompts, toks = exp["prompts"].to(dev), exp["toks"].to(dev)
+            _zero_counts()
+            t0 = time.perf_counter()
+            lg = mm_serve_logits(params, cfg, prompts, toks, rm, comm)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            res[name] = {"launches": {k: v for k, v in _counts().items()
+                                      if v},
+                         "init_s": t_init, "serve_s": wall,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "held_gb": sum(x.numel() * x.element_size()
+                                        for x in _leaves(params)) / 1e9}
+            if rank == 0:
+                torch.save(lg.cpu(), Path(out) / f"rank_{name}.pt")
+            del params, lg, exp
+            torch.cuda.empty_cache()
+        cfg = mm_train_cfg(MM_MEAN_LAYERS)
+        params = M.init_local_params(
+            0, cfg, param_specs(M.param_shapes(cfg), cfg, rm), rm, dev)
+        opt = adamw_init(params)
+        step = make_train_step(mm_mean_tc(cfg), mesh=rm, comm=comm)
+        _zero_counts()
+        losses = run_steps(step, params, opt, mm_data(cfg, 1, MM_MEAN_BATCH),
+                           MM_STEPS, dev, robust=False)
+        res["mean"] = {"losses": losses,
+                       "launches": {k: v for k, v in _counts().items() if v}}
+        res["staged"] = [comm.staged_calls, comm.staged_bytes]
+        (Path(out) / f"model_{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def mm_serve_reference(dev, out: str, name: str) -> dict:
+    """(c)/(d)'s one-process runs: ``generate`` on the kernel path, then
+    the plain serve path teacher-forced on its tokens (the rounding noise
+    phase 9's rule measures against); for Qwen3-8B also the plain full
+    forward, which holds the one-process kernel path at its 36 layers by
+    phase 9's rule, and (f), the same requests through the mesh-taking
+    steps on a 1 x 1 NCCL mesh, bit-equal to the one-process run. Saves
+    prompts, tokens and logits for the ranks and the checks -> (logits,
+    plain logits, tokens, launches, the NCCL line or None)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.prng import prng_key, randint_n
+    from repro_torch.distributed.comm import Comm
+    from repro_torch.distributed.sharding import RankMesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    cfg = mm_serve_cfg(name)
+    gen = {"qwen3_8b": MM_SERVE_GEN, "olmoe_1b_7b": MM_OLMOE_GEN,
+           "olmoe_fp32": MM_OLMOE_FP32_GEN}[name]
+    params = M.init_params(0, cfg, dev)
+    prompts = randint_n(prng_key(24), MM_SERVE_B * MM_SERVE_S, 0, cfg.vocab,
+                        dev).reshape(MM_SERVE_B, MM_SERVE_S)
+    _zero_counts()
+    with torch.inference_mode():
+        toks, lk = generate(params, cfg, prompts, gen)
+    torch.cuda.synchronize()
+    counts = _counts()
+    lp = serve_logits(params, cfg, prompts, toks, "torch")
+    nccl = None
+    if name == "qwen3_8b":
+        with torch.inference_mode():
+            lf = full_logits(params, cfg, prompts, toks, block=1)
+        hold_logits(f"[ranks] (c) one process, {cfg.n_layers} layers",
+                    f"{MM_SERVE_B} x {MM_SERVE_S} prompt tokens, {gen} "
+                    f"tokens", toks, lk, lp, lf)
+        del lf
+        dist.init_process_group("nccl", init_method="tcp://localhost:"
+                                f"{mm_free_port()}", rank=0, world_size=1)
+        try:
+            rm = RankMesh(init_device_mesh("cuda", (1, 1),
+                                           mesh_dim_names=("data", "model")))
+            comm = Comm(rm)
+            with torch.inference_mode():
+                toks_f, lk_f = generate(params, cfg, prompts, gen, mesh=rm,
+                                        comm=comm)
+            torch.cuda.synchronize()
+            require(torch.equal(toks_f, toks) and torch.equal(lk_f, lk),
+                    "(f) the 1 x 1 NCCL mesh's tokens and logits bit-equal "
+                    "to the one-process run")
+            nccl = (f"(f) 1 x 1 NCCL mesh, {cfg.name} at {cfg.n_layers} "
+                    f"layers through the mesh-taking prefill and decode "
+                    f"steps (the model axis' all_reduce and all_gather on "
+                    f"NCCL): tokens and logits bit-equal to the one-process "
+                    f"run; host-staged {comm.staged_calls}")
+        finally:
+            dist.destroy_process_group()
+    torch.save({"prompts": prompts.cpu(), "toks": toks.cpu()},
+               Path(out) / f"exp_{name}.pt")
+    del params
+    torch.cuda.empty_cache()
+    return lk, lp, toks, counts, nccl
+
+
+def mm_kernel_times(dev, flush) -> dict:
+    """K4, K1, K5 and K6 at this phase's shapes, host hidden, beside
+    their plain versions, bounds and library calls: K4 at (b)'s (4,
+    99,496,704) F 1 and the sharded trim's (4, 24,874,176) stripes; K1 at
+    (b)'s gossip (4 workers, a 2^24 + 1-column pass); K6 and K5 at (c)'s
+    local heads (16 query heads on 4 KV heads of 128, 2 x 2,048 tokens;
+    a decode step over 2,056 cache rows)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.graphs import (edge_list, random_strongly_connected,
+                                         sort_by_dst)
+    from repro_torch.distributed.aggregation import (GOSSIP_COLS,
+                                                     AggregatorConfig)
+    from repro_torch.kernels.pushsum_edge import (edge_scatter_cuda,
+                                                  edge_scatter_ref)
+    from repro_torch.kernels.swa import (attn_decode_cuda, attn_decode_ref,
+                                         swa_prefill_cuda, swa_prefill_ref)
+    from repro_torch.kernels.trimmed_mean import (trimmed_mean_cuda,
+                                                  trimmed_mean_ref)
+    g = torch.Generator(device=dev).manual_seed(24)
+    D = mm_train_cfg().param_count()
+    out = {}
+    for tag, cols in (("k4_rank", D), ("k4_stripe", -(-D // MM_W))):
+        x = torch.randn((MM_W, cols), generator=g, device=dev).mul_(1e-3)
+        y = torch.empty(cols, device=dev)
+        err = (trimmed_mean_cuda(x, 1, out=y) - trimmed_mean_ref(x, 1)
+               ).abs().max().item()
+        ms = event_ms(lambda: trimmed_mean_cuda(x, 1, out=y), TIMED_RUNS,
+                      flush, True)
+        plain = event_ms(lambda: trimmed_mean_ref(x, 1), 3, flush)
+        lib = event_ms(lambda: torch.mean(x, 0), TIMED_RUNS, flush, True)
+        b, by = bound(nbytes(x, y), cols * MM_W * 3)
+        out[tag] = {"shape": [MM_W, cols], "ms": ms, "plain_ms": plain,
+                    "bound_ms": b, "bound_by": by, "library_ms": lib,
+                    "max_abs_err": err}
+        del x, y
+    cfg = AggregatorConfig(kind="pushsum_sparse")
+    adj = random_strongly_connected(MM_W, cfg.graph_extra_edge_prob,
+                                    np.random.default_rng(cfg.graph_seed))
+    el, _, _, offsets = sort_by_dst(edge_list(adj), return_offsets=True)
+    E, Dk = el.src.shape[0], GOSSIP_COLS + 1
+    sigma = torch.randn((MM_W, Dk), generator=g, device=dev)
+    rho = torch.randn((E, Dk), generator=g, device=dev)
+    valid = torch.from_numpy(el.valid).to(dev)
+    live = (torch.rand(E, generator=g, device=dev) < 0.9) & valid
+    src = torch.from_numpy(el.src).to(dev)
+    dst = torch.from_numpy(el.dst).to(dev)
+    k1 = (sigma, rho, live, src, torch.from_numpy(offsets).to(dev))
+    got = edge_scatter_cuda(*k1)
+    want = edge_scatter_ref(sigma, rho, live, src, dst, n_recv=MM_W)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    ms = event_ms(lambda: edge_scatter_cuda(*k1), 10, flush, True)
+    plain = event_ms(lambda: edge_scatter_ref(sigma, rho, live, src, dst,
+                                              n_recv=MM_W), 3, flush)
+    b, by = bound(nbytes(*k1, *got), 2 * E * Dk)
+    out["k1_rank"] = {"shape": [MM_W, E, Dk], "ms": ms, "plain_ms": plain,
+                      "bound_ms": b, "bound_by": by, "library_ms": None,
+                      "max_abs_err": err}
+    del k1, got, want, sigma, rho
+    B, S, H, Hkv, dh = MM_SERVE_B, MM_SERVE_S, 16, 4, 128
+    bf = torch.bfloat16
+    q, k, v = (torch.randn((B, S, h, dh), generator=g, device=dev).to(bf)
+               for h in (H, Hkv, Hkv))
+    o6 = swa_prefill_cuda(q, k, v, 0)
+    err6 = (o6.float() - swa_prefill_ref(q.float(), k.float(), v.float(),
+                                         0)).abs().max().item()
+    tr = (0, 2, 1, 3)
+    ms6 = event_ms(lambda: swa_prefill_cuda(q, k, v, 0), TIMED_RUNS, flush,
+                   True)
+    plain6 = event_ms(lambda: swa_prefill_ref(q, k, v, 0), 3, flush)
+    lib6 = event_ms(lambda: F.scaled_dot_product_attention(
+        q.permute(tr), k.permute(tr), v.permute(tr), is_causal=True,
+        enable_gqa=True), TIMED_RUNS, flush, True)
+    flops6 = 4 * dh * B * H * (S * (S + 1) // 2)
+    b6, by6 = bound(nbytes(q, k, v, o6), flops6, hw().peak_flops)
+    out["k6_local"] = {"shape": [B, S, H, Hkv, dh], "ms": ms6,
+                       "plain_ms": plain6, "bound_ms": b6, "bound_by": by6,
+                       "library_ms": lib6, "max_abs_err": err6}
+    Wc = S + MM_SERVE_GEN
+    q5 = torch.randn((B, H, dh), generator=g, device=dev).to(bf)
+    k5, v5 = (torch.randn((B, Hkv, Wc, dh), generator=g, device=dev).to(bf)
+              for _ in range(2))
+    L = torch.full((B,), Wc, dtype=torch.int32, device=dev)
+    o5 = attn_decode_cuda(q5, k5, v5, L)
+    err5 = (o5.float() - attn_decode_ref(q5.float(), k5.float(), v5.float(),
+                                         L)).abs().max().item()
+    ms5 = event_ms(lambda: attn_decode_cuda(q5, k5, v5, L), TIMED_RUNS,
+                   flush, True)
+    plain5 = event_ms(lambda: attn_decode_ref(q5, k5, v5, L), TIMED_RUNS,
+                      flush, True)
+    lib5 = event_ms(lambda: F.scaled_dot_product_attention(
+        q5[:, :, None], k5, v5, enable_gqa=True), TIMED_RUNS, flush, True)
+    b5, by5 = bound(nbytes(q5, k5, v5, L, o5), 4 * B * H * Wc * dh,
+                    hw().peak_flops)
+    out["k5_local"] = {"shape": [B, H, Hkv, Wc, dh], "ms": ms5,
+                       "plain_ms": plain5, "bound_ms": b5, "bound_by": by5,
+                       "library_ms": lib5, "max_abs_err": err5}
+    for tag, t in out.items():
+        log(f"[timing] {tag} at {t['shape']}: {t['ms']:.5f} ms with the "
+            f"host hidden, plain {t['plain_ms']:.5f}, library "
+            f"{t['library_ms']}, bound {t['bound_ms']:.5f} "
+            f"({t['bound_by']}); max_abs_err {t['max_abs_err']:.3e}")
+    require(out["k4_rank"]["max_abs_err"] == 0.0
+            and out["k4_stripe"]["max_abs_err"] == 0.0
+            and out["k1_rank"]["max_abs_err"] == 0.0,
+            "K4 and K1 at the rank shapes bit-equal to their plain versions")
+    require(err6 <= 2 ** -8 * 4 + 1e-5 and err5 <= 2 ** -8 * 4 + 1e-5,
+            "K6 and K5 at the local-head shapes within bf16 rounding")
+    del q, k, v, o6, q5, k5, v5, o5
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_mesh_phase(dev, flush) -> dict:
+    """Phase 24 -> the kernels line's figures of K4, K1, K5 and K6 on the
+    rank paths."""
+    import tempfile
+
+    import torch
+    from repro_torch.distributed.comm import GLOO_CUDA_HOST_STAGED
+    from repro_torch.models import model as M
+    from repro_torch.distributed.trainer import make_train_step
+    from repro_torch.optim import adamw_init
+    fig = {"times": mm_kernel_times(dev, flush)}
+    with tempfile.TemporaryDirectory() as out:
+        # (b)'s one-process rows first, then (a)'s probe pair beside (b)'s
+        # four ranks
+        t0 = time.perf_counter()
+        want = mm_robust_reference(dev, out)
+        log(f"[ranks] (b) one-process references ({MM_W} stacked copies, "
+            f"phase 20's trainer): {time.perf_counter() - t0:.1f} s; losses "
+            + "; ".join(f"{k} {v}" for k, v in want.items()))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        probe = mm_spawn(mm_probe_rank, 2, out)
+        ranks = mm_spawn(mm_robust_rank, MM_W, out)
+        codes_p = mm_join(probe, 120)
+        codes = mm_join(ranks, 600)
+        verdicts = mm_probe_verdicts(out, codes_p)
+        refused = {op for op, v in verdicts.items() if v != "ok"}
+        log(f"[ranks] (a) gloo on CUDA tensors, 2 ranks on this card: "
+            f"{verdicts}; the communicator stages through host memory "
+            f"{sorted(GLOO_CUDA_HOST_STAGED)}")
+        require(refused == set(GLOO_CUDA_HOST_STAGED),
+                "(a) gloo refuses on CUDA tensors exactly the collectives "
+                "the communicator stages through host memory")
+        require(codes == [0] * MM_W, f"(b) {MM_W} gloo ranks ran to their "
+                f"end (exit codes {codes})")
+        rows = [json.loads((Path(out) / f"robust_{r}.json").read_text())
+                for r in range(MM_W)]
+        k4 = {}
+        for kind, F, byz, shape, steps in MM_RUNS:
+            rs = [r[kind] for r in rows]
+            k4[kind] = rs[0]["launches"].get("trimmed_mean", 0)
+            log(f"[ranks] (b) {kind} F {F} Byzantine {byz} on (pod, data) "
+                f"{shape}, paper_sim at published widths, {steps} steps "
+                f"of {MM_BATCH} x {MM_SEQ} tokens, {MM_W} gloo ranks: "
+                f"wall {max(r['wall_s'] for r in rs):.1f} s; parameters "
+                f"bit-equal to row w of the one-process step "
+                f"{[r['params_bit_equal'] for r in rs]} (max gap "
+                f"{max(r['params_max_abs_gap'] for r in rs):.3e}, of the "
+                f"leaf's largest entry "
+                f"{max(r['params_rel_gap'] for r in rs):.3e}); first "
+                f"aggregate bit-equal {[r['agg0_bit_equal'] for r in rs]} "
+                f"(rel rms {max(r['agg0_rel_rms'] for r in rs):.3e}); "
+                f"losses {rs[0]['losses']} (one process "
+                f"{rs[0]['want_losses']}, gap "
+                f"{max(r['loss_gap'] for r in rs):.3e}); spread "
+                f"{rs[0]['spread']:.3e}; peaks "
+                f"{[round(r['peak_gb'], 3) for r in rs]} GB; launches "
+                f"rank 0 {rs[0]['launches']}; host-staged "
+                f"{[r['staged_calls'] for r in rs]} calls, "
+                f"{[r['staged_bytes'] for r in rs]} B")
+            require(all(r["loss_gap"] <= 1e-3 for r in rs),
+                    f"(b) {kind}: every rank's losses within 1e-3")
+            require(all(r["agg0_rel_rms"] <= 1e-2 for r in rs),
+                    f"(b) {kind}: the first aggregate within 1e-2 rel rms")
+            require(all(r["params_rel_gap"] <= MM_PARAM_REL_GAP for r in rs),
+                    f"(b) {kind}: every rank's parameters within one bf16 "
+                    f"ulp of each leaf's largest entry of row w")
+            staged = [(r["staged_calls"], r["staged_bytes"]) for r in rs]
+            if kind == "pushsum":
+                want_staged = mm_pushsum_staged(kind, steps, shape)
+                log(f"[ranks] (b) pushsum: host-staged (calls, bytes) by "
+                    f"rank {staged}, from the keys {want_staged}")
+                require(staged == want_staged and all(c > 0 for c, _
+                                                      in staged),
+                        "(b) pushsum: the ring's sends staged through host "
+                        "memory, a call a round with a send or a receive")
+            else:
+                require(staged == [(0, 0)] * MM_W,
+                        f"(b) {kind}: nothing staged through host memory")
+            if kind == "pushsum_sparse":
+                require(all(r["launches"].get("edge_scatter", 0) > 0
+                            for r in rs), "(b) K1 on every rank")
+            elif kind != "pushsum":
+                per_step = 2 if kind == "hierarchical_trim" else 1
+                require(all(r["launches"].get("trimmed_mean", 0)
+                            == per_step * steps for r in rs),
+                        f"(b) {kind}: K4 {per_step} a step on every rank")
+        fig["robust"] = {kind: {k: rows[0][kind][k] for k in (
+            "params_bit_equal", "params_rel_gap", "agg0_rel_rms",
+            "loss_gap", "peak_gb", "launches", "wall_s", "staged_calls",
+            "staged_bytes")} for kind, *_ in MM_RUNS}
+        log(f"[ranks] (a)-(b): {time.perf_counter() - t0:.1f} s")
+        # (c)-(f): the one-process runs (and the NCCL mesh), then the ranks
+        t0 = time.perf_counter()
+        ref = {name: mm_serve_reference(dev, out, name)
+               for name in MM_SERVES}
+        log(f"[ranks] {ref['qwen3_8b'][4]}")
+        cfg = mm_train_cfg(MM_MEAN_LAYERS)
+        params = M.init_params(0, cfg, dev)
+        opt = adamw_init(params)
+        mean_want = run_steps(make_train_step(mm_mean_tc(cfg)), params, opt,
+                              mm_data(cfg, 1, MM_MEAN_BATCH), MM_STEPS, dev,
+                              robust=False)
+        del params, opt
+        torch.cuda.empty_cache()
+        log(f"[ranks] (c)-(f) one-process runs: "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        codes = mm_join(mm_spawn(mm_model_rank, 2, out), 600)
+        require(codes == [0, 0], f"(c)-(e) 2 gloo ranks ran to their end "
+                f"(exit codes {codes})")
+        mrows = [json.loads((Path(out) / f"model_{r}.json").read_text())
+                 for r in range(2)]
+        for name, what, min_clear in (
+                ("qwen3_8b", "(c) tensor-parallel", 0.0),
+                ("olmoe_1b_7b", "(d) expert-parallel", 0.0),
+                ("olmoe_fp32", "(d) expert-parallel float32", 0.5)):
+            lk, lp, toks, counts, _ = ref[name]
+            lr = torch.load(Path(out) / f"rank_{name}.pt").to(dev)
+            cfg = mm_serve_cfg(name)
+            gen = toks.shape[1]
+            layers = cfg.n_layers
+            for r in mrows:
+                ln = r[name]["launches"]
+                require(ln.get("swa_prefill", 0) == layers
+                        and ln.get("attn_decode", 0) == layers * (gen - 1),
+                        f"{what}: K6 once a layer in prefill and K5 once a "
+                        f"layer a decode step on every rank")
+            log(f"[ranks] {what} {cfg.name} at {layers} layers, model 2 on "
+                f"2 gloo ranks, {MM_SERVE_B} x {MM_SERVE_S} prompt tokens, "
+                f"{gen} tokens teacher-forced: rank launches "
+                f"{[r[name]['launches'] for r in mrows]} (one process "
+                f"{ {k: v for k, v in counts.items() if v} }); init "
+                f"{[round(r[name]['init_s'], 2) for r in mrows]} s, serve "
+                f"{[round(r[name]['serve_s'], 2) for r in mrows]} s; held "
+                f"{[round(r[name]['held_gb'], 3) for r in mrows]} GB, peaks "
+                f"{[round(r[name]['peak_gb'], 3) for r in mrows]} GB")
+            hold_logits(f"[ranks] {what}", "rank path against the "
+                        "one-process kernel path (the plain serve path as "
+                        "the noise)", lr.argmax(-1), lr, lp, lk, min_clear)
+            if cfg.dtype == "float32":    # phase 15h's float32 limit
+                torch.testing.assert_close(lr, lk, atol=1e-3, rtol=1e-3)
+            same = (lr.argmax(-1) == toks).float().mean().item()
+            log(f"[ranks] {what}: the rank path's greedy choice is the "
+                f"one-process token at {same:.3f} of the positions")
+            fig[name] = {r_: mrows[r_][name] for r_ in range(2)}
+            del lk, lp, lr
+        got = mrows[0]["mean"]["losses"]
+        gap = max(abs(a - b) for a, b in zip(got, mean_want))
+        log(f"[ranks] (e) paper_sim mean step at {MM_MEAN_LAYERS} layers, "
+            f"published widths, model 2, {MM_STEPS} steps of "
+            f"{MM_MEAN_BATCH} x {MM_SEQ} tokens: losses {got} (one process "
+            f"{mean_want}, gap {gap:.3e}); launches "
+            f"{mrows[0]['mean']['launches']}; host-staged "
+            f"{[r['staged'] for r in mrows]}")
+        require(gap <= 1e-2 and all(r["mean"]["losses"] == got
+                                    for r in mrows),
+                "(e) the mean step's losses within 1e-2 of one process, "
+                "equal on both ranks")
+        log(f"[ranks] (c)-(e) ranks: {time.perf_counter() - t0:.1f} s")
+        fig["mean"] = mrows[0]["mean"]
+        fig["k4_launches"] = k4
+    return fig
 
 
 if __name__ == "__main__":

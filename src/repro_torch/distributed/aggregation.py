@@ -37,6 +37,36 @@ Aggregators
 
 Random draws use the reference's keys bit for bit through
 :mod:`repro_torch.core.prng`, so the drop masks equal the reference's.
+
+Workers as ranks
+----------------
+``RANK_AGGREGATORS`` are the reference's own per-worker forms: one rank a
+worker (w = pod * per_pod + data on a mesh with "pod" and "data"
+dimensions), each taking its own flattened float32 gradient (D,) and
+returning its aggregate (D,), on the reference's collective through a
+:class:`~repro_torch.distributed.comm.Comm`:
+
+=========================  ==================================================
+``mean``                   ``all_reduce`` over pod x data, / W (``pmean``)
+``pushsum``                one send and one receive a round on the pod's ring
+                           (``ppermute`` i -> i+1; both ends know the
+                           sender's drop, so a dropped message is not sent),
+                           the representatives' ``all_reduce`` over pods
+                           every Γ
+``pushsum_sparse``         ``all_gather`` of the rows, the one-card gossip on
+                           every rank (K1 on the card), row w kept
+``trimmed_mean``           ``all_gather`` over pod x data, the trim (K4)
+``hierarchical_trim``      ``all_gather`` within the pod, trim, ``all_gather``
+                           across pods, trim (K4)
+``trimmed_mean_sharded``   ``all_to_all`` of W coordinate stripes in
+                           ``comm_dtype``, a local trim (K4), ``all_gather``
+=========================  ==================================================
+
+Each is the one-card form's computation: the gathers hand every rank the
+same (W, D) buffer, the stripes are the same columns, and the ring and
+fusion do the same elementwise operations on the same operands. With a
+model axis each rank aggregates its local shard of the gradient over its
+pod and data groups: every aggregator is coordinate-wise.
 """
 from __future__ import annotations
 
@@ -55,7 +85,8 @@ from ..kernels.trimmed_mean import trimmed_mean
 
 __all__ = ["AggregatorConfig", "WorkerLayout", "AGGREGATORS", "agg_mean",
            "agg_pushsum", "agg_pushsum_sparse", "agg_trimmed",
-           "agg_trimmed_sharded", "agg_hierarchical_trim"]
+           "agg_trimmed_sharded", "agg_hierarchical_trim",
+           "RANK_AGGREGATORS", "WORKER_AXES", "rank_worker"]
 
 # columns per pass of the sparse gossip: bounds its (E, cols) edge state
 GOSSIP_COLS = 1 << 24
@@ -262,4 +293,134 @@ AGGREGATORS: dict[str, Callable] = {
     "trimmed_mean": agg_trimmed,
     "trimmed_mean_sharded": agg_trimmed_sharded,
     "hierarchical_trim": agg_hierarchical_trim,
+}
+
+
+# ---------------------------------------------------------------------------
+# workers as ranks: the reference's per-worker forms on collectives
+# ---------------------------------------------------------------------------
+
+WORKER_AXES = ("pod", "data")
+
+
+def rank_worker(mesh) -> tuple[WorkerLayout, int]:
+    """(the worker layout, this rank's worker index w = pod * per_pod +
+    data) of a ``RankMesh``."""
+    layout = WorkerLayout(mesh.size("pod"), mesh.size("data"))
+    return layout, mesh.index(*WORKER_AXES)
+
+
+def rank_mean(g: torch.Tensor, cfg: AggregatorConfig, comm,
+              key: Key) -> torch.Tensor:
+    """The mean over workers: one ``all_reduce``, / W."""
+    W = rank_worker(comm.mesh)[0].n_workers
+    return comm.all_reduce(g.float().clone(), WORKER_AXES) / W
+
+
+def rank_pushsum(g: torch.Tensor, cfg: AggregatorConfig, comm,
+                 key: Key) -> torch.Tensor:
+    """Robust push-sum on the pod's directed ring, this worker's part:
+    each round it sends its cumulative sigma (and sigma_m) to data index
+    i + 1 unless its link drops, and hears i - 1 unless that link drops
+    (every rank draws every sender's uniform, so both ends agree); every
+    Γ rounds the pods' representatives (data index 0) pool half their
+    mass over the pod axis."""
+    (P, Wd), w = rank_worker(comm.mesh)
+    didx = comm.mesh.index("data")
+    prev_w = w - didx + (didx - 1) % Wd
+    D = g.numel()
+    dev = g.device
+    z = g.float().reshape(-1).clone()
+    m = torch.ones((1,), dtype=torch.float32, device=dev)
+    sig = torch.zeros_like(z)
+    sig_m = torch.zeros_like(m)
+    rho = torch.zeros_like(z)
+    rho_m = torch.zeros_like(m)
+    for t in range(cfg.gossip_rounds):
+        kt = fold_in(key, t)
+        forced = t % cfg.B == cfg.B - 1
+        up = forced or _uniform_scalar(fold_in(kt, w)) >= cfg.drop_prob
+        heard = forced or \
+            _uniform_scalar(fold_in(kt, prev_w)) >= cfg.drop_prob
+        sig = sig + z * 0.5
+        sig_m = sig_m + m * 0.5
+        sent = torch.cat([sig, sig_m])
+        if Wd == 1:                       # the ring of one: a self-loop
+            recv = sent if heard else None
+        else:
+            recv = comm.send_recv(sent if up else None,
+                                  (didx + 1) % Wd if up else None,
+                                  (didx - 1) % Wd if heard else None,
+                                  "data", like=sent)
+        rho_new, rho_m_new = (rho, rho_m) if recv is None else \
+            (recv[:D], recv[D:])
+        z = z * 0.5 + (rho_new - rho)
+        m = m * 0.5 + (rho_m_new - rho_m)
+        sig = sig + z * 0.5
+        sig_m = sig_m + m * 0.5
+        z = z * 0.5
+        m = m * 0.5
+        rho, rho_m = rho_new, rho_m_new
+        if P > 1 and (t + 1) % cfg.gamma_period == 0 and didx == 0:
+            pooled = comm.all_reduce(torch.cat([z, m]), "pod") / (2.0 * P)
+            z = 0.5 * z + pooled[:D]
+            m = 0.5 * m + pooled[D:]
+    return (z / torch.clamp_min(m, 1e-12)).reshape(g.shape)
+
+
+def rank_pushsum_sparse(g: torch.Tensor, cfg: AggregatorConfig, comm,
+                        key: Key) -> torch.Tensor:
+    """One ``all_gather`` of the workers' rows, then the same gossip on
+    every rank (:func:`agg_pushsum_sparse`, K1 on the card); row w."""
+    layout, w = rank_worker(comm.mesh)
+    rows = comm.all_gather(g.float().reshape(-1), WORKER_AXES)
+    return agg_pushsum_sparse(rows, cfg, layout, key)[w].reshape(g.shape)
+
+
+def rank_trimmed(g: torch.Tensor, cfg: AggregatorConfig, comm,
+                 key: Key) -> torch.Tensor:
+    """``all_gather`` over every worker, then the trim (K4)."""
+    rows = comm.all_gather(g.float().reshape(-1), WORKER_AXES)
+    return trimmed_mean(rows, cfg.F, cfg.trim_backend).reshape(g.shape)
+
+
+def rank_hierarchical_trim(g: torch.Tensor, cfg: AggregatorConfig, comm,
+                           key: Key) -> torch.Tensor:
+    """The trim of the pod's rows (``all_gather`` over data), then of the
+    pod estimates (``all_gather`` over pods; F only with >= 2F + 1
+    pods)."""
+    P = comm.mesh.size("pod")
+    within = comm.all_gather(g.float().reshape(-1), "data")
+    pod_est = trimmed_mean(within, cfg.F, cfg.trim_backend)
+    if P == 1:
+        return pod_est.reshape(g.shape)
+    across = comm.all_gather(pod_est, "pod")
+    f_cross = cfg.F if P >= 2 * cfg.F + 1 else 0
+    return trimmed_mean(across, f_cross, cfg.trim_backend).reshape(g.shape)
+
+
+def rank_trimmed_sharded(g: torch.Tensor, cfg: AggregatorConfig, comm,
+                         key: Key) -> torch.Tensor:
+    """The reference's stripe exchange: the gradient in ``comm_dtype``,
+    zero-padded to W stripes; an ``all_to_all`` gives worker w stripe w of
+    every worker; it trims its D/W coordinates (K4) and an ``all_gather``
+    reassembles the estimate, in ``comm_dtype`` on the wire."""
+    W = rank_worker(comm.mesh)[0].n_workers
+    wire = _WIRE[cfg.comm_dtype]
+    flat = g.to(wire).reshape(-1)
+    D = flat.numel()
+    flat = torch.nn.functional.pad(flat, (0, (-D) % W))
+    recv = comm.all_to_all(flat.view(W, -1), WORKER_AXES)   # (W, D/W)
+    mine = trimmed_mean(recv.float(), cfg.F, cfg.trim_backend)
+    full = comm.all_gather(mine.to(wire), WORKER_AXES).reshape(-1)[:D]
+    return full.float().reshape(g.shape)
+
+
+RANK_AGGREGATORS: dict[str, Callable] = {
+    "mean": rank_mean,
+    "pushsum": rank_pushsum,
+    "pushsum_sparse": rank_pushsum_sparse,
+    "trimmed_mean": rank_trimmed,
+    "trimmed_mean_sharded": rank_trimmed_sharded,
+    "hierarchical_trim": rank_hierarchical_trim,
 }

@@ -1,5 +1,5 @@
 """Serve-step builders and request retry: the port of
-``repro.distributed.server`` without the mesh.
+``repro.distributed.server``.
 
 :class:`RetryPolicy` / :func:`call_with_retry` give the request level a
 bounded, jittered exponential backoff: a transient failure at the serving
@@ -8,9 +8,16 @@ it instead of failing the batch. The schedule is the reference's, so the
 same policy, clock and ``random.Random`` seed sleep the same delays.
 
 The step builders close over the config, the kernel ``backend`` and,
-for prefill, the cache capacity. Sharding the request batch over several
-cards (the reference's ``serve_shardings``) waits for the multi-GPU item
-(ROADMAP queue 1 item 8).
+for prefill, the cache capacity. With ``mesh=`` (a ``DeviceMesh`` or
+:class:`~repro_torch.distributed.sharding.RankMesh`, one process a rank)
+they are the reference's mesh-taking forms under ``serve_shardings``'
+layout: each rank serves its rows of the request batch (split over pod
+and data) on its model blocks of the parameters (the Megatron layout,
+whole local heads; :func:`~repro_torch.models.model.init_local_params`),
+its cache holds its local KV heads, and the vocabulary-split logits are
+gathered for the argmax. The model axis runs the attention decoders;
+RWKV6, the RG-LRU hybrid, Whisper and InternVL2 over it, and sub-head
+splits, are ROADMAP item 8c.
 """
 from __future__ import annotations
 
@@ -21,9 +28,13 @@ from typing import Any, Callable
 
 from ..configs.base import ArchConfig
 from ..models import model as M
+from ..models.model_axis import ModelAxis, check_model_axis
+from .comm import Comm
+from .sharding import RankMesh, batch_axes, cache_specs, param_specs
 
 __all__ = ["RequestTimeout", "RetriesExhausted", "RetryPolicy",
-           "call_with_retry", "make_prefill_step", "make_decode_step"]
+           "call_with_retry", "make_prefill_step", "make_decode_step",
+           "serve_shardings", "rank_rows"]
 
 
 class RequestTimeout(Exception):
@@ -110,25 +121,65 @@ def call_with_retry(
         f"{policy.max_attempts} attempts failed") from last
 
 
+def _model_axis(cfg: ArchConfig, mesh, comm: Comm | None):
+    """The model axis of ``mesh`` (None without a mesh)."""
+    if mesh is None:
+        return None
+    rm = mesh if isinstance(mesh, RankMesh) else RankMesh(mesh)
+    check_model_axis(cfg, rm.size("model"))
+    return ModelAxis(comm or Comm(rm))
+
+
+def rank_rows(x, mesh):
+    """This rank's rows of a global request batch ``x`` (B, ...): the
+    block of (pod, data), replicated over model (``serve_shardings``'
+    batch spec)."""
+    rm = mesh if isinstance(mesh, RankMesh) else RankMesh(mesh)
+    n, i = rm.size("pod", "data"), rm.index("pod", "data")
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} requests do not split over {n} "
+                         f"(pod, data) ranks")
+    b = x.shape[0] // n
+    return x[i * b:(i + 1) * b]
+
+
 def make_prefill_step(cfg: ArchConfig, cache_len: int | None = None,
-                      backend: str = "auto"):
+                      backend: str = "auto", *, mesh=None,
+                      comm: Comm | None = None):
     """``prefill_step(params, batch) -> (logits, cache)`` with
     ``batch["tokens"]`` (B, S) and, where the family takes them, the stub
     inputs ``batch["frames"]`` (audio) and ``batch["patch_embeds"]``
-    (VLM)."""
+    (VLM). With ``mesh`` the batch is this rank's rows (:func:`rank_rows`)
+    and ``params`` its model blocks; the logits come back whole."""
+    tp = _model_axis(cfg, mesh, comm)
+
     def prefill_step(params, batch):
         return M.prefill(params, cfg, batch["tokens"], cache_len=cache_len,
                          backend=backend,
                          patch_embeds=batch.get("patch_embeds"),
-                         frames=batch.get("frames"))
+                         frames=batch.get("frames"), tp=tp)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, backend: str = "auto"):
+def make_decode_step(cfg: ArchConfig, backend: str = "auto", *, mesh=None,
+                     comm: Comm | None = None):
     """``decode_step(params, cache, token) -> (logits, cache)``; the cache
-    is updated in place."""
+    is updated in place. With ``mesh``: this rank's rows, blocks and local
+    KV heads, the logits whole."""
+    tp = _model_axis(cfg, mesh, comm)
+
     def decode_step(params, cache, token):
-        return M.decode_step(params, cfg, cache, token, backend=backend)
+        return M.decode_step(params, cfg, cache, token, backend=backend,
+                             tp=tp)
 
     return decode_step
+
+
+def serve_shardings(cfg: ArchConfig, mesh, params_like, cache_like):
+    """(parameter specs, cache specs, token spec) of serving on ``mesh``:
+    no FSDP, the request batch over (pod, data)."""
+    pspecs = param_specs(params_like, cfg, mesh, fsdp=False)
+    cspecs = cache_specs(cache_like, cfg, mesh)
+    b = batch_axes(mesh)
+    return pspecs, cspecs, (b[0] if len(b) == 1 else b, None)

@@ -26,6 +26,22 @@ all-gathers it), the aggregator runs once over that buffer, each leaf's
 columns are cast back to the gradient's dtype as the reference's
 aggregators do, and one AdamW update covers every worker's copy.
 
+Over a device mesh (``mesh=``, a ``DeviceMesh`` or
+:class:`~repro_torch.distributed.sharding.RankMesh` with "data" and
+optionally "pod" and "model" dimensions; one process a rank) the steps
+are the reference's own layouts. Robust: the ``shard_map`` with pod and
+data manual, rank w = pod * per_pod + data one worker with one model copy
+(a ``model`` block of it over a model axis), rows ``[w B/W, (w+1) B/W)``
+of the global batch, its own Byzantine flip, its flattened float32
+gradient aggregated by the rank form of the aggregator
+(:data:`~repro_torch.distributed.aggregation.RANK_AGGREGATORS`), AdamW on
+its own copy, the loss averaged over the workers. Mean: the GSPMD step on
+data x model, each data rank's gradients summed over the data ranks and
+divided by their count (the implicit mean), ``n_micro`` splitting each
+rank's rows with the reference's stride interleave. Over a model axis the
+loss runs in the Megatron layout (:mod:`repro_torch.models.model_axis`)
+and the clip norm sums the split leaves' squares over the axis.
+
 Consensus error across worker copies is observable via ``param_spread``,
 the training-side analogue of Theorem 1's consensus-error bound.
 """
@@ -39,11 +55,16 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.prng import Key
 from ..models import model as M
+from ..models.model_axis import ModelAxis, check_model_axis
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update, leaves
-from .aggregation import AGGREGATORS, AggregatorConfig, WorkerLayout
+from .aggregation import (AGGREGATORS, RANK_AGGREGATORS, WORKER_AXES,
+                          AggregatorConfig, WorkerLayout, rank_worker)
+from .comm import Comm
+from .sharding import RankMesh, param_specs
 
 __all__ = ["TrainConfig", "WorkerLayout", "make_train_step",
-           "replicate_for_workers", "worker_opt_init", "param_spread"]
+           "replicate_for_workers", "worker_opt_init", "param_spread",
+           "gather_params"]
 
 Params = Any
 
@@ -61,7 +82,8 @@ class TrainConfig:
 
 
 def make_train_step(tc: TrainConfig, layout: WorkerLayout | None = None,
-                    backend: str = "auto", record: bool | str = False):
+                    backend: str = "auto", record: bool | str = False, *,
+                    mesh=None, comm: Comm | None = None):
     """The step function of ``tc``'s mode. ``backend`` is the kernel route
     of the model's mixers (``"auto"``: the kernels on the card).
 
@@ -78,11 +100,28 @@ def make_train_step(tc: TrainConfig, layout: WorkerLayout | None = None,
     ``step.aggregate``, for checks; ``record="aggregate"`` keeps the
     aggregate alone (the buffer is W times its size, and is otherwise
     freed before the optimizer's update). A mean step with ``record``
-    keeps its gradients, in ``leaves(params)`` order, as ``step.grads``."""
+    keeps its gradients, in ``leaves(params)`` order, as ``step.grads``.
+
+    ``mesh``: the rank forms (the module docstring), on every rank of the
+    mesh, with this rank's parameters and state: one copy (or its model
+    blocks, :func:`~repro_torch.models.model.init_local_params`), no
+    leading worker axis, ``adamw_init(params)``; ``layout`` is the mesh's.
+    ``comm`` (default: one on the mesh) carries the collectives; its
+    host-staging counters show what gloo staged. A robust step's
+    ``record`` keeps this rank's (D,) rows; a mean step's keeps this
+    rank's blocks of the gradients, averaged over the data ranks."""
     if tc.fsdp:
         raise NotImplementedError(
-            "fsdp=True shards parameters over devices: the port runs on one "
-            "card until multi-GPU training (ROADMAP queue 1 item 8)")
+            "fsdp=True shards parameters over the data axis: not ported "
+            "yet (ROADMAP item 8c); the mesh steps keep a whole copy, or "
+            "its model blocks, on each rank")
+    if mesh is not None:
+        rm = mesh if isinstance(mesh, RankMesh) else RankMesh(mesh)
+        comm = comm or Comm(rm)
+        check_model_axis(tc.arch, rm.size("model"))
+        if tc.agg.kind == "mean":
+            return _make_rank_mean_step(tc, rm, comm, backend, bool(record))
+        return _make_rank_robust_step(tc, rm, comm, backend, record)
     if tc.agg.kind == "mean":
         return _make_mean_step(tc, backend, bool(record))
     if layout is None:
@@ -101,18 +140,18 @@ def _micro_split(batch: dict, n_micro: int) -> dict:
     return {k: split(v) for k, v in batch.items()}
 
 
-def _loss(params: Params, cfg: ArchConfig, batch: dict, backend: str
-          ) -> torch.Tensor:
+def _loss(params: Params, cfg: ArchConfig, batch: dict, backend: str,
+          tp=None) -> torch.Tensor:
     """``loss_fn`` of a batch: tokens and labels, and the stub inputs a
     batch of the audio or VLM family carries (``frames``,
     ``patch_embeds``), as the reference's ``_loss``."""
     return M.loss_fn(params, cfg, batch["tokens"], batch["labels"], backend,
                      patch_embeds=batch.get("patch_embeds"),
-                     frames=batch.get("frames"))
+                     frames=batch.get("frames"), tp=tp)
 
 
 def _grads_microbatched(params: Params, cfg: ArchConfig, batch: dict,
-                        n_micro: int, backend: str
+                        n_micro: int, backend: str, tp=None
                         ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """(loss, grads in ``leaves(params)`` order). One micro-batch: the
     gradients in the parameters' dtype. Several: a float32 accumulator,
@@ -127,7 +166,7 @@ def _grads_microbatched(params: Params, cfg: ArchConfig, batch: dict,
                 for p, g in zip(ps, gs)]
 
     if n_micro <= 1:
-        loss = _loss(params, cfg, batch, backend)
+        loss = _loss(params, cfg, batch, backend, tp)
         return loss.detach(), grads(loss)
     micro = _micro_split(batch, n_micro)
     gacc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -135,7 +174,7 @@ def _grads_microbatched(params: Params, cfg: ArchConfig, batch: dict,
     loss_acc = torch.zeros((), dtype=torch.float32, device=ps[0].device)
     for i in range(n_micro):
         loss = _loss(params, cfg, {k: v[i] for k, v in micro.items()},
-                     backend)
+                     backend, tp)
         for a, g in zip(gacc, grads(loss)):
             a.add_(g.float())
         loss_acc = loss_acc + loss.detach()
@@ -225,6 +264,114 @@ def _make_robust_step(tc: TrainConfig, layout: WorkerLayout, backend: str,
 
 
 # ---------------------------------------------------------------------------
+# the steps over a device mesh: one process a rank
+# ---------------------------------------------------------------------------
+
+def _split_flags(tree, specs) -> list[bool]:
+    """For each leaf of ``tree`` in ``leaves`` order: whether its spec
+    splits it over "model"."""
+    if isinstance(tree, dict):
+        return [f for k in sorted(tree) for f in _split_flags(tree[k],
+                                                              specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [f for t, sp in zip(tree, specs) for f in _split_flags(t, sp)]
+    return [any(e == "model" or (isinstance(e, tuple) and "model" in e)
+                for e in specs)]
+
+
+def _model_split(cfg: ArchConfig, rm: RankMesh, comm: Comm):
+    """The clip norm's ``split`` over a model axis (None without one)."""
+    if rm.size("model") == 1:
+        return None
+    shapes = M.param_shapes(cfg)
+    flags = _split_flags(shapes, param_specs(shapes, cfg, rm))
+    return flags, lambda x: comm.all_reduce(x, "model")
+
+
+def _rows(batch: dict, i: int, n: int) -> dict:
+    B = batch["tokens"].shape[0]
+    if B % n:
+        raise ValueError(f"global batch {B} does not split over {n} ranks")
+    b = B // n
+    return {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+
+
+def _make_rank_mean_step(tc: TrainConfig, rm: RankMesh, comm: Comm,
+                         backend: str, record: bool):
+    cfg = tc.arch
+    n, i = rm.size(*WORKER_AXES), rm.index(*WORKER_AXES)
+    tp = ModelAxis(comm) if "model" in rm.shape else None
+    split = _model_split(cfg, rm, comm)
+
+    def step(params, opt_state, batch):
+        rows = _rows(batch, i, n)
+        with torch.enable_grad():
+            train = M._tmap(lambda p: p.detach().requires_grad_(), params)
+            loss, grads = _grads_microbatched(train, cfg, rows, tc.n_micro,
+                                              backend, tp)
+        with torch.no_grad():
+            if n > 1:       # the implicit GSPMD mean over the data ranks
+                for g in grads:
+                    g.copy_(comm.all_reduce(g.float(), WORKER_AXES) / n)
+                loss = comm.all_reduce(loss.float().clone(),
+                                       WORKER_AXES) / n
+            if record:
+                step.grads = grads
+            adamw_update(tc.opt, grads, opt_state, params, split=split)
+        return params, opt_state, loss
+
+    return step
+
+
+def _make_rank_robust_step(tc: TrainConfig, rm: RankMesh, comm: Comm,
+                           backend: str, record: bool | str):
+    cfg = tc.arch
+    agg_fn = RANK_AGGREGATORS[tc.agg.kind]
+    layout, w = rank_worker(rm)
+    W = layout.n_workers
+    byz = w in frozenset(tc.byzantine_workers)
+    tp = ModelAxis(comm, batch_axes=()) if "model" in rm.shape else None
+    split = _model_split(cfg, rm, comm)
+    grad_dtype = None if tc.n_micro <= 1 else torch.float32
+
+    def step(params, opt_state, batch, step_key: Key):
+        ps = leaves(params)
+        sizes = [p.numel() for p in ps]
+        rows = _rows(batch, w, W)
+        with torch.enable_grad():
+            mine = M._tmap(lambda p: p.detach().requires_grad_(), params)
+            loss, grads = _grads_microbatched(mine, cfg, rows, tc.n_micro,
+                                              backend, tp)
+        G = torch.empty((sum(sizes),), dtype=torch.float32,
+                        device=ps[0].device)
+        off = 0
+        for g in grads:
+            if byz:           # colluding sign-flip in the grad's dtype
+                g = -tc.byzantine_scale * g
+            G[off:off + g.numel()] = g.reshape(-1)
+            off += g.numel()
+        del grads, mine
+        with torch.no_grad():
+            agg = agg_fn(G, tc.agg, comm, step_key)
+            if record:
+                step.aggregate = agg
+                if record != "aggregate":
+                    step.grads = G
+            del G
+            per_leaf, off = [], 0
+            for p, n in zip(ps, sizes):
+                per_leaf.append(agg[off:off + n].to(grad_dtype or p.dtype)
+                                .reshape(p.shape))
+                off += n
+            del agg
+            adamw_update(tc.opt, per_leaf, opt_state, params, split=split)
+            loss = comm.all_reduce(loss.float().clone(), WORKER_AXES) / W
+        return params, opt_state, loss
+
+    return step
+
+
+# ---------------------------------------------------------------------------
 # worker-axis param helpers
 # ---------------------------------------------------------------------------
 
@@ -241,13 +388,44 @@ def worker_opt_init(params_w: Params) -> Params:
     return adamw_init(params_w, n_workers=leaves(params_w)[0].shape[0])
 
 
-def param_spread(params_w: Params) -> torch.Tensor:
+def param_spread(params_w: Params, mesh=None,
+                 comm: Comm | None = None) -> torch.Tensor:
     """Max over leaves of max |worker_i - mean|: the consensus error. The
     mean is taken in float32 and rounded to the leaf's dtype, as the
-    reference's ``mean`` of a bf16 leaf is."""
+    reference's ``mean`` of a bf16 leaf is. With ``mesh`` each rank holds
+    its worker's copy (or its model blocks): the mean is an
+    ``all_reduce`` over the workers, the max one over the whole mesh
+    (a collective: call it on every rank)."""
+    if mesh is not None:
+        rm = mesh if isinstance(mesh, RankMesh) else RankMesh(mesh)
+        comm = comm or Comm(rm)
+        W = rm.size(*WORKER_AXES)
+        out = torch.zeros((), device=leaves(params_w)[0].device)
+        for x in leaves(params_w):
+            mu = (comm.all_reduce(x.float().clone(), WORKER_AXES) / W
+                  ).to(x.dtype)
+            out = torch.maximum(out, (x.float() - mu.float()).abs().max())
+        return comm.all_reduce(out, WORKER_AXES + ("model",), op="max")
     out = None
     for x in leaves(params_w):
         mu = x.float().mean(dim=0, keepdim=True).to(x.dtype)
         s = (x.float() - mu.float()).abs().max()
         out = s if out is None else torch.maximum(out, s)
     return out
+
+
+def gather_params(params: Params, cfg: ArchConfig, mesh, *,
+                  workers: bool = False, comm: Comm | None = None) -> Params:
+    """A rank's parameters in the one-card trainer's layout, on every rank
+    (a collective): its model blocks gathered over "model", and with
+    ``workers`` every worker's copy stacked, ``(W, ...)`` leaves in worker
+    order (``replicate_for_workers``' layout), so either trainer loads the
+    checkpoint."""
+    from .sharding import gather_tree
+    rm = mesh if isinstance(mesh, RankMesh) else RankMesh(mesh)
+    comm = comm or Comm(rm)
+    full = gather_tree(params, param_specs(M.param_shapes(cfg), cfg, rm),
+                       rm, comm)
+    if not workers:
+        return full
+    return M._tmap(lambda x: comm.all_gather(x, WORKER_AXES), full)

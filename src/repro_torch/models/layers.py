@@ -25,6 +25,11 @@ outside any Pallas kernel. The MoE FFN's dispatch and expert products and
 the RG-LRU's scan are plain torch too: the reference has no kernel for
 them.
 
+Over a model axis (``tp=``, :mod:`repro_torch.models.model_axis`) the
+attention and MLP blocks take a rank's column and row blocks and sum their
+partial outputs, and the MoE runs the reference's expert-parallel
+dispatch (:func:`moe_block_sharded`).
+
 Where the reference multiplies a float32 activation by a bf16 weight, JAX
 promotes the product to float32; torch raises on mixed operands, so
 :func:`_matmul` makes that promotion explicit (cross-attention K/V over
@@ -70,6 +75,8 @@ def _dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
     (``fan_in ** -0.5`` unless ``scale``), then cast: the reference's cast
     order. The draws differ from ``jax.random``'s; tests convert the
     reference's parameters instead (``repro_torch.convert``)."""
+    if gen.device.type == "meta":          # model.param_shapes: no draw
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     if len(shape) == 3:    # (E, d, f) expert weights: fan-in is the middle
         fan_in = shape[1]
@@ -164,20 +171,36 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
     return p
 
 
-def _qk_project(p: Params, x: torch.Tensor, cfg: ArchConfig, positions):
+def _local_heads(cfg: ArchConfig, tp=None) -> tuple[int, int]:
+    """(query heads, KV heads) of this rank: all of them, or 1/mp of each
+    over a model axis (whole heads: ``check_model_axis`` guards the
+    split)."""
+    mp = 1 if tp is None else tp.size
+    return _n_heads_eff(cfg) // mp, cfg.n_kv_heads // mp
+
+
+def _qk_project(p: Params, x: torch.Tensor, cfg: ArchConfig, positions,
+                tp=None):
     """-> q (B, S, H, dh), k and v (B, S, Hkv, dh); v is a view of the
     projection. Each product promotes as JAX's does (a bf16 ``x`` against
     float32 weights: Whisper's encoder on bf16 frames), so its cotangent
-    is rounded to x's dtype on its own, as the reference's."""
+    is rounded to x's dtype on its own, as the reference's. Over a model
+    axis ``tp`` the rank's local heads, from its column blocks of the
+    projections."""
     B, S, _ = x.shape
-    hd, Hkv = cfg.head_dim, cfg.n_kv_heads
-    H = _n_heads_eff(cfg)
+    hd = cfg.head_dim
+    H, Hkv = _local_heads(cfg, tp)
+    q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    if tp is not None:
+        x = tp.copy_in(x)
+        if cfg.qk_norm:
+            q_norm, k_norm = tp.copy_in(q_norm), tp.copy_in(k_norm)
     q = _matmul(x, p["wq"]).reshape(B, S, H, hd)
     k = _matmul(x, p["wk"]).reshape(B, S, Hkv, hd)
     v = _matmul(x, p["wv"]).reshape(B, S, Hkv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        q = rms_norm(q, q_norm)
+        k = rms_norm(k, k_norm)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -272,23 +295,30 @@ def causal_attention(q, k, v, cfg: ArchConfig, *, window: int,
     return _plain_attention(q, k, v, cfg, causal=True, window=window)
 
 
+def _row_out(y: torch.Tensor, tp) -> torch.Tensor:
+    """A row-split product's partial sum, summed over the model axis."""
+    return y if tp is None else tp.reduce_out(y)
+
+
 def attention_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
                     positions: torch.Tensor, *, window: int = 0,
                     causal: bool = True,
-                    backend: str = "auto") -> torch.Tensor:
+                    backend: str = "auto", tp=None) -> torch.Tensor:
     """x: (B, S, d) pre-normed input -> (B, S, d). Causal attention takes
-    the kernel route; non-causal (Whisper's encoder) is plain torch."""
-    q, k, v = _qk_project(p, x, cfg, positions)
+    the kernel route; non-causal (Whisper's encoder) is plain torch. Over
+    a model axis ``tp`` each rank attends with its local heads and its
+    rows of ``wo``, and the partial outputs are summed."""
+    q, k, v = _qk_project(p, x, cfg, positions, tp)
     if causal:
         out = causal_attention(q, k, v, cfg, window=window, backend=backend)
     else:
         out = _plain_attention(q, k, v, cfg, causal=False, window=window)
     B, S, H, dh = out.shape
-    return out.reshape(B, S, H * dh) @ p["wo"]
+    return _row_out(out.reshape(B, S, H * dh) @ p["wo"], tp)
 
 
 def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                     cache: Params, *, backend: str = "auto"
+                     cache: Params, *, backend: str = "auto", tp=None
                      ) -> tuple[torch.Tensor, Params]:
     """Single-token decode against a (ring-buffer when windowed) KV cache.
 
@@ -297,12 +327,13 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
     written into ``cache`` in place and ``pos`` advanced in place; the same
     dict is returned. The window is the cache's own length (an ``swa``
     layer's cache holds ``min(cache_len, window)`` rows), so, as in the
-    reference, no window argument is needed."""
+    reference, no window argument is needed. Over a model axis ``tp``
+    the cache holds the rank's local KV heads."""
     B = x.shape[0]
     hd = cfg.head_dim
-    H = _n_heads_eff(cfg)
+    H = _local_heads(cfg, tp)[0]
     pos = cache["pos"]                 # absolute position of the new token
-    q, k, v = _qk_project(p, x, cfg, pos[:, None])
+    q, k, v = _qk_project(p, x, cfg, pos[:, None], tp)
     Wc = cache["k"].shape[2]
     slot = pos.long() % Wc             # ring buffer; append while pos < Wc
     bidx = torch.arange(B, device=x.device)
@@ -311,14 +342,14 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
     lengths = torch.clamp_max(pos + 1, Wc).to(torch.int32)
     out = attn_decode(q[:, 0], cache["k"], cache["v"], lengths,
                       backend=backend)
-    y = out.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
+    y = _row_out(out.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"], tp)
     cache["pos"].add_(1)
     return y, cache
 
 
 def init_attn_cache(cfg: ArchConfig, B: int, cache_len: int,
-                    device=None) -> Params:
-    hd, Hkv = cfg.head_dim, cfg.n_kv_heads
+                    device=None, tp=None) -> Params:
+    hd, Hkv = cfg.head_dim, _local_heads(cfg, tp)[1]
     return {
         "k": torch.zeros((B, Hkv, cache_len, hd), dtype=_dt(cfg),
                          device=device),
@@ -347,15 +378,20 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
+              tp=None) -> torch.Tensor:
     """The activation computes in float32 and is cast back to x's dtype
-    before the product, as in the reference."""
+    before the product, as in the reference. Over a model axis ``tp``:
+    the rank's columns of ``w_gate``/``w_up`` and rows of ``w_down``, the
+    partial outputs summed."""
+    if tp is not None:
+        x = tp.copy_in(x)
     if "w_gate" in p:
         act = F.silu if cfg.act == "swiglu" else _gelu
         h = act((x @ p["w_gate"]).float()).to(x.dtype) * (x @ p["w_up"])
     else:
         h = _gelu((x @ p["w_up"]).float()).to(x.dtype)
-    return h @ p["w_down"]
+    return _row_out(h @ p["w_down"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -406,11 +442,17 @@ def moe_slots(ids: torch.Tensor, E: int, cap: int
     return slot, kept
 
 
-def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig
+def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig, tp=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k MoE with per-expert capacity -> (y, aux): the
     reference's ``_moe_block_gspmd`` (its ``moe_block`` takes that path
-    whenever no mesh has a "model" axis, as on one card).
+    whenever no mesh has a "model" axis, as on one card); over a model
+    axis ``tp`` with ``cfg.moe_impl == "sharded"``, its expert-parallel
+    ``_moe_block_sharded`` (:func:`moe_block_sharded`), which a model axis
+    of several ranks runs whatever ``moe_impl`` says (its experts are
+    split). A rank dispatches its own rows, so its capacity comes from its
+    local tokens (the reference's GSPMD dispatch counts the global
+    batch's: the same at one data rank, or wherever nothing drops).
 
     Renormalized gates; the Switch aux ``E sum_e f_e P_e router_aux_coef``;
     the (E cap, d) dispatch buffer, in which assignments ranked at or past
@@ -418,6 +460,8 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig
     products over the expert axis; the gate-weighted combine, the k
     products (rounded to x's dtype, as the reference's are) summed in
     float32."""
+    if tp is not None and (cfg.moe_impl == "sharded" or tp.size > 1):
+        return moe_block_sharded(p, x, cfg, tp)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -442,6 +486,68 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ArchConfig
     w = (gates.reshape(-1) * kept).to(x.dtype)
     per = y_e[slot.clamp_max(E * cap - 1)] * w[:, None]
     y = per.view(T, k, d).float().sum(dim=1).to(x.dtype)
+    return y.view(B, S, d), aux
+
+
+def moe_local_dispatch(xt: torch.Tensor, router_w: torch.Tensor,
+                       w_gate: torch.Tensor, w_up: torch.Tensor,
+                       w_down: torch.Tensor, cfg: ArchConfig, E_total: int,
+                       e_offset: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One rank's expert compute (the reference's ``_moe_local_dispatch``):
+    route the T local tokens xt (T, d) over all ``E_total`` experts, keep
+    the assignments to this rank's E_loc experts ``[e_offset, e_offset +
+    E_loc)``, each ranked among them in token-major order against a
+    capacity from the local T, run those experts and combine -> (the
+    partial output (T, d), the local aux). The combine sums the k products
+    in float32, as :func:`moe_block`'s does."""
+    T, d = xt.shape
+    E_loc = w_gate.shape[0]
+    k = cfg.top_k
+    probs, gates, ids = moe_route({"router": router_w}, xt, k)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    frac = torch.bincount(ids.reshape(-1), minlength=E_total).float() \
+        / (T * k)
+    aux = E_total * torch.sum(frac * probs.mean(dim=0)) \
+        * cfg.router_aux_coef
+
+    cap = max(1, math.ceil(T * k / E_total * cfg.capacity_factor))
+    loc = ids - e_offset
+    mine = (loc >= 0) & (loc < E_loc)
+    slot, kept = moe_slots(torch.where(mine, loc, E_loc), E_loc + 1, cap)
+    kept = kept & mine.reshape(-1)
+    slot = torch.where(kept, slot, E_loc * cap)
+    tok = torch.arange(T, device=xt.device).repeat_interleave(k)
+    buf = xt.new_zeros((E_loc * cap, d))
+    buf[slot[kept]] = xt[tok[kept]]
+    h = buf.view(E_loc, cap, d)
+
+    act = F.silu if cfg.act == "swiglu" else _gelu
+    g = act(torch.bmm(h, w_gate).float()).to(xt.dtype)
+    u = torch.bmm(h, w_up)
+    y_e = torch.bmm(g * u, w_down).view(E_loc * cap, d)
+
+    w = (gates.reshape(-1) * kept).to(xt.dtype)
+    per = y_e[slot.clamp_max(E_loc * cap - 1)] * w[:, None]
+    y = per.view(T, k, d).float().sum(dim=1).to(xt.dtype)
+    return y, aux
+
+
+def moe_block_sharded(p: Params, x: torch.Tensor, cfg: ArchConfig, tp
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism over the model axis ``tp`` (the reference's
+    ``_moe_block_sharded``): x (B_loc, S, d) is this rank's batch rows,
+    replicated over model; ``p`` holds the replicated router and this
+    rank's E / mp experts (``e_offset = rank * E_loc``). The partial
+    outputs are summed over model; the aux is averaged over model, then
+    over the batch axes."""
+    B, S, d = x.shape
+    xt = tp.copy_in(x.reshape(B * S, d))
+    E_loc = p["w_gate"].shape[0]
+    y, aux = moe_local_dispatch(xt, tp.copy_in(p["router"]), p["w_gate"],
+                                p["w_up"], p["w_down"], cfg, cfg.n_experts,
+                                tp.rank * E_loc)
+    y = tp.reduce_out(y)
+    aux = tp.mean_batch(tp.mean_model(aux))
     return y.view(B, S, d), aux
 
 

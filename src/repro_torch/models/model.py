@@ -34,6 +34,11 @@ Entry points:
 output) and ``patch_embeds=`` (the VLM: (B, n_patches, 1024) ViT features,
 prepended as tokens) are the reference's stub inputs.
 
+``tp=`` (a :class:`~repro_torch.models.model_axis.ModelAxis`) runs the
+attention decoders over a model axis: the parameters are a rank's blocks
+(``init_local_params``), attention runs on the rank's local heads, the
+MoE on its experts, and the logits come back whole.
+
 ``backend=`` picks the kernel route of the mixers: on the card prefill
 and the forward run the ``swa_prefill`` kernel (causal attention) or the
 ``wkv6`` kernel (RWKV6) once per layer, and a decode step the
@@ -89,13 +94,13 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, kind: str,
     return p
 
 
-def _apply_ffn(p: Params, x: torch.Tensor, cfg: ArchConfig
+def _apply_ffn(p: Params, x: torch.Tensor, cfg: ArchConfig, tp=None
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """-> (y, the MoE aux loss or None)."""
     if cfg.ffn_kind == "moe":
-        return L.moe_block(p, x, cfg)
+        return L.moe_block(p, x, cfg, tp)
     if cfg.ffn_kind == "mlp":
-        return L.mlp_block(p, x, cfg), None
+        return L.mlp_block(p, x, cfg, tp), None
     return L.rwkv_cm_block(p, x, cfg), None
 
 
@@ -103,24 +108,27 @@ def _window(cfg: ArchConfig, kind: str) -> int:
     return cfg.window if kind == "swa" else 0
 
 
-def _mixer_train(p, x, cfg: ArchConfig, kind: str, positions, backend):
+def _mixer_train(p, x, cfg: ArchConfig, kind: str, positions, backend,
+                 tp=None):
     if kind == "wkv6":
         return L.wkv6_block(p, x, cfg, backend)
     if kind == "rglru":
         return L.rglru_block(p, x, cfg)
     return L.attention_block(p, x, cfg, positions,
-                             window=_window(cfg, kind), backend=backend)
+                             window=_window(cfg, kind), backend=backend,
+                             tp=tp)
 
 
 def block_train(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
                 positions: torch.Tensor, backend: str = "auto",
-                enc: torch.Tensor | None = None
+                enc: torch.Tensor | None = None, tp=None
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Pre-norm residual block over a whole sequence -> (x, the MoE aux
     loss or None). ``enc``: the encoder output the cross-attention of an
-    encoder-decoder's block reads."""
+    encoder-decoder's block reads; ``tp``: the model axis
+    (:mod:`repro_torch.models.model_axis`)."""
     h = L.apply_norm(p["norm1"], x, cfg)
-    mix = _mixer_train(p["mixer"], h, cfg, kind, positions, backend)
+    mix = _mixer_train(p["mixer"], h, cfg, kind, positions, backend, tp)
     if cfg.parallel_block:
         y, aux = _apply_ffn(p["ffn"], h, cfg)
         return x + mix + y, aux
@@ -128,7 +136,7 @@ def block_train(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
     if "xattn" in p:
         hx = L.apply_norm(p["norm_x"], x, cfg)
         x = x + L.cross_attention_block(p["xattn"], hx, enc, cfg)
-    y, aux = _apply_ffn(p["ffn"], L.apply_norm(p["norm2"], x, cfg), cfg)
+    y, aux = _apply_ffn(p["ffn"], L.apply_norm(p["norm2"], x, cfg), cfg, tp)
     return x + y, aux
 
 
@@ -145,27 +153,62 @@ def _stack_plan(cfg: ArchConfig) -> tuple[int, int]:
     return cfg.n_layers // P, cfg.n_layers % P
 
 
-def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
+class _ShapeGen:
+    """The generator of :func:`param_shapes`: ``_dense_init`` draws
+    nothing on the meta device."""
+
+    device = torch.device("meta")
+
+
+def _taken(take, path: tuple, tree, lead: int = 0):
+    """``take(path names, leaf, lead)`` over a freshly drawn subtree."""
+    if take is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _taken(take, path + (str(k),), v, lead)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_taken(take, path + (str(i),), v, lead)
+                          for i, v in enumerate(tree))
+    return take(list(path), tree, lead)
+
+
+def init_params(seed: int, cfg: ArchConfig, device=None, *,
+                take=None) -> Params:
     """Seeded random parameters on ``device`` (``None``: the card), drawn
     leaf by leaf in float32 and cast, in the reference's shapes and layout.
     A stacked group is filled layer by layer into its ``(R, ...)`` leaves,
-    so the peak is the parameters plus one layer's float32 draw."""
+    so the peak is the parameters plus one layer's float32 draw.
+
+    ``take(path names, leaf, lead)`` keeps a block of each leaf as it is
+    drawn (``lead`` = 1 for a layer of a stacked group, whose names are the
+    group's and whose spec has the stack's leading dimension): a rank
+    draws every leaf in order, so its blocks are those of the one-process
+    tree, and holds its blocks plus one layer's leaves
+    (:func:`init_local_params`)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    gen = _ShapeGen() if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(int(seed))
     d, V, dt = cfg.d_model, cfg.vocab, L._dt(cfg)
+
+    def top(name, tree):
+        return _taken(take, (name,), tree)
+
     params: Params = {
-        "embed": L._dense_init(gen, (V, d), dt, scale=0.02),
-        "final_norm": L.init_norm(gen, cfg),
+        "embed": top("embed", L._dense_init(gen, (V, d), dt, scale=0.02)),
+        "final_norm": top("final_norm", L.init_norm(gen, cfg)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = L._dense_init(gen, (d, V), dt)
+        params["lm_head"] = top("lm_head", L._dense_init(gen, (d, V), dt))
     if cfg.family == "vlm":
-        params["vis_proj"] = {"w1": L._dense_init(gen, (D_VIS, d), dt),
-                              "w2": L._dense_init(gen, (d, d), dt)}
+        params["vis_proj"] = top("vis_proj", {
+            "w1": L._dense_init(gen, (D_VIS, d), dt),
+            "w2": L._dense_init(gen, (d, d), dt)})
     if cfg.encoder_layers:
-        params["encoder"] = [_init_block(gen, cfg, "attn")
-                             for _ in range(cfg.encoder_layers)]
-        params["enc_norm"] = L.init_norm(gen, cfg)
+        params["encoder"] = [
+            _taken(take, ("encoder", str(i)), _init_block(gen, cfg, "attn"))
+            for i in range(cfg.encoder_layers)]
+        params["enc_norm"] = top("enc_norm", L.init_norm(gen, cfg))
     with_x = cfg.encoder_layers > 0
     P = len(cfg.block_pattern)
     R, tail = _stack_plan(cfg)
@@ -174,18 +217,50 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Params:
         for pos in range(P):
             stacked = None
             for r in range(R):
-                blk = _init_block(gen, cfg, cfg.block_pattern[pos], with_x)
+                blk = _taken(take, ("groups", str(pos)), _init_block(
+                    gen, cfg, cfg.block_pattern[pos], with_x), lead=1)
                 if stacked is None:
                     stacked = _tmap(lambda a: a.new_empty((R,) + a.shape), blk)
                 _tmap(lambda s, a, r=r: s[r].copy_(a), stacked, blk)
             groups.append(stacked)
         params["groups"] = groups
-        params["tail"] = [_init_block(gen, cfg, cfg.block_pattern[i % P],
-                                      with_x) for i in range(tail)]
+        params["tail"] = [
+            _taken(take, ("tail", str(i)), _init_block(
+                gen, cfg, cfg.block_pattern[i % P], with_x))
+            for i in range(tail)]
     else:
-        params["layers"] = [_init_block(gen, cfg, cfg.mixer_of(i), with_x)
-                            for i in range(cfg.n_layers)]
+        params["layers"] = [
+            _taken(take, ("layers", str(i)), _init_block(
+                gen, cfg, cfg.mixer_of(i), with_x))
+            for i in range(cfg.n_layers)]
     return params
+
+
+def param_shapes(cfg: ArchConfig) -> Params:
+    """The parameter tree of ``cfg`` as meta tensors: shapes and dtypes at
+    any size, nothing allocated (the port's ``jax.eval_shape`` of
+    ``init_params``)."""
+    return init_params(0, cfg, "meta")
+
+
+def init_local_params(seed: int, cfg: ArchConfig, specs: Params, mesh,
+                      device=None) -> Params:
+    """This rank's blocks of ``init_params(seed, cfg, device)`` under the
+    spec tree ``specs`` (``distributed.sharding.param_specs`` of
+    :func:`param_shapes`) on ``mesh`` (a ``RankMesh``), each leaf cut as
+    it is drawn."""
+    from ..distributed.sharding import local_block
+
+    def spec_of(names):
+        t = specs
+        for n in names:
+            t = t[int(n)] if isinstance(t, list) else t[n]
+        return t
+
+    def take(names, leaf, lead):
+        return local_block(leaf, spec_of(names)[lead:], mesh)
+
+    return init_params(seed, cfg, device, take=take)
 
 
 def _layers(params: Params, cfg: ArchConfig, cache: Params | None = None):
@@ -214,13 +289,25 @@ def _layers(params: Params, cfg: ArchConfig, cache: Params | None = None):
 # ---------------------------------------------------------------------------
 
 def embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                 patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+                 patch_embeds: torch.Tensor | None = None,
+                 tp=None) -> torch.Tensor:
     """The token embeddings (B, S, d); a VLM prepends its projected
     patches: ``gelu(patch_embeds @ w1)`` in float32 (``patch_embeds`` is
     float32, so the product is promoted as in the reference), cast to the
-    embeddings' dtype, then ``@ w2``."""
+    embeddings' dtype, then ``@ w2``. Over a model axis ``tp`` each rank
+    holds a block of vocabulary rows: it looks up the tokens in its block,
+    zeros the others, and the ranks' rows are summed (exact: one non-zero
+    term a token)."""
     emb = params["embed"]
-    x = emb[tokens.to(emb.device)]                    # (B, S, d) gather
+    tokens = tokens.to(emb.device)
+    if tp is not None:
+        V_loc = emb.shape[0]
+        local = tokens.long() - tp.rank * V_loc
+        mine = (local >= 0) & (local < V_loc)
+        x = emb[local.clamp(0, V_loc - 1)]
+        x = tp.reduce_out(torch.where(mine[..., None], x, x.new_zeros(())))
+    else:
+        x = emb[tokens]                               # (B, S, d) gather
     if cfg.family == "vlm" and patch_embeds is not None:
         p = params["vis_proj"]
         vis = L._gelu(L._matmul(patch_embeds.to(emb.device), p["w1"])
@@ -257,9 +344,13 @@ def encode(params: Params, frames: torch.Tensor,
     return L.apply_norm(params["enc_norm"], x, cfg)
 
 
-def lm_logits(params: Params, cfg: ArchConfig,
-              x: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: Params, cfg: ArchConfig, x: torch.Tensor,
+              tp=None) -> torch.Tensor:
+    """The logits of the hidden states x; over a model axis ``tp`` this
+    rank's block of vocabulary columns (``tp.gather_last`` joins them)."""
     x = L.apply_norm(params["final_norm"], x, cfg)
+    if tp is not None:
+        x = tp.copy_in(x)
     if cfg.tie_embeddings:
         logits = x @ params["embed"].T
     else:
@@ -274,7 +365,7 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                    backend: str = "auto", *,
                    patch_embeds: torch.Tensor | None = None,
                    frames: torch.Tensor | None = None,
-                   with_aux: bool = False):
+                   with_aux: bool = False, tp=None):
     """The decoder trunk without the LM head: the pre-head hidden (B, S,
     d), S counting a VLM's prepended patches; with ``with_aux`` also the
     MoE aux loss summed over the layers in their order (a float32 scalar,
@@ -286,7 +377,7 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     pattern position and ``remat_group`` G > 1 dividing R checkpoints G
     layers at a time; tail layers run without remat, as in the
     reference."""
-    x = embed_inputs(params, cfg, tokens, patch_embeds)
+    x = embed_inputs(params, cfg, tokens, patch_embeds, tp)
     positions = torch.arange(x.shape[1], device=x.device)
     enc = encode(params, frames, cfg) if cfg.encoder_layers else None
     remat = cfg.remat and torch.is_grad_enabled()
@@ -302,7 +393,8 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         """-> (x, the blocks' MoE aux terms...)."""
         out = []
         for blk, kind in blocks:
-            x, aux = block_train(blk, x, cfg, kind, positions, backend, enc)
+            x, aux = block_train(blk, x, cfg, kind, positions, backend, enc,
+                                 tp)
             if aux is not None:
                 out.append(aux)
         return (x, *out)
@@ -330,15 +422,22 @@ def forward_train(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                   backend: str = "auto", *,
                   patch_embeds: torch.Tensor | None = None,
                   frames: torch.Tensor | None = None,
-                  with_aux: bool = False):
+                  with_aux: bool = False, tp=None):
     """Logits (B, S, V) of the full sequence; with ``with_aux`` the pair
-    (logits, aux) the reference returns (aux 0 without MoE)."""
+    (logits, aux) the reference returns (aux 0 without MoE). Over a model
+    axis ``tp`` the vocabulary blocks are gathered."""
     out = forward_hidden(params, cfg, tokens, backend,
                          patch_embeds=patch_embeds, frames=frames,
-                         with_aux=with_aux)
-    if with_aux:
-        return lm_logits(params, cfg, out[0]), out[1]
-    return lm_logits(params, cfg, out)
+                         with_aux=with_aux, tp=tp)
+    hidden = out[0] if with_aux else out
+    logits = _full_logits(params, cfg, hidden, tp)
+    return (logits, out[1]) if with_aux else logits
+
+
+def _full_logits(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                 tp=None) -> torch.Tensor:
+    logits = lm_logits(params, cfg, x, tp)
+    return logits if tp is None else tp.gather_last(logits)
 
 
 def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
@@ -353,7 +452,7 @@ def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
 def loss_fn(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             labels: torch.Tensor, backend: str = "auto", *,
             patch_embeds: torch.Tensor | None = None,
-            frames: torch.Tensor | None = None) -> torch.Tensor:
+            frames: torch.Tensor | None = None, tp=None) -> torch.Tensor:
     """Mean next-token cross-entropy plus the MoE aux loss summed over the
     layers (0 without MoE), as the reference's ``loss_fn``. A VLM with
     ``patch_embeds`` scores only the text positions: the patch rows are
@@ -366,22 +465,26 @@ def loss_fn(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     the vocabulary and scored under ``torch.utils.checkpoint``, so the
     (B, S, V) logits never exist at once (the backward recomputes them a
     chunk at a time). A ragged last chunk is scored as it is; the
-    reference pads it and masks the padding out, which adds zeros."""
+    reference pads it and masks the padding out, which adds zeros.
+
+    Over a model axis ``tp`` the vocabulary-split logits are gathered
+    into the same cross-entropy on every rank (the gather's backward
+    keeps each rank's columns)."""
     labels = labels.to(params["embed"].device)
     n_vis = patch_embeds.shape[1] \
         if cfg.family == "vlm" and patch_embeds is not None else 0
     hidden, aux = forward_hidden(params, cfg, tokens, backend,
                                  patch_embeds=patch_embeds, frames=frames,
-                                 with_aux=True)
+                                 with_aux=True, tp=tp)
     hidden = hidden[:, n_vis:]
     B, S, _ = hidden.shape
     if cfg.ce_chunk <= 0:
-        return _ce_from_logits(lm_logits(params, cfg, hidden),
+        return _ce_from_logits(_full_logits(params, cfg, hidden, tp),
                                labels) / (B * S) + aux
     C = cfg.ce_chunk
 
     def chunk_ce(h, lab):
-        return _ce_from_logits(lm_logits(params, cfg, h), lab)
+        return _ce_from_logits(_full_logits(params, cfg, h, tp), lab)
 
     total = hidden.new_zeros((), dtype=torch.float32)
     for c0 in range(0, S, C):
@@ -398,7 +501,7 @@ def loss_fn(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _cache_spec(cfg: ArchConfig, kind: str, B: int, cache_len: int,
-                device) -> Params:
+                device, tp=None) -> Params:
     if kind not in _MIXERS:
         raise ValueError(kind)
     if kind == "wkv6":
@@ -408,7 +511,7 @@ def _cache_spec(cfg: ArchConfig, kind: str, B: int, cache_len: int,
     else:
         wlen = min(cache_len, cfg.window) \
             if (kind == "swa" and cfg.window) else cache_len
-        c = {"mixer": L.init_attn_cache(cfg, B, wlen, device)}
+        c = {"mixer": L.init_attn_cache(cfg, B, wlen, device, tp)}
     if cfg.ffn_kind == "rwkv_cm":
         # channel-mix token-shift state (previous post-norm2 activation)
         c["cm_prev"] = torch.zeros((B, cfg.d_model), dtype=L._dt(cfg),
@@ -417,9 +520,11 @@ def _cache_spec(cfg: ArchConfig, kind: str, B: int, cache_len: int,
 
 
 def init_cache(params: Params, cfg: ArchConfig, B: int, cache_len: int,
-               enc: torch.Tensor | None = None) -> Params:
+               enc: torch.Tensor | None = None, tp=None) -> Params:
     """An all-zeros cache on the parameters' device (callers set ``pos``);
-    an encoder-decoder's carries the encoder output as ``enc``."""
+    an encoder-decoder's carries the encoder output as ``enc``. Over a
+    model axis ``tp`` the K/V leaves hold the rank's local KV heads
+    (``distributed.sharding.cache_specs``)."""
     dev = params["embed"].device
     P = len(cfg.block_pattern)
     cache: Params = {}
@@ -427,35 +532,38 @@ def init_cache(params: Params, cfg: ArchConfig, B: int, cache_len: int,
         R, tail = _stack_plan(cfg)
         cache["groups"] = [
             _tmap(lambda a: a.new_zeros((R,) + a.shape),
-                  _cache_spec(cfg, cfg.block_pattern[pos], B, cache_len, dev))
+                  _cache_spec(cfg, cfg.block_pattern[pos], B, cache_len, dev,
+                              tp))
             for pos in range(P)]
         cache["tail"] = [_cache_spec(cfg, cfg.block_pattern[i % P], B,
-                                     cache_len, dev) for i in range(tail)]
+                                     cache_len, dev, tp) for i in range(tail)]
     else:
         cache["layers"] = [_cache_spec(cfg, cfg.mixer_of(i), B, cache_len,
-                                       dev) for i in range(cfg.n_layers)]
+                                       dev, tp) for i in range(cfg.n_layers)]
     if enc is not None:
         cache["enc"] = enc
     return cache
 
 
-def _mixer_decode(p, x, cfg: ArchConfig, kind: str, cache, backend: str):
+def _mixer_decode(p, x, cfg: ArchConfig, kind: str, cache, backend: str,
+                  tp=None):
     if kind not in _MIXERS:
         raise ValueError(kind)
     if kind == "wkv6":
         return L.wkv6_decode(p, x, cfg, cache)
     if kind == "rglru":
         return L.rglru_decode(p, x, cfg, cache)
-    return L.attention_decode(p, x, cfg, cache, backend=backend)
+    return L.attention_decode(p, x, cfg, cache, backend=backend, tp=tp)
 
 
 def block_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
                  cache: Params, backend: str = "auto",
-                 enc: torch.Tensor | None = None) -> torch.Tensor:
+                 enc: torch.Tensor | None = None, tp=None) -> torch.Tensor:
     """One token through one block; the block's cache is updated in
     place. ``enc``: the encoder output the cross-attention reads."""
     h = L.apply_norm(p["norm1"], x, cfg)
-    mix, _ = _mixer_decode(p["mixer"], h, cfg, kind, cache["mixer"], backend)
+    mix, _ = _mixer_decode(p["mixer"], h, cfg, kind, cache["mixer"], backend,
+                           tp)
     if cfg.parallel_block:
         return x + mix + _apply_ffn(p["ffn"], h, cfg)[0]
     x = x + mix
@@ -468,21 +576,22 @@ def block_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
                                   x_prev=cache["cm_prev"][:, None])
         cache["cm_prev"].copy_(h2[:, 0])
         return x + ffn_out
-    return x + _apply_ffn(p["ffn"], h2, cfg)[0]
+    return x + _apply_ffn(p["ffn"], h2, cfg, tp)[0]
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Params,
-                token: torch.Tensor, backend: str = "auto"
+                token: torch.Tensor, backend: str = "auto", tp=None
                 ) -> tuple[torch.Tensor, Params]:
     """token: (B, 1) int -> (logits (B, 1, V), cache). The cache is
     updated in place (the new K/V row and ``pos``, the RWKV6 state and
     token-shift rows, or the RG-LRU state and conv history) and returned;
-    the reference returns a new one."""
-    x = embed_inputs(params, cfg, token)
+    the reference returns a new one. Over a model axis ``tp`` the logits
+    are gathered from the vocabulary blocks."""
+    x = embed_inputs(params, cfg, token, tp=tp)
     enc = cache.get("enc")
     for blk, kind, c in _layers(params, cfg, cache):
-        x = block_decode(blk, x, cfg, kind, c, backend, enc)
-    return lm_logits(params, cfg, x), cache
+        x = block_decode(blk, x, cfg, kind, c, backend, enc, tp)
+    return _full_logits(params, cfg, x, tp), cache
 
 
 def _prime(dst: torch.Tensor, src: torch.Tensor, S: int) -> None:
@@ -504,7 +613,7 @@ def _prime(dst: torch.Tensor, src: torch.Tensor, S: int) -> None:
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             cache_len: int | None = None, backend: str = "auto", *,
             patch_embeds: torch.Tensor | None = None,
-            frames: torch.Tensor | None = None
+            frames: torch.Tensor | None = None, tp=None
             ) -> tuple[torch.Tensor, Params]:
     """Full-sequence prefill -> (last-position logits (B, 1, V), primed
     cache). ``cache_len`` is the KV capacity (default S, counting a VLM's
@@ -516,12 +625,14 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     the last normed token; each RG-LRU layer keeps the scan's last row and
     the last three rows of its input projection (zeros before a short
     prompt); the channel mix keeps its last input. An encoder-decoder
-    encodes ``frames`` once and keeps the output in the cache."""
-    x = embed_inputs(params, cfg, tokens, patch_embeds)
+    encodes ``frames`` once and keeps the output in the cache. Over a
+    model axis ``tp`` each rank primes its local KV heads and the logits
+    are gathered from the vocabulary blocks."""
+    x = embed_inputs(params, cfg, tokens, patch_embeds, tp)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     enc = encode(params, frames, cfg) if cfg.encoder_layers else None
-    cache = init_cache(params, cfg, B, cache_len or S, enc)
+    cache = init_cache(params, cfg, B, cache_len or S, enc, tp)
     for blk, kind, c in _layers(params, cfg, cache):
         h = L.apply_norm(blk["norm1"], x, cfg)
         if kind == "wkv6":
@@ -536,14 +647,14 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             c["mixer"]["conv"].copy_(
                 F.pad(xw, (0, 0, hist.shape[1], 0))[:, -hist.shape[1]:])
         else:
-            q, k, v = L._qk_project(blk["mixer"], h, cfg, positions)
+            q, k, v = L._qk_project(blk["mixer"], h, cfg, positions, tp)
             _prime(c["mixer"]["k"], k, S)
             _prime(c["mixer"]["v"], v, S)
             c["mixer"]["pos"].fill_(S)
             out = L.causal_attention(q, k, v, cfg,
                                      window=_window(cfg, kind),
                                      backend=backend)
-            mix = out.reshape(B, S, -1) @ blk["mixer"]["wo"]
+            mix = L._row_out(out.reshape(B, S, -1) @ blk["mixer"]["wo"], tp)
         if cfg.parallel_block:
             x = x + mix + _apply_ffn(blk["ffn"], h, cfg)[0]
             continue
@@ -552,7 +663,7 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             hx = L.apply_norm(blk["norm_x"], x, cfg)
             x = x + L.cross_attention_block(blk["xattn"], hx, enc, cfg)
         h2 = L.apply_norm(blk["norm2"], x, cfg)
-        x = x + _apply_ffn(blk["ffn"], h2, cfg)[0]
+        x = x + _apply_ffn(blk["ffn"], h2, cfg, tp)[0]
         if cfg.ffn_kind == "rwkv_cm":
             c["cm_prev"].copy_(h2[:, -1])
-    return lm_logits(params, cfg, x[:, -1:]), cache
+    return _full_logits(params, cfg, x[:, -1:], tp), cache

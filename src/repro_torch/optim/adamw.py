@@ -89,9 +89,21 @@ def adamw_init(params: Params, moment_dtype: str = "float32", *,
             "step": torch.zeros(shape, dtype=torch.int32, device=dev)}
 
 
-def _global_norm(tree: Params, n_lead: int = 0) -> torch.Tensor:
+def _global_norm(tree: Params, n_lead: int = 0, split=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, in float32; with
-    ``n_lead`` leading worker axes, one norm per worker."""
+    ``n_lead`` leading worker axes, one norm per worker. ``split``: a
+    model axis' ``(flags, all_reduce)``, a flag a leaf for the leaves
+    split over it, whose sums of squares are summed over the axis (the
+    replicated leaves count once)."""
+    if split is not None:
+        flags, all_reduce = split
+        parts = [None, None]
+        for leaf, f in zip(leaves(tree), flags):
+            s = torch.square(leaf.float()).sum()
+            parts[f] = s if parts[f] is None else parts[f] + s
+        zero = torch.zeros((), device=leaves(tree)[0].device)
+        total = all_reduce(zero if parts[1] is None else parts[1].clone())
+        return torch.sqrt(total + (zero if parts[0] is None else parts[0]))
     total = None
     for leaf in leaves(tree):
         if n_lead == 1 and leaf.stride(0) == 0:
@@ -107,17 +119,18 @@ def _global_norm(tree: Params, n_lead: int = 0) -> torch.Tensor:
 
 
 def adamw_update(cfg: AdamWConfig, grads: Params, state: Params,
-                 params: Params, *, n_lead: int = 0
+                 params: Params, *, n_lead: int = 0, split=None
                  ) -> tuple[Params, Params]:
     """One AdamW step -> (params, state), both updated in place.
 
     ``grads`` matches ``params`` leaf for leaf (any dtype; a stride-0
     ``expand`` over the worker axis is read as it is). With ``n_lead=1``
     every leaf carries a leading worker axis and ``state["step"]`` is
-    ``(W,)``."""
+    ``(W,)``. ``split``: the clip norm over a model axis (see
+    ``_global_norm``), for a rank that holds blocks of the leaves."""
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)
-    gnorm = _global_norm(grads, n_lead)
+    gnorm = _global_norm(grads, n_lead, split)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                             1.0)
     b1, b2 = cfg.beta1, cfg.beta2
