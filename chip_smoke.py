@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: Algorithm 3
 (social learning), Algorithm 2 (Byzantine-resilient learning), Algorithm 1
 (push-sum consensus and hierarchical push-sum), grids of Algorithm 1, 2
-and 3 scenarios run as one graph, the serving path of the dense GQA models (Qwen3-8B) and of RWKV6 (RWKV6-1.6B),
-and decentralized robust training (paper_sim; OLMoE-1B-7B, Whisper-small and
+and 3 scenarios run as one graph, the serving path of every model family
+(Qwen3-8B, RWKV6-1.6B, OLMoE-1B-7B, RecurrentGemma-2B, Whisper-small,
+InternVL2-26B), on one process and over model ranks, and decentralized
+robust training (paper_sim; OLMoE-1B-7B, Whisper-small and
 InternVL2-26B).
 
 Phases (any failure raises and the script exits non-zero):
@@ -24,7 +26,13 @@ Phases (any failure raises and the script exits non-zero):
              scattered valid slots, deg <= 2F, F = 0, +-1e6, NaN, sign-bit
              NaN and +-inf lies), and the plain trim-gather on the card
              bit-equal to its CPU run with sign-bit NaN lies at deg_max 33
-             and 64;
+             and 64; K5's rank-partial mode on each block of a ring at
+             RecurrentGemma's per-rank shape (8 requests, 10 query heads on
+             one KV head of 256, 1,024 and 512 rows of a 2,048-row ring; a
+             wrapped ring, empty blocks, ragged lengths; bf16 and float32)
+             against its plain version, an empty block's triple exactly
+             (0, -inf, 0), and the blocks' merge through K5's combine
+             kernel against the plain merge and the whole decode;
 3. main    — run_social_runtime at N = 131,072 agents (16,384 complete
              8-agent networks, E = 917,504 links), T = 200, through the
              kernels and again through the plain path; both kernels must
@@ -314,7 +322,32 @@ Phases (any failure raises and the script exits non-zero):
              process; (f) (c)'s requests through the mesh-taking steps on
              a 1 x 1 NCCL mesh, bit-equal to the one-process run; K4, K1,
              K5 and K6 at these shapes beside their plain versions, bounds
-             and library calls.
+             and library calls;
+25. the other families over model ranks — 4 gloo ranks sharing this
+             card, each serving its model blocks (init_local_params) through
+             the mesh-taking steps, 2 x 2,048-token prompts and 16 decode
+             steps teacher-forced on the one-process bf16 kernel path's
+             greedy tokens, each run in bf16 and in float32 (the same
+             weights upcast): RecurrentGemma-2B at 3 layers (one (rglru,
+             rglru, swa) pattern) on (data 2 x model 2) and (model 4) (its
+             one KV head of 256 split over the 2,048-row ring's rows,
+             which the first decode step wraps into rank 0's block; 10
+             query heads as 5 and 2.5 a rank; K6 on the heads a rank
+             attends with, K5's rank-partial mode and its merge once a
+             decode step); RWKV6-1.6B at 4 layers (K7 on 16 heads a rank),
+             Whisper-small at full depth and InternVL2-26B at 2 layers
+             (K5/K6 on local heads, their odd vocabularies whole on every
+             rank) on (data 2 x model 2). The float32 rank path is held
+             within 1e-4 of the one-process float32 kernel path, greedy
+             equal where the margin is clear on at least half the
+             positions; the bf16 rank path by phase 9's bounds against the
+             one-process float32 path, the one-process bf16 kernel path
+             as the noise, and its greedy choices equal the one-process
+             bf16 ones where the margin is clear, on at least a tenth of
+             the positions. RecurrentGemma on a 1 x 1 NCCL mesh
+             bit-equal to one process; the rank-partial K5, its merge, K6
+             on gathered heads and K7 on local heads timed beside their
+             plain versions, bounds and library calls.
 
 Phases 3, 5, 6b, 6c, 9 and 18 also print their run's peak memory beside
 repro_torch.analysis' memory model, and require the bytes the run itself
@@ -3576,6 +3609,7 @@ def main() -> int:
 
     k2_err = innovation_checks(dev, args["k2"])
     k3_err = trim_gather_checks(dev, args)
+    k5p_err = k5_partial_checks(dev)
     m_hyp = model.m
 
     lap("phase 2")
@@ -3827,6 +3861,34 @@ def main() -> int:
         name: mm[name][0]["launches"].get("attn_decode", 0)
         for name in MM_SERVES})
     lap("phase 24")
+    # ---- phase 25: the other families over model ranks --------------------
+    fa = family_axis_phase(dev, flush)
+    ft_ = fa["times"]
+
+    def fa_launches(name: str) -> dict:
+        return {run: r["launches"].get(name, 0)
+                for run, r in fa["runs"].items()
+                if r["launches"].get(name, 0)}
+
+    by_name["attn_decode"]["launches_family_ranks"] = fa_launches(
+        "attn_decode")
+    by_name["swa_prefill"].update(family_ranks=ft_["k6_gathered"],
+                                  launches_family_ranks=fa_launches(
+                                      "swa_prefill"))
+    by_name["wkv6"].update(family_ranks=ft_["k7_local"],
+                           launches_family_ranks=fa_launches("wkv6"))
+    partial = fa_launches("attn_decode_partial")
+    kernels.append({
+        "name": "attn_decode_partial", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attn_decode.cu",
+        "replaces": "src/repro/kernels/swa/swa.py:72",
+        "launches": sum(partial.values()), "launches_by_run": partial,
+        "launches_merge": sum(fa_launches("attn_decode_merge").values()),
+        "max_abs_err": k5p_err,
+        **{k: ft_["k5_partial"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+        "shape": ft_["k5_partial"]["shape"], "merge": ft_["k5_merge"]})
+    lap("phase 25")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3924,13 +3986,18 @@ def _wrappers() -> dict:
     from repro_torch.kernels.byz_trim import trim_gather_cuda
     from repro_torch.kernels.pushsum_edge import edge_scatter_cuda
     from repro_torch.kernels.social_innov import innovation_cuda
-    from repro_torch.kernels.swa import attn_decode_cuda, swa_prefill_cuda
+    from repro_torch.kernels.swa import (attn_decode_cuda,
+                                         attn_decode_merge_cuda,
+                                         attn_decode_partial_cuda,
+                                         swa_prefill_cuda)
     from repro_torch.kernels.trimmed_mean import trimmed_mean_cuda
     from repro_torch.kernels.wkv6 import wkv6_cuda
     return {"edge_scatter": edge_scatter_cuda,
             "social_innov": innovation_cuda,
             "byz_trim": trim_gather_cuda,
             "attn_decode": attn_decode_cuda,
+            "attn_decode_partial": attn_decode_partial_cuda,
+            "attn_decode_merge": attn_decode_merge_cuda,
             "swa_prefill": swa_prefill_cuda,
             "wkv6": wkv6_cuda,
             "trimmed_mean": trimmed_mean_cuda}
@@ -3940,6 +4007,8 @@ def _wrappers() -> dict:
 # wrapper, attribute)
 SUB_COUNTS = {"swa_prefill_tc": ("swa_prefill", "launches_tc"),
               "attn_decode_tc": ("attn_decode", "launches_tc"),
+              "attn_decode_partial_tc": ("attn_decode_partial",
+                                         "launches_tc"),
               "edge_scatter_tiled": ("edge_scatter", "launches_tiled"),
               "byz_trim_tensor_f": ("byz_trim", "launches_tensor_f"),
               "edge_scatter_edge_rows": ("edge_scatter",
@@ -7722,6 +7791,557 @@ def model_mesh_phase(dev, flush) -> dict:
         log(f"[ranks] (c)-(e) ranks: {time.perf_counter() - t0:.1f} s")
         fig["mean"] = mrows[0]["mean"]
         fig["k4_launches"] = k4
+    return fig
+
+
+
+# ---------------------------------------------------------------------------
+# K5's rank-partial mode (phase 2) and phase 25: the other families over
+# model ranks. Gloo ranks share this card; each serves its model blocks of
+# RecurrentGemma-2B (a sequence-split ring: K5's rank-partial mode), RWKV6
+# (K7 on its heads), Whisper-small and InternVL2-26B (K5/K6 on local heads,
+# whole odd vocabularies)
+# ---------------------------------------------------------------------------
+
+#: phase 2's rank-partial K5: RecurrentGemma's per-rank decode shape (8
+#: requests, 10 query heads on one KV head of 256), blocks of 1,024 and 512
+#: rows of a 2,048-row ring
+K5P_B, K5P_H, K5P_DH, K5P_WC = 8, 10, 256, 2048
+K5P_BLOCKS = (2, 4)
+
+
+def k5p_lengths(kind: str, n: int, g, dev):
+    """(B,) int32 valid rows of the whole ring: "wrapped" (every row),
+    "first" (rows in the first block only: the later blocks are empty),
+    "ragged" (random, one request at 1)."""
+    import torch
+    B, Wc = K5P_B, K5P_WC
+    if kind == "wrapped":
+        return torch.full((B,), Wc, dtype=torch.int32, device=dev)
+    hi = Wc // n if kind == "first" else Wc
+    L = torch.randint(1, hi + 1, (B,), generator=g, device=dev)
+    if kind == "ragged":
+        L[0] = 1
+    return L.to(torch.int32)
+
+
+def k5_partial_checks(dev) -> float:
+    """Phase 2: K5's rank-partial mode (``attn_decode_partial_cuda``) on
+    each block of the ring against its plain version, and the blocks'
+    merge through K5's combine kernel (``attn_decode_merge_cuda``) against
+    the plain merge and the whole decode's plain version, at RecurrentGemma's
+    per-rank shape, 2 and 4 blocks, a wrapped ring, empty blocks and ragged
+    lengths, bf16 (the attention rule: rtol 2^-8, atol 1e-5) and float32
+    (1e-5). An empty block's triple is (acc 0, m -inf, l 0) exactly ->
+    the largest error of a merge against the whole decode."""
+    import torch
+    from repro_torch.kernels.swa import (attn_decode_cuda, attn_decode_merge,
+                                         attn_decode_merge_cuda,
+                                         attn_decode_merge_ref,
+                                         attn_decode_partial,
+                                         attn_decode_partial_cuda,
+                                         attn_decode_partial_ref,
+                                         attn_decode_ref)
+    from repro_torch.kernels.swa.ops import _TICKETS
+    g = torch.Generator(device=dev).manual_seed(30)
+    B, H, dh, Wc = K5P_B, K5P_H, K5P_DH, K5P_WC
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = 2 ** -8 if dtype == torch.bfloat16 else 1e-5
+        q = torch.randn((B, H, dh), generator=g, device=dev).to(dtype)
+        k = (2 * torch.randn((B, 1, Wc, dh), generator=g, device=dev)
+             ).to(dtype)
+        v = torch.randn((B, 1, Wc, dh), generator=g, device=dev).to(dtype)
+        for n in K5P_BLOCKS:
+            Wb = Wc // n
+            for kind in ("wrapped", "first", "ragged"):
+                L = k5p_lengths(kind, n, g, dev)
+                before = (attn_decode_cuda.launches,
+                          attn_decode_partial_cuda.launches,
+                          attn_decode_merge_cuda.launches)
+                parts, empty_blocks = [], 0
+                for r in range(n):
+                    kb, vb = (t[:, :, r * Wb:(r + 1) * Wb].contiguous()
+                              for t in (k, v))
+                    Lr = torch.clamp(L - r * Wb, 0, Wb).to(torch.int32)
+                    acc, m, l = attn_decode_partial(q, kb, vb, Lr)
+                    wa, wm, wl = attn_decode_partial_ref(
+                        q.float(), kb.float(), vb.float(), Lr)
+                    e = Lr == 0
+                    empty_blocks += int(e.sum())
+                    require(bool((m[e] == -torch.inf).all())
+                            and bool((l[e] == 0).all())
+                            and bool((acc[e] == 0).all()),
+                            "K5 partial: an empty block's triple is "
+                            "(0, -inf, 0)")
+                    torch.testing.assert_close(m[~e], wm[~e], rtol=tol,
+                                               atol=1e-4)
+                    torch.testing.assert_close(
+                        acc[~e] / l[~e, :, None], wa[~e] / wl[~e, :, None],
+                        rtol=tol, atol=1e-5)
+                    parts.append((acc, m, l))
+                acc, m, l = (torch.stack(t) for t in zip(*parts))
+                got = attn_decode_merge(acc, m, l, dtype)
+                torch.cuda.synchronize()
+                require((attn_decode_cuda.launches,
+                         attn_decode_partial_cuda.launches,
+                         attn_decode_merge_cuda.launches)
+                        == (before[0], before[1] + n, before[2] + 1),
+                        "K5 partial: one partial launch a block and one "
+                        "merge, no whole decode")
+                torch.testing.assert_close(
+                    got.float(), attn_decode_merge_ref(acc, m, l), rtol=tol,
+                    atol=1e-5)
+                # the triples packed as the ranks gather them, read in place
+                packed = torch.cat([acc, m[..., None], l[..., None]], -1)
+                require(torch.equal(attn_decode_merge(
+                    packed[..., :dh], packed[..., dh], packed[..., dh + 1],
+                    dtype), got), "K5 merge: the packed triples' strided "
+                    "views merge bit-equal to the stacked ones")
+                want = attn_decode_ref(q.float(), k.float(), v.float(), L)
+                torch.testing.assert_close(got.float(), want, rtol=tol,
+                                           atol=1e-5)
+                e = (got.float() - want).abs().max().item()
+                err = max(err, e)
+                log(f"[kernels] K5 rank-partial {str(dtype)[6:]} B={B} "
+                    f"H={H} Hkv=1 dh={dh}, {n} blocks of {Wb} rows of a "
+                    f"{Wc}-row ring, {kind} lengths "
+                    f"({empty_blocks} empty (request, block) pairs): the "
+                    f"merged output against the whole plain decode "
+                    f"max_abs_err {e:.3e}")
+    require(all(int(t.abs().sum()) == 0 for t in _TICKETS.values()),
+            "K5's ticket counters are back at zero after the partial mode")
+    return err
+
+
+#: phase 25's runs: run -> (arch, layers (None: full depth), mesh (data,
+#: model) of the 4 gloo ranks). Published widths; depth cut to one
+#: RecurrentGemma pattern (rglru, rglru, swa), 4 RWKV6 layers, 2 InternVL2
+#: layers (each past phase 15's cells on the time limit), Whisper whole.
+#: (2, 2) serves one request a data rank on model 2. Each run serves in
+#: bf16 (the config's weights) and in float32 (the same weights, upcast)
+FA_RUNS = {
+    "recurrentgemma_mp2": ("recurrentgemma_2b", 3, (2, 2)),
+    "recurrentgemma_mp4": ("recurrentgemma_2b", 3, (1, 4)),
+    "rwkv6": ("rwkv6_1b6", 4, (2, 2)),
+    "whisper": ("whisper_small", None, (2, 2)),
+    "internvl2": ("internvl2_26b", 2, (2, 2)),
+}
+FA_DTYPES = ("bfloat16", "float32")
+FA_B, FA_S, FA_GEN = 2, 2048, 17      # prefill + 16 decode steps
+FA_WORLD = 4
+#: the float32 rank path's bound against the one-process float32 kernel
+#: path (the blocks sum their products in another order)
+FA_FP32_TOL = 1e-4
+#: the least share of positions on which the greedy rule is held: float32
+#: (against the one-process float32 path), bf16 (against the one-process
+#: bf16 choices: against float32, RWKV6's bf16 gap leaves 1 clear
+#: position of 34)
+FA_MIN_CLEAR = {"float32": 0.5, "bfloat16": 0.1}
+
+
+def fa_cfg(run: str, dtype: str = "bfloat16"):
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, layers, _ = FA_RUNS[run]
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def fa_params(params, dtype: str):
+    """The bf16 weights as ``dtype``: float32 upcasts every floating leaf
+    (the same model, computed in float32)."""
+    from repro_torch.models import model as M
+    if dtype == "bfloat16":
+        return params
+    return M._tmap(lambda t: t.float() if t.is_floating_point() else t,
+                   params)
+
+
+def fa_serve_logits(params, cfg, prompts, toks, stubs, mesh, comm,
+                    backend: str = "auto"):
+    """:func:`mm_serve_logits` with the family's stub inputs: the
+    mesh-taking prefill, then a decode step on each of ``toks[:, :-1]``
+    -> ((B, gen, V), the cache)."""
+    import torch
+    from repro_torch.distributed.server import (make_decode_step,
+                                                make_prefill_step)
+    S, gen = prompts.shape[1], toks.shape[1]
+    cache_len = S + gen + 1 + n_stub_rows(stubs)
+    pre = make_prefill_step(cfg, cache_len=cache_len, backend=backend,
+                            mesh=mesh, comm=comm)
+    dec = make_decode_step(cfg, backend=backend, cache_len=cache_len,
+                           mesh=mesh, comm=comm)
+    with torch.inference_mode():
+        lg, cache = pre(params, {"tokens": prompts, **stubs})
+        out = [lg[:, -1]]
+        for i in range(gen - 1):
+            lg, cache = dec(params, cache, toks[:, i:i + 1])
+            out.append(lg[:, -1])
+    return torch.stack(out, dim=1), cache
+
+
+def fa_rank(rank: int, world: int, port: int, out: str) -> None:
+    """Phase 25: model rank ``rank`` of 4 gloo ranks on this card, serving
+    each of :data:`FA_RUNS` on its mesh in bf16 and in float32 through the
+    mesh-taking steps, on its blocks of the one-process weights
+    (``init_local_params``), teacher-forced on the one-process bf16
+    tokens; K5 (whole and rank-partial), K6 and K7 counted from 0 around
+    each serve."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.comm import Comm
+    from repro_torch.distributed.server import rank_rows
+    from repro_torch.distributed.sharding import RankMesh, param_specs
+    from repro_torch.models import model as M
+    dev = mm_init(rank, world, port)
+    meshes = {}
+    for _, _, shape in FA_RUNS.values():
+        if shape not in meshes:
+            meshes[shape] = RankMesh(init_device_mesh(
+                "cuda", shape, mesh_dim_names=("data", "model")))
+    res = {}
+    try:
+        for run in FA_RUNS:
+            rm = meshes[FA_RUNS[run][2]]
+            comm = Comm(rm)
+            exp = torch.load(Path(out) / f"fa_exp_{run}.pt")
+            prompts = rank_rows(exp["prompts"].to(dev), rm)
+            toks = rank_rows(exp["toks"].to(dev), rm)
+            for dtype in FA_DTYPES:
+                cfg = fa_cfg(run, dtype)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                params = fa_params(M.init_local_params(
+                    0, fa_cfg(run), param_specs(M.param_shapes(cfg), cfg,
+                                                rm), rm, dev), dtype)
+                torch.cuda.synchronize()
+                t_init = time.perf_counter() - t0
+                stubs = {k: rank_rows(v, rm) for k, v in
+                         family_stubs(cfg, FA_B, dev).items()}
+                _zero_counts()
+                t0 = time.perf_counter()
+                lg, cache = fa_serve_logits(params, cfg, prompts, toks,
+                                            stubs, rm, comm)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                kv = [c["mixer"]["k"].shape[2] for c in
+                      cache.get("layers", []) + cache.get("tail", [])
+                      if "k" in c["mixer"]]
+                for c in cache.get("groups", []):
+                    if "k" in c["mixer"]:
+                        kv.append(c["mixer"]["k"].shape[3])
+                res[f"{run}/{dtype}"] = {
+                    "launches": {k: v for k, v in _counts().items() if v},
+                    "init_s": t_init, "serve_s": wall,
+                    "kv_rows": sorted(set(kv)),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "held_gb": sum(x.numel() * x.element_size()
+                                   for x in _leaves(params)) / 1e9,
+                    "staged": comm.staged_calls,
+                    "coordinate": list(rm.mesh.get_coordinate())}
+                if rm.index("model") == 0:
+                    torch.save(lg.cpu(), Path(out) /
+                               f"fa_rank_{run}_{dtype}_{rm.index('data')}.pt")
+                del params, lg, cache
+                torch.cuda.empty_cache()
+        (Path(out) / f"fa_{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def fa_reference(dev, out: str, run: str) -> dict:
+    """A run's one-process serve on this card: ``generate`` in bf16 on the
+    kernel path (its launches counted); the same weights upcast to float32
+    teacher-forced on its tokens, on the kernel path and on the plain path
+    (the float32 run's noise); for RecurrentGemma on model 2 also the bf16
+    requests through the mesh-taking steps on a 1 x 1 NCCL mesh, bit-equal
+    to the one-process run. Saves prompts and tokens for the ranks ->
+    {lk, lk32, lp32, toks, counts, nccl}."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.prng import prng_key, randint_n
+    from repro_torch.distributed.comm import Comm
+    from repro_torch.distributed.sharding import RankMesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    cfg = fa_cfg(run)
+    params = M.init_params(0, cfg, dev)
+    prompts = randint_n(prng_key(25), FA_B * FA_S, 0, cfg.vocab,
+                        dev).reshape(FA_B, FA_S)
+    stubs = family_stubs(cfg, FA_B, dev)
+    _zero_counts()
+    with torch.inference_mode():
+        toks, lk = generate(params, cfg, prompts, FA_GEN, **stubs)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _counts().items() if v}
+    nccl = None
+    if run == "recurrentgemma_mp2":
+        dist.init_process_group("nccl", init_method="tcp://localhost:"
+                                f"{mm_free_port()}", rank=0, world_size=1)
+        try:
+            rm = RankMesh(init_device_mesh("cuda", (1, 1),
+                                           mesh_dim_names=("data", "model")))
+            comm = Comm(rm)
+            with torch.inference_mode():
+                toks_f, lk_f = generate(params, cfg, prompts, FA_GEN,
+                                        mesh=rm, comm=comm, **stubs)
+            torch.cuda.synchronize()
+            require(torch.equal(toks_f, toks) and torch.equal(lk_f, lk),
+                    "(25) the 1 x 1 NCCL mesh's tokens and logits bit-equal "
+                    "to the one-process run")
+            nccl = (f"1 x 1 NCCL mesh, {cfg.name} at {cfg.n_layers} layers "
+                    f"through the mesh-taking prefill and decode steps: "
+                    f"tokens and logits bit-equal to the one-process run; "
+                    f"host-staged {comm.staged_calls}")
+        finally:
+            dist.destroy_process_group()
+    cfg32 = fa_cfg(run, "float32")
+    params = fa_params(params, "float32")
+    with torch.inference_mode():
+        lk32 = serve_logits(params, cfg32, prompts, toks, "auto", stubs)
+        lp32 = serve_logits(params, cfg32, prompts, toks, "torch", stubs)
+    torch.save({"prompts": prompts.cpu(), "toks": toks.cpu()},
+               Path(out) / f"fa_exp_{run}.pt")
+    del params, stubs
+    torch.cuda.empty_cache()
+    return {"lk": lk, "lk32": lk32, "lp32": lp32, "toks": toks,
+            "counts": counts, "nccl": nccl}
+
+
+def fa_kernel_times(dev, flush) -> dict:
+    """K5's rank-partial mode and its merge, K6 and K7 at phase 25's
+    per-rank shapes, host hidden, beside their plain versions, bounds and
+    the nearest library call: the partial over a rank's 1,024 rows of
+    RecurrentGemma's 2,048-row ring (8 requests, 10 heads on one KV head of
+    256, bf16; SDPA over the same rows, which returns no (m, l)), the merge
+    of 2 ranks' triples, K6 on the 3 query heads a rank attends with at
+    model 4 (1 request of 2,048 tokens, head 256: the FMA kernel), K7 on
+    RWKV6-1.6B's 16 heads a rank at model 2 (1 request of 2,048 tokens)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.swa import (attn_decode_merge_cuda,
+                                         attn_decode_merge_ref,
+                                         attn_decode_partial_cuda,
+                                         attn_decode_partial_ref,
+                                         swa_prefill_cuda, swa_prefill_ref)
+    from repro_torch.kernels.wkv6 import wkv6_chunked_ref, wkv6_cuda
+    from repro_torch.kernels.wkv6.ops import group_chunks
+    g = torch.Generator(device=dev).manual_seed(31)
+    bf = torch.bfloat16
+    out = {}
+    B, H, dh, Wb = K5P_B, K5P_H, K5P_DH, K5P_WC // 2
+    q = torch.randn((B, H, dh), generator=g, device=dev).to(bf)
+    k, v = (torch.randn((B, 1, Wb, dh), generator=g, device=dev).to(bf)
+            for _ in range(2))
+    L = torch.full((B,), Wb, dtype=torch.int32, device=dev)
+    acc, m, l = attn_decode_partial_cuda(q, k, v, L)
+    ms = event_ms(lambda: attn_decode_partial_cuda(q, k, v, L), TIMED_RUNS,
+                  flush, True)
+    plain = event_ms(lambda: attn_decode_partial_ref(q, k, v, L), TIMED_RUNS,
+                     flush, True)
+    lib = event_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, enable_gqa=True), TIMED_RUNS, flush, True)
+    b, by = bound(nbytes(q, k, v, L, acc, m, l), 4 * B * H * Wb * dh,
+                  hw().peak_flops)
+    out["k5_partial"] = {"shape": [B, H, 1, Wb, dh], "ms": ms,
+                         "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                         "library_ms": lib}
+    parts = [t[None].expand(2, *t.shape).contiguous() for t in (acc, m, l)]
+    o = attn_decode_merge_cuda(*parts, bf)
+    ms = event_ms(lambda: attn_decode_merge_cuda(*parts, bf), TIMED_RUNS,
+                  flush, True)
+    plain = event_ms(lambda: attn_decode_merge_ref(*parts, bf), TIMED_RUNS,
+                     flush, True)
+    b, by = bound(nbytes(*parts, o), 4 * 2 * B * H * dh)
+    out["k5_merge"] = {"shape": [2, B, H, dh], "ms": ms, "plain_ms": plain,
+                       "bound_ms": b, "bound_by": by, "library_ms": None}
+    S, Hq = FA_S, 3
+    q6 = torch.randn((1, S, Hq, dh), generator=g, device=dev).to(bf)
+    k6, v6 = (torch.randn((1, S, 1, dh), generator=g, device=dev).to(bf)
+              for _ in range(2))
+    o6 = swa_prefill_cuda(q6, k6, v6, 2048)
+    tr = (0, 2, 1, 3)
+    ms = event_ms(lambda: swa_prefill_cuda(q6, k6, v6, 2048), 5, flush, True)
+    plain = event_ms(lambda: swa_prefill_ref(q6, k6, v6, 2048), 3, flush)
+    lib = event_ms(lambda: F.scaled_dot_product_attention(
+        q6.permute(tr), k6.permute(tr), v6.permute(tr), is_causal=True,
+        enable_gqa=True), 5, flush, True)
+    b, by = bound(nbytes(q6, k6, v6, o6), 4 * dh * Hq * (S * (S + 1) // 2),
+                  hw().peak_flops)
+    out["k6_gathered"] = {"shape": [1, S, Hq, 1, dh], "ms": ms,
+                          "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                          "library_ms": lib}
+    H7, T = 16, FA_S
+    # the model's layout: (1, H, T, 64) views of (1, T, H, 64) projections
+    r7, k7, v7, lw, u = wkv_inputs(g, H7, T, bf, "model", dev)
+
+    def heads(a):
+        return a.view(1, T, H7, WKV_HEAD).transpose(1, 2)
+
+    uh = u.view(1, H7, WKV_HEAD)
+    y7, s7 = wkv6_cuda(heads(r7), heads(k7), heads(v7), heads(lw), uh)
+    ms = event_ms(lambda: wkv6_cuda(heads(r7), heads(k7), heads(v7),
+                                    heads(lw), uh), 5, flush, True)
+    plain = event_ms(lambda: wkv6_chunked_ref(r7, k7, v7, lw, u, chunk=64),
+                     2, flush)
+    tc7, fma7 = wkv_ops(H7, T, group_chunks(
+        H7, T, torch.cuda.get_device_properties(dev).multi_processor_count))
+    ops_ms = (tc7 / hw().peak_flops + fma7 / hw().fp32_flops) * 1e3
+    bytes_ms = (nbytes(r7, k7, v7, lw, y7, s7) + H7 * WKV_HEAD * 4) \
+        / hw().hbm_bw * 1e3
+    b, by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    out["k7_local"] = {"shape": [1, H7, T, WKV_HEAD], "ms": ms,
+                       "plain_ms": plain,
+                       "bound_ms": b, "bound_by": by, "library_ms": None}
+    for tag, t in out.items():
+        log(f"[timing] (25) {tag} at {t['shape']}: {t['ms']:.5f} ms with the "
+            f"host hidden, plain {t['plain_ms']:.5f}, library "
+            f"{t['library_ms']}, bound {t['bound_ms']:.5f} ({t['bound_by']})")
+    del q, k, v, acc, m, l, parts, q6, k6, v6, r7, k7, v7, lw, u, y7, s7
+    torch.cuda.empty_cache()
+    return out
+
+
+def fa_hold_bf16(tag: str, lr, lk, l32) -> None:
+    """Phase 9's rule for a bf16 rank path ``lr``: its gaps to the float32
+    path ``l32`` within twice the rms and four times the max of the
+    one-process bf16 kernel path's ``lk`` (+ 1e-3 of the logits' rms, + one
+    bf16 ulp of the largest), and its greedy choices equal to the
+    one-process ones where ``lk``'s top-2 margin exceeds twice the largest
+    gap between the two, on at least ``FA_MIN_CLEAR["bfloat16"]`` of the
+    positions."""
+    import torch
+    mk, rk = logit_gaps(lr, l32)
+    mp, rp = logit_gaps(lk, l32)
+    mf = l32.float().abs().max().item()
+    rf = l32.float().pow(2).mean().sqrt().item()
+    gap = logit_gaps(lr, lk)[0]
+    top2 = lk.float().topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * gap
+    agree = torch.equal(lr.argmax(-1)[clear], lk.argmax(-1)[clear])
+    share = clear.float().mean().item()
+    log(f"{tag}: against the one-process float32 path (|logit| up to "
+        f"{mf:.3f}, rms {rf:.4f}): rank path max {mk:.4e} rms {rk:.4e}; "
+        f"one-process bf16 kernel path (the noise) max {mp:.4e} rms "
+        f"{rp:.4e}; greedy choice = the one-process bf16 choice on "
+        f"{int(clear.sum())}/{clear.numel()} positions whose top-2 margin "
+        f"exceeds {2 * gap:.3e}: {agree}")
+    require(rk <= 2 * rp + 1e-3 * rf, f"{tag} rank-path logit rms gap")
+    require(mk <= 4 * mp + 2 ** -7 * mf, f"{tag} rank-path logit max gap")
+    require(agree, f"{tag} greedy choices agree where the margin is clear")
+    require(share >= FA_MIN_CLEAR["bfloat16"],
+            f"{tag} a clear top-2 margin on at least "
+            f"{FA_MIN_CLEAR['bfloat16']} of the positions")
+
+
+def family_axis_phase(dev, flush) -> dict:
+    """Phase 25 -> the kernels line's figures: the rank-partial K5's and
+    its merge's times, launches on the ranks by run, and K5, K6 and K7's
+    local-head times and launches.
+
+    Each run's float32 rank path is held within :data:`FA_FP32_TOL` of the
+    one-process float32 kernel path: that bound sees any error of the
+    rank layouts. Its bf16 rank path is held by :func:`fa_hold_bf16`:
+    against the one-process float32 path, with the one-process bf16
+    kernel path as the noise, so that no part of the noise comes from the
+    rank code, and greedy against the one-process bf16 choices.
+    The one-process bf16 plain path is no measure of that noise: it runs
+    the same GEMMs as its kernel path and differs only in the attention
+    layers, while the ranks' row-split GEMMs round each block's product to
+    bf16 before the sum."""
+    import tempfile
+
+    import torch
+    fig = {"times": fa_kernel_times(dev, flush), "runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref = {run: fa_reference(dev, tmp, run) for run in FA_RUNS}
+        log(f"[axis] one-process runs ({len(FA_RUNS)}, bf16 and float32): "
+            f"{time.perf_counter() - t0:.1f} s; "
+            f"{ref['recurrentgemma_mp2']['nccl']}")
+        t0 = time.perf_counter()
+        codes = mm_join(mm_spawn(fa_rank, FA_WORLD, tmp), 400)
+        require(codes == [0] * FA_WORLD, f"(25) {FA_WORLD} gloo ranks ran "
+                f"to their end (exit codes {codes})")
+        rows = [json.loads((Path(tmp) / f"fa_{r}.json").read_text())
+                for r in range(FA_WORLD)]
+        log(f"[axis] {FA_WORLD} gloo ranks: {time.perf_counter() - t0:.1f} s")
+        for run, (arch, layers, shape) in FA_RUNS.items():
+            r = ref[run]
+            lk, lk32, lp32, toks = r["lk"], r["lk32"], r["lp32"], r["toks"]
+            for dtype in FA_DTYPES:
+                cfg = fa_cfg(run, dtype)
+                key = f"{run}/{dtype}"
+                tag = f"[axis] {run} {dtype}"
+                lr = torch.cat([torch.load(
+                    Path(tmp) / f"fa_rank_{run}_{dtype}_{d}.pt")
+                    for d in range(shape[0])]).to(dev)
+                nA = attn_layers(cfg)
+                steps = FA_GEN - 1
+                for row in rows:
+                    ln = row[key]["launches"]
+                    if cfg.family == "ssm":
+                        want = {"wkv6": layers}
+                    elif cfg.n_kv_heads % shape[1]:      # a ring over rows
+                        want = {"swa_prefill": nA,
+                                "attn_decode_partial": nA * steps,
+                                "attn_decode_merge": nA * steps}
+                    else:                                # local KV heads
+                        want = {"swa_prefill": nA, "attn_decode": nA * steps}
+                    require(all(ln.get(k, 0) == n for k, n in want.items())
+                            and ln.get("attn_decode", 0) == want.get(
+                                "attn_decode", 0)
+                            and ln.get("attn_decode_partial", 0) == want.get(
+                                "attn_decode_partial", 0),
+                            f"(25) {key}: every rank launched {want} (got "
+                            f"{ln})")
+                    require(row[key]["staged"] == 0,
+                            f"(25) {key}: nothing staged through host memory")
+                ranks = [row[key] for row in rows]
+                log(f"{tag}: {cfg.name} at {cfg.n_layers} layers, (data, "
+                    f"model) {shape} on {FA_WORLD} gloo ranks, {FA_B} x "
+                    f"{FA_S} prompt tokens, {FA_GEN} tokens teacher-forced: "
+                    f"K/V rows a rank {ranks[0]['kv_rows']}; rank launches "
+                    f"{[x['launches'] for x in ranks]} (one process bf16 "
+                    f"{r['counts']}); init "
+                    f"{[round(x['init_s'], 2) for x in ranks]} s, serve "
+                    f"{[round(x['serve_s'], 2) for x in ranks]} s; held "
+                    f"{[round(x['held_gb'], 3) for x in ranks]} GB, peaks "
+                    f"{[round(x['peak_gb'], 3) for x in ranks]} GB")
+                if cfg.family == "hybrid":
+                    require(ranks[0]["kv_rows"] == [2048 // shape[1]],
+                            f"(25) {key}: each rank holds its block of the "
+                            f"2,048-row ring")
+                if dtype == "float32":
+                    hold_logits(tag, "rank path against the one-process "
+                                "float32 kernel path (its plain path as the "
+                                "noise)", lr.argmax(-1), lr, lp32, lk32,
+                                FA_MIN_CLEAR[dtype])
+                    gap = logit_gaps(lr, lk32)
+                    require(torch.allclose(lr, lk32, atol=FA_FP32_TOL,
+                                           rtol=FA_FP32_TOL),
+                            f"(25) {key}: within {FA_FP32_TOL} of the "
+                            f"one-process float32 kernel path")
+                else:
+                    fa_hold_bf16(tag, lr, lk, lk32)
+                    gap = logit_gaps(lr, lk)
+                same = (lr.argmax(-1) == toks).float().mean().item()
+                log(f"{tag}: against the one-process {dtype} kernel path "
+                    f"max {gap[0]:.4e} rms {gap[1]:.4e}; the rank path's "
+                    f"greedy choice is the one-process bf16 token at "
+                    f"{same:.3f} of the positions")
+                fig["runs"][key] = {
+                    "launches": ranks[0]["launches"],
+                    "serve_s": max(x["serve_s"] for x in ranks),
+                    "logit_gap": gap[0], "greedy_same": same}
+                del lr
+            del lk, lk32, lp32
+        torch.cuda.empty_cache()
     return fig
 
 

@@ -12,12 +12,16 @@ for prefill, the cache capacity. With ``mesh=`` (a ``DeviceMesh`` or
 :class:`~repro_torch.distributed.sharding.RankMesh`, one process a rank)
 they are the reference's mesh-taking forms under ``serve_shardings``'
 layout: each rank serves its rows of the request batch (split over pod
-and data) on its model blocks of the parameters (the Megatron layout,
-whole local heads; :func:`~repro_torch.models.model.init_local_params`),
-its cache holds its local KV heads, and the vocabulary-split logits are
-gathered for the argmax. The model axis runs the attention decoders;
-RWKV6, the RG-LRU hybrid, Whisper and InternVL2 over it, and sub-head
-splits, are ROADMAP item 8c.
+and data) on its model blocks of the parameters (the Megatron layout;
+:func:`~repro_torch.models.model.init_local_params`), its cache holds its
+blocks under ``cache_specs`` (its KV heads, or its block of the ring's rows
+where the KV heads do not split, its RWKV6 heads, its RG-LRU channels),
+and the vocabulary-split logits are gathered for the argmax. Every family
+serves over the model axis: the attention decoders, RWKV6, the RG-LRU
+hybrid, Whisper, InternVL2 and the parallel blocks, on whole or split
+heads and vocabularies (:mod:`repro_torch.models.model_axis`). A decode
+step over a cache whose K/V rings are split over their rows is given the
+``cache_len`` its prefill step was given.
 """
 from __future__ import annotations
 
@@ -162,16 +166,19 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int | None = None,
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, backend: str = "auto", *, mesh=None,
+def make_decode_step(cfg: ArchConfig, backend: str = "auto", *,
+                     cache_len: int | None = None, mesh=None,
                      comm: Comm | None = None):
     """``decode_step(params, cache, token) -> (logits, cache)``; the cache
-    is updated in place. With ``mesh``: this rank's rows, blocks and local
-    KV heads, the logits whole."""
+    is updated in place. With ``mesh``: this rank's rows, blocks and cache
+    blocks, the logits whole; ``cache_len`` is the prefill step's (a rank's
+    block of a ring split over its rows needs the ring's length; a decode
+    step without it refuses such a cache)."""
     tp = _model_axis(cfg, mesh, comm)
 
     def decode_step(params, cache, token):
         return M.decode_step(params, cfg, cache, token, backend=backend,
-                             tp=tp)
+                             tp=tp, cache_len=cache_len)
 
     return decode_step
 

@@ -222,7 +222,9 @@ def cache_specs(cache_like: Params, cfg: ArchConfig, mesh) -> Params:
     """KV/state caches: batch over (pod, data); heads/channels over
     model. A K/V leaf whose heads the model extent does not divide is
     split over its sequence instead (the reference's sequence-parallel
-    cache), which the port's model axis does not run (ROADMAP item 8c)."""
+    cache): each rank holds its block of the ring's rows, and a decode step
+    merges the ranks' rank-partial attention
+    (``models.layers.attention_decode``)."""
     baxes = batch_axes(mesh)
 
     def assign(names, leaf):

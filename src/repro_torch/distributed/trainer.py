@@ -113,12 +113,12 @@ def make_train_step(tc: TrainConfig, layout: WorkerLayout | None = None,
     if tc.fsdp:
         raise NotImplementedError(
             "fsdp=True shards parameters over the data axis: not ported "
-            "yet (ROADMAP item 8c); the mesh steps keep a whole copy, or "
-            "its model blocks, on each rank")
+            "yet (ROADMAP item 8c, part 3); the mesh steps keep a whole "
+            "copy, or its model blocks, on each rank")
     if mesh is not None:
         rm = mesh if isinstance(mesh, RankMesh) else RankMesh(mesh)
         comm = comm or Comm(rm)
-        check_model_axis(tc.arch, rm.size("model"))
+        check_model_axis(tc.arch, rm.size("model"), train=True)
         if tc.agg.kind == "mean":
             return _make_rank_mean_step(tc, rm, comm, backend, bool(record))
         return _make_rank_robust_step(tc, rm, comm, backend, record)

@@ -50,6 +50,17 @@
 // A second kernel merges the partials of the splits that hold valid rows. Its limit is rtol 1e-5, which a
 // bf16-operand product cannot be shown to meet.
 //
+// Rank-partial mode (both kernels): where the caller passes out_m, out_l
+// and out_acc in place of out, the merge over the splits writes the
+// unnormalised float32 triple (acc = sum_w exp(s_w - m) v[w], the row max
+// m, the exp-sum l) of each query head instead of acc / l. A sequence-split
+// KV cache runs it on each rank's block of the ring's rows (lengths: the
+// block's valid rows); a block with no valid row writes m = -inf, l = 0,
+// acc = 0. attn_decode_merge merges n such triples of each (request, query
+// head) through the split path's combine kernel, the same work as the merge
+// over splits: a triple with m = -inf gets weight 0, and n empty triples
+// give 0 / 0 = NaN, as a request of length 0 does.
+//
 // Bound: bytes. A step reads each valid K and V row once: at B = 8,
 // Hkv = 8, dh = 128, bf16 and 2,049-2,079 valid rows that is 67-68 MB a
 // layer, 0.020 ms at 3.35 TB/s; the partials add B * H * splits * 130
@@ -59,12 +70,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 extern "C" const char* cuda_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 namespace {
 
+using bf16 = __nv_bfloat16;
 constexpr int kWarps = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -177,26 +191,53 @@ __global__ void __launch_bounds__(kWarps * 32) attn_decode_split(
     }
 }
 
-// Merge the partials of the splits that hold valid rows: one block per
-// (request, query head), one thread per output element.
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(bf16* p, float x) {
+    *p = __float2bfloat16(x);
+}
+
+// Strides, in floats, of the partials a combine reads: partial s of
+// (request, query head) bh has its m and l at bh * ml_bh + s * ml_s and
+// its acc row at bh * acc_bh + s * acc_s. The split path writes them
+// (bh, s)-major; the rank merge reads the ranks' gathered (s, bh) rows in
+// place.
+struct PartStrides {
+    long long ml_bh, ml_s, acc_bh, acc_s;
+};
+
+// Merge the partials of the splits that hold valid rows (all n_split of
+// them where lengths is null: the rank merge): one block per (request,
+// query head), one thread per output element. A partial with m = -inf
+// (an empty block) gets weight 0. Writes acc / l to out, or, where out is
+// null, the merged triple to out_acc, out_m and out_l.
 template <typename T, int DH>
 __global__ void __launch_bounds__(DH) attn_decode_combine(
         const float* __restrict__ part_m, const float* __restrict__ part_l,
         const float* __restrict__ part_acc, const int* __restrict__ lengths,
-        T* __restrict__ out, int H, int Wc, int chunk, int n_split) {
+        T* __restrict__ out, float* __restrict__ out_m,
+        float* __restrict__ out_l, float* __restrict__ out_acc, int H,
+        int Wc, int chunk, int n_split, PartStrides st) {
     const int bh = blockIdx.x, d = threadIdx.x;
-    const int len = valid_rows(lengths, bh / H, Wc);
-    const int n_valid = (len + chunk - 1) / chunk;
-    const long long row0 = static_cast<long long>(bh) * n_split;
+    const int n_valid = lengths == nullptr ? n_split
+        : (valid_rows(lengths, bh / H, Wc) + chunk - 1) / chunk;
+    const float* pm = part_m + bh * st.ml_bh;
+    const float* pl = part_l + bh * st.ml_bh;
+    const float* pa = part_acc + bh * st.acc_bh + d;
     float M = -INFINITY;
-    for (int s = 0; s < n_valid; ++s) M = fmaxf(M, part_m[row0 + s]);
+    for (int s = 0; s < n_valid; ++s) M = fmaxf(M, pm[s * st.ml_s]);
     float L = 0.0f, A = 0.0f;
     for (int s = 0; s < n_valid; ++s) {
-        const float c = expf(part_m[row0 + s] - M);
-        L = fmaf(c, part_l[row0 + s], L);
-        A = fmaf(c, part_acc[(row0 + s) * DH + d], A);
+        const float c = M == -INFINITY ? 0.0f : expf(pm[s * st.ml_s] - M);
+        L = fmaf(c, pl[s * st.ml_s], L);
+        A = fmaf(c, pa[s * st.acc_s], A);
     }
-    out[static_cast<long long>(bh) * DH + d] = A / L;
+    const long long o = static_cast<long long>(bh) * DH + d;
+    if (out != nullptr) {
+        store(out + o, A / L);
+    } else {
+        out_acc[o] = A;
+        if (d == 0) { out_m[bh] = M; out_l[bh] = L; }
+    }
 }
 
 struct Args {
@@ -204,6 +245,7 @@ struct Args {
     const int* lengths;
     float *part_m, *part_l, *part_acc;
     void* out;
+    float *out_m, *out_l, *out_acc;     // rank-partial mode: out is null
     int B, H, Hkv, Wc, G, chunk, n_split;
     float scale;
     cudaStream_t stream;
@@ -219,9 +261,11 @@ cudaError_t launch(const Args& a) {
         a.part_acc, a.H, a.Hkv, a.Wc, a.G, a.chunk, a.n_split, a.scale);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
+    const PartStrides st{a.n_split, 1,
+                         static_cast<long long>(a.n_split) * DH, DH};
     attn_decode_combine<T, DH><<<a.B * a.H, DH, 0, a.stream>>>(
         a.part_m, a.part_l, a.part_acc, a.lengths, static_cast<T*>(a.out),
-        a.H, a.Wc, a.chunk, a.n_split);
+        a.out_m, a.out_l, a.out_acc, a.H, a.Wc, a.chunk, a.n_split, st);
     return cudaGetLastError();
 }
 
@@ -252,7 +296,6 @@ cudaError_t by_head_dim(int dh, const Args& a) {
 
 // ---- attn_decode_tc: bf16, one launch, staged tiles, tensor cores -------
 
-using bf16 = __nv_bfloat16;
 constexpr int kTile = 64;       // cache rows a stage
 constexpr int kTcThreads = 128;
 
@@ -347,8 +390,9 @@ __global__ void __launch_bounds__(kTcThreads) attn_decode_tc_kernel(
         const bf16* __restrict__ v, const int* __restrict__ lengths,
         float* __restrict__ part_m, float* __restrict__ part_l,
         float* __restrict__ part_acc, int* __restrict__ tickets,
-        bf16* __restrict__ out, int H, int Hkv, int Wc, int G, int chunk,
-        int n_split, float scale) {
+        bf16* __restrict__ out, float* __restrict__ out_m,
+        float* __restrict__ out_l, float* __restrict__ out_acc, int H,
+        int Hkv, int Wc, int G, int chunk, int n_split, float scale) {
     using S = TcShape<DH, GM>;
     constexpr int KS = DH / 16, ND = DH / 8;
     extern __shared__ float4 smem4[];
@@ -361,10 +405,20 @@ __global__ void __launch_bounds__(kTcThreads) attn_decode_tc_kernel(
     const int g = lane >> 2, t = lane & 3;
     const long long head0 = static_cast<long long>(b) * H
                             + static_cast<long long>(kvh) * G;
-    if (len == 0) {                               // 0 / 0, as the plain version
-        if (split == 0)
-            for (int i = tid; i < G * DH; i += kTcThreads)
-                out[head0 * DH + i] = __float2bfloat16(nanf(""));
+    if (len == 0) {         // 0 / 0, as the plain version; or the empty triple
+        if (split == 0) {
+            for (int i = tid; i < G * DH; i += kTcThreads) {
+                if (out != nullptr) {
+                    out[head0 * DH + i] = __float2bfloat16(nanf(""));
+                } else {
+                    out_acc[head0 * DH + i] = 0.0f;
+                    if (i % DH == 0) {
+                        out_m[head0 + i / DH] = -INFINITY;
+                        out_l[head0 + i / DH] = 0.0f;
+                    }
+                }
+            }
+        }
         return;
     }
     const int n_valid = (len + chunk - 1) / chunk;
@@ -597,7 +651,15 @@ __global__ void __launch_bounds__(kTcThreads) attn_decode_tc_kernel(
             L = fmaf(c, __ldcg(part_l + row0 + s), L);
             A = fmaf(c, __ldcg(part_acc + (row0 + s) * DH + d), A);
         }
-        out[(head0 + gq) * DH + d] = __float2bfloat16(A / L);
+        if (out != nullptr) {
+            out[(head0 + gq) * DH + d] = __float2bfloat16(A / L);
+        } else {
+            out_acc[(head0 + gq) * DH + d] = A;
+            if (d == 0) {
+                out_m[head0 + gq] = M;
+                out_l[head0 + gq] = L;
+            }
+        }
     }
     if (tid == 0) *ticket = 0;                    // ready for the next call
 }
@@ -608,6 +670,7 @@ struct TcArgs {
     float *part_m, *part_l, *part_acc;
     int* tickets;
     bf16* out;
+    float *out_m, *out_l, *out_acc;     // rank-partial mode: out is null
     int B, H, Hkv, Wc, G, chunk, n_split;
     float scale;
     cudaStream_t stream;
@@ -627,7 +690,8 @@ cudaError_t launch_tc(const TcArgs& a) {
     const dim3 grid(a.n_split, a.Hkv, a.B);
     attn_decode_tc_kernel<DH, GM><<<grid, kTcThreads, S::kSmem, a.stream>>>(
         a.q, a.k, a.v, a.lengths, a.part_m, a.part_l, a.part_acc, a.tickets,
-        a.out, a.H, a.Hkv, a.Wc, a.G, a.chunk, a.n_split, a.scale);
+        a.out, a.out_m, a.out_l, a.out_acc, a.H, a.Hkv, a.Wc, a.G, a.chunk,
+        a.n_split, a.scale);
     return cudaGetLastError();
 }
 
@@ -640,20 +704,23 @@ cudaError_t tc_by_group(const TcArgs& a) {
 
 }  // namespace
 
-// float32 q, k, v and out. The wrapper checks shapes, alignment and the
-// supported (dh, G); an unsupported pair returns cudaErrorInvalidValue.
-// Launches both kernels on the caller's stream and returns
-// cudaGetLastError().
+// float32 q, k, v and out. out null: the rank-partial mode, which writes
+// the float32 triple to out_m, out_l (B * H) and out_acc (B * H * dh).
+// The wrapper checks shapes, alignment and the supported (dh, G); an
+// unsupported pair returns cudaErrorInvalidValue. Launches both kernels on
+// the caller's stream and returns cudaGetLastError().
 extern "C" int attn_decode(const void* q, const void* k,
                            const void* v, const int* lengths, float* part_m,
-                           float* part_l, float* part_acc, void* out, int B,
+                           float* part_l, float* part_acc, void* out,
+                           float* out_m, float* out_l, float* out_acc, int B,
                            int H, int Hkv, int Wc, int dh, int chunk,
                            int n_split, float scale, int device,
                            cudaStream_t stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const Args a{q, k, v, lengths, part_m, part_l, part_acc, out, B, H, Hkv,
-                 Wc, H / Hkv, chunk, n_split, scale, stream};
+    const Args a{q, k, v, lengths, part_m, part_l, part_acc, out, out_m,
+                 out_l, out_acc, B, H, Hkv, Wc, H / Hkv, chunk, n_split,
+                 scale, stream};
     return static_cast<int>(by_head_dim<float>(dh, a));
 }
 
@@ -662,12 +729,14 @@ extern "C" int attn_decode(const void* q, const void* k,
 // B * H * n_split (m, l) and B * H * n_split * dh (acc). tickets: B * Hkv
 // int32, zero before the call and zero after it. The wrapper checks
 // shapes, alignment and the supported (dh, G); an unsupported pair returns
-// cudaErrorInvalidValue. One launch on the caller's stream; returns
-// cudaGetLastError().
+// cudaErrorInvalidValue. out null: the rank-partial mode (float32 out_m,
+// out_l, out_acc as for attn_decode). One launch on the caller's stream;
+// returns cudaGetLastError().
 extern "C" int attn_decode_tc(const void* q, const void* k, const void* v,
                               const int* lengths, float* part_m,
                               float* part_l, float* part_acc, int* tickets,
-                              void* out, int B, int H, int Hkv, int Wc,
+                              void* out, float* out_m, float* out_l,
+                              float* out_acc, int B, int H, int Hkv, int Wc,
                               int dh, int chunk, int n_split, float scale,
                               int device, cudaStream_t stream) {
     cudaError_t err = cudaSetDevice(device);
@@ -675,12 +744,53 @@ extern "C" int attn_decode_tc(const void* q, const void* k, const void* v,
     if (chunk % kTile) return static_cast<int>(cudaErrorInvalidValue);
     const TcArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), lengths, part_m, part_l,
-                   part_acc, tickets, static_cast<bf16*>(out), B, H, Hkv,
-                   Wc, H / Hkv, chunk, n_split, scale, stream};
+                   part_acc, tickets, static_cast<bf16*>(out), out_m, out_l,
+                   out_acc, B, H, Hkv, Wc, H / Hkv, chunk, n_split, scale,
+                   stream};
     switch (dh) {
         case 64: return static_cast<int>(tc_by_group<64>(a));
         case 128: return static_cast<int>(tc_by_group<128>(a));
         case 256: return static_cast<int>(tc_by_group<256>(a));
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// Merge n rank-partial triples of each of BH (request, query head) rows:
+// float32 part_m, part_l and part_acc (dh floats a row) at the strides
+// (in floats) ml_bh, ml_s, acc_bh, acc_s of PartStrides -> out (BH * dh)
+// in float32 (dtype 0) or bf16 (dtype 1), through the combine kernel of
+// the split path. One launch on the caller's stream; returns
+// cudaGetLastError().
+extern "C" int attn_decode_merge(const float* part_m, const float* part_l,
+                                 const float* part_acc, void* out, int dtype,
+                                 int BH, int n, int dh, long long ml_bh,
+                                 long long ml_s, long long acc_bh,
+                                 long long acc_s, int device,
+                                 cudaStream_t stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (BH <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    auto go = [&](auto tag, auto dh_tag) {
+        using T = decltype(tag);
+        constexpr int DH = decltype(dh_tag)::value;
+        attn_decode_combine<T, DH><<<BH, DH, 0, stream>>>(
+            part_m, part_l, part_acc, nullptr, static_cast<T*>(out), nullptr,
+            nullptr, nullptr, 1, 0, 1, n,
+            PartStrides{ml_bh, ml_s, acc_bh, acc_s});
+        return cudaGetLastError();
+    };
+    using D64 = std::integral_constant<int, 64>;
+    using D128 = std::integral_constant<int, 128>;
+    using D256 = std::integral_constant<int, 256>;
+    if (dtype != 0 && dtype != 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    switch (dh) {
+        case 64: return static_cast<int>(dtype ? go(bf16{}, D64{})
+                                               : go(0.0f, D64{}));
+        case 128: return static_cast<int>(dtype ? go(bf16{}, D128{})
+                                                : go(0.0f, D128{}));
+        case 256: return static_cast<int>(dtype ? go(bf16{}, D256{})
+                                                : go(0.0f, D256{}));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

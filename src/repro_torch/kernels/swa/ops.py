@@ -13,6 +13,14 @@ tensor cores in one launch (``attn_decode_tc``: cp.async-staged K/V tiles,
 the splits merged by the last block of each (request, KV head)); float32
 on the split and combine kernels.
 
+A sequence-split KV cache (each rank holds a block of the ring's rows)
+decodes through K5's rank-partial entry: :func:`attn_decode_partial` runs
+the kernel its dtype picks over the rank's block and writes the float32
+``(acc, m, l)`` triple of the online softmax instead of the normalised
+output (``attn_decode_partial_cuda``, counted apart from the whole
+decode), and :func:`attn_decode_merge` merges the ranks' gathered triples
+through the split path's combine kernel (``attn_decode_merge_cuda``).
+
 K6 is two kernels in ``csrc/swa_prefill.cu``, picked in the open by
 :func:`prefill_kernel`: bf16 at head sizes 64 and 128 (every launch of the
 serve and training paths) runs on the tensor cores (``swa_prefill_tc``:
@@ -36,9 +44,12 @@ import torch
 
 from .. import _build
 from ..dispatch import resolve_backend
-from .ref import attn_decode_ref, swa_prefill_ref
+from .ref import (attn_decode_merge_ref, attn_decode_partial_ref,
+                  attn_decode_ref, swa_prefill_ref)
 
-__all__ = ["attn_decode", "attn_decode_cuda", "swa_prefill",
+__all__ = ["attn_decode", "attn_decode_cuda", "attn_decode_partial",
+           "attn_decode_partial_cuda", "attn_decode_merge",
+           "attn_decode_merge_cuda", "swa_prefill",
            "swa_prefill_cuda", "SwaPrefillFn", "HEAD_DIMS", "TC_HEAD_DIMS",
            "prefill_kernel", "tma_strides", "decode_kernel",
            "decode_splits", "DECODE_MAX_GROUP"]
@@ -49,10 +60,12 @@ TC_HEAD_DIMS = (64, 128)     # the tensor-core prefill kernel's head sizes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the decode kernel's split blocks aim at about this many blocks in all
 _DECODE_BLOCKS = 1024
-_DECODE_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_DECODE_TC_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+_DECODE_TC_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_MERGE_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
 _DECODE_TILE = 64           # cache rows a tile of the tensor-core decode
 # each (device, stream)'s zeroed ticket counters of the tensor-core decode:
 # the merging block of every (request, KV head) resets its own to 0
@@ -76,6 +89,36 @@ def attn_decode(
     if resolve_backend(backend, q) == "torch":
         return attn_decode_ref(q, k, v, lengths, scale)
     return attn_decode_cuda(q, k, v, lengths, scale)
+
+
+def attn_decode_partial(
+    q: torch.Tensor,        # (B, H, dh)
+    k: torch.Tensor,        # (B, Hkv, Wb, dh): a block of the ring's rows
+    v: torch.Tensor,        # (B, Hkv, Wb, dh)
+    lengths: torch.Tensor,  # (B,) int32: the block's valid rows
+    backend: str = "auto",
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The decode attention over one block of a sequence-split ring ->
+    float32 (acc (B, H, dh), m (B, H), l (B, H)); see
+    :func:`.ref.attn_decode_partial_ref`."""
+    if resolve_backend(backend, q) == "torch":
+        return attn_decode_partial_ref(q, k, v, lengths, scale)
+    return attn_decode_partial_cuda(q, k, v, lengths, scale)
+
+
+def attn_decode_merge(
+    acc: torch.Tensor,      # (n, B, H, dh) float32
+    m: torch.Tensor,        # (n, B, H)
+    l: torch.Tensor,        # (n, B, H)
+    dtype: torch.dtype = torch.float32,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """n blocks' triples merged -> (B, H, dh) in ``dtype``; see
+    :func:`.ref.attn_decode_merge_ref`."""
+    if resolve_backend(backend, acc) == "torch":
+        return attn_decode_merge_ref(acc, m, l, dtype)
+    return attn_decode_merge_cuda(acc, m, l, dtype)
 
 
 def swa_prefill(
@@ -184,6 +227,94 @@ def attn_decode_cuda(
     current stream. Every tensor must be contiguous; ``lengths`` int32.
     ``attn_decode_cuda.launches`` counts the calls of both,
     ``attn_decode_cuda.launches_tc`` those of the tensor-core kernel."""
+    out = _decode_launch(q, k, v, lengths, scale, partial=False)
+    if decode_kernel(q.dtype) == "tc":
+        attn_decode_cuda.launches_tc += 1
+    attn_decode_cuda.launches += 1
+    return out
+
+
+def attn_decode_partial_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's rank-partial mode on the current stream: the kernel
+    :func:`decode_kernel` picks, over the block ``k``, ``v`` (B, Hkv, Wb,
+    dh) with ``lengths`` (B,) valid rows, writing the float32 triple ->
+    (acc (B, H, dh), m (B, H), l (B, H)). ``attn_decode_partial_cuda.
+    launches`` counts its calls, ``.launches_tc`` those on the tensor-core
+    kernel."""
+    out = _decode_launch(q, k, v, lengths, scale, partial=True)
+    if decode_kernel(q.dtype) == "tc":
+        attn_decode_partial_cuda.launches_tc += 1
+    attn_decode_partial_cuda.launches += 1
+    return out
+
+
+attn_decode_partial_cuda.launches = 0
+attn_decode_partial_cuda.launches_tc = 0
+
+
+def attn_decode_merge_cuda(
+    acc: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Merge n triples (acc (n, B, H, dh), m and l (n, B, H), float32)
+    through K5's combine kernel -> (B, H, dh) in ``dtype`` (float32 or
+    bf16). The kernel reads them in place at their strides (the columns of
+    the ranks' gathered (n, B, H, dh + 2) rows, or stacked triples): acc's
+    last dimension must be dense, each tensor's (B, H) must flatten to one
+    stride, and m and l must share their strides.
+    ``attn_decode_merge_cuda.launches`` counts its calls."""
+    if not acc.is_cuda:
+        raise ValueError("the CUDA decode merge needs CUDA tensors")
+    if acc.dim() != 4:
+        raise ValueError("acc must be (n, B, H, dh) and m, l (n, B, H)")
+    n, B, H, dh = acc.shape
+    if dh not in HEAD_DIMS or dtype not in _DTYPES or n == 0 or B * H == 0:
+        raise ValueError(f"unsupported merge: n={n}, B={B}, H={H}, dh={dh}, "
+                         f"{dtype}")
+    dev = acc.device
+    for what, t, shape in (("acc", acc, (n, B, H, dh)), ("m", m, (n, B, H)),
+                           ("l", l, (n, B, H))):
+        if t.device != dev or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"{what} must be float32 {shape} on {dev}")
+    if acc.stride(3) != 1 or m.stride() != l.stride():
+        raise ValueError("acc's rows must be dense and m, l share strides")
+    (ml_s, ml_bh), (acc_s, acc_bh) = (_merge_strides(t) for t in (m, acc))
+    out = torch.empty((B, H, dh), dtype=dtype, device=dev)
+    fn = _build.function("attn_decode", "attn_decode_merge", _MERGE_ARGTYPES)
+    code = fn(m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
+              _DTYPES[dtype], B * H, n, dh, ml_bh, ml_s, acc_bh, acc_s,
+              dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_status("attn_decode", code)
+    attn_decode_merge_cuda.launches += 1
+    return out
+
+
+attn_decode_merge_cuda.launches = 0
+
+
+def _merge_strides(t: torch.Tensor) -> tuple[int, int]:
+    """(partial stride, (request, head) stride) of a merge input (n, B, H,
+    ...), in elements; raises where (B, H) does not flatten to one
+    stride."""
+    _, B, H = t.shape[:3]
+    if B > 1 and H > 1 and t.stride(1) != H * t.stride(2):
+        raise ValueError(f"a merge input of strides {t.stride()} does not "
+                         f"flatten its (request, head) dimensions")
+    return t.stride(0), (t.stride(2) if H > 1 else t.stride(1))
+
+
+def _decode_launch(q, k, v, lengths, scale, partial: bool):
+    """Check K5's arguments and launch the kernel ``decode_kernel`` picks:
+    -> the output (B, H, dh), or with ``partial`` the triple."""
     if not q.is_cuda:
         raise ValueError("the CUDA attention decode needs CUDA tensors")
     if q.dim() != 3 or k.dim() != 4:
@@ -215,26 +346,31 @@ def attn_decode_cuda(
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty(B * H * n_split * dh, dtype=torch.float32,
                            device=dev)
-    out = torch.empty_like(q)
+    if partial:
+        out = None
+        acc = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
+        m = torch.empty((B, H), dtype=torch.float32, device=dev)
+        l = torch.empty_like(m)
+        outs = (None, m.data_ptr(), l.data_ptr(), acc.data_ptr())
+    else:
+        out = torch.empty_like(q)
+        outs = (out.data_ptr(), None, None, None)
     if tc:
         fn = _build.function("attn_decode", "attn_decode_tc",
                              _DECODE_TC_ARGTYPES)
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
                   part_acc.data_ptr(), _tickets(dev, B * Hkv).data_ptr(),
-                  out.data_ptr(), B, H, Hkv, Wc, dh, chunk, n_split, sc,
-                  dev.index, stream)
-        _build.check_status("attn_decode", code)
-        attn_decode_cuda.launches_tc += 1
+                  *outs, B, H, Hkv, Wc, dh, chunk, n_split, sc, dev.index,
+                  stream)
     else:
         fn = _build.function("attn_decode", "attn_decode", _DECODE_ARGTYPES)
         code = fn(q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), lengths.data_ptr(), part_m.data_ptr(),
-                  part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), B,
-                  H, Hkv, Wc, dh, chunk, n_split, sc, dev.index, stream)
-        _build.check_status("attn_decode", code)
-    attn_decode_cuda.launches += 1
-    return out
+                  part_l.data_ptr(), part_acc.data_ptr(), *outs, B, H, Hkv,
+                  Wc, dh, chunk, n_split, sc, dev.index, stream)
+    _build.check_status("attn_decode", code)
+    return (acc, m, l) if partial else out
 
 
 attn_decode_cuda.launches = 0

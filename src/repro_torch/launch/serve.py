@@ -4,7 +4,7 @@
         --batch 4 --prompt-len 32 --gen 16 [--device cpu] [--backend torch]
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
-        --arch olmoe_1b_7b --reduced --model-parallel 2 [--device cpu]
+        --arch recurrentgemma_2b --reduced --model-parallel 2 [--device cpu]
 
 The flags are ``repro.launch.serve``'s, plus ``--device`` (default
 ``cuda``), ``--backend`` (``auto``: the mixers' kernels on the card —
@@ -12,7 +12,7 @@ attention, or the WKV6 scan for ``rwkv6_1b6`` — the plain versions on the
 CPU). Under ``torchrun`` (a world of several ranks) the ranks form the
 reference's host mesh, ``(world / model_parallel, model_parallel)`` over
 ("data", "model"): each rank serves its rows of the batch on its model
-blocks of the weights (tensor- and expert-parallel,
+blocks of the weights (tensor- and expert-parallel, every family:
 :mod:`repro_torch.distributed.server`); the process group is NCCL on the
 card (one card a rank) and gloo on the CPU. Alone, ``--model-parallel``
 must be 1.
@@ -57,10 +57,11 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int,
 
     S = prompts.shape[1]
     n_patch = 0 if patch_embeds is None else patch_embeds.shape[1]
-    prefill_step = make_prefill_step(cfg, cache_len=S + gen + 1 + n_patch,
+    cache_len = S + gen + 1 + n_patch
+    prefill_step = make_prefill_step(cfg, cache_len=cache_len,
                                      backend=backend, mesh=mesh, comm=comm)
-    decode_step = make_decode_step(cfg, backend=backend, mesh=mesh,
-                                   comm=comm)
+    decode_step = make_decode_step(cfg, backend=backend, cache_len=cache_len,
+                                   mesh=mesh, comm=comm)
     key = prng_key(seed)
     batch = {"tokens": prompts}
     if frames is not None:

@@ -25,10 +25,20 @@ outside any Pallas kernel. The MoE FFN's dispatch and expert products and
 the RG-LRU's scan are plain torch too: the reference has no kernel for
 them.
 
-Over a model axis (``tp=``, :mod:`repro_torch.models.model_axis`) the
-attention and MLP blocks take a rank's column and row blocks and sum their
-partial outputs, and the MoE runs the reference's expert-parallel
-dispatch (:func:`moe_block_sharded`).
+Over a model axis (``tp=``, :mod:`repro_torch.models.model_axis`) every
+block takes the rank's column and row blocks (``param_specs``' layout) and
+sums its partial outputs, and the MoE runs the reference's expert-parallel
+dispatch (:func:`moe_block_sharded`). Attention whose column blocks are
+whole heads and whole KV heads runs on them (:class:`_HeadCut`); where a
+block ends inside a head (RecurrentGemma's one KV head of 256, or 10
+query heads over 4 ranks) the blocks are gathered first, since RoPE's
+rotation pairs and the qk norms span a whole head, and each rank attends
+with the heads its row block of ``wo`` multiplies. A K/V cache whose heads
+do not split holds the rank's block of the ring's rows, and a decode step
+merges the ranks' rank-partial attention (K5's partial mode). RWKV6 runs
+its scan on the rank's heads, the channel mix cuts ``kk @ wv`` to the
+rank's block of ``r``, the RG-LRU its recurrence on the rank's channels of
+the width (the gates read the whole conv output, gathered).
 
 Where the reference multiplies a float32 activation by a bf16 weight, JAX
 promotes the product to float32; torch raises on mixed operands, so
@@ -46,7 +56,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.dispatch import resolve_backend
-from ..kernels.swa import attn_decode, swa_prefill
+from ..kernels.swa import (attn_decode, attn_decode_merge,
+                           attn_decode_partial, swa_prefill)
 from ..kernels.wkv6 import wkv6, wkv6_decode_step
 
 Params = dict[str, Any]
@@ -171,33 +182,83 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
     return p
 
 
-def _local_heads(cfg: ArchConfig, tp=None) -> tuple[int, int]:
-    """(query heads, KV heads) of this rank: all of them, or 1/mp of each
-    over a model axis (whole heads: ``check_model_axis`` guards the
-    split)."""
-    mp = 1 if tp is None else tp.size
-    return _n_heads_eff(cfg) // mp, cfg.n_kv_heads // mp
+class _HeadCut:
+    """How this rank's blocks of an attention's weights cut its heads.
+
+    ``local``: no model axis, no split, or column blocks of whole heads
+    and whole KV heads: the rank attends with its own heads (their KV
+    heads are its own). Otherwise the column blocks of ``wq``, ``wk`` and
+    ``wv`` (split inside a head, or whole) are gathered, and the rank
+    attends with the query heads ``[ha, hb)`` that its row block ``[o0, o0
+    + no)`` of ``wo`` multiplies, on KV heads ``[ka, kb)`` (the touched
+    heads widened to whole groups where they span several KV heads);
+    ``o_split``: the row blocks' outputs are partial sums over the axis."""
+
+    def __init__(self, p: Params, cfg: ArchConfig, tp, H: int, Hkv: int):
+        hd = self.hd = cfg.head_dim
+        nq, nk, no = p["wq"].shape[1], p["wk"].shape[1], p["wo"].shape[0]
+        self.q_split = nq < H * hd
+        self.k_split = nk < Hkv * hd
+        self.o_split = no < H * hd
+        self.local = tp is None or not (self.q_split or self.k_split) or \
+            (self.q_split and self.k_split and nq % hd == 0
+             and nk % hd == 0)
+        self.o0 = 0 if tp is None else tp.block(H * hd, no)
+        self.no = no
+        G = H // Hkv
+        ha = self.o0 // hd
+        hb = -(-(self.o0 + no) // hd)
+        ka, kb = ha // G, (hb - 1) // G + 1
+        if kb - ka > 1:
+            ha, hb = ka * G, kb * G
+        self.ha, self.hb, self.ka, self.kb = ha, hb, ka, kb
+
+    def project(self, x: torch.Tensor, w: torch.Tensor, split: bool, tp):
+        """``x @ w`` promoted as JAX promotes it; gathered into the whole
+        columns where the rank attends from gathered blocks."""
+        y = _matmul(x, w)
+        return tp.gather_cols(y) if split and not self.local else y
+
+    def attended(self, q, k, v):
+        """The heads this rank attends with: q (..., heads, dh) and its KV
+        heads."""
+        if self.local:
+            return q, k, v
+        return (q[:, :, self.ha:self.hb], k[:, :, self.ka:self.kb],
+                v[:, :, self.ka:self.kb])
+
+    def out(self, o: torch.Tensor, p: Params, tp) -> torch.Tensor:
+        """The attention output of the attended heads (B, S, heads, dh)
+        through this rank's rows of ``wo``, summed over the axis where
+        they are a row block."""
+        B, S = o.shape[:2]
+        y = o.reshape(B, S, -1)
+        if not self.local:
+            c0 = self.o0 - self.ha * self.hd
+            y = y[..., c0:c0 + self.no]
+        y = y @ p["wo"]
+        return tp.reduce_out(y) if self.o_split else y
 
 
 def _qk_project(p: Params, x: torch.Tensor, cfg: ArchConfig, positions,
-                tp=None):
+                tp=None, cut: _HeadCut | None = None):
     """-> q (B, S, H, dh), k and v (B, S, Hkv, dh); v is a view of the
     projection. Each product promotes as JAX's does (a bf16 ``x`` against
     float32 weights: Whisper's encoder on bf16 frames), so its cotangent
     is rounded to x's dtype on its own, as the reference's. Over a model
-    axis ``tp`` the rank's local heads, from its column blocks of the
-    projections."""
+    axis ``tp`` the rank's local heads from its column blocks, or, where
+    ``cut`` is not local, every head from the gathered blocks."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    H, Hkv = _local_heads(cfg, tp)
+    cut = cut or _attn_cut(p, cfg, tp)
     q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
     if tp is not None:
         x = tp.copy_in(x)
         if cfg.qk_norm:
             q_norm, k_norm = tp.copy_in(q_norm), tp.copy_in(k_norm)
-    q = _matmul(x, p["wq"]).reshape(B, S, H, hd)
-    k = _matmul(x, p["wk"]).reshape(B, S, Hkv, hd)
-    v = _matmul(x, p["wv"]).reshape(B, S, Hkv, hd)
+    q = cut.project(x, p["wq"], cut.q_split, tp).reshape(B, S, -1, hd)
+    k = cut.project(x, p["wk"], cut.k_split, tp).reshape(B, S, -1, hd)
+    v = cut.project(x, p["wv"], cut.k_split, tp).reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, q_norm)
         k = rms_norm(k, k_norm)
@@ -295,9 +356,20 @@ def causal_attention(q, k, v, cfg: ArchConfig, *, window: int,
     return _plain_attention(q, k, v, cfg, causal=True, window=window)
 
 
-def _row_out(y: torch.Tensor, tp) -> torch.Tensor:
-    """A row-split product's partial sum, summed over the model axis."""
-    return y if tp is None else tp.reduce_out(y)
+def _row_out(y: torch.Tensor, tp, split: bool = True) -> torch.Tensor:
+    """A row-split product's partial sum, summed over the model axis
+    (``split``: the rows are a block; a whole weight's product is whole)."""
+    return y if tp is None or not split else tp.reduce_out(y)
+
+
+def _is_split(tp, local: int, full: int) -> bool:
+    """Whether a dimension of ``full`` of which this rank holds ``local``
+    is split over the model axis."""
+    return tp is not None and local < full
+
+
+def _attn_cut(p: Params, cfg: ArchConfig, tp) -> _HeadCut:
+    return _HeadCut(p, cfg, tp, _n_heads_eff(cfg), cfg.n_kv_heads)
 
 
 def attention_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -306,19 +378,65 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
                     backend: str = "auto", tp=None) -> torch.Tensor:
     """x: (B, S, d) pre-normed input -> (B, S, d). Causal attention takes
     the kernel route; non-causal (Whisper's encoder) is plain torch. Over
-    a model axis ``tp`` each rank attends with its local heads and its
-    rows of ``wo``, and the partial outputs are summed."""
-    q, k, v = _qk_project(p, x, cfg, positions, tp)
+    a model axis ``tp`` each rank attends with its local heads (or the
+    heads its row block of ``wo`` multiplies) and its rows of ``wo``, and
+    the partial outputs are summed."""
+    cut = _attn_cut(p, cfg, tp)
+    q, k, v = cut.attended(*_qk_project(p, x, cfg, positions, tp, cut))
     if causal:
         out = causal_attention(q, k, v, cfg, window=window, backend=backend)
     else:
         out = _plain_attention(q, k, v, cfg, causal=False, window=window)
-    B, S, H, dh = out.shape
-    return _row_out(out.reshape(B, S, H * dh) @ p["wo"], tp)
+    return cut.out(out, p, tp)
+
+
+def _prime(dst: torch.Tensor, src: torch.Tensor, S: int, row0: int = 0,
+           wlen: int | None = None) -> None:
+    """Write the K or V rows ``src`` (B, S, Hkv, dh) of a prompt into a
+    layer cache ``dst`` (B, Hkv, n, dh) holding rows ``[row0, row0 + n)``
+    of a ring of ``wlen`` rows (default n: the whole ring), as the
+    reference primes it: appended from slot 0 while S <= wlen; once S >=
+    wlen, token t at slot t % wlen (the reference's roll by S % wlen).
+    Slots no token reaches stay as they are (zeros)."""
+    n = dst.shape[2]
+    wlen = wlen or n
+    slot = torch.arange(row0, row0 + n, device=src.device)
+    if S >= wlen:
+        tok = S - wlen + (slot - S) % wlen
+        dst.copy_(src[:, tok].transpose(1, 2))
+        return
+    live = int(min(max(S - row0, 0), n))
+    if live:
+        dst[:, :, :live].copy_(src[:, row0:row0 + live].transpose(1, 2))
+
+
+def attention_prefill(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                      positions: torch.Tensor, cache: Params, *,
+                      window: int = 0, backend: str = "auto", tp=None,
+                      ring: int | None = None) -> torch.Tensor:
+    """Prefill of one attention layer: project, prime ``cache`` (the
+    layer's ``{"k", "v", "pos"}``) with the prompt's last rows, attend
+    causally over the prompt -> (B, S, d). Over a model axis ``tp`` the
+    cache holds what ``cache_specs`` gives the rank: its KV heads, the
+    whole ring, or (``ring``: the whole ring's rows, where it is split over
+    its rows) its block of the ring's rows."""
+    B, S, _ = x.shape
+    cut = _attn_cut(p, cfg, tp)
+    q, k, v = _qk_project(p, x, cfg, positions, tp, cut)
+    row0, wlen = 0, None
+    if ring is not None and cache["k"].shape[2] < ring:
+        row0, wlen = tp.ring_block(ring)[0], ring
+    _prime(cache["k"], k, S, row0, wlen)
+    _prime(cache["v"], v, S, row0, wlen)
+    cache["pos"].fill_(S)
+    out = causal_attention(*cut.attended(q, k, v), cfg, window=window,
+                           backend=backend)
+    return cut.out(out, p, tp)
 
 
 def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                     cache: Params, *, backend: str = "auto", tp=None
+                     cache: Params, *, backend: str = "auto", tp=None,
+                     ring: int | None = None
                      ) -> tuple[torch.Tensor, Params]:
     """Single-token decode against a (ring-buffer when windowed) KV cache.
 
@@ -327,29 +445,65 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
     written into ``cache`` in place and ``pos`` advanced in place; the same
     dict is returned. The window is the cache's own length (an ``swa``
     layer's cache holds ``min(cache_len, window)`` rows), so, as in the
-    reference, no window argument is needed. Over a model axis ``tp``
-    the cache holds the rank's local KV heads."""
+    reference, no window argument is needed.
+
+    Over a model axis ``tp`` the cache holds the rank's local KV heads, or
+    the whole ring, or its block ``[r Wc / mp, (r + 1) Wc / mp)`` of a ring
+    of ``ring`` = Wc rows. In the last case the new row is written only by
+    the rank that owns slot ``pos % Wc``, each rank runs K5's rank-partial
+    mode over its block (``lengths = clamp(len - r Wc / mp, 0, Wc / mp)``)
+    for every query head, and the ranks' triples are gathered and merged;
+    each rank keeps the output columns its rows of ``wo`` multiply."""
     B = x.shape[0]
-    hd = cfg.head_dim
-    H = _local_heads(cfg, tp)[0]
     pos = cache["pos"]                 # absolute position of the new token
-    q, k, v = _qk_project(p, x, cfg, pos[:, None], tp)
-    Wc = cache["k"].shape[2]
+    cut = _attn_cut(p, cfg, tp)
+    if not cut.local and ring is None:
+        raise ValueError("a decode step on gathered attention blocks needs "
+                         "the ring's length: pass the cache_len its prefill "
+                         "was given")
+    q, k, v = _qk_project(p, x, cfg, pos[:, None], tp, cut)
+    Wl = cache["k"].shape[2]
+    Wc = ring if ring is not None else Wl
+    if Wl != Wc and (tp is None or Wl != tp.ring_block(Wc)[1]):
+        raise ValueError(f"a cache of {Wl} K/V rows is neither a ring of "
+                         f"{Wc} rows nor its block: pass the cache_len its "
+                         f"prefill was given")
     slot = pos.long() % Wc             # ring buffer; append while pos < Wc
     bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, :, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, :, slot] = v[:, 0].to(cache["v"].dtype)
+    kn, vn = k[:, 0].to(cache["k"].dtype), v[:, 0].to(cache["v"].dtype)
+    row0 = tp.ring_block(Wc)[0] if Wl < Wc else 0
+    if Wl < Wc:                        # this rank's block of the ring's rows
+        # every rank writes a row; one whose block does not hold the slot
+        # writes back the row it holds (no host sync on whose slot it is)
+        mine = ((slot >= row0) & (slot < row0 + Wl))[:, None, None]
+        slot = torch.clamp(slot - row0, 0, Wl - 1)
+        kn = torch.where(mine, kn, cache["k"][bidx, :, slot])
+        vn = torch.where(mine, vn, cache["v"][bidx, :, slot])
+    cache["k"][bidx, :, slot] = kn
+    cache["v"][bidx, :, slot] = vn
     lengths = torch.clamp_max(pos + 1, Wc).to(torch.int32)
-    out = attn_decode(q[:, 0], cache["k"], cache["v"], lengths,
-                      backend=backend)
-    y = _row_out(out.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"], tp)
+    if Wl < Wc:
+        lengths = torch.clamp(lengths - row0, 0, Wl).to(torch.int32)
+        acc, m, l = attn_decode_partial(q[:, 0], cache["k"], cache["v"],
+                                        lengths, backend=backend)
+        hd = acc.shape[2]
+        part = tp.all_gather(torch.cat([acc, m[..., None], l[..., None]],
+                                       dim=-1))
+        out = attn_decode_merge(part[..., :hd], part[..., hd],
+                                part[..., hd + 1], q.dtype, backend=backend)
+    else:                              # every head the cache holds
+        out = attn_decode(q[:, 0], cache["k"], cache["v"], lengths,
+                          backend=backend)
+    if not cut.local:
+        out = out[:, cut.ha:cut.hb]
+    y = cut.out(out[:, None].to(x.dtype), p, tp)
     cache["pos"].add_(1)
     return y, cache
 
 
 def init_attn_cache(cfg: ArchConfig, B: int, cache_len: int,
-                    device=None, tp=None) -> Params:
-    hd, Hkv = cfg.head_dim, _local_heads(cfg, tp)[1]
+                    device=None) -> Params:
+    hd, Hkv = cfg.head_dim, cfg.n_kv_heads
     return {
         "k": torch.zeros((B, Hkv, cache_len, hd), dtype=_dt(cfg),
                          device=device),
@@ -391,7 +545,8 @@ def mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
         h = act((x @ p["w_gate"]).float()).to(x.dtype) * (x @ p["w_up"])
     else:
         h = _gelu((x @ p["w_up"]).float()).to(x.dtype)
-    return _row_out(h @ p["w_down"], tp)
+    return _row_out(h @ p["w_down"], tp,
+                    _is_split(tp, p["w_down"].shape[0], cfg.d_ff))
 
 
 # ---------------------------------------------------------------------------
@@ -589,10 +744,35 @@ def _lerp_mixes(mu: torch.Tensor, x: torch.Tensor, x_prev: torch.Tensor):
     return lambda i: (xf + mu[i] * dx).to(x.dtype)
 
 
+def _wkv6_local(p: Params, cfg: ArchConfig, tp):
+    """This rank's view of a time mix's parameters -> (params, heads, the
+    model axis where its projections are split, else None): its column
+    blocks of ``wr``/``wk``/``wv``/``wg``/``w_lora_b`` (whole heads:
+    ``check_model_axis`` guards the split) and rows of ``wo`` as held, the
+    whole ``w0``, ``u`` and ``ln_x`` cut to its heads, and every replicated
+    weight of the split region behind ``copy_in``."""
+    d, hd = cfg.d_model, cfg.wkv_head_dim
+    n = p["wr"].shape[1]
+    if not _is_split(tp, n, d):
+        return p, d // hd, None
+    c0 = tp.block(d, n)
+    q = dict(p)
+    for name in ("mu", "w_lora_a", "w0", "u", "ln_x"):
+        q[name] = tp.copy_in(p[name])
+    q["w0"] = q["w0"][c0:c0 + n]
+    q["ln_x"] = q["ln_x"][c0:c0 + n]
+    q["u"] = q["u"][c0 // hd:(c0 + n) // hd]
+    return q, n // hd, tp
+
+
 def _wkv6_inputs(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
-                 cfg: ArchConfig):
+                 cfg: ArchConfig, tp=None):
     """Token shift and the five projections -> r, k, v, g (x's dtype) and
-    the float32 log-decay ``lw = -exp(clip(w0 + tanh(x A) B, -8, 4))``."""
+    the float32 log-decay ``lw = -exp(clip(w0 + tanh(x A) B, -8, 4))``;
+    over a split model axis ``tp`` the rank's columns (``p`` from
+    :func:`_wkv6_local`)."""
+    if tp is not None:
+        x, x_prev = tp.copy_in(x), tp.copy_in(x_prev)
     mix = _lerp_mixes(p["mu"], x, x_prev)
     r = mix(0) @ p["wr"]
     k = mix(1) @ p["wk"]
@@ -615,49 +795,53 @@ def _wkv_groupnorm(y: torch.Tensor, scale: torch.Tensor,
 
 
 def _wkv6_out(p: Params, y: torch.Tensor, g: torch.Tensor, H: int,
-              dtype: torch.dtype) -> torch.Tensor:
-    """Groupnorm, the silu gate and the output projection."""
+              dtype: torch.dtype, tp=None) -> torch.Tensor:
+    """Groupnorm, the silu gate and the output projection (over a split
+    model axis ``tp``, this rank's rows of ``wo``, summed)."""
     y = _wkv_groupnorm(y, p["ln_x"], H)
     y = y * F.silu(g.float()).to(dtype)
-    return y @ p["wo"]
+    return _row_out(y @ p["wo"], tp)
 
 
 def wkv6_mix(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
-             cfg: ArchConfig, backend: str = "auto"
+             cfg: ArchConfig, backend: str = "auto", tp=None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The time mix over a whole sequence from a zero state -> (out (B, S,
     d), final state (B, H, hd, hd) float32). The scan gets (B, H, S, hd)
     views of the projections and returns y in the (B, S, H, hd) layout on
-    the card, so no transposed copy is made there."""
-    B, S, d = x.shape
+    the card, so no transposed copy is made there. Over a model axis
+    ``tp`` the scan runs on the rank's heads and the state is theirs."""
+    B, S, _ = x.shape
     hd = cfg.wkv_head_dim
-    H = d // hd
-    r, k, v, g, lw = _wkv6_inputs(p, x, x_prev, cfg)
+    p, H, ax = _wkv6_local(p, cfg, tp)
+    r, k, v, g, lw = _wkv6_inputs(p, x, x_prev, cfg, ax)
 
     def heads(a):
         return a.view(B, S, H, hd).transpose(1, 2)
 
     y, s = wkv6(heads(r), heads(k), heads(v), heads(lw),
                 p["u"].expand(B, H, hd), backend=backend)
-    y = y.transpose(1, 2).reshape(B, S, d)
-    return _wkv6_out(p, y, g, H, x.dtype), s
+    y = y.transpose(1, 2).reshape(B, S, H * hd)
+    return _wkv6_out(p, y, g, H, x.dtype, ax), s
 
 
 def wkv6_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
-               backend: str = "auto") -> torch.Tensor:
+               backend: str = "auto", tp=None) -> torch.Tensor:
     """Training/prefill path (full sequence, pre-normed input)."""
-    return wkv6_mix(p, x, _shift(x), cfg, backend)[0]
+    return wkv6_mix(p, x, _shift(x), cfg, backend, tp)[0]
 
 
 def wkv6_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                cache: Params) -> tuple[torch.Tensor, Params]:
+                cache: Params, tp=None) -> tuple[torch.Tensor, Params]:
     """Single-token decode. cache ``{"state": (B, H, hd, hd) float32,
     "x_prev": (B, d)}``, updated in place (the reference returns a new
-    one); the same dict is returned."""
-    B, _, d = x.shape
+    one); the same dict is returned. Over a model axis ``tp`` the state
+    holds the rank's heads."""
+    B = x.shape[0]
     hd = cfg.wkv_head_dim
-    H = d // hd
-    r, k, v, g, lw = _wkv6_inputs(p, x, cache["x_prev"][:, None, :], cfg)
+    p, H, ax = _wkv6_local(p, cfg, tp)
+    r, k, v, g, lw = _wkv6_inputs(p, x, cache["x_prev"][:, None, :], cfg,
+                                  ax)
 
     def heads(a):
         return a[:, 0].reshape(B * H, hd)
@@ -666,7 +850,7 @@ def wkv6_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
         heads(r), heads(k), heads(v), heads(lw),
         p["u"].expand(B, H, hd).reshape(B * H, hd),
         cache["state"].reshape(B * H, hd, hd))
-    out = _wkv6_out(p, y.reshape(B, 1, d), g, H, x.dtype)
+    out = _wkv6_out(p, y.reshape(B, 1, H * hd), g, H, x.dtype, ax)
     cache["state"].copy_(s_new.view(B, H, hd, hd))
     cache["x_prev"].copy_(x[:, 0])
     return out, cache
@@ -689,12 +873,28 @@ def init_rwkv_cm(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 
 def rwkv_cm_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                  x_prev: torch.Tensor | None = None) -> torch.Tensor:
-    """RWKV channel mix; ``x_prev`` defaults to x shifted by one token."""
-    mix = _lerp_mixes(p["mu"], x, _shift(x) if x_prev is None else x_prev)
+                  x_prev: torch.Tensor | None = None, tp=None
+                  ) -> torch.Tensor:
+    """RWKV channel mix; ``x_prev`` defaults to x shifted by one token.
+    Over a model axis ``tp``: ``wk`` is split over f and ``wv`` over its
+    rows, so ``kk @ wv`` is a partial sum; ``wr`` is split over d, so it
+    is cut to the rank's block of d (``scatter_last``), multiplied by the
+    rank's ``r`` and the blocks gathered."""
+    x_prev = _shift(x) if x_prev is None else x_prev
+    mu = p["mu"]
+    if tp is not None:
+        x, x_prev, mu = tp.copy_in(x), tp.copy_in(x_prev), tp.copy_in(mu)
+    mix = _lerp_mixes(mu, x, x_prev)
     kk = torch.square(torch.relu((mix(0) @ p["wk"]).float())).to(x.dtype)
     r = torch.sigmoid((mix(1) @ p["wr"]).float()).to(x.dtype)
-    return r * (kk @ p["wv"])
+    kv = kk @ p["wv"]
+    k_split = _is_split(tp, p["wk"].shape[1], cfg.d_ff)
+    n = p["wr"].shape[1]
+    if not _is_split(tp, n, cfg.d_model):
+        return r * _row_out(kv, tp, k_split)
+    c0 = tp.block(cfg.d_model, n)
+    kv = tp.scatter_last(kv) if k_split else kv[..., c0:c0 + n]
+    return tp.gather_last(r * kv)
 
 
 # ---------------------------------------------------------------------------
@@ -757,11 +957,33 @@ def _rglru_scan(a: torch.Tensor, b: torch.Tensor,
     return _assoc_scan(a, b)[1]
 
 
-def _rglru_core(p: Params, xw: torch.Tensor, h0=None):
-    """xw: (B, S, w) post-conv activations -> (h, a, b), float32."""
+def _rglru_local(p: Params, tp):
+    """This rank's view of an RG-LRU's parameters -> (params, the model
+    axis where its width is split, else None): its column blocks of
+    ``w_in``/``w_gate_branch``/``conv_w`` and rows of ``w_out`` as held,
+    the whole ``conv_b`` and ``lam`` (replicated, so their length is the
+    width) cut to its channels and the whole gates ``wa``/``wx`` to its
+    columns, each replicated weight behind ``copy_in``."""
+    w, n = p["lam"].shape[0], p["w_in"].shape[1]
+    if not _is_split(tp, n, w):
+        return p, None
+    c0 = tp.block(w, n)
+    q = dict(p)
+    for name in ("conv_b", "lam"):
+        q[name] = tp.copy_in(p[name])[c0:c0 + n]
+    for name in ("wa", "wx"):
+        q[name] = tp.copy_in(p[name])[:, c0:c0 + n]
+    return q, tp
+
+
+def _rglru_core(p: Params, xw: torch.Tensor, h0=None, tp=None):
+    """xw: (B, S, w) post-conv activations -> (h, a, b), float32. Over a
+    model axis (``tp``, ``p`` from :func:`_rglru_local`) xw is the rank's
+    channels; the gates read every channel, gathered."""
     xf = xw.float()
-    r = torch.sigmoid(xf @ p["wa"].float())
-    i = torch.sigmoid(xf @ p["wx"].float())
+    full = xf if tp is None else tp.gather_cols(xw).float()
+    r = torch.sigmoid(full @ p["wa"].float())
+    i = torch.sigmoid(full @ p["wx"].float())
     log_a = -_RGLRU_C * r * F.softplus(p["lam"])        # (B, S, w) <= 0
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
@@ -781,35 +1003,45 @@ def _causal_conv(p: Params, xw: torch.Tensor) -> torch.Tensor:
     return conv + p["conv_b"]
 
 
-def rglru_mix(p: Params, x: torch.Tensor
+def rglru_mix(p: Params, x: torch.Tensor, tp=None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The recurrent block over a whole sequence from a zero state ->
     (out (B, S, d), the input projection xw (B, S, w), h (B, S, w)
-    float32): prefill keeps xw's last rows and h's last row."""
+    float32): prefill keeps xw's last rows and h's last row. Over a model
+    axis ``tp`` xw and h are the rank's channels and the output sums the
+    ranks' row blocks of ``w_out``."""
+    p, ax = _rglru_local(p, tp)
+    if ax is not None:
+        x = ax.copy_in(x)
     xw = x @ p["w_in"]
-    h, _, _ = _rglru_core(p, _causal_conv(p, xw))
+    h, _, _ = _rglru_core(p, _causal_conv(p, xw), tp=ax)
     gate = _gelu((x @ p["w_gate_branch"]).float())
-    return (h * gate).to(x.dtype) @ p["w_out"], xw, h
+    return _row_out((h * gate).to(x.dtype) @ p["w_out"], ax), xw, h
 
 
-def rglru_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def rglru_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                tp=None) -> torch.Tensor:
     """Training/prefill path (full sequence, pre-normed input)."""
-    return rglru_mix(p, x)[0]
+    return rglru_mix(p, x, tp)[0]
 
 
 def rglru_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                 cache: Params) -> tuple[torch.Tensor, Params]:
+                 cache: Params, tp=None) -> tuple[torch.Tensor, Params]:
     """Single-token decode. cache ``{"h": (B, w) float32, "conv": (B, 3,
     w)}``, updated in place (the reference returns a new one); the same
-    dict is returned."""
+    dict is returned. Over a model axis ``tp`` the cache holds the rank's
+    channels."""
+    p, ax = _rglru_local(p, tp)
+    if ax is not None:
+        x = ax.copy_in(x)
     xw = x @ p["w_in"]                                   # (B, 1, w)
     hist = torch.cat([cache["conv"], xw.to(cache["conv"].dtype)], dim=1)
     conv = (torch.einsum("btw,tw->bw", hist.float(), p["conv_w"].float())
             + p["conv_b"].float())[:, None, :]
-    h, _, _ = _rglru_core(p, conv, h0=cache["h"])
+    h, _, _ = _rglru_core(p, conv, h0=cache["h"], tp=ax)
     h = h[:, 0]
     gate = _gelu((x[:, 0] @ p["w_gate_branch"]).float())
-    y = (h * gate).to(x.dtype) @ p["w_out"]
+    y = _row_out((h * gate).to(x.dtype) @ p["w_out"], ax)
     cache["h"].copy_(h)
     cache["conv"].copy_(hist[:, 1:])
     return y[:, None, :], cache
@@ -835,16 +1067,21 @@ def init_cross_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 
 def cross_attention_block(p: Params, x: torch.Tensor, enc: torch.Tensor,
-                          cfg: ArchConfig) -> torch.Tensor:
+                          cfg: ArchConfig, tp=None) -> torch.Tensor:
     """x: (B, S, d) queries; enc: (B, T, d) encoder output (keys and
     values) -> (B, S, d) in x's dtype. Plain non-causal attention, as in
     the reference. A float32 ``enc`` makes K and V float32 (JAX's
-    promotion), and the output is cast back to the queries' dtype."""
+    promotion), and the output is cast back to the queries' dtype. Over a
+    model axis ``tp`` each rank attends with its heads (K/V from the
+    replicated ``enc``) and its rows of ``wo``, the outputs summed."""
     B, S, _ = x.shape
     T = enc.shape[1]
-    hd, H = cfg.head_dim, cfg.n_heads
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = _matmul(enc, p["wk"]).reshape(B, T, H, hd)
-    v = _matmul(enc, p["wv"]).reshape(B, T, H, hd)
-    out = _naive_attention(q, k, v, causal=False, window=0)
-    return out.reshape(B, S, H * hd) @ p["wo"]
+    hd = cfg.head_dim
+    cut = _HeadCut(p, cfg, tp, cfg.n_heads, cfg.n_heads)
+    if tp is not None:
+        x, enc = tp.copy_in(x), tp.copy_in(enc)
+    q = cut.project(x, p["wq"], cut.q_split, tp).reshape(B, S, -1, hd)
+    k = cut.project(enc, p["wk"], cut.k_split, tp).reshape(B, T, -1, hd)
+    v = cut.project(enc, p["wv"], cut.k_split, tp).reshape(B, T, -1, hd)
+    out = _naive_attention(*cut.attended(q, k, v), causal=False, window=0)
+    return cut.out(out, p, tp)

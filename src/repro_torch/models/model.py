@@ -34,10 +34,13 @@ Entry points:
 output) and ``patch_embeds=`` (the VLM: (B, n_patches, 1024) ViT features,
 prepended as tokens) are the reference's stub inputs.
 
-``tp=`` (a :class:`~repro_torch.models.model_axis.ModelAxis`) runs the
-attention decoders over a model axis: the parameters are a rank's blocks
-(``init_local_params``), attention runs on the rank's local heads, the
-MoE on its experts, and the logits come back whole.
+``tp=`` (a :class:`~repro_torch.models.model_axis.ModelAxis`) runs every
+family over a model axis: the parameters are a rank's blocks
+(``init_local_params``), the caches its blocks under ``cache_specs``
+(``init_cache``), attention runs on the rank's local heads (or, where a
+block ends inside a head, on gathered blocks), RWKV6 on its heads, the
+RG-LRU on its channels, the MoE on its experts, and the logits come back
+whole (a vocabulary that does not split is whole on every rank).
 
 ``backend=`` picks the kernel route of the mixers: on the card prefill
 and the forward run the ``swa_prefill`` kernel (causal attention) or the
@@ -101,7 +104,7 @@ def _apply_ffn(p: Params, x: torch.Tensor, cfg: ArchConfig, tp=None
         return L.moe_block(p, x, cfg, tp)
     if cfg.ffn_kind == "mlp":
         return L.mlp_block(p, x, cfg, tp), None
-    return L.rwkv_cm_block(p, x, cfg), None
+    return L.rwkv_cm_block(p, x, cfg, tp=tp), None
 
 
 def _window(cfg: ArchConfig, kind: str) -> int:
@@ -111,9 +114,9 @@ def _window(cfg: ArchConfig, kind: str) -> int:
 def _mixer_train(p, x, cfg: ArchConfig, kind: str, positions, backend,
                  tp=None):
     if kind == "wkv6":
-        return L.wkv6_block(p, x, cfg, backend)
+        return L.wkv6_block(p, x, cfg, backend, tp)
     if kind == "rglru":
-        return L.rglru_block(p, x, cfg)
+        return L.rglru_block(p, x, cfg, tp)
     return L.attention_block(p, x, cfg, positions,
                              window=_window(cfg, kind), backend=backend,
                              tp=tp)
@@ -130,12 +133,12 @@ def block_train(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
     h = L.apply_norm(p["norm1"], x, cfg)
     mix = _mixer_train(p["mixer"], h, cfg, kind, positions, backend, tp)
     if cfg.parallel_block:
-        y, aux = _apply_ffn(p["ffn"], h, cfg)
+        y, aux = _apply_ffn(p["ffn"], h, cfg, tp)
         return x + mix + y, aux
     x = x + mix
     if "xattn" in p:
         hx = L.apply_norm(p["norm_x"], x, cfg)
-        x = x + L.cross_attention_block(p["xattn"], hx, enc, cfg)
+        x = x + L.cross_attention_block(p["xattn"], hx, enc, cfg, tp)
     y, aux = _apply_ffn(p["ffn"], L.apply_norm(p["norm2"], x, cfg), cfg, tp)
     return x + y, aux
 
@@ -297,10 +300,13 @@ def embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     embeddings' dtype, then ``@ w2``. Over a model axis ``tp`` each rank
     holds a block of vocabulary rows: it looks up the tokens in its block,
     zeros the others, and the ranks' rows are summed (exact: one non-zero
-    term a token)."""
+    term a token); a vocabulary that does not split (Whisper's 51,865,
+    InternVL2's 92,553) is whole on every rank and looked up as is. The
+    projector's ``w1`` is column-split and ``w2`` row-split: the ranks'
+    products are summed."""
     emb = params["embed"]
     tokens = tokens.to(emb.device)
-    if tp is not None:
+    if L._is_split(tp, emb.shape[0], cfg.vocab):
         V_loc = emb.shape[0]
         local = tokens.long() - tp.rank * V_loc
         mine = (local >= 0) & (local < V_loc)
@@ -312,12 +318,14 @@ def embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         p = params["vis_proj"]
         vis = L._gelu(L._matmul(patch_embeds.to(emb.device), p["w1"])
                       .float()).to(x.dtype) @ p["w2"]
+        vis = L._row_out(vis, tp, L._is_split(tp, p["w2"].shape[0],
+                                              cfg.d_model))
         x = torch.cat([vis, x], dim=1)                # patches prepended
     return x
 
 
 def encode(params: Params, frames: torch.Tensor,
-           cfg: ArchConfig) -> torch.Tensor:
+           cfg: ArchConfig, tp=None) -> torch.Tensor:
     """Whisper's encoder over the stub frontend's frames (B, T, d): pre-norm
     blocks of non-causal self-attention (plain torch) and the MLP, then
     ``enc_norm``. The reference multiplies float32 frames by bf16 weights,
@@ -325,7 +333,9 @@ def encode(params: Params, frames: torch.Tensor,
     here each block's weights are cast to the promoted dtype first (exact
     for bf16), and the output keeps the frames' (promoted) dtype. bf16
     frames with float32 weights: the first norm's output stays bf16 and
-    each of its products promotes, as in the reference.
+    each of its products promotes, as in the reference. Over a model axis
+    ``tp`` each block attends with the rank's heads and runs its MLP
+    blocks, the outputs summed.
     ``frames=None`` raises ValueError (the reference fails later, with an
     AttributeError)."""
     if frames is None:
@@ -337,19 +347,28 @@ def encode(params: Params, frames: torch.Tensor,
         blk = _tmap(lambda w: w.to(torch.promote_types(w.dtype, x.dtype)),
                     blk)
         h = L.apply_norm(blk["norm1"], x, cfg)
-        x = x + L.attention_block(blk["mixer"], h, cfg, pos, causal=False)
+        x = x + L.attention_block(blk["mixer"], h, cfg, pos, causal=False,
+                                  tp=tp)
         y, _ = _apply_ffn(blk["ffn"], L.apply_norm(blk["norm2"], x, cfg),
-                          cfg)
+                          cfg, tp)
         x = x + y
     return L.apply_norm(params["enc_norm"], x, cfg)
+
+
+def _head_split(params: Params, cfg: ArchConfig, tp) -> bool:
+    """Whether the LM head's vocabulary columns are split over ``tp``."""
+    head = params["embed"].shape[0] if cfg.tie_embeddings \
+        else params["lm_head"].shape[1]
+    return L._is_split(tp, head, cfg.vocab)
 
 
 def lm_logits(params: Params, cfg: ArchConfig, x: torch.Tensor,
               tp=None) -> torch.Tensor:
     """The logits of the hidden states x; over a model axis ``tp`` this
-    rank's block of vocabulary columns (``tp.gather_last`` joins them)."""
+    rank's block of vocabulary columns (``tp.gather_last`` joins them), or
+    all of them where the vocabulary does not split."""
     x = L.apply_norm(params["final_norm"], x, cfg)
-    if tp is not None:
+    if _head_split(params, cfg, tp):
         x = tp.copy_in(x)
     if cfg.tie_embeddings:
         logits = x @ params["embed"].T
@@ -379,7 +398,7 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     reference."""
     x = embed_inputs(params, cfg, tokens, patch_embeds, tp)
     positions = torch.arange(x.shape[1], device=x.device)
-    enc = encode(params, frames, cfg) if cfg.encoder_layers else None
+    enc = encode(params, frames, cfg, tp) if cfg.encoder_layers else None
     remat = cfg.remat and torch.is_grad_enabled()
     group = 1
     if remat and "groups" in params and len(cfg.block_pattern) == 1:
@@ -437,7 +456,8 @@ def forward_train(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 def _full_logits(params: Params, cfg: ArchConfig, x: torch.Tensor,
                  tp=None) -> torch.Tensor:
     logits = lm_logits(params, cfg, x, tp)
-    return logits if tp is None else tp.gather_last(logits)
+    return tp.gather_last(logits) if _head_split(params, cfg, tp) \
+        else logits
 
 
 def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
@@ -500,8 +520,15 @@ def loss_fn(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 # serve: prefill + decode
 # ---------------------------------------------------------------------------
 
+def _ring(cfg: ArchConfig, kind: str, cache_len: int) -> int:
+    """The K/V rows of an attention layer's cache: ``min(cache_len,
+    window)`` for an ``swa`` layer, ``cache_len`` otherwise."""
+    return min(cache_len, cfg.window) if (kind == "swa" and cfg.window) \
+        else cache_len
+
+
 def _cache_spec(cfg: ArchConfig, kind: str, B: int, cache_len: int,
-                device, tp=None) -> Params:
+                device) -> Params:
     if kind not in _MIXERS:
         raise ValueError(kind)
     if kind == "wkv6":
@@ -509,9 +536,8 @@ def _cache_spec(cfg: ArchConfig, kind: str, B: int, cache_len: int,
     elif kind == "rglru":
         c = {"mixer": L.init_rglru_cache(cfg, B, device)}
     else:
-        wlen = min(cache_len, cfg.window) \
-            if (kind == "swa" and cfg.window) else cache_len
-        c = {"mixer": L.init_attn_cache(cfg, B, wlen, device, tp)}
+        c = {"mixer": L.init_attn_cache(cfg, B, _ring(cfg, kind, cache_len),
+                                        device)}
     if cfg.ffn_kind == "rwkv_cm":
         # channel-mix token-shift state (previous post-norm2 activation)
         c["cm_prev"] = torch.zeros((B, cfg.d_model), dtype=L._dt(cfg),
@@ -519,95 +545,106 @@ def _cache_spec(cfg: ArchConfig, kind: str, B: int, cache_len: int,
     return c
 
 
+def _cache_tree(cfg: ArchConfig, stacked: bool, B: int, cache_len: int,
+                device) -> Params:
+    """The zeros of every layer's cache, in the parameters' layout."""
+    P = len(cfg.block_pattern)
+    cache: Params = {}
+    if stacked:
+        R, tail = _stack_plan(cfg)
+        cache["groups"] = [
+            _tmap(lambda a: a.new_zeros((R,) + a.shape),
+                  _cache_spec(cfg, cfg.block_pattern[pos], B, cache_len,
+                              device))
+            for pos in range(P)]
+        cache["tail"] = [_cache_spec(cfg, cfg.block_pattern[i % P], B,
+                                     cache_len, device) for i in range(tail)]
+    else:
+        cache["layers"] = [_cache_spec(cfg, cfg.mixer_of(i), B, cache_len,
+                                       device) for i in range(cfg.n_layers)]
+    return cache
+
+
 def init_cache(params: Params, cfg: ArchConfig, B: int, cache_len: int,
                enc: torch.Tensor | None = None, tp=None) -> Params:
     """An all-zeros cache on the parameters' device (callers set ``pos``);
     an encoder-decoder's carries the encoder output as ``enc``. Over a
-    model axis ``tp`` the K/V leaves hold the rank's local KV heads
-    (``distributed.sharding.cache_specs``)."""
+    model axis ``tp`` (``B``: this rank's requests) every leaf is the
+    rank's block of the one-process cache under
+    ``distributed.sharding.cache_specs``: its KV heads, or its block of a
+    ring's rows where the KV heads do not split, its RWKV6 heads, its
+    RG-LRU channels."""
     dev = params["embed"].device
-    P = len(cfg.block_pattern)
-    cache: Params = {}
-    if "groups" in params:
-        R, tail = _stack_plan(cfg)
-        cache["groups"] = [
-            _tmap(lambda a: a.new_zeros((R,) + a.shape),
-                  _cache_spec(cfg, cfg.block_pattern[pos], B, cache_len, dev,
-                              tp))
-            for pos in range(P)]
-        cache["tail"] = [_cache_spec(cfg, cfg.block_pattern[i % P], B,
-                                     cache_len, dev, tp) for i in range(tail)]
+    stacked = "groups" in params
+    if tp is None:
+        cache = _cache_tree(cfg, stacked, B, cache_len, dev)
     else:
-        cache["layers"] = [_cache_spec(cfg, cfg.mixer_of(i), B, cache_len,
-                                       dev, tp) for i in range(cfg.n_layers)]
+        from ..distributed.sharding import cache_specs, shard_tree
+        mesh = tp.comm.mesh
+        full = _cache_tree(cfg, stacked, B * mesh.size("pod", "data"),
+                           cache_len, "meta")
+        cache = _tmap(lambda a: torch.zeros(a.shape, dtype=a.dtype,
+                                            device=dev),
+                      shard_tree(full, cache_specs(full, cfg, mesh), mesh))
     if enc is not None:
         cache["enc"] = enc
     return cache
 
 
 def _mixer_decode(p, x, cfg: ArchConfig, kind: str, cache, backend: str,
-                  tp=None):
+                  tp=None, cache_len: int | None = None):
     if kind not in _MIXERS:
         raise ValueError(kind)
     if kind == "wkv6":
-        return L.wkv6_decode(p, x, cfg, cache)
+        return L.wkv6_decode(p, x, cfg, cache, tp)
     if kind == "rglru":
-        return L.rglru_decode(p, x, cfg, cache)
-    return L.attention_decode(p, x, cfg, cache, backend=backend, tp=tp)
+        return L.rglru_decode(p, x, cfg, cache, tp)
+    ring = None if cache_len is None else _ring(cfg, kind, cache_len)
+    return L.attention_decode(p, x, cfg, cache, backend=backend, tp=tp,
+                              ring=ring)
 
 
 def block_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str,
                  cache: Params, backend: str = "auto",
-                 enc: torch.Tensor | None = None, tp=None) -> torch.Tensor:
+                 enc: torch.Tensor | None = None, tp=None,
+                 cache_len: int | None = None) -> torch.Tensor:
     """One token through one block; the block's cache is updated in
-    place. ``enc``: the encoder output the cross-attention reads."""
+    place. ``enc``: the encoder output the cross-attention reads;
+    ``cache_len``: the capacity prefill built the cache with (a rank's
+    block of a sequence-split ring needs the ring's length)."""
     h = L.apply_norm(p["norm1"], x, cfg)
     mix, _ = _mixer_decode(p["mixer"], h, cfg, kind, cache["mixer"], backend,
-                           tp)
+                           tp, cache_len)
     if cfg.parallel_block:
-        return x + mix + _apply_ffn(p["ffn"], h, cfg)[0]
+        return x + mix + _apply_ffn(p["ffn"], h, cfg, tp)[0]
     x = x + mix
     if "xattn" in p and enc is not None:
         hx = L.apply_norm(p["norm_x"], x, cfg)
-        x = x + L.cross_attention_block(p["xattn"], hx, enc, cfg)
+        x = x + L.cross_attention_block(p["xattn"], hx, enc, cfg, tp)
     h2 = L.apply_norm(p["norm2"], x, cfg)
     if cfg.ffn_kind == "rwkv_cm":
         ffn_out = L.rwkv_cm_block(p["ffn"], h2, cfg,
-                                  x_prev=cache["cm_prev"][:, None])
+                                  x_prev=cache["cm_prev"][:, None], tp=tp)
         cache["cm_prev"].copy_(h2[:, 0])
         return x + ffn_out
     return x + _apply_ffn(p["ffn"], h2, cfg, tp)[0]
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Params,
-                token: torch.Tensor, backend: str = "auto", tp=None
+                token: torch.Tensor, backend: str = "auto", tp=None,
+                cache_len: int | None = None
                 ) -> tuple[torch.Tensor, Params]:
     """token: (B, 1) int -> (logits (B, 1, V), cache). The cache is
     updated in place (the new K/V row and ``pos``, the RWKV6 state and
     token-shift rows, or the RG-LRU state and conv history) and returned;
     the reference returns a new one. Over a model axis ``tp`` the logits
-    are gathered from the vocabulary blocks."""
+    are gathered from the vocabulary blocks; a cache whose K/V rings are
+    split over their rows needs the ``cache_len`` prefill was given."""
     x = embed_inputs(params, cfg, token, tp=tp)
     enc = cache.get("enc")
     for blk, kind, c in _layers(params, cfg, cache):
-        x = block_decode(blk, x, cfg, kind, c, backend, enc, tp)
+        x = block_decode(blk, x, cfg, kind, c, backend, enc, tp, cache_len)
     return _full_logits(params, cfg, x, tp), cache
-
-
-def _prime(dst: torch.Tensor, src: torch.Tensor, S: int) -> None:
-    """Write the last ``min(S, wlen)`` K or V rows ``src`` (B, S, Hkv, dh)
-    into a layer cache ``dst`` (B, Hkv, wlen, dh) as the reference primes
-    it: appended from slot 0 while S <= wlen; once S >= wlen, token t at
-    slot t % wlen (the reference's roll by S % wlen)."""
-    wlen = dst.shape[2]
-    n = min(S, wlen)
-    rows = src[:, S - n:].transpose(1, 2)            # (B, Hkv, n, dh) view
-    shift = S % wlen if S >= wlen else 0
-    if shift == 0:
-        dst[:, :, :n].copy_(rows)
-    else:
-        dst[:, :, shift:].copy_(rows[:, :, :wlen - shift])
-        dst[:, :, :shift].copy_(rows[:, :, wlen - shift:])
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -626,42 +663,40 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     the last three rows of its input projection (zeros before a short
     prompt); the channel mix keeps its last input. An encoder-decoder
     encodes ``frames`` once and keeps the output in the cache. Over a
-    model axis ``tp`` each rank primes its local KV heads and the logits
-    are gathered from the vocabulary blocks."""
+    model axis ``tp`` each rank primes its blocks of the caches (its KV
+    heads, or its block of a ring's rows, its RWKV6 heads, its RG-LRU
+    channels) and the logits are gathered from the vocabulary blocks."""
     x = embed_inputs(params, cfg, tokens, patch_embeds, tp)
     B, S, _ = x.shape
+    cache_len = cache_len or S
     positions = torch.arange(S, device=x.device)
-    enc = encode(params, frames, cfg) if cfg.encoder_layers else None
-    cache = init_cache(params, cfg, B, cache_len or S, enc, tp)
+    enc = encode(params, frames, cfg, tp) if cfg.encoder_layers else None
+    cache = init_cache(params, cfg, B, cache_len, enc, tp)
     for blk, kind, c in _layers(params, cfg, cache):
         h = L.apply_norm(blk["norm1"], x, cfg)
         if kind == "wkv6":
             mix, state = L.wkv6_mix(blk["mixer"], h, L._shift(h), cfg,
-                                    backend)
+                                    backend, tp)
             c["mixer"]["state"].copy_(state)
             c["mixer"]["x_prev"].copy_(h[:, -1])
         elif kind == "rglru":
-            mix, xw, hh = L.rglru_mix(blk["mixer"], h)
+            mix, xw, hh = L.rglru_mix(blk["mixer"], h, tp)
             hist = c["mixer"]["conv"]
             c["mixer"]["h"].copy_(hh[:, -1])
             c["mixer"]["conv"].copy_(
                 F.pad(xw, (0, 0, hist.shape[1], 0))[:, -hist.shape[1]:])
         else:
-            q, k, v = L._qk_project(blk["mixer"], h, cfg, positions, tp)
-            _prime(c["mixer"]["k"], k, S)
-            _prime(c["mixer"]["v"], v, S)
-            c["mixer"]["pos"].fill_(S)
-            out = L.causal_attention(q, k, v, cfg,
-                                     window=_window(cfg, kind),
-                                     backend=backend)
-            mix = L._row_out(out.reshape(B, S, -1) @ blk["mixer"]["wo"], tp)
+            mix = L.attention_prefill(
+                blk["mixer"], h, cfg, positions, c["mixer"],
+                window=_window(cfg, kind), backend=backend, tp=tp,
+                ring=_ring(cfg, kind, cache_len))
         if cfg.parallel_block:
-            x = x + mix + _apply_ffn(blk["ffn"], h, cfg)[0]
+            x = x + mix + _apply_ffn(blk["ffn"], h, cfg, tp)[0]
             continue
         x = x + mix
         if "xattn" in blk and enc is not None:
             hx = L.apply_norm(blk["norm_x"], x, cfg)
-            x = x + L.cross_attention_block(blk["xattn"], hx, enc, cfg)
+            x = x + L.cross_attention_block(blk["xattn"], hx, enc, cfg, tp)
         h2 = L.apply_norm(blk["norm2"], x, cfg)
         x = x + _apply_ffn(blk["ffn"], h2, cfg, tp)[0]
         if cfg.ffn_kind == "rwkv_cm":

@@ -81,6 +81,12 @@ from repro_torch.kernels.swa import (
     SwaPrefillFn,
     attn_decode,
     attn_decode_cuda,
+    attn_decode_merge,
+    attn_decode_merge_cuda,
+    attn_decode_merge_ref,
+    attn_decode_partial,
+    attn_decode_partial_cuda,
+    attn_decode_partial_ref,
     attn_decode_ref,
     swa_prefill,
     swa_prefill_cuda,
@@ -754,6 +760,75 @@ def test_attn_decode_kernel_ignores_rows_past_the_length(cuda_device):
         v2[b, :, L[b]:] = 1e30
     assert torch.equal(attn_decode_cuda(q, k, v, L),
                        attn_decode_cuda(q, k2, v2, L))
+
+
+# K5's rank-partial mode over n blocks of a ring: RecurrentGemma's shape
+# (10 query heads on one KV head of 256) and G 4 at head size 128; lengths
+# "wrapped" (every row valid), "first" (valid rows in the first block only:
+# the later blocks are empty) and "ragged"
+PARTIAL_CASES = [(2, 10, 1, 512, 256), (3, 8, 2, 256, 128)]
+
+
+def _partial_lengths(B, Wc, n, lens, seed):
+    rng = np.random.default_rng(seed)
+    if lens == "wrapped":
+        return np.full(B, Wc, dtype=np.int32)
+    if lens == "first":
+        return rng.integers(1, Wc // n + 1, size=B).astype(np.int32)
+    return rng.integers(1, Wc + 1, size=B).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", ["wrapped", "first", "ragged"])
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("dt", ["bf16", "fp32"])
+@pytest.mark.parametrize("shape", PARTIAL_CASES)
+def test_attn_decode_partial_kernel_matches_plain(cuda_device, shape, dt, n,
+                                                  lens):
+    """Each block's triple against the plain partial (an empty block: m =
+    -inf, l = 0, acc = 0 exactly), the merge of the n blocks through the
+    combine kernel against the plain merge and the whole decode."""
+    B, H, Hkv, Wc, dh = shape
+    q, k, v, _ = decode_problem(B, H, Hkv, Wc, dh, "full", seed=n)
+    L = torch.from_numpy(_partial_lengths(B, Wc, n, lens, n)).to(cuda_device)
+    dtype = _DT[dt]
+    tq, tk, tv = (torch.from_numpy(a).to(cuda_device, dtype)
+                  for a in (q, k, v))
+    Wb, tol = Wc // n, _attn_tol(dtype)
+    before = (attn_decode_cuda.launches, attn_decode_partial_cuda.launches,
+              attn_decode_merge_cuda.launches)
+    parts = []
+    for r in range(n):
+        kb, vb = (t[:, :, r * Wb:(r + 1) * Wb].contiguous() for t in (tk, tv))
+        Lr = torch.clamp(L - r * Wb, 0, Wb).to(torch.int32)
+        acc, m, l = attn_decode_partial(tq, kb, vb, Lr)
+        wa, wm, wl = attn_decode_partial_ref(tq.float(), kb.float(),
+                                             vb.float(), Lr)
+        empty = Lr == 0
+        assert bool((m[empty] == -torch.inf).all()) and \
+            bool((l[empty] == 0).all()) and bool((acc[empty] == 0).all())
+        torch.testing.assert_close(m[~empty], wm[~empty], rtol=tol, atol=1e-4)
+        torch.testing.assert_close(acc[~empty] / l[~empty, :, None],
+                                   wa[~empty] / wl[~empty, :, None],
+                                   rtol=tol, atol=1e-5)
+        parts.append((acc, m, l))
+    acc, m, l = (torch.stack(t) for t in zip(*parts))
+    got = attn_decode_merge(acc, m, l, dtype)
+    torch.cuda.synchronize()
+    assert (attn_decode_cuda.launches, attn_decode_partial_cuda.launches,
+            attn_decode_merge_cuda.launches) == (before[0], before[1] + n,
+                                                 before[2] + 1)
+    assert all(int(t.abs().sum()) == 0 for t in _TICKETS.values())
+    assert got.dtype == dtype and got.shape == (B, H, dh)
+    torch.testing.assert_close(got.float(),
+                               attn_decode_merge_ref(acc, m, l), rtol=tol,
+                               atol=1e-5)
+    want = attn_decode_ref(tq.float(), tk.float(), tv.float(), L)
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=1e-5)
+    # the triples packed as the ranks gather them: strided views
+    packed = torch.cat([acc, m[..., None], l[..., None]], dim=-1)
+    assert torch.equal(attn_decode_merge(packed[..., :dh], packed[..., dh],
+                                         packed[..., dh + 1], dtype), got)
 
 
 @pytest.mark.cuda
