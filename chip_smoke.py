@@ -253,7 +253,8 @@ Phases (any failure raises and the script exits non-zero):
              the stub inputs in
              each batch: OLMoE-1B-7B at 2 layers (stacked, remat),
              trimmed_mean W 3 F 1, Byzantine 1, 3 x 4 x 1,024 tokens;
-             Whisper-small at full depth, trimmed_mean W 8 F 2, Byzantine
+             Whisper-small at 4 + 4 of its 12 + 12 layers (full depth
+             before phase 26), trimmed_mean W 8 F 2, Byzantine
              2 and 5, 8 x 2 x 448 tokens with 1,500 float32 frames a row;
              InternVL2-26B at 2 layers, mean, lr 3e-5, 4 x (256 float32
              patches + 1,792 tokens). K6 workers x layers x 2 a step
@@ -297,7 +298,8 @@ Phases (any failure raises and the script exits non-zero):
              process with its own copy or its model blocks: (a) which
              collectives gloo takes on CUDA tensors (the refusals must be
              what the rank communicator stages through host memory); (b)
-             paper_sim at published widths on 4 ranks, 3 robust steps of
+             paper_sim at published widths and 4 of its 8 layers (8
+             before phase 26) on 4 ranks, 2 robust steps of
              trimmed_mean (F 1, Byzantine 2), hierarchical_trim on 2 x 2
              (F 0), the sharded trim and pushsum_sparse, and one step of
              pushsum on 2 x 2 (its ring sends staged through host memory,
@@ -307,7 +309,8 @@ Phases (any failure raises and the script exits non-zero):
              (bit-equality reported; parameters within one bf16 ulp of
              each leaf's largest entry, losses within 1e-3, the
              aggregate's rel rms within 1e-2), K4 on every rank (K1 for
-             pushsum_sparse); (c) Qwen3-8B at 36 layers tensor-parallel
+             pushsum_sparse); (c) Qwen3-8B at 12 of 36 layers (36 before
+             phase 26) tensor-parallel
              on model 2 (16 query heads on 4 KV heads a rank through K6,
              K5 at G 4), 2 x 2,048-token prompts and 8 tokens
              teacher-forced, held by phase 9's rule against the
@@ -348,6 +351,21 @@ Phases (any failure raises and the script exits non-zero):
              bit-equal to one process; the rank-partial K5, its merge, K6
              on gathered heads and K7 on local heads timed beside their
              plain versions, bounds and library calls.
+26. the families trained over model ranks — 4 gloo ranks sharing this
+             card train their blocks through make_train_step(mesh=), 2
+             mean steps a run at published widths: RWKV6-1.6B (2 layers)
+             and RecurrentGemma-2B (3 layers, model 4) in bf16 and
+             float32, Whisper-small at full depth, InternVL2-26B (2
+             layers) under FSDP, Qwen3-8B (2 layers) with and without FSDP
+             in bf16 and under FSDP in float32; float32 losses within 1e-4
+             relative of the one-process float32 kernel path and the first
+             step's gradients, block by block, within 2e-5 of each leaf's
+             scale beyond twice the leaf's own float32 noise; bf16 losses
+             by phase 9's rule; one bf16 robust trimmed_mean step of
+             RecurrentGemma on (data 2 x model 2), its aggregate against
+             the float32 gradient and its parameters against the first
+             AdamW step of that aggregate; a 1 x 1 NCCL FSDP mesh bit-equal
+             to one process; K6, K7 and K4 at the rank shapes timed.
 
 Phases 3, 5, 6b, 6c, 9 and 18 also print their run's peak memory beside
 repro_torch.analysis' memory model, and require the bytes the run itself
@@ -379,6 +397,7 @@ file, it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -395,7 +414,7 @@ T_MAIN = 200
 N_FULL = 131_072
 N_SMALL = 16_384
 TIMED_RUNS = 30
-STEP_RUNS, STEP_T = 6, 50     # 10 runs before phase 24
+STEP_RUNS, STEP_T = 3, 50     # 10 runs before phase 24, 6 before 26
 BYZ_F, BYZ_AGENTS, BYZ_GAMMA = 2, (2, 9), 10
 SERVE_B, SERVE_S, SERVE_GEN = 8, 2048, 32
 # serve mains' depths at published widths (36 and 24 layers published; cut
@@ -1612,7 +1631,7 @@ PS_SWEEP_N = 4_096              # push-sum sweep: nodes a graph draw
 # timing: median of SWEEP_RUNS x STEP_T steps; few runs, so that the
 # script keeps well inside its time limit as phases are added (6 before
 # phase 23 came)
-SWEEP_RUNS = 3
+SWEEP_RUNS = 2    # 3 before phase 26
 # a grid row against the port's single run of its scenario on the card:
 # the masks and K1's recv bit-equal, the rest within the CPU tests' limits
 # (tests/test_torch_sweeps.py): the fusion pools each scenario's
@@ -3889,6 +3908,26 @@ def main() -> int:
                                              "bound_by", "library_ms")},
         "shape": ft_["k5_partial"]["shape"], "merge": ft_["k5_merge"]})
     lap("phase 25")
+    # ---- phase 26: the families trained over model ranks, and FSDP --------
+    tx = family_train_axis_phase(dev, flush)
+
+    def tx_launches(name: str) -> dict:
+        return {run: r["launches"].get(name, 0)
+                for run, r in tx["runs"].items()
+                if "launches" in r and r["launches"].get(name, 0)}
+
+    t26 = tx["times"]
+    by_name["swa_prefill"].update(
+        launches_family_train_ranks=tx_launches("swa_prefill"),
+        family_train_ranks={k: v for k, v in t26.items()
+                            if k.startswith("k6_")})
+    by_name["wkv6"].update(
+        launches_family_train_ranks=tx_launches("wkv6"),
+        family_train_ranks=t26["k7_rank_train"])
+    by_name["trimmed_mean"].update(
+        launches_family_train_ranks=tx_launches("trimmed_mean"),
+        family_train_ranks=t26["k4_rank_robust"])
+    lap("phase 26")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5073,7 +5112,8 @@ FAMILY_CELLS = {
     "whisper": ("whisper_small", 64, None),
     "internvl2": ("internvl2_26b", SERVE_S, 6),
 }
-FAMILY_PROFILE_STEPS = 10     # decode steps under the profiler a family
+FAMILY_PROFILE_STEPS = 5      # decode steps under the profiler a family
+                              # (10 before phase 26)
 
 
 def family_stubs(cfg, B: int, dev, seed: int = 0) -> dict:
@@ -5438,7 +5478,7 @@ def family_phases(dev, flush, lap) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_W, TRAIN_F, TRAIN_BYZ = 8, 2, "2,5"
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 1024, 64, 10
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 1024, 64, 6   # 10 before phase 26
 # a layer's shapes for the gradient checks: paper_sim's attention (B, S,
 # H, Hkv, head 64) and RWKV6-1.6B's WKV scan (B, H, T, head 64)
 GRAD_ATTN, GRAD_WKV = (8, 1024, 12, 4), (2, 32, 1024)
@@ -6046,31 +6086,34 @@ def train_timing(dev, k4_ms: float) -> None:
 # rows are the only cuts: OLMoE at 2 layers (its stacked (R, ...) layout
 # with remat; 3 copies of 1.05 B parameters at 14 B each), InternVL2 at 2
 # layers in the mean mode (one copy: two robust copies of its 1.14 B
-# embedding and head parameters do not fit), Whisper at full depth. The
+# embedding and head parameters do not fit), Whisper at 4 + 4 of its 12 +
+# 12 layers (full depth before phase 26; cut for the script's time). The
 # CLI's lr of 3e-4 but for InternVL2: at d_model 6,144 an Adam step of
 # 3e-4 on every weight moves a logit by ~1.5 and the loss oscillates
 # (12.00, 11.85, 12.46, 11.76, ...); a tenth of it
 FAMILY_TRAIN = {
     "olmoe": ("olmoe_1b_7b", 2, "trimmed_mean", 3, 1, "1", 4, 1024, 3e-4),
-    "whisper": ("whisper_small", None, "trimmed_mean", 8, 2, "2,5", 2, 448,
+    "whisper": ("whisper_small", 4, "trimmed_mean", 8, 2, "2,5", 2, 448,
                 3e-4),
     "internvl2": ("internvl2_26b", 2, "mean", 1, 0, "", 4, 1792, 3e-5),
 }
 FAMILY_TRAIN_STEPS = 10
 FAMILY_PLAIN_STEPS = 3    # the plain path's steps, held against the first
-FAMILY_TIMED_STEPS = 2    # phase 21's timed steps a path (5 before phase 23,
+FAMILY_TIMED_STEPS = 1    # phase 21's timed steps a path (5 before phase 23,
                           # 3 before phase 24)
 # kernel path against the plain path (see family_train_main)
 FAMILY_LOSS_GAP, FAMILY_AGG_GAP = 1e-3, 1e-2
 
 
 def family_train_cfg(name: str):
-    """A cell's config: published widths, its depth cut."""
+    """A cell's config: published widths, its depth cut (an encoder's
+    too)."""
     import dataclasses
     from repro_torch.configs import get_config
     arch, depth = FAMILY_TRAIN[name][:2]
     cfg = get_config(arch)
-    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+    return cfg if depth is None else dataclasses.replace(
+        cfg, n_layers=depth, encoder_layers=min(cfg.encoder_layers, depth))
 
 
 def family_train_argv(name: str, backend: str) -> list:
@@ -7051,7 +7094,9 @@ def multidevice_phase(dev, flush, model, rt, M) -> dict:
 # its own copy, or its model blocks, and its kernels on the card
 # ---------------------------------------------------------------------------
 
-MM_W, MM_SEQ, MM_BATCH, MM_STEPS = 4, 1024, 8, 3    # (b): 2 rows a worker
+MM_W, MM_SEQ, MM_BATCH, MM_STEPS = 4, 1024, 8, 2    # (b): 2 rows a worker
+MM_ROBUST_LAYERS = 4     # (b)'s paper_sim, of 8 since phase 26 (time limit)
+#                                   (3 steps before phase 26)
 #: (b)'s runs: aggregator, F, Byzantine workers, (pods, per pod), steps.
 #: The hierarchical trim of pods of 2 takes F = 0 (a trim of F needs
 #: 2F + 1). pushsum's ring sends are gloo's host-staged path; it takes one
@@ -7065,13 +7110,14 @@ MM_RUNS = (("trimmed_mean", 1, (2,), (1, 4), MM_STEPS),
 #: leaf's largest entry (bit-equality is expected and reported)
 MM_PARAM_REL_GAP = 2 ** -7
 MM_SERVE_B, MM_SERVE_S, MM_SERVE_GEN = 2, 2048, 8    # (c)
-MM_QWEN_LAYERS = 36
+MM_QWEN_LAYERS = 12      # of 36 since phase 26 (the script's time limit)
 MM_OLMOE_LAYERS, MM_OLMOE_GEN = 8, 5                  # (d): prefill + 4
 #: (d) in float32 at 2 layers, where the greedy rule has clear margins
 MM_OLMOE_FP32_LAYERS, MM_OLMOE_FP32_GEN = 2, 8
 MM_SERVES = ("qwen3_8b", "olmoe_1b_7b", "olmoe_fp32")
 MM_MEAN_LAYERS, MM_MEAN_BATCH = 2, 8                  # (e)
-MM_PROBE_OPS = ("all_reduce", "all_gather", "all_to_all", "send_recv")
+MM_PROBE_OPS = ("all_reduce", "all_gather", "all_to_all", "reduce_scatter",
+                "reduce_scatter_bf16", "send_recv")
 
 
 def mm_free_port() -> int:
@@ -7153,6 +7199,11 @@ def mm_probe_rank(rank: int, world: int, port: int, out: str) -> None:
             pair = (x[mine], other[mine]) if rank == 0 else \
                 (other[mine], x[mine])
             return torch.equal(y, torch.cat(pair))
+        if op.startswith("reduce_scatter"):    # FSDP's backward (phase 26)
+            dt = torch.bfloat16 if op.endswith("bf16") else torch.float32
+            y = torch.empty(4, dtype=dt, device=dev)
+            collective("reduce_scatter")(y, x.to(dt))
+            return torch.equal(y, (x + other).to(dt)[4 * rank:4 * rank + 4])
         y = torch.empty(8, device=dev)
         for req in dist.batch_isend_irecv([
                 dist.P2POp(dist.isend, x, 1 - rank),
@@ -7198,7 +7249,8 @@ def mm_robust_tc(kind: str, F: int, byz: tuple):
     from repro_torch.distributed.aggregation import AggregatorConfig
     from repro_torch.distributed.trainer import TrainConfig
     from repro_torch.optim import AdamWConfig
-    return TrainConfig(arch=mm_train_cfg(), agg=AggregatorConfig(
+    return TrainConfig(arch=mm_train_cfg(MM_ROBUST_LAYERS),
+                       agg=AggregatorConfig(
         kind=kind, F=F), opt=AdamWConfig(lr=3e-4, warmup_steps=1,
                                           total_steps=MM_STEPS),
         byzantine_workers=byz)
@@ -7456,7 +7508,7 @@ def mm_serve_reference(dev, out: str, name: str) -> dict:
     """(c)/(d)'s one-process runs: ``generate`` on the kernel path, then
     the plain serve path teacher-forced on its tokens (the rounding noise
     phase 9's rule measures against); for Qwen3-8B also the plain full
-    forward, which holds the one-process kernel path at its 36 layers by
+    forward, which holds the one-process kernel path at its 12 layers by
     phase 9's rule, and (f), the same requests through the mesh-taking
     steps on a 1 x 1 NCCL mesh, bit-equal to the one-process run. Saves
     prompts, tokens and logits for the ranks and the checks -> (logits,
@@ -7671,7 +7723,8 @@ def model_mesh_phase(dev, flush) -> dict:
             rs = [r[kind] for r in rows]
             k4[kind] = rs[0]["launches"].get("trimmed_mean", 0)
             log(f"[ranks] (b) {kind} F {F} Byzantine {byz} on (pod, data) "
-                f"{shape}, paper_sim at published widths, {steps} steps "
+                f"{shape}, paper_sim at published widths and "
+                f"{MM_ROBUST_LAYERS} layers, {steps} steps "
                 f"of {MM_BATCH} x {MM_SEQ} tokens, {MM_W} gloo ranks: "
                 f"wall {max(r['wall_s'] for r in rs):.1f} s; parameters "
                 f"bit-equal to row w of the one-process step "
@@ -8342,6 +8395,765 @@ def family_axis_phase(dev, flush) -> dict:
                 del lr
             del lk, lk32, lp32
         torch.cuda.empty_cache()
+    return fig
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: the families trained over model ranks, and the FSDP mean step
+# ---------------------------------------------------------------------------
+
+#: phase 26's runs: run -> (arch, layers (None: full depth), mesh (data,
+#: model), dtypes, fsdp, global batch, tokens a row, lr). Published
+#: widths, depth cut so that the four ranks' bytes stay under ~70 GB of
+#: the card (``tx_reckon``), and in tokens: every rank gathers the whole
+#: (rows, tokens, vocabulary) float32 logits for the loss (RecurrentGemma's
+#: 256,000 columns: 3.9 GB at 4 x 1,024 tokens on model 4, several times
+#: that in its backward; two probe runs ran out of the card's memory at 4 x
+#: 1,024 and 2 x 1,024), so RecurrentGemma takes 2 x 512 tokens, Qwen3-8B
+#: 2 x 1,024 and InternVL2-26B 2 x (256 patches + 768); bf16 weights,
+#: float32 the same weights upcast. The script's time limit leaves float32
+#: to RWKV6, RecurrentGemma on model 4 and the 2-layer FSDP Qwen3-8B, whose
+#: first-step gradients are held block by block (the reduce-scatter's
+#: sums and rows); the CPU tests hold the other layouts in float32.
+#: RecurrentGemma on data 2 x model 2 runs the robust step
+#: (:data:`TX_ROBUST`). InternVL2 fits four ranks only under FSDP (its
+#: whole 92,553-row embedding and head are on every rank without it)
+TX_RUNS = {
+    "rwkv6": ("rwkv6_1b6", 2, (2, 2), ("bfloat16", "float32"), False, 4,
+              1024, 3e-4),
+    "recurrentgemma_mp4": ("recurrentgemma_2b", 3, (1, 4),
+                           ("bfloat16", "float32"), False, 2, 512, 3e-4),
+    "recurrentgemma_mp2": ("recurrentgemma_2b", 3, (2, 2), (), False, 2,
+                           512, 3e-4),
+    "whisper": ("whisper_small", None, (2, 2), ("bfloat16",), False, 4, 448,
+                3e-4),
+    "internvl2_fsdp": ("internvl2_26b", 2, (2, 2), ("bfloat16",), True, 2,
+                       768, 3e-5),
+    "qwen3_fsdp": ("qwen3_8b", 2, (2, 2), ("bfloat16", "float32"), True, 2,
+                   1024, 3e-4),
+    "qwen3": ("qwen3_8b", 2, (2, 2), ("bfloat16",), False, 2, 1024, 3e-4),
+}
+#: the robust rank step: RecurrentGemma on (data 2 x model 2), one bf16
+#: trimmed_mean step of its 2 workers (F 0: K4 on the rank's block). Its
+#: aggregate is held against the float32 mean gradient (F 0 over two
+#: workers of one row each is the mean): its block's rms gap at most twice
+#: the one-process bf16 robust step's whole one; its parameters against
+#: the first AdamW
+#: step worked out from the rank's own aggregate g, -lr (g s / (|g| s +
+#: eps) + wd p) with s the clip scale, within one bf16 ulp
+#: (``tx_robust_hold``)
+TX_ROBUST = "recurrentgemma_mp2"
+TX_STEPS, TX_WORLD = 2, 4     # 3 in development runs (the time limit)
+TX_FP32_LOSS, TX_GRAD_RTOL, TX_BF16_LOSS = 1e-4, 2e-5, 1e-2
+#: the float32 gradient hold: leaf i within TX_GRAD_RTOL of its scale plus
+#: twice its own float32 noise (``tx_noise``, the largest over TX_NUDGES
+#: seeded draws)
+TX_NUDGES = 4
+TX_BUDGET_GB = 70.0
+
+
+def tx_cfg(run: str, dtype: str = "bfloat16"):
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, layers = TX_RUNS[run][:2]
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def tx_tc(run: str, dtype: str, agg: str = "mean"):
+    import dataclasses
+    from repro_torch.distributed.aggregation import AggregatorConfig
+    from repro_torch.distributed.trainer import TrainConfig
+    from repro_torch.optim import AdamWConfig
+    lr = TX_RUNS[run][7]
+    tc = TrainConfig(arch=tx_cfg(run, dtype), fsdp=TX_RUNS[run][4],
+                     opt=AdamWConfig(lr=lr, warmup_steps=1,
+                                     total_steps=TX_STEPS),
+                     agg=AggregatorConfig(kind=agg, F=0))
+    return tc if agg == "mean" else dataclasses.replace(tc, fsdp=False)
+
+
+def tx_data(run: str, dev):
+    """A run's data and stubs (global batch; each rank takes its rows)."""
+    from repro_torch.data import SyntheticLMData
+    cfg = tx_cfg(run)
+    B, S = TX_RUNS[run][5:7]
+    return (SyntheticLMData(cfg.vocab, S, B, seed=0),
+            family_stubs(cfg, B, dev))
+
+
+def tx_specs(cfg, mesh_shape: tuple, fsdp: bool):
+    """The spec tree of a (data, model) mesh of ``mesh_shape`` (a stand-in:
+    the rules read only the names and extents)."""
+    from repro_torch.distributed.sharding import param_specs
+    from repro_torch.models import model as M
+
+    class Extents:
+        axis_names = ("data", "model")
+        shape = dict(zip(axis_names, mesh_shape))
+
+    return param_specs(M.param_shapes(cfg), cfg, Extents(), fsdp=fsdp)
+
+
+def tx_block_gb(cfg, mesh_shape: tuple, fsdp: bool) -> float:
+    """A rank's parameters and AdamW moments (float32) from its spec
+    blocks, GB."""
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import leaves
+    sizes = dict(zip(("data", "model"), mesh_shape))
+    total = 0
+    for leaf, spec in zip(leaves(M.param_shapes(cfg)),
+                          tx_spec_leaves(tx_specs(cfg, mesh_shape, fsdp))):
+        n = leaf.numel()
+        for e in spec:
+            for a in (e if isinstance(e, tuple) else (e,)):
+                n //= sizes.get(a, 1) if a is not None else 1
+        total += n * (leaf.element_size() + 8)
+    return total / 1e9
+
+
+def tx_spec_leaves(specs):
+    """The spec tuples of a spec tree in ``leaves`` order (keys sorted)."""
+    if isinstance(specs, dict):
+        for k in sorted(specs):
+            yield from tx_spec_leaves(specs[k])
+    elif isinstance(specs, list):
+        for v in specs:
+            yield from tx_spec_leaves(v)
+    else:
+        yield specs
+
+
+def tx_reckon(run: str, dtype: str) -> dict:
+    """A rank's bytes before the run: its blocks' parameters and moments,
+    and ``train_memory_gb``'s model (params + optimizer, and its total)
+    beside them; with and without FSDP."""
+    from repro_torch.analysis.memory_model import train_memory_gb
+    from repro_torch.configs.base import InputShape
+    cfg = tx_cfg(run, dtype)
+    shape, B, S = TX_RUNS[run][2], TX_RUNS[run][5], TX_RUNS[run][6]
+    out = {}
+    for fsdp in (False, True):
+        m = train_memory_gb(cfg, InputShape("train", S, B, "train"),
+                            dict(zip(("data", "model"), shape)), fsdp, 1)
+        out["fsdp" if fsdp else "whole"] = {
+            "blocks_gb": tx_block_gb(cfg, shape, fsdp),
+            "model_params_optimizer_gb": m["params_gb"] + m["optimizer_gb"],
+            "model_total_gb": m["total_gb"]}
+    return out
+
+
+def tx_rank(rank: int, world: int, port: int, out: str) -> None:
+    """Phase 26: rank ``rank`` of 4 gloo ranks on this card, training each
+    of :data:`TX_RUNS` on its mesh for :data:`TX_STEPS` mean steps through
+    ``make_train_step(mesh=)`` on its blocks of the one-process weights
+    (``init_local_params``, FSDP's blocks where the run says so), then
+    :data:`TX_ROBUST`'s robust step; K4, K6 and K7 counted from 0 around
+    each run; the first step's float32 gradients held, block by block,
+    against the one-process float32 run's (saved by the parent)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.comm import Comm
+    from repro_torch.distributed.sharding import (RankMesh, local_block,
+                                                  param_specs)
+    from repro_torch.distributed.trainer import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import leaves
+    # four ranks' caching allocators share the card: segments that grow
+    # in place keep each rank's unused reserve small
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    dev = mm_init(rank, world, port)
+    meshes = {}
+    for run in TX_RUNS.values():
+        if run[2] not in meshes:
+            meshes[run[2]] = RankMesh(init_device_mesh(
+                "cuda", run[2], mesh_dim_names=("data", "model")))
+    res = {}
+
+    def one_run(run, dtype, agg="mean"):
+        rm = meshes[TX_RUNS[run][2]]
+        comm = Comm(rm)
+        tc = tx_tc(run, dtype, agg)
+        cfg = tc.arch
+        specs = param_specs(M.param_shapes(cfg), cfg, rm, fsdp=tc.fsdp)
+        torch.cuda.reset_peak_memory_stats()
+        params = fa_params(M.init_local_params(0, tx_cfg(run), specs, rm,
+                                               dev), dtype)
+        opt = adamw_init(params)
+        held = sum(x.numel() * x.element_size() for x in
+                   [*leaves(params), *leaves(opt["m"]), *leaves(opt["v"])])
+        fp32 = dtype == "float32" and agg == "mean"
+        robust = agg != "mean"
+        step = make_train_step(tc, mesh=rm, comm=comm,
+                               record="aggregate" if robust else fp32)
+        data, stubs = tx_data(run, dev)
+        grads0, walls = [], []
+        start = [p.clone() for p in leaves(params)] if robust else None
+        t0 = [time.perf_counter()]
+
+        def keep(s, st):
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0[0])
+            if s == 0 and fp32:
+                grads0.extend(st.grads)
+            if s == 0 and robust:
+                grads0.append(st.aggregate)
+            t0[0] = time.perf_counter()
+
+        _zero_counts()
+        losses = run_steps(step, params, opt, data,
+                           1 if agg != "mean" else TX_STEPS, dev,
+                           robust=agg != "mean", on_step=keep,
+                           stubs={k: v for k, v in stubs.items()})
+        counts = {k: v for k, v in _counts().items() if v}
+        row = {"losses": losses, "launches": counts, "walls": walls,
+               "held_gb": held / 1e9,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "staged": [comm.staged_calls, comm.staged_bytes],
+               "coordinate": list(rm.mesh.get_coordinate())}
+        if fp32:
+            exp = torch.load(tx_grads_path(out, run), mmap=True)
+            # leaf by leaf: the gap and the leaf's own float32 noise,
+            # relative to its scale (leaves in ``leaves`` order)
+            per = []
+            for i, (g, full, sc, nz, spec) in enumerate(zip(
+                    grads0, exp["grads"], exp["scales"], exp["noise"],
+                    tx_spec_leaves(specs))):
+                gap = float((g.float() - local_block(full, spec, rm).to(dev)
+                             .float()).abs().max())
+                per.append((gap / max(sc, 1e-30), nz / max(sc, 1e-30), i))
+            # beyond twice the leaf's noise: two paths' roundings
+            row["grad_rel_gap"] = max(0.0, max(g - 2 * n for g, n, _ in per))
+            row["grad_leaf_max"] = max(per)
+            row["grad_leaves"] = sorted(per, key=lambda t: 2 * t[1] - t[0]
+                                        )[:3]
+        if robust:
+            agg = grads0.pop()
+            opt = step = None     # the moments' bytes, for the hold's own
+            gc.collect()
+            torch.cuda.empty_cache()
+            row.update(tx_robust_hold(out, run, tc, specs, rm, start,
+                                      leaves(params), agg, dev))
+            del agg
+        del params, opt, step, grads0, start
+        gc.collect()     # a recording step holds itself (``step.grads``)
+        torch.cuda.empty_cache()
+        # gloo stages CUDA tensors through pinned host blocks, which the
+        # host allocator keeps: four ranks' caches and the parent's files
+        # share the machine's 96 GiB
+        row["pinned_gb"] = torch.cuda.memory.host_memory_stats().get(
+            "allocated_bytes.current", 0) / 1e9
+        empty_host = getattr(torch._C, "_host_emptyCache", None)
+        if empty_host is not None:
+            empty_host()
+        return row
+
+    try:
+        # the robust step first, before the mean runs' gathers fill the
+        # pinned host caches
+        res["robust"] = one_run(TX_ROBUST, "bfloat16", "trimmed_mean")
+        for run, (_, _, _, dtypes, *_rest) in TX_RUNS.items():
+            for dtype in dtypes:
+                t0 = time.perf_counter()
+                res[f"{run}/{dtype}"] = one_run(run, dtype)
+                res[f"{run}/{dtype}"]["run_s"] = time.perf_counter() - t0
+                if rank == 0:
+                    log(f"[axis-train] rank 0: {run} {dtype} in "
+                        f"{time.perf_counter() - t0:.1f} s, peak "
+                        f"{res[f'{run}/{dtype}']['peak_gb']:.3f} GB, pinned "
+                        f"host {res[f'{run}/{dtype}']['pinned_gb']:.3f} GB")
+        (Path(out) / f"tx_{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def tx_robust_hold(out: str, run: str, tc, specs, rm, start: list,
+                   params: list, agg, dev) -> dict:
+    """:data:`TX_ROBUST`'s readings on a rank after its step: its aggregate
+    block's relative rms gap to the float32 mean gradient's block; how far
+    its parameters lie past the first AdamW step worked out from its own
+    aggregate (``start`` the parameters before the step)."""
+    import torch
+    from repro_torch.distributed.sharding import local_block
+    from repro_torch.optim.adamw import cosine_lr
+    exp = torch.load(tx_grads_path(out, run), mmap=True)
+    opt = tc.opt
+    lr = float(cosine_lr(opt, torch.ones((), dtype=torch.int32)))
+    scale = min(1.0, opt.clip_norm / max(exp["norm"], 1e-9))
+    sq = {"rank": 0.0, "f32": 0.0}
+    worst, off, chunk = 0.0, 0, 1 << 25
+    for p0, p1, spec, f32 in zip(start, params, tx_spec_leaves(specs),
+                                 exp["grads"]):
+        n = p1.numel()
+        decay = p0.dim() >= 2
+        t_all = local_block(f32, spec, rm).reshape(-1)
+        for i in range(0, n, chunk):      # float32 temporaries a chunk's
+            j = min(n, i + chunk)
+            g = agg[off + i:off + j]
+            t = t_all[i:j].to(dev).float()
+            sq["rank"] += float((g - t).square().sum())
+            sq["f32"] += float(t.square().sum())
+            g = g.to(p1.dtype).float()      # what the step hands AdamW
+            # the first step: m^ = g s, v^ = (g s)^2, so the step is
+            # -lr (g s / (|g| s + eps) + wd p) in float32, rounded to bf16
+            gs = g * scale
+            pf = p0.reshape(-1)[i:j].float()
+            delta = gs / (gs.abs() + opt.eps)
+            if decay:
+                delta = delta + opt.weight_decay * pf
+            want = (pf - lr * delta).to(p1.dtype).float()
+            # one bf16 ulp of the result (2^-7 of it bounds the ulp), and
+            # lr x 1e-2: the clip scale comes from the float32 gradient's
+            # norm, a few 1e-3 from the bf16 aggregate's, which moves the
+            # step's direction by a quarter of that at most
+            bound = 2.0 ** -7 * want.abs() + lr * 1e-2
+            got = p1.reshape(-1)[i:j].float()
+            worst = max(worst, float(((got - want).abs() - bound).max()))
+            del g, t, gs, pf, delta, want, bound, got
+        off += n
+    return {"agg_rms_gap": (sq["rank"] / max(sq["f32"], 1e-30)) ** 0.5,
+            "update_over": worst}
+
+
+def tx_grads_path(out: str, run: str) -> Path:
+    arch, layers = TX_RUNS[run][:2]
+    return Path(out) / f"tx_grads_{arch}_{layers}.pt"
+
+
+def tx_reference(dev, out: str, run: str) -> dict:
+    """The one-process steps of a run's model (the runs of one model and
+    depth share them) on this card, on the same weights and batches: bf16
+    on the kernel path (and for Qwen3-8B at 4 layers on a 1 x 1 NCCL mesh
+    through the mesh-taking FSDP step, bit-equal to it), float32 (the
+    weights upcast) on the kernel path; the float32 first step's
+    gradients saved for the ranks -> {dtype: losses}."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.comm import Comm
+    from repro_torch.distributed.sharding import RankMesh
+    from repro_torch.distributed.trainer import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    data, stubs = tx_data(run, dev)
+    out_l = {}
+    twins = [r for r in TX_RUNS if TX_RUNS[r][:2] == TX_RUNS[run][:2]]
+    dtypes = {d for r in twins for d in TX_RUNS[r][3]}
+    for dtype in ("bfloat16", "float32"):
+        if dtype not in dtypes and dtype == "bfloat16":
+            continue            # a float32 run needs no bf16 reference
+        tc = tx_tc(run, dtype)
+        params = fa_params(M.init_params(0, tx_cfg(run), dev), dtype)
+        opt = adamw_init(params)
+        save = dtype in dtypes and dtype == "float32"
+        step = make_train_step(tc, record=save)
+        grads0 = []
+
+        def keep(s, st):
+            if s == 0 and save:
+                grads0.extend(g.detach() for g in st.grads)
+
+        _zero_counts()
+        out_l[dtype] = run_steps(step, params, opt, data, TX_STEPS, dev,
+                                 robust=False, on_step=keep, stubs=stubs)
+        out_l[f"{dtype}_launches"] = {k: v for k, v in _counts().items()
+                                      if v}
+        if save:
+            exp = {"grads": [g.cpu() for g in grads0],
+                   "scales": [float(g.float().abs().max()) for g in grads0],
+                   "norm": float(sum(g.float().square().sum()
+                                     for g in grads0)) ** 0.5}
+            exp["noise"] = tx_noise(run, data, stubs, grads0, dev)
+            torch.save(exp, tx_grads_path(out, run))
+        del params, opt, step, grads0
+        gc.collect()     # a recording step holds itself (``step.grads``)
+        torch.cuda.empty_cache()
+    if "qwen3_fsdp" in twins:
+        dist.init_process_group("nccl", init_method="tcp://localhost:"
+                                f"{mm_free_port()}", rank=0, world_size=1)
+        try:
+            rm = RankMesh(init_device_mesh("cuda", (1, 1),
+                                           mesh_dim_names=("data", "model")))
+            comm = Comm(rm)
+            params = M.init_params(0, tx_cfg(run), dev)
+            opt = adamw_init(params)
+            step = make_train_step(tx_tc("qwen3_fsdp", "bfloat16"), mesh=rm,
+                                   comm=comm)
+            got = run_steps(step, params, opt, data, TX_STEPS, dev,
+                            robust=False, stubs=stubs)
+            require(got == out_l["bfloat16"],
+                    "(26) the 1 x 1 NCCL mesh's FSDP mean steps give the "
+                    "one-process losses bit for bit")
+            out_l["nccl"] = (f"1 x 1 NCCL mesh, {tx_cfg(run).name} at "
+                             f"{tx_cfg(run).n_layers} layers, fsdp=True "
+                             f"through the mesh-taking mean step: losses "
+                             f"{got} bit-equal to the one-process run; "
+                             f"host-staged {comm.staged_calls}")
+            del params, opt, step
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return out_l
+
+
+def tx_noise(run: str, data, stubs, grads0: list, dev) -> list:
+    """The float32 noise of a run's first-step gradients, leaf by leaf:
+    the largest gap, over :data:`TX_NUDGES` seeded draws, between
+    ``grads0`` (the one-process float32 kernel path) and the same step on
+    the same weights each scaled by 1 +- 2^-22 (a few float32 ulps, a
+    seeded sign an element): how far float32 rounding of the step's
+    inputs moves its gradients. The rank path rounds its column-block
+    products otherwise; RWKV6's chunked scan amplifies such roundings
+    (its one-process gradients sit up to 1e-4 of a leaf's scale from a
+    float64 run at reduced size), the other families' barely."""
+    import torch
+    from repro_torch.distributed.trainer import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    g = torch.Generator(device=dev).manual_seed(26)
+
+    def nudge(t):
+        if not t.is_floating_point():
+            return t
+        sign = torch.randint(0, 2, t.shape, generator=g, device=dev) * 2 - 1
+        return t * (1 + sign.to(t.dtype) * 2.0 ** -22)
+
+    gap = [0.0] * len(grads0)
+    batch = {**data.batch(0, dev), **stubs}
+    base = fa_params(M.init_params(0, tx_cfg(run), dev), "float32")
+    step = make_train_step(tx_tc(run, "float32"), record=True)
+    for _ in range(TX_NUDGES):
+        params = M._tmap(nudge, base)
+        step(params, adamw_init(params), batch)
+        gap = [max(m, float((p.float() - k.float()).abs().max()))
+               for m, p, k in zip(gap, step.grads, grads0)]
+        del params
+    del base, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gap
+
+
+def tx_robust_reference(dev, out: str) -> list:
+    """:data:`TX_ROBUST`'s one-process robust step on its 2 workers
+    (``WorkerLayout(1, 2)``, stacked copies) -> (the losses, its
+    aggregate's relative rms gap to the float32 mean gradient (one row:
+    the trimmed mean is every worker's))."""
+    import torch
+    from repro_torch.distributed.aggregation import WorkerLayout
+    from repro_torch.distributed.trainer import (make_train_step,
+                                                 replicate_for_workers,
+                                                 worker_opt_init)
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import leaves
+    data, stubs = tx_data(TX_ROBUST, dev)
+    params = replicate_for_workers(M.init_params(0, tx_cfg(TX_ROBUST), dev),
+                                   2)
+    opt = worker_opt_init(params)
+    step = make_train_step(tx_tc(TX_ROBUST, "bfloat16", "trimmed_mean"),
+                           WorkerLayout(1, 2), record="aggregate")
+    losses = run_steps(step, params, opt, data, 1, dev, stubs=stubs)
+    exp = torch.load(tx_grads_path(out, TX_ROBUST), mmap=True)
+    gap, ref, off = 0.0, 0.0, 0
+    for p, f32 in zip(leaves(params), exp["grads"]):
+        n = p[0].numel()
+        t = f32.to(dev).float().reshape(-1)
+        gap += float((step.aggregate[0, off:off + n] - t).square().sum())
+        ref += float(t.square().sum())
+        off += n
+        del t
+    del params, opt, step
+    gc.collect()     # a recording step holds itself (``step.aggregate``)
+    torch.cuda.empty_cache()
+    return losses, (gap / max(ref, 1e-30)) ** 0.5
+
+
+def tx_kernel_times(dev, flush) -> dict:
+    """K6 at each new rank training shape (the heads a rank attends with,
+    its rows of the batch), K7 on a rank's 16 RWKV6 heads at the training
+    shape and K4 on the robust rank's (2, D) block, host hidden, beside
+    their plain versions, bounds and (K6) SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.swa import swa_prefill_cuda, swa_prefill_ref
+    from repro_torch.kernels.trimmed_mean import (trimmed_mean_cuda,
+                                                  trimmed_mean_ref)
+    from repro_torch.kernels.wkv6 import wkv6_chunked_ref, wkv6_cuda
+    from repro_torch.kernels.wkv6.ops import group_chunks
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import leaves
+    g = torch.Generator(device=dev).manual_seed(26)
+    bf = torch.bfloat16
+    out = {}
+    # (tag, B a rank, S, query heads attended, KV heads, head size)
+    k6 = (("recurrentgemma_mp4", 2, 512, 3, 1, 256),
+          ("recurrentgemma_mp2", 1, 512, 5, 1, 256),
+          ("whisper", 2, 448, 6, 6, 64),
+          ("internvl2", 1, 1024, 24, 4, 128),
+          ("qwen3", 1, 1024, 16, 4, 128))
+    tr = (0, 2, 1, 3)
+    for tag, B, S, H, Hkv, dh in k6:
+        q = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf)
+        k, v = (torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(bf)
+                for _ in range(2))
+        o = swa_prefill_cuda(q, k, v, S)
+        ms = event_ms(lambda: swa_prefill_cuda(q, k, v, S), 5, flush, True)
+        plain = event_ms(lambda: swa_prefill_ref(q, k, v, S), 3, flush)
+        lib = event_ms(lambda: F.scaled_dot_product_attention(
+            q.permute(tr), k.permute(tr), v.permute(tr), is_causal=True,
+            enable_gqa=True), 5, flush, True)
+        b, by = bound(nbytes(q, k, v, o),
+                      4 * B * dh * H * (S * (S + 1) // 2), hw().peak_flops)
+        out[f"k6_{tag}"] = {"shape": [B, S, H, Hkv, dh], "ms": ms,
+                            "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                            "library_ms": lib}
+        del q, k, v, o
+    H7, T, B7 = 16, TX_RUNS["rwkv6"][6], TX_RUNS["rwkv6"][5] // 2
+    r7, k7, v7, lw, u = wkv_inputs(g, B7 * H7, T, bf, "model", dev)
+
+    def heads(a):
+        return a.view(B7, T, H7, WKV_HEAD).transpose(1, 2)
+
+    uh = u.view(B7, H7, WKV_HEAD)
+    y7, s7 = wkv6_cuda(heads(r7), heads(k7), heads(v7), heads(lw), uh)
+    ms = event_ms(lambda: wkv6_cuda(heads(r7), heads(k7), heads(v7),
+                                    heads(lw), uh), 5, flush, True)
+    plain = event_ms(lambda: wkv6_chunked_ref(r7, k7, v7, lw, u, chunk=64),
+                     2, flush)
+    tc7, fma7 = wkv_ops(B7 * H7, T, group_chunks(
+        B7 * H7, T, torch.cuda.get_device_properties(dev).multi_processor_count))
+    ops_ms = (tc7 / hw().peak_flops + fma7 / hw().fp32_flops) * 1e3
+    bytes_ms = (nbytes(r7, k7, v7, lw, y7, s7) + B7 * H7 * WKV_HEAD * 4) \
+        / hw().hbm_bw * 1e3
+    b, by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    out["k7_rank_train"] = {"shape": [B7, H7, T, WKV_HEAD], "ms": ms,
+                            "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                            "library_ms": None}
+    del r7, k7, v7, lw, u, y7, s7
+    cfg = tx_cfg(TX_ROBUST)
+    D = sum(int(np.prod(t.shape)) // (2 if "model" in sp else 1)
+            for t, sp in zip(leaves(M.param_shapes(cfg)),
+                             tx_spec_leaves(tx_specs(cfg, (2, 2), False))))
+    G = torch.randn((2, D), generator=g, device=dev)
+    t4 = trimmed_mean_cuda(G, 0)
+    err = (t4 - trimmed_mean_ref(G, 0)).abs().max().item()
+    ms = event_ms(lambda: trimmed_mean_cuda(G, 0), 5, flush, True)
+    plain = event_ms(lambda: trimmed_mean_ref(G, 0), 3, flush, True)
+    lib = event_ms(lambda: G.mean(dim=0), 5, flush, True)
+    b, by = bound(nbytes(G, t4), 2 * D)
+    out["k4_rank_robust"] = {"shape": [2, D], "ms": ms, "plain_ms": plain,
+                             "bound_ms": b, "bound_by": by,
+                             "library_ms": lib, "max_abs_err": err}
+    require(err == 0.0, f"(26) K4 at (2, {D}) F 0 equals its plain version")
+    del G, t4
+    torch.cuda.empty_cache()
+    for tag, t in out.items():
+        log(f"[timing] (26) {tag} at {t['shape']}: {t['ms']:.5f} ms with the "
+            f"host hidden, plain {t['plain_ms']:.5f}, library "
+            f"{t['library_ms']}, bound {t['bound_ms']:.5f} ({t['bound_by']})")
+    return out
+
+
+def tx_expected(run: str, dtype: str, agg: str = "mean") -> dict:
+    """The launches a rank makes in a run: K6 once a causal attention
+    layer in the forward and once in the remat (no backward kernel), K7
+    the same for RWKV6, a step; K4 once a robust step."""
+    cfg = tx_cfg(run, dtype)
+    steps = TX_STEPS if agg == "mean" else 1
+    per = 2 if cfg.remat else 1
+    if cfg.family == "ssm":
+        want = {"wkv6": per * cfg.n_layers * steps}
+    else:
+        want = {"swa_prefill": per * attn_layers(cfg) * steps}
+    if agg != "mean":
+        want["trimmed_mean"] = steps
+    return want
+
+
+def family_train_axis_phase(dev, flush) -> dict:
+    """Phase 26 -> the kernels line's figures: K6, K7 and K4's launches a
+    rank by run and their times at the new rank training shapes.
+
+    Each run's float32 rank losses are held within :data:`TX_FP32_LOSS`
+    (relative) of the one-process float32 kernel path on the same weights
+    and batches, and the first step's gradients, block by block, leaf i
+    within :data:`TX_GRAD_RTOL` of its scale beyond twice its own float32
+    noise (:func:`tx_noise`; two paths' roundings). Its bf16 losses within
+    :data:`TX_BF16_LOSS` of the one-process bf16 kernel path, with a gap
+    to the one-process float32 path at most twice the one-process bf16
+    path's (+ 1e-3); the Qwen3 FSDP pair within :data:`TX_BF16_LOSS` of
+    each other; every rank the same losses. The robust step: its loss
+    within :data:`TX_BF16_LOSS` of the one-process step's, its aggregate
+    and its update as :data:`TX_ROBUST` says."""
+    import tempfile
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig = {"times": tx_kernel_times(dev, flush), "runs": {}}
+    fails = []
+
+    def check(ok, what: str) -> None:
+        """Every run's holds are read before the phase fails on any."""
+        if not ok:
+            log(f"[axis-train] FAILED: {what}")
+            fails.append(what)
+    for run, spec in TX_RUNS.items():
+        for dtype in spec[3]:
+            r = tx_reckon(run, dtype)
+            fig["runs"][f"{run}/{dtype}/reckoned"] = r
+            log(f"[axis-train] {run} {dtype}: a rank's parameters and "
+                f"moments from its spec blocks {r['whole']['blocks_gb']:.3f}"
+                f" GB without FSDP, {r['fsdp']['blocks_gb']:.3f} GB with; "
+                f"train_memory_gb params + optimizer "
+                f"{r['whole']['model_params_optimizer_gb']:.3f} / "
+                f"{r['fsdp']['model_params_optimizer_gb']:.3f} GB, total "
+                f"{r['whole']['model_total_gb']:.3f} / "
+                f"{r['fsdp']['model_total_gb']:.3f} GB (x {TX_WORLD} "
+                f"ranks: {TX_WORLD * r['fsdp' if spec[4] else 'whole']['model_total_gb']:.1f} GB "
+                f"of the {TX_BUDGET_GB} GB budget)")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref, model = {}, {}
+        for run in TX_RUNS:     # one model's one-process runs are shared
+            key = TX_RUNS[run][:2]
+            if key not in model:
+                model[key] = tx_reference(dev, tmp, run)
+            ref[run] = model[key]
+        rob, rob_gap = tx_robust_reference(dev, tmp)
+        gc.collect()     # a recording step holds itself (``step.grads``)
+        torch.cuda.empty_cache()
+        log(f"[axis-train] one-process runs ({len(model)} models, bf16 and "
+            f"float32, and the robust step): "
+            f"{time.perf_counter() - t0:.1f} s; this process holds "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB, reserves "
+            f"{torch.cuda.memory_reserved() / 1e9:.3f}; "
+            f"{ref['qwen3_fsdp']['nccl']}")
+        t0 = time.perf_counter()
+        codes = mm_join(mm_spawn(tx_rank, TX_WORLD, tmp), 600)
+        require(codes == [0] * TX_WORLD, f"(26) {TX_WORLD} gloo ranks ran "
+                f"to their end (exit codes {codes})")
+        rows = [json.loads((Path(tmp) / f"tx_{r}.json").read_text())
+                for r in range(TX_WORLD)]
+        log(f"[axis-train] {TX_WORLD} gloo ranks: "
+            f"{time.perf_counter() - t0:.1f} s")
+    for run, (arch, layers, shape, dtypes, fsdp, B, S, lr) in TX_RUNS.items():
+        for dtype in dtypes:
+            key = f"{run}/{dtype}"
+            tag = f"[axis-train] {run} {dtype}"
+            ranks = [row[key] for row in rows]
+            want = tx_expected(run, dtype)
+            for rk in ranks:
+                check(all(rk["launches"].get(k, 0) == n
+                            for k, n in want.items()),
+                        f"(26) {key}: every rank launched {want} (got "
+                        f"{rk['launches']})")
+                check(rk["staged"] == [0, 0],
+                        f"(26) {key}: nothing staged through host memory")
+                check(rk["losses"] == ranks[0]["losses"],
+                        f"(26) {key}: every rank reports the same losses")
+            got = ranks[0]["losses"]
+            lk, l32 = ref[run].get("bfloat16"), ref[run]["float32"]
+            cfg = tx_cfg(run, dtype)
+            peaks = [rk["peak_gb"] for rk in ranks]
+            log(f"{tag}: {cfg.name} at {cfg.n_layers} layers, (data, model)"
+                f" {shape}, fsdp={fsdp}, {B} x {S} tokens, {TX_STEPS} mean "
+                f"steps: losses {got} (one process bf16 {lk}, float32 "
+                f"{l32}); step walls {[round(w, 3) for w in ranks[0]['walls']]}"
+                f" s; held {[round(rk['held_gb'], 3) for rk in ranks]} GB, "
+                f"peaks {[round(p, 3) for p in peaks]} GB (sum "
+                f"{sum(peaks):.1f}); host-staged {ranks[0]['staged']}; "
+                f"launches a rank {ranks[0]['launches']} (one process "
+                f"{ref[run][f'{dtype}_launches']})")
+            check(sum(peaks) <= 80.0, f"(26) {key}: the ranks' peaks fit "
+                    f"the card")
+            if dtype == "float32":
+                gap = max(abs(a - b) / abs(b) for a, b in zip(got, l32))
+                gg = max(rk["grad_rel_gap"] for rk in ranks)
+                worst = {}
+                for rk in ranks:      # a leaf's worst block over the ranks
+                    for t in rk["grad_leaves"]:
+                        if t[2] not in worst or t[0] - 2 * t[1] > \
+                                worst[t[2]][0] - 2 * worst[t[2]][1]:
+                            worst[t[2]] = t
+                near = sorted(worst.values(),
+                              key=lambda t: 2 * t[1] - t[0])[:3]
+                big = max(rk["grad_leaf_max"] for rk in ranks)
+                log(f"{tag}: losses against the one-process float32 kernel "
+                    f"path: relative gap {gap:.3e} (bound {TX_FP32_LOSS}); "
+                    f"first-step gradients, block by block, within "
+                    f"{gg:.3e} of each leaf's scale beyond twice the leaf's "
+                    f"own float32 noise (bound {TX_GRAD_RTOL}); the leaves "
+                    f"nearest their bounds (gap, noise, each relative to "
+                    f"the leaf's scale; leaf): "
+                    + ", ".join(f"({a:.3e}, {n:.3e}; {i})"
+                                for a, n, i in near)
+                    + f"; the largest gap ({big[0]:.3e}, {big[1]:.3e}; "
+                    f"{big[2]})")
+                check(gap <= TX_FP32_LOSS, f"(26) {key}: losses within "
+                        f"{TX_FP32_LOSS} of the one-process float32 path")
+                check(gg <= TX_GRAD_RTOL, f"(26) {key}: first-step "
+                        f"gradients within {TX_GRAD_RTOL} of each scale")
+            else:
+                gap = max(abs(a - b) for a, b in zip(got, lk))
+                g32 = max(abs(a - b) for a, b in zip(got, l32))
+                n32 = max(abs(a - b) for a, b in zip(lk, l32))
+                log(f"{tag}: losses against the one-process bf16 kernel "
+                    f"path: gap {gap:.3e} (bound {TX_BF16_LOSS}); against "
+                    f"float32 {g32:.3e}, the one-process bf16 path's "
+                    f"{n32:.3e}")
+                check(gap <= TX_BF16_LOSS, f"(26) {key}: losses within "
+                        f"{TX_BF16_LOSS} of the one-process bf16 path")
+                check(g32 <= 2 * n32 + 1e-3, f"(26) {key}: the gap to "
+                        f"float32 at most twice the one-process bf16 gap")
+            fig["runs"][key] = {
+                "launches": ranks[0]["launches"], "losses": got,
+                "walls": ranks[0]["walls"], "held_gb": ranks[0]["held_gb"],
+                "peak_gb": max(peaks)}
+    a, b = fig["runs"]["qwen3_fsdp/bfloat16"], fig["runs"]["qwen3/bfloat16"]
+    pair = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    log(f"[axis-train] Qwen3-8B FSDP pair: losses {a['losses']} / "
+        f"{b['losses']} (gap {pair:.3e}); held {a['held_gb']:.3f} / "
+        f"{b['held_gb']:.3f} GB, peaks {a['peak_gb']:.3f} / "
+        f"{b['peak_gb']:.3f} GB a rank; step walls {a['walls']} / "
+        f"{b['walls']} s")
+    check(pair <= TX_BF16_LOSS, "(26) fsdp=True and fsdp=False within "
+            f"{TX_BF16_LOSS} of each other")
+    check(a["held_gb"] < b["held_gb"], "(26) FSDP holds less a rank")
+    ranks = [row["robust"] for row in rows]
+    want = tx_expected(TX_ROBUST, "bfloat16", "trimmed_mean")
+    for rk in ranks:
+        check(all(rk["launches"].get(k, 0) == n for k, n in want.items()),
+                f"(26) robust: every rank launched {want} (got "
+                f"{rk['launches']})")
+    gap = max(abs(rk["losses"][0] - rob[0]) for rk in ranks)
+    log(f"[axis-train] robust trimmed_mean step, {TX_ROBUST}: rank losses "
+        f"{[rk['losses'] for rk in ranks]} (one process {rob}, gap "
+        f"{gap:.3e}); aggregate's relative rms gap to the float32 mean "
+        f"gradient by rank {[round(rk['agg_rms_gap'], 6) for rk in ranks]}"
+        f" (the one-process bf16 step's {rob_gap:.6f}); the "
+        f"parameters past the first AdamW step worked out from the "
+        f"aggregate by {max(rk['update_over'] for rk in ranks):.3e} beyond "
+        f"one bf16 ulp (bound 0); launches a rank {ranks[0]['launches']}; "
+        f"peaks {[round(rk['peak_gb'], 3) for rk in ranks]} GB")
+    check(gap <= TX_BF16_LOSS, "(26) the robust rank step's loss within "
+            f"{TX_BF16_LOSS} of the one-process robust step")
+    for rk in ranks:
+        check(rk["agg_rms_gap"] <= 2 * rob_gap + 1e-6,
+              "(26) robust: the rank's aggregate within twice the "
+              "one-process bf16 step's rms gap to the float32 gradient")
+        check(rk["update_over"] <= 0.0, "(26) robust: the rank's "
+              "parameters are the first AdamW step of its aggregate")
+    fig["runs"]["robust"] = {
+        "launches": ranks[0]["launches"], "losses": ranks[0]["losses"],
+        "agg_rms_gap": max(rk["agg_rms_gap"] for rk in ranks),
+        "agg_rms_gap_one": rob_gap}
+    require(not fails, f"(26) {len(fails)} holds failed: {fails}")
     return fig
 
 

@@ -24,7 +24,8 @@ from ..core.pushsum import collective
 __all__ = ["GLOO_CUDA_HOST_STAGED", "Comm"]
 
 #: The operations gloo refuses on CUDA tensors: torch 2.11's gloo takes
-#: CUDA tensors for ``all_reduce``, ``all_gather`` and ``all_to_all`` but
+#: CUDA tensors for ``all_reduce``, ``all_gather``, ``all_to_all`` and
+#: ``reduce_scatter`` (float32 and bf16: FSDP's backward) but
 #: hands a device pointer to ``writev`` for a point-to-point send (EFAULT,
 #: "Bad address"). ``chip_smoke.py``'s phase 24 probes every operation on
 #: the card and requires the probe's refusals to be this set;
@@ -62,6 +63,21 @@ class Comm:
         collective("all_gather")(out, x.reshape(-1),
                                  group=self.mesh.group(*axes))
         return out.view((n,) + tuple(x.shape))
+
+    def reduce_scatter(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """x (n * m, ...) -> (m, ...): the sum over the ranks of ``axes``
+        of their ``x``, rank i keeping rows ``[i m, (i + 1) m)`` (the
+        row-major order of ``axes``, as :meth:`all_gather` orders them)."""
+        axes = _axes(axes)
+        n = self.mesh.size(*axes)
+        if x.shape[0] % n:
+            raise ValueError(f"reduce_scatter over {n} ranks needs rows in "
+                             f"a multiple of {n}, got {tuple(x.shape)}")
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+        collective("reduce_scatter")(out.view(-1), x.view(-1),
+                                     group=self.mesh.group(*axes))
+        return out
 
     def all_to_all(self, x: torch.Tensor, axes) -> torch.Tensor:
         """x (n, ...) -> (n, ...): row i goes to rank i of ``axes``; row j

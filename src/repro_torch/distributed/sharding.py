@@ -20,7 +20,8 @@ process group; :class:`RankMesh` gives a ``DeviceMesh`` that view.
   column-split ``wq``/``wk``/``wv``/``w_gate``/``w_up``, the row-split
   ``wo``/``w_down``, the embedding by vocabulary rows, the LM head by
   vocabulary columns, the experts over "model"; ``fsdp`` adds "data" on
-  the inner dimension, ``worker_axis`` a leading (pod, data) axis),
+  the inner dimension, ``worker_axis`` a leading (pod, data) axis: the
+  FSDP mean step's layout, :mod:`repro_torch.distributed.trainer`),
   ``opt_state_specs``, ``batch_specs``, ``fit_spec``, ``cache_specs``,
   and :func:`shard_tree` / :func:`gather_tree` in place of the
   reference's ``to_shardings``.
@@ -163,7 +164,9 @@ def _canon(e):
 def fit_spec(spec: Spec, shape: tuple[int, ...], mesh) -> Spec:
     """Drop spec axes whose mesh size does not divide the array dim (e.g.
     kv_heads=8 cannot shard over model=16; batch=1 cannot shard over
-    data); entries past the array's rank become ``None``."""
+    data); entries past the array's rank become ``None``. A dimension the
+    mesh does not name counts as one rank (a (data,) mesh of ranks, where
+    the reference's meshes name "model" too), so it splits nothing."""
     sizes = dict(mesh.shape)
     out = []
     for i, e in enumerate(spec):
@@ -171,7 +174,7 @@ def fit_spec(spec: Spec, shape: tuple[int, ...], mesh) -> Spec:
             out.append(None if i >= len(shape) else e)
             continue
         axes = e if isinstance(e, (tuple, list)) else (e,)
-        total = math.prod(sizes[a] for a in axes)
+        total = math.prod(sizes.get(a, 1) for a in axes)
         out.append(_canon(e) if shape[i] % total == 0 else None)
     return tuple(out)
 

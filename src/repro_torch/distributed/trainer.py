@@ -39,8 +39,15 @@ its own copy, the loss averaged over the workers. Mean: the GSPMD step on
 data x model, each data rank's gradients summed over the data ranks and
 divided by their count (the implicit mean), ``n_micro`` splitting each
 rank's rows with the reference's stride interleave. Over a model axis the
-loss runs in the Megatron layout (:mod:`repro_torch.models.model_axis`)
-and the clip norm sums the split leaves' squares over the axis.
+loss runs in the Megatron layout (:mod:`repro_torch.models.model_axis`),
+every family and every split inside a head. With ``fsdp`` the mean step
+is the reference's FSDP layout: each rank holds its blocks under
+``param_specs(..., fsdp=True)`` (the 2-D weights' input dimension over
+"data" too) and their AdamW moments; each layer gathers its data-split
+blocks where it runs (under the remat's checkpoint), and the gather's
+backward reduce-scatters their gradients, summed over the data ranks, so
+those leaves skip the step's own all_reduce. The clip norm sums each
+leaf's squares over the mesh dimensions it is split over.
 
 Consensus error across worker copies is observable via ``param_spread``,
 the training-side analogue of Theorem 1's consensus-error bound.
@@ -55,7 +62,8 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.prng import Key
 from ..models import model as M
-from ..models.model_axis import ModelAxis, check_model_axis
+from ..models.model_axis import (DataShards, ModelAxis, check_model_axis,
+                                 data_split_dims)
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update, leaves
 from .aggregation import (AGGREGATORS, RANK_AGGREGATORS, WORKER_AXES,
                           AggregatorConfig, WorkerLayout, rank_worker)
@@ -109,16 +117,18 @@ def make_train_step(tc: TrainConfig, layout: WorkerLayout | None = None,
     ``comm`` (default: one on the mesh) carries the collectives; its
     host-staging counters show what gloo staged. A robust step's
     ``record`` keeps this rank's (D,) rows; a mean step's keeps this
-    rank's blocks of the gradients, averaged over the data ranks."""
-    if tc.fsdp:
-        raise NotImplementedError(
-            "fsdp=True shards parameters over the data axis: not ported "
-            "yet (ROADMAP item 8c, part 3); the mesh steps keep a whole "
-            "copy, or its model blocks, on each rank")
+    rank's blocks of the gradients, averaged over the data ranks.
+
+    ``tc.fsdp``: the mean step over a mesh takes each rank's blocks under
+    ``param_specs(..., fsdp=True)`` (``init_local_params`` with those
+    specs, ``adamw_init`` of them) and gathers the data-split ones layer
+    by layer. The robust step ignores it, as the reference's does (each
+    worker holds its own copy), and so does the one-process mean step,
+    whose one data rank splits nothing."""
     if mesh is not None:
         rm = mesh if isinstance(mesh, RankMesh) else RankMesh(mesh)
         comm = comm or Comm(rm)
-        check_model_axis(tc.arch, rm.size("model"), train=True)
+        check_model_axis(tc.arch, rm.size("model"))
         if tc.agg.kind == "mean":
             return _make_rank_mean_step(tc, rm, comm, backend, bool(record))
         return _make_rank_robust_step(tc, rm, comm, backend, record)
@@ -141,21 +151,22 @@ def _micro_split(batch: dict, n_micro: int) -> dict:
 
 
 def _loss(params: Params, cfg: ArchConfig, batch: dict, backend: str,
-          tp=None) -> torch.Tensor:
+          tp=None, fsdp=None) -> torch.Tensor:
     """``loss_fn`` of a batch: tokens and labels, and the stub inputs a
     batch of the audio or VLM family carries (``frames``,
     ``patch_embeds``), as the reference's ``_loss``."""
     return M.loss_fn(params, cfg, batch["tokens"], batch["labels"], backend,
                      patch_embeds=batch.get("patch_embeds"),
-                     frames=batch.get("frames"), tp=tp)
+                     frames=batch.get("frames"), tp=tp, fsdp=fsdp)
 
 
 def _grads_microbatched(params: Params, cfg: ArchConfig, batch: dict,
-                        n_micro: int, backend: str, tp=None
+                        n_micro: int, backend: str, tp=None, fsdp=None
                         ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """(loss, grads in ``leaves(params)`` order). One micro-batch: the
     gradients in the parameters' dtype. Several: a float32 accumulator,
-    scaled by 1 / n_micro, as the reference's scan. A leaf the loss does
+    scaled by 1 / n_micro, as the reference's scan (under ``fsdp`` each
+    micro-batch gathers the data-split blocks anew). A leaf the loss does
     not reach (a VLM's ``vis_proj`` on a text-only batch) gets a zero
     gradient, as the reference's, so AdamW still decays it."""
     ps = leaves(params)
@@ -166,7 +177,7 @@ def _grads_microbatched(params: Params, cfg: ArchConfig, batch: dict,
                 for p, g in zip(ps, gs)]
 
     if n_micro <= 1:
-        loss = _loss(params, cfg, batch, backend, tp)
+        loss = _loss(params, cfg, batch, backend, tp, fsdp)
         return loss.detach(), grads(loss)
     micro = _micro_split(batch, n_micro)
     gacc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -174,7 +185,7 @@ def _grads_microbatched(params: Params, cfg: ArchConfig, batch: dict,
     loss_acc = torch.zeros((), dtype=torch.float32, device=ps[0].device)
     for i in range(n_micro):
         loss = _loss(params, cfg, {k: v[i] for k, v in micro.items()},
-                     backend, tp)
+                     backend, tp, fsdp)
         for a, g in zip(gacc, grads(loss)):
             a.add_(g.float())
         loss_acc = loss_acc + loss.detach()
@@ -267,25 +278,32 @@ def _make_robust_step(tc: TrainConfig, layout: WorkerLayout, backend: str,
 # the steps over a device mesh: one process a rank
 # ---------------------------------------------------------------------------
 
-def _split_flags(tree, specs) -> list[bool]:
-    """For each leaf of ``tree`` in ``leaves`` order: whether its spec
-    splits it over "model"."""
+def _split_axes(tree, specs, rm: RankMesh) -> list[tuple[str, ...]]:
+    """For each leaf of ``tree`` in ``leaves`` order: the mesh dimensions
+    of more than one rank that its spec splits it over."""
     if isinstance(tree, dict):
-        return [f for k in sorted(tree) for f in _split_flags(tree[k],
-                                                              specs[k])]
+        return [a for k in sorted(tree)
+                for a in _split_axes(tree[k], specs[k], rm)]
     if isinstance(tree, (list, tuple)):
-        return [f for t, sp in zip(tree, specs) for f in _split_flags(t, sp)]
-    return [any(e == "model" or (isinstance(e, tuple) and "model" in e)
-                for e in specs)]
+        return [a for t, sp in zip(tree, specs)
+                for a in _split_axes(t, sp, rm)]
+    axes = []
+    for e in specs:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a is not None and rm.size(a) > 1 and a not in axes:
+                axes.append(a)
+    return [tuple(sorted(axes))]
 
 
-def _model_split(cfg: ArchConfig, rm: RankMesh, comm: Comm):
-    """The clip norm's ``split`` over a model axis (None without one)."""
-    if rm.size("model") == 1:
-        return None
+def _clip_split(cfg: ArchConfig, rm: RankMesh, comm: Comm,
+                fsdp: bool = False):
+    """The clip norm's ``split`` on the mesh: each leaf's split axes and
+    the sum over them (None where no leaf is split)."""
     shapes = M.param_shapes(cfg)
-    flags = _split_flags(shapes, param_specs(shapes, cfg, rm))
-    return flags, lambda x: comm.all_reduce(x, "model")
+    axes = _split_axes(shapes, param_specs(shapes, cfg, rm, fsdp=fsdp), rm)
+    if not any(axes):
+        return None
+    return axes, lambda x, over: comm.all_reduce(x, over)
 
 
 def _rows(batch: dict, i: int, n: int) -> dict:
@@ -301,18 +319,32 @@ def _make_rank_mean_step(tc: TrainConfig, rm: RankMesh, comm: Comm,
     cfg = tc.arch
     n, i = rm.size(*WORKER_AXES), rm.index(*WORKER_AXES)
     tp = ModelAxis(comm) if "model" in rm.shape else None
-    split = _model_split(cfg, rm, comm)
+    fsdp = tc.fsdp and rm.size("data") > 1
+    split = _clip_split(cfg, rm, comm, fsdp)
+    fs, gathered = None, None
+    if fsdp:
+        shapes = M.param_shapes(cfg)
+        fs = DataShards(comm, data_split_dims(
+            param_specs(shapes, cfg, rm, fsdp=True), rm))
+        gathered = [d is not None for d in leaves(fs.dims)]
+    # the gather's backward summed a data-split leaf's gradient over
+    # "data": the pods' sum is what is left of the mean's all_reduce
+    rest = tuple(a for a in WORKER_AXES if a != "data")
 
     def step(params, opt_state, batch):
         rows = _rows(batch, i, n)
         with torch.enable_grad():
             train = M._tmap(lambda p: p.detach().requires_grad_(), params)
             loss, grads = _grads_microbatched(train, cfg, rows, tc.n_micro,
-                                              backend, tp)
+                                              backend, tp, fs)
         with torch.no_grad():
             if n > 1:       # the implicit GSPMD mean over the data ranks
-                for g in grads:
-                    g.copy_(comm.all_reduce(g.float(), WORKER_AXES) / n)
+                for j, g in enumerate(grads):
+                    over = rest if gathered and gathered[j] else WORKER_AXES
+                    gf = g.float()     # g itself where it is float32
+                    if rm.size(*over) > 1:
+                        comm.all_reduce(gf, over)
+                    g.copy_(gf.div_(n))
                 loss = comm.all_reduce(loss.float().clone(),
                                        WORKER_AXES) / n
             if record:
@@ -331,7 +363,7 @@ def _make_rank_robust_step(tc: TrainConfig, rm: RankMesh, comm: Comm,
     W = layout.n_workers
     byz = w in frozenset(tc.byzantine_workers)
     tp = ModelAxis(comm, batch_axes=()) if "model" in rm.shape else None
-    split = _model_split(cfg, rm, comm)
+    split = _clip_split(cfg, rm, comm)
     grad_dtype = None if tc.n_micro <= 1 else torch.float32
 
     def step(params, opt_state, batch, step_key: Key):
@@ -415,17 +447,19 @@ def param_spread(params_w: Params, mesh=None,
 
 
 def gather_params(params: Params, cfg: ArchConfig, mesh, *,
-                  workers: bool = False, comm: Comm | None = None) -> Params:
+                  workers: bool = False, fsdp: bool = False,
+                  comm: Comm | None = None) -> Params:
     """A rank's parameters in the one-card trainer's layout, on every rank
-    (a collective): its model blocks gathered over "model", and with
-    ``workers`` every worker's copy stacked, ``(W, ...)`` leaves in worker
-    order (``replicate_for_workers``' layout), so either trainer loads the
+    (a collective): its model blocks gathered over "model" (and, with
+    ``fsdp``, its FSDP blocks over "data" too), and with ``workers`` every
+    worker's copy stacked, ``(W, ...)`` leaves in worker order
+    (``replicate_for_workers``' layout), so either trainer loads the
     checkpoint."""
     from .sharding import gather_tree
     rm = mesh if isinstance(mesh, RankMesh) else RankMesh(mesh)
     comm = comm or Comm(rm)
-    full = gather_tree(params, param_specs(M.param_shapes(cfg), cfg, rm),
-                       rm, comm)
+    full = gather_tree(params, param_specs(M.param_shapes(cfg), cfg, rm,
+                                           fsdp=fsdp), rm, comm)
     if not workers:
         return full
     return M._tmap(lambda x: comm.all_gather(x, WORKER_AXES), full)

@@ -36,9 +36,10 @@ rotation pairs and the qk norms span a whole head, and each rank attends
 with the heads its row block of ``wo`` multiplies. A K/V cache whose heads
 do not split holds the rank's block of the ring's rows, and a decode step
 merges the ranks' rank-partial attention (K5's partial mode). RWKV6 runs
-its scan on the rank's heads, the channel mix cuts ``kk @ wv`` to the
-rank's block of ``r``, the RG-LRU its recurrence on the rank's channels of
-the width (the gates read the whole conv output, gathered).
+its scan on the rank's heads (on every head, gathered, where its blocks
+end inside one), the channel mix cuts ``kk @ wv`` to the rank's block of
+``r``, the RG-LRU its recurrence on the rank's channels of the width (the
+gates read the whole conv output, gathered).
 
 Where the reference multiplies a float32 activation by a bf16 weight, JAX
 promotes the product to float32; torch raises on mixed operands, so
@@ -213,11 +214,22 @@ class _HeadCut:
             ha, hb = ka * G, kb * G
         self.ha, self.hb, self.ka, self.kb = ha, hb, ka, kb
 
+    @property
+    def split(self) -> bool:
+        """Whether any projection is split over the axis: the region whose
+        replicated inputs go behind ``copy_in``."""
+        return self.q_split or self.k_split
+
     def project(self, x: torch.Tensor, w: torch.Tensor, split: bool, tp):
         """``x @ w`` promoted as JAX promotes it; gathered into the whole
-        columns where the rank attends from gathered blocks."""
-        y = _matmul(x, w)
-        return tp.gather_cols(y) if split and not self.local else y
+        columns where the rank attends from gathered blocks (a whole
+        weight there goes behind ``copy_in``: each rank's heads give a
+        part of its gradient)."""
+        if self.local:
+            return _matmul(x, w)
+        if not split:
+            return _matmul(x, tp.copy_in(w))
+        return tp.gather_cols(_matmul(x, w))
 
     def attended(self, q, k, v):
         """The heads this rank attends with: q (..., heads, dh) and its KV
@@ -252,7 +264,7 @@ def _qk_project(p: Params, x: torch.Tensor, cfg: ArchConfig, positions,
     hd = cfg.head_dim
     cut = cut or _attn_cut(p, cfg, tp)
     q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
-    if tp is not None:
+    if tp is not None and cut.split:
         x = tp.copy_in(x)
         if cfg.qk_norm:
             q_norm, k_norm = tp.copy_in(q_norm), tp.copy_in(k_norm)
@@ -538,15 +550,15 @@ def mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
     before the product, as in the reference. Over a model axis ``tp``:
     the rank's columns of ``w_gate``/``w_up`` and rows of ``w_down``, the
     partial outputs summed."""
-    if tp is not None:
+    split = _is_split(tp, p["w_down"].shape[0], cfg.d_ff)
+    if split:
         x = tp.copy_in(x)
     if "w_gate" in p:
         act = F.silu if cfg.act == "swiglu" else _gelu
         h = act((x @ p["w_gate"]).float()).to(x.dtype) * (x @ p["w_up"])
     else:
         h = _gelu((x @ p["w_up"]).float()).to(x.dtype)
-    return _row_out(h @ p["w_down"], tp,
-                    _is_split(tp, p["w_down"].shape[0], cfg.d_ff))
+    return _row_out(h @ p["w_down"], tp, split)
 
 
 # ---------------------------------------------------------------------------
@@ -745,32 +757,38 @@ def _lerp_mixes(mu: torch.Tensor, x: torch.Tensor, x_prev: torch.Tensor):
 
 
 def _wkv6_local(p: Params, cfg: ArchConfig, tp):
-    """This rank's view of a time mix's parameters -> (params, heads, the
-    model axis where its projections are split, else None): its column
-    blocks of ``wr``/``wk``/``wv``/``wg``/``w_lora_b`` (whole heads:
-    ``check_model_axis`` guards the split) and rows of ``wo`` as held, the
-    whole ``w0``, ``u`` and ``ln_x`` cut to its heads, and every replicated
-    weight of the split region behind ``copy_in``."""
+    """This rank's view of a time mix's parameters -> (params, heads the
+    scan runs, the model axis where its projections are split (else None),
+    this rank's output columns ``(c0, n)`` where its blocks end inside a
+    head (else None)): its column blocks of ``wr``/``wk``/``wv``/``wg``/
+    ``w_lora_b`` and rows of ``wo`` as held, the whole ``w0`` cut to its
+    columns, and every replicated weight of the split region behind
+    ``copy_in``. On whole heads ``u`` and ``ln_x`` are cut to the rank's
+    heads; inside a head they stay whole, since the rank gathers the
+    projections and scans every head (:func:`wkv6_mix`)."""
     d, hd = cfg.d_model, cfg.wkv_head_dim
     n = p["wr"].shape[1]
     if not _is_split(tp, n, d):
-        return p, d // hd, None
+        return p, d // hd, None, None
     c0 = tp.block(d, n)
     q = dict(p)
     for name in ("mu", "w_lora_a", "w0", "u", "ln_x"):
         q[name] = tp.copy_in(p[name])
     q["w0"] = q["w0"][c0:c0 + n]
+    if n % hd:
+        return q, d // hd, tp, (c0, n)
     q["ln_x"] = q["ln_x"][c0:c0 + n]
     q["u"] = q["u"][c0 // hd:(c0 + n) // hd]
-    return q, n // hd, tp
+    return q, n // hd, tp, None
 
 
 def _wkv6_inputs(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
-                 cfg: ArchConfig, tp=None):
+                 cfg: ArchConfig, tp=None, cut=None):
     """Token shift and the five projections -> r, k, v, g (x's dtype) and
     the float32 log-decay ``lw = -exp(clip(w0 + tanh(x A) B, -8, 4))``;
     over a split model axis ``tp`` the rank's columns (``p`` from
-    :func:`_wkv6_local`)."""
+    :func:`_wkv6_local`), gathered whole where ``cut`` (its columns inside
+    a head) is given."""
     if tp is not None:
         x, x_prev = tp.copy_in(x), tp.copy_in(x_prev)
     mix = _lerp_mixes(p["mu"], x, x_prev)
@@ -781,6 +799,8 @@ def _wkv6_inputs(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
     ww = torch.tanh((mix(4) @ p["w_lora_a"]).float()) \
         @ p["w_lora_b"].float()
     lw = -torch.exp(torch.clamp(p["w0"] + ww, -8.0, 4.0))
+    if cut is not None:
+        return tuple(tp.gather_cols(a) for a in (r, k, v, g, lw))
     return r, k, v, g, lw
 
 
@@ -795,11 +815,15 @@ def _wkv_groupnorm(y: torch.Tensor, scale: torch.Tensor,
 
 
 def _wkv6_out(p: Params, y: torch.Tensor, g: torch.Tensor, H: int,
-              dtype: torch.dtype, tp=None) -> torch.Tensor:
+              dtype: torch.dtype, tp=None, cut=None) -> torch.Tensor:
     """Groupnorm, the silu gate and the output projection (over a split
-    model axis ``tp``, this rank's rows of ``wo``, summed)."""
+    model axis ``tp``, this rank's rows of ``wo``, summed; ``cut``: the
+    rank's columns ``(c0, n)`` of the gathered heads' output, which its
+    rows of ``wo`` multiply)."""
     y = _wkv_groupnorm(y, p["ln_x"], H)
     y = y * F.silu(g.float()).to(dtype)
+    if cut is not None:
+        y = y[..., cut[0]:cut[0] + cut[1]]
     return _row_out(y @ p["wo"], tp)
 
 
@@ -810,11 +834,14 @@ def wkv6_mix(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
     d), final state (B, H, hd, hd) float32). The scan gets (B, H, S, hd)
     views of the projections and returns y in the (B, S, H, hd) layout on
     the card, so no transposed copy is made there. Over a model axis
-    ``tp`` the scan runs on the rank's heads and the state is theirs."""
+    ``tp`` the scan runs on the rank's heads and the state is theirs; where
+    the rank's column blocks end inside a head, the projections are
+    gathered, the scan runs on every head (the state is whole, as
+    ``cache_specs`` leaves it) and the rank keeps its output columns."""
     B, S, _ = x.shape
     hd = cfg.wkv_head_dim
-    p, H, ax = _wkv6_local(p, cfg, tp)
-    r, k, v, g, lw = _wkv6_inputs(p, x, x_prev, cfg, ax)
+    p, H, ax, cut = _wkv6_local(p, cfg, tp)
+    r, k, v, g, lw = _wkv6_inputs(p, x, x_prev, cfg, ax, cut)
 
     def heads(a):
         return a.view(B, S, H, hd).transpose(1, 2)
@@ -822,7 +849,7 @@ def wkv6_mix(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
     y, s = wkv6(heads(r), heads(k), heads(v), heads(lw),
                 p["u"].expand(B, H, hd), backend=backend)
     y = y.transpose(1, 2).reshape(B, S, H * hd)
-    return _wkv6_out(p, y, g, H, x.dtype, ax), s
+    return _wkv6_out(p, y, g, H, x.dtype, ax, cut), s
 
 
 def wkv6_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -836,12 +863,13 @@ def wkv6_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
     """Single-token decode. cache ``{"state": (B, H, hd, hd) float32,
     "x_prev": (B, d)}``, updated in place (the reference returns a new
     one); the same dict is returned. Over a model axis ``tp`` the state
-    holds the rank's heads."""
+    holds the rank's heads, or every head where the rank's blocks end
+    inside a head (:func:`wkv6_mix`)."""
     B = x.shape[0]
     hd = cfg.wkv_head_dim
-    p, H, ax = _wkv6_local(p, cfg, tp)
+    p, H, ax, cut = _wkv6_local(p, cfg, tp)
     r, k, v, g, lw = _wkv6_inputs(p, x, cache["x_prev"][:, None, :], cfg,
-                                  ax)
+                                  ax, cut)
 
     def heads(a):
         return a[:, 0].reshape(B * H, hd)
@@ -850,7 +878,7 @@ def wkv6_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
         heads(r), heads(k), heads(v), heads(lw),
         p["u"].expand(B, H, hd).reshape(B * H, hd),
         cache["state"].reshape(B * H, hd, hd))
-    out = _wkv6_out(p, y.reshape(B, 1, H * hd), g, H, x.dtype, ax)
+    out = _wkv6_out(p, y.reshape(B, 1, H * hd), g, H, x.dtype, ax, cut)
     cache["state"].copy_(s_new.view(B, H, hd, hd))
     cache["x_prev"].copy_(x[:, 0])
     return out, cache
@@ -881,16 +909,22 @@ def rwkv_cm_block(p: Params, x: torch.Tensor, cfg: ArchConfig,
     is cut to the rank's block of d (``scatter_last``), multiplied by the
     rank's ``r`` and the blocks gathered."""
     x_prev = _shift(x) if x_prev is None else x_prev
-    mu = p["mu"]
-    if tp is not None:
-        x, x_prev, mu = tp.copy_in(x), tp.copy_in(x_prev), tp.copy_in(mu)
-    mix = _lerp_mixes(mu, x, x_prev)
-    kk = torch.square(torch.relu((mix(0) @ p["wk"]).float())).to(x.dtype)
-    r = torch.sigmoid((mix(1) @ p["wr"]).float()).to(x.dtype)
-    kv = kk @ p["wv"]
-    k_split = _is_split(tp, p["wk"].shape[1], cfg.d_ff)
+    wk, wv = p["wk"], p["wv"]
+    k_split = _is_split(tp, wk.shape[1], cfg.d_ff)
     n = p["wr"].shape[1]
-    if not _is_split(tp, n, cfg.d_model):
+    r_split = _is_split(tp, n, cfg.d_model)
+    if k_split or r_split:        # the split region's inputs
+        mix = _lerp_mixes(tp.copy_in(p["mu"]), tp.copy_in(x),
+                          tp.copy_in(x_prev))
+        mix_r = mix if r_split else _lerp_mixes(p["mu"], x, x_prev)
+    else:
+        mix = mix_r = _lerp_mixes(p["mu"], x, x_prev)
+    if r_split and not k_split:   # whole wk, wv; the rank's columns of kv
+        wk, wv = tp.copy_in(wk), tp.copy_in(wv)
+    kk = torch.square(torch.relu((mix(0) @ wk).float())).to(x.dtype)
+    r = torch.sigmoid((mix_r(1) @ p["wr"]).float()).to(x.dtype)
+    kv = kk @ wv
+    if not r_split:
         return r * _row_out(kv, tp, k_split)
     c0 = tp.block(cfg.d_model, n)
     kv = tp.scatter_last(kv) if k_split else kv[..., c0:c0 + n]
@@ -1078,7 +1112,7 @@ def cross_attention_block(p: Params, x: torch.Tensor, enc: torch.Tensor,
     T = enc.shape[1]
     hd = cfg.head_dim
     cut = _HeadCut(p, cfg, tp, cfg.n_heads, cfg.n_heads)
-    if tp is not None:
+    if tp is not None and cut.split:
         x, enc = tp.copy_in(x), tp.copy_in(enc)
     q = cut.project(x, p["wq"], cut.q_split, tp).reshape(B, S, -1, hd)
     k = cut.project(enc, p["wk"], cut.k_split, tp).reshape(B, T, -1, hd)

@@ -61,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..core.plan import resolve_device
 from . import layers as L
+from .model_axis import layer_dims
 
 Params = dict[str, Any]
 
@@ -293,7 +294,7 @@ def _layers(params: Params, cfg: ArchConfig, cache: Params | None = None):
 
 def embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                  patch_embeds: torch.Tensor | None = None,
-                 tp=None) -> torch.Tensor:
+                 tp=None, fsdp=None) -> torch.Tensor:
     """The token embeddings (B, S, d); a VLM prepends its projected
     patches: ``gelu(patch_embeds @ w1)`` in float32 (``patch_embeds`` is
     float32, so the product is promoted as in the reference), cast to the
@@ -303,7 +304,8 @@ def embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     term a token); a vocabulary that does not split (Whisper's 51,865,
     InternVL2's 92,553) is whole on every rank and looked up as is. The
     projector's ``w1`` is column-split and ``w2`` row-split: the ranks'
-    products are summed."""
+    products are summed. ``fsdp`` (a :class:`~repro_torch.models.
+    model_axis.DataShards`) gathers the projector's data-split blocks."""
     emb = params["embed"]
     tokens = tokens.to(emb.device)
     if L._is_split(tp, emb.shape[0], cfg.vocab):
@@ -316,6 +318,8 @@ def embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         x = emb[tokens]                               # (B, S, d) gather
     if cfg.family == "vlm" and patch_embeds is not None:
         p = params["vis_proj"]
+        if fsdp is not None:
+            p = fsdp.gather(p, fsdp.dims["vis_proj"])
         vis = L._gelu(L._matmul(patch_embeds.to(emb.device), p["w1"])
                       .float()).to(x.dtype) @ p["w2"]
         vis = L._row_out(vis, tp, L._is_split(tp, p["w2"].shape[0],
@@ -325,7 +329,7 @@ def embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def encode(params: Params, frames: torch.Tensor,
-           cfg: ArchConfig, tp=None) -> torch.Tensor:
+           cfg: ArchConfig, tp=None, fsdp=None) -> torch.Tensor:
     """Whisper's encoder over the stub frontend's frames (B, T, d): pre-norm
     blocks of non-causal self-attention (plain torch) and the MLP, then
     ``enc_norm``. The reference multiplies float32 frames by bf16 weights,
@@ -335,7 +339,8 @@ def encode(params: Params, frames: torch.Tensor,
     frames with float32 weights: the first norm's output stays bf16 and
     each of its products promotes, as in the reference. Over a model axis
     ``tp`` each block attends with the rank's heads and runs its MLP
-    blocks, the outputs summed.
+    blocks, the outputs summed; ``fsdp`` gathers each block's data-split
+    blocks before it runs.
     ``frames=None`` raises ValueError (the reference fails later, with an
     AttributeError)."""
     if frames is None:
@@ -343,7 +348,9 @@ def encode(params: Params, frames: torch.Tensor,
                          f"frames= (B, n_frames, d_model); got frames=None")
     x = frames.to(params["embed"].device)
     pos = torch.arange(x.shape[1], device=x.device)
-    for blk in params["encoder"]:
+    for i, blk in enumerate(params["encoder"]):
+        if fsdp is not None:
+            blk = fsdp.gather(blk, fsdp.dims["encoder"][i])
         blk = _tmap(lambda w: w.to(torch.promote_types(w.dtype, x.dtype)),
                     blk)
         h = L.apply_norm(blk["norm1"], x, cfg)
@@ -384,7 +391,7 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                    backend: str = "auto", *,
                    patch_embeds: torch.Tensor | None = None,
                    frames: torch.Tensor | None = None,
-                   with_aux: bool = False, tp=None):
+                   with_aux: bool = False, tp=None, fsdp=None):
     """The decoder trunk without the LM head: the pre-head hidden (B, S,
     d), S counting a VLM's prepended patches; with ``with_aux`` also the
     MoE aux loss summed over the layers in their order (a float32 scalar,
@@ -395,10 +402,14 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     block's mixer kernel a second time. The stacked layout with one
     pattern position and ``remat_group`` G > 1 dividing R checkpoints G
     layers at a time; tail layers run without remat, as in the
-    reference."""
-    x = embed_inputs(params, cfg, tokens, patch_embeds, tp)
+    reference. ``fsdp`` (:class:`~repro_torch.models.model_axis.
+    DataShards`): each layer gathers its data-split blocks inside the
+    function the checkpoint runs, so the remat gathers them again and no
+    layer's whole weights outlive its forward."""
+    x = embed_inputs(params, cfg, tokens, patch_embeds, tp, fsdp)
     positions = torch.arange(x.shape[1], device=x.device)
-    enc = encode(params, frames, cfg, tp) if cfg.encoder_layers else None
+    enc = encode(params, frames, cfg, tp, fsdp) if cfg.encoder_layers \
+        else None
     remat = cfg.remat and torch.is_grad_enabled()
     group = 1
     if remat and "groups" in params and len(cfg.block_pattern) == 1:
@@ -407,11 +418,15 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         group = G if R % G == 0 else 1
     n_stacked = cfg.n_layers - len(params.get("tail", ()))
     auxes = []
+    dims = [None] * cfg.n_layers if fsdp is None else list(layer_dims(
+        fsdp.dims, cfg, _stack_plan(cfg)[0] if "groups" in params else None))
 
     def run(x, *blocks):
         """-> (x, the blocks' MoE aux terms...)."""
         out = []
-        for blk, kind in blocks:
+        for blk, kind, dim in blocks:
+            if dim is not None:
+                blk = fsdp.gather(blk, dim)
             x, aux = block_train(blk, x, cfg, kind, positions, backend, enc,
                                  tp)
             if aux is not None:
@@ -421,10 +436,10 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     pending = []
     for i, (blk, kind, _) in enumerate(_layers(params, cfg)):
         if not remat or i >= n_stacked:
-            x, *aux = run(x, (blk, kind))
+            x, *aux = run(x, (blk, kind, dims[i]))
             auxes += aux
             continue
-        pending.append((blk, kind))
+        pending.append((blk, kind, dims[i]))
         if len(pending) == group:
             x, *aux = checkpoint(run, x, *pending, use_reentrant=False)
             auxes += aux
@@ -441,16 +456,27 @@ def forward_train(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                   backend: str = "auto", *,
                   patch_embeds: torch.Tensor | None = None,
                   frames: torch.Tensor | None = None,
-                  with_aux: bool = False, tp=None):
+                  with_aux: bool = False, tp=None, fsdp=None):
     """Logits (B, S, V) of the full sequence; with ``with_aux`` the pair
     (logits, aux) the reference returns (aux 0 without MoE). Over a model
-    axis ``tp`` the vocabulary blocks are gathered."""
+    axis ``tp`` the vocabulary blocks are gathered; ``fsdp`` gathers the
+    data-split blocks (:func:`forward_hidden`, :func:`_head_gathered`)."""
     out = forward_hidden(params, cfg, tokens, backend,
                          patch_embeds=patch_embeds, frames=frames,
-                         with_aux=with_aux, tp=tp)
+                         with_aux=with_aux, tp=tp, fsdp=fsdp)
+    params = _head_gathered(params, fsdp)
     hidden = out[0] if with_aux else out
     logits = _full_logits(params, cfg, hidden, tp)
     return (logits, out[1]) if with_aux else logits
+
+
+def _head_gathered(params: Params, fsdp) -> Params:
+    """``params`` with an untied LM head's data-split block gathered whole
+    over "data" (a tied head is the embedding, which FSDP leaves whole)."""
+    if fsdp is None or "lm_head" not in params:
+        return params
+    return {**params, "lm_head": fsdp.gather(params["lm_head"],
+                                             fsdp.dims["lm_head"])}
 
 
 def _full_logits(params: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -472,7 +498,8 @@ def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor
 def loss_fn(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             labels: torch.Tensor, backend: str = "auto", *,
             patch_embeds: torch.Tensor | None = None,
-            frames: torch.Tensor | None = None, tp=None) -> torch.Tensor:
+            frames: torch.Tensor | None = None, tp=None,
+            fsdp=None) -> torch.Tensor:
     """Mean next-token cross-entropy plus the MoE aux loss summed over the
     layers (0 without MoE), as the reference's ``loss_fn``. A VLM with
     ``patch_embeds`` scores only the text positions: the patch rows are
@@ -489,13 +516,16 @@ def loss_fn(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
     Over a model axis ``tp`` the vocabulary-split logits are gathered
     into the same cross-entropy on every rank (the gather's backward
-    keeps each rank's columns)."""
+    keeps each rank's columns). ``fsdp`` (FSDP's :class:`~repro_torch.
+    models.model_axis.DataShards`) gathers each data-split block where it
+    is used: a layer's in the layer, the LM head's once for the loss."""
     labels = labels.to(params["embed"].device)
     n_vis = patch_embeds.shape[1] \
         if cfg.family == "vlm" and patch_embeds is not None else 0
     hidden, aux = forward_hidden(params, cfg, tokens, backend,
                                  patch_embeds=patch_embeds, frames=frames,
-                                 with_aux=True, tp=tp)
+                                 with_aux=True, tp=tp, fsdp=fsdp)
+    params = _head_gathered(params, fsdp)
     hidden = hidden[:, n_vis:]
     B, S, _ = hidden.shape
     if cfg.ce_chunk <= 0:

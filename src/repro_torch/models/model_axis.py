@@ -45,10 +45,18 @@ that carry them across a split region are each a
 backward all-reduces the gradient too, which after g is already
 replicated, so it would multiply it by mp.
 
-Serving runs every family over the axis (:func:`check_model_axis`); the
-training steps run the attention decoders (dense GQA and the MoE) on whole
-heads (``check_model_axis(..., train=True)``); FSDP and the other
-families' training steps over a model axis are ROADMAP item 8c, part 3.
+Serving and the training steps run every family over the axis, on whole
+heads or split inside a head (:func:`check_model_axis`). The rank paths
+carry no serve-only shortcut: a replicated weight is sliced after its
+``copy_in``, and every rank issues the same collectives in the same order
+in the forward, the remat and the backward.
+
+FSDP (``TrainConfig(fsdp=True)`` over a mesh with "data" ranks) adds
+:class:`DataShards`: each rank holds its blocks of the data-split leaves
+(``param_specs(..., fsdp=True)``), and one ``torch.autograd.Function`` a
+leaf all-gathers them over "data" where a layer (or the embedding's
+projector, the encoder's blocks, the LM head) uses them; its backward
+reduce-scatters the gradient back, summed over the data ranks.
 """
 from __future__ import annotations
 
@@ -56,9 +64,7 @@ import torch
 
 from ..configs.base import ArchConfig
 
-__all__ = ["ModelAxis", "check_model_axis"]
-
-_TRAIN_LATER = "ROADMAP item 8c, part 3"
+__all__ = ["ModelAxis", "DataShards", "check_model_axis"]
 
 
 class _StandIn:
@@ -93,66 +99,23 @@ def _leaf_specs(cfg: ArchConfig, mp: int) -> list[tuple[list, tuple, tuple]]:
     return out
 
 
-def check_model_axis(cfg: ArchConfig, mp: int, *,
-                     train: bool = False) -> None:
+def check_model_axis(cfg: ArchConfig, mp: int) -> None:
     """Raise NotImplementedError where ``mp`` model ranks cannot run
-    ``cfg``'s serve path (or, with ``train``, its training steps) on the
-    blocks ``param_specs`` gives them.
-
-    Serving runs every family over the axis, on whole or split heads, whole
-    or split vocabularies, widths and d_ff. It raises for the MoE where the
-    experts do not split (the expert-parallel dispatch needs E / mp
-    experts a rank) and for RWKV6 where the column blocks of its
-    projections fall inside a head (its scan runs on whole local heads).
-
-    Training runs the attention decoders (dense GQA and the MoE, no
-    parallel block) whose heads, KV heads, vocabulary rows and d_ff columns
-    (or experts) all split into whole blocks; the other families, and
-    splits inside a head, are ROADMAP item 8c, part 3."""
+    ``cfg``'s serve path and training steps on the blocks ``param_specs``
+    gives them. Both run every family over the axis, on
+    whole or split heads (RWKV6's too: where a column block ends inside a
+    head, each rank gathers the projections and scans every head), whole
+    or split vocabularies, widths and d_ff, so the one rule is the MoE's:
+    the expert-parallel dispatch needs E / mp experts a rank."""
     if mp == 1:
         return
-    leaves = _leaf_specs(cfg, mp)
-
-    def split(spec) -> bool:
-        return any(e is not None for e in spec)
-
-    hd = cfg.head_dim
-    for names, shape, spec in leaves:
-        name = names[-1]
-        if cfg.is_moe and "ffn" in names and name == "w_gate" and \
+    for names, shape, spec in _leaf_specs(cfg, mp):
+        if cfg.is_moe and "ffn" in names and names[-1] == "w_gate" and \
                 spec[-3] is None:           # (E, d, f): the experts' axis
             raise NotImplementedError(
                 f"{cfg.name}: {cfg.n_experts} experts do not split over "
                 f"model={mp}; the expert-parallel dispatch runs E / mp "
                 f"experts a rank")
-        if "mixer" in names and name == "wr" and split(spec) and \
-                (shape[-1] // mp) % cfg.wkv_head_dim:
-            raise NotImplementedError(
-                f"{cfg.name}: RWKV6's {shape[-1] // cfg.wkv_head_dim} heads "
-                f"do not split over model={mp}; its scan runs on whole "
-                f"local heads")
-    if not train:
-        return
-    kinds = set(cfg.block_pattern)
-    if not kinds <= {"attn", "swa"} or cfg.encoder_layers or \
-            cfg.family == "vlm" or cfg.parallel_block:
-        raise NotImplementedError(
-            f"{cfg.name}: the training steps over a model axis run the "
-            f"attention decoders (dense GQA and the MoE); {sorted(kinds)} "
-            f"mixers, encoders, patch projectors and parallel blocks are "
-            f"{_TRAIN_LATER}")
-    for names, shape, spec in leaves:
-        name = names[-1]
-        if name not in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-                        "embed", "lm_head"):
-            continue
-        whole_heads = name not in ("wq", "wk", "wv") or \
-            (shape[-1] // mp) % hd == 0
-        if not split(spec) or not whole_heads:
-            raise NotImplementedError(
-                f"{cfg.name}: param_specs leaves {'/'.join(names)} "
-                f"{shape} whole or splits it inside a head over model={mp}; "
-                f"training on such splits is {_TRAIN_LATER}")
 
 
 class ModelAxis:
@@ -294,3 +257,80 @@ class _MeanBatch(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+def data_split_dims(specs, mesh):
+    """The tree of ``specs`` (a ``param_specs`` tree) with, at each leaf,
+    the dimension its spec splits over "data" (None where none does, or
+    where the mesh has one data rank)."""
+    if isinstance(specs, dict):
+        return {k: data_split_dims(v, mesh) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [data_split_dims(v, mesh) for v in specs]
+    if mesh.size("data") == 1:
+        return None
+    for dim, e in enumerate(specs):
+        if e == "data" or (isinstance(e, tuple) and "data" in e):
+            return dim
+    return None
+
+
+class DataShards:
+    """FSDP's "data" dimension of one rank's mesh, through ``comm``:
+    ``dims`` (:func:`data_split_dims` of the FSDP spec tree) says which
+    dimension of each parameter leaf is split over the data ranks."""
+
+    def __init__(self, comm, dims):
+        self.comm = comm
+        self.dims = dims
+
+    def gather(self, tree, dims):
+        """``tree`` with each data-split leaf (``dims``: the matching tree
+        of dimensions, a layer view's from :func:`layer_dims`) gathered
+        whole over "data"; the gradient of a gathered leaf comes back to
+        the block, summed over the data ranks."""
+        if isinstance(tree, dict):
+            return {k: self.gather(v, dims[k]) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.gather(v, d) for v, d in zip(tree, dims))
+        return tree if dims is None else _GatherData.apply(tree, dims, self)
+
+
+def layer_dims(dims, cfg: ArchConfig, n_stack: int | None):
+    """The data-split dimensions of each layer view that
+    ``models.model._layers`` hands out, in its order: a stacked group's
+    leaves lose their leading (layer) dimension. ``n_stack``: the group's
+    repeats (None for the list layout)."""
+    if n_stack is None:
+        yield from dims["layers"]
+        return
+    P = len(cfg.block_pattern)
+
+    def view(d):
+        return None if d is None else d - 1
+
+    def drop_lead(t):
+        if isinstance(t, dict):
+            return {k: drop_lead(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [drop_lead(v) for v in t]
+        return view(t)
+
+    groups = [drop_lead(g) for g in dims["groups"]]
+    for _ in range(n_stack):
+        yield from groups[:P]
+    yield from dims["tail"]
+
+
+class _GatherData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, fs):
+        ctx.dim, ctx.fs = dim, fs
+        parts = fs.comm.all_gather(x.contiguous(), "data")
+        return torch.cat(list(parts.unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, comm = ctx.dim, ctx.fs.comm
+        lead = g.movedim(dim, 0).contiguous()
+        return comm.reduce_scatter(lead, "data").movedim(0, dim), None, None

@@ -31,6 +31,7 @@ __all__ = ["AdamWConfig", "cosine_lr", "adamw_init", "adamw_update",
 Params = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_CHUNK = 1 << 26     # elements of a leaf updated at a time, at most
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,18 +93,21 @@ def adamw_init(params: Params, moment_dtype: str = "float32", *,
 def _global_norm(tree: Params, n_lead: int = 0, split=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, in float32; with
     ``n_lead`` leading worker axes, one norm per worker. ``split``: a
-    model axis' ``(flags, all_reduce)``, a flag a leaf for the leaves
-    split over it, whose sums of squares are summed over the axis (the
-    replicated leaves count once)."""
+    rank's ``(axes, all_reduce)`` over a mesh, ``axes`` a tuple a leaf of
+    the mesh dimensions it is split over (empty for a whole leaf), whose
+    sums of squares ``all_reduce(x, axes)`` sums over those dimensions
+    (a replicated leaf counts once)."""
     if split is not None:
-        flags, all_reduce = split
-        parts = [None, None]
-        for leaf, f in zip(leaves(tree), flags):
+        axes, all_reduce = split
+        parts: dict[tuple, torch.Tensor] = {}
+        for leaf, a in zip(leaves(tree), axes):
             s = torch.square(leaf.float()).sum()
-            parts[f] = s if parts[f] is None else parts[f] + s
-        zero = torch.zeros((), device=leaves(tree)[0].device)
-        total = all_reduce(zero if parts[1] is None else parts[1].clone())
-        return torch.sqrt(total + (zero if parts[0] is None else parts[0]))
+            parts[a] = s if a not in parts else parts[a] + s
+        total = torch.zeros((), device=leaves(tree)[0].device)
+        for a in sorted(parts):
+            total = total + (all_reduce(parts[a].clone(), a) if a
+                             else parts[a])
+        return torch.sqrt(total)
     total = None
     for leaf in leaves(tree):
         if n_lead == 1 and leaf.stride(0) == 0:
@@ -126,7 +130,7 @@ def adamw_update(cfg: AdamWConfig, grads: Params, state: Params,
     ``grads`` matches ``params`` leaf for leaf (any dtype; a stride-0
     ``expand`` over the worker axis is read as it is). With ``n_lead=1``
     every leaf carries a leading worker axis and ``state["step"]`` is
-    ``(W,)``. ``split``: the clip norm over a model axis (see
+    ``(W,)``. ``split``: the clip norm over a mesh (see
     ``_global_norm``), for a rank that holds blocks of the leaves."""
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)
@@ -142,21 +146,33 @@ def adamw_update(cfg: AdamWConfig, grads: Params, state: Params,
     def per_worker(t, ndim):
         return t.reshape(t.shape + (1,) * (ndim - n_lead))
 
-    for g, m, v, p in zip(leaves(grads), leaves(state["m"]),
-                          leaves(state["v"]), leaves(params)):
+    def update(g, m, v, p, decay: bool) -> None:
         nd = p.dim()
         g32 = g.float() * per_worker(scale, nd)
         m.copy_((b1 * m.float() + (1 - b1) * g32).to(mdt))
         v.copy_((b2 * v.float() + (1 - b2) * g32 * g32).to(mdt))
         del g32
-        # mhat / (sqrt(vhat) + eps) in one expression, each leaf-sized
-        # float32 temporary freed once used (stacked copies of a large
-        # leaf: 3.2 GB each for OLMoE-1B-7B's experts over 3 workers)
+        # mhat / (sqrt(vhat) + eps) in one expression, each float32
+        # temporary freed once used
         delta = (m.float() / per_worker(bc1, nd)) / (
             torch.sqrt(v.float() / per_worker(bc2, nd)) + cfg.eps)
         pf = p.float()
-        if nd - n_lead >= 2:
+        if decay:
             delta = delta + cfg.weight_decay * pf
         p.copy_((pf - per_worker(lr, nd) * delta).to(p.dtype))
+
+    # a leaf a block of rows at a time (one block for a small leaf): every
+    # operation is elementwise, so the values are the whole leaf's, and
+    # each float32 temporary is a block's (a whole one is 2.3 GB for
+    # InternVL2-26B's embedding)
+    for g, m, v, p in zip(leaves(grads), leaves(state["m"]),
+                          leaves(state["v"]), leaves(params)):
+        decay = p.dim() - n_lead >= 2
+        ts = [t if p.dim() > n_lead else t.unsqueeze(-1) for t in (g, m, v, p)]
+        rows = ts[3].shape[n_lead]
+        per = max(1, _CHUNK * rows // max(p.numel(), 1))
+        for i in range(0, rows, per):
+            update(*(t.narrow(n_lead, i, min(per, rows - i)) for t in ts),
+                   decay)
     state["step"] = step.to(torch.int32)
     return params, state

@@ -27,12 +27,13 @@ from repro_torch.distributed.server import (make_decode_step,
                                             make_prefill_step, rank_rows)
 from repro_torch.distributed.sharding import (RankMesh, gather_tree,
                                               param_specs, shard_tree)
-from repro_torch.distributed.trainer import (TrainConfig, make_train_step,
-                                             param_spread)
+from repro_torch.distributed.trainer import (TrainConfig, gather_params,
+                                             make_train_step, param_spread)
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.model_axis import ModelAxis
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.optim.adamw import leaves
 
 #: mesh case -> (mesh shape, dimension names)
 MESHES = {
@@ -40,7 +41,10 @@ MESHES = {
     "pod2_data2": ((2, 2), ("pod", "data")),
     "model2": ((1, 2), ("data", "model")),
     "data2_model2": ((2, 2), ("data", "model")),
+    "data2": ((2,), ("data",)),
 }
+#: FSDP mean steps: mesh case -> the models it runs them on
+FSDP = {"data2": ("qwen3",), "data2_model2": ("qwen3", "olmoe")}
 AGG_D = 1001          # not a multiple of W: the sharded trim pads
 AGG_CFG = AggregatorConfig(F=1, gossip_rounds=8, gamma_period=2,
                            drop_prob=0.3, B=3, graph_extra_edge_prob=0.5,
@@ -211,6 +215,65 @@ def mean_case(cfg, full, rm: RankMesh, comm: Comm) -> dict:
             "grads0_gathered": gather_tree(grads0, specs, rm, comm)}
 
 
+def held_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in leaves(tree))
+
+
+def block_bytes(cfg, specs, rm: RankMesh) -> int:
+    """The bytes of this rank's blocks of every parameter leaf under
+    ``specs``, from the full shapes and the mesh extents alone."""
+    total = 0
+    for leaf, spec in zip(leaves(M.param_shapes(cfg)), leaves_of_specs(
+            specs)):
+        n = leaf.numel()
+        for e in spec:
+            for a in (e if isinstance(e, tuple) else (e,)):
+                if a is not None:
+                    n //= rm.size(a)
+        total += n * leaf.element_size()
+    return total
+
+
+def leaves_of_specs(specs) -> list:
+    """The spec tuples of a spec tree in ``leaves`` order."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in leaves_of_specs(specs[k])]
+    if isinstance(specs, list):
+        return [x for t in specs for x in leaves_of_specs(t)]
+    return [specs]
+
+
+def fsdp_case(cfg, full, rm: RankMesh, comm: Comm, fsdp: bool = True,
+              n_micro: int = 1) -> dict:
+    """``STEPS`` FSDP mean steps on this rank's ``param_specs(fsdp=True)``
+    blocks of ``full`` -> the losses, the trained parameters and first
+    gradients gathered over the mesh, and the bytes the rank holds
+    (parameters and AdamW moments) beside its blocks' under either
+    layout."""
+    shapes = M.param_shapes(cfg)
+    specs = param_specs(shapes, cfg, rm, fsdp=fsdp)
+    local = shard_tree(full, specs, rm)
+    tc = dataclasses.replace(mean_tc(cfg), fsdp=fsdp, n_micro=n_micro)
+    step = make_train_step(tc, backend="torch", record=True, mesh=rm,
+                           comm=comm)
+    opt = adamw_init(local)
+    held = held_bytes(local) + held_bytes(opt["m"]) + held_bytes(opt["v"])
+    data = SyntheticLMData(cfg.vocab, TRAIN_SEQ, TRAIN_B, seed=0)
+    losses, grads0 = [], None
+    for s in range(STEPS):
+        local, opt, loss = step(local, opt, data.batch(s, "cpu"))
+        losses.append(loss)
+        if s == 0:
+            grads0 = tree_like(local, [g.clone() for g in step.grads])
+    return {"losses": torch.stack(losses),
+            "params_gathered": gather_params(local, cfg, rm, fsdp=fsdp,
+                                             comm=comm),
+            "grads0_gathered": gather_tree(grads0, specs, rm, comm),
+            "held": held, "blocks": 3 * block_bytes(cfg, specs, rm),
+            "blocks_unsharded": 3 * block_bytes(
+                cfg, param_specs(shapes, cfg, rm), rm)}
+
+
 def model_cases(name: str, rm: RankMesh, comm: Comm, out_dir: Path) -> dict:
     """Reduced Qwen3-8B (the reference's parameters, converted) served and
     trained on this rank's blocks, and reduced OLMoE's expert-parallel
@@ -245,10 +308,29 @@ def model_cases(name: str, rm: RankMesh, comm: Comm, out_dir: Path) -> dict:
             y, aux = L.moe_block(p, rank_rows(moe["x"], rm), mcfg,
                                  ModelAxis(comm))
         out.update(moe_y=y, moe_aux=aux)
+    out.update(fsdp_cases(name, rm, comm, out_dir))
+    return out
+
+
+def fsdp_cases(name: str, rm: RankMesh, comm: Comm, out_dir: Path) -> dict:
+    cfgs = {"qwen3": (qwen_cfg(), "qwen_params.pt"),
+            "olmoe": (moe_cfg(), "olmoe_params.pt")}
+    out = {}
+    for model in FSDP.get(name, ()):
+        cfg, path = cfgs[model]
+        out.update({f"fsdp_{model}_{k}": v for k, v in fsdp_case(
+            cfg, torch.load(out_dir / path), rm, comm).items()})
+    if name == "data2":         # 2 micro-batches, each gathering anew
+        for fsdp in (True, False):
+            out.update({f"micro_{fsdp}_{k}": v for k, v in fsdp_case(
+                qwen_cfg(), torch.load(out_dir / "qwen_params.pt"), rm,
+                comm, fsdp, n_micro=2).items()})
     return out
 
 
 def run_case(name: str, rm: RankMesh, comm: Comm, out_dir: Path) -> dict:
+    if name == "data2":
+        return fsdp_cases(name, rm, comm, out_dir)
     if name in ROBUST:
         W = rm.size("pod", "data")
         w = rm.index("pod", "data")

@@ -2,11 +2,11 @@
 CPU: gloo ranks in spawned processes (``tests/_torch_model_mesh_child.py``),
 held against the one-process port and the reference.
 
-Four meshes run once for the module, at the same time, 14 ranks: (data 4)
+Five meshes run once for the module, at the same time, 16 ranks: (data 4)
 and (pod 2, data 2) for the workers as ranks, (model 2) and (data 2 x
-model 2) for the model axis. Beside them a subprocess runs the
-reference's expert-parallel MoE block on 4 fake devices, and reduced
-OLMoE's mean step on 2 and 4.
+model 2) for the model axis, (data 2) for FSDP. Beside them a subprocess
+runs the reference's expert-parallel MoE block on 4 fake devices,
+reduced OLMoE's mean step on 2 and 4, and the FSDP mean steps.
 
 * The six aggregators' rank forms, each on the reference's collective,
   against the one-card form on the same (W, D) buffer: bit-equal (the
@@ -40,6 +40,14 @@ OLMoE's mean step on 2 and 4.
 * The sharded MoE (reduced OLMoE, ``moe_impl="sharded"``) on (data 2 x
   model 2) against the reference's ``_moe_block_sharded`` on a (data 2,
   model 2) mesh of fake devices: y within 1e-4, aux within 1e-6.
+* The FSDP mean step (a fifth mesh, (data 2)): reduced Qwen3 on (data 2)
+  and (data 2 x model 2) and reduced OLMoE's sharded MoE on (data 2 x
+  model 2), each rank on its ``param_specs(fsdp=True)`` blocks, against
+  the reference's ``make_train_step(TrainConfig(fsdp=True), mesh)`` on
+  fake devices of the same shape (losses, first gradients, Qwen3's
+  parameters); each rank's held parameter and moment bytes its FSDP
+  blocks', below the unsharded rank's; ``n_micro=2`` under FSDP against
+  the unsharded step on the same mesh.
 * No rank loads ``jax`` or ``repro``.
 """
 import dataclasses
@@ -71,7 +79,8 @@ from repro_torch.optim.adamw import leaves
 pytestmark = pytest.mark.multidevice
 
 REPO = Path(__file__).resolve().parents[1]
-WORLD = {"data4": 4, "pod2_data2": 4, "model2": 2, "data2_model2": 4}
+WORLD = {"data4": 4, "pod2_data2": 4, "model2": 2, "data2_model2": 4,
+         "data2": 2}
 LAYOUT = {"data4": WorkerLayout(1, 4), "pod2_data2": WorkerLayout(2, 2)}
 TIMEOUT = 300    # seconds for all four meshes
 MOE_B, MOE_S = 4, 16
@@ -121,6 +130,31 @@ _MOE_REF = textwrap.dedent("""
         out[name] = {"losses": np.array(losses),
                      "params": jax.tree_util.tree_map(np.asarray, p),
                      "grads0": jax.tree_util.tree_map(np.asarray, g0)}
+    # the FSDP mean steps: reduced Qwen3 on (data 2) and (data 2 x model
+    # 2), reduced OLMoE's sharded MoE on (data 2 x model 2)
+    with open(sys.argv[5], "rb") as f:
+        qwen = jax.tree_util.tree_map(jnp.asarray, pickle.load(f))
+    qcfg = dataclasses.replace(reduced(get_config("qwen3_8b")),
+                               n_kv_heads=2)
+    for model, mcfg, start, name, shape in (
+            ("qwen3", qcfg, qwen, "data2", (2, 1)),
+            ("qwen3", qcfg, qwen, "data2_model2", (2, 2)),
+            ("olmoe", cfg, params, "data2_model2", (2, 2))):
+        mesh = compat.make_mesh(shape, ("data", "model"),
+                                devices=jax.devices()[:shape[0] * shape[1]])
+        ftc = dataclasses.replace(tc, arch=mcfg, fsdp=True)
+        factory, _ = T.make_train_step(ftc, mesh)
+        data = SyntheticLMData(mcfg.vocab, %(seq)d, %(batch)d, seed=0)
+        p, o = start, adamw_init(start)
+        with compat.set_mesh(mesh):
+            step = jax.jit(factory(p))
+            losses = []
+            for s in range(%(steps)d):
+                p, o, loss = step(p, o, data.batch(s))
+                losses.append(float(loss))
+        out[f"fsdp_{model}_{name}"] = {
+            "losses": np.array(losses),
+            "params": jax.tree_util.tree_map(np.asarray, p)}
     with open(sys.argv[4], "wb") as f:
         pickle.dump(out, f)
 """ % {"seq": child.TRAIN_SEQ, "batch": child.TRAIN_B, "steps": child.STEPS})
@@ -184,6 +218,8 @@ def meshes(tmp_path_factory):
                out / "olmoe_params.pt")
     with open(out / "olmoe_params.pkl", "wb") as f:
         pickle.dump(moe_params, f)
+    with open(out / "qwen_params.pkl", "wb") as f:
+        pickle.dump(np_params, f)
     _moe_inputs(out)
     env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
            "JAX_PLATFORMS": "cpu"}
@@ -192,7 +228,8 @@ def meshes(tmp_path_factory):
                             str(out / "moe_inputs.npz"),
                             str(out / "moe_ref.npz"),
                             str(out / "olmoe_params.pkl"),
-                            str(out / "olmoe_mean_ref.pkl")], env=env,
+                            str(out / "olmoe_mean_ref.pkl"),
+                            str(out / "qwen_params.pkl")], env=env,
                            cwd=REPO,
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                            text=True)
@@ -497,3 +534,99 @@ def test_model_axis_first_step_gradients_match_the_reference(
             scale = float(b.abs().max())
             torch.testing.assert_close(a.float(), b.float(), rtol=0,
                                        atol=GRAD_RTOL * scale + 1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the FSDP mean step
+# ---------------------------------------------------------------------------
+
+_FSDP_RUNS = [(model, name) for name, models in child.FSDP.items()
+              for model in models]
+
+
+@pytest.mark.parametrize("model,case", _FSDP_RUNS)
+def test_fsdp_mean_step_matches_the_reference(meshes, reference_qwen_grads0,
+                                              model, case):
+    """The FSDP mean step (each rank holding its ``param_specs(fsdp=True)``
+    blocks, each layer gathering them over "data" and reduce-scattering
+    their gradients) against the reference's ``make_train_step(TrainConfig(
+    fsdp=True), mesh)`` on fake devices of the same (data, model) shape:
+    3 losses within rtol 2e-3 and equal on every rank, the first step's
+    gradients within GRAD_RTOL of each leaf's scale of the reference's
+    loss gradients (FSDP lays them out, it does not change them: Qwen3's
+    on one device, OLMoE's on the same mesh), every rank holding the same
+    gathered model, within 1e-4 of the reference's (Qwen3; for OLMoE's
+    experts, the gradients: the note of
+    ``test_model_axis_moe_mean_step_matches_the_reference``)."""
+    ref = meshes[3][f"fsdp_{model}_{case}"]
+    cfg = child.qwen_cfg() if model == "qwen3" else child.moe_cfg()
+    grads0 = reference_qwen_grads0 if model == "qwen3" \
+        else meshes[3][case]["grads0"]
+    ranks = meshes[0][case]
+    key = f"fsdp_{model}_"
+    first = ranks[0]["rows"]
+    for res in ranks:
+        rows = res["rows"]
+        np.testing.assert_allclose(rows[key + "losses"].numpy(),
+                                   ref["losses"], rtol=2e-3, atol=2e-3)
+        assert torch.equal(rows[key + "losses"], first[key + "losses"])
+        assert all(torch.equal(a, b) for a, b in zip(
+            leaves(rows[key + "params_gathered"]),
+            leaves(first[key + "params_gathered"])))
+    want = leaves(params_from_jax(grads0, cfg, "cpu"))
+    got = leaves(first[key + "grads0_gathered"])
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape, i
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=GRAD_RTOL * scale + 1e-12,
+                                   msg=lambda m, i=i: f"gradient leaf {i}: {m}")
+    if model == "qwen3":
+        want_p = leaves(params_from_jax(ref["params"], cfg, "cpu"))
+        for a, b in zip(leaves(first[key + "params_gathered"]), want_p):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("model,case", _FSDP_RUNS)
+def test_fsdp_ranks_hold_only_their_blocks(meshes, model, case):
+    """Each rank's held parameter and AdamW-moment bytes are its blocks'
+    under ``param_specs(fsdp=True)``, less than a rank holds without FSDP;
+    printed beside ``train_memory_gb(fsdp=True)``'s parameters and
+    optimizer terms (bf16 parameters and float32 moments of the whole
+    model over the mesh: the model's count, not this float32 run's)."""
+    from repro_torch.analysis.memory_model import train_memory_gb
+    from repro_torch.configs.base import InputShape
+    cfg = child.qwen_cfg() if model == "qwen3" else child.moe_cfg()
+    shape = dict(zip(child.MESHES[case][1], child.MESHES[case][0]))
+    est = train_memory_gb(cfg, InputShape("train", child.TRAIN_SEQ,
+                                          child.TRAIN_B, "train"),
+                          shape, True, 1)
+    key = f"fsdp_{model}_"
+    for res in meshes[0][case]:
+        rows = res["rows"]
+        assert rows[key + "held"] == rows[key + "blocks"]
+        assert rows[key + "held"] < rows[key + "blocks_unsharded"]
+        print(f"{model} on {case}: a rank holds {rows[key + 'held']} B of "
+              f"parameters and moments under FSDP, "
+              f"{rows[key + 'blocks_unsharded']} B without; the memory "
+              f"model's params + optimizer "
+              f"{est['params_gb'] + est['optimizer_gb']} GB")
+
+
+def test_fsdp_mean_step_gathers_each_micro_batch(meshes):
+    """``n_micro=2`` on (data 2): the FSDP step gathers its blocks for
+    each micro-batch and accumulates the reduce-scattered gradients; its
+    3 losses and first gradients (gathered) are the unsharded step's on
+    the same mesh, within float32 sums in another order."""
+    for res in meshes[0]["data2"]:
+        rows = res["rows"]
+        torch.testing.assert_close(rows["micro_True_losses"],
+                                   rows["micro_False_losses"], rtol=1e-6,
+                                   atol=0)
+        for a, b in zip(leaves(rows["micro_True_grads0_gathered"]),
+                        leaves(rows["micro_False_grads0_gathered"])):
+            scale = float(b.abs().max())
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=GRAD_RTOL * scale + 1e-12)
+        assert rows["micro_True_held"] < rows["micro_False_held"]

@@ -544,10 +544,64 @@ def test_mean_step_matches_the_reference():
     _close_trees(tp, jp, atol=5e-5, rtol=1e-4)
 
 
+def test_adamw_updates_a_large_leaf_in_slices_bit_for_bit(monkeypatch):
+    """A leaf past ``_CHUNK`` elements is updated a block of rows at a
+    time (its float32 temporaries a block's): every operation is
+    elementwise, so three steps give the whole-leaf update's parameters
+    and moments bit for bit, bf16 and float32 leaves, with weight decay
+    and without, one copy and stacked worker copies (``n_lead=1``, a
+    gradient shared by the workers through a stride-0 ``expand``, a
+    leaf of one scalar a worker)."""
+    g = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(300, 37, generator=g).to(torch.bfloat16),
+              "b": torch.randn(999, generator=g)}
+    grads = {"w": torch.randn(300, 37, generator=g).to(torch.bfloat16),
+             "b": torch.randn(999, generator=g)}
+    cfg = TO.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    W = 3
+    stacked = {"w": params["w"][None].repeat(W, 1, 1),
+               "b": params["b"][None].repeat(W, 1),
+               "s": torch.randn(W, generator=g)}
+    sgrads = {"w": grads["w"][None].expand(W, -1, -1),
+              "b": torch.randn(W, 999, generator=g),
+              "s": torch.randn(W, generator=g)}
+    runs = []
+    for chunk in (TO._CHUNK, 256):
+        monkeypatch.setattr(TO, "_CHUNK", chunk)
+        p = {k: v.clone() for k, v in params.items()}
+        st = TO.adamw_init(p)
+        pw = {k: v.clone() for k, v in stacked.items()}
+        sw = TO.adamw_init(pw, n_workers=W)
+        for _ in range(3):
+            TO.adamw_update(cfg, grads, st, p)
+            TO.adamw_update(cfg, sgrads, sw, pw, n_lead=1)
+        runs.append(TO.leaves(p) + TO.leaves(st) + TO.leaves(pw)
+                    + TO.leaves(sw))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 def test_fsdp_and_missing_layout_raise():
+    """A robust step without a worker layout raises. ``fsdp=True`` no
+    longer does: the one-process mean step, whose one data rank splits
+    nothing, is the ``fsdp=False`` step bit for bit (two steps: losses,
+    gradients, parameters and moments equal)."""
     tcfg = reduced(get_config("paper_sim"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TT.make_train_step(TT.TrainConfig(arch=tcfg, fsdp=True))
+    runs = []
+    for fsdp in (False, True):
+        params = TM.init_params(0, tcfg, CPU)
+        opt = TO.adamw_init(params)
+        step = TT.make_train_step(TT.TrainConfig(arch=tcfg, fsdp=fsdp),
+                                  backend="torch", record=True)
+        data = SyntheticLMData(tcfg.vocab, 16, 4, seed=0)
+        losses, grads = [], []
+        for s in range(2):
+            params, opt, loss = step(params, opt, data.batch(s, CPU))
+            losses.append(loss)
+            grads += step.grads
+        runs.append((losses, grads, TO.leaves(params), TO.leaves(opt)))
+    for a, b in zip(*runs):
+        assert len(a) == len(b)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
     with pytest.raises(ValueError, match="layout"):
         TT.make_train_step(TT.TrainConfig(
             arch=tcfg, agg=TA.AggregatorConfig(kind="trimmed_mean")))
