@@ -22,10 +22,10 @@ decode), and :func:`attn_decode_merge` merges the ranks' gathered triples
 through the split path's combine kernel (``attn_decode_merge_cuda``).
 
 K6 is two kernels in ``csrc/swa_prefill.cu``, picked in the open by
-:func:`prefill_kernel`: bf16 at head sizes 64 and 128 (every launch of the
-serve and training paths) runs on the tensor cores (``swa_prefill_tc``:
-wgmma fed by TMA), float32, and bf16 at 256, on the FMA pipes. A failure
-of either raises; neither stands in for the other.
+:func:`prefill_kernel`: bf16 at head sizes 64, 128 and 256 (every launch
+of the serve and training paths) runs on the tensor cores
+(``swa_prefill_tc``: wgmma fed by TMA), float32 on the FMA pipes. A
+failure of either raises; neither stands in for the other.
 
 Training differentiates through ``swa_prefill``: on the card, inputs that
 require grad under grad mode go through :class:`SwaPrefillFn`, whose
@@ -56,7 +56,7 @@ __all__ = ["attn_decode", "attn_decode_cuda", "attn_decode_partial",
 
 HEAD_DIMS = (64, 128, 256)
 DECODE_MAX_GROUP = 16        # query heads per KV head the decode kernels take
-TC_HEAD_DIMS = (64, 128)     # the tensor-core prefill kernel's head sizes
+TC_HEAD_DIMS = HEAD_DIMS    # the tensor-core prefill kernel's head sizes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the decode kernel's split blocks aim at about this many blocks in all
 _DECODE_BLOCKS = 1024
@@ -70,10 +70,11 @@ _DECODE_TILE = 64           # cache rows a tile of the tensor-core decode
 # each (device, stream)'s zeroed ticket counters of the tensor-core decode:
 # the merging block of every (request, KV head) resets its own to 0
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
-_PREFILL_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                     + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 6
+# both K6 kernels: q, k, v, out, their (b, s, head) strides, B, S, H, Hkv,
+# dh, window, scale, device, stream
+_PREFILL_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9
+                     + [ctypes.c_int] * 6
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_PREFILL_TC_ARGTYPES = _PREFILL_ARGTYPES[1:]
 
 
 def attn_decode(
@@ -379,7 +380,7 @@ attn_decode_cuda.launches_tc = 0
 
 def prefill_kernel(dtype: torch.dtype, dh: int) -> str:
     """Which K6 kernel takes these inputs: ``"tc"`` (tensor cores) for
-    bf16 at head sizes 64 and 128, else ``"fma"``."""
+    bf16 at head sizes 64, 128 and 256, else ``"fma"`` (float32)."""
     return "tc" if dtype == torch.bfloat16 and dh in TC_HEAD_DIMS else "fma"
 
 
@@ -454,25 +455,19 @@ def swa_prefill_cuda(
     if tc:
         strides = [tma_strides(what, t) for what, t in
                    (("q", q), ("k", k), ("v", v))]
+    else:
+        strides = [t.stride()[:3] for t in (q, k, v)]
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
     sc = float(scale if scale is not None else dh ** -0.5)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if tc:
-        fn = _build.function("swa_prefill", "swa_prefill_tc",
-                             _PREFILL_TC_ARGTYPES)
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  *strides[0], *strides[1], *strides[2], B, S, H, Hkv, dh,
-                  window, sc, dev.index, stream)
-        _build.check_status("swa_prefill", code)
-        swa_prefill_cuda.launches_tc += 1
-    else:
-        fn = _build.function("swa_prefill", "swa_prefill", _PREFILL_ARGTYPES)
-        code = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-                  k.stride(0), k.stride(1), k.stride(2), v.stride(0),
-                  v.stride(1), v.stride(2), B, S, H, Hkv, dh, window, sc,
-                  dev.index, stream)
-        _build.check_status("swa_prefill", code)
+    fn = _build.function("swa_prefill",
+                         "swa_prefill_tc" if tc else "swa_prefill",
+                         _PREFILL_ARGTYPES)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              *strides[0], *strides[1], *strides[2], B, S, H, Hkv, dh,
+              window, sc, dev.index, stream)
+    _build.check_status("swa_prefill", code)
+    swa_prefill_cuda.launches_tc += tc
     swa_prefill_cuda.launches += 1
     return out
 

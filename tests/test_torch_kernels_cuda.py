@@ -688,7 +688,8 @@ PREFILL_CASES = [
     (1, 150, 4, 4, 64, "fp32", 16),
     (1, 70, 8, 2, 256, "bf16", 64),
     (2, 1, 4, 1, 64, "fp32", 0),
-    # the tensor-core kernel (bf16 at head sizes 64 and 128)
+    (1, 130, 4, 2, 256, "fp32", 100),
+    # the tensor-core kernel (bf16 at head sizes 64, 128 and 256)
     (8, 1024, 12, 4, 64, "bf16", 0),            # the training shape, G = 3
     (8, 1024, 12, 4, 64, "bf16", 256),
     (2, 1000, 8, 8, 64, "bf16", 0),             # ragged S, G = 1
@@ -696,6 +697,10 @@ PREFILL_CASES = [
     (1, 300, 8, 2, 128, "bf16", 100),           # G = 4, the window edge
     (1, 300, 8, 2, 64, "bf16", 100),            #   inside query tiles
     (2, 1, 4, 1, 128, "bf16", 0),
+    (2, 300, 10, 1, 256, "bf16", 0),            # G = 10, ragged S
+    (1, 300, 10, 1, 256, "bf16", 100),          # the window edge inside
+    (2, 512, 3, 1, 256, "bf16", 0),             #   query tiles; a rank's
+    (2, 1, 10, 1, 256, "bf16", 0),              #   heads at model 4; S = 1
 ]
 _DT = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -864,7 +869,7 @@ def test_swa_prefill_kernel_matches_plain(cuda_device, case):
     got = swa_prefill(q, k, v, window)
     torch.cuda.synchronize()
     assert swa_prefill_cuda.launches == before + 1
-    tc = dtype == torch.bfloat16 and dh in (64, 128)
+    tc = dtype == torch.bfloat16 and dh in (64, 128, 256)
     assert prefill_kernel(dtype, dh) == ("tc" if tc else "fma")
     assert swa_prefill_cuda.launches_tc == before_tc + tc
     assert got.dtype == dtype and got.shape == (B, S, H, dh)
@@ -890,7 +895,7 @@ def test_swa_prefill_kernel_reads_strided_views(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 def test_swa_prefill_tc_kernel_reads_strided_views(cuda_device, dh):
     """The tensor-core kernel's tensor maps over views of one fused bf16
     projection row: the same result as from contiguous copies, and the

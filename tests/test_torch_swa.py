@@ -95,9 +95,13 @@ def test_decode_ref_zero_length_is_nan_as_in_jax():
 
 
 @pytest.mark.parametrize("window", [0, 8])
-@pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 2)])
-def test_prefill_ref_matches_the_tpu_kernel(window, H, Hkv):
-    q, k, v = prefill_problem(2, 64, H, Hkv, 16, seed=window + H)
+@pytest.mark.parametrize("H,Hkv,dh", [
+    pytest.param(4, 4, 16, id="4-4"),
+    pytest.param(4, 2, 16, id="4-2"),
+    pytest.param(10, 1, 256, id="10-1-256"),   # RecurrentGemma's heads
+])
+def test_prefill_ref_matches_the_tpu_kernel(window, H, Hkv, dh):
+    q, k, v = prefill_problem(2, 64, H, Hkv, dh, seed=window + H)
     got = swa_prefill_ref(*_t(q, k, v), window=window)
     tr = (0, 2, 1, 3)    # the TPU kernel's (B, heads, S, dh) layout
     pallas = swa_prefill_pallas(q.transpose(tr), k.transpose(tr),
@@ -209,6 +213,9 @@ def _k6_limit_ratio(got, want):
 @pytest.mark.parametrize("S,window,dh,H,Hkv,bk", [
     (256, 0, 64, 4, 4, 128),      # G = 1, the training head size
     (130, 100, 128, 4, 2, 64),    # G = 2, a window, a ragged last tile
+    # RecurrentGemma's 10 query heads on one KV head of 256
+    (200, 0, 256, 10, 1, 64),     # a ragged last tile
+    (150, 100, 256, 10, 1, 64),   # the window edge inside a tile
 ])
 def test_tc_prefill_numerics_need_the_p_split(S, window, dh, H, Hkv, bk):
     """P kept float32-exact as two bf16 terms meets the card's limit; P
@@ -225,15 +232,16 @@ def test_tc_prefill_numerics_need_the_p_split(S, window, dh, H, Hkv, bk):
 
 
 def test_prefill_kernel_choice_and_tma_strides():
-    """K6's wrapper takes its tensor-core kernel for bf16 at head sizes 64
-    and 128 only, and hands that kernel's tensor maps the (b, s, head)
-    strides TMA accepts: positive multiples of 8 elements from a 16-byte
-    aligned base; an axis of size 1 gets a stride past the whole view.
-    Anything else raises instead of falling back to the FMA kernel."""
+    """K6's wrapper takes its tensor-core kernel for bf16 at every head
+    size and its FMA kernel for float32, and hands the tensor-core
+    kernel's tensor maps the (b, s, head) strides TMA accepts: positive
+    multiples of 8 elements from a 16-byte aligned base; an axis of size 1
+    gets a stride past the whole view. Anything else raises instead of
+    falling back to the FMA kernel."""
     assert [prefill_kernel(dt, dh) for dt, dh in (
         (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 256),
-        (torch.float32, 64), (torch.float32, 128))] == [
-        "tc", "tc", "fma", "fma", "fma"]
+        (torch.float32, 64), (torch.float32, 128), (torch.float32, 256))] == [
+        "tc", "tc", "tc", "fma", "fma", "fma"]
     x = torch.zeros((2, 10, (4 + 2 * 2) * 64), dtype=torch.bfloat16)
     q = x[..., :256].view(2, 10, 4, 64)      # a view of a fused projection
     assert tma_strides("q", q) == (5120, 512, 64)
