@@ -172,7 +172,8 @@ Phases (any failure raises and the script exits non-zero):
              8 requests of 2,048-token prompts, 32 greedy tokens through
              launch.serve.generate (prefill, then 31 decode steps; K6
              launches 12 times and K5 12 x 31, all on their tensor-core
-             kernels); its logits
+             kernels); every decode step keeps the storage of every
+             cache leaf (the K/V rings and ``pos``); its logits
              against the plain serve path and the plain full forward over
              the same tokens;
 10. serve timing — CUDA-event medians of K5, K6, their plain versions
@@ -367,7 +368,17 @@ Phases (any failure raises and the script exits non-zero):
              RecurrentGemma on (data 2 x model 2), its aggregate against
              the float32 gradient and its parameters against the first
              AdamW step of that aggregate; a 1 x 1 NCCL FSDP mesh bit-equal
-             to one process; K6, K7 and K4 at the rank shapes timed.
+             to one process; K6, K7 and K4 at the rank shapes timed
+             first, before phase 27's traces start beside the rank runs;
+27. dry run — repro_torch.launch.dryrun's pieces held against the card:
+             every kernel wrapper's shape rule (its answer on fake copies
+             of the inputs) against the launch's real outputs (shape,
+             dtype, strides) at a shape the script launches, and the
+             dry run's traced peak of phase 9's serve main and phase 20's
+             InternVL2-26B train cell (fake tensors on the host, traced in
+             a process started after phase 26's kernel timings) within 3%
+             of torch.cuda.max_memory_allocated over those runs, the
+             memory held before their arguments were built taken off.
 
 Phases 3, 5, 6b, 6c, 9 and 18 also print their run's peak memory beside
 repro_torch.analysis' memory model, and require the bytes the run itself
@@ -402,6 +413,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -637,6 +649,14 @@ def event_ms(fn, runs: int, flush=None, hide_host: bool = False) -> float:
 
 
 _HW = []
+# peak_run's label -> the peak bytes it read
+PEAK_RUNS: dict[str, int] = {}
+# phase 27's cells: name -> (measured peak bytes, bytes held on the card
+# before the cell's arguments were built)
+DRYRUN_PEAKS: dict[str, tuple[int, int]] = {}
+# the band: about 3x the largest gap seen (1.1%, the train cell); a
+# tracker that lost the serve main's KV cache (8% of its peak) fails it
+DRYRUN_PEAK_TOL = 0.03
 
 
 def hw():
@@ -667,6 +687,53 @@ def bound(bytes_moved: int, flops: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+_COSTS = []
+
+
+def kcosts():
+    """``repro_torch.kernels.costs``: each kernel's operations and bytes,
+    counted as the bound column counts them. Loaded from this checkout's
+    file, as :func:`hw` is."""
+    if not _COSTS:
+        import importlib.util
+        path = SRC / "repro_torch" / "kernels" / "costs.py"
+        spec = importlib.util.spec_from_file_location("_smoke_costs", path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod
+        spec.loader.exec_module(mod)
+        _COSTS.append(mod)
+    return _COSTS[0]
+
+
+def cost_bound(cost) -> tuple[float, str]:
+    """:func:`bound` of a launch's counts (a ``kcosts()`` cost): its bytes,
+    and its tensor-core operations over the bf16 peak or its FMA-pipe ones
+    over the float32 rate (K1-K6 count one or the other)."""
+    if cost.flops:
+        return bound(cost.bytes, cost.flops, hw().peak_flops)
+    return bound(cost.bytes, cost.fp32_ops)
+
+
+def k1_cost(k1):
+    """K1's counts at ``edge_scatter_cuda(*k1)``."""
+    sigma, rho, offsets = k1[0], k1[1], k1[4]
+    return kcosts().edge_scatter(offsets.numel() - 1, sigma.shape[0],
+                                 *rho.shape, rho.element_size())
+
+
+def k2_cost(z, cdf):
+    """K2's counts at ``innovation_cuda(z, mass, u, cdf, tables)``."""
+    return kcosts().innovation(*z.shape, cdf.shape[1], z.element_size())
+
+
+def k3_cost(r, idx, lies, F: int, f_recv: bool = False):
+    """K3's counts at ``trim_gather_cuda(r, idx, valid, lies, byz, F)``;
+    ``f_recv``: F given per receiver, ``F`` its largest value."""
+    c = kcosts()
+    return c.trim_gather(*r.shape, idx.shape[1], F, r.element_size(),
+                         c.distinct_bytes(lies), f_recv)
+
+
 def peak_run(label: str, fn, model: tuple):
     """``fn()`` with the device's peak memory reset just before it ->
     ``fn``'s result. Prints the peak beside ``model``, a memory model's
@@ -682,6 +749,7 @@ def peak_run(label: str, fn, model: tuple):
     out = fn()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    PEAK_RUNS[label] = peak
     terms = ", ".join(f"{k} {v}" for k, v in pred.items()
                       if k.endswith("_gb") and k != "total_gb")
     total_gb = pred["total_gb"]
@@ -1153,25 +1221,12 @@ def engine_kernel_times(args, flush) -> dict:
     from repro_torch.kernels.social_innov import (innovation_cuda,
                                                   innovation_ref)
     k1, k2, k3, k3_dense = (args[k] for k in ("k1", "k2", "k3", "k3_dense"))
-    sigma, rho = k1[:2]
-    N, D, E = sigma.shape[0], sigma.shape[1], rho.shape[0]
-    m_hyp, S = k2[4].shape[1:]
-    dm, P = k3[3].shape[1:]
-    outs = {"edge_scatter": edge_scatter_cuda(*k1),
-            "social_innov": innovation_cuda(*k2),
-            "byz_trim": trim_gather_cuda(*k3)}
+    # a first launch of each, untimed
+    edge_scatter_cuda(*k1), innovation_cuda(*k2), trim_gather_cuda(*k3)
     torch.cuda.synchronize()
-    # bytes: every input read once and every output written once (the
-    # stride-0 lies are one float); operations: K1 two a row element, K2 a
-    # CDF search and m softmax terms an agent, K3 a compare in each of the
-    # 2F extraction rounds and one add per (receiver, coordinate, slot)
-    k3_ops = N * P * dm * (2 * BYZ_F + 1)
-    bounds = {
-        "edge_scatter": bound(nbytes(*k1, *outs["edge_scatter"]), 2 * E * D),
-        "social_innov": bound(nbytes(*k2, *outs["social_innov"]),
-                              N * (S + m_hyp * 8)),
-        "byz_trim": bound(nbytes(*k3[:3], k3[4], *outs["byz_trim"]) + 4,
-                          k3_ops)}
+    bounds = {"edge_scatter": cost_bound(k1_cost(k1)),
+              "social_innov": cost_bound(k2_cost(k2[0], k2[3])),
+              "byz_trim": cost_bound(k3_cost(*k3[:2], k3[3], BYZ_F))}
     calls = {"edge_scatter": (lambda: edge_scatter_cuda(*k1),
                               lambda: edge_scatter_ref(*k1[:4], args["dst"])),
              "social_innov": (lambda: innovation_cuda(*k2),
@@ -1185,7 +1240,7 @@ def engine_kernel_times(args, flush) -> dict:
                      "bound_ms": bounds[name][0],
                      "bound_by": bounds[name][1], "library_ms": None}
     k3d = three_ways(lambda: trim_gather_cuda(*k3_dense), TIMED_RUNS, flush)
-    k3d_bound = bound(nbytes(*k3_dense[:5], *outs["byz_trim"]), k3_ops)[0]
+    k3d_bound = cost_bound(k3_cost(*k3_dense[:2], k3_dense[3], BYZ_F))[0]
     out["byz_trim"]["materialized_ms"] = k3d["ms"]
     walk = three_ways(lambda: edge_scatter_cuda(*k1, tiled=False),
                       TIMED_RUNS, flush)
@@ -1227,11 +1282,10 @@ def k3_width_times(dev, flush, widths=(16, 32, 64)) -> dict:
         byz[:, :2] = True
         lies = torch.full((), 1e3, device=dev).expand(n, dm, P)
         a = (r, idx, valid, lies, byz, BYZ_F)
-        outs = trim_gather_cuda(*a)
+        trim_gather_cuda(*a)                     # a first launch, untimed
         t = {"ms": event_ms(lambda: trim_gather_cuda(*a), TIMED_RUNS, flush,
                             hide_host=True),
-             "bound_ms": bound(nbytes(r, idx, valid, byz, *outs) + 4,
-                               n * P * dm * (2 * BYZ_F + 1))[0]}
+             "bound_ms": cost_bound(k3_cost(r, idx, lies, BYZ_F))[0]}
         out[dm] = t
         log(f"[timing] byz_trim at deg_max {dm} (every slot valid, random "
             f"neighbors, N={n}, P={P}, F={BYZ_F}): device {t['ms']:.5f} ms "
@@ -1264,7 +1318,7 @@ def k1_sparse_times(dev, flush) -> dict:
           torch.from_numpy(offsets).to(dev))
     outs = edge_scatter_cuda(*k1)
     t = three_ways(lambda: edge_scatter_cuda(*k1), 10, flush)
-    t["bound_ms"], t["bound_by"] = bound(nbytes(*k1, *outs), 2 * E * D)
+    t["bound_ms"], t["bound_by"] = cost_bound(k1_cost(k1))
     log(f"[timing] edge_scatter at pushsum_sparse's shape (N={TRAIN_W}, "
         f"E={E}, D={D}, the column walk): device {t['ms']:.4f} ms with the "
         f"host hidden, kernel alone {t['kernel_ms']}, host-inclusive "
@@ -1561,7 +1615,7 @@ def k1_d5_times(flush, k1_shapes: dict, d4_ms: float) -> dict:
         t["plain_ms"] = event_ms(
             lambda k1=k1, dst=dst: edge_scatter_ref(*k1[:4], dst),
             TIMED_RUNS, flush)
-        t["bound_ms"], t["bound_by"] = bound(moved, 2 * E * D)
+        t["bound_ms"], t["bound_by"] = cost_bound(k1_cost(k1))
         a = torch.ones(moved // 8, device=k1[0].device)
         b = torch.empty_like(a)
         t["copy_ms"] = event_ms(lambda a=a, b=b: b.copy_(a), TIMED_RUNS,
@@ -1703,7 +1757,7 @@ def row_recv_equal(what, src, valid, offsets, K, rows, D, dev,
                 f"single graph's")
     ms = event_ms(lambda: edge_scatter_cuda(*args), TIMED_RUNS, flush,
                   hide_host=True)
-    b_ms, by = bound(nbytes(*args, rho_b, recv_b), 2 * K * E * D)
+    b_ms, by = cost_bound(k1_cost(args))
     log(f"[timing] {what}: edge_scatter at the grid's shape (K·N={K * N}, "
         f"K·E={K * E}, D={D}): {ms:.5f} ms with the host hidden, bound "
         f"{b_ms:.5f} ({by}); median of {TIMED_RUNS}, L2 flushed")
@@ -1992,7 +2046,7 @@ def social_grid_phase(dev, flush) -> dict:
     k2_args = (z, mass, u.reshape(-1), cdf.repeat(K, 1), lt.repeat(K, 1, 1))
     k2_ms = event_ms(lambda: innovation_cuda(*k2_args), TIMED_RUNS, flush,
                      hide_host=True)
-    b_ms, by = bound(nbytes(*k2_args, z_b, mu_b), 0)
+    b_ms, by = cost_bound(k2_cost(z, k2_args[3]))
     log(f"[timing] social grid: social_innov at the grid's shape (K·N="
         f"{K * N}, m=3, S={cdf.shape[1]}): {k2_ms:.5f} ms with the host "
         f"hidden, bound {b_ms:.5f} ({by}); median of {TIMED_RUNS}, L2 "
@@ -2377,8 +2431,7 @@ def byzantine_grid_phase(dev, flush) -> dict:
     int_ms = event_ms(lambda: trim_gather_cuda(*k3_int), TIMED_RUNS, flush,
                       hide_host=True)
     dm = rt.nbr_idx.shape[1]
-    b_ms, by = bound(nbytes(*k3[:3], rt.byz_nbr, F_recv, tsum_b, kept_b) + 4,
-                     K * N * 9 * dm * (2 * BYZ_F + 1))
+    b_ms, by = cost_bound(k3_cost(*k3[:2], k3[3], BYZ_F, f_recv=True))
     log(f"[timing] byz_trim at the Byzantine grid's shape (K·N={K * N}, "
         f"deg_max {dm}, P 9, stride-0 lies): F per receiver {grid_ms:.5f} "
         f"ms, int F = {BYZ_F} {int_ms:.5f} ms ({grid_ms / int_ms:.3f}x), "
@@ -2757,9 +2810,7 @@ def plane_single_phase(dev, model, rt, M, bmodel, bsetup, battack) -> dict:
                              flush, hide_host=True)
               for name, a in (("identity", k1), ("node", node))}
         out["k1_identity_ms"][label] = ms["identity"]
-        # each input read once, rho_new and recv written once
-        b_ms, by = bound(nbytes(*k1, rho) + N * (A1_D + 1) * 4,
-                         2 * E * (A1_D + 1))
+        b_ms, by = cost_bound(k1_cost(k1))
         log(f"[planes] edge_scatter's identity-source route (the async "
             f"delivery) at the {label} shape (E={E}, D={A1_D + 1}): rho_new "
             f"bit-equal, recv bit-equal to the float32 edge-order sum; "
@@ -3447,35 +3498,26 @@ def half_times(dev, args, k1_d5, runs) -> dict:
     k1, k1_5 = args["k1"], k1_d5["hps"][0]
     z, mass, u, cdf, lt = args["k2"]
     r, idx, valid, lies, byz, F = args["k3"]
-    N, m_hyp, S = z.shape[0], z.shape[1], cdf.shape[1]
-    dm, P = idx.shape[1], r.shape[1]
-    k3_ops = N * P * dm * (2 * BYZ_F + 1)
 
-    def timed(fn, inputs, outputs, ops):
+    def timed(fn, cost):
         ms = event_ms(fn, TIMED_RUNS, flush, hide_host=True)
-        b_ms, by = bound(nbytes(*inputs, *outputs), ops)
+        b_ms, by = cost_bound(cost)
         return {"ms": ms, "bound_ms": b_ms, "bound_by": by}
 
     for name in ("float32",) + HALF:
         st = half_dtype(name)
         for key, a in (("edge_scatter", k1), ("edge_scatter_d5", k1_5)):
             ah = (a[0].to(st), a[1].to(st), *a[2:])
-            o = edge_scatter_cuda(*ah)
-            E, D = ah[1].shape
-            out[key][name] = timed(lambda ah=ah: edge_scatter_cuda(*ah), ah,
-                                   o, 2 * E * D)
+            out[key][name] = timed(lambda ah=ah: edge_scatter_cuda(*ah),
+                                   k1_cost(ah))
         a2 = (z.to(st), mass.to(st), u, cdf, lt)
-        o = innovation_cuda(*a2)
-        out["social_innov"][name] = timed(lambda: innovation_cuda(*a2), a2,
-                                          o, N * (S + m_hyp * 8))
+        out["social_innov"][name] = timed(lambda: innovation_cuda(*a2),
+                                          k2_cost(a2[0], cdf))
         r_h = r.to(st)
         lies_h = torch.full((), 1e3, dtype=st, device=dev).expand(lies.shape)
         a3 = (r_h, idx, valid, lies_h, byz, F)
-        o = trim_gather_cuda(*a3)
         out["byz_trim"][name] = timed(lambda: trim_gather_cuda(*a3),
-                                      (r_h, idx, valid, byz), o, k3_ops)
-        out["byz_trim"][name]["bound_ms"] += st.itemsize / hw().hbm_bw \
-            * 1e3                         # the one stride-0 lie
+                                      k3_cost(r_h, idx, lies_h, BYZ_F))
     for key, t in out.items():
         log(f"[timing] {key} by storage, device ms with the host hidden "
             f"(median of {TIMED_RUNS}, L2 flushed) and bound: " + "; ".join(
@@ -3920,14 +3962,19 @@ def main() -> int:
         "shape": ft_["k5_partial"]["shape"], "merge": ft_["k5_merge"]})
     lap("phase 25")
     # ---- phase 26: the families trained over model ranks, and FSDP --------
-    tx = family_train_axis_phase(dev, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t26 = tx_kernel_times(dev, flush)
+    # phase 27's traces of two cells on fake tensors, on the host beside
+    # phase 26's rank runs (holds, no timing)
+    predictor = start_dryrun_peaks()
+    tx = family_train_axis_phase(dev, flush, t26)
 
     def tx_launches(name: str) -> dict:
         return {run: r["launches"].get(name, 0)
                 for run, r in tx["runs"].items()
                 if "launches" in r and r["launches"].get(name, 0)}
 
-    t26 = tx["times"]
     by_name["swa_prefill"].update(
         launches_family_train_ranks=tx_launches("swa_prefill"),
         family_train_ranks={k: v for k, v in t26.items()
@@ -3939,6 +3986,9 @@ def main() -> int:
         launches_family_train_ranks=tx_launches("trimmed_mean"),
         family_train_ranks=t26["k4_rank_robust"])
     lap("phase 26")
+    # ---- phase 27: the dry run against the card ---------------------------
+    dryrun_phase(dev, card, predictor, args)
+    lap("phase 27")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4573,6 +4623,8 @@ def serve_phases(dev, flush) -> list[dict]:
     cfg = dataclasses.replace(get_config("qwen3_8b"),
                               n_layers=SERVE_QWEN_LAYERS)
     B, S, GEN = SERVE_B, SERVE_S, SERVE_GEN
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = M.init_params(0, cfg, dev)
     torch.cuda.synchronize()
@@ -4590,11 +4642,18 @@ def serve_phases(dev, flush) -> list[dict]:
     prompts = randint_n(prng_key(0), B * S, 0, cfg.vocab, dev).reshape(B, S)
     _zero_counts()
     t0 = time.perf_counter()
-    with torch.inference_mode():
+    with torch.inference_mode(), DecodeStorageCheck() as kept:
         toks, lk = peak_run("Qwen3-8B serve main (phase 9)",
                             lambda: generate(params, cfg, prompts, GEN),
                             serve_memory(cfg, B, S, S + GEN + 1))
     wall = time.perf_counter() - t0
+    DRYRUN_PEAKS["serve"] = (PEAK_RUNS["Qwen3-8B serve main (phase 9)"],
+                             held0)
+    log(f"[serve] decode storage: {kept.steps} decode steps, each keeping "
+        f"the storage (data_ptr) of all {kept.leaves} cache leaves; moved: "
+        f"{kept.moved or 'none'}")
+    require(kept.steps == GEN - 1 and kept.leaves > 0 and not kept.moved,
+            "every decode step writes the KV rings and pos in place")
     counts = _counts()
     log(f"[serve] main: {B} requests x {S} prompt tokens, {GEN} tokens each "
         f"(prefill + {GEN - 1} decode steps) in {wall:.2f} s, launches "
@@ -4725,9 +4784,8 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     kernel5 = kernel_times(lambda: attn_decode_cuda(q, k, v, lens), 10,
                            flush).get("attn_decode_tc_kernel", (None, 0))
     # bytes: q, the valid K and V rows, lengths and the output once each
-    kv_bytes = 2 * B * Hkv * n_valid * dh * k.element_size()
-    b5, by5 = bound(nbytes(q, lens, o5) + kv_bytes,
-                    4 * B * H * n_valid * dh, hw().peak_flops)
+    b5, by5 = cost_bound(kcosts().attn_decode(B, H, Hkv, n_valid, dh,
+                                              k.element_size()))
     log(f"[timing] attn_decode (B={B}, H={H}, Hkv={Hkv}, Wc={Wc}, "
         f"{n_valid} valid rows, bf16, "
         f"{decode_splits(B, Hkv, Wc, dh, n_sm)[1]} splits): device {ms5:.5f} "
@@ -4757,8 +4815,9 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
         enable_gqa=True), 10, flush)
     # operations: the band's S (S + 1) / 2 pairs per (request, head), 2 dh
     # FLOPs for the score and 2 dh for P.V each
-    flops6 = 4 * dh * B * H * (S * (S + 1) // 2)
-    b6, by6 = bound(nbytes(q, k, v, o6), flops6, hw().peak_flops)
+    c6 = kcosts().swa_prefill(B, S, H, Hkv, dh, 0, q.element_size())
+    flops6 = c6.flops
+    b6, by6 = cost_bound(c6)
     log(f"[timing] swa_prefill (B={B}, S={S}, H={H}, Hkv={Hkv}, bf16, "
         f"causal): {ms6:.4f} ms = {flops6 / ms6 / 1e9:.1f} TFLOP/s, plain "
         f"{plain6:.4f}, SDPA {lib6:.4f}, bound {b6:.4f} ({by6}, "
@@ -4775,11 +4834,13 @@ def serve_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     lib_t = event_ms(lambda: F.scaled_dot_product_attention(
         q.permute(tr), k.permute(tr), v.permute(tr), is_causal=True,
         enable_gqa=True), TIMED_RUNS, flush)
-    flops_t = 4 * 64 * Bt * Ht * (St * (St + 1) // 2)
+    c_t = kcosts().swa_prefill(Bt, St, Ht, Hkvt, 64, 0, q.element_size())
+    flops_t = c_t.flops
+    b_t, by_t = cost_bound(c_t)
     log(f"[timing] swa_prefill at the training shape (B={Bt}, S={St}, "
         f"H={Ht}, Hkv={Hkvt}, dh=64, bf16, causal): {ms_t:.4f} ms = "
         f"{flops_t / ms_t / 1e9:.1f} TFLOP/s, SDPA {lib_t:.4f}, bound "
-        f"{bound(0, flops_t, hw().peak_flops)[0]:.4f} (operations)")
+        f"{b_t:.4f} ({by_t})")
     out["swa_prefill"].update(train_ms=ms_t, train_library_ms=lib_t)
     del q, k, v
 
@@ -5025,47 +5086,6 @@ def rwkv_phases(dev, flush) -> dict:
             "launches": counts["wkv6"], "max_abs_err": err, **times["wkv6"]}
 
 
-def wkv_ops(BH: int, T: int, G: int) -> tuple[int, int]:
-    """(tensor-core FLOPs, FMA-pipe operations) of K7 over BH sequences of
-    T bf16 tokens, as its three passes compute them: every chunk padded to
-    64 rows, K = V = 64; a product of two split (hi + lo) operands counted
-    three times, of a split one and v (exact in bf16) twice; an
-    exponential counted as one operation. Per chunk, pass 1: the decayed
-    keys and the state update; pass 3: the scan, the decayed keys again,
-    the inter-chunk product, the anchored off-diagonal scores (sub-chunks
-    1-3), the diagonal sub-blocks pairwise (4 x 120 x 64 terms of 5
-    operations) with the bonus on their diagonal, scores @ v and the state
-    update; pass 2: one fma per state element a group."""
-    C = K = V = WKV_HEAD
-    mv = 2
-    n_chunks = -(-T // C)
-    prior = 16 + 32 + 48                       # key rows before sub-chunks
-    tc = (mv * 2 * C * K * V                   # pass 1: state
-          + 3 * 2 * C * K * V                  # inter-chunk
-          + 3 * 2 * 16 * K * prior             # off-diagonal scores
-          + mv * 2 * 16 * V * (prior + 64)     # scores @ v, j <= the block
-          + mv * 2 * C * K * V)                # pass 3: state
-    fma = (2 * (C * K + 3 * C * K + K * V + K)  # scan, k_dec, decay, exp
-           + 2 * C * K                         # r . exp(E)
-           + 3 * 16 * K * 3 + 3 * K * prior    # decayed q and k
-           + 4 * 120 * K * 5                   # diagonal sub-blocks
-           + 3 * C * K)                        # bonus
-    groups = -(-n_chunks // G)
-    return BH * n_chunks * tc, BH * (n_chunks * fma + groups * 2 * K * V)
-
-
-def wkv_floor_bytes(BH: int, T: int, itemsize: int, G: int) -> int:
-    """Bytes K7's design must move: k, v and lw read by passes 1 and 3, r
-    and u by pass 3, y written once; each group's state written by pass 1,
-    read and rewritten by pass 2, read by pass 3, and its decay written and
-    read; the final state written once."""
-    K = WKV_HEAD
-    groups = -(-T // (64 * G))
-    seq = T * K * (2 * (2 * itemsize + 4) + 2 * itemsize)
-    state = groups * (4 * K * K * 4 + 2 * K * 4) + K * K * 4 + K * 4
-    return BH * (seq + state)
-
-
 def rwkv_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     """K7 and its plain version at the serve shape (medians of CUDA-event
     runs, L2 flushed), then :func:`serve_times`."""
@@ -5099,11 +5119,11 @@ def rwkv_timing(params, cfg, prompts, toks, flush, dev) -> dict:
     bytes7 = nbytes(r, k, v, lw, y, s) + H * WKV_HEAD * 4
     G7 = group_chunks(B * H, S, torch.cuda.get_device_properties(dev)
                       .multi_processor_count)
-    tc7, fma7 = wkv_ops(B * H, S, G7)
+    tc7, fma7 = kcosts().wkv6_ops(B * H, S, G7)
     ops_ms7 = (tc7 / hw().peak_flops + fma7 / hw().fp32_flops) * 1e3
     bytes_ms7 = bytes7 / hw().hbm_bw * 1e3
     b7, by7 = max((bytes_ms7, "bytes"), (ops_ms7, "operations"))
-    floor7 = wkv_floor_bytes(B * H, S, 2, G7)
+    floor7 = kcosts().wkv6_floor_bytes(B * H, S, 2, G7)
     log(f"[timing] wkv6 (B={B}, H={H}, T={S}, K=V=64, bf16, groups of "
         f"{G7} chunks, {B * H * -(-S // (64 * G7))} blocks in passes 1 and 3)"
         f": device {ms7:.5f} ms, host-inclusive {host7:.5f}, plain "
@@ -5220,29 +5240,30 @@ def k5_256_checks(dev, flush) -> dict:
 
     q, k, v = rn(B, H, dh), rn(B, Hkv, Wc, dh), rn(B, Hkv, Wc, dh)
     L = torch.full((B,), Wc, dtype=torch.int32, device=dev)
-    o5 = attn_decode_cuda(q, k, v, L)
+    attn_decode_cuda(q, k, v, L)                 # a first launch, untimed
     fns = (lambda: attn_decode_cuda(q, k, v, L),
            lambda: attn_decode_ref(q, k, v, L),
            lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
                                                   enable_gqa=True))
     ms5, plain5, lib5 = (event_ms(fn, TIMED_RUNS, flush, True) for fn in fns)
     host5 = event_ms(fns[0], TIMED_RUNS, flush)
-    b5, by5 = bound(nbytes(q, k, v, L, o5), 4 * B * H * Wc * dh,
-                    hw().peak_flops)
+    b5, by5 = cost_bound(kcosts().attn_decode(B, H, Hkv, Wc, dh,
+                                              q.element_size()))
     log(f"[timing] attn_decode at RecurrentGemma's decode shape (B={B}, "
         f"H={H}, Hkv={Hkv}, dh={dh}, a full {Wc}-row ring, bf16): device "
         f"{ms5:.5f} ms, plain {plain5:.5f}, SDPA {lib5:.5f}; host-inclusive "
         f"{host5:.5f}; bound {b5:.5f} ({by5})")
     q, k, v = rn(B, S, H, dh), rn(B, S, Hkv, dh), rn(B, S, Hkv, dh)
-    o6 = swa_prefill_cuda(q, k, v, Wc)
+    swa_prefill_cuda(q, k, v, Wc)                # a first launch, untimed
     tr = (0, 2, 1, 3)
     ms6 = event_ms(lambda: swa_prefill_cuda(q, k, v, Wc), 5, flush)
     plain6 = event_ms(lambda: swa_prefill_ref(q, k, v, Wc), 3, flush)
     lib6 = event_ms(lambda: F.scaled_dot_product_attention(
         q.permute(tr), k.permute(tr), v.permute(tr), is_causal=True,
         enable_gqa=True), 5, flush)
-    flops6 = 4 * dh * B * H * (S * (S + 1) // 2)   # the window holds S
-    b6, by6 = bound(nbytes(q, k, v, o6), flops6, hw().peak_flops)
+    c6 = kcosts().swa_prefill(B, S, H, Hkv, dh, Wc, q.element_size())
+    flops6 = c6.flops
+    b6, by6 = cost_bound(c6)
     log(f"[timing] swa_prefill at RecurrentGemma's prefill shape (B={B}, "
         f"S={S}, H={H}, Hkv={Hkv}, dh={dh}, window {Wc}, bf16, the "
         f"{'tensor-core' if prefill_kernel(bf16, dh) == 'tc' else 'FMA'} "
@@ -6030,9 +6051,7 @@ def tmean_times(dev, flush, D_full: int) -> dict:
     plain = {F: event_ms(lambda F=F: trimmed_mean_ref(x, F), 3, flush)
              for F in (0, TRAIN_F)}
     lib = event_ms(lambda: torch.mean(x, 0), TIMED_RUNS, flush, True)
-    # bytes: x read once, the output written once; operations: per
-    # coordinate 2F extraction rounds of W compares and W adds
-    bnd = {F: bound(nbytes(x, out), D_full * TRAIN_W * (2 * F + 1))
+    bnd = {F: cost_bound(kcosts().trimmed_mean(TRAIN_W, D_full, F))
            for F in (0, TRAIN_F)}
     for F in (0, TRAIN_F):
         log(f"[timing] trimmed_mean (W={TRAIN_W}, D={D_full}, F={F}): "
@@ -6213,9 +6232,7 @@ def family_train_kernel_checks(dev, flush) -> dict:
         ms = event_ms(lambda: trimmed_mean_cuda(x, F, out=out), 10, flush,
                       hide_host=True)
         lib = event_ms(lambda: torch.mean(x, 0), 10, flush, hide_host=True)
-        # bytes: x read once, the output written once; operations: per
-        # coordinate 2F extraction rounds of W compares and W adds
-        b, by = bound(nbytes(x, out), D * W * (2 * F + 1))
+        b, by = cost_bound(kcosts().trimmed_mean(W, D, F))
         times[name] = {"ms": ms, "bound_ms": b, "bound_by": by,
                        "library_ms": lib}
         log(f"[family train kernels] trimmed_mean at {name}'s (W, D_total) "
@@ -6357,6 +6374,9 @@ def family_train_main(name: str, dev, shared: bool = False) -> dict:
             n_steps = (FAMILY_TRAIN_STEPS if backend == "auto"
                        else FAMILY_PLAIN_STEPS)
             torch.cuda.reset_peak_memory_stats()
+            # held before the arguments: the stubs (built above) are
+            # arguments
+            held = torch.cuda.memory_allocated() - nbytes(*stubs.values())
             t0 = time.perf_counter()
             tc, data, pw, ow, step, _ = build(
                 parse_args(family_train_argv(name, backend)), cfg,
@@ -6391,6 +6411,9 @@ def family_train_main(name: str, dev, shared: bool = False) -> dict:
             wall = time.perf_counter() - t0
             counts = _counts()
             peak = torch.cuda.max_memory_allocated() / 1e9
+            if name == "internvl2" and backend == "auto":
+                DRYRUN_PEAKS["train"] = (torch.cuda.max_memory_allocated(),
+                                         held)
             spread = param_spread(pw).item() if robust else None
             again = first_batch_loss(pw, cfg, {**data.batch(0, dev),
                                                **stubs}, W, robust)
@@ -6556,10 +6579,9 @@ def family_k6_times(dev, flush) -> dict:
         lib = event_ms(lambda: F.scaled_dot_product_attention(
             q.permute(tr), k.permute(tr), v.permute(tr), is_causal=True,
             enable_gqa=True), TIMED_RUNS, flush, hide_host=True)
-        # operations: the band's S (S + 1) / 2 pairs per (row, head), 2 dh
-        # FLOPs for the score and 2 dh for P.V each
-        flops = 4 * dh * B * H * (S * (S + 1) // 2)
-        b, by = bound(nbytes(q, k, v, o), flops, hw().peak_flops)
+        c6 = kcosts().swa_prefill(B, S, H, Hkv, dh, 0, q.element_size())
+        flops = c6.flops
+        b, by = cost_bound(c6)
         log(f"[timing] swa_prefill at {name}'s training shape (B={B}, "
             f"S={S}, H={H}, Hkv={Hkv}, dh={dh}, bf16, causal): {ms:.5f} ms "
             f"with the host hidden = {flops / ms / 1e9:.1f} TFLOP/s, plain "
@@ -7040,7 +7062,7 @@ def multidevice_phase(dev, flush, model, rt, M) -> dict:
                      flush, hide_host=True)
     plain_ms = event_ms(lambda: edge_scatter_ref(*k1[:4], dst_l,
                                                   n_recv=S * N), 5, flush)
-    b_ms, by = bound(nbytes(*k1, rho) + S * N * 2 * 4, 2 * E * 2)
+    b_ms, by = cost_bound(k1_cost(k1))
     log(f"[timing] edge_scatter at the partitioned shape ({S} x {N} "
         f"receivers, E {E}, D 2): {k1_ms:.5f} ms with the host hidden "
         f"(median of {TIMED_RUNS}, L2 flushed), bound {b_ms:.5f} ({by}), "
@@ -7643,7 +7665,7 @@ def mm_kernel_times(dev, flush) -> dict:
                       flush, True)
         plain = event_ms(lambda: trimmed_mean_ref(x, 1), 3, flush)
         lib = event_ms(lambda: torch.mean(x, 0), TIMED_RUNS, flush, True)
-        b, by = bound(nbytes(x, y), cols * MM_W * 3)
+        b, by = cost_bound(kcosts().trimmed_mean(MM_W, cols, 1))
         out[tag] = {"shape": [MM_W, cols], "ms": ms, "plain_ms": plain,
                     "bound_ms": b, "bound_by": by, "library_ms": lib,
                     "max_abs_err": err}
@@ -7666,7 +7688,7 @@ def mm_kernel_times(dev, flush) -> dict:
     ms = event_ms(lambda: edge_scatter_cuda(*k1), 10, flush, True)
     plain = event_ms(lambda: edge_scatter_ref(sigma, rho, live, src, dst,
                                               n_recv=MM_W), 3, flush)
-    b, by = bound(nbytes(*k1, *got), 2 * E * Dk)
+    b, by = cost_bound(k1_cost(k1))
     out["k1_rank"] = {"shape": [MM_W, E, Dk], "ms": ms, "plain_ms": plain,
                       "bound_ms": b, "bound_by": by, "library_ms": None,
                       "max_abs_err": err}
@@ -7685,8 +7707,7 @@ def mm_kernel_times(dev, flush) -> dict:
     lib6 = event_ms(lambda: F.scaled_dot_product_attention(
         q.permute(tr), k.permute(tr), v.permute(tr), is_causal=True,
         enable_gqa=True), TIMED_RUNS, flush, True)
-    flops6 = 4 * dh * B * H * (S * (S + 1) // 2)
-    b6, by6 = bound(nbytes(q, k, v, o6), flops6, hw().peak_flops)
+    b6, by6 = cost_bound(kcosts().swa_prefill(B, S, H, Hkv, dh, 0, 2))
     out["k6_local"] = {"shape": [B, S, H, Hkv, dh], "ms": ms6,
                        "plain_ms": plain6, "bound_ms": b6, "bound_by": by6,
                        "library_ms": lib6, "max_abs_err": err6}
@@ -7704,8 +7725,7 @@ def mm_kernel_times(dev, flush) -> dict:
                       flush, True)
     lib5 = event_ms(lambda: F.scaled_dot_product_attention(
         q5[:, :, None], k5, v5, enable_gqa=True), TIMED_RUNS, flush, True)
-    b5, by5 = bound(nbytes(q5, k5, v5, L, o5), 4 * B * H * Wc * dh,
-                    hw().peak_flops)
+    b5, by5 = cost_bound(kcosts().attn_decode(B, H, Hkv, Wc, dh, 2))
     out["k5_local"] = {"shape": [B, H, Hkv, Wc, dh], "ms": ms5,
                        "plain_ms": plain5, "bound_ms": b5, "bound_by": by5,
                        "library_ms": lib5, "max_abs_err": err5}
@@ -8244,38 +8264,36 @@ def fa_kernel_times(dev, flush) -> dict:
                      flush, True)
     lib = event_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None], k, v, enable_gqa=True), TIMED_RUNS, flush, True)
-    b, by = bound(nbytes(q, k, v, L, acc, m, l), 4 * B * H * Wb * dh,
-                  hw().peak_flops)
+    b, by = cost_bound(kcosts().attn_decode(B, H, 1, Wb, dh, 2,
+                                            partial=True))
     out["k5_partial"] = {"shape": [B, H, 1, Wb, dh], "ms": ms,
                          "plain_ms": plain, "bound_ms": b, "bound_by": by,
                          "library_ms": lib}
     parts = [t[None].expand(2, *t.shape).contiguous() for t in (acc, m, l)]
-    o = attn_decode_merge_cuda(*parts, bf)
+    attn_decode_merge_cuda(*parts, bf)           # a first launch, untimed
     ms = event_ms(lambda: attn_decode_merge_cuda(*parts, bf), TIMED_RUNS,
                   flush, True)
     plain = event_ms(lambda: attn_decode_merge_ref(*parts, bf), TIMED_RUNS,
                      flush, True)
-    b, by = bound(nbytes(*parts, o), 4 * 2 * B * H * dh)
+    b, by = cost_bound(kcosts().attn_decode_merge(2, B, H, dh, 2))
     out["k5_merge"] = {"shape": [2, B, H, dh], "ms": ms, "plain_ms": plain,
                        "bound_ms": b, "bound_by": by, "library_ms": None}
     S, Hq = FA_S, 3
     q6 = torch.randn((1, S, Hq, dh), generator=g, device=dev).to(bf)
     k6, v6 = (torch.randn((1, S, 1, dh), generator=g, device=dev).to(bf)
               for _ in range(2))
-    o6 = swa_prefill_cuda(q6, k6, v6, 2048)
+    swa_prefill_cuda(q6, k6, v6, 2048)           # a first launch, untimed
     tr = (0, 2, 1, 3)
     ms = event_ms(lambda: swa_prefill_cuda(q6, k6, v6, 2048), 5, flush, True)
     plain = event_ms(lambda: swa_prefill_ref(q6, k6, v6, 2048), 3, flush)
     lib = event_ms(lambda: F.scaled_dot_product_attention(
         q6.permute(tr), k6.permute(tr), v6.permute(tr), is_causal=True,
         enable_gqa=True), 5, flush, True)
-    b, by = bound(nbytes(q6, k6, v6, o6), 4 * dh * Hq * (S * (S + 1) // 2),
-                  hw().peak_flops)
+    c6 = kcosts().swa_prefill(1, S, Hq, 1, dh, 2048, 2)
+    b, by = cost_bound(c6)
     out["k6_gathered"] = {"shape": [1, S, Hq, 1, dh], "ms": ms,
                           "plain_ms": plain, "bound_ms": b, "bound_by": by,
-                          "library_ms": lib,
-                          "tflops": 4 * dh * Hq * (S * (S + 1) // 2) / ms
-                          / 1e9}
+                          "library_ms": lib, "tflops": c6.flops / ms / 1e9}
     H7, T = 16, FA_S
     # the model's layout: (1, H, T, 64) views of (1, T, H, 64) projections
     r7, k7, v7, lw, u = wkv_inputs(g, H7, T, bf, "model", dev)
@@ -8289,7 +8307,7 @@ def fa_kernel_times(dev, flush) -> dict:
                                     heads(lw), uh), 5, flush, True)
     plain = event_ms(lambda: wkv6_chunked_ref(r7, k7, v7, lw, u, chunk=64),
                      2, flush)
-    tc7, fma7 = wkv_ops(H7, T, group_chunks(
+    tc7, fma7 = kcosts().wkv6_ops(H7, T, group_chunks(
         H7, T, torch.cuda.get_device_properties(dev).multi_processor_count))
     ops_ms = (tc7 / hw().peak_flops + fma7 / hw().fp32_flops) * 1e3
     bytes_ms = (nbytes(r7, k7, v7, lw, y7, s7) + H7 * WKV_HEAD * 4) \
@@ -8951,20 +8969,18 @@ def tx_kernel_times(dev, flush) -> dict:
         q = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf)
         k, v = (torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(bf)
                 for _ in range(2))
-        o = swa_prefill_cuda(q, k, v, S)
+        swa_prefill_cuda(q, k, v, S)             # a first launch, untimed
         ms = event_ms(lambda: swa_prefill_cuda(q, k, v, S), 5, flush, True)
         plain = event_ms(lambda: swa_prefill_ref(q, k, v, S), 3, flush)
         lib = event_ms(lambda: F.scaled_dot_product_attention(
             q.permute(tr), k.permute(tr), v.permute(tr), is_causal=True,
             enable_gqa=True), 5, flush, True)
-        b, by = bound(nbytes(q, k, v, o),
-                      4 * B * dh * H * (S * (S + 1) // 2), hw().peak_flops)
+        c6 = kcosts().swa_prefill(B, S, H, Hkv, dh, S, 2)
+        b, by = cost_bound(c6)
         out[f"k6_{tag}"] = {"shape": [B, S, H, Hkv, dh], "ms": ms,
                             "plain_ms": plain, "bound_ms": b, "bound_by": by,
-                            "library_ms": lib,
-                            "tflops": 4 * B * dh * H * (S * (S + 1) // 2)
-                            / ms / 1e9}
-        del q, k, v, o
+                            "library_ms": lib, "tflops": c6.flops / ms / 1e9}
+        del q, k, v
     H7, T, B7 = 16, TX_RUNS["rwkv6"][6], TX_RUNS["rwkv6"][5] // 2
     r7, k7, v7, lw, u = wkv_inputs(g, B7 * H7, T, bf, "model", dev)
 
@@ -8977,7 +8993,7 @@ def tx_kernel_times(dev, flush) -> dict:
                                     heads(lw), uh), 5, flush, True)
     plain = event_ms(lambda: wkv6_chunked_ref(r7, k7, v7, lw, u, chunk=64),
                      2, flush)
-    tc7, fma7 = wkv_ops(B7 * H7, T, group_chunks(
+    tc7, fma7 = kcosts().wkv6_ops(B7 * H7, T, group_chunks(
         B7 * H7, T, torch.cuda.get_device_properties(dev).multi_processor_count))
     ops_ms = (tc7 / hw().peak_flops + fma7 / hw().fp32_flops) * 1e3
     bytes_ms = (nbytes(r7, k7, v7, lw, y7, s7) + B7 * H7 * WKV_HEAD * 4) \
@@ -8997,7 +9013,7 @@ def tx_kernel_times(dev, flush) -> dict:
     ms = event_ms(lambda: trimmed_mean_cuda(G, 0), 5, flush, True)
     plain = event_ms(lambda: trimmed_mean_ref(G, 0), 3, flush, True)
     lib = event_ms(lambda: G.mean(dim=0), 5, flush, True)
-    b, by = bound(nbytes(G, t4), 2 * D)
+    b, by = cost_bound(kcosts().trimmed_mean(2, D, 0))
     out["k4_rank_robust"] = {"shape": [2, D], "ms": ms, "plain_ms": plain,
                              "bound_ms": b, "bound_by": by,
                              "library_ms": lib, "max_abs_err": err}
@@ -9029,9 +9045,10 @@ def tx_expected(run: str, dtype: str, agg: str = "mean") -> dict:
     return want
 
 
-def family_train_axis_phase(dev, flush) -> dict:
-    """Phase 26 -> the kernels line's figures: K6, K7 and K4's launches a
-    rank by run and their times at the new rank training shapes.
+def family_train_axis_phase(dev, flush, times: dict) -> dict:
+    """Phase 26, after its kernel ``times`` (:func:`tx_kernel_times`) ->
+    the kernels line's figures: K6, K7 and K4's launches a rank by run and
+    their times at the new rank training shapes.
 
     Each run's float32 rank losses are held within :data:`TX_FP32_LOSS`
     (relative) of the one-process float32 kernel path on the same weights
@@ -9048,9 +9065,7 @@ def family_train_axis_phase(dev, flush) -> dict:
     import tempfile
 
     import torch
-    gc.collect()
-    torch.cuda.empty_cache()
-    fig = {"times": tx_kernel_times(dev, flush), "runs": {}}
+    fig = {"times": times, "runs": {}}
     fails = []
 
     def check(ok, what: str) -> None:
@@ -9211,6 +9226,235 @@ def family_train_axis_phase(dev, flush) -> dict:
         "agg_rms_gap_one": rob_gap}
     require(not fails, f"(26) {len(fails)} holds failed: {fails}")
     return fig
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: the dry run (repro_torch.launch.dryrun) against the card: the
+# kernels' shape rules against their launches, and the traced peaks of two
+# cells the script runs against their measured peaks
+# ---------------------------------------------------------------------------
+
+class DecodeStorageCheck:
+    """For the block, every decode step that ``distributed.server.
+    make_decode_step`` builds (``launch.serve.generate`` builds its steps
+    there) records each cache leaf's ``data_ptr`` before the step and
+    compares the leaves the step returns: ``steps`` checked, ``leaves`` a
+    cache, ``moved`` the leaves whose storage changed."""
+
+    def __enter__(self):
+        from repro_torch.distributed import server
+        from repro_torch.launch.dryrun import cache_leaves
+        self.server, self.orig = server, server.make_decode_step
+        self.steps, self.leaves, self.moved = 0, 0, []
+
+        def make(*a, **k):
+            step = self.orig(*a, **k)
+
+            def checked(params, cache, token):
+                before = {p: t.data_ptr() for p, t in cache_leaves(cache)}
+                logits, out = step(params, cache, token)
+                after = {p: t.data_ptr() for p, t in cache_leaves(out)}
+                self.moved += [p for p in before if after.get(p) != before[p]]
+                self.steps += 1
+                self.leaves = len(before)
+                return logits, out
+            return checked
+
+        server.make_decode_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.server.make_decode_step = self.orig
+
+
+def dryrun_peaks(out: str) -> None:
+    """The spawned predictor (no card): the dry run's traced peak of phase
+    9's serve main (``generate`` at SERVE_QWEN_LAYERS layers, 8 x 2,048
+    prompts, 32 tokens) and of phase 20's InternVL2-26B train cell (its
+    build's parameters, AdamW state and stubs, then 3 mean steps, step
+    0's gradients kept as ``family_train_main`` keeps them), on fake
+    tensors through the kernels' shape rules -> JSON at ``out``."""
+    import dataclasses
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_specs
+    from repro_torch.distributed.trainer import TrainConfig, make_train_step
+    from repro_torch.launch.dryrun import fake_mode, local_params
+    from repro_torch.launch.serve import generate
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.statics.tracker import StepTracker
+
+    res = {}
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3_8b"),
+                              n_layers=SERVE_QWEN_LAYERS)
+    with fake_mode(), StepTracker(count_flops=False) as st:
+        params = local_params(cfg, None, None)
+        prompts = torch.empty((SERVE_B, SERVE_S), dtype=torch.int64)
+        with torch.inference_mode():
+            generate(params, cfg, prompts, SERVE_GEN, backend="cuda")
+    res["serve"] = {"peak": st.peak, "seconds": time.perf_counter() - t0,
+                    "kernels": st.kernels}
+    t0 = time.perf_counter()
+    cfg = family_train_cfg("internvl2")
+    _, _, _, W, _, _, rows, S, lr = FAMILY_TRAIN["internvl2"]
+    with fake_mode(), StepTracker(count_flops=False) as st:
+        stubs = {"patch_embeds": torch.empty((W * rows, cfg.n_patches,
+                                              1024))}
+        params = local_params(cfg, None, None)
+        opt = adamw_init(params)
+        step = make_train_step(TrainConfig(arch=cfg, opt=AdamWConfig(lr=lr)),
+                               backend="cuda", record=True)
+        first = None
+        for s in range(3):
+            batch = {**make_batch_specs(S, W * rows, cfg.vocab, "cpu"),
+                     **stubs}
+            step(params, opt, batch)
+            first = step.grads if first is None else first
+            del step.grads, batch
+    res["train"] = {"peak": st.peak, "seconds": time.perf_counter() - t0,
+                    "kernels": st.kernels}
+    Path(out).write_text(json.dumps(res))
+
+
+def start_dryrun_peaks():
+    """:func:`dryrun_peaks` in a spawned daemon process (ended with the
+    script) -> (process, output path)."""
+    import multiprocessing as mp
+    import tempfile
+    out = os.path.join(tempfile.mkdtemp(prefix="dryrun_peaks_"), "peaks.json")
+    proc = mp.get_context("spawn").Process(target=dryrun_peaks, args=(out,),
+                                           daemon=True)
+    proc.start()
+    return proc, out
+
+
+def dryrun_rule_cases(dev, args) -> list:
+    """(wrapper name, wrapper, real inputs, shape note) of every kernel
+    wrapper at a shape the script launches: K1-K3 at the engines' main
+    shapes (phase 2's inputs), K4 at paper_sim's (W, D_total), K5 and K6
+    at the serve main's, K5's rank-partial mode and merge at
+    RecurrentGemma's rank shape (phase 2), K7 at the RWKV6 serve main's
+    (B, H, T, 64) views."""
+    import torch
+    from repro_torch.kernels.byz_trim import trim_gather_cuda
+    from repro_torch.kernels.pushsum_edge import edge_scatter_cuda
+    from repro_torch.kernels.social_innov import innovation_cuda
+    from repro_torch.kernels.swa import (attn_decode_cuda,
+                                         attn_decode_merge_cuda,
+                                         attn_decode_partial_cuda,
+                                         swa_prefill_cuda)
+    from repro_torch.kernels.trimmed_mean import trimmed_mean_cuda
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+
+    g = torch.Generator(device=dev).manual_seed(27)
+    bf = torch.bfloat16
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    B, S, GEN = SERVE_B, SERVE_S, SERVE_GEN
+    H, Hkv, dh = 32, 8, 128                       # Qwen3-8B
+    Wc = S + GEN + 1
+    lens = torch.full((B,), S + GEN - 1, dtype=torch.int32, device=dev)
+    k5 = (rn(B, H, dh, dtype=bf), rn(B, Hkv, Wc, dh, dtype=bf),
+          rn(B, Hkv, Wc, dh, dtype=bf), lens)
+    Wb = 1024                                    # RecurrentGemma's rank block
+    k5p = (rn(B, 10, 256, dtype=bf), rn(B, 1, Wb, 256, dtype=bf),
+           rn(B, 1, Wb, 256, dtype=bf),
+           torch.full((B,), Wb, dtype=torch.int32, device=dev))
+    acc, m, l = attn_decode_partial_cuda(*k5p)
+    parts = tuple(t[None].expand(2, *t.shape).contiguous()
+                  for t in (acc, m, l))
+    k6 = (rn(B, S, H, dh, dtype=bf), rn(B, S, Hkv, dh, dtype=bf),
+          rn(B, S, Hkv, dh, dtype=bf), 0)
+    Hw = 2048 // WKV_HEAD                        # RWKV6-1.6B's heads
+
+    def heads(a):
+        return a.view(B, S, Hw, WKV_HEAD).transpose(1, 2)
+
+    k7 = tuple(heads(rn(B, S, Hw, WKV_HEAD, dtype=bf)) for _ in range(3)) \
+        + (heads(-torch.rand((B, S, Hw, WKV_HEAD), generator=g,
+                             device=dev)),
+           rn(Hw, WKV_HEAD).expand(B, Hw, WKV_HEAD))
+    from repro_torch.configs import get_config
+    ps = get_config("paper_sim")
+    x4 = rn(TRAIN_W, ps.param_count() + ps.d_model)   # phase 16's D_full
+    return [
+        ("edge_scatter", edge_scatter_cuda, args["k1"], "Alg. 3 main"),
+        ("social_innov", innovation_cuda, args["k2"], "Alg. 3 main"),
+        ("byz_trim", trim_gather_cuda, args["k3"], "Alg. 2 main"),
+        ("attn_decode", attn_decode_cuda, k5, "Qwen3-8B decode"),
+        ("attn_decode_partial", attn_decode_partial_cuda, k5p,
+         "RecurrentGemma rank block"),
+        ("attn_decode_merge", attn_decode_merge_cuda, parts + (bf,),
+         "2 ranks' triples"),
+        ("swa_prefill", swa_prefill_cuda, k6, "Qwen3-8B prefill"),
+        ("wkv6", wkv6_cuda, k7, "RWKV6 prefill views"),
+        ("trimmed_mean", trimmed_mean_cuda, (x4, TRAIN_F),
+         "paper_sim's workers"),
+    ]
+
+
+def dryrun_phase(dev, card: str, predictor, args) -> None:
+    """Phase 27: each wrapper's shape rule on fake copies of real inputs
+    against the launch's outputs (shape, dtype, strides), and the
+    predictor's traced peaks against phase 9's and phase 20's measured
+    ones (less what the card held before their arguments), within
+    ``DRYRUN_PEAK_TOL``."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.dispatch import recording
+
+    t0 = time.perf_counter()
+    for name, fn, inputs, where in dryrun_rule_cases(dev, args):
+        real = fn(*inputs)
+        heard = []
+        with FakeTensorMode(allow_non_fake_inputs=False) as fm, \
+                recording(heard.append):
+            fake = fn(*[fm.from_tensor(a) if isinstance(a, torch.Tensor)
+                        else a for a in inputs])
+        real = real if isinstance(real, tuple) else (real,)
+        fake = fake if isinstance(fake, tuple) else (fake,)
+        got = [(tuple(t.shape), t.dtype, t.stride()) for t in fake]
+        want = [(tuple(t.shape), t.dtype, t.stride()) for t in real]
+        log(f"[dryrun] shape rule {name} at {where} "
+            f"({[tuple(t.shape) for t in inputs if hasattr(t, 'shape')]}): "
+            f"{got}; the launch's {want}; cost {heard[0] if heard else None}"
+            f"; {card}")
+        require(got == want and [c.kernel for c in heard] == [name],
+                f"{name}'s shape rule gives the launch's outputs")
+        del real, fake
+    torch.cuda.synchronize()
+    t_rules = time.perf_counter() - t0
+    proc, out = predictor
+    proc.join(120.0)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    require(proc.exitcode == 0 and os.path.exists(out),
+            f"the dry run's peak traces ended (exit code {proc.exitcode})")
+    pred = json.loads(Path(out).read_text())
+    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    for cell, what in (("serve", "Qwen3-8B serve main (phase 9)"),
+                       ("train", "InternVL2-26B train cell (phase 20)")):
+        peak, held = DRYRUN_PEAKS[cell]
+        measured = peak - held
+        p = pred[cell]["peak"]
+        log(f"[dryrun] peak {what}: predicted {p / 1e9:.4f} GB (traced on "
+            f"the host in {pred[cell]['seconds']:.1f} s, beside phase 26's "
+            f"rank runs), measured {measured / 1e9:.4f} GB "
+            f"(max_memory_allocated {peak / 1e9:.4f} less {held / 1e9:.4f} "
+            f"held before its arguments); predicted / measured "
+            f"{p / measured:.4f}; {card}")
+        require(abs(p / measured - 1.0) <= DRYRUN_PEAK_TOL,
+                f"{what}: the dry run's peak within "
+                f"{DRYRUN_PEAK_TOL:.0%} of the card's")
+    log(f"[dryrun] shape rules held in {t_rules:.2f} s; phase 27 "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 if __name__ == "__main__":

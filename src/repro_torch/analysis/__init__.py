@@ -1,6 +1,6 @@
 """Analytic yardsticks of the port on its card: the H100's roofline
-constants and terms (:mod:`.roofline`) and the per-device memory model
-(:mod:`.memory_model`)."""
+constants and terms (:mod:`.roofline`), the per-device memory model
+(:mod:`.memory_model`), and the dry run's table (:mod:`.render`)."""
 from .memory_model import (
     pushsum_device_memory_gb,
     serve_memory_gb,

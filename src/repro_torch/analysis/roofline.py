@@ -15,9 +15,13 @@ the counted compute that is model math.
 
 The reference's ``parse_collectives`` reads XLA's HLO text, which the port
 has none of. The port's collectives count their own bytes instead: the
-graph axes of the edge-partitioned push-sum add each halo combine's ring
-wire bytes to ``repro_torch.core.pushsum.GraphAxis.wire_bytes``, which a
-run holds against :func:`pushsum_halo_wire_bytes`.
+model stack's through :class:`repro_torch.distributed.comm.CountingComm`,
+which records each call's kind, mesh dimensions and bytes and sums the
+wire bytes by ``parse_collectives``' formulas (the dry run's
+``collectives``, :mod:`repro_torch.launch.dryrun`); the graph axes of the
+edge-partitioned push-sum add each halo combine's ring wire bytes to
+``repro_torch.core.pushsum.GraphAxis.wire_bytes``, which a run holds
+against :func:`pushsum_halo_wire_bytes`.
 """
 from __future__ import annotations
 

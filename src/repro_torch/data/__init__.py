@@ -1,4 +1,4 @@
-"""Deterministic synthetic LM data."""
-from .pipeline import SyntheticLMData
+"""Deterministic synthetic LM data, and the dry run's batch stand-ins."""
+from .pipeline import SyntheticLMData, make_batch_specs
 
-__all__ = ["SyntheticLMData"]
+__all__ = ["SyntheticLMData", "make_batch_specs"]

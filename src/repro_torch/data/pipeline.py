@@ -24,7 +24,7 @@ import torch
 from ..core.plan import resolve_device
 from ..core.prng import Key, fold_in, prng_key, randint_n
 
-__all__ = ["SyntheticLMData"]
+__all__ = ["SyntheticLMData", "make_batch_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,3 +67,16 @@ class SyntheticLMData:
                           dev).reshape(batch, S - 1) - drift
         toks = torch.cumsum(torch.cat([start, steps], dim=1), dim=1)
         return torch.remainder(toks, self.vocab)
+
+
+def make_batch_specs(seq_len: int, global_batch: int, vocab: int,
+                     device="meta") -> dict[str, torch.Tensor]:
+    """Stand-ins for one training batch, nothing drawn: ``tokens`` and
+    ``labels`` (global_batch, seq_len) int64 (the reference's int32
+    ``ShapeDtypeStruct``s in the port's index type). On ``"meta"`` by
+    default; under a ``FakeTensorMode`` on any device they are fake
+    tensors (the dry run's)."""
+    del vocab           # the reference's signature: a spec draws no values
+    shape = (global_batch, seq_len)
+    return {k: torch.empty(shape, dtype=torch.int64, device=device)
+            for k in ("tokens", "labels")}

@@ -14,6 +14,14 @@ never as a fallback on an error, and each use adds to ``staged_calls`` and
 ``staged_bytes`` (the bytes of the tensors it hands to host memory),
 which the launchers and ``chip_smoke.py`` print. Kernels still run on
 the card.
+
+:class:`CountingComm` runs the same calls and records each one: its kind
+(the reference's HLO names: ``all-reduce``, ``all-gather``,
+``reduce-scatter``, ``all-to-all``, ``collective-permute``), the mesh
+dimensions, the group's size and the bytes, with the wire bytes a device
+sends by the reference's ring formulas (``repro.analysis.roofline.
+parse_collectives``). The dry run (:mod:`repro_torch.launch.dryrun`)
+reads its schedule from it.
 """
 from __future__ import annotations
 
@@ -21,7 +29,8 @@ import torch
 
 from ..core.pushsum import collective
 
-__all__ = ["GLOO_CUDA_HOST_STAGED", "Comm"]
+__all__ = ["GLOO_CUDA_HOST_STAGED", "Comm", "CountingComm",
+           "COLLECTIVE_KINDS"]
 
 #: The operations gloo refuses on CUDA tensors: torch 2.11's gloo takes
 #: CUDA tensors for ``all_reduce``, ``all_gather``, ``all_to_all`` and
@@ -130,6 +139,75 @@ class Comm:
         if recv is not None and staged:
             recv = recv.to(like.device)
         return recv
+
+
+#: The collective kinds of the reference's HLO schedule, in its order.
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class CountingComm(Comm):
+    """A :class:`Comm` that records every call in ``calls``, as ``(kind,
+    axes, group size, bytes, wire bytes)``, and then makes it as
+    :class:`Comm` does. The bytes are the reference's per kind: an
+    all-gather's output, an all-reduce's, a reduce-scatter's and an
+    all-to-all's input, a send/recv's received tensor (its sent one where
+    it only sends). The wire bytes a device sends over a group of n:
+    all-gather (n - 1) / n x output, all-reduce 2 (n - 1) / n x size,
+    reduce-scatter (n - 1) / n x input, all-to-all (n - 1) / n x size,
+    a send/recv its bytes (a ``collective-permute``)."""
+
+    def __init__(self, mesh):
+        super().__init__(mesh)
+        self.calls: list[tuple[str, tuple[str, ...], int, int, float]] = []
+
+    def _log(self, kind: str, axes, nbytes: int, factor: float) -> None:
+        axes = _axes(axes)
+        n = self.mesh.size(*axes)
+        wire = nbytes if kind == "collective-permute" else \
+            factor * (n - 1) / n * nbytes
+        self.calls.append((kind, axes, n, nbytes, wire))
+
+    def all_reduce(self, x, axes, op="sum"):
+        self._log("all-reduce", axes, _nbytes(x), 2.0)
+        return super().all_reduce(x, axes, op)
+
+    def all_gather(self, x, axes):
+        self._log("all-gather", axes,
+                  _nbytes(x) * self.mesh.size(*_axes(axes)), 1.0)
+        return super().all_gather(x, axes)
+
+    def reduce_scatter(self, x, axes):
+        self._log("reduce-scatter", axes, _nbytes(x), 1.0)
+        return super().reduce_scatter(x, axes)
+
+    def all_to_all(self, x, axes):
+        self._log("all-to-all", axes, _nbytes(x), 1.0)
+        return super().all_to_all(x, axes)
+
+    def send_recv(self, x, to, frm, axes, like):
+        if frm is not None or to is not None:
+            self._log("collective-permute", axes,
+                      _nbytes(like) if frm is not None else _nbytes(x), 1.0)
+        return super().send_recv(x, to, frm, axes, like)
+
+    def summary(self) -> dict:
+        """The schedule of ``calls`` as the reference's dry run reports
+        it: ``wire_bytes_per_device``, ``bytes_by_kind`` (wire bytes) and
+        ``count_by_kind``; a group of one rank moves nothing and is not
+        counted."""
+        by_kind = {k: 0.0 for k in COLLECTIVE_KINDS}
+        count = {k: 0 for k in COLLECTIVE_KINDS}
+        for kind, _, n, _, wire in self.calls:
+            if n > 1:
+                by_kind[kind] += wire
+                count[kind] += 1
+        return {"wire_bytes_per_device": sum(by_kind.values()),
+                "bytes_by_kind": by_kind, "count_by_kind": count}
 
 
 def _axes(axes) -> tuple[str, ...]:

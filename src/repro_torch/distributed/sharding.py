@@ -66,6 +66,9 @@ class RankMesh:
         self.axis_names = tuple(mesh.mesh_dim_names)
         self.shape = dict(zip(self.axis_names, mesh.shape))
         self.coords = dict(zip(self.axis_names, mesh.get_coordinate()))
+        # the rank table on the host: the dry run builds groups under a
+        # FakeTensorMode, where no real tensor may take an op
+        self._ranks = mesh.mesh.tolist()
         self._groups: dict[tuple, Any] = {}
 
     def size(self, *axes: str) -> int:
@@ -92,11 +95,12 @@ class RankMesh:
         return self._groups[key]
 
     def _new_groups(self, key: tuple):
+        import numpy as np
         import torch.distributed as dist
-        ranks = self.mesh.mesh
+        ranks = np.asarray(self._ranks)
         dims = [self.axis_names.index(a) for a in key]
-        rest = [d for d in range(ranks.dim()) if d not in dims]
-        rows = ranks.permute(*rest, *dims).reshape(-1, self.size(*key))
+        rest = [d for d in range(ranks.ndim) if d not in dims]
+        rows = ranks.transpose(*rest, *dims).reshape(-1, self.size(*key))
         mine = None
         me = dist.get_rank()
         for row in rows.tolist():

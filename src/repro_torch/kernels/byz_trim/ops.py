@@ -21,6 +21,12 @@ both float16 (the precision policy's half storage); ``tsum`` and ``kept``
 are float32 in every case. The CUDA route accumulates in float32 only: a
 half input needs ``accum_dtype=torch.float32``, and any other dtype
 raises.
+
+On fake tensors the wrapper is the kernel's shape rule
+(:mod:`repro_torch.kernels.dispatch`): the same checks, the tensors the
+launch allocates, its counts reported to
+:func:`repro_torch.kernels.dispatch.record`; nothing is built or
+launched and no launch is counted.
 """
 from __future__ import annotations
 
@@ -28,8 +34,8 @@ import ctypes
 
 import torch
 
-from .. import _build
-from ..dispatch import resolve_backend
+from .. import _build, costs
+from ..dispatch import is_fake, record, resolve_backend
 from .ref import trim_gather_ref
 
 __all__ = ["trim_gather", "trim_gather_pairs", "trim_gather_cuda",
@@ -114,7 +120,8 @@ def trim_gather_cuda(
     if st != torch.float32 and st not in _STORAGE_CODES:
         raise ValueError(f"the CUDA trim-gather takes a float32, bfloat16 or "
                          f"float16 storage dtype, got {st}")
-    if not r.is_cuda:
+    fake = is_fake(r, nbr_idx, nbr_valid, byz_msgs, byz_nbr, F)
+    if not r.is_cuda and not fake:
         raise ValueError("the CUDA trim-gather needs CUDA tensors")
     if r.dim() != 2 or nbr_idx.dim() != 2:
         raise ValueError("r must be (N, P) and nbr_idx (N, deg_max)")
@@ -130,7 +137,9 @@ def trim_gather_cuda(
     if isinstance(F, torch.Tensor):
         _build.check_arg(F, "F", torch.int32, (n,), dev)
         f_recv, F = F, 0
-        if getattr(f_recv, "_byz_trim_checked", None) != f_recv._version:
+        if fake:        # no values to check: the largest trim a slot row has
+            F = (dm - 1) // 2
+        elif getattr(f_recv, "_byz_trim_checked", None) != f_recv._version:
             if int(f_recv.min()) < 0:
                 raise ValueError("F must be a non-negative int or (N,) "
                                  "tensor; it holds a negative count")
@@ -152,6 +161,11 @@ def trim_gather_cuda(
         raise ValueError("byz_msgs must have non-negative strides")
     tsum = torch.empty((n, P), dtype=torch.float32, device=dev)
     kept = torch.empty(n, dtype=torch.float32, device=dev)
+    if fake:
+        record(costs.trim_gather(
+            n, P, dm, min(F, dm), st.itemsize,
+            costs.distinct_bytes(byz_msgs), f_recv is not None))
+        return tsum, kept
     args = (r.data_ptr(), nbr_idx.data_ptr(), nbr_valid.data_ptr(),
             byz_msgs.data_ptr(), *byz_msgs.stride(), byz_nbr.data_ptr(),
             tsum.data_ptr(), kept.data_ptr(), n, dm, P, min(F, dm),

@@ -11,6 +11,12 @@ engines hoist the offsets out of the loop (:func:`repro_torch.core.social.
 social_runtime_from_edge_list`). Given no offsets, the wrapper derives them
 from ``dst`` and raises on an unsorted index: it never sorts silently and
 never falls back to the plain version.
+
+On fake tensors the wrapper is the kernel's shape rule
+(:mod:`repro_torch.kernels.dispatch`): the same checks, the tensors the
+launch allocates, its counts reported to
+:func:`repro_torch.kernels.dispatch.record`; nothing is built or
+launched and no launch is counted.
 """
 from __future__ import annotations
 
@@ -18,8 +24,8 @@ import ctypes
 
 import torch
 
-from .. import _build
-from ..dispatch import resolve_backend
+from .. import _build, costs
+from ..dispatch import is_fake, record, resolve_backend
 from .ref import edge_scatter_ref
 
 __all__ = ["edge_scatter", "edge_scatter_cuda", "dst_offsets",
@@ -116,7 +122,8 @@ def edge_scatter_cuda(
     if st != torch.float32 and st not in _STORAGE_CODES:
         raise ValueError(f"the CUDA edge scatter takes a float32, bfloat16 "
                          f"or float16 storage dtype, got {st}")
-    if not sigma.is_cuda:
+    fake = is_fake(sigma, rho, live, src, offsets)
+    if not sigma.is_cuda and not fake:
         raise ValueError("the CUDA edge scatter needs CUDA tensors")
     n_src, D = sigma.shape
     n = offsets.numel() - 1
@@ -140,6 +147,10 @@ def edge_scatter_cuda(
                          f"got D={D}")
     rho_new = torch.empty_like(rho)
     recv = torch.empty((n, D), dtype=torch.float32, device=dev)
+    if fake:
+        record(costs.edge_scatter(
+            n, n_src, E, D, rho.element_size()))
+        return rho_new, recv
     ptrs = (sigma.data_ptr(), rho.data_ptr(), live.data_ptr(),
             src.data_ptr(), offsets.data_ptr(), rho_new.data_ptr(),
             recv.data_ptr(), n, D, int(tiled), dev.index)

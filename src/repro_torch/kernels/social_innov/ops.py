@@ -15,6 +15,12 @@ float16 (the precision policy's half storage; ``z_new`` in their dtype,
 ``mu`` float32); ``u``, ``cdf`` and ``log_tables`` are float32 always.
 The CUDA route accumulates in float32 only: a half input needs
 ``accum_dtype=torch.float32``, and any other dtype raises.
+
+On fake tensors the wrapper is the kernel's shape rule
+(:mod:`repro_torch.kernels.dispatch`): the same checks, the tensors the
+launch allocates, its counts reported to
+:func:`repro_torch.kernels.dispatch.record`; nothing is built or
+launched and no launch is counted.
 """
 from __future__ import annotations
 
@@ -22,8 +28,8 @@ import ctypes
 
 import torch
 
-from .. import _build
-from ..dispatch import resolve_backend
+from .. import _build, costs
+from ..dispatch import is_fake, record, resolve_backend
 from .ref import innovation_ref
 
 __all__ = ["innovation_step", "innovation_cuda", "staged_agents"]
@@ -93,7 +99,8 @@ def innovation_cuda(
     if st != torch.float32 and st not in _STORAGE_CODES:
         raise ValueError(f"the CUDA innovation step takes a float32, bfloat16 "
                          f"or float16 storage dtype, got {st}")
-    if not z.is_cuda:
+    fake = is_fake(z, mass, u, cdf, log_tables)
+    if not z.is_cuda and not fake:
         raise ValueError("the CUDA innovation step needs CUDA tensors")
     n, m = z.shape
     S = cdf.shape[-1]
@@ -111,6 +118,9 @@ def innovation_cuda(
     _build.check_arg(log_tables, "log_tables", torch.float32, (n, m, S), dev)
     z_new = torch.empty_like(z)
     mu = torch.empty((n, m), dtype=torch.float32, device=dev)
+    if fake:
+        record(costs.innovation(n, m, S, st.itemsize))
+        return z_new, mu
     args = (z.data_ptr(), mass.data_ptr(), u.data_ptr(), cdf.data_ptr(),
             log_tables.data_ptr(), z_new.data_ptr(), mu.data_ptr(),
             n, m, S, A, dev.index)

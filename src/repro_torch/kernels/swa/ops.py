@@ -21,6 +21,13 @@ output (``attn_decode_partial_cuda``, counted apart from the whole
 decode), and :func:`attn_decode_merge` merges the ranks' gathered triples
 through the split path's combine kernel (``attn_decode_merge_cuda``).
 
+On fake tensors each wrapper is its kernel's shape rule
+(:mod:`repro_torch.kernels.dispatch`): the same checks, the outputs and
+the workspace the launch allocates (K5's split partials and ticket
+counters), the launch's counts reported to
+:func:`repro_torch.kernels.dispatch.record`, nothing built or
+launched and no launch counted.
+
 K6 is two kernels in ``csrc/swa_prefill.cu``, picked in the open by
 :func:`prefill_kernel`: bf16 at head sizes 64, 128 and 256 (every launch
 of the serve and training paths) runs on the tensor cores
@@ -42,8 +49,8 @@ import ctypes
 
 import torch
 
-from .. import _build
-from ..dispatch import resolve_backend
+from .. import _build, costs
+from ..dispatch import is_fake, record, resolve_backend, sm_count
 from .ref import (attn_decode_merge_ref, attn_decode_partial_ref,
                   attn_decode_ref, swa_prefill_ref)
 
@@ -229,6 +236,8 @@ def attn_decode_cuda(
     ``attn_decode_cuda.launches`` counts the calls of both,
     ``attn_decode_cuda.launches_tc`` those of the tensor-core kernel."""
     out = _decode_launch(q, k, v, lengths, scale, partial=False)
+    if is_fake(q):
+        return out
     if decode_kernel(q.dtype) == "tc":
         attn_decode_cuda.launches_tc += 1
     attn_decode_cuda.launches += 1
@@ -249,6 +258,8 @@ def attn_decode_partial_cuda(
     launches`` counts its calls, ``.launches_tc`` those on the tensor-core
     kernel."""
     out = _decode_launch(q, k, v, lengths, scale, partial=True)
+    if is_fake(q):
+        return out
     if decode_kernel(q.dtype) == "tc":
         attn_decode_partial_cuda.launches_tc += 1
     attn_decode_partial_cuda.launches += 1
@@ -272,7 +283,8 @@ def attn_decode_merge_cuda(
     last dimension must be dense, each tensor's (B, H) must flatten to one
     stride, and m and l must share their strides.
     ``attn_decode_merge_cuda.launches`` counts its calls."""
-    if not acc.is_cuda:
+    fake = is_fake(acc, m, l)
+    if not acc.is_cuda and not fake:
         raise ValueError("the CUDA decode merge needs CUDA tensors")
     if acc.dim() != 4:
         raise ValueError("acc must be (n, B, H, dh) and m, l (n, B, H)")
@@ -290,6 +302,10 @@ def attn_decode_merge_cuda(
         raise ValueError("acc's rows must be dense and m, l share strides")
     (ml_s, ml_bh), (acc_s, acc_bh) = (_merge_strides(t) for t in (m, acc))
     out = torch.empty((B, H, dh), dtype=dtype, device=dev)
+    if fake:
+        record(costs.attn_decode_merge(
+            n, B, H, dh, out.element_size()))
+        return out
     fn = _build.function("attn_decode", "attn_decode_merge", _MERGE_ARGTYPES)
     code = fn(m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
               _DTYPES[dtype], B * H, n, dh, ml_bh, ml_s, acc_bh, acc_s,
@@ -316,7 +332,8 @@ def _merge_strides(t: torch.Tensor) -> tuple[int, int]:
 def _decode_launch(q, k, v, lengths, scale, partial: bool):
     """Check K5's arguments and launch the kernel ``decode_kernel`` picks:
     -> the output (B, H, dh), or with ``partial`` the triple."""
-    if not q.is_cuda:
+    fake = is_fake(q, k, v, lengths)
+    if not q.is_cuda and not fake:
         raise ValueError("the CUDA attention decode needs CUDA tensors")
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError("q must be (B, H, dh) and k, v (B, Hkv, Wc, dh)")
@@ -331,14 +348,12 @@ def _decode_launch(q, k, v, lengths, scale, partial: bool):
     _build.check_arg(k, "k", q.dtype, (B, Hkv, Wc, dh), dev)
     _build.check_arg(v, "v", q.dtype, (B, Hkv, Wc, dh), dev)
     _build.check_arg(lengths, "lengths", torch.int32, (B,), dev)
-    _check_aligned(("q", q), ("k", k), ("v", v))
+    if not fake:
+        _check_aligned(("q", q), ("k", k), ("v", v))
     sc = float(scale if scale is not None else dh ** -0.5)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     tc = decode_kernel(q.dtype) == "tc"
     if tc:
-        chunk, n_split = decode_splits(
-            B, Hkv, Wc, dh,
-            torch.cuda.get_device_properties(dev).multi_processor_count)
+        chunk, n_split = decode_splits(B, Hkv, Wc, dh, sm_count(q))
     else:
         n_split = max(1, min(-(-_DECODE_BLOCKS // (B * Hkv)), -(-Wc // 32)))
         chunk = -(-Wc // n_split)
@@ -352,10 +367,17 @@ def _decode_launch(q, k, v, lengths, scale, partial: bool):
         acc = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
         m = torch.empty((B, H), dtype=torch.float32, device=dev)
         l = torch.empty_like(m)
-        outs = (None, m.data_ptr(), l.data_ptr(), acc.data_ptr())
     else:
         out = torch.empty_like(q)
-        outs = (out.data_ptr(), None, None, None)
+    if fake:
+        if tc:      # the ticket counters, zeroed once a (device, stream)
+            torch.zeros(max(B * Hkv, 1024), dtype=torch.int32, device=dev)
+        record(costs.attn_decode(
+            B, H, Hkv, Wc, dh, q.element_size(), partial))
+        return (acc, m, l) if partial else out
+    outs = (out.data_ptr(), None, None, None) if out is not None else \
+        (None, m.data_ptr(), l.data_ptr(), acc.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if tc:
         fn = _build.function("attn_decode", "attn_decode_tc",
                              _DECODE_TC_ARGTYPES)
@@ -390,7 +412,7 @@ def tma_strides(what: str, t: torch.Tensor) -> tuple[int, int, int]:
     aligned base through strides that are positive multiples of 16 bytes
     (8 elements). An axis of size 1 is never stepped along, so its stride
     is replaced by one past the whole view. Raises ValueError otherwise."""
-    if t.data_ptr() % 16:
+    if not is_fake(t) and t.data_ptr() % 16:
         raise ValueError(f"{what} must start on a 16-byte boundary")
     sizes, strides = t.shape[:3], t.stride()[:3]
     span = max([st * n for st, n in zip(strides, sizes) if n > 1]
@@ -422,7 +444,8 @@ def swa_prefill_cuda(
     differentiates through K6. ``swa_prefill_cuda.launches`` counts the
     launches of both kernels, ``swa_prefill_cuda.launches_tc`` those of
     the tensor-core kernel."""
-    if not q.is_cuda:
+    fake = is_fake(q, k, v)
+    if not q.is_cuda and not fake:
         raise ValueError("the CUDA prefill attention needs CUDA tensors")
     if _needs_graph(q, k, v):
         raise RuntimeError("the raw K6 launcher has no backward: call "
@@ -450,7 +473,8 @@ def swa_prefill_cuda(
             raise ValueError(f"{what} needs a contiguous head axis and "
                              f"non-negative strides that are multiples of 4, "
                              f"got {t.stride()}")
-    _check_aligned(("q", q), ("k", k), ("v", v))
+    if not fake:
+        _check_aligned(("q", q), ("k", k), ("v", v))
     tc = prefill_kernel(q.dtype, dh) == "tc"
     if tc:
         strides = [tma_strides(what, t) for what, t in
@@ -458,6 +482,10 @@ def swa_prefill_cuda(
     else:
         strides = [t.stride()[:3] for t in (q, k, v)]
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
+    if fake:
+        record(costs.swa_prefill(
+            B, S, H, Hkv, dh, window, q.element_size()))
+        return out
     sc = float(scale if scale is not None else dh ** -0.5)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = _build.function("swa_prefill",

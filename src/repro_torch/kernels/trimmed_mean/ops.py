@@ -6,6 +6,12 @@ training calls, once per trim (routes in :mod:`repro_torch.kernels.
 dispatch`). On a CUDA tensor it launches K4 (``csrc/trimmed_mean.cu``) for
 W <= 64 workers, or raises; the plain version runs on the card only when
 ``backend="torch"`` is asked for.
+
+On fake tensors the wrapper is the kernel's shape rule
+(:mod:`repro_torch.kernels.dispatch`): the same checks, the tensors the
+launch allocates, its counts reported to
+:func:`repro_torch.kernels.dispatch.record`; nothing is built or
+launched and no launch is counted.
 """
 from __future__ import annotations
 
@@ -13,8 +19,8 @@ import ctypes
 
 import torch
 
-from .. import _build
-from ..dispatch import resolve_backend
+from .. import _build, costs
+from ..dispatch import is_fake, record, resolve_backend
 from .ref import trimmed_mean_ref
 
 __all__ = ["trimmed_mean", "trimmed_mean_pytree", "trimmed_mean_cuda",
@@ -68,7 +74,8 @@ def trimmed_mean_cuda(x: torch.Tensor, F: int, *,
     buffer needs no copy). ``out``: an optional contiguous (D,) float32
     tensor on x's device. ``trimmed_mean_cuda.launches`` counts the
     launches."""
-    if not x.is_cuda:
+    fake = is_fake(x, out)
+    if not x.is_cuda and not fake:
         raise ValueError("the CUDA trimmed mean needs CUDA tensors")
     if x.dim() != 2:
         raise ValueError(f"x must be (W, D), got shape {tuple(x.shape)}")
@@ -91,6 +98,9 @@ def trimmed_mean_cuda(x: torch.Tensor, F: int, *,
         out = torch.empty(D, dtype=torch.float32, device=dev)
     else:
         _build.check_arg(out, "out", torch.float32, (D,), dev)
+    if fake:
+        record(costs.trimmed_mean(W, D, F))
+        return out
     fn = _build.function("trimmed_mean", "trimmed_mean_f32", _ARGTYPES)
     code = fn(x.data_ptr(), ld, D, W, F, out.data_ptr(), dev.index,
               torch.cuda.current_stream(dev).cuda_stream)

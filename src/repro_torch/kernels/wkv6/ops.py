@@ -23,6 +23,12 @@ wkv6_chunked_ref` at K7's chunk, 64) under autograd and returns its
 vector-Jacobian product: the pattern of the JAX package's
 ``_wkv6_kernel_ad`` (a Pallas forward, a plain chunked backward). The raw
 launcher ``wkv6_cuda`` records no graph and raises on such inputs.
+
+On fake tensors the wrapper is the kernel's shape rule
+(:mod:`repro_torch.kernels.dispatch`): the same checks, the tensors the
+launch allocates, its counts reported to
+:func:`repro_torch.kernels.dispatch.record`; nothing is built or
+launched and no launch is counted.
 """
 from __future__ import annotations
 
@@ -30,8 +36,8 @@ import ctypes
 
 import torch
 
-from .. import _build
-from ..dispatch import resolve_backend
+from .. import _build, costs
+from ..dispatch import is_fake, record, resolve_backend, sm_count
 from .ref import wkv6_chunked_ref, wkv6_ref
 
 __all__ = ["wkv6", "wkv6_cuda", "Wkv6Fn", "HEAD_SIZE", "KERNEL_CHUNK",
@@ -164,7 +170,8 @@ def wkv6_cuda(
     and raises on inputs that require grad under grad mode: :func:`wkv6`
     differentiates through K7. ``wkv6_cuda.launches`` counts the
     calls (three kernels each)."""
-    if not r.is_cuda:
+    fake = is_fake(r, k, v, lw, u)
+    if not r.is_cuda and not fake:
         raise ValueError("the CUDA WKV6 kernel needs CUDA tensors")
     if _needs_graph(r, k, v, lw, u):
         raise RuntimeError("the raw K7 launcher has no backward: call "
@@ -197,7 +204,7 @@ def wkv6_cuda(
             raise ValueError(f"{what} needs a contiguous channel axis and "
                              f"non-negative strides that are multiples of "
                              f"4, got {t.stride()}")
-        if t.data_ptr() % 16:
+        if not fake and t.data_ptr() % 16:
             raise ValueError(f"{what} must start on a 16-byte boundary")
     if len(lead) == 1:
         B, H = lead[0], 1
@@ -209,8 +216,7 @@ def wkv6_cuda(
                         device=dev).permute(0, 2, 1, 3)
         usb, ush = u.stride(0), u.stride(1)
     s = torch.empty(lead + (K, K), dtype=torch.float32, device=dev)
-    G = group_chunks(B * H, T,
-                     torch.cuda.get_device_properties(dev).multi_processor_count)
+    G = group_chunks(B * H, T, sm_count(r))
     n_groups = -(-T // (KERNEL_CHUNK * G))
     if B * H * max(n_groups, 16) > 2**31 - 1:
         raise ValueError(f"too many sequences for one launch: {B * H}")
@@ -220,6 +226,11 @@ def wkv6_cuda(
                      device=dev)
     decay = torch.empty((B * H * n_groups, K), dtype=torch.float32,
                         device=dev)
+    if fake:
+        record(costs.wkv6(
+            B * H, T, r.element_size(), G, costs.distinct_bytes(u)
+            // (4 * K)))
+        return y, s
     strides = (ctypes.c_longlong * 15)(
         *(x for t in (r, k, v, lw, y) for x in _strides3(t)))
     fn = _build.function("wkv6", "wkv6", _ARGTYPES)

@@ -7,6 +7,9 @@ its property there, or is pure arithmetic that needs no run at all:
 
 * :mod:`~repro_torch.statics.walk`      — the op recorder (a
   ``TorchDispatchMode``) every check of a run shares
+* :mod:`~repro_torch.statics.tracker`   — the step tracker (live bytes
+  and their peak, bytes accessed, FLOPs, kernel launches) the dry run
+  traces with
 * :mod:`~repro_torch.statics.contracts` — ``@contract`` declarations
 * :mod:`~repro_torch.statics.dense`     — dense-intermediate + subnormal
   linter, and the named exemption of the port's horizon-major keys
